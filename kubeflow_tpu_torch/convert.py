@@ -1,0 +1,42 @@
+"""Params between the JAX package and the port: numpy arrays ↔ tensors.
+
+The JAX package's params are a nested dict of arrays whose layer weights
+are stacked on a leading (L, ...) axis, with quantized weights as
+``{"q": int8, "s": f32}`` nodes (models/quant.py). The port keeps that
+exact tree, so conversion is leaf by leaf and the round trip is exact:
+``to_numpy(to_torch(tree))`` equals ``tree`` bit for bit. The caller hands
+over numpy arrays (``jax.tree.map(np.asarray, params)``); this module
+imports nothing of JAX.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def _bf16_numpy_dtype():
+    import ml_dtypes  # numpy's bfloat16, as JAX arrays convert to
+    return np.dtype(ml_dtypes.bfloat16)
+
+
+def to_torch(tree, device="cpu"):
+    """Nested dict of numpy arrays → the same tree of tensors on
+    ``device``. bfloat16 arrays keep their bits."""
+    if isinstance(tree, dict):
+        return {k: to_torch(v, device) for k, v in tree.items()}
+    arr = np.array(tree)  # a writable, contiguous copy
+    if arr.dtype.name == "bfloat16":
+        return torch.from_numpy(arr.view(np.int16)).view(
+            torch.bfloat16).to(device)
+    return torch.from_numpy(arr).to(device)
+
+
+def to_numpy(tree):
+    """Nested dict of tensors → the same tree of numpy arrays."""
+    if isinstance(tree, dict):
+        return {k: to_numpy(v) for k, v in tree.items()}
+    t = tree.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(_bf16_numpy_dtype())
+    return t.numpy()

@@ -1,0 +1,293 @@
+"""Autoregressive decoding: KV cache, prefill, single-token step, generate.
+
+Port of ``kubeflow_tpu/models/decode.py`` for dense models (``decode_window``
+and MoE come with later slices of the port). The KV cache is preallocated
+at ``max_seq_len`` as stacked (L, B, S, G, D) buffers; GQA caches the
+un-repeated kv heads. Where the JAX package returns an updated copy of the
+cache (immutable arrays), the port writes into the cache tensors in place
+and returns the same dict — one cache's memory for the whole generation.
+
+Decode attention: ``decode_attention="auto"`` takes the hand-written
+flash-decode kernel (ops/decode_attention.py) on CUDA at every cache
+length and the einsum path on the CPU. The JAX package's TPU gate
+(``max_seq_len >= 2048``) was measured on a v5e and is not carried over.
+
+``generate`` is a Python loop over decode steps that never reads a value
+back to the host until the end (the JAX package's ``lax.scan``).
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from .quant import wcast
+from .transformer import (TransformerConfig, apply_rope, attention_block,
+                          layer_params, mlp_block, rms_norm,
+                          rope_frequencies)
+
+
+# ------------------------------------------------------------------- cache
+def init_kv_cache(config: TransformerConfig, batch: int,
+                  kv_quant: bool = False, *, device) -> dict:
+    """Zeroed (layers, batch, max_seq, kv_heads, d_head) K/V buffers;
+    ``kv_quant``: int8 buffers + per-(position, kv_head) f32 scales."""
+    c = config
+    shape = (c.n_layers, batch, c.max_seq_len, c.n_kv_heads, c.d_head)
+    if not kv_quant:
+        return {"k": torch.zeros(shape, dtype=c.compute_dtype, device=device),
+                "v": torch.zeros(shape, dtype=c.compute_dtype, device=device)}
+    return {
+        "k": torch.zeros(shape, dtype=torch.int8, device=device),
+        "v": torch.zeros(shape, dtype=torch.int8, device=device),
+        "k_scale": torch.zeros(shape[:-1], dtype=torch.float32,
+                               device=device),
+        "v_scale": torch.zeros(shape[:-1], dtype=torch.float32,
+                               device=device),
+    }
+
+
+def is_kv_quantized(cache: dict) -> bool:
+    return "k_scale" in cache
+
+
+def _quantize_kv(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(..., d_head) → int8 values + (...,) f32 amax/127 scales; rounds
+    half to even, as ``jnp.round`` does."""
+    x32 = x.float()
+    scale = x32.abs().amax(dim=-1).clamp_min(1e-12) / 127.0
+    q = torch.clamp(torch.round(x32 / scale[..., None]), -127, 127)
+    return q.to(torch.int8), scale
+
+
+def _write_cache(cache: dict, k: torch.Tensor, v: torch.Tensor,
+                 start: int, layer: int) -> dict:
+    """Write (b, s, h, d) K/V into layer ``layer`` of the stacked cache at
+    sequence offset ``start``. In place (the JAX package returns an
+    updated copy); quantized caches quantize at the write and store the
+    per-position scales alongside."""
+    sl = slice(start, start + k.shape[1])
+    if not is_kv_quantized(cache):
+        cache["k"][layer, :, sl] = k
+        cache["v"][layer, :, sl] = v
+        return cache
+    qk, sk = _quantize_kv(k)
+    qv, sv = _quantize_kv(v)
+    cache["k"][layer, :, sl] = qk
+    cache["v"][layer, :, sl] = qv
+    cache["k_scale"][layer, :, sl] = sk
+    cache["v_scale"][layer, :, sl] = sv
+    return cache
+
+
+def _write_cache_rows(cache: dict, k: torch.Tensor, v: torch.Tensor,
+                      pos: torch.Tensor, layer: int) -> dict:
+    """Per-row single-position write, in place: (b, 1, h, d) K/V lands at
+    row b's own ``pos[b]`` (every sequence at its own depth)."""
+    rows = torch.arange(k.shape[0], device=k.device)
+    pos = pos.long()
+    if not is_kv_quantized(cache):
+        cache["k"][layer, rows, pos] = k[:, 0]
+        cache["v"][layer, rows, pos] = v[:, 0]
+        return cache
+    qk, sk = _quantize_kv(k)
+    qv, sv = _quantize_kv(v)
+    cache["k"][layer, rows, pos] = qk[:, 0]
+    cache["v"][layer, rows, pos] = qv[:, 0]
+    cache["k_scale"][layer, rows, pos] = sk[:, 0]
+    cache["v_scale"][layer, rows, pos] = sv[:, 0]
+    return cache
+
+
+def _read_cache_layer(cache: dict, i: int, dt: torch.dtype):
+    """Layer ``i``'s (B, S, G, D) K/V in compute dtype; quantized caches
+    dequantize here (the einsum path)."""
+    ck, cv = cache["k"][i], cache["v"][i]
+    if is_kv_quantized(cache):
+        ck = ck.to(dt) * cache["k_scale"][i][..., None].to(dt)
+        cv = cv.to(dt) * cache["v_scale"][i][..., None].to(dt)
+    return ck, cv
+
+
+# ----------------------------------------------------------------- prefill
+def prefill(params: dict, tokens: torch.Tensor, config: TransformerConfig,
+            kv_quant: bool = False):
+    """Run the prompt through a fresh KV cache. tokens: (batch, prompt_len)
+    → (logits (batch, vocab) f32 for the LAST position, cache)."""
+    c = config
+    B, S = tokens.shape
+    cache = init_kv_cache(c, B, kv_quant=kv_quant, device=tokens.device)
+    x = params["embed"].to(c.compute_dtype)[tokens]
+    positions = torch.arange(S, device=tokens.device)[None, :].expand(B, S)
+    cos, sin = rope_frequencies(c, positions)
+    for i in range(c.n_layers):
+        layer = layer_params(params["blocks"], i)
+        x, (k, v) = attention_block(x, layer, c, cos, sin, return_kv=True)
+        _write_cache(cache, k, v, 0, layer=i)
+        x = mlp_block(x, layer, c)
+    x = rms_norm(x, params["final_norm"])
+    logits = torch.einsum("bd,dv->bv", x[:, -1],
+                          wcast(params["lm_head"], x.dtype))
+    return logits.float(), cache
+
+
+def uses_flash_decode(config: TransformerConfig,
+                      device: torch.device) -> bool:
+    """Whether decode_step takes the flash-decode kernel: always when
+    asked for, and under "auto" on CUDA (the JAX package's v5e-measured
+    length gate is not carried over)."""
+    c = config
+    return c.decode_attention == "flash" or (
+        c.decode_attention == "auto" and device.type == "cuda")
+
+
+# -------------------------------------------------------------- decode step
+def decode_step(params: dict, cache: dict, token: torch.Tensor, pos,
+                config: TransformerConfig):
+    """One token in, next-token logits out; the cache is updated in place.
+
+    token: (batch,) int; pos: an int or 0-d tensor (all rows at the same
+    depth — the generate loop) or a (batch,) tensor of per-row positions.
+    The token at ``pos`` is written before it is attended; attention
+    covers positions ``<= pos``."""
+    c = config
+    B = token.shape[0]
+    dev = token.device
+    pos_t = torch.as_tensor(pos, dtype=torch.int32, device=dev)
+    per_row = pos_t.dim() == 1
+    pos_vec = pos_t if per_row else pos_t.expand(B).contiguous()
+    x = params["embed"].to(c.compute_dtype)[token][:, None, :]  # (B,1,D)
+    cos, sin = rope_frequencies(c, pos_vec[:, None])
+    scale = 1.0 / math.sqrt(c.d_head)
+    rep = c.n_heads // c.n_kv_heads
+    use_flash = uses_flash_decode(c, dev)
+    if not use_flash:
+        valid = (torch.arange(c.max_seq_len, device=dev)[None, :]
+                 <= pos_vec[:, None])[:, None, None, None, :]  # (B,1,1,1,S)
+    quant = is_kv_quantized(cache)
+    start = None if per_row else int(pos_t)
+
+    for i in range(c.n_layers):
+        layer = layer_params(params["blocks"], i)
+        h = rms_norm(x, layer["attn_norm"])
+        dt = h.dtype
+        q = torch.einsum("bsd,dhk->bshk", h, wcast(layer["wq"], dt))
+        k = torch.einsum("bsd,dhk->bshk", h, wcast(layer["wk"], dt))
+        v = torch.einsum("bsd,dhk->bshk", h, wcast(layer["wv"], dt))
+        q = apply_rope(q, cos, sin)
+        k = apply_rope(k, cos, sin)
+        if per_row:
+            _write_cache_rows(cache, k, v, pos_vec, layer=i)
+        else:
+            _write_cache(cache, k, v, start, layer=i)
+        # grouped GQA: q heads fold to (kv_heads, rep) and contract against
+        # the UN-repeated cache — head h reads kv head h // rep
+        _, _, H, D = q.shape
+        if use_flash:
+            from ..ops.decode_attention import flash_decode_attention
+            out = flash_decode_attention(
+                q[:, 0].reshape(B, c.n_kv_heads, rep, D),
+                cache["k"][i], cache["v"][i], pos_vec,
+                k_scale=cache["k_scale"][i] if quant else None,
+                v_scale=cache["v_scale"][i] if quant else None)
+            out = out.reshape(B, H, D)[:, None].to(dt)
+        else:
+            qg = q.reshape(B, 1, c.n_kv_heads, rep, D)
+            ck, cv = _read_cache_layer(cache, i, dt)          # (B, S, G, D)
+            logits = torch.einsum("bqgrd,bkgd->bgrqk", qg.float(),
+                                  ck.float()) * scale
+            logits = logits.masked_fill(~valid, float("-inf"))
+            probs = torch.softmax(logits, dim=-1).to(dt)
+            out = torch.einsum("bgrqk,bkgd->bqgrd", probs, cv).reshape(
+                B, 1, H, D)
+        x = x + torch.einsum("bshk,hkd->bsd", out, wcast(layer["wo"], dt))
+        x = mlp_block(x, layer, c)
+
+    x = rms_norm(x, params["final_norm"])
+    logits = torch.einsum("bd,dv->bv", x[:, 0],
+                          wcast(params["lm_head"], x.dtype))
+    return logits.float(), cache
+
+
+# ---------------------------------------------------------------- generate
+def top_k_top_p_mask(logits: torch.Tensor, top_k: torch.Tensor,
+                     top_p: torch.Tensor) -> torch.Tensor:
+    """Mask logits outside the top-k / nucleus (top-p) sets to -inf.
+    Both knobs are per-row (batch,) tensors: top_k <= 0 disables the
+    k-cut, top_p >= 1 disables the nucleus cut."""
+    order = torch.argsort(-logits, dim=-1, stable=True)          # desc
+    sorted_logits = torch.gather(logits, -1, order)
+    ranks = torch.argsort(order, dim=-1, stable=True)            # 0 = best
+    k = top_k[:, None]
+    keep = torch.where(k > 0, ranks < k, True)
+    # nucleus: a token stays if the cumulative mass BEFORE it is < p
+    probs_sorted = torch.softmax(sorted_logits, dim=-1)
+    cum_before = torch.cumsum(probs_sorted, dim=-1) - probs_sorted
+    mass_before = torch.gather(cum_before, -1, ranks)
+    keep &= torch.where(top_p[:, None] < 1.0,
+                        mass_before < top_p[:, None], True)
+    return logits.masked_fill(~keep, float("-inf"))
+
+
+def sample_token(logits: torch.Tensor, generator: torch.Generator | None,
+                 temperature: torch.Tensor, top_k: torch.Tensor,
+                 top_p: torch.Tensor) -> torch.Tensor:
+    """One decision per row: greedy at temperature 0, else temperature-
+    scaled top-k/top-p sampling (Gumbel-max over the kept logits, noise
+    from ``generator``). ``generator=None`` means no row samples."""
+    greedy = torch.argmax(logits, dim=-1).to(torch.int32)
+    if generator is None:
+        return greedy
+    scaled = logits / temperature.clamp_min(1e-6)[:, None]
+    filtered = top_k_top_p_mask(scaled, top_k, top_p)
+    u = torch.rand(logits.shape, generator=generator,
+                   device=generator.device).to(logits.device)
+    gumbel = -torch.log(-torch.log(u.clamp(1e-20, 1.0 - 1e-7)))
+    sampled = torch.argmax(filtered + gumbel, dim=-1).to(torch.int32)
+    return torch.where(temperature > 0.0, sampled, greedy)
+
+
+def generate(params: dict, prompt: torch.Tensor, config: TransformerConfig,
+             max_new_tokens: int, temperature=0.0,
+             generator: torch.Generator | None = None, top_k=0,
+             top_p=1.0, eos_id: int | None = None, pad_id: int = 0,
+             kv_quant: bool = False) -> torch.Tensor:
+    """Greedy (temperature=0), temperature, top-k and/or nucleus sampling.
+
+    prompt: (batch, prompt_len) → (batch, max_new_tokens) int32.
+    ``temperature``/``top_k``/``top_p`` are scalars or per-row sequences.
+    ``eos_id``: every position after a row's first EOS holds ``pad_id``
+    (the loop still runs max_new_tokens steps). ``kv_quant``: int8 KV
+    cache with per-position scales."""
+    c = config
+    B, prompt_len = prompt.shape
+    if prompt_len + max_new_tokens > c.max_seq_len:
+        raise ValueError(
+            f"prompt_len {prompt_len} + max_new_tokens {max_new_tokens} "
+            f"exceeds max_seq_len {c.max_seq_len}")
+    dev = prompt.device
+    temps = torch.as_tensor(temperature, dtype=torch.float32).expand(B)
+    sampling = bool((temps > 0).any())
+    temps = temps.to(dev)
+    top_k = torch.as_tensor(top_k, dtype=torch.int32).expand(B).to(dev)
+    top_p = torch.as_tensor(top_p, dtype=torch.float32).expand(B).to(dev)
+    if sampling and generator is None:
+        generator = torch.Generator(device=dev).manual_seed(0)
+    gen = generator if sampling else None
+
+    logits, cache = prefill(params, prompt, c, kv_quant=kv_quant)
+    done = torch.zeros(B, dtype=torch.bool, device=dev)
+    tokens = []
+    # N-1 model steps; the last token needs only a pick from the carried
+    # logits, not another full step
+    for i in range(max_new_tokens):
+        token = sample_token(logits, gen, temps, top_k, top_p)
+        if eos_id is not None:
+            token = torch.where(done, torch.full_like(token, pad_id), token)
+            done = done | (token == eos_id)
+        tokens.append(token)
+        if i < max_new_tokens - 1:
+            logits, cache = decode_step(params, cache, token,
+                                        prompt_len + i, c)
+    return torch.stack(tokens, dim=1)

@@ -1,0 +1,64 @@
+"""Int8 weight-only quantization for the serving path.
+
+Port of ``kubeflow_tpu/models/quant.py`` (dense models). A quantized
+weight is a plain ``{"q": int8, "s": f32}`` dict whose scale keeps the
+reduced dims, so slicing the stacked layer axis slices ``q`` and ``s``
+together; ``wcast`` dequantizes at the point of use. Only matmul weights
+quantize: the embedding (a gather) and the norm vectors stay as they are.
+"""
+
+from __future__ import annotations
+
+import torch
+
+# contraction axes per weight leaf: the scale is taken over the axes the
+# matmul reduces, one scale per OUTPUT channel (keepdim)
+BLOCK_AXES = {
+    "wq": (1,),        # (L, d, h, k)   contracts d
+    "wk": (1,),
+    "wv": (1,),
+    "wo": (1, 2),      # (L, h, k, d)   contracts (h, k)
+    "w_gate": (1,),    # (L, d, f)      contracts d
+    "w_up": (1,),
+    "w_down": (1,),    # (L, f, d)      contracts f
+}
+
+
+def is_quantized(w) -> bool:
+    return isinstance(w, dict) and "q" in w and "s" in w
+
+
+def quantize_weight(w: torch.Tensor, axes: tuple[int, ...]) -> dict:
+    """Symmetric int8 over ``axes`` with per-output-channel scales."""
+    w32 = w.float()
+    scale = w32.abs().amax(dim=axes, keepdim=True) / 127.0
+    scale = scale.clamp_min(1e-12)  # all-zero channels stay zero
+    q = torch.clamp(torch.round(w32 / scale), -127, 127).to(torch.int8)
+    return {"q": q, "s": scale}
+
+
+def quantize_params(params: dict) -> dict:
+    """Serving params → int8 weight-only serving params; the f32 masters
+    of the quantized leaves are dropped. Idempotent. Dense models only:
+    MoE waits for its own slice of the port."""
+    if is_quantized(params.get("lm_head")):
+        return params
+    if "router" in params["blocks"]:
+        raise NotImplementedError("MoE params are not ported yet "
+                                  "(ROADMAP queue A item 5, MoE and LoRA)")
+    out = dict(params)
+    out["blocks"] = {
+        name: (quantize_weight(w, BLOCK_AXES[name])
+               if name in BLOCK_AXES else w)
+        for name, w in params["blocks"].items()
+    }
+    out["lm_head"] = quantize_weight(params["lm_head"], (0,))  # (d, v)
+    return out
+
+
+def wcast(w, dtype: torch.dtype) -> torch.Tensor:
+    """A weight for compute: plain tensors cast, quantized nodes
+    dequantize as ``q * s`` in ``dtype``."""
+    if is_quantized(w):
+        return w["q"].to(dtype) * w["s"].to(dtype)
+    return w.to(dtype)

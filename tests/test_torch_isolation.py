@@ -1,0 +1,94 @@
+"""The PyTorch port stands alone: no module of ``kubeflow_tpu_torch`` and
+not ``chip_smoke.py`` imports JAX or anything of the JAX package, and the
+package imports on a machine with neither ``triton``, ``nvcc`` nor a card.
+"""
+
+from __future__ import annotations
+
+import ast
+import os
+import pathlib
+import shutil
+import subprocess
+import sys
+
+import pytest
+
+REPO = pathlib.Path(__file__).resolve().parent.parent
+PORT_FILES = sorted(
+    p.relative_to(REPO).as_posix()
+    for p in (REPO / "kubeflow_tpu_torch").rglob("*.py")) + ["chip_smoke.py"]
+FORBIDDEN = ("jax", "jaxlib", "kubeflow_tpu")
+
+
+def _imported_modules(tree: ast.AST):
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (alias.name for alias in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+@pytest.mark.parametrize("rel", PORT_FILES)
+def test_port_module_imports_no_jax(rel):
+    tree = ast.parse((REPO / rel).read_text(), filename=rel)
+    bad = [m for m in _imported_modules(tree)
+           if m.split(".")[0] in FORBIDDEN]
+    assert not bad, f"{rel} imports {bad}"
+
+
+def test_port_file_list_covers_the_package():
+    assert "kubeflow_tpu_torch/runtime/server.py" in PORT_FILES
+    assert len(PORT_FILES) >= 15
+
+
+_PROBE = r"""
+import importlib.abc, sys
+
+class _NoTriton(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] == "triton":
+            raise ImportError("triton is absent here")
+        return None
+
+sys.meta_path.insert(0, _NoTriton())
+import kubeflow_tpu_torch
+import kubeflow_tpu_torch.convert
+import kubeflow_tpu_torch.ops
+import kubeflow_tpu_torch.models.decode
+import kubeflow_tpu_torch.runtime.server
+import kubeflow_tpu_torch.runtime.serving
+leaked = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("jax", "jaxlib", "kubeflow_tpu"))
+print("LEAKED", leaked)
+"""
+
+
+def test_package_imports_without_jax_triton_or_nvcc():
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PATH"] = os.path.dirname(sys.executable)   # no nvcc on the PATH
+    out = subprocess.run([sys.executable, "-c", _PROBE], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert "LEAKED []" in out.stdout
+
+
+def _run_chip_smoke(cwd):
+    return subprocess.run([sys.executable, "chip_smoke.py"], cwd=cwd,
+                          capture_output=True, text=True, timeout=120)
+
+
+@pytest.mark.parametrize("where", ["repo", "alone"])
+def test_chip_smoke_fails_without_a_card_or_the_package(where, tmp_path):
+    """No result line and a non-zero exit without CUDA, and in a
+    directory that holds chip_smoke.py and nothing else of the repo."""
+    import torch
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: chip_smoke.py would run for real")
+    cwd = REPO
+    if where == "alone":
+        shutil.copy(REPO / "chip_smoke.py", tmp_path / "chip_smoke.py")
+        cwd = tmp_path
+    out = _run_chip_smoke(cwd)
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout

@@ -1,0 +1,223 @@
+"""The port's attention kernels (kubeflow_tpu_torch/ops) against the JAX
+package's Pallas kernels, run in interpret mode on the CPU.
+
+On the CPU the port's wrappers take their plain PyTorch versions; these
+are held to the reference's own pin, 2e-5 (tests/test_ops.py,
+tests/test_decode_attention.py). The CUDA kernels themselves run only on
+the card: their kernel-vs-plain tests are marked ``cuda`` and skip here
+(chip_smoke.py holds them against the plain versions on every chip run).
+"""
+
+from __future__ import annotations
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from kubeflow_tpu.models.decode import _quantize_kv as jax_quantize_kv
+from kubeflow_tpu.ops.attention import _flash_forward
+from kubeflow_tpu.ops.attention import flash_attention as jax_flash
+from kubeflow_tpu.ops.decode_attention import \
+    flash_decode_attention as jax_flash_decode
+from kubeflow_tpu_torch.ops import _build, launch_counts
+from kubeflow_tpu_torch.ops.attention import (flash_attention,
+                                              flash_attention_cuda,
+                                              flash_attention_plain)
+from kubeflow_tpu_torch.ops.decode_attention import (
+    flash_decode_attention, flash_decode_attention_cuda,
+    flash_decode_attention_plain)
+
+TOL = 2e-5  # the reference kernels' own pin
+
+
+def _qkv(s, b=2, h=4, d=32, seed=0):
+    rng = np.random.default_rng(seed)
+    return [rng.standard_normal((b, s, h, d), dtype=np.float32)
+            for _ in range(3)]
+
+
+def _decode_inputs(B=2, S=256, G=2, rep=2, D=64, seed=0):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((B, G, rep, D), dtype=np.float32),
+            rng.standard_normal((B, S, G, D), dtype=np.float32),
+            rng.standard_normal((B, S, G, D), dtype=np.float32))
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: CUDA kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+# ------------------------------------------------------- flash attention
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("s", [128, 384, 100])
+def test_flash_plain_matches_jax_flash(s, causal):
+    """s=128/384: the Pallas kernel over 64-blocks (several kv steps of
+    the online softmax); s=100: no block divides it, so the JAX side
+    takes its XLA fall-back — the port has none and must agree anyway."""
+    q, k, v = _qkv(s)
+    want = jax_flash(*map(jnp.asarray, (q, k, v)), causal=causal,
+                     block_q=64, block_k=64)
+    got = flash_attention(*map(torch.from_numpy, (q, k, v)), causal=causal)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                               rtol=TOL, atol=TOL)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_plain_lse_matches_jax_residual(causal):
+    """The (b, h, s) log-sum-exp equals lane 0 of the Pallas kernel's
+    lane-replicated (b, h, s, 128) residual."""
+    q, k, v = _qkv(128)
+    _, lse = _flash_forward(*map(jnp.asarray, (q, k, v)), causal, 64, 64,
+                            interpret=True, save_residuals=True)
+    _, got = flash_attention_plain(*map(torch.from_numpy, (q, k, v)),
+                                   causal, return_lse=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(lse)[..., 0],
+                               rtol=TOL, atol=TOL)
+
+
+def test_flash_plain_bf16_rounds_p_like_the_kernel():
+    """bf16 inputs: the probabilities are cast to v's dtype before the PV
+    product, as the Pallas kernel does; the result is bf16. Against the
+    f32 computation the error is bf16-grade (2e-2), not exact."""
+    q, k, v = (torch.from_numpy(x).to(torch.bfloat16) for x in _qkv(64))
+    got = flash_attention_plain(q, k, v)
+    ref = flash_attention_plain(q.float(), k.float(), v.float())
+    assert got.dtype == torch.bfloat16
+    assert (got.float() - ref).abs().max().item() < 2e-2
+
+
+def test_cpu_tensors_take_the_plain_version_and_count_nothing():
+    q, k, v = map(torch.from_numpy, _qkv(64))
+    before = launch_counts()
+    out = flash_attention(q, k, v)
+    assert torch.equal(out, flash_attention_plain(q, k, v))
+    qd, kd, vd = map(torch.from_numpy, _decode_inputs())
+    pos = torch.tensor([3, 200], dtype=torch.int32)
+    flash_decode_attention(qd, kd, vd, pos)
+    assert launch_counts() == before
+
+
+@pytest.mark.parametrize("bad", ["shape", "dtype", "d_head"])
+def test_flash_cuda_wrapper_rejects_what_the_kernel_cannot_take(bad):
+    q, k, v = map(torch.from_numpy, _qkv(64))
+    if bad == "shape":
+        k = k[:, :32]
+    elif bad == "dtype":
+        q = q.double()
+    else:
+        q, k, v = (torch.zeros(2, 64, 4, 48) for _ in range(3))
+    with pytest.raises(ValueError):
+        flash_attention_cuda(q, k, v)
+
+
+# ---------------------------------------------------------- flash decode
+@pytest.mark.parametrize("pos,S", [([0, 5], 256), ([100, 255], 256),
+                                   ([17, 200], 256), ([70, 130], 192)])
+def test_decode_plain_matches_jax_at_positions(pos, S):
+    """pos at 0, mid-block and last, and a partial final block (the
+    reference cases of tests/test_decode_attention.py)."""
+    q, k, v = _decode_inputs(S=S)
+    p = np.asarray(pos, np.int32)
+    want = jax_flash_decode(*map(jnp.asarray, (q, k, v, p)), block_k=64,
+                            interpret=True)
+    got = flash_decode_attention(*map(torch.from_numpy, (q, k, v, p)))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                               rtol=TOL, atol=TOL)
+
+
+@pytest.mark.parametrize("rep", [1, 4])
+def test_decode_plain_matches_jax_gqa_rep(rep):
+    q, k, v = _decode_inputs(S=128, rep=rep, seed=3)
+    p = np.asarray([50, 100], np.int32)
+    want = jax_flash_decode(*map(jnp.asarray, (q, k, v, p)), block_k=64,
+                            interpret=True)
+    got = flash_decode_attention(*map(torch.from_numpy, (q, k, v, p)))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                               rtol=TOL, atol=TOL)
+
+
+def test_decode_plain_matches_jax_int8_scales():
+    """int8 cache: the K scale folds onto the logits, the V scale onto P
+    after the denominator sum — the same quantized inputs both sides."""
+    q, k, v = _decode_inputs(S=128, seed=2)
+    qk, ks = (np.array(a) for a in jax_quantize_kv(jnp.asarray(k)))
+    qv, vs = (np.array(a) for a in jax_quantize_kv(jnp.asarray(v)))
+    p = np.asarray([60, 127], np.int32)
+    want = jax_flash_decode(jnp.asarray(q), jnp.asarray(qk),
+                            jnp.asarray(qv), jnp.asarray(p),
+                            k_scale=jnp.asarray(ks), v_scale=jnp.asarray(vs),
+                            block_k=64, interpret=True)
+    got = flash_decode_attention(
+        *map(torch.from_numpy, (q, qk, qv, p)),
+        k_scale=torch.from_numpy(ks), v_scale=torch.from_numpy(vs))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                               rtol=TOL, atol=TOL)
+
+
+@pytest.mark.parametrize("bad", ["pos_dtype", "cache_dtype", "rep"])
+def test_decode_cuda_wrapper_rejects_what_the_kernel_cannot_take(bad):
+    q, k, v = map(torch.from_numpy, _decode_inputs())
+    pos = torch.tensor([3, 9], dtype=torch.int32)
+    if bad == "pos_dtype":
+        pos = pos.long()
+    elif bad == "cache_dtype":
+        k = k.to(torch.bfloat16)
+    else:
+        q = torch.zeros(2, 2, 3, 64)
+    with pytest.raises(ValueError):
+        flash_decode_attention_cuda(q, k, v, pos)
+
+
+# ------------------------------------------------------------- the build
+def test_kernel_build_key_follows_the_source(tmp_path, monkeypatch):
+    """The library is keyed by a hash of its source: an edited kernel
+    rebuilds, an unchanged one is found on disk."""
+    (tmp_path / "k.cu").write_text("// v1\n")
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    first = _build._target("k")
+    assert first == _build._target("k")
+    (tmp_path / "k.cu").write_text("// v2\n")
+    assert _build._target("k") != first
+    assert first.parent == _build.BUILD_DIR
+
+
+def test_kernel_error_code_raises():
+    _build.check(0, "ok")
+    with pytest.raises(RuntimeError, match="CUDA error 9"):
+        _build.check(9, "flash_attention")
+
+
+# ------------------------------------------------- kernels, on the card
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,causal,s", [
+    ("bfloat16", True, 512), ("bfloat16", False, 77),
+    ("float32", True, 100)])
+def test_flash_kernel_matches_plain_on_card(cuda, dtype, causal, s):
+    dt = getattr(torch, dtype)
+    q, k, v = (torch.from_numpy(x).to(cuda, dt)
+               for x in _qkv(s, b=2, h=8, d=128))
+    out, lse = flash_attention_cuda(q, k, v, causal, return_lse=True)
+    ref, ref_lse = flash_attention_plain(q, k, v, causal, return_lse=True)
+    tol = 2e-2 if dt == torch.bfloat16 else TOL
+    assert (out.float() - ref.float()).abs().max().item() <= tol
+    assert (lse - ref_lse).abs().max().item() <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant", [False, True])
+def test_decode_kernel_matches_plain_on_card(cuda, quant):
+    from kubeflow_tpu_torch.models.decode import _quantize_kv
+    q, k, v = (torch.from_numpy(x).to(cuda)
+               for x in _decode_inputs(B=4, S=1024, G=4, D=128))
+    pos = torch.tensor([0, 63, 500, 1023], dtype=torch.int32, device=cuda)
+    kw = {}
+    if quant:
+        (k, kw["k_scale"]), (v, kw["v_scale"]) = (_quantize_kv(k),
+                                                  _quantize_kv(v))
+    got = flash_decode_attention_cuda(q, k, v, pos, **kw)
+    want = flash_decode_attention_plain(q, k, v, pos, **kw)
+    assert (got - want).abs().max().item() <= TOL

@@ -1,0 +1,273 @@
+"""The port's serving path (kubeflow_tpu_torch/runtime) on the CPU: the
+batched engine against the port's ``generate`` and the JAX package's
+``BatchedGenerator``, the HTTP endpoint, and the entry point's refusals.
+
+Config: the tiny flagship in float32 (see tests/test_torch_model.py); the
+JAX params are carried across with convert.py. Greedy ids must be equal,
+token for token.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import threading
+import urllib.error
+import urllib.request
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from kubeflow_tpu.models.transformer import TransformerConfig as JaxConfig
+from kubeflow_tpu.models.transformer import init_params as jax_init_params
+from kubeflow_tpu.runtime.serving import BatchedGenerator as JaxGenerator
+from kubeflow_tpu_torch import convert
+from kubeflow_tpu_torch.models.decode import generate
+from kubeflow_tpu_torch.models.transformer import TransformerConfig
+from kubeflow_tpu_torch.runtime import server as torch_server
+from kubeflow_tpu_torch.runtime.server import ServingServer
+from kubeflow_tpu_torch.runtime.serving import BatchedGenerator
+
+TINY = dict(vocab_size=512, d_model=64, n_layers=4, n_heads=4, n_kv_heads=2,
+            d_ff=128, max_seq_len=128, dtype="float32")
+PROMPTS = [[5, 17, 300, 42, 9, 77], [1, 2, 3, 4, 5, 6], [400, 0, 12, 9, 9, 3]]
+
+
+@pytest.fixture(scope="module")
+def model():
+    jc = JaxConfig(**TINY)
+    jp = jax.jit(jax_init_params, static_argnums=1)(jax.random.key(0), jc)
+    tp = convert.to_torch(jax.tree.map(np.asarray, jp))
+    return jp, tp, jc, TransformerConfig(**dataclasses.asdict(jc))
+
+
+def _submit_all(gen, prompts, max_new, **kw):
+    futures = [gen.submit(p, max_new, **kw) for p in prompts]
+    return [[int(t) for t in f.result(timeout=120)] for f in futures]
+
+
+@pytest.fixture
+def server(model):
+    _, tp, _, tc = model
+    gen = BatchedGenerator(tp, tc, max_batch=4, max_wait_s=0.2,
+                           device="cpu")
+    srv = ServingServer(gen, tc, port=0).start()
+    try:
+        yield srv, tp, tc
+    finally:
+        srv.stop()
+
+
+def _post(url, payload, path="/v1/generate"):
+    req = urllib.request.Request(
+        url + path, data=json.dumps(payload).encode(),
+        headers={"Content-Type": "application/json"}, method="POST")
+    with urllib.request.urlopen(req, timeout=120) as resp:
+        return resp.status, resp.headers.get("Content-Type"), resp.read()
+
+
+# ---------------------------------------------------------------- engine
+def test_batched_generator_matches_generate_and_jax_engine(model):
+    """Three same-shape requests batch together (padded to 4 rows); each
+    row's greedy ids equal the port's ``generate`` on that prompt alone
+    and the JAX package's engine on the same params."""
+    jp, tp, jc, tc = model
+    with BatchedGenerator(tp, tc, max_batch=4, max_wait_s=0.2,
+                          device="cpu") as gen:
+        got = _submit_all(gen, PROMPTS, 6)
+        assert list(gen.batch_sizes) == [3]
+    with JaxGenerator(jp, jc, max_batch=4, max_wait_s=0.2) as jgen:
+        want = _submit_all(jgen, PROMPTS, 6)
+    assert got == want
+    for p, ids in zip(PROMPTS, got):
+        alone = generate(tp, torch.tensor([p]), tc, 6)
+        assert ids == alone[0].tolist()
+
+
+def test_batched_generator_mixes_greedy_and_sampled_rows(model):
+    _, tp, _, tc = model
+    with BatchedGenerator(tp, tc, max_batch=4, max_wait_s=0.2,
+                          device="cpu") as gen:
+        greedy = gen.submit(PROMPTS[0], 5)
+        sampled = gen.submit(PROMPTS[1], 5, temperature=0.8, top_k=50,
+                             top_p=0.9)
+        g_ids = greedy.result(timeout=120)
+        s_ids = sampled.result(timeout=120)
+        assert list(gen.batch_sizes) == [2]
+    want = generate(tp, torch.tensor([PROMPTS[0]]), tc, 5)[0]
+    assert g_ids.tolist() == want.tolist()
+    assert s_ids.shape == (5,) and ((0 <= s_ids) & (s_ids < 512)).all()
+
+
+def test_batched_generator_streams_ids_before_resolving(model):
+    _, tp, _, tc = model
+    seen = []
+    with BatchedGenerator(tp, tc, device="cpu") as gen:
+        ids = gen.submit(PROMPTS[2], 4, on_token=seen.append).result(
+            timeout=120)
+    assert seen == ids.tolist()
+
+
+def test_batched_generator_refuses_a_draft_model(model):
+    _, tp, _, tc = model
+    with pytest.raises(NotImplementedError, match="speculative"):
+        BatchedGenerator(tp, tc, draft_params=tp, draft_config=tc,
+                         device="cpu")
+
+
+def test_quantized_engine_matches_quantized_generate(model):
+    from kubeflow_tpu_torch.models.quant import quantize_params
+    _, tp, _, tc = model
+    with BatchedGenerator(tp, tc, quantize=True, device="cpu") as gen:
+        got = gen.generate_sync(PROMPTS[0], 5)
+    want = generate(quantize_params(tp), torch.tensor([PROMPTS[0]]), tc, 5)
+    assert got.tolist() == want[0].tolist()
+
+
+# ------------------------------------------------------------------ HTTP
+def test_http_generate_matches_direct_generate(server):
+    srv, tp, tc = server
+    status, ctype, body = _post(srv.url, {"prompt": PROMPTS[0],
+                                          "max_new_tokens": 6})
+    assert status == 200 and ctype == "application/json"
+    out = json.loads(body)
+    want = generate(tp, torch.tensor([PROMPTS[0]]), tc, 6)[0].tolist()
+    assert out["ids"] == want
+    assert out["usage"] == {"prompt_tokens": 6, "completion_tokens": 6}
+
+
+def test_http_stream_emits_every_token_then_done(server):
+    srv, tp, tc = server
+    status, ctype, body = _post(srv.url, {"prompt": PROMPTS[1],
+                                          "max_new_tokens": 5,
+                                          "stream": True})
+    assert status == 200 and ctype == "text/event-stream"
+    events = [json.loads(line[len("data: "):])
+              for line in body.decode().splitlines()
+              if line.startswith("data: ")]
+    want = generate(tp, torch.tensor([PROMPTS[1]]), tc, 5)[0].tolist()
+    assert [e["token"] for e in events[:-1]] == want
+    assert events[-1]["done"] is True and events[-1]["ids"] == want
+    assert events[-1]["n_tokens"] == 5
+
+
+def test_http_concurrent_requests_share_the_engine(server):
+    srv, tp, tc = server
+    results = {}
+
+    def worker(i):
+        results[i] = json.loads(_post(srv.url, {
+            "prompt": PROMPTS[i], "max_new_tokens": 4})[2])["ids"]
+
+    threads = [threading.Thread(target=worker, args=(i,)) for i in range(3)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+    assert not any(t.is_alive() for t in threads)
+    for i, p in enumerate(PROMPTS):
+        assert results[i] == generate(tp, torch.tensor([p]), tc,
+                                      4)[0].tolist()
+    assert srv.generator.requests_total == 3
+
+
+def test_http_health_models_and_metrics(server):
+    srv, _, tc = server
+    _post(srv.url, {"prompt": [1, 2], "max_new_tokens": 2})
+    with urllib.request.urlopen(srv.url + "/healthz", timeout=30) as r:
+        health = json.loads(r.read())
+    assert health["status"] == "ok"
+    assert health["engine"] == "BatchedGenerator"
+    assert health["requests_total"] == 1
+    with urllib.request.urlopen(srv.url + "/v1/models", timeout=30) as r:
+        info = json.loads(r.read())
+    assert info["model"]["vocab_size"] == tc.vocab_size
+    assert info["data"][0]["object"] == "model"
+    with urllib.request.urlopen(srv.url + "/metrics", timeout=30) as r:
+        assert r.headers.get("Content-Type") == "text/plain; version=0.0.4"
+        text = r.read().decode()
+    assert ('serving_http_requests_total{code="200",method="POST",'
+            'route="/v1/generate"} 1') in text
+    assert "serving_engine_batches_total 1" in text
+
+
+class _LetterTokenizer:
+    """Stand-in for a tokenizer: one id per character and back."""
+
+    def encode(self, text, add_special_tokens=False):
+        return [ord(ch) % 512 for ch in text]
+
+    def decode(self, ids):
+        return "".join(chr(97 + int(t) % 26) for t in ids)
+
+
+@pytest.mark.parametrize("route,body", [
+    ("/v1/completions", {"prompt": "hello", "max_tokens": 3,
+                         "temperature": 0.0}),
+    ("/v1/chat/completions", {"messages": [{"role": "user",
+                                            "content": "hi"}],
+                              "max_tokens": 3, "temperature": 0.0})])
+def test_openai_routes_with_a_tokenizer(model, route, body):
+    _, tp, _, tc = model
+    tok = _LetterTokenizer()
+    gen = BatchedGenerator(tp, tc, device="cpu")
+    with ServingServer(gen, tc, port=0, tokenizer=tok) as srv:
+        status, _, raw = _post(srv.url, body, path=route)
+    out = json.loads(raw)
+    assert status == 200 and out["usage"]["completion_tokens"] == 3
+    choice = out["choices"][0]
+    text = choice["text"] if route == "/v1/completions" else \
+        choice["message"]["content"]
+    prompt = tok.encode(body["prompt"]) if "prompt" in body else \
+        tok.encode(srv.chat_template.render(body["messages"]))
+    want = generate(tp, torch.tensor([prompt]), tc, 3)[0].tolist()
+    assert text == tok.decode(want)
+
+
+@pytest.mark.parametrize("bad", [{}, {"prompt": []}, {"prompt": [1, 512]},
+                                 {"prompt": [1], "max_new_tokens": 0}])
+def test_http_bad_requests_are_400(server, bad):
+    srv, _, _ = server
+    with pytest.raises(urllib.error.HTTPError) as err:
+        _post(srv.url, bad)
+    assert err.value.code == 400
+
+
+# ----------------------------------------------------------- entry point
+@pytest.fixture
+def config_file(tmp_path):
+    path = tmp_path / "model.json"
+    path.write_text(json.dumps(TINY))
+    return str(path)
+
+
+def test_main_without_device_cpu_raises_when_cuda_is_absent(config_file):
+    if torch.cuda.is_available():
+        pytest.skip("CUDA is present: the default device is usable")
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        torch_server.main(["--config", config_file, "--port", "0"])
+
+
+@pytest.mark.parametrize("flags", [
+    ["--engine", "continuous"], ["--checkpoint", "/nowhere"],
+    ["--lora-config", "l.json"], ["--draft-config", "d.json"],
+    ["--kv-quant"], ["--eos-id", "2"]])
+def test_unported_flags_exit_naming_the_roadmap(config_file, flags):
+    with pytest.raises(SystemExit, match="ROADMAP"):
+        torch_server.main(["--config", config_file, "--device", "cpu",
+                           *flags])
+
+
+def test_build_server_on_cpu_serves(config_file):
+    srv = torch_server.build_server(["--config", config_file, "--device",
+                                     "cpu", "--port", "0", "--slots", "2"])
+    srv.start()
+    try:
+        status, _, body = _post(srv.url, {"prompt": [7, 8, 9],
+                                          "max_new_tokens": 3})
+        assert status == 200 and len(json.loads(body)["ids"]) == 3
+        assert srv.generator.max_batch == 2
+    finally:
+        srv.stop()
