@@ -4,13 +4,15 @@
     python3 chip_smoke.py
 
 Builds the hand-written CUDA kernels from ``kubeflow_tpu_torch/csrc``,
-holds each one against its plain PyTorch version on the card, then serves
-the flagship LM (d_model 1024, 12 layers, 8 heads of 128, 4 KV heads,
-d_ff 4096, vocab 32000, max_seq_len 1024; random weights from a seed)
-over HTTP through the port's ``ServingServer`` and ``BatchedGenerator``,
-and shows through the kernels' launch counters that the serving path ran
-them. Then it times each kernel beside its bound, its plain version and
-one PyTorch library call computing the same function.
+holds each one against its plain PyTorch version on the card, then drives
+the port's two main paths on the flagship LM (d_model 1024, 12 layers, 8
+heads of 128, 4 KV heads, d_ff 4096, vocab 32000, max_seq_len 1024; random
+weights from a seed): it serves over HTTP through ``ServingServer`` and
+``BatchedGenerator``, and trains through ``Trainer`` at batch 8 x 1024
+with bf16 params and f32 masters. The kernels' launch counters, zeroed
+before each path and read after it, show that each path ran its kernels.
+Then it times each kernel beside its bound, its plain version and one
+PyTorch library call computing the same function.
 
 Phases (any failure exits non-zero before the result line):
   1. flash-attention forward, kernel vs plain (bf16 flagship shapes,
@@ -20,7 +22,15 @@ Phases (any failure exits non-zero before the result line):
      f32 check of kernel-path tokens against the plain-attention path;
   4. where the time goes: one generate() under torch.profiler, device
      busy time by kernel class against host wall time;
-  5. times of each kernel, its plain version and a library call.
+  6. flash-attention backward (dK/dV and dQ kernels) vs plain (the train
+     shape in bf16 and f32, ragged length, f32), and the autograd
+     Function through the kernels vs its plain backward;
+  7. the train path at full flagship width: counted launches, throughput,
+     share of the bf16 peak, peak memory, a falling loss, remat launch
+     counts, an f32 loss/grad check against plain attention, a profiled
+     step, whole-logits vs chunked CE at b8, b32 and b64;
+  5. times of each kernel, its plain version and a library call (last, so
+     the paths above run on a card not yet warmed by timing loops).
 
 The first lines name the card and its power limit; the line before the
 last is the ``kernels`` JSON record; the last line is
@@ -31,7 +41,9 @@ neither JAX nor the JAX package.
 
 from __future__ import annotations
 
+import functools
 import json
+import math
 import os
 import subprocess
 import sys
@@ -46,6 +58,14 @@ BF16_TOL = 2e-2    # |kernel - plain|: ~4 bf16 ulps at |o| ~ 1; the two
                    # round p to bf16 against different running maxima
 F32_TOL = 2e-5     # the JAX package's own kernel pin (tests/test_ops.py)
 LSE_TOL = 1e-4     # f32 row log-sum-exp, summation order only
+# bf16 grads, elementwise |kernel - plain| <= RTOL * |plain| + ATOL: both
+# round f32 sums that differ in summation order only, so they land at most
+# one bf16 ulp apart (<= 2^-7 of the value); ATOL covers the f32 noise of
+# elements near 0. A typical grad element at s1024 is ~0.05, 50x ATOL.
+BWD_BF16_RTOL = 1e-2
+BWD_BF16_ATOL = 1e-3
+MODEL_GRAD_REL = 5e-4  # f32 model grads through flash vs plain attention,
+                       # / max|grad| (the JAX package's pin, test_ops.py)
 
 
 def fail(msg: str) -> None:
@@ -373,6 +393,10 @@ def _kernel_class(name: str) -> str:
     low = name.lower()
     if "flash_fwd_kernel" in low:
         return "flash_attention (ours)"
+    if "flash_bwd_dkv_kernel" in low:
+        return "flash_attention_bwd_dkv (ours)"
+    if "flash_bwd_dq_kernel" in low:
+        return "flash_attention_bwd_dq (ours)"
     if "flash_decode_kernel" in low:
         return "flash_decode (ours)"
     if any(t in low for t in ("gemm", "xmma", "cutlass", "nvjet", "cublas",
@@ -383,24 +407,22 @@ def _kernel_class(name: str) -> str:
     return "elementwise/other"
 
 
-def phase_where_time_goes(torch, flagship, params):
-    """One generate() at the served shape under torch.profiler: device
-    busy time by kernel class against host wall time. Launches here are
-    not counted."""
-    from torch.profiler import ProfilerActivity, profile
+def _device_ms(evt) -> float:
+    us = getattr(evt, "self_device_time_total", None)
+    if us is None:
+        us = getattr(evt, "self_cuda_time_total", 0.0)
+    return us / 1e3
 
-    from kubeflow_tpu_torch.models.decode import generate
-    from kubeflow_tpu_torch.runtime.serving import cast_matmul_weights
-    p = cast_matmul_weights(params, flagship.compute_dtype)
-    prompt = torch.randint(0, flagship.vocab_size, (8, 128),
-                           generator=torch.Generator().manual_seed(11)
-                           ).cuda()
-    generate(p, prompt, flagship, 4)              # warm
+
+def _profile(torch, fn) -> dict:
+    """Run ``fn`` once under torch.profiler: host wall, device busy time
+    by kernel class, kernel count, idle share."""
+    from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.monotonic()
-        generate(p, prompt, flagship, 16)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.monotonic() - t0) * 1e3
     by_class: dict[str, float] = {}
@@ -408,33 +430,327 @@ def phase_where_time_goes(torch, flagship, params):
     for evt in prof.key_averages():
         if getattr(evt, "device_type", None) != torch.autograd.DeviceType.CUDA:
             continue
-        us = getattr(evt, "self_device_time_total", None)
-        if us is None:
-            us = getattr(evt, "self_cuda_time_total", 0.0)
         cls = _kernel_class(evt.key)
-        by_class[cls] = by_class.get(cls, 0.0) + us / 1e3
+        by_class[cls] = by_class.get(cls, 0.0) + _device_ms(evt)
         launches += evt.count
     busy = sum(by_class.values())
-    out = {"shape": "generate B=8 prompt=128 new=16 bf16", "wall_ms": wall_ms,
-           "device_busy_ms": busy if busy else None,
-           "device_idle_share": (1 - busy / wall_ms) if busy else None,
-           "device_kernels": launches,
-           "busy_ms_by_class": by_class}
+    top = sorted(((evt.key[:90], _device_ms(evt), evt.count)
+                  for evt in prof.key_averages()
+                  if getattr(evt, "device_type", None)
+                  == torch.autograd.DeviceType.CUDA),
+                 key=lambda kv: -kv[1])[:12]
+    return {"wall_ms": wall_ms, "device_busy_ms": busy if busy else None,
+            "device_idle_share": (1 - busy / wall_ms) if busy else None,
+            "device_kernels": launches, "busy_ms_by_class": by_class,
+            "top_kernels_ms_count": top}
+
+
+def _print_profile(phase: str, out: dict) -> None:
+    busy = out["device_busy_ms"]
     if not busy:
-        print("phase4 device time not measured: the profiler saw no CUDA "
-              "kernels", flush=True)
-    else:
-        print(f"phase4 {out['shape']}: wall {wall_ms:.2f} ms, device busy "
-              f"{busy:.2f} ms (idle {100 * (1 - busy / wall_ms):.1f}%), "
-              f"{launches} kernels", flush=True)
-        for cls, ms in sorted(by_class.items(), key=lambda kv: -kv[1]):
-            print(f"phase4   {cls}: {ms:.3f} ms ({100 * ms / busy:.1f}% of "
-                  f"busy)", flush=True)
+        print(f"{phase} device time not measured: the profiler saw no CUDA "
+              f"kernels", flush=True)
+        return
+    wall = out["wall_ms"]
+    print(f"{phase} {out['shape']}: wall {wall:.2f} ms, device busy "
+          f"{busy:.2f} ms (idle {100 * (1 - busy / wall):.1f}%), "
+          f"{out['device_kernels']} kernels", flush=True)
+    for cls, ms in sorted(out["busy_ms_by_class"].items(),
+                          key=lambda kv: -kv[1]):
+        print(f"{phase}   {cls}: {ms:.3f} ms ({100 * ms / busy:.1f}% of "
+              f"busy)", flush=True)
+    for name, ms, count in out["top_kernels_ms_count"]:
+        print(f"{phase}     {ms:8.3f} ms {count:5d}x {name}", flush=True)
+
+
+def phase_where_time_goes(torch, flagship, params):
+    """One generate() at the served shape under torch.profiler: device
+    busy time by kernel class against host wall time. Launches here are
+    not counted."""
+    from kubeflow_tpu_torch.models.decode import generate
+    from kubeflow_tpu_torch.runtime.serving import cast_matmul_weights
+    p = cast_matmul_weights(params, flagship.compute_dtype)
+    prompt = torch.randint(0, flagship.vocab_size, (8, 128),
+                           generator=torch.Generator().manual_seed(11)
+                           ).cuda()
+    generate(p, prompt, flagship, 4)              # warm
+    out = {"shape": "generate B=8 prompt=128 new=16 bf16",
+           **_profile(torch, lambda: generate(p, prompt, flagship, 16))}
+    _print_profile("phase4", out)
     return out
 
 
+# --------------------------------------------------------------- phase 6
+def _random_qkvdo(torch, b, s, h, d, dt, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return [torch.randn((b, s, h, d), generator=g, device="cuda", dtype=dt)
+            for _ in range(4)]
+
+
+def _bwd_err(torch, got, want, dt) -> tuple[float, float]:
+    """(max |kernel - plain| over dq/dk/dv, the largest share of its
+    tolerance any element takes: <= 1 passes). f32 is held to F32_TOL,
+    bf16 elementwise to BWD_BF16_RTOL * |plain| + BWD_BF16_ATOL."""
+    err = share = 0.0
+    for a, b in zip(got, want):
+        diff = (a.float() - b.float()).abs()
+        tol = (torch.full_like(diff, F32_TOL) if dt == torch.float32 else
+               BWD_BF16_RTOL * b.float().abs() + BWD_BF16_ATOL)
+        err = max(err, diff.max().item())
+        share = max(share, (diff / tol).max().item())
+    return err, share
+
+
+def phase_flash_backward(torch):
+    """Both backward kernels against flash_attention_bwd_plain on the same
+    (q, k, v, o, lse, dO), then the autograd Function through the kernels
+    against its plain backward. Launches here are not counted."""
+    from kubeflow_tpu_torch.ops.attention import (
+        flash_attention, flash_attention_bwd_cuda, flash_attention_bwd_plain,
+        flash_attention_cuda)
+    cases = [  # (b, s, h, d, dtype, causal)
+        (8, 1024, 8, 128, torch.bfloat16, True),    # the training shape
+        (8, 1024, 8, 128, torch.float32, True),     # same template, f32
+        (2, 77, 8, 128, torch.bfloat16, True),      # ragged edge
+        (2, 77, 8, 128, torch.bfloat16, False),
+        (2, 128, 4, 64, torch.float32, True),
+        (1, 200, 2, 128, torch.float32, True),
+        (1, 200, 2, 128, torch.float32, False),
+    ]
+    train_err = 0.0
+    for i, (b, s, h, d, dt, causal) in enumerate(cases):
+        q, k, v, do = _random_qkvdo(torch, b, s, h, d, dt, 20 + i)
+        o, lse = flash_attention_cuda(q, k, v, causal, return_lse=True)
+        got = flash_attention_bwd_cuda(q, k, v, o, lse, do, causal)
+        torch.cuda.synchronize()
+        want = flash_attention_bwd_plain(q, k, v, o, lse, do, causal)
+        err, share = _bwd_err(torch, got, want, dt)
+        scale = max(w.float().abs().max().item() for w in want)
+        print(f"phase6 flash_attention_bwd b={b} s={s} h={h} d={d} "
+              f"{str(dt)[6:]} causal={causal}: max|kernel-plain| over "
+              f"dq/dk/dv={err:.3e} (max|plain| {scale:.3e}), worst element "
+              f"at {share:.3f} of its tolerance", flush=True)
+        require(share <= 1 and all(bool(torch.isfinite(x).all())
+                                   for x in got),
+                f"flash_attention backward disagrees with its plain version "
+                f"at {(b, s, h, d, dt, causal)}")
+        if (b, s, dt) == (8, 1024, torch.bfloat16):
+            train_err = err
+        del q, k, v, do, o, lse, got, want
+    for b, s, h, d, dt in ((2, 77, 8, 128, torch.bfloat16),
+                           (2, 128, 4, 64, torch.float32)):
+        q, k, v, do = _random_qkvdo(torch, b, s, h, d, dt, 40)
+        q, k, v = (x.requires_grad_() for x in (q, k, v))
+        out = flash_attention(q, k, v, causal=True)
+        # a strided dO, as grads out of an einsum arrive
+        strided = do.transpose(1, 2).contiguous().transpose(1, 2)
+        got = torch.autograd.grad(out, (q, k, v), strided)
+        o, lse = flash_attention_cuda(q.detach(), k.detach(), v.detach(),
+                                      True, return_lse=True)
+        want = flash_attention_bwd_plain(q.detach(), k.detach(), v.detach(),
+                                         o, lse, do, True)
+        err, share = _bwd_err(torch, got, want, dt)
+        print(f"phase6 autograd flash_attention b={b} s={s} {str(dt)[6:]}: "
+              f"max|kernel grads - plain backward|={err:.3e}, worst element "
+              f"at {share:.3f} of its tolerance", flush=True)
+        require(share <= 1, "flash_attention's autograd through the kernels "
+                            "disagrees with its plain backward")
+    return train_err
+
+
+# --------------------------------------------------------------- phase 7
+def _timed_fit(torch, trainer, source, steps) -> float:
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    trainer.fit(source, steps=steps, log_every=10 ** 9)
+    torch.cuda.synchronize()
+    return time.monotonic() - t0
+
+
+def _step_ms(torch, step_fn, state, batch, n=3) -> tuple[float, float,
+                                                          float]:
+    """Mean host wall of ``n`` synchronised steps (after one warm-up), the
+    peak device memory the steps allocate above what was allocated when
+    they started, and the peak itself (GB)."""
+    params, opt = state
+    tokens, targets = batch
+    params, opt, _ = step_fn(params, opt, tokens, targets)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.monotonic()
+    for _ in range(n):
+        params, opt, _ = step_fn(params, opt, tokens, targets)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    return ((time.monotonic() - t0) / n * 1e3, (peak - base) / 1e9,
+            peak / 1e9)
+
+
+def phase_train(torch, flagship):
+    """The train path at full flagship width: Trainer(bf16 params) on
+    synthetic 8 x 1024 batches, 2 warm-up + 10 timed steps, launch counts
+    checked against the steps, throughput and peak memory; then the
+    checks and measurements listed in the module docstring."""
+    from kubeflow_tpu_torch import ops
+    from kubeflow_tpu_torch.models import train as train_lib
+    from kubeflow_tpu_torch.models import transformer as tfm
+    from kubeflow_tpu_torch.runtime.data import synthetic_lm_batches
+    from kubeflow_tpu_torch.runtime.trainer import Trainer
+
+    c = flagship
+    L, V, B, S = c.n_layers, c.vocab_size, 8, 1024
+    warm, timed = 2, 10
+    flops_tok = tfm.model_flops_per_token(c)
+    stats: dict = {"shape": f"b{B} s{S} bf16 params + f32 masters",
+                   "params": None}
+    torch.cuda.reset_peak_memory_stats()
+    trainer = Trainer(c, train_lib.TrainConfig(bf16_params=True),
+                      device="cuda", seed=0)
+    stats["params"] = tfm.count_params(trainer.params)
+    src = synthetic_lm_batches(B, S, V, seed=0)
+    ops.reset_launch_counts()
+    trainer.fit(src, steps=warm, log_every=warm)
+    wall = _timed_fit(torch, trainer, src, timed)
+    counts = ops.launch_counts()
+    steps = warm + timed
+    expected = {"flash_attention": L * steps,
+                "flash_attention_bwd_dkv": L * steps,
+                "flash_attention_bwd_dq": L * steps}
+    print(f"phase7 launches {counts} expected {expected}", flush=True)
+    for name, want in expected.items():
+        require(counts[name] == want, f"{name}: {counts[name]} launches on "
+                                      f"the train path, expected {want}")
+    stats["launches"] = {k: counts[k] for k in expected}
+    losses = [loss for _, loss in trainer.stats.losses]
+    require(all(math.isfinite(x) for x in losses), f"losses {losses}")
+    tok_s = timed * B * S / wall
+    tflops = 3 * flops_tok * tok_s / 1e12
+    stats.update({
+        "steps_timed": timed, "ms_per_step": wall / timed * 1e3,
+        "tokens_per_s": tok_s, "model_tflops_per_s": tflops,
+        "bf16_peak_share": tflops * 1e12 / PEAK_FLOPS["bfloat16"],
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "losses": losses})
+    print(f"phase7 train {stats['shape']}, {stats['params']} params: "
+          f"{stats['ms_per_step']:.2f} ms/step, {tok_s:.1f} tokens/s, "
+          f"{tflops:.2f} model TFLOP/s = {100 * stats['bf16_peak_share']:.2f}"
+          f"% of the bf16 peak, peak memory {stats['peak_mem_gb']:.2f} GB, "
+          f"losses {losses}", flush=True)
+
+    # one profiled step (launches not counted past this point)
+    batch = next(iter(synthetic_lm_batches(B, S, V, seed=3)))
+    batch = tuple(torch.from_numpy(x).cuda() for x in batch)
+    state = (trainer.params, trainer.opt_state)
+    prof = {"shape": f"train step b{B} s{S} bf16",
+            **_profile(torch, lambda: trainer.step_fn(*state, *batch))}
+    _print_profile("phase7", prof)
+    # the profiler slows the host; against the unprofiled step time
+    busy = prof["device_busy_ms"]
+    prof["device_idle_share_unprofiled"] = \
+        1 - busy / stats["ms_per_step"] if busy else None
+    if busy:
+        print(f"phase7 device busy {busy:.2f} ms of the unprofiled "
+              f"{stats['ms_per_step']:.2f} ms step: idle "
+              f"{100 * prof['device_idle_share_unprofiled']:.1f}%",
+              flush=True)
+    stats["profile"] = prof
+
+    # whole-logits vs chunked CE, each loss named outright to train_step
+    # (build_loss picks one by CE_FUSE_THRESHOLD_BYTES), in turns (whole,
+    # chunked, chunked, whole), at b8, b32 and b64 (8.4e9 bytes of logits,
+    # just above the threshold)
+    optimizer = train_lib.make_optimizer(trainer.tc)
+    losses = {"whole": lambda p, t, tg: train_lib.loss_fn(p, t, tg, c),
+              "chunked": lambda p, t, tg: train_lib.fused_loss_fn(
+                  p, t, tg, c, chunk_tokens=512)}
+    ce = {}
+    for b in (B, 32, 64):
+        rows = tuple(torch.from_numpy(x).cuda() for x in next(iter(
+            synthetic_lm_batches(b, S, V, seed=4))))
+        turns = {"whole": [], "chunked": []}
+        for name in ("whole", "chunked", "chunked", "whole"):
+            step = functools.partial(train_lib.train_step,
+                                     loss=losses[name], optimizer=optimizer)
+            turns[name].append(_step_ms(torch, step, state, rows,
+                                        n=3 if b == B else 2))
+        ce[f"b{b}"] = turns
+        print(f"phase7 CE at b{b} s{S} vocab {V} ({b * S * V * 4 / 1e9:.2f} "
+              f"GB f32 logits), (ms/step, step's peak GB above its start, "
+              f"peak GB) in turns: whole {turns['whole']}, chunked(512) "
+              f"{turns['chunked']}", flush=True)
+        del rows
+        torch.cuda.empty_cache()
+    stats["ce_ms_peak_gb"] = ce
+    del trainer, state
+    torch.cuda.empty_cache()
+
+    # the loss on one repeated batch falls over 10 steps (warmup 1)
+    one = next(iter(synthetic_lm_batches(B, S, V, seed=5)))
+    with Trainer(c, train_lib.TrainConfig(bf16_params=True, warmup_steps=1),
+                 device="cuda", seed=1) as tr:
+        tr.fit([one] * 10, steps=10, log_every=1)
+        curve = [loss for _, loss in tr.stats.losses]
+    print(f"phase7 repeated batch, 10 steps: losses {curve}", flush=True)
+    require(all(math.isfinite(x) for x in curve) and curve[-1] < curve[0],
+            f"the loss on a repeated batch did not fall: {curve}")
+    stats["repeated_batch_losses"] = curve
+
+    # remat launches: True re-runs each layer's forward, "attn" replays it
+    for remat, fwd in ((True, 2 * L), ("attn", L)):
+        with Trainer(c.replace(remat=remat),
+                     train_lib.TrainConfig(bf16_params=True),
+                     device="cuda", seed=2) as tr:
+            ops.reset_launch_counts()
+            tr.fit([one], steps=1)
+            got = ops.launch_counts()
+        want = {"flash_attention": fwd, "flash_attention_bwd_dkv": L,
+                "flash_attention_bwd_dq": L}
+        print(f"phase7 remat={remat!r} one step: launches "
+              f"{ {k: got[k] for k in want} } expected {want}, loss "
+              f"{tr.stats.last_loss:.4f}", flush=True)
+        require(all(got[k] == w for k, w in want.items()),
+                f"remat={remat!r}: launches {got}, expected {want}")
+    torch.cuda.empty_cache()
+    stats["f32_check"] = _f32_train_check(torch, c)
+    return stats
+
+
+def _f32_train_check(torch, flagship):
+    """f32 at full width, b2 s256: loss and grads through the kernels
+    against attention="xla" (plain attention), same params and batch."""
+    from kubeflow_tpu_torch.models import train as train_lib
+    from kubeflow_tpu_torch.models.transformer import init_params
+    from kubeflow_tpu_torch.runtime.data import synthetic_lm_batches
+    c = flagship.replace(dtype="float32")
+    params = init_params(torch.Generator(device="cuda").manual_seed(3), c,
+                         device="cuda")
+    tokens, targets = (torch.from_numpy(x).cuda() for x in next(iter(
+        synthetic_lm_batches(2, 256, c.vocab_size, seed=6))))
+    out = {}
+    for attn in ("auto", "xla"):
+        cfg = c.replace(attention=attn)
+        p = train_lib.tree_map(lambda w: w.detach().requires_grad_(), params)
+        out[attn] = train_lib.value_and_grad(
+            lambda p, t, tg: train_lib.loss_fn(p, t, tg, cfg), p, tokens,
+            targets)
+    (lk, gk), (lp, gp) = out["auto"], out["xla"]
+    loss_err = abs(lk.item() - lp.item())
+    grad_err = max(
+        ((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item()
+        for a, b in zip(train_lib.tree_leaves(gk), train_lib.tree_leaves(gp)))
+    print(f"phase7 f32 b2 s256: loss kernels {lk.item():.6f} plain "
+          f"{lp.item():.6f} (|diff| {loss_err:.2e}, tol 1e-4); grads max "
+          f"|kernel-plain|/max|plain| per leaf {grad_err:.2e} (tol "
+          f"{MODEL_GRAD_REL:g})", flush=True)
+    require(loss_err <= 1e-4 and grad_err <= MODEL_GRAD_REL,
+            "the f32 train path through the kernels disagrees with plain "
+            "attention")
+    return {"loss_abs_err": loss_err, "grad_rel_err": grad_err}
+
+
 # --------------------------------------------------------------- phase 5
-def _time_flash(torch, timer, b, s, h, d, seed=4):
+def _time_flash(torch, timer, b, s, h, d, seed=4, lse=False):
     import torch.nn.functional as F
 
     from kubeflow_tpu_torch.ops.attention import (flash_attention_cuda,
@@ -445,17 +761,72 @@ def _time_flash(torch, timer, b, s, h, d, seed=4):
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     err = (flash_attention_cuda(q, k, v, True).float() -
            flash_attention_plain(q, k, v, True).float()).abs().max().item()
-    nbytes = 4 * b * s * h * d * 2
+    nbytes = 4 * b * s * h * d * 2 + (b * h * s * 4 if lse else 0)
     flops = 4 * b * h * d * (s * (s + 1) // 2)
     b_ms, b_by = bound(nbytes, flops, "bfloat16")
     return {
         "max_abs_err": err,
-        "ms": timer.ms(lambda: flash_attention_cuda(q, k, v, True)),
-        "plain_ms": timer.ms(lambda: flash_attention_plain(q, k, v, True)),
+        "ms": timer.ms(lambda: flash_attention_cuda(q, k, v, True, lse)),
+        "plain_ms": timer.ms(lambda: flash_attention_plain(q, k, v, True,
+                                                           lse)),
         "bound_ms": b_ms, "bound_by": b_by,
         "library_ms": timer.ms(lambda: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=True)),
-        "shape": f"b={b} s={s} h={h} d={d} bf16 causal"}
+        "shape": f"b={b} s={s} h={h} d={d} bf16 causal"
+                 + (" with lse" if lse else "")}
+
+
+def _time_bwd(torch, timer, b, s, h, d, seed=5):
+    """The dK/dV and the dQ kernel alone on prepared inputs (Δ formed
+    once outside the timing), beside the plain backward (dq, dk, dv in
+    one function) and SDPA's backward (dq, dk, dv in one op)."""
+    import torch.nn.functional as F
+
+    from kubeflow_tpu_torch.ops import attention as attn
+    from kubeflow_tpu_torch.ops.attention import (
+        flash_attention_bwd_dkv_cuda, flash_attention_bwd_dq_cuda,
+        flash_attention_bwd_plain, flash_attention_cuda)
+    q, k, v, do = _random_qkvdo(torch, b, s, h, d, torch.bfloat16, seed)
+    o, lse = flash_attention_cuda(q, k, v, True, return_lse=True)
+    want = flash_attention_bwd_plain(q, k, v, o, lse, do, True)
+    q2, k2, v2, do2, lse2, delta = attn.prepare_bwd_inputs(q, k, v, o, lse,
+                                                           do)
+    dk, dv = flash_attention_bwd_dkv_cuda(q2, k2, v2, do2, lse2, delta)
+    dq = flash_attention_bwd_dq_cuda(q2, k2, v2, do2, lse2, delta)
+    torch.cuda.synchronize()
+    errs = {"flash_attention_bwd_dkv": _bwd_err(torch, (dk, dv), want[1:],
+                                                torch.bfloat16),
+            "flash_attention_bwd_dq": _bwd_err(torch, (dq,), want[:1],
+                                               torch.bfloat16)}
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                  for x in (q, k, v))
+    out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+    dot = do.transpose(1, 2)
+    lib_ms = timer.ms(lambda: torch.autograd.grad(out, (qt, kt, vt), dot,
+                                                  retain_graph=True))
+    plain_ms = timer.ms(lambda: flash_attention_bwd_plain(q, k, v, o, lse,
+                                                          do, True))
+    pairs = b * h * (s * (s + 1) // 2)   # causal (query, key) pairs
+    el, rows = b * s * h * d * 2, b * h * s * 4   # one bf16 tensor, lse/Δ
+    rows_out = {}
+    for name, fn, nbytes, products in (
+            ("flash_attention_bwd_dkv",
+             lambda: flash_attention_bwd_dkv_cuda(q2, k2, v2, do2, lse2,
+                                                  delta),
+             6 * el + 2 * rows, 4),
+            ("flash_attention_bwd_dq",
+             lambda: flash_attention_bwd_dq_cuda(q2, k2, v2, do2, lse2,
+                                                 delta),
+             5 * el + 2 * rows, 3)):
+        b_ms, b_by = bound(nbytes, products * 2 * d * pairs, "bfloat16")
+        err, share = errs[name]
+        rows_out[name] = {
+            "max_abs_err": err, "agrees": share <= 1, "ms": timer.ms(fn),
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": lib_ms,
+            "shape": f"b={b} s={s} h={h} d={d} bf16 causal (plain and "
+                     f"library: dq, dk, dv together)"}
+    return rows_out
 
 
 def _time_decode(torch, timer, pos_list, quant, B=8, S=1024, G=4, rep=2,
@@ -530,12 +901,24 @@ def phase_times(torch, errs, counts):
                          "kubeflow_tpu/ops/decode_attention.py:40"),
         "flash_decode_int8": ("kubeflow_tpu_torch/csrc/flash_decode.cu",
                               "kubeflow_tpu/ops/decode_attention.py:40"),
+        "flash_attention_bwd_dkv": (
+            "kubeflow_tpu_torch/csrc/flash_attention_bwd.cu",
+            "kubeflow_tpu/ops/attention.py:195"),
+        "flash_attention_bwd_dq": (
+            "kubeflow_tpu_torch/csrc/flash_attention_bwd.cu",
+            "kubeflow_tpu/ops/attention.py:231"),
     }
+    # the train path's shape (b8 s1024 h8 d128 bf16 causal): the forward
+    # with lse (printed), and the two backward kernels (recorded)
+    wide["flash_attention_train"] = _time_flash(torch, timer, 8, 1024, 8,
+                                                128, lse=True)
+    main.update(_time_bwd(torch, timer, 8, 1024, 8, 128))
     rows = []
     for name, r in main.items():
         _print_row(name, r)
-        _print_row(name, wide[name])
-        require(r["max_abs_err"] <= BF16_TOL,
+        if name in wide:
+            _print_row(name, wide[name])
+        require(r.pop("agrees", r["max_abs_err"] <= BF16_TOL),
                 f"{name} disagrees with its plain version at the main "
                 f"path's shape")
         rows.append({"name": name, "route": "cuda",
@@ -543,6 +926,7 @@ def phase_times(torch, errs, counts):
                      "replaces": sources[name][1],
                      "launches": counts[name],
                      **r, "max_abs_err": max(r["max_abs_err"], errs[name])})
+    _print_row("flash_attention", wide["flash_attention_train"])
     return rows, wide
 
 
@@ -585,9 +969,17 @@ def main() -> int:
     phase_reference_tokens(torch, flagship, params)
     stats["profile"] = phase_where_time_goes(torch, flagship, params)
     del params
+    torch.cuda.empty_cache()
+    bwd_err = phase_flash_backward(torch)
+    errs["flash_attention_bwd_dkv"] = errs["flash_attention_bwd_dq"] = bwd_err
+    train = phase_train(torch, flagship)
+    # a kernel's launches: the sum over the main paths that run it
+    for name, n in train["launches"].items():
+        counts[name] = counts.get(name, 0) + n
+    torch.cuda.empty_cache()
     rows, wide = phase_times(torch, errs, counts)
-    print(json.dumps({"serving": stats, "kernels_at_phase12_shapes": wide}),
-          flush=True)
+    print(json.dumps({"serving": stats, "train": train,
+                      "kernels_at_other_shapes": wide}), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

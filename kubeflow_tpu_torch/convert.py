@@ -40,3 +40,37 @@ def to_numpy(tree):
     if t.dtype == torch.bfloat16:
         return t.view(torch.int16).numpy().view(_bf16_numpy_dtype())
     return t.numpy()
+
+
+def _adam_leaves(state):
+    """The (count, mu, nu) node of an AdamW state: the fused form's
+    ``FusedAdamWState`` itself, or the ``ScaleByAdamState`` inside an
+    ``optax.chain(clip_by_global_norm, adamw)`` state (nested tuples)."""
+    if all(hasattr(state, f) for f in ("count", "mu", "nu")):
+        return state
+    if isinstance(state, tuple):
+        for part in state:
+            found = _adam_leaves(part)
+            if found is not None:
+                return found
+    return None
+
+
+def opt_state_to_torch(state, device="cpu"):
+    """The reference's AdamW state, with numpy leaves
+    (``jax.tree.map(np.asarray, opt_state)``), as the port's
+    ``FusedAdamWState`` (count, mu, nu) — or, for a ``MasterOptState``
+    (``inner``, ``master``), the port's ``MasterOptState`` with the f32
+    masters. The count becomes a host int."""
+    from .models.train import FusedAdamWState, MasterOptState
+
+    if hasattr(state, "inner") and hasattr(state, "master"):
+        return MasterOptState(inner=opt_state_to_torch(state.inner, device),
+                              master=to_torch(state.master, device))
+    adam = _adam_leaves(state)
+    if adam is None:
+        raise ValueError(f"no AdamW (count, mu, nu) state in "
+                         f"{type(state).__name__}")
+    return FusedAdamWState(count=int(np.asarray(adam.count)),
+                           mu=to_torch(adam.mu, device),
+                           nu=to_torch(adam.nu, device))

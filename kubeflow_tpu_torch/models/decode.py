@@ -24,8 +24,8 @@ import torch
 
 from .quant import wcast
 from .transformer import (TransformerConfig, apply_rope, attention_block,
-                          layer_params, mlp_block, rms_norm,
-                          rope_frequencies)
+                          mlp_block, rms_norm, rope_frequencies,
+                          unstack_layers)
 
 
 # ------------------------------------------------------------------- cache
@@ -121,8 +121,7 @@ def prefill(params: dict, tokens: torch.Tensor, config: TransformerConfig,
     x = params["embed"].to(c.compute_dtype)[tokens]
     positions = torch.arange(S, device=tokens.device)[None, :].expand(B, S)
     cos, sin = rope_frequencies(c, positions)
-    for i in range(c.n_layers):
-        layer = layer_params(params["blocks"], i)
+    for i, layer in enumerate(unstack_layers(params["blocks"])):
         x, (k, v) = attention_block(x, layer, c, cos, sin, return_kv=True)
         _write_cache(cache, k, v, 0, layer=i)
         x = mlp_block(x, layer, c)
@@ -168,8 +167,7 @@ def decode_step(params: dict, cache: dict, token: torch.Tensor, pos,
     quant = is_kv_quantized(cache)
     start = None if per_row else int(pos_t)
 
-    for i in range(c.n_layers):
-        layer = layer_params(params["blocks"], i)
+    for i, layer in enumerate(unstack_layers(params["blocks"])):
         h = rms_norm(x, layer["attn_norm"])
         dt = h.dtype
         q = torch.einsum("bsd,dhk->bshk", h, wcast(layer["wq"], dt))

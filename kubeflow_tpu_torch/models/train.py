@@ -1,0 +1,388 @@
+"""Training step: loss, optimizer and the one-device update.
+
+Port of ``kubeflow_tpu/models/train.py`` for a single device (the sharded
+``make_sharded_train_step`` and the pipeline rules come with the
+multi-device slice of the port, ROADMAP queue A item 4). The reference
+jits forward, backward and optimizer into one XLA program; here the step
+runs eagerly: the forward and autograd's backward go through the
+hand-written flash-attention kernels on the card, and the optimizer is a
+few ``torch._foreach_*`` passes over the parameter leaves.
+
+Params are the port's stacked dict tree (models/transformer.py). Gradients
+come from ``torch.autograd.grad`` over its leaves, so nothing accumulates
+in ``.grad``. The optimizer updates the moments, and ``apply_update`` the
+params (or the f32 masters), in place: the reference returns new trees,
+the port saves one copy of each.
+"""
+
+from __future__ import annotations
+
+import functools
+import math
+from dataclasses import dataclass
+from typing import Callable, NamedTuple
+
+import torch
+from torch.utils.checkpoint import checkpoint
+
+from .. import resolve_device
+from .transformer import (TransformerConfig, forward, forward_hidden,
+                          init_params, lm_head_logits)
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    learning_rate: float = 3e-4
+    weight_decay: float = 0.01
+    b1: float = 0.9
+    b2: float = 0.95
+    grad_clip: float = 1.0
+    warmup_steps: int = 100
+    # bf16 model params with f32 master copies in the optimizer state: the
+    # forward and backward read and write half the weight and gradient
+    # bytes, the update accumulates in f32 on the masters
+    bf16_params: bool = False
+    # fused cross-entropy: the LM-head logits and their logsumexp per
+    # sequence chunk of this many tokens, so the (b, s, vocab) f32 logits
+    # never materialise; engaged only above CE_FUSE_THRESHOLD_BYTES of
+    # logits; 0 disables it
+    ce_chunk_tokens: int = 512
+    # kept for config parity with the reference, which offers optax.chain
+    # and a single-pass form of the same math: the port has the one
+    # implementation, fused_clip_adamw, for both values
+    fused_adamw: bool = False
+
+
+# Above this many bytes of f32 (b, s, vocab) logits the chunked CE engages.
+# Measured with chip_smoke.py phase 7 on an NVIDIA H100 80GB HBM3 at
+# 700.00 W, flagship at s1024: at b8, b32 and b64 (1.05e9, 4.19e9 and
+# 8.39e9 bytes) the chunked (512) step is 5-6% slower than the
+# whole-logits one and peaks 0.43, 1.93 and 3.93 GB lower (whole: 11.65,
+# 35.71 and 67.79 GB). Chunking buys memory only, so it waits until the
+# whole-logits step nears the card's 80 GB: b64 is the first size past
+# this value.
+CE_FUSE_THRESHOLD_BYTES = 8e9
+
+
+# --------------------------------------------------------------- optimizer
+def warmup_cosine_decay(step: int, peak: float, warmup_steps: int,
+                        decay_steps: int = 10_000, init: float = 0.0,
+                        end: float = 0.0) -> float:
+    """optax.warmup_cosine_decay_schedule written out: linear from
+    ``init`` to ``peak`` over ``warmup_steps``, then cosine decay to
+    ``end`` over the remaining ``decay_steps - warmup_steps``."""
+    if step < warmup_steps:
+        return init + (peak - init) * step / warmup_steps
+    t = min(step - warmup_steps, decay_steps - warmup_steps)
+    alpha = 0.0 if peak == 0.0 else end / peak
+    cosine = 0.5 * (1 + math.cos(math.pi * t / (decay_steps - warmup_steps)))
+    return peak * ((1 - alpha) * cosine + alpha)
+
+
+class Optimizer(NamedTuple):
+    """``init(params) -> state``; ``update(grads, state, params) ->
+    (updates, state)`` — the shape of an optax GradientTransformation."""
+    init: Callable
+    update: Callable
+
+
+class FusedAdamWState(NamedTuple):
+    """Step count (a host int) and the first/second moments, trees shaped
+    like the params."""
+    count: int
+    mu: dict
+    nu: dict
+
+
+class MasterOptState(NamedTuple):
+    """bf16-params training: the inner optimizer state + f32 masters."""
+    inner: object
+    master: dict
+
+
+def tree_leaves(tree) -> list[torch.Tensor]:
+    """The tensors of a nested dict, keys sorted at every level (JAX's
+    order), so trees built in any key order line up leaf by leaf."""
+    if isinstance(tree, dict):
+        return [leaf for k in sorted(tree) for leaf in tree_leaves(tree[k])]
+    return [tree]
+
+
+def tree_unflatten(like, leaves) -> dict:
+    """``leaves`` (in ``tree_leaves`` order) in the structure of ``like``.
+    A module-level recursion, not a closure: a recursive closure is a
+    reference cycle that would keep the leaves alive until the cyclic
+    garbage collector runs."""
+    return _build(like, iter(leaves))
+
+
+def _build(node, it):
+    if isinstance(node, dict):
+        return {k: _build(node[k], it) for k in sorted(node)}
+    return next(it)
+
+
+def tree_map(fn, tree):
+    return tree_unflatten(tree, [fn(x) for x in tree_leaves(tree)])
+
+
+def fused_clip_adamw(schedule: Callable[[int], float], *, b1: float,
+                     b2: float, weight_decay: float, grad_clip: float,
+                     eps: float = 1e-8) -> Optimizer:
+    """clip_by_global_norm + adamw in one pass per leaf, the reference's
+    per-leaf body (models/train.py:109-137): clip scale
+    ``min(1, clip / max(‖g‖, 1e-16))``; lr from the pre-increment count,
+    bias correction from the post-increment count. The global norm and
+    the clip scale stay on the device (no host sync); ``update`` consumes
+    ``state`` (its moments are updated in place) and returns the update
+    tree, which ``apply_update`` adds to the params."""
+
+    def init(params):
+        zeros = [torch.zeros_like(p, dtype=torch.float32)
+                 for p in tree_leaves(params)]
+        return FusedAdamWState(
+            count=0, mu=tree_unflatten(params, zeros),
+            nu=tree_unflatten(params, [torch.zeros_like(z) for z in zeros]))
+
+    @torch.no_grad()
+    def update(grads, state, params):
+        if params is None:
+            raise ValueError("fused_clip_adamw requires params "
+                             "(weight decay)")
+        g = tree_leaves(grads)
+        mu, nu, p = (tree_leaves(t) for t in (state.mu, state.nu, params))
+        gnorm = torch.linalg.vector_norm(torch.stack(
+            torch._foreach_norm(g)))
+        scale = torch.clamp(grad_clip / torch.clamp(gnorm, min=1e-16),
+                            max=1.0)
+        count = state.count + 1
+        lr = schedule(state.count)
+        c1 = 1.0 / (1.0 - b1 ** count)
+        c2 = 1.0 / (1.0 - b2 ** count)
+        g = torch._foreach_mul(g, scale)
+        torch._foreach_mul_(mu, b1)
+        torch._foreach_add_(mu, torch._foreach_mul(g, 1.0 - b1))
+        torch._foreach_mul_(nu, b2)
+        torch._foreach_add_(nu, torch._foreach_mul(
+            torch._foreach_mul(g, g), 1.0 - b2))
+        denom = torch._foreach_mul(nu, c2)
+        torch._foreach_sqrt_(denom)
+        torch._foreach_add_(denom, eps)
+        upd = torch._foreach_mul(mu, c1)
+        torch._foreach_div_(upd, denom)
+        torch._foreach_add_(upd, torch._foreach_mul(p, weight_decay))
+        torch._foreach_mul_(upd, -lr)
+        return tree_unflatten(grads, upd), FusedAdamWState(
+            count=count, mu=state.mu, nu=state.nu)
+
+    return Optimizer(init, update)
+
+
+def make_optimizer(tc: TrainConfig) -> Optimizer:
+    """The schedule ``warmup_cosine_decay_schedule(0, lr, warmup,
+    10_000)`` and clip+AdamW, for either value of ``fused_adamw``."""
+    def schedule(step: int) -> float:
+        return warmup_cosine_decay(step, tc.learning_rate, tc.warmup_steps,
+                                   10_000)
+    return fused_clip_adamw(schedule, b1=tc.b1, b2=tc.b2,
+                            weight_decay=tc.weight_decay,
+                            grad_clip=tc.grad_clip)
+
+
+@torch.no_grad()
+def apply_update(optimizer: Optimizer, params: dict, opt_state, grads):
+    """The shared optimizer tail, in place. A ``MasterOptState`` means
+    bf16 params + f32 masters: the update lands on the masters and the
+    params become their rounded copies."""
+    if isinstance(opt_state, MasterOptState):
+        grads32 = tree_map(lambda g: g.float(), grads)
+        updates, inner = optimizer.update(grads32, opt_state.inner,
+                                          opt_state.master)
+        master = tree_leaves(opt_state.master)
+        torch._foreach_add_(master, tree_leaves(updates))
+        for p, m in zip(tree_leaves(params), master):
+            p.copy_(m)
+        return params, MasterOptState(inner=inner, master=opt_state.master)
+    updates, opt_state = optimizer.update(grads, opt_state, params)
+    torch._foreach_add_(tree_leaves(params), tree_leaves(updates))
+    return params, opt_state
+
+
+# -------------------------------------------------------------------- loss
+def _nll(logits: torch.Tensor, targets: torch.Tensor):
+    """Per-token negative log-likelihood of f32 logits, 0 at -1 targets,
+    and the valid mask."""
+    valid = targets >= 0
+    safe = torch.where(valid, targets, 0).long()
+    lse = torch.logsumexp(logits, dim=-1)
+    target_logit = logits.gather(-1, safe[..., None])[..., 0]
+    return torch.where(valid, lse - target_logit, 0.0), valid
+
+
+def loss_fn(params, tokens, targets, config: TransformerConfig):
+    """Next-token cross entropy, mean over non-padding (-1 targets)."""
+    logits = forward(params, tokens, config)
+    valid = targets >= 0
+    safe = torch.where(valid, targets, 0).long()
+    logp = torch.log_softmax(logits, dim=-1)
+    nll = -logp.gather(-1, safe[..., None])[..., 0]
+    nll = torch.where(valid, nll, 0.0)
+    return nll.sum() / valid.sum().clamp_min(1)
+
+
+def ce_chunk_for(tc: TrainConfig, tokens: torch.Tensor,
+                 vocab_size: int) -> int:
+    """The fused-CE engagement policy: chunk size to use (0 = the
+    whole-logits path), from the f32 logits size against
+    CE_FUSE_THRESHOLD_BYTES."""
+    logits_bytes = tokens.shape[0] * tokens.shape[1] * vocab_size * 4
+    if tc.ce_chunk_tokens and logits_bytes > CE_FUSE_THRESHOLD_BYTES:
+        return tc.ce_chunk_tokens
+    return 0
+
+
+def _ce_chunks(seq_len: int, chunk_tokens: int) -> int:
+    """Chunk count dividing seq_len with chunks <= chunk_tokens."""
+    n = max(1, -(-seq_len // max(chunk_tokens, 1)))
+    while seq_len % n:
+        n += 1
+    return n
+
+
+def _chunk_nll(xs, lm_head, ts):
+    nll, valid = _nll(lm_head_logits(xs, lm_head), ts)
+    return nll.sum(), valid.sum()
+
+
+def chunked_softmax_ce(x: torch.Tensor, lm_head, targets: torch.Tensor,
+                       chunk_tokens: int) -> torch.Tensor:
+    """Cross entropy fused with the LM-head projection, chunked over the
+    sequence: each chunk projects a (b, chunk, d) slice onto the vocab,
+    reduces it to logsumexp and target logit, and drops its logits. The
+    chunk body runs under ``torch.utils.checkpoint``, so the backward
+    recomputes the chunk's projection instead of keeping its logits.
+
+    The chunk's logits come from ``lm_head_logits``, the whole-logits
+    path's projection (in bf16 the product is rounded to bf16 before the
+    f32 cast); the reference's chunk asks XLA for an f32 product
+    instead. In f32 the two are the same."""
+    b, s, _ = x.shape
+    n = _ce_chunks(s, chunk_tokens)
+    c = s // n
+    total = count = 0
+    for i in range(n):
+        nll, n_valid = checkpoint(_chunk_nll, x[:, i * c:(i + 1) * c],
+                                  lm_head, targets[:, i * c:(i + 1) * c],
+                                  use_reentrant=False)
+        total = total + nll
+        count = count + n_valid
+    return total / count.clamp_min(1)
+
+
+def fused_loss_fn(params, tokens, targets, config: TransformerConfig,
+                  chunk_tokens: int = 512):
+    """loss_fn through chunked_softmax_ce."""
+    x = forward_hidden(params, tokens, config)
+    return chunked_softmax_ce(x, params["lm_head"], targets, chunk_tokens)
+
+
+def build_loss(config: TransformerConfig, tc: TrainConfig | None = None):
+    """The loss dispatch — the fused-CE gate in one place, shared by the
+    train step and evaluation. Returns ``loss(params, tokens, targets)``."""
+    tc = tc or TrainConfig()
+
+    def _loss(params, tokens, targets):
+        chunk = ce_chunk_for(tc, tokens, config.vocab_size)
+        if chunk:
+            return fused_loss_fn(params, tokens, targets, config,
+                                 chunk_tokens=chunk)
+        return loss_fn(params, tokens, targets, config)
+    return _loss
+
+
+def build_eval_loss(config: TransformerConfig,
+                    tc: TrainConfig | None = None):
+    """What evaluation runs: build_loss (the dense model has no auxiliary
+    loss to exclude)."""
+    return build_loss(config, tc)
+
+
+# -------------------------------------------------------------------- step
+def value_and_grad(loss, params: dict, tokens, targets):
+    """(loss, grads tree) of ``loss(params, tokens, targets)`` with
+    respect to every param leaf; the loss is detached."""
+    with torch.enable_grad():
+        value = loss(params, tokens, targets)
+        grads = torch.autograd.grad(value, tree_leaves(params))
+    return value.detach(), tree_unflatten(params, grads)
+
+
+def accumulated_value_and_grad(loss, params: dict, tokens, targets):
+    """Gradient accumulation over the microbatches on tokens/targets'
+    leading axis, one microbatch's activations alive at a time. Loss and
+    grads are microbatch means averaged over the actual leading-axis
+    length."""
+    loss_sum, grads_sum = None, None
+    for t, tg in zip(tokens, targets):
+        value, grads = value_and_grad(loss, params, t, tg)
+        if grads_sum is None:
+            loss_sum, grads_sum = value, tree_leaves(grads)
+        else:
+            loss_sum = loss_sum + value
+            torch._foreach_add_(grads_sum, tree_leaves(grads))
+    inv = 1.0 / tokens.shape[0]
+    return loss_sum * inv, tree_unflatten(
+        params, torch._foreach_mul(grads_sum, inv))
+
+
+def train_step(params, opt_state, tokens, targets, *, loss,
+               optimizer: Optimizer, accum_steps: int = 1):
+    """One step: the grads of ``loss(params, tokens, targets)`` (with
+    ``accum_steps`` > 1, accumulated over the leading axis of
+    tokens/targets), then ``apply_update``. Returns (params, opt_state,
+    loss). ``make_train_step`` runs it with ``build_loss``'s loss."""
+    if accum_steps == 1:
+        value, grads = value_and_grad(loss, params, tokens, targets)
+    else:
+        value, grads = accumulated_value_and_grad(loss, params, tokens,
+                                                  targets)
+    params, opt_state = apply_update(optimizer, params, opt_state, grads)
+    return params, opt_state, value
+
+
+def init_train_state(params: dict, tc: TrainConfig):
+    """(params, opt_state) to train from ``params``: the leaves become
+    trainable; with ``bf16_params`` they are bf16 copies and the state is
+    a ``MasterOptState`` over f32 masters."""
+    optimizer = make_optimizer(tc)
+    if tc.bf16_params:
+        master = tree_map(lambda p: p.detach().float().clone(), params)
+        params = tree_map(lambda p: p.detach().to(torch.bfloat16)
+                          .requires_grad_(), master)
+        return params, MasterOptState(inner=optimizer.init(master),
+                                      master=master)
+    params = tree_map(lambda p: p.detach().clone().requires_grad_(), params)
+    return params, optimizer.init(params)
+
+
+def make_train_step(config: TransformerConfig, tc: TrainConfig | None = None,
+                    device="cuda", accum_steps: int = 1):
+    """The one-device counterpart of ``make_sharded_train_step``:
+    ``(init_fn(generator), step_fn(params, opt_state, tokens, targets))``.
+
+    - ``init_fn`` draws params from ``generator`` onto ``device`` and
+      returns ``init_train_state``'s (params, opt_state);
+    - ``step_fn`` returns (params, opt_state, loss), updated in place, the
+      loss a 0-d tensor on the device (reading it syncs the host);
+    - with ``accum_steps`` > 1 it takes (accum, batch, seq) tokens/targets
+      and accumulates grads over the microbatches before one update.
+    """
+    tc = tc or TrainConfig()
+    dev = resolve_device(device)
+
+    def init_fn(generator: torch.Generator):
+        return init_train_state(init_params(generator, config, dev), tc)
+
+    return init_fn, functools.partial(
+        train_step, loss=build_loss(config, tc),
+        optimizer=make_optimizer(tc), accum_steps=accum_steps)

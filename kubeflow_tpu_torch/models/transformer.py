@@ -1,16 +1,24 @@
-"""Flagship workload: decoder-only transformer LM, forward pass.
+"""Flagship workload: decoder-only transformer LM, forward and backward.
 
-Port of ``kubeflow_tpu/models/transformer.py`` (forward only: remat,
-``pipelined_forward``, ring and Ulysses attention come with later slices
-of the port). Plain functions on tensors, with the JAX package's layouts
-at every public function: (b, s, h, d) attention, and params as a dict
-whose layer weights are stacked on a leading (L, ...) axis
-(``wq`` (L, d, h, k), ``wo`` (L, h, k, d), ...), so the tests compare
-like with like. f32 params, activations in ``config.dtype``, f32
-softmax/norm accumulation.
+Port of ``kubeflow_tpu/models/transformer.py`` (``pipelined_forward``,
+ring and Ulysses attention come with the multi-device slice of the port).
+Plain functions on tensors, with the JAX package's layouts at every public
+function: (b, s, h, d) attention, and params as a dict whose layer weights
+are stacked on a leading (L, ...) axis (``wq`` (L, d, h, k), ``wo``
+(L, h, k, d), ...), so the tests compare like with like. f32 params (or
+bf16 with f32 masters in the optimizer), activations in ``config.dtype``,
+f32 softmax/norm accumulation.
+
+The backward is torch autograd through these functions, with two
+hand-written pieces as in the reference: ``rms_norm`` saves only
+(x, w, per-row inv) (its custom VJP), and flash attention's gradient is
+the two backward kernels (ops/attention.py). ``remat`` selects activation
+checkpointing per layer (``torch.utils.checkpoint``, non-reentrant), after
+``resolve_remat_mlp``/``resolve_layer_remat``; it changes memory and
+launches, never values.
 
 Attention dispatch: ``attention="auto"`` takes the hand-written flash
-kernel (ops/attention.py) for CUDA tensors at every sequence length, and
+kernels (ops/attention.py) for CUDA tensors at every sequence length, and
 the plain reference attention on the CPU. The JAX package's TPU gate
 (``FLASH_MIN_SEQ``) was measured on a v5e and is not carried over.
 """
@@ -18,11 +26,14 @@ the plain reference attention on the CPU. The JAX package's TPU gate
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from dataclasses import dataclass
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from .. import resolve_device
 from .quant import is_quantized, wcast
@@ -42,8 +53,10 @@ class TransformerConfig:
     rope_theta: float = 10_000.0
     dtype: str = "bfloat16"      # activation/compute dtype
     param_dtype: str = "float32"
-    # activation checkpointing of the training backward; the forward's
-    # values do not depend on it (kept so one config file serves both)
+    # activation checkpointing of the training backward (False: save
+    # everything; "mlp": recompute the FFN; "attn": recompute the layer but
+    # not its attention; True: recompute the whole layer); values do not
+    # depend on it
     remat: bool | str = False
     attention: str = "auto"      # auto | xla | flash
     decode_attention: str = "auto"   # auto | xla | flash
@@ -122,22 +135,60 @@ def init_params(generator: torch.Generator, config: TransformerConfig,
     }
 
 
-def layer_params(blocks: dict, i: int) -> dict:
-    """Layer ``i`` of the stacked (L, ...) block weights (quantized nodes
-    slice ``q`` and ``s`` together)."""
-    return {name: ({"q": w["q"][i], "s": w["s"][i]} if is_quantized(w)
-                   else w[i])
-            for name, w in blocks.items()}
+def unstack_layers(blocks: dict) -> list[dict]:
+    """The stacked (L, ...) block weights as one dict per layer, each
+    weight taken apart once with ``unbind(0)`` (quantized nodes split
+    ``q`` and ``s`` together). Under autograd, ``unbind``'s backward stacks
+    the L grads in one op; indexing ``w[i]`` per layer would materialise a
+    zero (L, ...) grad per layer instead."""
+    per_name = {name: ([{"q": q, "s": sc} for q, sc in
+                        zip(w["q"].unbind(0), w["s"].unbind(0))]
+                       if is_quantized(w) else w.unbind(0))
+                for name, w in blocks.items()}
+    return [dict(zip(per_name, layer)) for layer in zip(*per_name.values())]
 
 
 # ------------------------------------------------------------------- layers
-def rms_norm(x: torch.Tensor, weight: torch.Tensor,
-             eps: float = 1e-6) -> torch.Tensor:
-    """RMSNorm computed in f32 and cast back to x's dtype (forward only;
-    the custom backward comes with the train step)."""
+def _rms_norm_impl(x, weight, eps):
+    """One primal body for the plain and the differentiated forward.
+    Returns (y, inv) with inv the per-row rsqrt."""
     x32 = x.float()
     inv = torch.rsqrt(x32.square().mean(dim=-1, keepdim=True) + eps)
-    return (x32 * inv * weight.float()).to(x.dtype)
+    return (x32 * inv * weight.float()).to(x.dtype), inv
+
+
+class RMSNorm(torch.autograd.Function):
+    """RMSNorm whose backward follows the reference's ``_rms_norm_bwd``:
+    it saves only (x, weight, inv), inv the per-row rsqrt — d× smaller
+    than the f32 normalised intermediate autograd of the naive form
+    would keep — and recomputes the rest."""
+
+    @staticmethod
+    def forward(ctx, x, weight, eps: float):
+        y, inv = _rms_norm_impl(x, weight, eps)
+        ctx.save_for_backward(x, weight, inv)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        x, weight, inv = ctx.saved_tensors
+        x32, g32, w32 = x.float(), g.float(), weight.float()
+        d = x.shape[-1]
+        wg = g32 * w32
+        # d(x·inv(x))·wg: product rule through the rsqrt(mean(x²)) term
+        dot = (x32 * wg).sum(dim=-1, keepdim=True)
+        dx = inv * wg - inv ** 3 * x32 * dot / d
+        dw = (g32 * x32 * inv).sum(dim=tuple(range(x.dim() - 1)))
+        return dx.to(x.dtype), dw.to(weight.dtype), None
+
+
+def rms_norm(x: torch.Tensor, weight: torch.Tensor,
+             eps: float = 1e-6) -> torch.Tensor:
+    """RMSNorm computed in f32 and cast back to x's dtype; differentiable
+    through ``RMSNorm`` when a gradient is needed."""
+    if torch.is_grad_enabled() and (x.requires_grad or weight.requires_grad):
+        return RMSNorm.apply(x, weight, eps)
+    return _rms_norm_impl(x, weight, eps)[0]
 
 
 def rope_frequencies(config: TransformerConfig, positions: torch.Tensor):
@@ -225,21 +276,72 @@ def mlp_block(x, layer, config: TransformerConfig):
                             wcast(layer["w_down"], dt))
 
 
+# ------------------------------------------------------------------- remat
+def resolve_remat_mlp(config: TransformerConfig, mlp_fn):
+    """``remat="mlp"``: checkpoint only the FFN, whose saved (b, s, d_ff)
+    gate/up activations dominate memory; everything else stays saved."""
+    if config.remat == "mlp":
+        return functools.partial(checkpoint, mlp_fn, use_reentrant=False)
+    return mlp_fn
+
+
+def _save_flash(ctx, func, *args, **kwargs):
+    """Selective-checkpoint policy of the attention region under
+    ``remat="attn"``: save the flash forward's (out, lse), recompute every
+    other op."""
+    if func is torch.ops.kft.flash_attention_fwd.default:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _attn_contexts():
+    return create_selective_checkpoint_contexts(_save_flash)
+
+
+def resolve_layer_remat(config: TransformerConfig, attn_fn, mlp_fn):
+    """The whole-layer policies for a layer of ``attn_fn(x, layer)`` then
+    ``mlp_fn(x, layer)``, as one body ``body(x, layer)``:
+
+    - True   → checkpoint everything (smallest footprint; the backward
+               re-runs the full layer forward, flash attention included);
+    - "attn" → checkpoint everything except the attention's output: the
+               backward recomputes norms, projections and the FFN, but
+               replays the saved flash (out, lse) instead of launching the
+               attention forward again. The layer is two checkpointed
+               regions, so the post-attention residual — the reference's
+               ``tag_attn_out`` — is saved as the FFN region's input.
+    """
+    if config.remat == "attn":
+        attn_fn = functools.partial(checkpoint, attn_fn, use_reentrant=False,
+                                    context_fn=_attn_contexts)
+        mlp_fn = functools.partial(checkpoint, mlp_fn, use_reentrant=False)
+
+    def layer(x, layer_params):
+        return mlp_fn(attn_fn(x, layer_params), layer_params)
+
+    if config.remat is True:
+        return functools.partial(checkpoint, layer, use_reentrant=False)
+    return layer
+
+
 def forward_hidden(params: dict, tokens: torch.Tensor,
                    config: TransformerConfig,
                    positions: torch.Tensor | None = None) -> torch.Tensor:
     """tokens: (batch, seq) int → final-norm hidden states (b, s, d); the
-    LM head is not applied."""
+    LM head is not applied (the fused chunked CE, models/train.py, takes
+    the hidden states)."""
     c = config
     x = params["embed"].to(c.compute_dtype)[tokens]
     if positions is None:
         positions = torch.arange(tokens.shape[1], device=tokens.device)
         positions = positions[None, :].expand(tokens.shape)
     cos, sin = rope_frequencies(c, positions)
-    for i in range(c.n_layers):
-        layer = layer_params(params["blocks"], i)
-        x = attention_block(x, layer, c, cos, sin)
-        x = mlp_block(x, layer, c)
+    mlp = resolve_remat_mlp(c, mlp_block)
+    body = resolve_layer_remat(
+        c, lambda x, layer: attention_block(x, layer, c, cos, sin),
+        lambda x, layer: mlp(x, layer, c))
+    for layer in unstack_layers(params["blocks"]):
+        x = body(x, layer)
     return rms_norm(x, params["final_norm"])
 
 
@@ -253,3 +355,18 @@ def forward(params: dict, tokens: torch.Tensor, config: TransformerConfig,
     """tokens: (batch, seq) int → logits (batch, seq, vocab) float32."""
     x = forward_hidden(params, tokens, config, positions=positions)
     return lm_head_logits(x, params["lm_head"])
+
+
+def count_params(params) -> int:
+    if isinstance(params, dict):
+        return sum(count_params(p) for p in params.values())
+    return params.numel()
+
+
+def model_flops_per_token(config: TransformerConfig) -> float:
+    """Approximate forward FLOPs/token (2*params matmul convention)."""
+    c = config
+    per_layer = 2 * (c.d_model * c.n_heads * c.d_head * 2
+                     + c.d_model * c.n_kv_heads * c.d_head * 2
+                     + 3 * c.d_model * c.d_ff)
+    return c.n_layers * per_layer + 2 * c.d_model * c.vocab_size

@@ -1,0 +1,208 @@
+"""Trainer: the training loop a provisioned notebook runs on its card.
+
+Port of ``kubeflow_tpu/runtime/trainer.py`` for one device: the train
+step of models/train.py, the device prefetch of runtime/data.py, held-out
+evaluation, throughput accounting and an optional ``torch.profiler``
+window. Checkpoint/resume, LoRA, MoE configs and multi-device meshes are
+later slices of the port; their arguments raise ``NotImplementedError``
+naming the ROADMAP item.
+
+Loop design: the step returns the loss as a device tensor and the host
+reads it only at log points, so PyTorch's launch queue runs ahead of the
+card between them; the next batch is already on the device (prefetch).
+"""
+
+from __future__ import annotations
+
+import itertools
+import logging
+import math
+import pathlib
+import time
+from collections import deque
+from dataclasses import dataclass, field
+
+import torch
+
+from .. import resolve_device
+from ..models import train as train_lib
+from ..models.transformer import TransformerConfig, model_flops_per_token
+from .data import prefetch_to_device
+
+log = logging.getLogger("kubeflow_tpu_torch.trainer")
+
+
+@dataclass
+class TrainerStats:
+    step: int = 0
+    last_loss: float | None = None
+    tokens_seen: int = 0
+    steps_per_sec: float = 0.0
+    tokens_per_sec: float = 0.0
+    model_tflops_per_sec: float = 0.0
+    # (step, loss) / (step, eval loss) at log points, bounded (the
+    # Trainer's stats_history_cap sets the maxlen)
+    losses: deque = field(default_factory=lambda: deque(maxlen=1000))
+    evals: deque = field(default_factory=lambda: deque(maxlen=1000))
+
+
+class Trainer:
+    """Train a dense ``TransformerConfig`` on one device with prefetch and
+    throughput accounting. ``device`` defaults to the card and raises
+    where CUDA is absent; pass ``device="cpu"`` to run on the CPU."""
+
+    def __init__(self, config: TransformerConfig,
+                 train_config: train_lib.TrainConfig | None = None, *,
+                 device="cuda", seed: int = 0, profile_dir=None,
+                 profile_steps: tuple = (10, 15),
+                 stats_history_cap: int = 1000, checkpoint_dir=None,
+                 lora=None, mesh=None):
+        if checkpoint_dir is not None:
+            raise NotImplementedError(
+                "checkpoint_dir: checkpoint/resume is not ported yet "
+                "(ROADMAP queue A item 6, runtime/checkpoint.py)")
+        if lora is not None:
+            raise NotImplementedError(
+                "lora: LoRA finetuning is not ported yet (ROADMAP queue A "
+                "item 5)")
+        if type(config) is not TransformerConfig:
+            raise NotImplementedError(
+                f"{type(config).__name__}: only the dense TransformerConfig "
+                f"is ported; MoE is ROADMAP queue A item 5")
+        if mesh is not None:
+            raise NotImplementedError(
+                "mesh: multi-device training is not ported yet (ROADMAP "
+                "queue A item 4); the Trainer runs on one device")
+        self.config = config
+        self.tc = train_config or train_lib.TrainConfig()
+        self.device = resolve_device(device)
+        self.init_fn, self.step_fn = train_lib.make_train_step(
+            config, self.tc, self.device)
+        self.stats = TrainerStats(
+            losses=deque(maxlen=stats_history_cap),
+            evals=deque(maxlen=stats_history_cap))
+        self.profile_dir = pathlib.Path(profile_dir) if profile_dir else None
+        self.profile_steps = profile_steps
+        self._profiler = None
+        self._eval_loss = None
+        generator = torch.Generator(device=self.device).manual_seed(seed)
+        self.params, self.opt_state = self.init_fn(generator)
+
+    # --------------------------------------------------------------- loop
+    def fit(self, source, *, steps: int, log_every: int = 50,
+            prefetch_buffer: int = 2) -> TrainerStats:
+        """Train for ``steps`` steps over ``source`` (an iterable of
+        (tokens, targets) numpy batches). Returns the updated stats; call
+        again to continue (the step count persists)."""
+        flops_tok = model_flops_per_token(self.config)
+        start_step = self.stats.step
+        target = start_step + steps
+        t0 = time.perf_counter()
+        tokens_t0 = self.stats.tokens_seen
+        loss = None
+        # bound the draw count BEFORE prefetch: a stateful source reused
+        # across fit() calls must not lose the batches staged ahead
+        bounded = itertools.islice(iter(source), steps)
+        with prefetch_to_device(bounded, self.device,
+                                buffer_size=prefetch_buffer) as batches:
+            for tokens, targets in batches:
+                if self.stats.step >= target:
+                    break
+                self._profile_tick()
+                self.params, self.opt_state, loss = self.step_fn(
+                    self.params, self.opt_state, tokens, targets)
+                self.stats.step += 1
+                self.stats.tokens_seen += tokens.numel()
+                if self.stats.step % log_every == 0 or \
+                        self.stats.step == target:
+                    # the only host sync point in the loop
+                    self.stats.last_loss = float(loss)
+                    self.stats.losses.append(
+                        (self.stats.step, self.stats.last_loss))
+                    dt = time.perf_counter() - t0
+                    dtok = self.stats.tokens_seen - tokens_t0
+                    if dt > 0:
+                        self.stats.tokens_per_sec = dtok / dt
+                        self.stats.steps_per_sec = \
+                            (self.stats.step - start_step) / dt
+                        # 3x forward FLOPs for forward + backward
+                        self.stats.model_tflops_per_sec = \
+                            3 * flops_tok * dtok / dt / 1e12
+                    log.info("step %d loss %.4f %.0f tok/s",
+                             self.stats.step, self.stats.last_loss,
+                             self.stats.tokens_per_sec)
+        if loss is not None and self.stats.last_loss is None:
+            self.stats.last_loss = float(loss)
+        return self.stats
+
+    # --------------------------------------------------------------- eval
+    def evaluate(self, source, *, max_batches: int | None = None,
+                 prefetch_buffer: int = 2) -> dict:
+        """Held-out evaluation: token-weighted mean cross entropy and
+        perplexity over ``source`` (``max_batches`` bounds a generator).
+        Changes no parameter or optimizer state; the result is also
+        appended to ``stats.evals`` as (step, loss). The loss is
+        ``build_eval_loss``, the train step's own dispatch."""
+        if self._eval_loss is None:
+            self._eval_loss = train_lib.build_eval_loss(self.config, self.tc)
+        bounded = iter(source) if max_batches is None else \
+            itertools.islice(iter(source), max_batches)
+        # device-side sums; the one readback is after the last batch
+        total = count = 0
+        n_batches = 0
+        with torch.no_grad(), prefetch_to_device(
+                bounded, self.device, buffer_size=prefetch_buffer) as batches:
+            for tokens, targets in batches:
+                n = (targets >= 0).sum()
+                total = total + self._eval_loss(self.params, tokens,
+                                                targets) * n
+                count = count + n
+                n_batches += 1
+        n_tokens = int(count)
+        if n_tokens == 0:
+            raise ValueError("evaluate() saw no valid tokens")
+        mean_loss = float(total) / n_tokens
+        result = {"loss": mean_loss, "perplexity": math.exp(mean_loss),
+                  "batches": n_batches, "tokens": n_tokens,
+                  "step": self.stats.step}
+        self.stats.evals.append((self.stats.step, mean_loss))
+        log.info("eval @ step %d: loss %.4f ppl %.2f (%d tokens)",
+                 self.stats.step, mean_loss, result["perplexity"], n_tokens)
+        return result
+
+    # ------------------------------------------------------------ profile
+    def _profile_tick(self) -> None:
+        """Open/close the torch.profiler window when the step counter
+        crosses [start, stop); the trace goes to ``profile_dir``."""
+        if self.profile_dir is None:
+            return
+        start, stop = self.profile_steps
+        if self._profiler is None and self.stats.step == start:
+            activities = [torch.profiler.ProfilerActivity.CPU]
+            if self.device.type == "cuda":
+                activities.append(torch.profiler.ProfilerActivity.CUDA)
+            self._profiler = torch.profiler.profile(activities=activities)
+            self._profiler.__enter__()
+        elif self._profiler is not None and self.stats.step >= stop:
+            self._stop_profile()
+
+    def _stop_profile(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        prof, self._profiler = self._profiler, None
+        prof.__exit__(None, None, None)
+        self.profile_dir.mkdir(parents=True, exist_ok=True)
+        start, stop = self.profile_steps
+        path = self.profile_dir / f"trace_steps_{start}_{stop}.json"
+        prof.export_chrome_trace(str(path))
+        log.info("profile trace written to %s", path)
+
+    def close(self) -> None:
+        if self._profiler is not None:
+            self._stop_profile()
+
+    def __enter__(self) -> "Trainer":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()

@@ -56,6 +56,9 @@ import kubeflow_tpu_torch
 import kubeflow_tpu_torch.convert
 import kubeflow_tpu_torch.ops
 import kubeflow_tpu_torch.models.decode
+import kubeflow_tpu_torch.models.train
+import kubeflow_tpu_torch.runtime.data
+import kubeflow_tpu_torch.runtime.trainer
 import kubeflow_tpu_torch.runtime.server
 import kubeflow_tpu_torch.runtime.serving
 leaked = sorted(m for m in sys.modules

@@ -16,12 +16,14 @@ import pytest
 import torch
 
 from kubeflow_tpu.models.decode import _quantize_kv as jax_quantize_kv
-from kubeflow_tpu.ops.attention import _flash_forward
+from kubeflow_tpu.ops.attention import _flash_backward, _flash_forward
 from kubeflow_tpu.ops.attention import flash_attention as jax_flash
 from kubeflow_tpu.ops.decode_attention import \
     flash_decode_attention as jax_flash_decode
 from kubeflow_tpu_torch.ops import _build, launch_counts
 from kubeflow_tpu_torch.ops.attention import (flash_attention,
+                                              flash_attention_bwd_cuda,
+                                              flash_attention_bwd_plain,
                                               flash_attention_cuda,
                                               flash_attention_plain)
 from kubeflow_tpu_torch.ops.decode_attention import (
@@ -112,6 +114,93 @@ def test_flash_cuda_wrapper_rejects_what_the_kernel_cannot_take(bad):
         q, k, v = (torch.zeros(2, 64, 4, 48) for _ in range(3))
     with pytest.raises(ValueError):
         flash_attention_cuda(q, k, v)
+
+
+# ------------------------------------------------ flash attention backward
+def _jax_backward(q, k, v, do, causal, dtype=jnp.float32):
+    """The reference's residuals and backward (Pallas, interpret mode)
+    over 64-blocks: (o, lse (b, h, s), (dq, dk, dv)) as numpy."""
+    q, k, v, do = (jnp.asarray(x, dtype) for x in (q, k, v, do))
+    o, lse = _flash_forward(q, k, v, causal, 64, 64, interpret=True,
+                            save_residuals=True)
+    grads = _flash_backward(q, k, v, o, lse, do, causal, 64, 64,
+                            interpret=True)
+    return o, lse[..., 0], grads
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_bwd_plain_matches_jax_flash_backward(causal):
+    """s=128 over 64-blocks: both backward kernels loop over two blocks,
+    and the causal one skips the block above the diagonal. The port's
+    (b, h, s) lse is lane 0 of the reference's lane-replicated one."""
+    q, k, v, do = _qkv(128) + _qkv(128, seed=1)[:1]
+    o, lse, want = _jax_backward(q, k, v, do, causal)
+    got = flash_attention_bwd_plain(
+        *map(torch.from_numpy, (q, k, v, np.array(o), np.array(lse),
+                                do)), causal)
+    for name, g, w in zip("qkv", got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=TOL,
+                                   atol=TOL, err_msg=f"d{name}")
+
+
+def test_flash_bwd_plain_bf16_inputs():
+    """bf16 q/k/v/dO: grads come back in bf16, within the 0.1 the
+    reference pins its own bf16 backward to (tests/test_ops.py)."""
+    q, k, v, do = _qkv(64) + _qkv(64, seed=1)[:1]
+    o, lse, want = _jax_backward(q, k, v, do, True, jnp.bfloat16)
+    bf = [torch.from_numpy(x).to(torch.bfloat16) for x in (q, k, v, do)]
+    o_t = torch.from_numpy(np.asarray(o, np.float32)).to(torch.bfloat16)
+    got = flash_attention_bwd_plain(*bf[:3], o_t,
+                                    torch.from_numpy(np.array(lse)),
+                                    bf[3], True)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.bfloat16
+        np.testing.assert_allclose(g.float().numpy(),
+                                   np.asarray(w, np.float32),
+                                   rtol=0.1, atol=0.1)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_autograd_flash_on_cpu_is_the_plain_backward(causal):
+    """The autograd Function saves (q, k, v, out, lse) and its CPU
+    backward is flash_attention_bwd_plain on them, exactly; a strided dO
+    (as grads out of an einsum are) gives the same grads."""
+    q, k, v = (torch.from_numpy(x).requires_grad_() for x in _qkv(100))
+    do = torch.from_numpy(_qkv(100, seed=1)[0])
+    before = launch_counts()
+    out = flash_attention(q, k, v, causal=causal)
+    got = torch.autograd.grad(out, (q, k, v), do.transpose(1, 2)
+                              .contiguous().transpose(1, 2))
+    o, lse = flash_attention_plain(q.detach(), k.detach(), v.detach(),
+                                   causal, return_lse=True)
+    assert torch.equal(out.detach(), o)
+    want = flash_attention_bwd_plain(q.detach(), k.detach(), v.detach(), o,
+                                     lse, do, causal)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert launch_counts() == before
+
+
+def test_bwd_launch_counters_are_reported():
+    counts = launch_counts()
+    for name in ("flash_attention", "flash_attention_bwd_dkv",
+                 "flash_attention_bwd_dq"):
+        assert name in counts
+
+
+@pytest.mark.parametrize("bad", ["lse_shape", "lse_dtype", "do_dtype"])
+def test_flash_bwd_cuda_wrapper_rejects_what_the_kernels_cannot_take(bad):
+    q, k, v = map(torch.from_numpy, _qkv(64))
+    o, do = q.clone(), k.clone()
+    lse = torch.zeros(2, 4, 64)
+    if bad == "lse_shape":
+        lse = torch.zeros(2, 64, 4)
+    elif bad == "lse_dtype":
+        lse = lse.double()
+    else:
+        do = do.to(torch.bfloat16)
+    with pytest.raises(ValueError):
+        flash_attention_bwd_cuda(q, k, v, o, lse, do)
 
 
 # ---------------------------------------------------------- flash decode
@@ -221,3 +310,23 @@ def test_decode_kernel_matches_plain_on_card(cuda, quant):
     got = flash_decode_attention_cuda(q, k, v, pos, **kw)
     want = flash_decode_attention_plain(q, k, v, pos, **kw)
     assert (got - want).abs().max().item() <= TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,causal,s", [
+    ("bfloat16", True, 1024), ("bfloat16", False, 77),
+    ("float32", True, 200), ("float32", True, 1024)])
+def test_flash_bwd_kernels_match_plain_on_card(cuda, dtype, causal, s):
+    """f32 to the reference pin; bf16 elementwise to 1e-2 of |plain| plus
+    1e-3: the two round sums that differ in summation order only, so they
+    land at most one bf16 ulp (<= 2^-7 of the value) apart."""
+    dt = getattr(torch, dtype)
+    arrays = _qkv(s, b=2, h=8, d=128) + _qkv(s, b=2, h=8, d=128, seed=1)[:1]
+    q, k, v, do = (torch.from_numpy(x).to(cuda, dt) for x in arrays)
+    o, lse = flash_attention_cuda(q, k, v, causal, return_lse=True)
+    got = flash_attention_bwd_cuda(q, k, v, o, lse, do, causal)
+    want = flash_attention_bwd_plain(q, k, v, o, lse, do, causal)
+    rtol, atol = (0.0, TOL) if dt == torch.float32 else (1e-2, 1e-3)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g.float(), w.float(), rtol=rtol,
+                                   atol=atol)
