@@ -8,38 +8,57 @@
 //   logits = (q . k) * scale            (scaled after the product)
 //   P      = exp(logits - lse), 0 where masked causally or past the edge
 //   dS     = P * (dO . v - delta) * scale,  delta = rowsum(dO * O)
-//   dV = P^T dO,  dK = dS^T Q,  dQ = dS K       (all f32)
+//   dV = P^T dO,  dK = dS^T Q,  dQ = dS K       (f32 sums)
 // and cast dQ/dK/dV to the inputs' dtype at the end.
 //
 // Layout: q, k, v, dO, dQ, dK, dV are (b, s, h, d), read and written through
 // their batch/seq/head strides (d contiguous); lse and delta are (b, h, s)
-// f32.
-// GQA callers repeat K/V heads before the call, as in the reference.
+// f32. The bf16 dK/dV kernel reads q, k, v, dO with TMA, so their base and
+// strides must be multiples of 16 bytes (the wrapper copies a tensor that
+// is not). GQA callers repeat K/V heads before the call, as in the
+// reference.
 //
-// Design. The TPU grid carries the dK/dV (or dQ) sum in VMEM scratch across
-// its sequential inner grid axis; CUDA blocks run in no order, so that axis
-// becomes a loop inside one block and the sum lives in registers.
-//  - dK/dV: one block per (batch, head, tile of BK keys). Each key row is
-//    owned by TPR = D/DPT adjacent threads that split d_head (thread t owns
-//    dims t, t+TPR, ...); a row's k and v slices and its dK/dV accumulators
-//    stay in registers. The block loops over query tiles of BQ rows (from the
-//    diagonal when causal), staging q, dO, lse and delta in shared memory as
-//    f32; per query row it forms the two dots (q.k and dO.v, xor-shuffle sums
-//    of the TPR partials), P and dS, and accumulates dV += P dO, dK += dS q.
+// The TPU grid carries the dK/dV (or dQ) sum in VMEM scratch across its
+// sequential inner grid axis; CUDA blocks run in no order, so that axis
+// becomes a loop inside one block and the sum lives in registers. Each
+// output has one owner block, so no atomics, and the result is the same on
+// every run. The ragged edge (s not a multiple of a tile) is masked here.
+//
+// dK/dV, bf16: tensor cores. One block of one warpgroup (128 threads) per
+// (batch, head, tile of 64 keys); K and V come in once by TMA. The block
+// loops over query tiles of 32 rows from the diagonal (causal), Q and dO
+// coming through a two-stage TMA ring (bf16, swizzled, mbarriers). Per
+// query tile the four products run on wgmma in the transposed form, the key
+// tile as the 64-row M side: S^T = K.Q^T and dP^T = V.dO^T (operands in
+// shared memory), P^T = exp2(S^T * scale * log2(e) - lse[q] * log2(e)) and
+// dS^T = P^T * (dP^T - delta[q]) * scale in f32 on the accumulator
+// fragments, then dV += P^T.dO and dK += dS^T.Q with P^T and dS^T rounded
+// to bf16 as register A operands and dO, Q read transposed from shared
+// memory. dK and dV stay in f32 registers and are rounded to bf16 once.
+// Rounding P and dS to bf16 for the two accumulating products is what the
+// reference does on its own chip: an f32 `dot` at default precision on a
+// TPU multiplies in bf16. The plain version keeps them in f32, so the two
+// differ by that rounding (chip_smoke.py states the bound). 32-query tiles
+// keep S^T and dP^T at 16 registers a thread each beside the 128 of dK and
+// dV at d=128 (ptxas's report is in PERF.md). What bounds it: four
+// (s x s x d) products per (b, h) against ~12 bytes per (s, d) element,
+// above the ridge at s = 1024, so the floor is the tensor-core rate.
+//
+// dK/dV, f32, and dQ in both dtypes: CUDA cores (scalar f32 FMAs, 67
+// TFLOP/s). f32 keeps the scalar kernel because TF32 tensor cores would
+// lose the 2e-5 agreement the f32 checks hold; dQ is the next kernel to
+// move to tensor cores.
+//  - dK/dV f32: one block per (batch, head, tile of BK keys). Each key row
+//    is owned by TPR = D/DPT adjacent threads that split d_head; a row's k
+//    and v slices and its dK/dV accumulators stay in registers. The block
+//    loops over query tiles of BQ rows, staging q, dO, lse and delta in
+//    shared memory as f32.
 //  - dQ: one block per (batch, head, tile of BQ queries); a query row's q and
 //    dO slices, lse, delta and dQ accumulator stay in registers, and the block
 //    loops over key tiles of BK keys (up to the diagonal when causal), staging
 //    k and v in shared memory, accumulating dQ += dS k.
-//  The split into two kernels is the reference's: each output has one owner
-//  block, so no atomics, and the result is the same on every run. The ragged
-//  edge (s not a multiple of BQ or BK) is masked here, so any length works.
-//
-// What bounds it on the card: dK/dV does four (s x s x d) products per
-// (b, h), dQ three, against ~10-12 bytes per (s, d) element moved: at the
-// flagship's s = 1024 both are above the H100's ~295 FLOP/byte ridge, so the
-// floor is the tensor-core rate. These first kernels do the products as
-// scalar f32 FMAs on the CUDA cores (67 TFLOP/s peak, not 989): the CUDA
-// cores bound them. mma/wgmma with TMA-fed tiles is the later step.
+#include "hopper.cuh"
+
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -75,13 +94,15 @@ __device__ __forceinline__ float row_sum(float part) {
   return part;
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(BK * (D / DPT))
-flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, const T* __restrict__ dout,
+flash_bwd_dkv_kernel(const float* __restrict__ q,
+                     const float* __restrict__ k,
+                     const float* __restrict__ v,
+                     const float* __restrict__ dout,
                      const float* __restrict__ lse,
-                     const float* __restrict__ delta, T* __restrict__ dk,
-                     T* __restrict__ dv, int H, int S, Strides sq,
+                     const float* __restrict__ delta, float* __restrict__ dk,
+                     float* __restrict__ dv, int H, int S, Strides sq,
                      Strides sk, Strides sv, Strides sdo, Strides sdk,
                      Strides sdv, float scale, int causal) {
   constexpr int TPR = D / DPT;
@@ -99,19 +120,19 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int kpos = k0 + row;
   const bool live = kpos < S;
 
-  const T* qb = q + b * sq.b + h * sq.h;
-  const T* dob = dout + b * sdo.b + h * sdo.h;
+  const float* qb = q + b * sq.b + h * sq.h;
+  const float* dob = dout + b * sdo.b + h * sdo.h;
   const float* lseb = lse + (int64_t)bh * S;
   const float* deltab = delta + (int64_t)bh * S;
 
   float kr[DPT], vr[DPT], dka[DPT], dva[DPT];
   {
-    const T* kb = k + b * sk.b + h * sk.h + kpos * sk.s;
-    const T* vb = v + b * sv.b + h * sv.h + kpos * sv.s;
+    const float* kb = k + b * sk.b + h * sk.h + kpos * sk.s;
+    const float* vb = v + b * sv.b + h * sv.h + kpos * sv.s;
 #pragma unroll
     for (int i = 0; i < DPT; ++i) {
-      kr[i] = live ? to_f32(kb[i * TPR + t]) : 0.f;
-      vr[i] = live ? to_f32(vb[i * TPR + t]) : 0.f;
+      kr[i] = live ? kb[i * TPR + t] : 0.f;
+      vr[i] = live ? vb[i * TPR + t] : 0.f;
       dka[i] = 0.f;
       dva[i] = 0.f;
     }
@@ -123,8 +144,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int idx = threadIdx.x; idx < BQ * D; idx += THREADS) {
       const int j = idx / D, c = idx % D;
       const int qp = q0 + j;
-      qs[j][c] = qp < S ? to_f32(qb[qp * sq.s + c]) : 0.f;
-      dos[j][c] = qp < S ? to_f32(dob[qp * sdo.s + c]) : 0.f;
+      qs[j][c] = qp < S ? qb[qp * sq.s + c] : 0.f;
+      dos[j][c] = qp < S ? dob[qp * sdo.s + c] : 0.f;
     }
     for (int j = threadIdx.x; j < BQ; j += THREADS) {
       const int qp = q0 + j;
@@ -156,12 +177,12 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 
   if (live) {
-    T* dkb = dk + b * sdk.b + h * sdk.h + kpos * sdk.s;
-    T* dvb = dv + b * sdv.b + h * sdv.h + kpos * sdv.s;
+    float* dkb = dk + b * sdk.b + h * sdk.h + kpos * sdk.s;
+    float* dvb = dv + b * sdv.b + h * sdv.h + kpos * sdv.s;
 #pragma unroll
     for (int i = 0; i < DPT; ++i) {
-      dkb[i * TPR + t] = from_f32<T>(dka[i]);
-      dvb[i * TPR + t] = from_f32<T>(dva[i]);
+      dkb[i * TPR + t] = dka[i];
+      dvb[i * TPR + t] = dva[i];
     }
   }
 }
@@ -245,28 +266,238 @@ Strides strides_at(const int64_t* st, int i) {
   return Strides{st[3 * i], st[3 * i + 1], st[3 * i + 2]};
 }
 
-template <typename T>
-int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
-               const void* lse, const void* delta, void* dk, void* dv, int B,
-               int S, int H, int D, const int64_t* st, float scale,
-               int causal, cudaStream_t stream) {
+int launch_dkv_f32(const void* q, const void* k, const void* v,
+                   const void* dout, const void* lse, const void* delta,
+                   void* dk, void* dv, int B, int S, int H, int D,
+                   const int64_t* st, float scale, int causal,
+                   cudaStream_t stream) {
   dim3 grid((S + BK - 1) / BK, B * H);
   auto go = [&](auto kern, int threads) {
     kern<<<grid, threads, 0, stream>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k),
-        static_cast<const T*>(v), static_cast<const T*>(dout),
+        static_cast<const float*>(q), static_cast<const float*>(k),
+        static_cast<const float*>(v), static_cast<const float*>(dout),
         static_cast<const float*>(lse), static_cast<const float*>(delta),
-        static_cast<T*>(dk), static_cast<T*>(dv), H, S, strides_at(st, 0),
-        strides_at(st, 1), strides_at(st, 2), strides_at(st, 3),
-        strides_at(st, 4), strides_at(st, 5), scale, causal);
+        static_cast<float*>(dk), static_cast<float*>(dv), H, S,
+        strides_at(st, 0), strides_at(st, 1), strides_at(st, 2),
+        strides_at(st, 3), strides_at(st, 4), strides_at(st, 5), scale,
+        causal);
   };
   switch (D) {
-    case 32: go(flash_bwd_dkv_kernel<T, 32>, BK * (32 / DPT)); break;
-    case 64: go(flash_bwd_dkv_kernel<T, 64>, BK * (64 / DPT)); break;
-    case 128: go(flash_bwd_dkv_kernel<T, 128>, BK * (128 / DPT)); break;
+    case 32: go(flash_bwd_dkv_kernel<32>, BK * (32 / DPT)); break;
+    case 64: go(flash_bwd_dkv_kernel<64>, BK * (64 / DPT)); break;
+    case 128: go(flash_bwd_dkv_kernel<128>, BK * (128 / DPT)); break;
     default: return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
+}
+
+// ------------------------------------------------------ dK/dV, bf16 path
+using kft::bf16;
+constexpr int WG = 128;     // one warpgroup
+constexpr int TKV = 64;     // keys per block: wgmma's M
+constexpr int TQW = 32;     // queries per tile: N of K.Q^T, K of P^T.dO
+constexpr int STAGES = 2;   // depth of the Q/dO ring
+constexpr float LOG2E = 1.4426950408889634f;
+
+template <int D>
+constexpr int dkv_smem_bytes() {
+  return (2 * TKV + 2 * STAGES * TQW) * D * 2 + 1024;  // + alignment slack
+}
+
+template <int D>
+__device__ __forceinline__ void load_qdo(bf16* qd, bf16* dod, uint64_t* bar,
+                                         const CUtensorMap* tq,
+                                         const CUtensorMap* tdo, int q0,
+                                         int h, int b) {
+  kft::mbar_expect_tx(bar, 2 * TQW * D * 2);
+  kft::tma_tile<D, TQW>(qd, tq, bar, q0, h, b);
+  kft::tma_tile<D, TQW>(dod, tdo, bar, q0, h, b);
+}
+
+template <int D>
+__global__ void __launch_bounds__(WG)
+flash_bwd_dkv_kernel_wgmma(const __grid_constant__ CUtensorMap tq,
+                           const __grid_constant__ CUtensorMap tk,
+                           const __grid_constant__ CUtensorMap tv,
+                           const __grid_constant__ CUtensorMap tdo,
+                           const float* __restrict__ lse,
+                           const float* __restrict__ delta,
+                           bf16* __restrict__ dk, bf16* __restrict__ dv,
+                           int H, int S, Strides sdk, Strides sdv,
+                           float scale, int causal) {
+  constexpr int QTILE = TQW * D;
+  extern __shared__ uint8_t raw[];
+  bf16* ks = reinterpret_cast<bf16*>(kft::align1024(raw));
+  bf16* vs = ks + TKV * D;
+  bf16* qs = vs + TKV * D;
+  bf16* dos = qs + STAGES * QTILE;
+  __shared__ uint64_t kvbar, qbar[STAGES];
+
+  const int bh = blockIdx.x;
+  const int b = bh / H, h = bh % H;
+  const int k0 = blockIdx.y * TKV;  // causal: the early key tiles, which
+                                    // see the most queries, go first
+  // query tiles wholly above this key tile's first key see none of it
+  const int qstart = causal ? k0 : 0;
+  const int ntiles = (S - qstart + TQW - 1) / TQW;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+
+  if (tid == 0) {
+    kft::mbar_init(&kvbar, 1);
+#pragma unroll
+    for (int i = 0; i < STAGES; ++i) kft::mbar_init(&qbar[i], 1);
+    kft::fence_barrier_init();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    kft::mbar_expect_tx(&kvbar, 2 * TKV * D * 2);
+    kft::tma_tile<D, TKV>(ks, &tk, &kvbar, k0, h, b);
+    kft::tma_tile<D, TKV>(vs, &tv, &kvbar, k0, h, b);
+    for (int i = 0; i < STAGES && i < ntiles; ++i)
+      load_qdo<D>(qs + i * QTILE, dos + i * QTILE, &qbar[i], &tq, &tdo,
+                  qstart + i * TQW, h, b);
+  }
+
+  // this thread's key rows r0, r0 + 8; its query columns in each 8-column
+  // group c0, c0 + 1
+  const int r0 = warp * 16 + lane / 4;
+  const int c0 = 2 * (lane % 4);
+  const float* lseb = lse + (int64_t)bh * S;
+  const float* deltab = delta + (int64_t)bh * S;
+  const float scale_log2 = scale * LOG2E;
+  float dka[D / 2], dva[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dka[i] = dva[i] = 0.f;
+
+  kft::mbar_wait(&kvbar, 0);
+  for (int it = 0; it < ntiles; ++it) {
+    const int slot = it % STAGES;
+    const int q0 = qstart + it * TQW;
+    bf16* qt = qs + slot * QTILE;
+    bf16* dot = dos + slot * QTILE;
+    kft::mbar_wait(&qbar[slot], (it / STAGES) & 1);
+
+    float st[TQW / 2], dpt[TQW / 2];
+    kft::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      kft::wgmma_ss(st, kft::desc_k<D, TKV>(ks, kk),
+                    kft::desc_k<D, TQW>(qt, kk), kk > 0);
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      kft::wgmma_ss(dpt, kft::desc_k<D, TKV>(vs, kk),
+                    kft::desc_k<D, TQW>(dot, kk), kk > 0);
+    kft::wgmma_commit();
+    // lse and delta of this thread's query columns, read while the
+    // products run
+    float lq[TQW / 4], dl[TQW / 4];
+#pragma unroll
+    for (int c = 0; c < TQW / 4; ++c) {
+      const int qpos = q0 + 8 * (c / 2) + c0 + c % 2;
+      lq[c] = qpos < S ? lseb[qpos] * LOG2E : 0.f;
+      dl[c] = qpos < S ? deltab[qpos] : 0.f;
+    }
+    kft::wgmma_wait<0>();
+    kft::reg_fence(st);
+    kft::reg_fence(dpt);
+
+    const bool edge = (causal && q0 < k0 + TKV) || q0 + TQW > S;
+#pragma unroll
+    for (int i = 0; i < TQW / 2; ++i) {
+      const int c = 2 * (i / 4) + i % 2;
+      float p = exp2f(st[i] * scale_log2 - lq[c]);
+      if (edge) {
+        const int key = k0 + r0 + 8 * ((i / 2) % 2);
+        const int qpos = q0 + 8 * (i / 4) + c0 + i % 2;
+        if (qpos >= S || (causal && key > qpos)) p = 0.f;
+      }
+      st[i] = p;
+      dpt[i] = p * (dpt[i] - dl[c]) * scale;
+    }
+    uint32_t pa[TQW / 16][4], da[TQW / 16][4];
+    kft::to_a_frags(st, pa);
+    kft::to_a_frags(dpt, da);
+    kft::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < TQW / 16; ++kk)
+      kft::wgmma_rs_tb(dva, pa[kk], kft::desc_mn<D, TQW>(dot, kk), 1);
+#pragma unroll
+    for (int kk = 0; kk < TQW / 16; ++kk)
+      kft::wgmma_rs_tb(dka, da[kk], kft::desc_mn<D, TQW>(qt, kk), 1);
+    kft::wgmma_commit();
+    kft::wgmma_wait<0>();
+    kft::reg_fence(dka);
+    kft::reg_fence(dva);
+
+    __syncthreads();  // every warp is done with this slot: refill it
+    if (tid == 0 && it + STAGES < ntiles)
+      load_qdo<D>(qt, dot, &qbar[slot], &tq, &tdo, q0 + STAGES * TQW, h, b);
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int kpos = k0 + r0 + 8 * r;
+    if (kpos >= S) continue;
+    bf16* dkr = dk + b * sdk.b + h * sdk.h + kpos * sdk.s;
+    bf16* dvr = dv + b * sdv.b + h * sdv.h + kpos * sdv.s;
+#pragma unroll
+    for (int jn = 0; jn < D / 8; ++jn) {
+      const int i = 4 * jn + 2 * r;
+      *reinterpret_cast<__nv_bfloat162*>(dkr + 8 * jn + c0) =
+          __floats2bfloat162_rn(dka[i], dka[i + 1]);
+      *reinterpret_cast<__nv_bfloat162*>(dvr + 8 * jn + c0) =
+          __floats2bfloat162_rn(dva[i], dva[i + 1]);
+    }
+  }
+}
+
+template <int D>
+int launch_dkv_wgmma_d(const void* q, const void* k, const void* v,
+                       const void* dout, const void* lse, const void* delta,
+                       void* dk, void* dv, int B, int S, int H,
+                       const int64_t* st, float scale, int causal,
+                       cudaStream_t stream) {
+  CUtensorMap tq, tk, tv, tdo;
+  int err = kft::encode_bshd(&tq, q, B, S, H, D, st[0], st[1], st[2], TQW);
+  if (!err)
+    err = kft::encode_bshd(&tk, k, B, S, H, D, st[3], st[4], st[5], TKV);
+  if (!err)
+    err = kft::encode_bshd(&tv, v, B, S, H, D, st[6], st[7], st[8], TKV);
+  if (!err)
+    err = kft::encode_bshd(&tdo, dout, B, S, H, D, st[9], st[10], st[11],
+                           TQW);
+  if (err) return err;
+  constexpr int smem = dkv_smem_bytes<D>();
+  cudaError_t e = cudaFuncSetAttribute(
+      flash_bwd_dkv_kernel_wgmma<D>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  dim3 grid(B * H, (S + TKV - 1) / TKV);
+  flash_bwd_dkv_kernel_wgmma<D><<<grid, WG, smem, stream>>>(
+      tq, tk, tv, tdo, static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<bf16*>(dk),
+      static_cast<bf16*>(dv), H, S, strides_at(st, 4), strides_at(st, 5),
+      scale, causal);
+  return (int)cudaGetLastError();
+}
+
+int launch_dkv_wgmma(const void* q, const void* k, const void* v,
+                     const void* dout, const void* lse, const void* delta,
+                     void* dk, void* dv, int B, int S, int H, int D,
+                     const int64_t* st, float scale, int causal,
+                     cudaStream_t stream) {
+  switch (D) {
+    case 32:
+      return launch_dkv_wgmma_d<32>(q, k, v, dout, lse, delta, dk, dv, B, S,
+                                    H, st, scale, causal, stream);
+    case 64:
+      return launch_dkv_wgmma_d<64>(q, k, v, dout, lse, delta, dk, dv, B, S,
+                                    H, st, scale, causal, stream);
+    case 128:
+      return launch_dkv_wgmma_d<128>(q, k, v, dout, lse, delta, dk, dv, B,
+                                     S, H, st, scale, causal, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 template <typename T>
@@ -296,7 +527,8 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
 }  // namespace
 
 // strides: int64[18] = (b, s, h) element strides of q, k, v, dO, dK, dV.
-// dtype: 0 = float32, 1 = bfloat16. lse, delta: (b, h, s) f32, contiguous.
+// dtype: 0 = float32 (scalar path), 1 = bfloat16 (tensor-core path).
+// lse, delta: (b, h, s) f32, contiguous.
 extern "C" int kft_flash_attention_bwd_dkv(
     const void* q, const void* k, const void* v, const void* dout,
     const void* lse, const void* delta, void* dk, void* dv,
@@ -308,11 +540,11 @@ extern "C" int kft_flash_attention_bwd_dkv(
   const int64_t* st = static_cast<const int64_t*>(strides);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch_dkv<float>(q, k, v, dout, lse, delta, dk, dv, B, S, H, D,
-                             st, scale, causal, s);
+    return launch_dkv_f32(q, k, v, dout, lse, delta, dk, dv, B, S, H, D, st,
+                          scale, causal, s);
   if (dtype == 1)
-    return launch_dkv<__nv_bfloat16>(q, k, v, dout, lse, delta, dk, dv, B, S,
-                                     H, D, st, scale, causal, s);
+    return launch_dkv_wgmma(q, k, v, dout, lse, delta, dk, dv, B, S, H, D,
+                            st, scale, causal, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -6,7 +6,9 @@ custom VJP. ``csrc/flash_attention.cu`` replaces the Pallas
 ``_flash_kernel`` (forward, with the per-row log-sum-exp the backward
 needs); ``csrc/flash_attention_bwd.cu`` replaces ``_flash_bwd_dkv_kernel``
 and ``_flash_bwd_dq_kernel``. Each source's header says how it is laid out
-and what bounds it on an H100.
+and what bounds it on an H100. bf16 takes the tensor-core path of the
+forward and of dK/dV (wgmma on tiles that TMA copies into shared memory),
+f32 the scalar path; dQ is scalar in both.
 
 ``flash_attention`` is a ``torch.autograd.Function`` when a gradient is
 needed: the forward saves (q, k, v, out, lse), the backward computes
@@ -127,7 +129,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          causal: bool = True, return_lse: bool = False):
     """Launch ``csrc/flash_attention.cu`` on the current stream."""
     _check(q, k, v)
-    q, k, v = (x if x.stride(-1) == 1 else x.contiguous() for x in (q, k, v))
+    q, k, v = (_kernel_ready(x) for x in (q, k, v))
     b, s, h, d = q.shape
     out = torch.empty_like(q, memory_format=torch.contiguous_format)
     lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device) \
@@ -146,8 +148,18 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return (out, lse) if return_lse else out
 
 
-def _unit_last_stride(x: torch.Tensor) -> torch.Tensor:
-    return x if x.stride(-1) == 1 else x.contiguous()
+def _kernel_ready(x: torch.Tensor) -> torch.Tensor:
+    """``x`` as the kernels read it: d contiguous, and in bf16, which TMA
+    reads, a base and (b, s, h) strides that are positive multiples of 16
+    bytes; otherwise a fresh contiguous copy (``contiguous`` would keep a
+    misaligned base)."""
+    if x.dtype != torch.bfloat16:
+        return x if x.stride(-1) == 1 else x.contiguous()
+    if x.stride(-1) == 1 and x.data_ptr() % 16 == 0 and all(
+            x.stride(i) > 0 and x.stride(i) * 2 % 16 == 0
+            for i in range(3) if x.shape[i] > 1):
+        return x
+    return x.clone(memory_format=torch.contiguous_format)
 
 
 def prepare_bwd_inputs(q, k, v, o, lse, do):
@@ -166,7 +178,7 @@ def prepare_bwd_inputs(q, k, v, o, lse, do):
                          f"{tuple(lse.shape)} {lse.dtype}")
     if not (q.device == o.device == lse.device == do.device):
         raise ValueError("q/k/v/o/lse/dO must lie on one device")
-    q, k, v, do = (_unit_last_stride(x) for x in (q, k, v, do))
+    q, k, v, do = (_kernel_ready(x) for x in (q, k, v, do))
     delta = (do.float() * o.float()).sum(dim=-1).transpose(1, 2).contiguous()
     return q, k, v, do, lse.contiguous(), delta
 
@@ -252,7 +264,7 @@ class FlashAttention(torch.autograd.Function):
         q, k, v, out, lse = ctx.saved_tensors
         # grads out of an einsum are often strided: the kernels read d
         # contiguous
-        dout = _unit_last_stride(dout)
+        dout = _kernel_ready(dout)
         bwd = flash_attention_bwd_cuda if q.is_cuda \
             else flash_attention_bwd_plain
         dq, dk, dv = bwd(q, k, v, out, lse, dout, ctx.causal)

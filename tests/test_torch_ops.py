@@ -6,6 +6,8 @@ are held to the reference's own pin, 2e-5 (tests/test_ops.py,
 tests/test_decode_attention.py). The CUDA kernels themselves run only on
 the card: their kernel-vs-plain tests are marked ``cuda`` and skip here
 (chip_smoke.py holds them against the plain versions on every chip run).
+On the card the bf16 tensor-core kernels are held by chip_smoke's two
+measures: the elementwise bound and the per-tile relative error.
 """
 
 from __future__ import annotations
@@ -15,13 +17,14 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import BF16_TOL, BWD_BF16_ATOL, BWD_BF16_RTOL, check_tiles
 from kubeflow_tpu.models.decode import _quantize_kv as jax_quantize_kv
 from kubeflow_tpu.ops.attention import _flash_backward, _flash_forward
 from kubeflow_tpu.ops.attention import flash_attention as jax_flash
 from kubeflow_tpu.ops.decode_attention import \
     flash_decode_attention as jax_flash_decode
 from kubeflow_tpu_torch.ops import _build, launch_counts
-from kubeflow_tpu_torch.ops.attention import (flash_attention,
+from kubeflow_tpu_torch.ops.attention import (_kernel_ready, flash_attention,
                                               flash_attention_bwd_cuda,
                                               flash_attention_bwd_plain,
                                               flash_attention_cuda,
@@ -103,17 +106,57 @@ def test_cpu_tensors_take_the_plain_version_and_count_nothing():
     assert launch_counts() == before
 
 
-@pytest.mark.parametrize("bad", ["shape", "dtype", "d_head"])
+@pytest.mark.parametrize("bad", ["shape", "dtype", "d_head", "d_head_16",
+                                 "mixed_dtypes", "rank"])
 def test_flash_cuda_wrapper_rejects_what_the_kernel_cannot_take(bad):
+    """Checked before the kernel is built or launched, so it runs here."""
     q, k, v = map(torch.from_numpy, _qkv(64))
     if bad == "shape":
         k = k[:, :32]
     elif bad == "dtype":
         q = q.double()
-    else:
+    elif bad == "d_head":
         q, k, v = (torch.zeros(2, 64, 4, 48) for _ in range(3))
+    elif bad == "d_head_16":
+        q, k, v = (torch.zeros(2, 64, 4, 16, dtype=torch.bfloat16)
+                   for _ in range(3))
+    elif bad == "mixed_dtypes":
+        k = k.to(torch.bfloat16)
+    else:
+        q, k, v = (x[0] for x in (q, k, v))
     with pytest.raises(ValueError):
         flash_attention_cuda(q, k, v)
+
+
+@pytest.mark.parametrize("case,copied", [
+    ("bf16_contiguous", False), ("bf16_fused_view", False),
+    ("bf16_offset_base", True), ("bf16_odd_stride", True),
+    ("bf16_d_strided", True), ("f32_offset_base", False),
+    ("f32_d_strided", True)])
+def test_kernel_ready_copies_only_what_the_kernels_cannot_read(case,
+                                                               copied):
+    """bf16 goes through TMA: a base or (b, s, h) stride that is not a
+    multiple of 16 bytes gets a fresh, aligned, contiguous copy (the values
+    unchanged); f32 needs only a unit last stride."""
+    dt = torch.bfloat16 if case.startswith("bf16") else torch.float32
+    base = torch.from_numpy(_qkv(16, b=2, h=4, d=64)[0]).to(dt)
+    if case.endswith("fused_view"):
+        x = torch.stack([base, base, base], dim=2)[:, :, 1]
+    elif case.endswith("offset_base"):
+        x = torch.empty(base.numel() + 1, dtype=dt)[1:].view(base.shape)
+        x.copy_(base)
+    elif case.endswith("odd_stride"):
+        x = torch.zeros(2, 16, 4, 68, dtype=dt)[..., :64]
+        x.copy_(base)
+    elif case.endswith("d_strided"):
+        x = base.transpose(2, 3).contiguous().transpose(2, 3)
+    else:
+        x = base
+    got = _kernel_ready(x)
+    assert torch.equal(got, base)
+    assert (got.data_ptr() != x.data_ptr()) == copied
+    if copied:
+        assert got.is_contiguous() and got.data_ptr() % 16 == 0
 
 
 # ------------------------------------------------ flash attention backward
@@ -188,8 +231,10 @@ def test_bwd_launch_counters_are_reported():
         assert name in counts
 
 
-@pytest.mark.parametrize("bad", ["lse_shape", "lse_dtype", "do_dtype"])
+@pytest.mark.parametrize("bad", ["lse_shape", "lse_dtype", "do_dtype",
+                                 "d_head", "kv_dtype", "o_shape"])
 def test_flash_bwd_cuda_wrapper_rejects_what_the_kernels_cannot_take(bad):
+    """Checked before the kernels are built or launched, so it runs here."""
     q, k, v = map(torch.from_numpy, _qkv(64))
     o, do = q.clone(), k.clone()
     lse = torch.zeros(2, 4, 64)
@@ -197,8 +242,14 @@ def test_flash_bwd_cuda_wrapper_rejects_what_the_kernels_cannot_take(bad):
         lse = torch.zeros(2, 64, 4)
     elif bad == "lse_dtype":
         lse = lse.double()
-    else:
+    elif bad == "do_dtype":
         do = do.to(torch.bfloat16)
+    elif bad == "d_head":
+        q, k, v, o, do = (torch.zeros(2, 64, 4, 48) for _ in range(5))
+    elif bad == "kv_dtype":
+        v = v.to(torch.bfloat16)
+    else:
+        o = o[:, :32]
     with pytest.raises(ValueError):
         flash_attention_bwd_cuda(q, k, v, o, lse, do)
 
@@ -281,18 +332,48 @@ def test_kernel_error_code_raises():
 
 
 # ------------------------------------------------- kernels, on the card
+def _on_card(arrays, device, dtype, layout):
+    """numpy (b, s, h, d) arrays on the card as a caller may hand them:
+    contiguous, strided views into a fused (b, s, n, h, d) tensor, or views
+    whose base is one element past an aligned one (the bf16 wrapper copies
+    those for TMA)."""
+    xs = [torch.from_numpy(x).to(device, dtype) for x in arrays]
+    if layout == "strided":
+        fused = torch.stack(xs, dim=2)
+        return [fused[:, :, i] for i in range(len(xs))]
+    if layout == "offset":
+        out = []
+        for x in xs:
+            view = torch.empty(x.numel() + 1, dtype=dtype,
+                               device=device)[1:].view(x.shape)
+            view.copy_(x)
+            out.append(view)
+        return out
+    return xs
+
+
+_CARD_CASES = pytest.mark.parametrize(
+    "dtype,d,s,causal,layout",
+    [(dt, d, s, causal, "contig") for dt in ("bfloat16", "float32")
+     for d in (32, 64, 128) for s in (1, 63, 64, 65, 77, 1024)
+     for causal in (True, False)] +
+    [(dt, d, 77, True, layout) for dt in ("bfloat16", "float32")
+     for d in (32, 128) for layout in ("strided", "offset")])
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype,causal,s", [
-    ("bfloat16", True, 512), ("bfloat16", False, 77),
-    ("float32", True, 100)])
-def test_flash_kernel_matches_plain_on_card(cuda, dtype, causal, s):
+@_CARD_CASES
+def test_flash_kernel_matches_plain_on_card(cuda, dtype, d, s, causal,
+                                            layout):
+    """f32 to the reference pin; bf16 elementwise to BF16_TOL and per
+    64-row tile of queries to chip_smoke's tile measure."""
     dt = getattr(torch, dtype)
-    q, k, v = (torch.from_numpy(x).to(cuda, dt)
-               for x in _qkv(s, b=2, h=8, d=128))
+    q, k, v = _on_card(_qkv(s, b=2, h=4, d=d), cuda, dt, layout)
     out, lse = flash_attention_cuda(q, k, v, causal, return_lse=True)
     ref, ref_lse = flash_attention_plain(q, k, v, causal, return_lse=True)
-    tol = 2e-2 if dt == torch.bfloat16 else TOL
+    tol = BF16_TOL if dt == torch.bfloat16 else TOL
     assert (out.float() - ref.float()).abs().max().item() <= tol
+    assert check_tiles(out, ref)[0]
     assert (lse - ref_lse).abs().max().item() <= 1e-4
 
 
@@ -313,20 +394,22 @@ def test_decode_kernel_matches_plain_on_card(cuda, quant):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype,causal,s", [
-    ("bfloat16", True, 1024), ("bfloat16", False, 77),
-    ("float32", True, 200), ("float32", True, 1024)])
-def test_flash_bwd_kernels_match_plain_on_card(cuda, dtype, causal, s):
-    """f32 to the reference pin; bf16 elementwise to 1e-2 of |plain| plus
-    1e-3: the two round sums that differ in summation order only, so they
-    land at most one bf16 ulp (<= 2^-7 of the value) apart."""
+@_CARD_CASES
+def test_flash_bwd_kernels_match_plain_on_card(cuda, dtype, d, s, causal,
+                                               layout):
+    """f32 to the reference pin; bf16 elementwise to chip_smoke's
+    BWD_BF16_RTOL * |plain| + BWD_BF16_ATOL (the dK/dV kernel rounds P
+    and dS to bf16 for its products, the plain version does not) and per
+    64-row tile (queries for dQ, keys for dK and dV)."""
     dt = getattr(torch, dtype)
-    arrays = _qkv(s, b=2, h=8, d=128) + _qkv(s, b=2, h=8, d=128, seed=1)[:1]
-    q, k, v, do = (torch.from_numpy(x).to(cuda, dt) for x in arrays)
+    arrays = _qkv(s, b=2, h=4, d=d) + _qkv(s, b=2, h=4, d=d, seed=1)[:1]
+    q, k, v, do = _on_card(arrays, cuda, dt, layout)
     o, lse = flash_attention_cuda(q, k, v, causal, return_lse=True)
     got = flash_attention_bwd_cuda(q, k, v, o, lse, do, causal)
     want = flash_attention_bwd_plain(q, k, v, o, lse, do, causal)
-    rtol, atol = (0.0, TOL) if dt == torch.float32 else (1e-2, 1e-3)
+    rtol, atol = ((0.0, TOL) if dt == torch.float32 else
+                  (BWD_BF16_RTOL, BWD_BF16_ATOL))
     for g, w in zip(got, want):
         torch.testing.assert_close(g.float(), w.float(), rtol=rtol,
                                    atol=atol)
+        assert check_tiles(g, w)[0]
