@@ -14,32 +14,38 @@ before each path and read after it, show that each path ran its kernels.
 Then it times each kernel beside its bound, its plain version and one
 PyTorch library call computing the same function.
 
-After the build it prints ptxas's registers, spills and shared memory of
-every kernel, and the HGMMA (wgmma) and UTMALDG (TMA load) instructions
-in the SASS of the bf16 tensor-core kernels. The bf16 kernels are held
-to their plain versions by an elementwise bound and by the relative error
-of each 64-row tile (``check_tiles``).
+After the build it prints ptxas's registers and spills of every kernel
+(a tensor-core kernel that spills fails the run), and the HGMMA (wgmma)
+and UTMALDG (TMA load) instructions in the SASS of the bf16 tensor-core
+kernels: forward, dK/dV and dQ, each at d_head 32/64/128. The bf16
+kernels are held to their plain versions by an elementwise bound and by
+the relative error of each 64-row tile (``check_tiles``).
 
 Phases (any failure exits non-zero before the result line):
   1. flash-attention forward, kernel vs plain (bf16 at the train, prefill
      and served shapes, ragged lengths, d_head 32/64/128, a strided and a
      misaligned view; f32);
-  2. flash-decode, kernel vs plain (bf16 and int8 cache);
+  2. flash-decode, kernel vs plain (bf16 and int8 cache, pos from 0 to
+     past the end), and two launches bit-identical;
   3. the serving path at full flagship width, counted launches, and an
      f32 check of kernel-path tokens against the plain-attention path;
   4. where the time goes: one generate() under torch.profiler, device
      busy time by kernel class against host wall time;
   6. flash-attention backward (dK/dV and dQ kernels) vs plain (the train
-     shape in bf16 and f32, ragged length, f32), and the autograd
-     Function through the kernels vs its plain backward;
-  7. the train path at full flagship width: counted launches, throughput,
-     share of the bf16 peak, peak memory, a falling loss, remat launch
-     counts, an f32 loss/grad check against plain attention, a profiled
-     step, whole-logits vs chunked CE at b8, b32 and b64;
+     shape in bf16 and f32, ragged length, f32), two dQ launches
+     bit-identical, and the autograd Function through the kernels vs its
+     plain backward;
+  7. the train path at full flagship width: counted launches, throughput
+     (median of 3 timed runs), share of the bf16 peak, peak memory, the
+     host's CPU time, allocator calls and garbage collections in each run
+     and each kernel wrapper's host cost a call, a falling loss, remat
+     launch counts, an f32 loss/grad check against plain attention, a
+     profiled step, whole-logits vs chunked CE at b8, b32 and b64;
   5. times of each kernel, its plain version and a library call (last, so
      the paths above run on a card not yet warmed by timing loops), with
-     the achieved TFLOP/s, the share of the bound, and the forward and
-     dK/dV against SDPA at the train shape.
+     the achieved TFLOP/s, the share of the bound, the forward, dK/dV and
+     dQ against SDPA at the train shape, and flash-decode against SDPA at
+     the served pos and against its byte bound at a full cache.
 
 The first lines name the card and its power limit; the line before the
 last is the ``kernels`` JSON record; the last line is
@@ -174,6 +180,30 @@ def sass_counts(lib) -> dict[str, tuple[int, int]]:
     return out
 
 
+def ptxas_report(log: str) -> dict[str, tuple[int, int, int]]:
+    """{kernel: (registers, spill-store bytes, spill-load bytes)} from
+    nvcc's ``-Xptxas -v`` output: each "Compiling entry function" line
+    opens a kernel, its spill and register lines follow."""
+    out: dict[str, list[int]] = {}
+    name = None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name = m.group(1)
+            out[name] = [0, 0, 0]
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            out[name][1:] = [int(m.group(1)), int(m.group(2))]
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[name][0] = int(m.group(1))
+    return {k: tuple(v) for k, v in out.items()}
+
+
 def bound(nbytes: float, flops: float, dtype: str) -> tuple[float, str]:
     t_bytes = nbytes / HBM_BYTES_PER_S
     t_ops = flops / PEAK_FLOPS[dtype]
@@ -262,7 +292,8 @@ def phase_flash_decode(torch):
     S = 1024
     positions = {"zero": [0] * 8, "mid-block": [300] * 8,
                  "last": [S - 1] * 8,
-                 "mixed": [0, 1, 127, 128, 500, 777, S - 2, S - 1]}
+                 "mixed": [0, 1, 127, 128, 500, 777, S - 2, S - 1],
+                 "past-end": [S + 5] * 8}
     errs = {"flash_decode": 0.0, "flash_decode_int8": 0.0}
     for dt in (torch.bfloat16, torch.float32):
         q, k, v = decode_inputs(torch, dtype=dt)
@@ -276,15 +307,18 @@ def phase_flash_decode(torch):
                     ("flash_decode_int8", {"k_scale": ks, "v_scale": vs},
                      qk, qv)):
                 out = flash_decode_attention_cuda(q, kk, vv, pos, **kw)
+                again = flash_decode_attention_cuda(q, kk, vv, pos, **kw)
                 torch.cuda.synchronize()
                 ref = flash_decode_attention_plain(q, kk, vv, pos, **kw)
                 err = (out.float() - ref.float()).abs().max().item()
+                same = torch.equal(out, again)
                 print(f"phase2 {name} {str(dt)[6:]} pos={label}: "
-                      f"max|kernel-plain|={err:.3e} (tol {tol:g})",
-                      flush=True)
-                require(err <= tol and bool(torch.isfinite(out).all()),
-                        f"{name} disagrees with its plain version "
-                        f"({dt}, pos {label})")
+                      f"max|kernel-plain|={err:.3e} (tol {tol:g}), two "
+                      f"launches bit-identical: {same}", flush=True)
+                require(err <= tol and same and
+                        bool(torch.isfinite(out).all()),
+                        f"{name} disagrees with its plain version or with "
+                        f"itself ({dt}, pos {label})")
                 if dt == torch.bfloat16:
                     errs[name] = max(errs[name], err)
     for rep in (1, 4, 8):  # the GQA widths other configs use, small f32
@@ -534,10 +568,17 @@ def _profile(torch, fn) -> dict:
                   if getattr(evt, "device_type", None)
                   == torch.autograd.DeviceType.CUDA),
                  key=lambda kv: -kv[1])[:12]
+    # the host's side: ops and runtime calls by self CPU time (the
+    # profiler's own cost included)
+    host = sorted(((evt.key[:90], evt.self_cpu_time_total / 1e3, evt.count)
+                   for evt in prof.key_averages()
+                   if getattr(evt, "device_type", None)
+                   != torch.autograd.DeviceType.CUDA),
+                  key=lambda kv: -kv[1])[:8]
     return {"wall_ms": wall_ms, "device_busy_ms": busy if busy else None,
             "device_idle_share": (1 - busy / wall_ms) if busy else None,
             "device_kernels": launches, "busy_ms_by_class": by_class,
-            "top_kernels_ms_count": top}
+            "top_kernels_ms_count": top, "top_host_ms_count": host}
 
 
 def _print_profile(phase: str, out: dict) -> None:
@@ -556,6 +597,8 @@ def _print_profile(phase: str, out: dict) -> None:
               f"busy)", flush=True)
     for name, ms, count in out["top_kernels_ms_count"]:
         print(f"{phase}     {ms:8.3f} ms {count:5d}x {name}", flush=True)
+    for name, ms, count in out["top_host_ms_count"]:
+        print(f"{phase}   host {ms:8.3f} ms {count:5d}x {name}", flush=True)
 
 
 def phase_where_time_goes(torch, flagship, params):
@@ -604,8 +647,9 @@ def phase_flash_backward(torch):
     (q, k, v, o, lse, dO), then the autograd Function through the kernels
     against its plain backward. Launches here are not counted."""
     from kubeflow_tpu_torch.ops.attention import (
-        flash_attention, flash_attention_bwd_cuda, flash_attention_bwd_plain,
-        flash_attention_cuda)
+        flash_attention, flash_attention_bwd_cuda,
+        flash_attention_bwd_dq_cuda, flash_attention_bwd_plain,
+        flash_attention_cuda, prepare_bwd_inputs)
     cases = [  # (b, s, h, d, dtype, causal)
         (8, 1024, 8, 128, torch.bfloat16, True),    # the training shape
         (8, 1024, 8, 128, torch.float32, True),     # same template, f32
@@ -635,6 +679,15 @@ def phase_flash_backward(torch):
                 f"at {(b, s, h, d, dt, causal)}")
         if (b, s, dt) == (8, 1024, torch.bfloat16):
             train_err = err
+            q2, k2, v2, do2, lse2, delta = prepare_bwd_inputs(q, k, v, o,
+                                                              lse, do)
+            same = torch.equal(
+                flash_attention_bwd_dq_cuda(q2, k2, v2, do2, lse2, delta),
+                flash_attention_bwd_dq_cuda(q2, k2, v2, do2, lse2, delta))
+            print(f"phase6 dQ kernel at the train shape: two launches "
+                  f"bit-identical: {same}", flush=True)
+            require(same, "two launches of the dQ kernel differ")
+            del q2, k2, v2, do2, lse2, delta
         del q, k, v, do, o, lse, got, want
     for b, s, h, d, dt in ((2, 77, 8, 128, torch.bfloat16),
                            (2, 128, 4, 64, torch.float32)):
@@ -660,14 +713,6 @@ def phase_flash_backward(torch):
 
 
 # --------------------------------------------------------------- phase 7
-def _timed_fit(torch, trainer, source, steps) -> float:
-    torch.cuda.synchronize()
-    t0 = time.monotonic()
-    trainer.fit(source, steps=steps, log_every=10 ** 9)
-    torch.cuda.synchronize()
-    return time.monotonic() - t0
-
-
 def _step_ms(torch, step_fn, state, batch, n=3) -> tuple[float, float,
                                                           float]:
     """Mean host wall of ``n`` synchronised steps (after one warm-up), the
@@ -690,18 +735,22 @@ def _step_ms(torch, step_fn, state, batch, n=3) -> tuple[float, float,
 
 def phase_train(torch, flagship):
     """The train path at full flagship width: Trainer(bf16 params) on
-    synthetic 8 x 1024 batches, 2 warm-up + 10 timed steps, launch counts
-    checked against the steps, throughput and peak memory; then the
-    checks and measurements listed in the module docstring."""
+    synthetic 8 x 1024 batches, 2 warm-up steps and 3 timed runs of 10,
+    launch counts checked against the steps, throughput (the median run)
+    and peak memory, what the host did in each run and what one call of
+    each kernel wrapper costs it; then the checks and measurements listed
+    in the module docstring."""
     from kubeflow_tpu_torch import ops
     from kubeflow_tpu_torch.models import train as train_lib
     from kubeflow_tpu_torch.models import transformer as tfm
     from kubeflow_tpu_torch.runtime.data import synthetic_lm_batches
     from kubeflow_tpu_torch.runtime.trainer import Trainer
+    from kubeflow_tpu_torch.tools.train_step_time import (host_us_per_call,
+                                                          timed_fit)
 
     c = flagship
     L, V, B, S = c.n_layers, c.vocab_size, 8, 1024
-    warm, timed = 2, 10
+    warm, timed, runs = 2, 10, 3
     flops_tok = tfm.model_flops_per_token(c)
     stats: dict = {"shape": f"b{B} s{S} bf16 params + f32 masters",
                    "params": None}
@@ -712,9 +761,9 @@ def phase_train(torch, flagship):
     src = synthetic_lm_batches(B, S, V, seed=0)
     ops.reset_launch_counts()
     trainer.fit(src, steps=warm, log_every=warm)
-    wall = _timed_fit(torch, trainer, src, timed)
+    host = [timed_fit(trainer, src, timed) for _ in range(runs)]
     counts = ops.launch_counts()
-    steps = warm + timed
+    steps = warm + runs * timed
     expected = {"flash_attention": L * steps,
                 "flash_attention_bwd_dkv": L * steps,
                 "flash_attention_bwd_dq": L * steps}
@@ -723,18 +772,30 @@ def phase_train(torch, flagship):
         require(counts[name] == want, f"{name}: {counts[name]} launches on "
                                       f"the train path, expected {want}")
     stats["launches"] = {k: counts[k] for k in expected}
+    # per run: wall and CPU ms a step, allocator calls, garbage collections
+    for i, r in enumerate(host):
+        print(f"phase7 host, run {i} of {timed} steps: {json.dumps(r)}",
+              flush=True)
+    calls = host_us_per_call()
+    print(f"phase7 host us per wrapper call (behind a busy-wait; each "
+          f"attention wrapper runs {L} times a step): {json.dumps(calls)}",
+          flush=True)
+    stats.update({"host_runs": host, "host_us_per_call": calls})
     losses = [loss for _, loss in trainer.stats.losses]
     require(all(math.isfinite(x) for x in losses), f"losses {losses}")
-    tok_s = timed * B * S / wall
+    ms = sorted(r["ms_per_step"] for r in host)[runs // 2]
+    tok_s = B * S / ms * 1e3
     tflops = 3 * flops_tok * tok_s / 1e12
     stats.update({
-        "steps_timed": timed, "ms_per_step": wall / timed * 1e3,
+        "steps_timed": runs * timed, "ms_per_step": ms,
         "tokens_per_s": tok_s, "model_tflops_per_s": tflops,
         "bf16_peak_share": tflops * 1e12 / PEAK_FLOPS["bfloat16"],
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
         "losses": losses})
     print(f"phase7 train {stats['shape']}, {stats['params']} params: "
-          f"{stats['ms_per_step']:.2f} ms/step, {tok_s:.1f} tokens/s, "
+          f"{stats['ms_per_step']:.2f} ms/step (median of {runs} runs: "
+          f"{[round(r['ms_per_step'], 2) for r in host]}), {tok_s:.1f} "
+          f"tokens/s, "
           f"{tflops:.2f} model TFLOP/s = {100 * stats['bf16_peak_share']:.2f}"
           f"% of the bf16 peak, peak memory {stats['peak_mem_gb']:.2f} GB, "
           f"losses {losses}", flush=True)
@@ -955,9 +1016,16 @@ def _time_decode(torch, timer, pos_list, quant, B=8, S=1024, G=4, rep=2,
               + (2 * live * G * 4 if quant else 0))       # their scales
     flops = 4 * G * rep * D * live
     b_ms, b_by = bound(nbytes, flops, "bfloat16")
-    err = (flash_decode_attention_cuda(q, k, v, pos, **kw).float() -
-           flash_decode_attention_plain(q, k, v, pos, **kw).float()
-           ).abs().max().item()
+    # what one call allocates beyond its output (the splits' partials),
+    # as the caching allocator counts it (in 512-byte blocks)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    got = flash_decode_attention_cuda(q, k, v, pos, **kw)
+    scratch = (torch.cuda.max_memory_allocated() - base
+               - 512 * math.ceil(got.numel() * got.element_size() / 512))
+    err = (got.float() - flash_decode_attention_plain(q, k, v, pos, **kw)
+           .float()).abs().max().item()
     return {
         "max_abs_err": err, "flops": flops,
         "ms": timer.ms(lambda: flash_decode_attention_cuda(q, k, v, pos,
@@ -968,6 +1036,7 @@ def _time_decode(torch, timer, pos_list, quant, B=8, S=1024, G=4, rep=2,
         "library_ms": None if quant else timer.ms(
             lambda: F.scaled_dot_product_attention(
                 qh, kl, vl, attn_mask=mask, enable_gqa=True)),
+        "workspace_bytes": scratch,   # printed, not a ``kernels`` key
         "shape": f"B={B} S={S} G={G} rep={rep} D={D} pos={pos_list} "
                  f"{'int8' if quant else 'bf16'} cache"}
 
@@ -978,11 +1047,13 @@ def _print_row(name, r):
     r["tflops_per_s"] = r.pop("flops", 0) / r["ms"] / 1e9
     r["bound_share"] = r["bound_ms"] / r["ms"]
     lib = "n/a" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
+    ws = (f", {r['workspace_bytes']} bytes of workspace allocated"
+          if "workspace_bytes" in r else "")
     print(f"phase5 {name} [{r['shape']}]: kernel {r['ms']:.4f} ms "
           f"({r['tflops_per_s']:.2f} TFLOP/s), bound {r['bound_ms']:.4f} ms "
-          f"({r['bound_by']}; {100 * r['bound_share']:.2f}% of it reached), "
-          f"plain {r['plain_ms']:.4f} ms, library {lib}, max|kernel-plain| "
-          f"{r['max_abs_err']:.3e}", flush=True)
+          f"({r['bound_by']}; {100 * r['bound_share']:.2f}% of it reached)"
+          f"{ws}, plain {r['plain_ms']:.4f} ms, library {lib}, "
+          f"max|kernel-plain| {r['max_abs_err']:.3e}", flush=True)
 
 
 def phase_times(torch, errs, counts):
@@ -1022,14 +1093,23 @@ def phase_times(torch, errs, counts):
     wide["flash_attention_train"] = _time_flash(torch, timer, 8, 1024, 8,
                                                 128, lse=True)
     main.update(_time_bwd(torch, timer, 8, 1024, 8, 128))
+    # decode at a full cache: every row at pos S - 1 (printed)
+    full = {name: _time_decode(torch, timer, [S - 1] * 8, quant)
+            for name, quant in (("flash_decode", False),
+                                ("flash_decode_int8", True))}
     rows = []
     for name, r in main.items():
         _print_row(name, r)
         if name in wide:
             _print_row(name, wide[name])
+        if name in full:
+            _print_row(name, full[name])
+            wide[f"{name}_full_cache"] = full[name]
         require(r.pop("agrees", r["max_abs_err"] <= BF16_TOL),
                 f"{name} disagrees with its plain version at the main "
                 f"path's shape")
+        if "workspace_bytes" in r:
+            wide[f"{name}_workspace_bytes"] = r.pop("workspace_bytes")
         rows.append({"name": name, "route": "cuda",
                      "source": sources[name][0],
                      "replaces": sources[name][1],
@@ -1038,10 +1118,18 @@ def phase_times(torch, errs, counts):
     train = wide["flash_attention_train"]
     _print_row("flash_attention", train)
     dkv = main["flash_attention_bwd_dkv"]
+    dq = main["flash_attention_bwd_dq"]
     print(f"phase5 at b8 s1024 h8 d128 bf16 causal: forward with lse "
           f"{train['ms'] / train['library_ms']:.2f}x SDPA's forward (target "
           f"<= 2), dK/dV {dkv['ms'] / dkv['library_ms']:.2f}x SDPA's whole "
-          f"backward (target <= 1.5)", flush=True)
+          f"backward (target <= 1.5), dQ {dq['ms'] / dq['library_ms']:.2f}x "
+          f"SDPA's whole backward (target <= 1)", flush=True)
+    dec = main["flash_decode"]
+    print(f"phase5 flash_decode at the served pos 159: "
+          f"{dec['ms'] / dec['library_ms']:.2f}x SDPA (target <= 1); at a "
+          f"full cache {100 * full['flash_decode']['bound_share']:.1f}% "
+          f"(bf16) and {100 * full['flash_decode_int8']['bound_share']:.1f}"
+          f"% (int8) of the byte bound", flush=True)
     return rows, wide
 
 
@@ -1053,8 +1141,8 @@ def main() -> int:
         return 2
     here = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, here)
-    from kubeflow_tpu_torch.models.transformer import TransformerConfig
     from kubeflow_tpu_torch.ops import _build
+    from kubeflow_tpu_torch.tools.train_step_time import FLAGSHIP
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1071,31 +1159,33 @@ def main() -> int:
     names = _build.build_all()
     print(f"built {names} in {time.monotonic() - t0:.1f} s", flush=True)
     for name, log in sorted(_build.build_logs.items()):
-        for line in log.splitlines():
-            if any(w in line for w in ("entry function", "registers",
-                                       "spill", "wgmma")):
-                print(f"ptxas[{name}] {line.strip()}")
+        for kernel, (regs, st, ld) in sorted(ptxas_report(log).items()):
+            print(f"ptxas[{name}] {kernel}: {regs} registers, {st} bytes "
+                  f"spill stores, {ld} bytes spill loads")
+            require("wgmma" not in kernel or st == ld == 0,
+                    f"{kernel} spills under ptxas")
     for name in ("flash_attention", "flash_attention_bwd"):
         counts = sass_counts(_build._target(name))
         for kernel, (mma, tma) in sorted(counts.items()):
             print(f"sass[{name}] {kernel}: {mma} HGMMA, {tma} UTMALDG")
-        require(counts and all(m for m, _ in counts.values()),
-                f"csrc/{name}.cu: a tensor-core kernel has no HGMMA in its "
-                f"SASS: {counts}")
+        require(counts and all(m and t for m, t in counts.values()),
+                f"csrc/{name}.cu: a tensor-core kernel has no HGMMA or no "
+                f"UTMALDG in its SASS: {counts}")
+        if name == "flash_attention_bwd":
+            require(sum("flash_bwd_dq_kernel_wgmma" in k for k in counts)
+                    == 3, f"the bf16 dQ kernel is not on wgmma at d 32, 64 "
+                          f"and 128: {sorted(counts)}")
 
     errs = {"flash_attention": phase_flash_attention(torch)}
     errs.update(phase_flash_decode(torch))
-    flagship = TransformerConfig(vocab_size=32_000, d_model=1024,
-                                 n_layers=12, n_heads=8, n_kv_heads=4,
-                                 d_ff=4096, max_seq_len=1024)
-    params, counts, stats = phase_serving(torch, flagship)
-    phase_reference_tokens(torch, flagship, params)
-    stats["profile"] = phase_where_time_goes(torch, flagship, params)
+    params, counts, stats = phase_serving(torch, FLAGSHIP)
+    phase_reference_tokens(torch, FLAGSHIP, params)
+    stats["profile"] = phase_where_time_goes(torch, FLAGSHIP, params)
     del params
     torch.cuda.empty_cache()
     bwd_err = phase_flash_backward(torch)
     errs["flash_attention_bwd_dkv"] = errs["flash_attention_bwd_dq"] = bwd_err
-    train = phase_train(torch, flagship)
+    train = phase_train(torch, FLAGSHIP)
     # a kernel's launches: the sum over the main paths that run it
     for name, n in train["launches"].items():
         counts[name] = counts.get(name, 0) + n

@@ -13,7 +13,7 @@
 //
 // Layout: q, k, v, dO, dQ, dK, dV are (b, s, h, d), read and written through
 // their batch/seq/head strides (d contiguous); lse and delta are (b, h, s)
-// f32. The bf16 dK/dV kernel reads q, k, v, dO with TMA, so their base and
+// f32. The bf16 kernels read q, k, v, dO with TMA, so their base and
 // strides must be multiples of 16 bytes (the wrapper copies a tensor that
 // is not). GQA callers repeat K/V heads before the call, as in the
 // reference.
@@ -44,19 +44,35 @@
 // (s x s x d) products per (b, h) against ~12 bytes per (s, d) element,
 // above the ridge at s = 1024, so the floor is the tensor-core rate.
 //
-// dK/dV, f32, and dQ in both dtypes: CUDA cores (scalar f32 FMAs, 67
-// TFLOP/s). f32 keeps the scalar kernel because TF32 tensor cores would
-// lose the 2e-5 agreement the f32 checks hold; dQ is the next kernel to
-// move to tensor cores.
+// dQ, bf16: tensor cores, the forward's structure with three changes: P
+// is rebuilt from lse instead of a running softmax, a second SS product
+// dP = dO.V^T runs beside S = Q.K^T, and K takes V's place in the
+// accumulating product. One block of one warpgroup per (batch, head, tile
+// of 64 query rows), the causal tiles heaviest first (grid y reversed); Q
+// and dO come in once by TMA, the lse and delta of the thread's two rows
+// into registers, and K/V tiles of 64 keys through a two-stage TMA ring up
+// to the diagonal. Per key tile: S and dP on wgmma (operands in shared
+// memory, two 64x64 f32 accumulators), P = exp2(S * scale * log2(e) -
+// lse * log2(e)) masked on the diagonal and ragged tiles only, dS = P *
+// (dP - delta) * scale on the fragments, then dQ += dS.K with dS rounded
+// to bf16 as the register A operand and K read transposed from shared
+// memory (as the forward reads V for P.V). dQ stays in f32 registers (64
+// a thread at d=128) and is rounded to bf16 once. Each dQ tile has one
+// owner block, so no atomics: the bits are the same on every run. What
+// bounds it: three (s x s x d) products per (b, h) against ~10 bytes per
+// (s, d) element, above the ridge at s = 1024: the tensor-core rate.
+//
+// f32: CUDA cores (scalar f32 FMAs, 67 TFLOP/s), for dK/dV and dQ alike:
+// TF32 tensor cores would lose the 2e-5 agreement the f32 checks hold.
 //  - dK/dV f32: one block per (batch, head, tile of BK keys). Each key row
 //    is owned by TPR = D/DPT adjacent threads that split d_head; a row's k
 //    and v slices and its dK/dV accumulators stay in registers. The block
 //    loops over query tiles of BQ rows, staging q, dO, lse and delta in
 //    shared memory as f32.
-//  - dQ: one block per (batch, head, tile of BQ queries); a query row's q and
-//    dO slices, lse, delta and dQ accumulator stay in registers, and the block
-//    loops over key tiles of BK keys (up to the diagonal when causal), staging
-//    k and v in shared memory, accumulating dQ += dS k.
+//  - dQ f32: one block per (batch, head, tile of BQ queries); a query row's
+//    q and dO slices, lse, delta and dQ accumulator stay in registers, and
+//    the block loops over key tiles of BK keys (up to the diagonal when
+//    causal), staging k and v in shared memory, accumulating dQ += dS k.
 #include "hopper.cuh"
 
 #include <cuda_bf16.h>
@@ -65,22 +81,9 @@
 
 namespace {
 
-constexpr int BK = 32;    // keys per dK/dV block, keys per dQ tile
-constexpr int BQ = 32;    // query rows per dQ block, rows per dK/dV tile
+constexpr int BK = 32;    // f32: keys per dK/dV block, keys per dQ tile
+constexpr int BQ = 32;    // f32: query rows per dQ block, rows per dK/dV tile
 constexpr int DPT = 16;   // head dims per thread: a row spans D / DPT threads
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
 
 struct Strides {  // element strides of one (b, s, h, d) tensor
   int64_t b, s, h;
@@ -187,12 +190,13 @@ flash_bwd_dkv_kernel(const float* __restrict__ q,
   }
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(BQ * (D / DPT))
-flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const T* __restrict__ dout,
+flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v,
+                    const float* __restrict__ dout,
                     const float* __restrict__ lse,
-                    const float* __restrict__ delta, T* __restrict__ dq,
+                    const float* __restrict__ delta, float* __restrict__ dq,
                     int H, int S, Strides sq, Strides sk, Strides sv,
                     Strides sdo, Strides sdq, float scale, int causal) {
   constexpr int TPR = D / DPT;
@@ -208,17 +212,17 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int qpos = q0 + row;
   const bool live = qpos < S;
 
-  const T* kb = k + b * sk.b + h * sk.h;
-  const T* vb = v + b * sv.b + h * sv.h;
+  const float* kb = k + b * sk.b + h * sk.h;
+  const float* vb = v + b * sv.b + h * sv.h;
 
   float qr[DPT], dor[DPT], dqa[DPT];
   {
-    const T* qrow = q + b * sq.b + h * sq.h + qpos * sq.s;
-    const T* dorow = dout + b * sdo.b + h * sdo.h + qpos * sdo.s;
+    const float* qrow = q + b * sq.b + h * sq.h + qpos * sq.s;
+    const float* dorow = dout + b * sdo.b + h * sdo.h + qpos * sdo.s;
 #pragma unroll
     for (int i = 0; i < DPT; ++i) {
-      qr[i] = live ? to_f32(qrow[i * TPR + t]) : 0.f;
-      dor[i] = live ? to_f32(dorow[i * TPR + t]) : 0.f;
+      qr[i] = live ? qrow[i * TPR + t] : 0.f;
+      dor[i] = live ? dorow[i * TPR + t] : 0.f;
       dqa[i] = 0.f;
     }
   }
@@ -231,8 +235,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int idx = threadIdx.x; idx < BK * D; idx += THREADS) {
       const int j = idx / D, c = idx % D;
       const int kp = k0 + j;
-      ks[j][c] = kp < S ? to_f32(kb[kp * sk.s + c]) : 0.f;
-      vs[j][c] = kp < S ? to_f32(vb[kp * sv.s + c]) : 0.f;
+      ks[j][c] = kp < S ? kb[kp * sk.s + c] : 0.f;
+      vs[j][c] = kp < S ? vb[kp * sv.s + c] : 0.f;
     }
     __syncthreads();
 
@@ -256,9 +260,9 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 
   if (live) {
-    T* dqb = dq + b * sdq.b + h * sdq.h + qpos * sdq.s;
+    float* dqb = dq + b * sdq.b + h * sdq.h + qpos * sdq.s;
 #pragma unroll
-    for (int i = 0; i < DPT; ++i) dqb[i * TPR + t] = from_f32<T>(dqa[i]);
+    for (int i = 0; i < DPT; ++i) dqb[i * TPR + t] = dqa[i];
   }
 }
 
@@ -291,12 +295,12 @@ int launch_dkv_f32(const void* q, const void* k, const void* v,
   return (int)cudaGetLastError();
 }
 
-// ------------------------------------------------------ dK/dV, bf16 path
+// ------------------------------------------------------ bf16 paths
 using kft::bf16;
 constexpr int WG = 128;     // one warpgroup
 constexpr int TKV = 64;     // keys per block: wgmma's M
 constexpr int TQW = 32;     // queries per tile: N of K.Q^T, K of P^T.dO
-constexpr int STAGES = 2;   // depth of the Q/dO ring
+constexpr int STAGES = 2;   // depth of the TMA rings (Q/dO, or K/V in dQ)
 constexpr float LOG2E = 1.4426950408889634f;
 
 template <int D>
@@ -500,28 +504,216 @@ int launch_dkv_wgmma(const void* q, const void* k, const void* v,
   }
 }
 
-template <typename T>
-int launch_dq(const void* q, const void* k, const void* v, const void* dout,
-              const void* lse, const void* delta, void* dq, int B, int S,
-              int H, int D, const int64_t* st, float scale, int causal,
-              cudaStream_t stream) {
+int launch_dq_f32(const void* q, const void* k, const void* v,
+                  const void* dout, const void* lse, const void* delta,
+                  void* dq, int B, int S, int H, int D, const int64_t* st,
+                  float scale, int causal, cudaStream_t stream) {
   dim3 grid((S + BQ - 1) / BQ, B * H);
   auto go = [&](auto kern, int threads) {
     kern<<<grid, threads, 0, stream>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k),
-        static_cast<const T*>(v), static_cast<const T*>(dout),
+        static_cast<const float*>(q), static_cast<const float*>(k),
+        static_cast<const float*>(v), static_cast<const float*>(dout),
         static_cast<const float*>(lse), static_cast<const float*>(delta),
-        static_cast<T*>(dq), H, S, strides_at(st, 0), strides_at(st, 1),
+        static_cast<float*>(dq), H, S, strides_at(st, 0), strides_at(st, 1),
         strides_at(st, 2), strides_at(st, 3), strides_at(st, 4), scale,
         causal);
   };
   switch (D) {
-    case 32: go(flash_bwd_dq_kernel<T, 32>, BQ * (32 / DPT)); break;
-    case 64: go(flash_bwd_dq_kernel<T, 64>, BQ * (64 / DPT)); break;
-    case 128: go(flash_bwd_dq_kernel<T, 128>, BQ * (128 / DPT)); break;
+    case 32: go(flash_bwd_dq_kernel<32>, BQ * (32 / DPT)); break;
+    case 64: go(flash_bwd_dq_kernel<64>, BQ * (64 / DPT)); break;
+    case 128: go(flash_bwd_dq_kernel<128>, BQ * (128 / DPT)); break;
     default: return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
+}
+
+// --------------------------------------------------------- dQ, bf16 path
+constexpr int TQD = 64;   // query rows per dQ block: wgmma's M
+constexpr int TKD = 64;   // keys per K/V tile: N of Q.K^T, K of dS.K
+
+template <int D>
+constexpr int dq_smem_bytes() {
+  return (2 * TQD + 2 * STAGES * TKD) * D * 2 + 1024;  // + alignment slack
+}
+
+template <int D>
+__device__ __forceinline__ void load_kv(bf16* kd, bf16* vd, uint64_t* bar,
+                                        const CUtensorMap* tk,
+                                        const CUtensorMap* tv, int k0, int h,
+                                        int b) {
+  kft::mbar_expect_tx(bar, 2 * TKD * D * 2);
+  kft::tma_tile<D, TKD>(kd, tk, bar, k0, h, b);
+  kft::tma_tile<D, TKD>(vd, tv, bar, k0, h, b);
+}
+
+template <int D>
+__global__ void __launch_bounds__(WG)
+flash_bwd_dq_kernel_wgmma(const __grid_constant__ CUtensorMap tq,
+                          const __grid_constant__ CUtensorMap tk,
+                          const __grid_constant__ CUtensorMap tv,
+                          const __grid_constant__ CUtensorMap tdo,
+                          const float* __restrict__ lse,
+                          const float* __restrict__ delta,
+                          bf16* __restrict__ dq, int H, int S, Strides sdq,
+                          float scale, int causal) {
+  constexpr int TILE = TKD * D;
+  extern __shared__ uint8_t raw[];
+  bf16* qs = reinterpret_cast<bf16*>(kft::align1024(raw));
+  bf16* dos = qs + TQD * D;
+  bf16* ks = dos + TQD * D;
+  bf16* vs = ks + STAGES * TILE;
+  __shared__ uint64_t qbar, kvbar[STAGES];
+
+  const int bh = blockIdx.x;
+  const int b = bh / H, h = bh % H;
+  // causal: the last query tiles, which see the most keys, go first
+  const int qt = causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
+  const int q0 = qt * TQD;
+  // keys past the last query row of this tile are all masked when causal
+  const int kend = causal ? min(S, q0 + TQD) : S;
+  const int ntiles = (kend + TKD - 1) / TKD;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+
+  if (tid == 0) {
+    kft::mbar_init(&qbar, 1);
+#pragma unroll
+    for (int i = 0; i < STAGES; ++i) kft::mbar_init(&kvbar[i], 1);
+    kft::fence_barrier_init();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    kft::mbar_expect_tx(&qbar, 2 * TQD * D * 2);
+    kft::tma_tile<D, TQD>(qs, &tq, &qbar, q0, h, b);
+    kft::tma_tile<D, TQD>(dos, &tdo, &qbar, q0, h, b);
+    for (int j = 0; j < STAGES && j < ntiles; ++j)
+      load_kv<D>(ks + j * TILE, vs + j * TILE, &kvbar[j], &tk, &tv, j * TKD,
+                 h, b);
+  }
+
+  // this thread's query rows r0, r0 + 8; its key columns in each 8-column
+  // group c0, c0 + 1
+  const int r0 = warp * 16 + lane / 4;
+  const int c0 = 2 * (lane % 4);
+  const float scale_log2 = scale * LOG2E;
+  float lq[2], dl[2];  // lse * log2(e) and delta of rows r0, r0 + 8
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qpos = q0 + r0 + 8 * r;
+    lq[r] = qpos < S ? lse[(int64_t)bh * S + qpos] * LOG2E : 0.f;
+    dl[r] = qpos < S ? delta[(int64_t)bh * S + qpos] : 0.f;
+  }
+  float dqa[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dqa[i] = 0.f;
+
+  kft::mbar_wait(&qbar, 0);
+  for (int j = 0; j < ntiles; ++j) {
+    const int slot = j % STAGES;
+    bf16* kt = ks + slot * TILE;
+    bf16* vt = vs + slot * TILE;
+    kft::mbar_wait(&kvbar[slot], (j / STAGES) & 1);
+
+    float st[TKD / 2], dpt[TKD / 2];
+    kft::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      kft::wgmma_ss(st, kft::desc_k<D, TQD>(qs, kk),
+                    kft::desc_k<D, TKD>(kt, kk), kk > 0);
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      kft::wgmma_ss(dpt, kft::desc_k<D, TQD>(dos, kk),
+                    kft::desc_k<D, TKD>(vt, kk), kk > 0);
+    kft::wgmma_commit();
+    kft::wgmma_wait<0>();
+    kft::reg_fence(st);
+    kft::reg_fence(dpt);
+
+    const int k0 = j * TKD;
+    const bool edge = (causal && j == ntiles - 1) || k0 + TKD > S;
+#pragma unroll
+    for (int i = 0; i < TKD / 2; ++i) {
+      const int r = (i / 2) % 2;
+      float p = exp2f(st[i] * scale_log2 - lq[r]);
+      if (edge) {
+        const int key = k0 + 8 * (i / 4) + c0 + i % 2;
+        const int qpos = q0 + r0 + 8 * r;
+        if (key >= S || (causal && key > qpos)) p = 0.f;
+      }
+      st[i] = p * (dpt[i] - dl[r]) * scale;  // dS
+    }
+    uint32_t da[TKD / 16][4];
+    kft::to_a_frags(st, da);
+    kft::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < TKD / 16; ++kk)
+      kft::wgmma_rs_tb(dqa, da[kk], kft::desc_mn<D, TKD>(kt, kk), 1);
+    kft::wgmma_commit();
+    kft::wgmma_wait<0>();
+    kft::reg_fence(dqa);
+
+    __syncthreads();  // every warp is done with this slot: refill it
+    if (tid == 0 && j + STAGES < ntiles)
+      load_kv<D>(kt, vt, &kvbar[slot], &tk, &tv, (j + STAGES) * TKD, h, b);
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qpos = q0 + r0 + 8 * r;
+    if (qpos >= S) continue;
+    bf16* dqr = dq + b * sdq.b + h * sdq.h + qpos * sdq.s;
+#pragma unroll
+    for (int jn = 0; jn < D / 8; ++jn) {
+      const int i = 4 * jn + 2 * r;
+      *reinterpret_cast<__nv_bfloat162*>(dqr + 8 * jn + c0) =
+          __floats2bfloat162_rn(dqa[i], dqa[i + 1]);
+    }
+  }
+}
+
+template <int D>
+int launch_dq_wgmma_d(const void* q, const void* k, const void* v,
+                      const void* dout, const void* lse, const void* delta,
+                      void* dq, int B, int S, int H, const int64_t* st,
+                      float scale, int causal, cudaStream_t stream) {
+  CUtensorMap tq, tk, tv, tdo;
+  int err = kft::encode_bshd(&tq, q, B, S, H, D, st[0], st[1], st[2], TQD);
+  if (!err)
+    err = kft::encode_bshd(&tk, k, B, S, H, D, st[3], st[4], st[5], TKD);
+  if (!err)
+    err = kft::encode_bshd(&tv, v, B, S, H, D, st[6], st[7], st[8], TKD);
+  if (!err)
+    err = kft::encode_bshd(&tdo, dout, B, S, H, D, st[9], st[10], st[11],
+                           TQD);
+  if (err) return err;
+  constexpr int smem = dq_smem_bytes<D>();
+  cudaError_t e = cudaFuncSetAttribute(
+      flash_bwd_dq_kernel_wgmma<D>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  dim3 grid(B * H, (S + TQD - 1) / TQD);
+  flash_bwd_dq_kernel_wgmma<D><<<grid, WG, smem, stream>>>(
+      tq, tk, tv, tdo, static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<bf16*>(dq), H, S,
+      strides_at(st, 4), scale, causal);
+  return (int)cudaGetLastError();
+}
+
+int launch_dq_wgmma(const void* q, const void* k, const void* v,
+                    const void* dout, const void* lse, const void* delta,
+                    void* dq, int B, int S, int H, int D, const int64_t* st,
+                    float scale, int causal, cudaStream_t stream) {
+  switch (D) {
+    case 32:
+      return launch_dq_wgmma_d<32>(q, k, v, dout, lse, delta, dq, B, S, H,
+                                   st, scale, causal, stream);
+    case 64:
+      return launch_dq_wgmma_d<64>(q, k, v, dout, lse, delta, dq, B, S, H,
+                                   st, scale, causal, stream);
+    case 128:
+      return launch_dq_wgmma_d<128>(q, k, v, dout, lse, delta, dq, B, S, H,
+                                    st, scale, causal, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -549,6 +741,7 @@ extern "C" int kft_flash_attention_bwd_dkv(
 }
 
 // strides: int64[15] = (b, s, h) element strides of q, k, v, dO, dQ.
+// dtype: 0 = float32 (scalar path), 1 = bfloat16 (tensor-core path).
 extern "C" int kft_flash_attention_bwd_dq(
     const void* q, const void* k, const void* v, const void* dout,
     const void* lse, const void* delta, void* dq, const void* strides, int B,
@@ -560,10 +753,10 @@ extern "C" int kft_flash_attention_bwd_dq(
   const int64_t* st = static_cast<const int64_t*>(strides);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch_dq<float>(q, k, v, dout, lse, delta, dq, B, S, H, D, st,
-                            scale, causal, s);
+    return launch_dq_f32(q, k, v, dout, lse, delta, dq, B, S, H, D, st,
+                         scale, causal, s);
   if (dtype == 1)
-    return launch_dq<__nv_bfloat16>(q, k, v, dout, lse, delta, dq, B, S, H,
-                                    D, st, scale, causal, s);
+    return launch_dq_wgmma(q, k, v, dout, lse, delta, dq, B, S, H, D, st,
+                           scale, causal, s);
   return (int)cudaErrorInvalidValue;
 }

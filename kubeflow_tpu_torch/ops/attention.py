@@ -6,9 +6,9 @@ custom VJP. ``csrc/flash_attention.cu`` replaces the Pallas
 ``_flash_kernel`` (forward, with the per-row log-sum-exp the backward
 needs); ``csrc/flash_attention_bwd.cu`` replaces ``_flash_bwd_dkv_kernel``
 and ``_flash_bwd_dq_kernel``. Each source's header says how it is laid out
-and what bounds it on an H100. bf16 takes the tensor-core path of the
-forward and of dK/dV (wgmma on tiles that TMA copies into shared memory),
-f32 the scalar path; dQ is scalar in both.
+and what bounds it on an H100. bf16 takes the tensor-core path of all
+three kernels (wgmma on tiles that TMA copies into shared memory), f32
+the scalar path.
 
 ``flash_attention`` is a ``torch.autograd.Function`` when a gradient is
 needed: the forward saves (q, k, v, out, lse), the backward computes

@@ -6,7 +6,10 @@ The CUDA kernel, ``csrc/flash_decode.cu``, replaces the Pallas
 ``_decode_kernel``; its header says how it is laid out and what bounds it
 on an H100. The query arrives grouped (B, G, rep, D) and contracts against
 the un-repeated (B, S, G, D) cache; entries past ``pos[b]`` are dead; an
-int8 cache carries (B, S, G) f32 scales folded outside the products.
+int8 cache carries (B, S, G) f32 scales folded outside the products. The
+kernel splits the cache into chunks (split-KV) and a second launch merges
+their partials; the wrapper allocates the partials' workspace, and one
+call counts one launch.
 
 ``flash_decode_attention`` takes the kernel for CUDA tensors and the plain
 version for CPU tensors, decided by where the tensors lie and nothing
@@ -29,8 +32,8 @@ _REPS = (1, 2, 4, 8)
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {"kft_flash_decode": [
-    _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-    ctypes.c_float, _I, _P]}
+    _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+    ctypes.c_float, _I, _P], "kft_flash_decode_chunk": []}
 
 # kernel launches since the last reset (plain-version calls do not count)
 LAUNCHES = {"flash_decode": 0, "flash_decode_int8": 0}
@@ -91,8 +94,22 @@ def _check(q, k, v, pos, k_scale, v_scale):
     tensors = [q, k, v, pos] + ([k_scale, v_scale] if quant else [])
     if any(t.device != q.device for t in tensors):
         raise ValueError("all operands must lie on one device")
-    if k.stride(-1) != 1 or v.stride(-1) != 1:
-        raise ValueError("the cache's d_head axis must be contiguous")
+
+
+def _cache_ready(x: torch.Tensor) -> torch.Tensor:
+    """A K/V cache as the kernel's 16-byte copies read it: d contiguous, a
+    base and (b, s, g) strides that are multiples of 16 bytes (a layer's
+    slice of the stacked cache is); otherwise a fresh contiguous copy."""
+    item = x.element_size()
+    if x.stride(-1) == 1 and x.data_ptr() % 16 == 0 and all(
+            x.stride(i) * item % 16 == 0 for i in range(3)
+            if x.shape[i] > 1):
+        return x
+    return x.clone(memory_format=torch.contiguous_format)
+
+
+def _lib():
+    return _build.load("flash_decode", _SIGNATURES)
 
 
 def flash_decode_attention_cuda(q: torch.Tensor, k: torch.Tensor,
@@ -102,21 +119,27 @@ def flash_decode_attention_cuda(q: torch.Tensor, k: torch.Tensor,
                                 ) -> torch.Tensor:
     """Launch ``csrc/flash_decode.cu`` on the current stream."""
     _check(q, k, v, pos, k_scale, v_scale)
+    lib = _lib()
     quant = k_scale is not None
-    q = q.contiguous()
+    k, v = _cache_ready(k), _cache_ready(v)
+    q, pos = q.contiguous(), pos.contiguous()
     B, G, rep, D = q.shape
+    S = k.shape[1]
     out = torch.empty_like(q)
+    # the splits' partials: f32 (m, l, acc[rep][D]) per (b, g, split)
+    nsplit = -(-S // lib.kft_flash_decode_chunk())
+    ws = torch.empty(B * G * nsplit * rep * (D + 2), dtype=torch.float32,
+                     device=q.device)
     scales = (k_scale, v_scale) if quant else (k, v)  # unread if not quant
     strides = (ctypes.c_int64 * 12)(
         *[x.stride(i) for x in (k, v, *scales) for i in range(3)])
-    lib = _build.load("flash_decode", _SIGNATURES)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = lib.kft_flash_decode(
         q.data_ptr(), k.data_ptr(), v.data_ptr(),
         k_scale.data_ptr() if quant else None,
         v_scale.data_ptr() if quant else None,
-        pos.data_ptr(), out.data_ptr(), strides, B, G, k.shape[1], rep, D,
-        _DTYPES[q.dtype], int(quant), 1.0 / math.sqrt(D),
+        pos.data_ptr(), out.data_ptr(), ws.data_ptr(), strides, B, G, S,
+        rep, D, _DTYPES[q.dtype], int(quant), 1.0 / math.sqrt(D),
         q.device.index or 0, stream)
     _build.check(err, "flash_decode_attention")
     LAUNCHES["flash_decode_int8" if quant else "flash_decode"] += 1

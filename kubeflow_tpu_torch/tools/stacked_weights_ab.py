@@ -29,10 +29,7 @@ import torch
 from ..models import train as train_lib
 from ..models import transformer as tfm
 from ..runtime.data import synthetic_lm_batches
-
-FLAGSHIP = tfm.TransformerConfig(vocab_size=32_000, d_model=1024,
-                                 n_layers=12, n_heads=8, n_kv_heads=4,
-                                 d_ff=4096, max_seq_len=1024)
+from .train_step_time import FLAGSHIP
 
 
 def _indexed(blocks: dict) -> list[dict]:

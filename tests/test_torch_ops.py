@@ -24,13 +24,16 @@ from kubeflow_tpu.ops.attention import flash_attention as jax_flash
 from kubeflow_tpu.ops.decode_attention import \
     flash_decode_attention as jax_flash_decode
 from kubeflow_tpu_torch.ops import _build, launch_counts
+from kubeflow_tpu_torch.ops import decode_attention
 from kubeflow_tpu_torch.ops.attention import (_kernel_ready, flash_attention,
                                               flash_attention_bwd_cuda,
+                                              flash_attention_bwd_dq_cuda,
                                               flash_attention_bwd_plain,
                                               flash_attention_cuda,
-                                              flash_attention_plain)
+                                              flash_attention_plain,
+                                              prepare_bwd_inputs)
 from kubeflow_tpu_torch.ops.decode_attention import (
-    flash_decode_attention, flash_decode_attention_cuda,
+    _cache_ready, flash_decode_attention, flash_decode_attention_cuda,
     flash_decode_attention_plain)
 
 TOL = 2e-5  # the reference kernels' own pin
@@ -312,6 +315,56 @@ def test_decode_cuda_wrapper_rejects_what_the_kernel_cannot_take(bad):
         flash_decode_attention_cuda(q, k, v, pos)
 
 
+@pytest.mark.parametrize("case,copied", [
+    ("bf16_contiguous", False), ("int8_contiguous", False),
+    ("f32_contiguous", False), ("bf16_layer_slice", False),
+    ("int8_layer_slice", False), ("bf16_offset_base", True),
+    ("int8_offset_base", True), ("bf16_odd_seq_stride", True),
+    ("int8_odd_head_stride", True), ("bf16_d_strided", True)])
+def test_cache_ready_copies_only_what_the_vector_loads_cannot_read(case,
+                                                                   copied):
+    """The decode kernel copies K/V rows 16 bytes at a time: a base or
+    (b, s, g) stride that is not a multiple of 16 bytes, or a d axis that
+    is not contiguous, gets a fresh aligned contiguous copy (the values
+    unchanged); a layer of the stacked (L, B, S, G, D) cache, as
+    decode_step passes it, goes in as it is."""
+    from kubeflow_tpu_torch.models.decode import init_kv_cache
+    from kubeflow_tpu_torch.models.transformer import TransformerConfig
+    dt = {"bf16": torch.bfloat16, "int8": torch.int8,
+          "f32": torch.float32}[case.split("_")[0]]
+    B, S, G, D = 2, 16, 2, 32
+    base = (torch.from_numpy(_decode_inputs(B=B, S=S, G=G, D=D)[1]) * 40
+            ).clamp(-127, 127).to(dt)
+    if case.endswith("layer_slice"):
+        cfg = TransformerConfig(vocab_size=64, d_model=4 * D, n_layers=3,
+                                n_heads=4, n_kv_heads=G, d_ff=64,
+                                max_seq_len=S, dtype="bfloat16")
+        cache = init_kv_cache(cfg, B, kv_quant=dt == torch.int8,
+                              device="cpu")
+        x = cache["k"][1]
+        x.copy_(base)
+    elif case.endswith("offset_base"):
+        x = torch.zeros(base.numel() + 1, dtype=dt)[1:].view(base.shape)
+        x.copy_(base)
+    elif case.endswith("odd_seq_stride"):
+        row = G * D + 1  # one element between consecutive positions
+        x = torch.zeros(B * S * row, dtype=dt).as_strided(
+            (B, S, G, D), (S * row, row, D, 1))
+        x.copy_(base)
+    elif case.endswith("odd_head_stride"):
+        x = torch.zeros(B, S, G, D + 8, dtype=dt)[..., :D]
+        x.copy_(base)
+    elif case.endswith("d_strided"):
+        x = base.transpose(2, 3).contiguous().transpose(2, 3)
+    else:
+        x = base
+    got = _cache_ready(x)
+    assert torch.equal(got, base)
+    assert (got.data_ptr() != x.data_ptr()) == copied
+    if copied:
+        assert got.is_contiguous() and got.data_ptr() % 16 == 0
+
+
 # ------------------------------------------------------------- the build
 def test_kernel_build_key_follows_the_source(tmp_path, monkeypatch):
     """The library is keyed by a hash of its source: an edited kernel
@@ -377,20 +430,100 @@ def test_flash_kernel_matches_plain_on_card(cuda, dtype, d, s, causal,
     assert (lse - ref_lse).abs().max().item() <= 1e-4
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("quant", [False, True])
-def test_decode_kernel_matches_plain_on_card(cuda, quant):
+def _decode_on_card(device, qdt, quant, rep, d, B, S, G=2, seed=0,
+                    layers=None):
+    """(q, k, v, scales) on the card: q in ``qdt``, the cache in q's dtype
+    or int8 with (B, S, G) scales; with ``layers``, k/v (and the scales)
+    are layer 1 of a stacked (layers, B, S, G, D) cache, strided views as
+    decode_step passes them."""
     from kubeflow_tpu_torch.models.decode import _quantize_kv
-    q, k, v = (torch.from_numpy(x).to(cuda)
-               for x in _decode_inputs(B=4, S=1024, G=4, D=128))
-    pos = torch.tensor([0, 63, 500, 1023], dtype=torch.int32, device=cuda)
+    dt = getattr(torch, qdt)
+    q, k, v = (torch.from_numpy(x).to(device, dt) for x in _decode_inputs(
+        B=B, S=S, G=G, rep=rep, D=d, seed=seed))
     kw = {}
     if quant:
         (k, kw["k_scale"]), (v, kw["v_scale"]) = (_quantize_kv(k),
                                                   _quantize_kv(v))
+    if layers:
+        def stacked(x):
+            st = torch.zeros((layers, *x.shape), dtype=x.dtype,
+                             device=device)
+            st[1] = x
+            return st[1]
+        k, v = stacked(k), stacked(v)
+        kw = {name: stacked(x) for name, x in kw.items()}
+    return q, k, v, kw
+
+
+_DECODE_CARD_CASES = pytest.mark.parametrize(
+    "qdt,quant,rep,d", [(qdt, quant, rep, d)
+                        for qdt in ("bfloat16", "float32")
+                        for quant in (False, True) for rep in (1, 2, 4, 8)
+                        for d in (32, 64, 128)])
+
+
+@pytest.mark.cuda
+@_DECODE_CARD_CASES
+def test_decode_kernel_matches_plain_on_card(cuda, qdt, quant, rep, d):
+    """Every dtype pair (q bf16/f32, cache in q's dtype or int8), rep and
+    d_head, with a row at each edge of the split: pos 0, CHUNK - 1,
+    CHUNK, CHUNK + 1, S - 1, past the end (the whole cache) and -1
+    (zeros). f32 q to the reference pin, bf16 q to BF16_TOL."""
+    chunk = decode_attention._lib().kft_flash_decode_chunk()
+    S = 5 * chunk - 3                     # a ragged last chunk
+    pos = [0, chunk - 1, chunk, chunk + 1, S - 1, S + 5, -1]
+    q, k, v, kw = _decode_on_card(cuda, qdt, quant, rep, d, len(pos), S)
+    pos = torch.tensor(pos, dtype=torch.int32, device=cuda)
     got = flash_decode_attention_cuda(q, k, v, pos, **kw)
     want = flash_decode_attention_plain(q, k, v, pos, **kw)
-    assert (got - want).abs().max().item() <= TOL
+    tol = BF16_TOL if qdt == "bfloat16" else TOL
+    assert (got.float() - want.float()).abs().max().item() <= tol
+    assert not got[-1].float().any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("qdt,quant", [("bfloat16", False),
+                                       ("bfloat16", True),
+                                       ("float32", False)])
+def test_decode_kernel_reads_a_layer_of_the_stacked_cache(cuda, qdt, quant):
+    """Layer 1 of a (3, B, S, G, D) cache, as decode_step passes it: read
+    in place (no copy), same result as the plain version."""
+    q, k, v, kw = _decode_on_card(cuda, qdt, quant, 2, 128, 4, 1024, G=4,
+                                  layers=3)
+    assert _cache_ready(k) is k and _cache_ready(v) is v
+    pos = torch.tensor([0, 159, 700, 1023], dtype=torch.int32, device=cuda)
+    got = flash_decode_attention_cuda(q, k, v, pos, **kw)
+    want = flash_decode_attention_plain(q, k, v, pos, **kw)
+    tol = BF16_TOL if qdt == "bfloat16" else TOL
+    assert (got.float() - want.float()).abs().max().item() <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant", [False, True])
+def test_decode_kernel_gives_the_same_bits_every_launch(cuda, quant):
+    """Every split and the combine sum in a fixed order."""
+    q, k, v, kw = _decode_on_card(cuda, "bfloat16", quant, 2, 128, 8, 1024,
+                                  G=4)
+    pos = torch.tensor([0, 1, 127, 128, 500, 777, 1022, 1023],
+                       dtype=torch.int32, device=cuda)
+    first = flash_decode_attention_cuda(q, k, v, pos, **kw)
+    for _ in range(3):
+        assert torch.equal(flash_decode_attention_cuda(q, k, v, pos, **kw),
+                           first)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_dq_kernel_gives_the_same_bits_every_launch(cuda, dtype):
+    """One owner block per dQ tile, no atomics."""
+    arrays = _qkv(1024, b=2, h=4, d=128) + _qkv(1024, b=2, h=4, d=128,
+                                                seed=1)[:1]
+    q, k, v, do = _on_card(arrays, cuda, getattr(torch, dtype), "contig")
+    o, lse = flash_attention_cuda(q, k, v, True, return_lse=True)
+    args = prepare_bwd_inputs(q, k, v, o, lse, do)
+    first = flash_attention_bwd_dq_cuda(*args)
+    for _ in range(3):
+        assert torch.equal(flash_attention_bwd_dq_cuda(*args), first)
 
 
 @pytest.mark.cuda
@@ -398,8 +531,8 @@ def test_decode_kernel_matches_plain_on_card(cuda, quant):
 def test_flash_bwd_kernels_match_plain_on_card(cuda, dtype, d, s, causal,
                                                layout):
     """f32 to the reference pin; bf16 elementwise to chip_smoke's
-    BWD_BF16_RTOL * |plain| + BWD_BF16_ATOL (the dK/dV kernel rounds P
-    and dS to bf16 for its products, the plain version does not) and per
+    BWD_BF16_RTOL * |plain| + BWD_BF16_ATOL (the bf16 kernels round P
+    and dS to bf16 for their products, the plain version does not) and per
     64-row tile (queries for dQ, keys for dK and dV)."""
     dt = getattr(torch, dtype)
     arrays = _qkv(s, b=2, h=4, d=d) + _qkv(s, b=2, h=4, d=d, seed=1)[:1]
