@@ -5,12 +5,14 @@
 
 Builds the hand-written CUDA kernels from ``kubeflow_tpu_torch/csrc``,
 holds each one against its plain PyTorch version on the card, then drives
-the port's two main paths on the flagship LM (d_model 1024, 12 layers, 8
+the port's main paths on the flagship LM (d_model 1024, 12 layers, 8
 heads of 128, 4 KV heads, d_ff 4096, vocab 32000, max_seq_len 1024; random
 weights from a seed): it serves over HTTP through ``ServingServer`` and
-``BatchedGenerator``, and trains through ``Trainer`` at batch 8 x 1024
-with bf16 params and f32 masters. The kernels' launch counters, zeroed
-before each path and read after it, show that each path ran its kernels.
+``BatchedGenerator``, serves over HTTP through ``ContinuousBatchedGenerator``
+(8 slots, 256-token prefill chunks, the prefix cache), and trains through
+``Trainer`` at batch 8 x 1024 with bf16 params and f32 masters. The
+kernels' launch counters, zeroed before each path and read after it, show
+that each path ran its kernels.
 Then it times each kernel beside its bound, its plain version and one
 PyTorch library call computing the same function.
 
@@ -31,6 +33,16 @@ Phases (any failure exits non-zero before the result line):
      f32 check of kernel-path tokens against the plain-attention path;
   4. where the time goes: one generate() under torch.profiler, device
      busy time by kernel class against host wall time;
+  8. the continuous engine over HTTP on phase 3's params: 16 staggered
+     streamed requests (tokens/s, time to first token), the prefix
+     cache's exact counter deltas and a bit-identical resubmission, the
+     inter-token gaps of a stream beside a 900-token admission at
+     256-token and 1024-token chunks, a client that hangs up (one
+     cancellation), steps_per_sync=4 giving the same ids, an EOS engine
+     and an int8-KV engine; flash_decode launches = ticks x 12 and no
+     flash_attention; an f32 engine teacher-forced through the plain
+     forward; ticks that never synchronise with the card
+     (``set_sync_debug_mode("error")``); 20 ticks under torch.profiler;
   6. flash-attention backward (dK/dV and dQ kernels) vs plain (the train
      shape in bf16 and f32, ragged length, f32), two dQ launches
      bit-identical, and the autograd Function through the kernels vs its
@@ -57,6 +69,7 @@ neither JAX nor the JAX package.
 from __future__ import annotations
 
 import functools
+import gc
 import json
 import math
 import os
@@ -616,6 +629,461 @@ def phase_where_time_goes(torch, flagship, params):
            **_profile(torch, lambda: generate(p, prompt, flagship, 16))}
     _print_profile("phase4", out)
     return out
+
+
+# --------------------------------------------------------------- phase 8
+def _stream_timed(url: str, payload: dict, close_after: int | None = None,
+                  on_token=None) -> tuple[float, list]:
+    """POST a streamed /v1/generate; (monotonic time of the post, [(time,
+    event), ...] as each SSE event arrives). ``on_token(n)`` runs after
+    the n-th token event; with ``close_after`` the client hangs up after
+    that many token events."""
+    import http.client
+    host, port = url.rsplit("/", 1)[-1].split(":")
+    conn = http.client.HTTPConnection(host, int(port), timeout=300)
+    t0 = time.monotonic()
+    conn.request("POST", "/v1/generate",
+                 body=json.dumps({**payload, "stream": True}),
+                 headers={"Content-Type": "application/json"})
+    resp = conn.getresponse()
+    events, n_tok = [], 0
+    try:
+        require(resp.status == 200 and resp.getheader("Content-Type")
+                == "text/event-stream", f"stream answered {resp.status}")
+        while True:  # bounded: the server ends the stream (done or error)
+            line = resp.fp.readline()
+            if not line:
+                break
+            if not line.startswith(b"data: "):
+                continue
+            event = json.loads(line[len(b"data: "):])
+            events.append((time.monotonic(), event))
+            if "token" in event:
+                n_tok += 1
+                if on_token is not None:
+                    on_token(n_tok)
+            if event.get("done") or "error" in event or \
+                    (close_after is not None and n_tok >= close_after):
+                break
+    finally:
+        resp.close()
+        conn.close()
+    return t0, events
+
+
+def _streamed_ids(events: list, n: int, vocab: int, what: str) -> list[int]:
+    """The done event's ids, held to the streamed token events."""
+    done = events[-1][1] if events else {}
+    require(done.get("done") is True, f"{what}: stream did not finish: "
+                                      f"{done}")
+    streamed = [e["token"] for _, e in events[:-1]]
+    require(streamed == done["ids"],
+            f"{what}: streamed tokens differ from the done event's ids")
+    return _check_ids(done, n, vocab, what)
+
+
+def _staggered(url: str, prompts: list, max_new: int, vocab: int) -> dict:
+    """One streamed request a prompt, posted 25 ms apart from threads:
+    ids, wall (first post to last done event), time to first token."""
+    results: list = [None] * len(prompts)
+    errors: list = []
+
+    def worker(i):
+        try:
+            results[i] = _stream_timed(url, {"prompt": prompts[i],
+                                             "max_new_tokens": max_new})
+        except Exception as e:  # noqa: BLE001 — re-raised below as a failure
+            errors.append(f"request {i}: {type(e).__name__}: {e}")
+
+    threads = []
+    t0 = time.monotonic()
+    for i in range(len(prompts)):
+        threads.append(threading.Thread(target=worker, args=(i,)))
+        threads[-1].start()
+        time.sleep(0.025)
+    for t in threads:
+        t.join(timeout=600)
+    require(not errors and all(r is not None for r in results),
+            f"staggered requests failed: {errors}")
+    ids = [_streamed_ids(ev, max_new, vocab, f"staggered request {i}")
+           for i, (_, ev) in enumerate(results)]
+    wall = max(ev[-1][0] for _, ev in results) - t0
+    ttft = sorted(ev[0][0] - t_post for t_post, ev in results)
+    return {"ids": ids, "wall_s": wall,
+            "tokens_per_s": len(prompts) * max_new / wall,
+            "ttft_median_s": ttft[len(ttft) // 2], "ttft_max_s": ttft[-1]}
+
+
+class _ServedEngine:
+    """A continuous engine on the card behind ServingServer; the launch
+    counters are zeroed when it starts, so ``launches`` reads this
+    engine's traffic alone."""
+
+    def __init__(self, torch, params, config, **kw):
+        from kubeflow_tpu_torch import ops
+        from kubeflow_tpu_torch.runtime.server import ServingServer
+        from kubeflow_tpu_torch.runtime.serving import \
+            ContinuousBatchedGenerator
+        self.ops = ops
+        self.gen = ContinuousBatchedGenerator(params, config, n_slots=8,
+                                              device="cuda", **kw)
+        self.server = ServingServer(self.gen, config, port=0).start()
+        self.url = self.server.url
+        self.layers = config.n_layers
+        ops.reset_launch_counts()
+
+    def launches(self, name: str, what: str) -> int:
+        """Every tick launches ``name`` once a layer and nothing else
+        does: chunked prefill is decode_window's einsum."""
+        counts = self.ops.launch_counts()
+        want = {k: 0 for k in counts}
+        want[name] = self.gen.steps_total * self.layers
+        print(f"phase8 {what}: {self.gen.steps_total} ticks, launches "
+              f"{counts}, expected {name} = ticks x {self.layers} = "
+              f"{want[name]} and no other", flush=True)
+        require(counts == want and want[name] > 0,
+                f"{what}: launches {counts}, expected {want}")
+        return want[name]
+
+    def close(self):
+        self.server.stop()
+
+
+def _gaps(events: list) -> list[float]:
+    times = [t for t, e in events if "token" in e]
+    return sorted(b - a for a, b in zip(times, times[1:]))
+
+
+def _stall(torch, served, vocab: int, rng) -> dict:
+    """A streamed request (128-token prompt, 48 new) is running when a
+    900-token prompt is admitted: its inter-token gaps."""
+    long_prompt = torch.randint(0, vocab, (900,), generator=rng).tolist()
+    box: dict = {}
+
+    def admit_long():
+        try:
+            box["out"] = _post(served.url, {"prompt": long_prompt,
+                                            "max_new_tokens": 16})
+        except Exception as e:  # noqa: BLE001 — re-raised below
+            box["error"] = f"{type(e).__name__}: {e}"
+
+    thread = threading.Thread(target=admit_long)
+
+    def post_long_at_8th_token(n):
+        if n == 8:
+            box["chunks0"] = served.gen.prefill_chunks_total
+            thread.start()
+    _, events = _stream_timed(
+        served.url, {"prompt": torch.randint(0, vocab, (128,),
+                                             generator=rng).tolist(),
+                     "max_new_tokens": 48}, on_token=post_long_at_8th_token)
+    thread.join(timeout=300)
+    require("out" in box, f"the 900-token request failed: {box}")
+    _check_ids(box["out"], 16, vocab, "900-token request")
+    _streamed_ids(events, 48, vocab, "stalled stream")
+    gaps = _gaps(events)
+    return {"gap_median_ms": 1e3 * gaps[len(gaps) // 2],
+            "gap_max_ms": 1e3 * gaps[-1],
+            "chunks": served.gen.prefill_chunks_total - box["chunks0"]}
+
+
+def _check_sync_free(torch, gen, what: str) -> None:
+    """A few of the engine's ticks (no readback) on the idle engine under
+    torch.cuda.set_sync_debug_mode("error"): an op in the tick that
+    waits for the card raises."""
+    import traceback
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        gen._tick(2, False)
+        gen._tick(2, True)
+    except RuntimeError:
+        torch.cuda.set_sync_debug_mode(0)
+        fail(f"{what}: a tick synchronises with the card:\n"
+             f"{traceback.format_exc()[-3000:]}")
+    torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    print(f"phase8 {what}: 4 ticks (greedy and sampling) ran under "
+          f"set_sync_debug_mode('error') without a synchronising op",
+          flush=True)
+
+
+def _tick_host_ms(torch, gen, n: int = 20) -> dict:
+    """Host ms a step on the idle engine, from this thread with no other
+    thread busy, each timed run ending in a synchronise: the engine's
+    tick (``_tick(1)``, no readback), ``decode_step`` alone with the
+    engine's per-row pos, and with one scalar pos (``generate``'s path).
+    Launches here are not counted."""
+    from kubeflow_tpu_torch.models.decode import decode_step
+    st = gen._state
+    token = torch.zeros(gen.n_slots, dtype=torch.int32, device="cuda")
+    runs = {"tick": lambda: gen._tick(1, False),
+            "decode_step_per_row_pos": lambda: decode_step(
+                gen.params, st["cache"], token, st["pos"], gen.config),
+            "decode_step_scalar_pos": lambda: decode_step(
+                gen.params, st["cache"], token, 100, gen.config)}
+    out = {}
+    for name, fn in runs.items():
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        out[name] = (time.monotonic() - t0) / n * 1e3
+    print(f"phase8 host ms a step on the idle engine, from the main thread "
+          f"({n} steps each): " + ", ".join(f"{k} {v:.2f}"
+                                           for k, v in out.items()),
+          flush=True)
+    return out
+
+
+def phase_continuous(torch, flagship, params):
+    """The continuous engine serving the flagship over HTTP (8 slots,
+    prefill_chunk 256, prefix_cache_chunks 64): staggered arrivals, the
+    prefix cache, streaming beside a chunked 900-token admission (and the
+    same with monolithic prefill), a client that hangs up, multi-step
+    sync, EOS and int8 KV engines, launch counts, an f32 teacher-forced
+    check, the no-sync tick, and a profiled window of 20 ticks."""
+    c = flagship
+    V = c.vocab_size
+    rng = torch.Generator().manual_seed(13)
+
+    def prompt(n):
+        return torch.randint(0, V, (n,), generator=rng).tolist()
+
+    stats: dict = {}
+    launches = {"flash_decode": 0, "flash_decode_int8": 0}
+    staggered_prompts = [prompt(128) for _ in range(16)]
+
+    e1 = _ServedEngine(torch, params, c)
+    gen = e1.gen
+    try:
+        _check_ids(_post(e1.url, {"prompt": prompt(128),
+                                  "max_new_tokens": 8}), 8, V, "warm-up")
+        # staggered: 16 greedy requests, one every 25 ms
+        run = _staggered(e1.url, staggered_prompts, 64, V)
+        require(gen.admitted_while_running >= 1,
+                "no request joined a running batch")
+        stats["staggered"] = {k: v for k, v in run.items() if k != "ids"}
+        print(f"phase8 staggered 16 x (prompt 128, 64 new), 25 ms apart: "
+              f"wall {run['wall_s']:.3f} s, {run['tokens_per_s']:.1f} "
+              f"generated tokens/s, {gen.steps_total} ticks so far, time "
+              f"to first token median {1e3 * run['ttft_median_s']:.1f} ms "
+              f"max {1e3 * run['ttft_max_s']:.1f} ms, admitted while "
+              f"running {gen.admitted_while_running}", flush=True)
+
+        # prefix cache: a 512-token preamble; 576 tokens are 3 chunks of
+        # 256 of which the first 2 are cacheable
+        preamble = prompt(512)
+        first = preamble + prompt(64)
+        hits0, chunks0 = gen.prefix_cache_hits_total, \
+            gen.prefill_chunks_total
+        ids_first = _check_ids(_post(e1.url, {"prompt": first,
+                                              "max_new_tokens": 32}),
+                               32, V, "prefix request 0")
+        outs, _ = _concurrent(e1.url, [
+            {"prompt": preamble + prompt(64), "max_new_tokens": 32}
+            for _ in range(4)])
+        for i, out in enumerate(outs):
+            _check_ids(out, 32, V, f"prefix request {i + 1}")
+        hits = gen.prefix_cache_hits_total - hits0
+        chunks = gen.prefill_chunks_total - chunks0
+        again = _check_ids(_post(e1.url, {"prompt": first,
+                                           "max_new_tokens": 32}),
+                           32, V, "prefix request 0 again")
+        print(f"phase8 prefix cache, 5 requests with one 512-token "
+              f"preamble: hits +{hits} (expected +8), chunks +{chunks} "
+              f"(expected +7); the first request again gives the same ids: "
+              f"{again == ids_first}", flush=True)
+        require(hits == 8 and chunks == 7,
+                f"prefix cache: hits +{hits}, chunks +{chunks}")
+        require(again == ids_first,
+                "a prefix-cache hit changed a greedy request's ids")
+
+        # streaming beside a chunked 900-token admission
+        stall = _stall(torch, e1, V, rng)
+        stats["stall_chunk_256"] = stall
+        print(f"phase8 stream of 48 beside a 900-token admission "
+              f"(prefill_chunk 256, {stall['chunks']} chunks): inter-token "
+              f"gap median {stall['gap_median_ms']:.2f} ms, max "
+              f"{stall['gap_max_ms']:.2f} ms", flush=True)
+
+        # a client that hangs up after 5 events
+        cancelled0 = gen.cancelled_total
+        _, events = _stream_timed(e1.url, {"prompt": prompt(128),
+                                           "max_new_tokens": 200},
+                                  close_after=5)
+        require(sum("token" in e for _, e in events) == 5,
+                "the cancelled stream did not deliver 5 tokens")
+        deadline = time.monotonic() + 60
+        while gen.cancelled_total == cancelled0 and \
+                time.monotonic() < deadline:
+            time.sleep(0.01)
+        require(gen.cancelled_total == cancelled0 + 1,
+                f"cancelled_total {gen.cancelled_total}, expected "
+                f"{cancelled0 + 1}")
+        _check_ids(_post(e1.url, {"prompt": prompt(64),
+                                  "max_new_tokens": 8}), 8, V,
+                   "request after the cancellation")
+        print(f"phase8 a client closing after 5 of 200 tokens: "
+              f"cancelled_total +1, the next request completed",
+              flush=True)
+
+        # 8 rows submitted 25 ms apart straight to the engine (no HTTP),
+        # timed from the tick all 8 are armed until they finish: once
+        # unprofiled, once under torch.profiler
+        def armed_window(fn):
+            admitted0 = gen.admitted_total
+            futures = []
+            for p in staggered_prompts[:8]:
+                futures.append(gen.submit(p, 64))
+                time.sleep(0.025)
+            deadline = time.monotonic() + 60
+            while gen.admitted_total < admitted0 + 8 and \
+                    time.monotonic() < deadline:
+                time.sleep(0.001)
+            s0, t0 = gen.steps_total, time.monotonic()
+            out = fn(lambda: [f.result(timeout=300) for f in futures])
+            ticks = gen.steps_total - s0
+            require(ticks > 0, "no tick ran with 8 rows armed")
+            return out, ticks, (time.monotonic() - t0) / ticks * 1e3
+
+        _, ticks, tick_ms = armed_window(lambda wait: wait())
+        prof, prof_ticks, _ = armed_window(lambda wait: {
+            "shape": "continuous engine, 8 rows armed until done",
+            **_profile(torch, wait)})
+        _print_profile("phase8", prof)
+        busy = prof["device_busy_ms"]
+        stats["tick_ms_unprofiled"] = tick_ms
+        stats["profile"] = prof
+        if busy:
+            busy_tick = busy / prof_ticks
+            device = (f"device busy {busy_tick:.3f} ms a tick, idle "
+                      f"{100 * (1 - busy / prof['wall_ms']):.1f}% of the "
+                      f"profiled window and "
+                      f"{100 * (1 - busy_tick / tick_ms):.1f}% of the "
+                      f"unprofiled tick")
+        else:
+            device = "device time not measured"
+        print(f"phase8 tick with 8 rows armed: {tick_ms:.2f} ms unprofiled "
+              f"({ticks} ticks), {prof['wall_ms'] / prof_ticks:.2f} ms "
+              f"profiled ({prof_ticks} ticks); {device}", flush=True)
+        launches["flash_decode"] += e1.launches("flash_decode",
+                                                "engine 1 (256-token chunks)")
+        stats["steps_total"] = gen.steps_total
+        _check_sync_free(torch, gen, "bf16 engine")
+        stats["host_ms_a_step_alone"] = _tick_host_ms(torch, gen)
+    finally:
+        e1.close()
+
+    mono = _ServedEngine(torch, params, c, prefill_chunk=1024)
+    try:
+        _check_ids(_post(mono.url, {"prompt": prompt(128),
+                                    "max_new_tokens": 8}), 8, V, "warm-up")
+        stall = _stall(torch, mono, V, rng)
+        stats["stall_chunk_1024"] = stall
+        print(f"phase8 stream of 48 beside a 900-token admission "
+              f"(prefill_chunk 1024, {stall['chunks']} chunk): inter-token "
+              f"gap median {stall['gap_median_ms']:.2f} ms, max "
+              f"{stall['gap_max_ms']:.2f} ms", flush=True)
+        launches["flash_decode"] += mono.launches(
+            "flash_decode", "monolithic-prefill engine")
+    finally:
+        mono.close()
+
+    e4 = _ServedEngine(torch, params, c, steps_per_sync=4)
+    try:
+        run4 = _staggered(e4.url, staggered_prompts, 64, V)
+        same = [a == b for a, b in zip(run4["ids"], run["ids"])]
+        stats["staggered_steps_per_sync_4"] = {
+            k: v for k, v in run4.items() if k != "ids"}
+        print(f"phase8 steps_per_sync=4, the staggered traffic again: "
+              f"{run4['tokens_per_s']:.1f} generated tokens/s (against "
+              f"{run['tokens_per_s']:.1f} at 1), wall {run4['wall_s']:.3f} "
+              f"s, time to first token median "
+              f"{1e3 * run4['ttft_median_s']:.1f} ms; ids equal prompt by "
+              f"prompt: {sum(same)} of {len(same)}", flush=True)
+        require(all(same), "steps_per_sync=4 changed greedy ids")
+        launches["flash_decode"] += e4.launches("flash_decode",
+                                                "steps_per_sync=4 engine")
+    finally:
+        e4.close()
+
+    # EOS at the 5th greedy token of a prompt whose first 4 lack it
+    k = next((i for i, ids in enumerate(run["ids"])
+              if ids[4] not in ids[:4]), None)
+    require(k is not None, "no staggered prompt has a fresh 5th token")
+    want = run["ids"][k][:5] + [0] * 59
+    eos = _ServedEngine(torch, params, c, eos_id=run["ids"][k][4])
+    try:
+        out = _post(eos.url, {"prompt": staggered_prompts[k],
+                              "max_new_tokens": 64})
+        print(f"phase8 eos_id = the 5th greedy token: the first 5 ids, then "
+              f"pad_id: {out['ids'] == want}", flush=True)
+        require(out["ids"] == want and
+                out["usage"]["completion_tokens"] == 5,
+                f"EOS engine gave {out['ids'][:8]}..., expected "
+                f"{want[:8]}...")
+        launches["flash_decode"] += eos.launches("flash_decode",
+                                                 "eos engine")
+    finally:
+        eos.close()
+
+    kv = _ServedEngine(torch, params, c, kv_quant=True)
+    try:
+        outs, wall = _concurrent(kv.url, [
+            {"prompt": p, "max_new_tokens": 32}
+            for p in staggered_prompts[:8]])
+        for i, out in enumerate(outs):
+            _check_ids(out, 32, V, f"int8-KV request {i}")
+        print(f"phase8 kv_quant=True, 8 concurrent (prompt 128, 32 new): "
+              f"{wall:.3f} s, {8 * 32 / wall:.1f} generated tokens/s",
+              flush=True)
+        launches["flash_decode_int8"] += kv.launches(
+            "flash_decode_int8", "int8-KV engine")
+        _check_sync_free(torch, kv.gen, "int8-KV engine")
+    finally:
+        kv.close()
+
+    stats["f32_margin"] = _f32_anchor(torch, c, params,
+                                      staggered_prompts[:4])
+    stats["launches"] = launches
+    return launches, stats
+
+
+def _f32_anchor(torch, flagship, params, prompts) -> float:
+    """An f32 engine at full width (TF32 off): 4 staggered requests of 16
+    greedy tokens, each teacher-forced through the f32 forward with plain
+    attention. Every greedy token's logit is within 1e-3 of its
+    position's maximum (a near-tie cannot fail this; a wrong token
+    does). Launches here are not counted."""
+    from kubeflow_tpu_torch.models.transformer import forward
+    from kubeflow_tpu_torch.runtime.serving import ContinuousBatchedGenerator
+    c32 = flagship.replace(dtype="float32")
+    with ContinuousBatchedGenerator(params, c32, n_slots=8,
+                                    device="cuda") as gen:
+        futures = []
+        for p in prompts:
+            futures.append(gen.submit(p, 16))
+            time.sleep(0.025)
+        results = [f.result(timeout=300).tolist() for f in futures]
+    plain = c32.replace(attention="xla")
+    worst = 0.0
+    with torch.no_grad():
+        for p, ids in zip(prompts, results):
+            tokens = torch.tensor([p + ids], device="cuda")
+            logits = forward(params, tokens, plain)[0, len(p) - 1:-1]
+            ids_t = torch.tensor(ids, device="cuda")
+            chosen = logits.gather(1, ids_t[:, None])[:, 0]
+            worst = max(worst, (logits.max(dim=1).values - chosen)
+                        .max().item())
+    print(f"phase8 f32 engine, 4 staggered requests of 16: the largest gap "
+          f"between a greedy token's teacher-forced logit and its "
+          f"position's maximum is {worst:.3e} (tol 1e-3)", flush=True)
+    require(worst <= 1e-3, "the f32 engine chose a token the f32 forward "
+                           "does not rank first")
+    return worst
 
 
 # --------------------------------------------------------------- phase 6
@@ -1181,7 +1649,14 @@ def main() -> int:
     params, counts, stats = phase_serving(torch, FLAGSHIP)
     phase_reference_tokens(torch, FLAGSHIP, params)
     stats["profile"] = phase_where_time_goes(torch, FLAGSHIP, params)
+    cont_launches, stats["continuous"] = phase_continuous(torch, FLAGSHIP,
+                                                          params)
+    for name, n in cont_launches.items():
+        counts[name] += n
     del params
+    # each server and its engine hold each other in a reference cycle:
+    # free phase 8's caches and weight copies before phase 7's peak
+    gc.collect()
     torch.cuda.empty_cache()
     bwd_err = phase_flash_backward(torch)
     errs["flash_attention_bwd_dkv"] = errs["flash_attention_bwd_dq"] = bwd_err

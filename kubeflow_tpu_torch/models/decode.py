@@ -1,16 +1,23 @@
-"""Autoregressive decoding: KV cache, prefill, single-token step, generate.
+"""Autoregressive decoding: KV cache, prefill, single-token step, window
+step, generate.
 
-Port of ``kubeflow_tpu/models/decode.py`` for dense models (``decode_window``
-and MoE come with later slices of the port). The KV cache is preallocated
-at ``max_seq_len`` as stacked (L, B, S, G, D) buffers; GQA caches the
+Port of ``kubeflow_tpu/models/decode.py`` for dense models (MoE comes with
+a later slice of the port). The KV cache is preallocated at
+``max_seq_len`` as stacked (L, B, S, G, D) buffers; GQA caches the
 un-repeated kv heads. Where the JAX package returns an updated copy of the
 cache (immutable arrays), the port writes into the cache tensors in place
 and returns the same dict — one cache's memory for the whole generation.
+A per-row write at a position ``>= max_seq_len`` is dropped, as JAX's
+scatter drops it (a chunk overhanging the cache, a finished row frozen at
+``max_seq_len``), without reading any value back to the host.
 
 Decode attention: ``decode_attention="auto"`` takes the hand-written
 flash-decode kernel (ops/decode_attention.py) on CUDA at every cache
 length and the einsum path on the CPU. The JAX package's TPU gate
 (``max_seq_len >= 2048``) was measured on a v5e and is not carried over.
+``decode_window`` (W tokens a row, the continuous engine's chunked prefill
+and later speculative verification) is the einsum path, as in the JAX
+package, which has no kernel for it.
 
 ``generate`` is a Python loop over decode steps that never reads a value
 back to the host until the end (the JAX package's ``lax.scan``).
@@ -81,22 +88,46 @@ def _write_cache(cache: dict, k: torch.Tensor, v: torch.Tensor,
     return cache
 
 
-def _write_cache_rows(cache: dict, k: torch.Tensor, v: torch.Tensor,
-                      pos: torch.Tensor, layer: int) -> dict:
-    """Per-row single-position write, in place: (b, 1, h, d) K/V lands at
-    row b's own ``pos[b]`` (every sequence at its own depth)."""
-    rows = torch.arange(k.shape[0], device=k.device)
-    pos = pos.long()
+def _row_index(pos: torch.Tensor, width: int, seq_len: int) -> tuple:
+    """Where a per-row write of ``width`` positions from ``pos[b]`` goes:
+    (rows, target, keep), with keep false at positions ``>= seq_len``.
+    A dropped position is aimed at itself mod seq_len and rewrites that
+    cell's own value: for ``width <= seq_len`` a row's positions have
+    distinct residues, and those past the end fall below the ones
+    before it, so no cell is written twice. Built once per step and
+    shared by every layer's K/V (and scale) writes."""
+    cols = pos.long()[:, None] + torch.arange(width, device=pos.device)
+    rows = torch.arange(cols.shape[0], device=pos.device)[:, None]
+    return rows, cols.remainder(seq_len), cols < seq_len
+
+
+def _scatter_rows(buf: torch.Tensor, layer: int, index: tuple,
+                  new: torch.Tensor) -> None:
+    rows, target, keep = index
+    keep = keep.reshape(keep.shape + (1,) * (new.dim() - 2))
+    buf[layer, rows, target] = torch.where(keep, new,
+                                           buf[layer, rows, target])
+
+
+def _write_cache_window_rows(cache: dict, k: torch.Tensor, v: torch.Tensor,
+                             index: tuple, layer: int) -> dict:
+    """Per-row write, in place: (B, W, h, d) K/V lands at row b's
+    ``pos[b] .. pos[b]+W-1`` (``index`` from ``_row_index``; every row at
+    its own depth), and the part at or past ``max_seq_len`` is dropped, as
+    the JAX package's scatter drops it, with no value read back to the
+    host. W=1 is the JAX package's ``_write_cache_rows`` (decode_step).
+    Quantized caches quantize at the write and store the per-position
+    scales alongside."""
     if not is_kv_quantized(cache):
-        cache["k"][layer, rows, pos] = k[:, 0]
-        cache["v"][layer, rows, pos] = v[:, 0]
+        _scatter_rows(cache["k"], layer, index, k)
+        _scatter_rows(cache["v"], layer, index, v)
         return cache
     qk, sk = _quantize_kv(k)
     qv, sv = _quantize_kv(v)
-    cache["k"][layer, rows, pos] = qk[:, 0]
-    cache["v"][layer, rows, pos] = qv[:, 0]
-    cache["k_scale"][layer, rows, pos] = sk[:, 0]
-    cache["v_scale"][layer, rows, pos] = sv[:, 0]
+    _scatter_rows(cache["k"], layer, index, qk)
+    _scatter_rows(cache["v"], layer, index, qv)
+    _scatter_rows(cache["k_scale"], layer, index, sk)
+    _scatter_rows(cache["v_scale"], layer, index, sv)
     return cache
 
 
@@ -142,6 +173,15 @@ def uses_flash_decode(config: TransformerConfig,
 
 
 # -------------------------------------------------------------- decode step
+def _row_positions(pos, batch: int, device: torch.device) -> torch.Tensor:
+    """``pos`` as a (batch,) int32 tensor on ``device``: a (batch,) tensor
+    as it is; an int (or 0-d tensor) filled on the device, since a host
+    tensor copied to the card would wait for the card's queue to drain."""
+    if isinstance(pos, torch.Tensor) and pos.dim() == 1:
+        return pos.to(device=device, dtype=torch.int32)
+    return torch.full((batch,), int(pos), dtype=torch.int32, device=device)
+
+
 def decode_step(params: dict, cache: dict, token: torch.Tensor, pos,
                 config: TransformerConfig):
     """One token in, next-token logits out; the cache is updated in place.
@@ -153,9 +193,8 @@ def decode_step(params: dict, cache: dict, token: torch.Tensor, pos,
     c = config
     B = token.shape[0]
     dev = token.device
-    pos_t = torch.as_tensor(pos, dtype=torch.int32, device=dev)
-    per_row = pos_t.dim() == 1
-    pos_vec = pos_t if per_row else pos_t.expand(B).contiguous()
+    per_row = isinstance(pos, torch.Tensor) and pos.dim() == 1
+    pos_vec = _row_positions(pos, B, dev)
     x = params["embed"].to(c.compute_dtype)[token][:, None, :]  # (B,1,D)
     cos, sin = rope_frequencies(c, pos_vec[:, None])
     scale = 1.0 / math.sqrt(c.d_head)
@@ -165,7 +204,10 @@ def decode_step(params: dict, cache: dict, token: torch.Tensor, pos,
         valid = (torch.arange(c.max_seq_len, device=dev)[None, :]
                  <= pos_vec[:, None])[:, None, None, None, :]  # (B,1,1,1,S)
     quant = is_kv_quantized(cache)
-    start = None if per_row else int(pos_t)
+    if per_row:
+        index = _row_index(pos_vec, 1, c.max_seq_len)
+    else:
+        start = int(pos)
 
     for i, layer in enumerate(unstack_layers(params["blocks"])):
         h = rms_norm(x, layer["attn_norm"])
@@ -176,7 +218,7 @@ def decode_step(params: dict, cache: dict, token: torch.Tensor, pos,
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
         if per_row:
-            _write_cache_rows(cache, k, v, pos_vec, layer=i)
+            _write_cache_window_rows(cache, k, v, index, layer=i)
         else:
             _write_cache(cache, k, v, start, layer=i)
         # grouped GQA: q heads fold to (kv_heads, rep) and contract against
@@ -204,6 +246,61 @@ def decode_step(params: dict, cache: dict, token: torch.Tensor, pos,
 
     x = rms_norm(x, params["final_norm"])
     logits = torch.einsum("bd,dv->bv", x[:, 0],
+                          wcast(params["lm_head"], x.dtype))
+    return logits.float(), cache
+
+
+def decode_window(params: dict, cache: dict, tokens: torch.Tensor, pos,
+                  config: TransformerConfig):
+    """W tokens in, W next-token logits out; the cache is updated in place.
+
+    tokens: (B, W) consumed at positions ``pos[b] .. pos[b]+W-1`` (pos an
+    int, a 0-d or a (B,) tensor); logits[:, i] (f32, (B, W, vocab)) is the
+    next-token distribution after consuming tokens[:, :i+1], so
+    ``decode_step`` is the W=1 case. Attention is the einsum path with a
+    two-part mask: key position s is visible to window query i iff
+    ``s <= pos + i`` (the prefix and the causal structure inside the
+    window); f32 logits, probabilities in the compute dtype."""
+    c = config
+    B, W = tokens.shape
+    dev = tokens.device
+    pos_vec = _row_positions(pos, B, dev)
+    x = params["embed"].to(c.compute_dtype)[tokens]             # (B, W, D)
+    positions = pos_vec[:, None] + torch.arange(W, dtype=torch.int32,
+                                                device=dev)
+    cos, sin = rope_frequencies(c, positions)
+    scale = 1.0 / math.sqrt(c.d_head)
+    valid = (torch.arange(c.max_seq_len, device=dev)[None, None, :]
+             <= positions[:, :, None])[:, None, None]         # (B,1,1,W,S)
+    rep = c.n_heads // c.n_kv_heads
+    # window columns from max_seq_len on are past the end for every row
+    width = min(W, c.max_seq_len)
+    index = _row_index(pos_vec, width, c.max_seq_len)
+
+    for i, layer in enumerate(unstack_layers(params["blocks"])):
+        h = rms_norm(x, layer["attn_norm"])
+        dt = h.dtype
+        q = torch.einsum("bsd,dhk->bshk", h, wcast(layer["wq"], dt))
+        k = torch.einsum("bsd,dhk->bshk", h, wcast(layer["wk"], dt))
+        v = torch.einsum("bsd,dhk->bshk", h, wcast(layer["wv"], dt))
+        q = apply_rope(q, cos, sin)
+        k = apply_rope(k, cos, sin)
+        _write_cache_window_rows(cache, k[:, :width], v[:, :width], index,
+                                 layer=i)
+        _, _, H, D = q.shape
+        qg = q.reshape(B, W, c.n_kv_heads, rep, D)
+        ck, cv = _read_cache_layer(cache, i, dt)              # (B, S, G, D)
+        logits = torch.einsum("bwgrd,bsgd->bgrws", qg.float(),
+                              ck.float()) * scale
+        logits = logits.masked_fill(~valid, float("-inf"))
+        probs = torch.softmax(logits, dim=-1).to(dt)
+        out = torch.einsum("bgrws,bsgd->bwgrd", probs, cv).reshape(
+            B, W, H, D)
+        x = x + torch.einsum("bshk,hkd->bsd", out, wcast(layer["wo"], dt))
+        x = mlp_block(x, layer, c)
+
+    x = rms_norm(x, params["final_norm"])
+    logits = torch.einsum("bwd,dv->bwv", x,
                           wcast(params["lm_head"], x.dtype))
     return logits.float(), cache
 

@@ -194,9 +194,10 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor,
 def rope_frequencies(config: TransformerConfig, positions: torch.Tensor):
     """positions: (..., seq) int → cos/sin of shape (..., seq, d_head/2)."""
     d = config.d_head // 2
-    inv_freq = torch.pow(
-        torch.tensor(config.rope_theta, dtype=torch.float32),
-        -torch.arange(0, d, dtype=torch.float32) / d).to(positions.device)
+    # made on positions' device: a host tensor copied to the card would
+    # make every decode step wait for the card to drain its queue
+    inv_freq = torch.pow(config.rope_theta, -torch.arange(
+        0, d, dtype=torch.float32, device=positions.device) / d)
     angles = positions[..., None].float() * inv_freq
     return torch.cos(angles), torch.sin(angles)
 

@@ -38,19 +38,22 @@ stdlib-only JSON-over-HTTP server in the shape such endpoints take:
                         quantization), for client capability discovery
 
 Port of ``kubeflow_tpu/runtime/server.py``: the wire protocol, request
-validation, streaming and the OpenAI routes are the same code; the
-engine behind it is the port's ``BatchedGenerator``, which streams a
-request's ids when its batch finishes. Requests block on the engine
-future, so the HTTP layer is a ThreadingHTTPServer: one thread per
-in-flight request, all batching intelligence stays in the engine.
+validation, streaming and the OpenAI routes are the same code. The
+engine behind it is the port's ``ContinuousBatchedGenerator`` by default
+(per-token streaming; a client that disconnects or times out cancels its
+request at the next token boundary) or, with ``--engine bucketed``,
+``BatchedGenerator``, which streams a request's ids when its batch
+finishes. Requests block on the engine future, so the HTTP layer is a
+ThreadingHTTPServer: one thread per in-flight request, all batching
+intelligence stays in the engine.
 
 Run standalone (on the card; ``--device cpu`` for a dev box):
 
     python -m kubeflow_tpu_torch.runtime.server --config model.json \
-        --engine bucketed --port 8890 --quantize
+        --port 8890 --kv-quant --eos-id 2
 
-The continuous engine, checkpoints, LoRA and draft models are not ported
-yet: their flags exit with the ROADMAP item that will port them.
+Checkpoints, LoRA and draft models are not ported yet: their flags exit
+with the ROADMAP item that will port them.
 """
 
 from __future__ import annotations
@@ -749,12 +752,8 @@ class ServingServer:
 # -------------------------------------------------------------- entrypoint
 # flags of the JAX package's server that this port does not carry yet,
 # each with the ROADMAP item that will port it
-CONTINUOUS_ENGINE = "queue A item 2, continuous engine"
 NOT_PORTED = {
     "checkpoint": "queue A item 6, workload runtime",
-    "kv_quant": CONTINUOUS_ENGINE,
-    "eos_id": CONTINUOUS_ENGINE,
-    "steps_per_sync": CONTINUOUS_ENGINE,
     "draft_config": "queue A item 3, speculative decoding",
     "draft_checkpoint": "queue A item 3, speculative decoding",
     "spec_k": "queue A item 3, speculative decoding",
@@ -765,9 +764,20 @@ NOT_PORTED = {
 
 
 def build_generator(params, config, args):
-    from .serving import BatchedGenerator
-    return BatchedGenerator(params, config, max_batch=args.slots,
-                            quantize=args.quantize, device=args.device)
+    from .serving import BatchedGenerator, ContinuousBatchedGenerator
+    if args.engine == "bucketed":
+        if args.kv_quant or args.eos_id >= 0 or args.steps_per_sync > 1:
+            # refuse rather than silently ignore: the operator asked for
+            # behavior this engine does not implement
+            raise SystemExit("--kv-quant/--eos-id/--steps-per-sync "
+                             "require --engine continuous")
+        return BatchedGenerator(params, config, max_batch=args.slots,
+                                quantize=args.quantize, device=args.device)
+    return ContinuousBatchedGenerator(
+        params, config, n_slots=args.slots, quantize=args.quantize,
+        kv_quant=args.kv_quant, steps_per_sync=args.steps_per_sync,
+        eos_id=args.eos_id if args.eos_id >= 0 else None,
+        device=args.device)
 
 
 def build_server(argv=None) -> ServingServer:
@@ -784,11 +794,19 @@ def build_server(argv=None) -> ServingServer:
     ap.add_argument("--host", default="127.0.0.1")
     ap.add_argument("--port", type=int, default=8890)
     ap.add_argument("--engine", choices=("continuous", "bucketed"),
-                    default="bucketed")
+                    default="continuous")
     ap.add_argument("--slots", type=int, default=8,
                     help="engine slots / max batch")
     ap.add_argument("--quantize", action="store_true",
                     help="int8 weight-only serving")
+    ap.add_argument("--kv-quant", action="store_true",
+                    help="int8 KV cache (continuous engine)")
+    ap.add_argument("--steps-per-sync", type=int, default=1,
+                    help="decode steps per host round-trip (continuous "
+                         "engine): >1 amortizes scheduler latency at the "
+                         "cost of token-burst streaming; admissions "
+                         "always drop back to single-step")
+    ap.add_argument("--eos-id", type=int, default=-1)
     ap.add_argument("--model-name", default=None,
                     help="model id reported on /v1/models and in "
                          "completions responses (default: kubeflow-tpu)")
@@ -803,16 +821,12 @@ def build_server(argv=None) -> ServingServer:
                          "JSON file with 'turn' + 'generation_prompt'")
     for name in NOT_PORTED:
         flag = "--" + name.replace("_", "-")
-        if name in ("kv_quant", "spec_inexact"):
+        if name == "spec_inexact":
             ap.add_argument(flag, action="store_true", help="not ported")
         else:
             ap.add_argument(flag, default=None, help="not ported")
     args = ap.parse_args(argv)
 
-    if args.engine != "bucketed":
-        raise SystemExit(f"--engine {args.engine} is not ported to the "
-                         f"PyTorch package yet (ROADMAP "
-                         f"{CONTINUOUS_ENGINE}); use --engine bucketed")
     for name, item in NOT_PORTED.items():
         if getattr(args, name) not in (None, False):
             raise SystemExit(f"--{name.replace('_', '-')} is not ported to "

@@ -1,34 +1,42 @@
 """Batched generation service: the serving half of the notebook workload.
 
-Port of ``kubeflow_tpu/runtime/serving.py`` ``GenerateRequest`` and
-``BatchedGenerator`` (the shape-bucketed engine). A background scheduler
-thread coalesces concurrent same-shape requests — same (prompt_len,
-max_new_tokens) — into one batch, pads the batch to a power of two
-(capped at ``max_batch``) with dummy rows, and runs it to completion
-through ``models/decode.py`` ``generate``, with per-row temperature,
-top-k and top-p. ``ContinuousBatchedGenerator`` and speculative decoding
-come with later slices of the port (ROADMAP queue A).
+Port of ``kubeflow_tpu/runtime/serving.py`` without speculative decoding
+(a draft model raises, naming its ROADMAP item). Two engines, one
+submit/Future API:
 
-The engine thread issues all the CUDA work, so the kernels launch on that
-thread's current stream. Matmul weights are cast to the compute dtype
-once at load instead of on every call: ``wcast`` of the cast weight gives
-the same values, without re-reading the f32 masters every step.
+- ``BatchedGenerator`` — shape-bucketed: a background scheduler thread
+  coalesces concurrent same-shape requests — same (prompt_len,
+  max_new_tokens) — into one batch, pads it to a power of two (capped at
+  ``max_batch``) with dummy rows, and runs it to completion through
+  ``models/decode.py`` ``generate``, with per-row temperature, top-k and
+  top-p;
+- ``ContinuousBatchedGenerator`` — requests join and leave a RUNNING
+  batch at token boundaries, with chunked prefill admission, an exact
+  prefix cache, cooperative cancellation and per-token streaming.
+
+Each engine's thread issues all of its CUDA work, so the kernels launch on
+that thread's current stream; HTTP threads only enqueue. Matmul weights
+are cast to the compute dtype once at load instead of on every call:
+``wcast`` of the cast weight gives the same values, without re-reading the
+f32 masters every step.
 """
 
 from __future__ import annotations
 
 import collections
+import hashlib
 import queue
 import threading
 import time
-from concurrent.futures import Future
+from concurrent.futures import CancelledError, Future
 from dataclasses import dataclass, field
 
 import numpy as np
 import torch
 
 from .. import resolve_device
-from ..models.decode import generate
+from ..models.decode import (decode_step, decode_window, generate,
+                             init_kv_cache, sample_token)
 from ..models.quant import BLOCK_AXES, is_quantized, quantize_params
 
 
@@ -43,6 +51,10 @@ class GenerateRequest:
     # streaming: called with each generated token id (int), on the engine
     # thread, BEFORE the future resolves — must be cheap and non-blocking
     on_token: object | None = None
+    # cooperative cancellation (client disconnect): the continuous engine
+    # frees the slot at the next token boundary and fails the future with
+    # CancelledError — set via the engine's cancel(), not directly
+    cancelled: threading.Event = field(default_factory=threading.Event)
 
     @property
     def shape_key(self) -> tuple:
@@ -68,6 +80,20 @@ def cast_matmul_weights(params: dict, dtype: torch.dtype) -> dict:
     return out
 
 
+_DRAFT_REFUSAL = ("speculative decoding (a draft model) is not ported yet "
+                  "(ROADMAP queue A item 3, speculative decoding)")
+
+
+def _serving_params(params: dict, config, device: torch.device,
+                    quantize: bool) -> dict:
+    """``params`` on ``device``, int8 weight-only when ``quantize``, with
+    the matmul weights in the compute dtype."""
+    params = _tree_map(lambda t: t.to(device), params)
+    if quantize:
+        params = quantize_params(params)
+    return cast_matmul_weights(params, config.compute_dtype)
+
+
 class BatchedGenerator:
     """Coalesce concurrent generate requests into shape-matched batches.
 
@@ -84,14 +110,9 @@ class BatchedGenerator:
                  quantize: bool = False, draft_params=None,
                  draft_config=None, device="cuda"):
         if draft_params is not None or draft_config is not None:
-            raise NotImplementedError(
-                "speculative decoding (a draft model) is not ported yet "
-                "(ROADMAP queue A item 3, speculative decoding)")
+            raise NotImplementedError(_DRAFT_REFUSAL)
         self.device = resolve_device(device)
-        params = _tree_map(lambda t: t.to(self.device), params)
-        if quantize:
-            params = quantize_params(params)
-        self.params = cast_matmul_weights(params, config.compute_dtype)
+        self.params = _serving_params(params, config, self.device, quantize)
         self.config = config
         self.max_batch = max_batch
         self.max_wait_s = max_wait_s
@@ -236,3 +257,489 @@ class BatchedGenerator:
                 for tok in out[i]:
                     req.on_token(int(tok))
             req.future.set_result(out[i])
+
+
+# ===================================================== continuous batching
+@dataclass
+class _Slot:
+    """Host-side bookkeeping for one engine row."""
+    req: GenerateRequest | None = None
+    target: int = 0           # tokens to emit for the current request
+    prefilling: bool = False  # admission in progress; row not armed yet
+
+
+@dataclass
+class _Admission:
+    """Chunked-prefill progress for one slot: the prompt is consumed
+    ``prefill_chunk`` tokens per engine iteration into a private
+    single-row cache, spliced into the engine state when complete."""
+    req: GenerateRequest
+    padded: np.ndarray        # (1, n_chunks * chunk) pad-extended prompt
+    real_len: int
+    row_cache: dict
+    consumed: int = 0
+    last_logits: torch.Tensor | None = None  # (1, V) at the last real token
+
+
+def _fail(req: GenerateRequest, exc: BaseException) -> None:
+    if not req.future.done():
+        req.future.set_exception(exc)
+
+
+class ContinuousBatchedGenerator:
+    """Continuous-batching serving engine: requests join and leave a
+    RUNNING batch at token boundaries instead of waiting for a bucket to
+    drain (``BatchedGenerator`` runs each batch to completion).
+
+    - A fixed pool of ``n_slots`` rows shares ONE preallocated KV cache and
+      one set of per-row state tensors (logits, pos, active, done, out,
+      n_out, temperature, top-k, top-p, token target), all on the device
+      and updated in place; per-row positions drive the cache writes and
+      masks (``decode_step`` with a vector ``pos``), so rows at different
+      depths share a step, and the step's flash-decode kernel reads pos on
+      the device. Free slots run the step as dummy rows: static shapes.
+    - Admission is CHUNKED: the prompt streams through a private
+      single-row cache ``prefill_chunk`` tokens per engine iteration
+      (``decode_window``), interleaved with decode ticks, then is spliced
+      into its slot in place. In-flight decodes stall at most one chunk's
+      forward per tick instead of the whole prompt's.
+    - Full prompt chunks are PREFIX-CACHED: each fully-real chunk's K/V
+      rows are stored (a copy, not a view of the row cache) under the hash
+      of the ENTIRE prefix through that chunk, and a new admission copies
+      in every leading chunk whose prefix hash hits — LRU-bounded by
+      ``prefix_cache_chunks`` entries (0 disables it), exact by
+      construction. The final (possibly partial) chunk always computes
+      fresh so the splice has real last-token logits.
+    - A tick reads ONE packed (n_steps, 4, slots) int32 buffer back to the
+      host — [n_out, done, token, emitted] per step — and nothing else;
+      the ids of finished rows come back in one more read when a row
+      finishes. ``steps_per_sync > 1`` runs that many decode steps per
+      readback, dropping to 1 while anything is admitting or queued.
+    - Failures: a failed chunk or splice fails that request and leaves its
+      slot unarmed (a slot is re-spliced before it serves again); a failed
+      tick fails every in-flight request and rebuilds a fresh state.
+    - Sampling draws from one ``torch.Generator`` on the engine's device,
+      seeded by ``seed``; a tick with no sampling row (the host knows each
+      armed row's temperature) samples greedily without it.
+
+    ``submit`` returns a Future resolving to the (max_new_tokens,) int32
+    ids (``pad_id`` after an early ``eos_id``); ``on_token`` streams each
+    id at the token boundary it was generated on, before the future
+    resolves. ``cancel`` frees the slot at the next boundary.
+    """
+
+    supports_streaming = True
+
+    def __init__(self, params, config, *, n_slots: int = 8,
+                 max_new_cap: int | None = None, seed: int = 0,
+                 quantize: bool = False, kv_quant: bool = False,
+                 eos_id: int | None = None, pad_id: int = 0,
+                 prefill_chunk: int = 256, prefix_cache_chunks: int = 64,
+                 steps_per_sync: int = 1, draft_params=None,
+                 draft_config=None, device="cuda"):
+        if draft_params is not None or draft_config is not None:
+            raise NotImplementedError(_DRAFT_REFUSAL)
+        if prefill_chunk < 1:
+            raise ValueError(f"prefill_chunk must be >= 1, "
+                             f"got {prefill_chunk}")
+        if prefix_cache_chunks < 0:
+            raise ValueError(f"prefix_cache_chunks must be >= 0, "
+                             f"got {prefix_cache_chunks}")
+        if steps_per_sync < 1:
+            raise ValueError(f"steps_per_sync must be >= 1, "
+                             f"got {steps_per_sync}")
+        self.device = resolve_device(device)
+        self.params = _serving_params(params, config, self.device, quantize)
+        self.config = config
+        self.n_slots = n_slots
+        self.cap = max_new_cap or config.max_seq_len
+        self.eos_id = eos_id
+        self.pad_id = pad_id
+        self.kv_quant = kv_quant
+        self.prefill_chunk = prefill_chunk
+        self.steps_per_sync = steps_per_sync
+        # full-prefix hash → that chunk's (L, 1, C, ...) K/V rows on the
+        # device; OrderedDict insertion order is the LRU order
+        self.prefix_cache_chunks = prefix_cache_chunks
+        self._prefix_cache: collections.OrderedDict = \
+            collections.OrderedDict()
+        self._queue: queue.Queue = queue.Queue()
+        self._slots = [_Slot() for _ in range(n_slots)]
+        self._admitting: dict[int, _Admission] = {}
+        self._rng = torch.Generator(device=self.device).manual_seed(seed)
+        self._rows = torch.arange(n_slots, device=self.device)
+        self._closed = False
+        self._lifecycle = threading.Lock()  # submit/close atomicity
+        # requests_total counts SUBMISSIONS (like BatchedGenerator's)
+        self.requests_total = 0
+        self.admitted_total = 0
+        self.admitted_while_running = 0
+        self.steps_total = 0
+        self.prefill_chunks_total = 0
+        self.prefix_cache_hits_total = 0   # chunks SKIPPED via the cache
+        self.cancelled_total = 0
+        self._state = self._fresh_state()
+        self._thread = threading.Thread(target=self._loop, daemon=True,
+                                        name="kubeflow-tpu-torch-cbatch")
+        self._thread.start()
+
+    def _fresh_state(self) -> dict:
+        """A zeroed engine state: built at construction and again after a
+        failed tick (which may have left it half-updated)."""
+        n, dev, c = self.n_slots, self.device, self.config
+
+        def zeros(*shape, dtype):
+            return torch.zeros(shape, dtype=dtype, device=dev)
+        return {
+            "cache": init_kv_cache(c, n, kv_quant=self.kv_quant, device=dev),
+            "logits": zeros(n, c.vocab_size, dtype=torch.float32),
+            "pos": zeros(n, dtype=torch.int32),
+            "active": zeros(n, dtype=torch.bool),
+            "done": zeros(n, dtype=torch.bool),
+            "out": zeros(n, self.cap, dtype=torch.int32),
+            "n_out": zeros(n, dtype=torch.int32),
+            "temp": zeros(n, dtype=torch.float32),
+            "top_k": zeros(n, dtype=torch.int32),
+            "top_p": torch.ones(n, dtype=torch.float32, device=dev),
+            "target": zeros(n, dtype=torch.int32),
+        }
+
+    # ----------------------------------------------------------------- API
+    def submit(self, prompt, max_new_tokens: int, temperature: float = 0.0,
+               top_k: int = 0, top_p: float = 1.0, *,
+               on_token=None) -> Future:
+        if max_new_tokens > self.cap:
+            raise ValueError(f"max_new_tokens {max_new_tokens} exceeds "
+                             f"engine cap {self.cap}")
+        req = GenerateRequest(np.asarray(prompt, np.int32), max_new_tokens,
+                              temperature, top_k, top_p, on_token=on_token)
+        if len(req.prompt) == 0:
+            raise ValueError("prompt must be non-empty")
+        if len(req.prompt) + max_new_tokens > self.config.max_seq_len:
+            raise ValueError("prompt + max_new_tokens exceeds max_seq_len")
+        req.future._kubeflow_tpu_request = req   # cancel() handle
+        with self._lifecycle:
+            if self._closed:
+                raise RuntimeError("generator is closed")
+            self.requests_total += 1
+            self._queue.put(req)
+        return req.future
+
+    def cancel(self, future: Future) -> bool:
+        """Request cooperative cancellation of a submitted generation (a
+        disconnected streaming client, an abandoned request): the engine
+        frees the slot at the next token boundary — queued or admitting
+        requests never run — and the future fails with CancelledError.
+        Returns False for futures this engine did not issue or that have
+        already resolved."""
+        req = getattr(future, "_kubeflow_tpu_request", None)
+        if req is None or future.done():
+            return False
+        req.cancelled.set()
+        return True
+
+    def generate_sync(self, prompt, max_new_tokens: int,
+                      temperature: float = 0.0, *, top_k: int = 0,
+                      top_p: float = 1.0, timeout: float = 120.0):
+        return self.submit(prompt, max_new_tokens, temperature, top_k,
+                           top_p).result(timeout=timeout)
+
+    def close(self) -> None:
+        """Finish what is running or admitting, fail what is queued."""
+        with self._lifecycle:
+            if self._closed:
+                return
+            self._closed = True
+            self._queue.put(None)  # sentinel AFTER the last possible submit
+        self._thread.join(timeout=30)
+
+    def __enter__(self) -> "ContinuousBatchedGenerator":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
+    # --------------------------------------------------------- device work
+    def _chunk(self, adm: _Admission, start: int) -> torch.Tensor:
+        """Consume one prompt chunk into the admission's private
+        (L, 1, S, ...) row cache; the (1, V) logits at its last REAL token
+        (padding beyond it writes K/V the decode frontier overwrites
+        before anything reads them)."""
+        C = self.prefill_chunk
+        tokens = torch.from_numpy(adm.padded[:, start:start + C]).to(
+            self.device)
+        logits, _ = decode_window(self.params, adm.row_cache, tokens, start,
+                                  self.config)
+        return logits[:, min(adm.real_len - 1 - start, C - 1)].clone()
+
+    def _splice(self, adm: _Admission, slot: int) -> None:
+        """Install a completed admission into ``slot`` in place: its row of
+        the engine cache, then the row's fields, armed last — a splice
+        that fails part-way leaves the row unarmed."""
+        st, req = self._state, adm.req
+        for name, buf in adm.row_cache.items():
+            st["cache"][name][:, slot].copy_(buf[:, 0])
+        st["logits"][slot].copy_(adm.last_logits[0])
+        st["pos"][slot] = adm.real_len
+        st["done"][slot] = False
+        st["n_out"][slot] = 0
+        st["out"][slot] = 0
+        st["temp"][slot] = req.temperature
+        st["top_k"][slot] = req.top_k
+        st["top_p"][slot] = req.top_p
+        st["target"][slot] = req.max_new_tokens
+        st["active"][slot] = True
+
+    def _tick(self, n_steps: int, sampling: bool) -> torch.Tensor:
+        """``n_steps`` engine steps on the device; returns the packed
+        (n_steps, 4, slots) int32 flags [n_out, done, token, emitted]
+        without reading anything back. Per step a row EMITS iff it is
+        armed, not EOS-done and under its token budget; a row that stops
+        emitting keeps its carried logits and frozen pos (its cache write
+        lands at that pos, or is dropped at max_seq_len, and is never
+        read: the slot is re-spliced before it serves again)."""
+        st = self._state
+        generator = self._rng if sampling else None
+        last_col = st["out"].shape[1] - 1
+        flags = []
+        for _ in range(n_steps):
+            emit = st["active"] & ~st["done"] & (st["n_out"] < st["target"])
+            token = sample_token(st["logits"], generator, st["temp"],
+                                 st["top_k"], st["top_p"])
+            token = torch.where(emit, token, self.pad_id)
+            col = st["n_out"].clamp(max=last_col).long()
+            st["out"][self._rows, col] = torch.where(
+                emit, token, st["out"][self._rows, col])
+            st["n_out"] += emit
+            if self.eos_id is not None:
+                st["done"] |= emit & (token == self.eos_id)
+            logits, _ = decode_step(self.params, st["cache"], token,
+                                    st["pos"], self.config)
+            st["logits"].copy_(torch.where(emit[:, None], logits,
+                                           st["logits"]))
+            st["pos"] += emit
+            flags.append(torch.stack([st["n_out"], st["done"].int(), token,
+                                      emit.int()]))
+        return torch.stack(flags)
+
+    # -------------------------------------------------------------- engine
+    def _free_slots(self) -> list[int]:
+        return [i for i, s in enumerate(self._slots) if s.req is None]
+
+    def _armed(self) -> list[_Slot]:
+        return [s for s in self._slots
+                if s.req is not None and not s.prefilling]
+
+    @staticmethod
+    def _prefix_key(prompt: np.ndarray, upto: int) -> tuple:
+        return upto, hashlib.sha1(prompt[:upto].tobytes()).digest()
+
+    def _cacheable_chunks(self, real_len: int) -> int:
+        """How many leading chunks of a prompt are prefix-cacheable:
+        fully real AND not the final chunk (the final chunk always
+        computes fresh so the splice has genuine last-token logits)."""
+        C = self.prefill_chunk
+        n_chunks = max(1, -(-real_len // C))
+        return min(real_len // C, n_chunks - 1)
+
+    def _begin_admission(self, req: GenerateRequest, slot: int) -> None:
+        """Stage a chunked admission: private row cache + pad-extended
+        prompt; leading chunks whose full-prefix hash is cached are copied
+        in; _advance_admissions consumes the rest a chunk at a time."""
+        C = self.prefill_chunk
+        real_len = len(req.prompt)
+        n_chunks = max(1, -(-real_len // C))
+        padded = np.full((1, n_chunks * C), self.pad_id, np.int32)
+        padded[0, :real_len] = req.prompt
+        adm = _Admission(req=req, padded=padded, real_len=real_len,
+                         row_cache=init_kv_cache(self.config, 1,
+                                                 kv_quant=self.kv_quant,
+                                                 device=self.device))
+        if self.prefix_cache_chunks:
+            for c in range(self._cacheable_chunks(real_len)):
+                key = self._prefix_key(req.prompt, (c + 1) * C)
+                rows = self._prefix_cache.get(key)
+                if rows is None:
+                    break
+                self._prefix_cache.move_to_end(key)  # LRU refresh
+                for name, buf in adm.row_cache.items():
+                    buf[:, :, c * C:(c + 1) * C].copy_(rows[name])
+                adm.consumed += C
+                self.prefix_cache_hits_total += 1
+        self._admitting[slot] = adm
+        self._slots[slot] = _Slot(req=req, target=req.max_new_tokens,
+                                  prefilling=True)
+
+    def _store_prefix(self, adm: _Admission, start: int) -> None:
+        """Cache rows [start, start + C) of the admission's row cache (a
+        copy: a view would keep the whole row cache alive)."""
+        C = self.prefill_chunk
+        key = self._prefix_key(adm.req.prompt, start + C)
+        self._prefix_cache[key] = {
+            name: buf[:, :, start:start + C].clone()
+            for name, buf in adm.row_cache.items()}
+        self._prefix_cache.move_to_end(key)
+        while len(self._prefix_cache) > self.prefix_cache_chunks:
+            self._prefix_cache.popitem(last=False)
+
+    def _advance_admissions(self) -> None:
+        """One prompt chunk per admitting slot, then (when a prompt
+        completes) the splice that arms its row. Interleaved with decode
+        ticks by the loop."""
+        C = self.prefill_chunk
+        for slot, adm in list(self._admitting.items()):
+            req = adm.req
+            if req.cancelled.is_set():
+                del self._admitting[slot]
+                self._slots[slot] = _Slot()
+                _fail(req, CancelledError())
+                self.cancelled_total += 1
+                continue
+            try:
+                if adm.consumed < adm.padded.shape[1]:
+                    start = adm.consumed
+                    adm.last_logits = self._chunk(adm, start)
+                    adm.consumed += C
+                    self.prefill_chunks_total += 1
+                    if self.prefix_cache_chunks and \
+                            start // C < self._cacheable_chunks(adm.real_len):
+                        try:
+                            self._store_prefix(adm, start)
+                        except RuntimeError:
+                            # caching is an optimization: failing to
+                            # allocate an entry must not fail a request
+                            # whose prefill succeeded
+                            pass
+                if adm.consumed < adm.padded.shape[1]:
+                    continue
+                self._splice(adm, slot)
+            except Exception as exc:  # noqa: BLE001 — fail THIS request;
+                # other admissions and the running batch continue (a
+                # failed splice leaves the row unarmed)
+                del self._admitting[slot]
+                self._slots[slot] = _Slot()
+                _fail(req, exc)
+                continue
+            del self._admitting[slot]
+            self._slots[slot].prefilling = False
+            self.admitted_total += 1
+            if len(self._armed()) > 1:
+                self.admitted_while_running += 1
+
+    def _fail_all_and_rearm(self, exc: BaseException) -> None:
+        """A tick failed part-way through its in-place updates: fail every
+        in-flight request and rebuild the state from zero (the engine
+        keeps serving)."""
+        for i, s in enumerate(self._slots):
+            if s.req is not None:
+                _fail(s.req, exc)
+            self._slots[i] = _Slot()
+        self._admitting.clear()
+        self._state = self._fresh_state()
+
+    def _emit_tokens(self, ids: np.ndarray, emitted: np.ndarray) -> None:
+        """Deliver one step's ids (already on the host in the packed
+        flags) to streaming requests. A raising callback loses its own
+        stream, never the engine. ``emitted`` is the step's per-row emit
+        mask: a row frozen mid-sync (EOS, budget) samples only pad
+        filler afterwards, which must not reach the stream."""
+        for i, slot in enumerate(self._slots):
+            if emitted[i] and slot.req is not None \
+                    and not slot.prefilling \
+                    and slot.req.on_token is not None:
+                try:
+                    slot.req.on_token(int(ids[i]))
+                except Exception:  # noqa: BLE001 — the consumer's bug
+                    slot.req.on_token = None
+
+    def _collect_finished(self, n_out: np.ndarray,
+                          done: np.ndarray) -> None:
+        freed, finished = [], []
+        for i, slot in enumerate(self._slots):
+            if slot.req is None or slot.prefilling:
+                continue
+            if slot.req.cancelled.is_set():
+                _fail(slot.req, CancelledError())
+                self._slots[i] = _Slot()
+                freed.append(i)
+                self.cancelled_total += 1
+            elif n_out[i] >= slot.target or done[i]:
+                finished.append(i)
+        if finished:
+            out = self._state["out"].cpu().numpy()
+            for i in finished:
+                slot = self._slots[i]
+                ids = out[i, :slot.target].copy()
+                ids[int(n_out[i]):] = self.pad_id   # EOS'd early: pad
+                if not slot.req.future.done():
+                    slot.req.future.set_result(ids)
+                self._slots[i] = _Slot()
+        for i in freed + finished:
+            self._state["active"][i] = False
+
+    def _loop(self) -> None:
+        draining = False
+        while True:  # pump: decode loop; exits when draining and slots idle
+            # stage as many arrivals as there are free slots; block for
+            # work only when fully idle (nothing decoding or admitting)
+            block = (not draining and not self._armed()
+                     and not self._admitting)
+            while not draining:
+                free = self._free_slots()
+                if not free:
+                    break
+                try:
+                    req = self._queue.get(block=block)
+                except queue.Empty:
+                    break
+                block = False
+                if req is None:
+                    # close(): finish what is running and admitting (those
+                    # requests were accepted), admit nothing new
+                    draining = True
+                    break
+                if req.cancelled.is_set():  # cancelled while queued
+                    _fail(req, CancelledError())
+                    self.cancelled_total += 1
+                    continue
+                try:
+                    self._begin_admission(req, free[0])
+                except Exception as exc:  # noqa: BLE001 — this request
+                    _fail(req, exc)
+            self._advance_admissions()
+            armed = self._armed()
+            if not armed:
+                if draining and not self._admitting:
+                    self._shutdown()
+                    return
+                continue
+            # multi-step sync amortizes the readback over `steps` tokens,
+            # but drops to one step while anything admits or waits, so it
+            # never costs admission latency
+            steps = self.steps_per_sync
+            if steps > 1 and (self._admitting or not self._queue.empty()):
+                steps = 1
+            sampling = any(s.req.temperature > 0 for s in armed)
+            try:
+                flags = self._tick(steps, sampling)
+                self.steps_total += steps
+                host = flags.cpu().numpy()   # the sync's one readback
+                # stream BEFORE collection so every token is delivered
+                # before the request's future resolves
+                for s in range(host.shape[0]):
+                    self._emit_tokens(host[s, 2], host[s, 3] != 0)
+                self._collect_finished(host[-1, 0], host[-1, 1] != 0)
+            except Exception as exc:  # noqa: BLE001 — fail the batch
+                self._fail_all_and_rearm(exc)
+
+    def _shutdown(self) -> None:
+        stragglers = [s.req for s in self._slots if s.req is not None]
+        while True:  # bounded: drains queue until Empty
+            try:
+                req = self._queue.get_nowait()
+            except queue.Empty:
+                break
+            if req is not None:
+                stragglers.append(req)
+        for req in stragglers:
+            _fail(req, RuntimeError("generator closed"))

@@ -1,6 +1,8 @@
 """The port's serving path (kubeflow_tpu_torch/runtime) on the CPU: the
 batched engine against the port's ``generate`` and the JAX package's
-``BatchedGenerator``, the HTTP endpoint, and the entry point's refusals.
+``BatchedGenerator``, the HTTP endpoint (per-token streaming and cancel
+on disconnect through the continuous engine), and the entry point's
+defaults and refusals.
 
 Config: the tiny flagship in float32 (see tests/test_torch_model.py); the
 JAX params are carried across with convert.py. Greedy ids must be equal,
@@ -10,8 +12,10 @@ token for token.
 from __future__ import annotations
 
 import dataclasses
+import http.client
 import json
 import threading
+import time
 import urllib.error
 import urllib.request
 
@@ -28,7 +32,8 @@ from kubeflow_tpu_torch.models.decode import generate
 from kubeflow_tpu_torch.models.transformer import TransformerConfig
 from kubeflow_tpu_torch.runtime import server as torch_server
 from kubeflow_tpu_torch.runtime.server import ServingServer
-from kubeflow_tpu_torch.runtime.serving import BatchedGenerator
+from kubeflow_tpu_torch.runtime.serving import (BatchedGenerator,
+                                               ContinuousBatchedGenerator)
 
 TINY = dict(vocab_size=512, d_model=64, n_layers=4, n_heads=4, n_kv_heads=2,
             d_ff=128, max_seq_len=128, dtype="float32")
@@ -235,6 +240,91 @@ def test_http_bad_requests_are_400(server, bad):
     assert err.value.code == 400
 
 
+class _HoldAtFirstToken:
+    """Wraps an engine's ``submit`` so the engine thread stops after
+    handing a request's first token to its stream, until ``release()``."""
+
+    def __init__(self, gen):
+        self.held, self.go = threading.Event(), threading.Event()
+        submit = gen.submit
+
+        def held_submit(*args, on_token=None, **kw):
+            def hook(tok):
+                on_token(tok)
+                if not self.held.is_set():
+                    self.held.set()
+                    self.go.wait(timeout=120)
+            return submit(*args, on_token=hook if on_token else None, **kw)
+        gen.submit = held_submit
+
+    def release(self):
+        self.go.set()
+
+
+def _stream_request(url, payload):
+    host, port = url.rsplit("/", 1)[-1].split(":")
+    conn = http.client.HTTPConnection(host, int(port), timeout=120)
+    conn.request("POST", "/v1/generate",
+                 body=json.dumps({**payload, "stream": True}),
+                 headers={"Content-Type": "application/json"})
+    return conn, conn.getresponse()
+
+
+def _next_event(resp):
+    while True:  # bounded: the socket's timeout ends a silent stream
+        line = resp.fp.readline()
+        assert line, "stream ended"
+        if line.startswith(b"data: "):
+            return json.loads(line[len(b"data: "):])
+
+
+def test_http_stream_sends_each_token_before_the_request_completes(model):
+    _, tp, _, tc = model
+    gen = ContinuousBatchedGenerator(tp, tc, n_slots=2, device="cpu")
+    hold = _HoldAtFirstToken(gen)
+    with ServingServer(gen, tc, port=0) as srv:
+        conn, resp = _stream_request(srv.url, {"prompt": PROMPTS[1],
+                                               "max_new_tokens": 12})
+        try:
+            assert resp.getheader("Content-Type") == "text/event-stream"
+            first = _next_event(resp)
+            # the engine is held right after the first token: one step run
+            assert "token" in first and gen.steps_total == 1
+            hold.release()
+            events = [first]
+            while "done" not in events[-1]:
+                events.append(_next_event(resp))
+        finally:
+            conn.close()
+    want = generate(tp, torch.tensor([PROMPTS[1]]), tc, 12)[0].tolist()
+    assert [e["token"] for e in events[:-1]] == want
+    assert events[-1]["ids"] == want and events[-1]["n_tokens"] == 12
+
+
+def test_http_client_disconnect_cancels_the_request(model):
+    _, tp, _, tc = model
+    gen = ContinuousBatchedGenerator(tp, tc, n_slots=1, device="cpu")
+    hold = _HoldAtFirstToken(gen)
+    with ServingServer(gen, tc, port=0) as srv:
+        conn, resp = _stream_request(srv.url, {"prompt": [7, 8, 9],
+                                               "max_new_tokens": 120})
+        assert "token" in _next_event(resp)
+        resp.close()
+        conn.close()                 # the client goes away mid-stream
+        hold.release()
+        deadline = time.monotonic() + 60
+        while gen.cancelled_total == 0 and time.monotonic() < deadline:
+            time.sleep(0.01)
+        assert gen.cancelled_total == 1
+        assert gen.steps_total < 120
+        # the one slot serves the next request
+        status, _, body = _post(srv.url, {"prompt": PROMPTS[0],
+                                          "max_new_tokens": 4})
+        assert status == 200
+        assert json.loads(body)["ids"] == generate(
+            tp, torch.tensor([PROMPTS[0]]), tc, 4)[0].tolist()
+
+
 # ----------------------------------------------------------- entry point
 @pytest.fixture
 def config_file(tmp_path):
@@ -251,18 +341,47 @@ def test_main_without_device_cpu_raises_when_cuda_is_absent(config_file):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--engine", "continuous"], ["--checkpoint", "/nowhere"],
-    ["--lora-config", "l.json"], ["--draft-config", "d.json"],
-    ["--kv-quant"], ["--eos-id", "2"]])
+    ["--checkpoint", "/nowhere"], ["--lora-config", "l.json"],
+    ["--draft-config", "d.json"]])
 def test_unported_flags_exit_naming_the_roadmap(config_file, flags):
     with pytest.raises(SystemExit, match="ROADMAP"):
         torch_server.main(["--config", config_file, "--device", "cpu",
                            *flags])
 
 
+@pytest.mark.parametrize("flag", [["--kv-quant"], ["--eos-id", "2"],
+                                  ["--steps-per-sync", "2"]])
+def test_bucketed_engine_refuses_continuous_only_flags(config_file, flag):
+    with pytest.raises(SystemExit, match="--engine continuous"):
+        torch_server.build_server(["--config", config_file, "--device",
+                                   "cpu", "--engine", "bucketed", *flag])
+
+
+def test_default_engine_is_continuous_and_serves(config_file):
+    srv = torch_server.build_server([
+        "--config", config_file, "--device", "cpu", "--port", "0",
+        "--slots", "2", "--kv-quant", "--eos-id", "3",
+        "--steps-per-sync", "2"])
+    srv.start()
+    try:
+        gen = srv.generator
+        assert isinstance(gen, ContinuousBatchedGenerator)
+        assert (gen.n_slots, gen.kv_quant, gen.eos_id,
+                gen.steps_per_sync) == (2, True, 3, 2)
+        status, _, body = _post(srv.url, {"prompt": [7, 8, 9],
+                                          "max_new_tokens": 3})
+        assert status == 200 and len(json.loads(body)["ids"]) == 3
+        events = _post(srv.url, {"prompt": [7, 8, 9], "max_new_tokens": 3,
+                                 "stream": True})[2].decode().splitlines()
+        assert sum(e.startswith("data: ") for e in events) >= 2
+    finally:
+        srv.stop()
+
+
 def test_build_server_on_cpu_serves(config_file):
     srv = torch_server.build_server(["--config", config_file, "--device",
-                                     "cpu", "--port", "0", "--slots", "2"])
+                                     "cpu", "--port", "0", "--slots", "2",
+                                     "--engine", "bucketed"])
     srv.start()
     try:
         status, _, body = _post(srv.url, {"prompt": [7, 8, 9],
