@@ -9,10 +9,12 @@ the port's main paths on the flagship LM (d_model 1024, 12 layers, 8
 heads of 128, 4 KV heads, d_ff 4096, vocab 32000, max_seq_len 1024; random
 weights from a seed): it serves over HTTP through ``ServingServer`` and
 ``BatchedGenerator``, serves over HTTP through ``ContinuousBatchedGenerator``
-(8 slots, 256-token prefill chunks, the prefix cache), and trains through
-``Trainer`` at batch 8 x 1024 with bf16 params and f32 masters. The
-kernels' launch counters, zeroed before each path and read after it, show
-that each path ran its kernels.
+(8 slots, 256-token prefill chunks, the prefix cache), trains through
+``Trainer`` at batch 8 x 1024 with bf16 params and f32 masters, resumes a
+Trainer from a checkpoint, and serves that checkpoint through
+``build_server`` with a speculative draft in both engines. The kernels'
+launch counters, zeroed before each path and read after it, show that
+each path ran its kernels.
 Then it times each kernel beside its bound, its plain version and one
 PyTorch library call computing the same function.
 
@@ -25,12 +27,15 @@ the relative error of each 64-row tile (``check_tiles``).
 
 Phases (any failure exits non-zero before the result line):
   1. flash-attention forward, kernel vs plain (bf16 at the train, prefill
-     and served shapes, ragged lengths, d_head 32/64/128, a strided and a
-     misaligned view; f32);
-  2. flash-decode, kernel vs plain (bf16 and int8 cache, pos from 0 to
-     past the end), and two launches bit-identical;
-  3. the serving path at full flagship width, counted launches, and an
-     f32 check of kernel-path tokens against the plain-attention path;
+     and served shapes and the small draft's served d_head 64, ragged
+     lengths, d_head 32/64/128, a strided and a misaligned view; f32);
+  2. flash-decode, kernel vs plain (bf16 and int8 cache at the
+     flagship's D 128 and the small draft's D 64, pos from 0 to past the
+     end), and two launches bit-identical;
+  3. the serving path at full flagship width, counted launches, a
+     streamed request refused (400, the JAX server's body) since the
+     bucketed engine does not stream, and an f32 check of kernel-path
+     tokens against the plain-attention path;
   4. where the time goes: one generate() under torch.profiler, device
      busy time by kernel class against host wall time;
   8. the continuous engine over HTTP on phase 3's params: 16 staggered
@@ -53,11 +58,31 @@ Phases (any failure exits non-zero before the result line):
      and each kernel wrapper's host cost a call, a falling loss, remat
      launch counts, an f32 loss/grad check against plain attention, a
      profiled step, whole-logits vs chunked CE at b8, b32 and b64;
+  7b. a checkpoint round trip at full width: Trainer A (checkpoints every
+     4 steps, keeping 1) trains 4 steps, Trainer B resumes from its step 4
+     on the same directory, both run steps 5 and 6 on the same batches
+     and agree bit for bit; bytes on disk, save (host snapshot and
+     background write) and restore seconds; the small draft (d_model 512,
+     6 layers, 8 heads of 64, d_ff 2048; seed 1) saved for phase 9;
+  9. speculative serving of 7b's checkpoint (``build_server``
+     --checkpoint, --draft-config/--draft-checkpoint, --spec-k 4,
+     --spec-inexact): the restored ids equal the in-memory params'; the
+     flagship as its own draft in f32 (every proposal accepted, ids equal
+     generate's) and bf16 (how often flash-decode and the einsum verify
+     window agree: the exactness gate's measurement); the small draft
+     over HTTP in both engines (tokens/s, acceptance, time to first token,
+     streams equal to their ids); launches = spec_ticks x 5 x 6
+     (continuous) and spec_batches x 18 prefill + blocks x 5 x 6 decode
+     (bucketed); spec_exact_only=True falls back (bucketed) or refuses
+     (continuous); 10 ticks under set_sync_debug_mode("error") and 10
+     under torch.profiler;
   5. times of each kernel, its plain version and a library call (last, so
      the paths above run on a card not yet warmed by timing loops), with
      the achieved TFLOP/s, the share of the bound, the forward, dK/dV and
-     dQ against SDPA at the train shape, and flash-decode against SDPA at
-     the served pos and against its byte bound at a full cache.
+     dQ against SDPA at the train shape, flash-decode against SDPA at
+     the served pos and against its byte bound at a full cache, and the
+     forward and flash-decode at the small draft's d_head 64 (held to
+     their plain versions too).
 
 The first lines name the card and its power limit; the line before the
 last is the ``kernels`` JSON record; the last line is
@@ -79,6 +104,7 @@ import subprocess
 import sys
 import threading
 import time
+import urllib.error
 import urllib.request
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM, published
@@ -88,6 +114,9 @@ BF16_TOL = 2e-2    # |kernel - plain|: ~4 bf16 ulps at |o| ~ 1; the two
                    # round p to bf16 against different running maxima
 F32_TOL = 2e-5     # the JAX package's own kernel pin (tests/test_ops.py)
 LSE_TOL = 1e-4     # f32 row log-sum-exp, summation order only
+# the JAX server's reply to a streamed request on the bucketed engine
+STREAM_REFUSAL = ("engine BatchedGenerator does not support streaming; use "
+                  "the continuous engine")
 # bf16 grads, elementwise |kernel - plain| <= RTOL * |plain| + ATOL.
 # RTOL: the two round f32 sums to bf16, at most one bf16 ulp (2^-7 of the
 # value) apart, plus the f32 noise of the sums. ATOL: the dK/dV kernel
@@ -252,6 +281,7 @@ def phase_flash_attention(torch):
         (8, 1024, 8, 128, bf16, True, "contig"),    # the train shape
         (8, 512, 8, 128, bf16, True, "contig"),     # flagship prefill
         (8, 128, 8, 128, bf16, True, "contig"),     # the served prompts
+        (8, 128, 8, 64, bf16, True, "contig"),      # the draft prefill
         (2, 77, 8, 128, bf16, True, "contig"),      # ragged edge
         (2, 77, 8, 128, bf16, False, "contig"),
         (2, 65, 4, 64, bf16, True, "fused"),
@@ -308,8 +338,10 @@ def phase_flash_decode(torch):
                  "mixed": [0, 1, 127, 128, 500, 777, S - 2, S - 1],
                  "past-end": [S + 5] * 8}
     errs = {"flash_decode": 0.0, "flash_decode_int8": 0.0}
-    for dt in (torch.bfloat16, torch.float32):
-        q, k, v = decode_inputs(torch, dtype=dt)
+    # the flagship's (D 128) and the small draft's (D 64) served shapes
+    for dt, D in ((torch.bfloat16, 128), (torch.float32, 128),
+                  (torch.bfloat16, 64)):
+        q, k, v = decode_inputs(torch, D=D, dtype=dt)
         qk, ks = _quantize_kv(k)
         qv, vs = _quantize_kv(v)
         tol = BF16_TOL if dt == torch.bfloat16 else F32_TOL
@@ -325,13 +357,13 @@ def phase_flash_decode(torch):
                 ref = flash_decode_attention_plain(q, kk, vv, pos, **kw)
                 err = (out.float() - ref.float()).abs().max().item()
                 same = torch.equal(out, again)
-                print(f"phase2 {name} {str(dt)[6:]} pos={label}: "
+                print(f"phase2 {name} {str(dt)[6:]} D={D} pos={label}: "
                       f"max|kernel-plain|={err:.3e} (tol {tol:g}), two "
                       f"launches bit-identical: {same}", flush=True)
                 require(err <= tol and same and
                         bool(torch.isfinite(out).all()),
                         f"{name} disagrees with its plain version or with "
-                        f"itself ({dt}, pos {label})")
+                        f"itself ({dt}, D {D}, pos {label})")
                 if dt == torch.bfloat16:
                     errs[name] = max(errs[name], err)
     for rep in (1, 4, 8):  # the GQA widths other configs use, small f32
@@ -356,19 +388,13 @@ def _post(url: str, payload: dict, timeout: float = 300.0) -> dict:
         return json.loads(resp.read())
 
 
-def _post_stream(url: str, payload: dict) -> list[dict]:
-    req = urllib.request.Request(
-        url + "/v1/generate", data=json.dumps({**payload, "stream": True})
-        .encode(), headers={"Content-Type": "application/json"},
-        method="POST")
-    events = []
-    with urllib.request.urlopen(req, timeout=300) as resp:
-        require(resp.headers.get("Content-Type") == "text/event-stream",
-                "stream response is not text/event-stream")
-        for line in resp.read().decode().splitlines():
-            if line.startswith("data: "):
-                events.append(json.loads(line[len("data: "):]))
-    return events
+def _refused(url: str, payload: dict) -> tuple[int, dict]:
+    """(status, JSON body) of a /v1/generate the server refuses."""
+    try:
+        _post(url, payload)
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+    fail(f"the server accepted {payload}")
 
 
 def _concurrent(url: str, payloads: list[dict]) -> tuple[list[dict], float]:
@@ -465,23 +491,26 @@ def phase_serving(torch, flagship):
             _check_ids(out, 16, V, f"77-token request {i}")
         account(gen.batches_total - n0, 16)
 
-        # one streamed request, then the same prompt again, plain: a
-        # repeated greedy prompt at the same batch shape gives the same ids
+        # the bucketed engine does not stream: a streamed request gets the
+        # JAX server's 400 and never reaches the engine; then the same
+        # prompt twice, plain: a repeated greedy prompt at the same batch
+        # shape gives the same ids
         p = prompt(128)
         n0 = gen.batches_total
-        events = _post_stream(server.url, {"prompt": p,
-                                           "max_new_tokens": 32})
-        done = events[-1]
-        require(done.get("done") is True and done["n_tokens"] == 32,
-                f"stream did not finish: {events[-1]}")
-        streamed = [e["token"] for e in events[:-1]]
-        require(streamed == done["ids"],
-                "streamed tokens differ from the done event's ids")
-        _check_ids(done, 32, V, "streamed request")
+        refusal = _refused(server.url, {"prompt": p, "max_new_tokens": 32,
+                                        "stream": True})
+        print(f"phase3 a streamed request to the bucketed engine: "
+              f"{refusal}", flush=True)
+        require(refusal == (400, {"error": STREAM_REFUSAL}) and
+                gen.batches_total == n0,
+                f"bucketed stream answered {refusal}")
+        first = _check_ids(_post(server.url, {"prompt": p,
+                                              "max_new_tokens": 32}),
+                           32, V, "plain request")
         again = _check_ids(_post(server.url, {"prompt": p,
                                               "max_new_tokens": 32}),
                            32, V, "repeated request")
-        require(again == done["ids"],
+        require(again == first,
                 "a repeated greedy prompt gave different ids")
         account(gen.batches_total - n0, 32)
 
@@ -682,16 +711,20 @@ def _streamed_ids(events: list, n: int, vocab: int, what: str) -> list[int]:
     return _check_ids(done, n, vocab, what)
 
 
-def _staggered(url: str, prompts: list, max_new: int, vocab: int) -> dict:
-    """One streamed request a prompt, posted 25 ms apart from threads:
-    ids, wall (first post to last done event), time to first token."""
+def _staggered(url: str, prompts: list, max_new: int, vocab: int,
+               temperatures: list | None = None) -> dict:
+    """One streamed request a prompt (greedy, or at ``temperatures[i]``),
+    posted 25 ms apart from threads: ids, wall (first post to last done
+    event), time to first token."""
     results: list = [None] * len(prompts)
     errors: list = []
+    temps = temperatures or [0.0] * len(prompts)
 
     def worker(i):
         try:
             results[i] = _stream_timed(url, {"prompt": prompts[i],
-                                             "max_new_tokens": max_new})
+                                             "max_new_tokens": max_new,
+                                             "temperature": temps[i]})
         except Exception as e:  # noqa: BLE001 — re-raised below as a failure
             errors.append(f"request {i}: {type(e).__name__}: {e}")
 
@@ -1379,6 +1412,403 @@ def _f32_train_check(torch, flagship):
     return {"loss_abs_err": loss_err, "grad_rel_err": grad_err}
 
 
+# --------------------------------------------------------------- phase 7b
+def _state_tree(trainer) -> dict:
+    """A bf16-params Trainer's whole state as one tree of tensors."""
+    opt = trainer.opt_state
+    return {"params": trainer.params, "master": opt.master,
+            "mu": opt.inner.mu, "nu": opt.inner.nu}
+
+
+def _tree_diff(torch, got: dict, want: dict) -> tuple[bool, float]:
+    """(every leaf bit-equal, the largest max|got - want| / max|want| of
+    a leaf)."""
+    from kubeflow_tpu_torch.models.train import tree_leaves
+    equal, worst = True, 0.0
+    for a, b in zip(tree_leaves(got), tree_leaves(want)):
+        if not torch.equal(a, b):
+            equal = False
+            worst = max(worst, ((a.float() - b.float()).abs().max() /
+                                b.float().abs().max().clamp_min(1e-30))
+                        .item())
+    return equal, worst
+
+
+def phase_checkpoint(torch, flagship, draft_config, root):
+    """7b: a checkpoint round trip at full flagship width. Trainer A
+    (bf16 params, f32 masters, checkpoints every 4 steps, keeping 1)
+    trains 4 steps, which saves step 4, and waits for the write; Trainer B
+    on the same directory resumes at step 4; both run steps 5 and 6 on the
+    same batches and must agree bit for bit (losses, params, masters,
+    moments). Prints the bytes of the step on disk and the seconds of the
+    save (the blocking host snapshot and the background write apart) and
+    of the restore. Also saves the small draft's seed-1 params for phase
+    9. Returns A's step-4 params (a copy), stats and the launches."""
+    from kubeflow_tpu_torch import ops
+    from kubeflow_tpu_torch.models import train as train_lib
+    from kubeflow_tpu_torch.models.transformer import init_params
+    from kubeflow_tpu_torch.runtime.checkpoint import TrainCheckpointer
+    from kubeflow_tpu_torch.runtime.data import synthetic_lm_batches
+    from kubeflow_tpu_torch.runtime.trainer import Trainer
+
+    c, L, dev = flagship, flagship.n_layers, "cuda"
+    tdir, ddir = os.path.join(root, "flagship"), os.path.join(root, "draft")
+    tc = train_lib.TrainConfig(bf16_params=True)
+    src = synthetic_lm_batches(8, 1024, c.vocab_size, seed=0)
+    batches = [next(src) for _ in range(6)]
+    kw = dict(device=dev, checkpoint_dir=tdir, checkpoint_interval=4,
+              max_checkpoints=1)
+    ops.reset_launch_counts()
+    a = Trainer(c, tc, **kw)
+    # the save's two halves, timed around the checkpointer's own calls
+    times: dict = {}
+    save, write = a.checkpointer.save, a.checkpointer._write
+
+    def timed_save(*args, **kwargs):
+        t0 = time.monotonic()
+        saved = save(*args, **kwargs)
+        if saved:
+            times["snapshot_s"] = time.monotonic() - t0
+        return saved
+
+    def timed_write(*args):
+        t0 = time.monotonic()
+        write(*args)
+        times["write_s"] = time.monotonic() - t0
+    a.checkpointer.save, a.checkpointer._write = timed_save, timed_write
+    a.fit(batches[:4], steps=4, log_every=1)
+    a.checkpointer.wait()
+    require(a.checkpointer.all_steps() == [4],
+            f"checkpoints {a.checkpointer.all_steps()}, expected [4]")
+    step_dir = os.path.join(tdir, "4")
+    nbytes = sum(os.path.getsize(os.path.join(step_dir, f))
+                 for f in os.listdir(step_dir))
+    params4 = train_lib.tree_map(lambda t: t.detach().clone(), a.params)
+
+    t0 = time.monotonic()
+    b = Trainer(c, tc, seed=1, **kw)
+    build_s = time.monotonic() - t0
+    require(b.stats.step == 4, f"Trainer B resumed at step {b.stats.step}")
+    t0 = time.monotonic()
+    b.checkpointer.restore(b.params, b.opt_state)   # the same step again
+    torch.cuda.synchronize()
+    restore_s = time.monotonic() - t0
+    equal0, _ = _tree_diff(torch, _state_tree(b), _state_tree(a))
+
+    a.fit(batches[4:], steps=2, log_every=1)
+    b.fit(batches[4:], steps=2, log_every=1)
+    losses_a, losses_b = list(a.stats.losses)[4:], list(b.stats.losses)
+    equal, worst = _tree_diff(torch, _state_tree(b), _state_tree(a))
+    for t in (a, b):
+        require(t.checkpointer.all_steps() == [4], "steps 5 and 6 saved")
+        t.close()
+    counts = ops.launch_counts()
+    stats = {"bytes_per_step": nbytes, **times, "restore_s": restore_s,
+             "trainer_b_build_s": build_s, "losses_a": losses_a,
+             "losses_b": losses_b, "restored_bit_equal": equal0,
+             "continued_bit_equal": equal and losses_a == losses_b,
+             "worst_leaf_rel_diff": worst}
+    print(f"phase7b checkpoint of step 4: {nbytes / 1e9:.3f} GB on disk, "
+          f"save: host snapshot {times.get('snapshot_s', 0):.3f} s, "
+          f"background write {times.get('write_s', 0):.3f} s; restore "
+          f"{restore_s:.3f} s (Trainer B built and resumed in {build_s:.3f}"
+          f" s); restored state bit-equal to A's: {equal0}", flush=True)
+    print(f"phase7b steps 5 and 6: A {losses_a}, B {losses_b}; every loss, "
+          f"param, master and moment bit-equal: "
+          f"{stats['continued_bit_equal']} (largest leaf difference "
+          f"{worst:.3e} of the leaf's max)", flush=True)
+    require(equal0, "the restored state differs from the saved one")
+    require([s for s, _ in losses_b] == [5, 6], f"B's steps {losses_b}")
+    require(stats["continued_bit_equal"],
+            "the resumed run is not bit-equal to the uninterrupted one")
+    want = {"flash_attention": 8 * L, "flash_attention_bwd_dkv": 8 * L,
+            "flash_attention_bwd_dq": 8 * L}
+    print(f"phase7b launches {counts} expected {want}", flush=True)
+    require(all(counts[k] == w for k, w in want.items()),
+            f"phase 7b launches {counts}, expected {want}")
+    del a, b
+
+    draft = init_params(torch.Generator(device=dev).manual_seed(1),
+                        draft_config, device=dev)
+    with TrainCheckpointer(ddir) as ckpt:
+        require(ckpt.save(0, *train_lib.init_train_state(
+            draft, train_lib.TrainConfig())), "the draft was not saved")
+    return params4, stats, {k: counts.get(k, 0) for k in want}
+
+
+# --------------------------------------------------------------- phase 9
+def _write_config(root: str, name: str, config) -> str:
+    import dataclasses
+    path = os.path.join(root, name)
+    with open(path, "w") as fh:
+        json.dump(dataclasses.asdict(config), fh)
+    return path
+
+
+def _greedy_margins(torch, params, prompts, config, n):
+    """generate's greedy loop written out (prefill, then decode steps at
+    one pos): the ids and the smallest top-1/top-2 logit margin of its
+    steps."""
+    from kubeflow_tpu_torch.models.decode import decode_step, prefill
+    logits, cache = prefill(params, prompts, config)
+    ids, margin = [], math.inf
+    for i in range(n):
+        top = logits.topk(2, dim=-1).values
+        margin = min(margin, (top[:, 0] - top[:, 1]).min().item())
+        ids.append(logits.argmax(dim=-1))
+        if i < n - 1:
+            logits, cache = decode_step(params, cache, ids[-1],
+                                        prompts.shape[1] + i, config)
+    return torch.stack(ids, dim=1).tolist(), margin
+
+
+def _first_diff(a: list, b: list):
+    return next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
+
+
+def _identical_draft(torch, params, config, prompts, n):
+    """Both engines with the target as its own draft (k=4,
+    spec_exact_only=False) on 4 prompts: their ids and acceptance."""
+    from kubeflow_tpu_torch.runtime.serving import (
+        BatchedGenerator, ContinuousBatchedGenerator)
+    kw = dict(draft_params=params, draft_config=config, spec_k=4,
+              spec_exact_only=False, device="cuda")
+    out = {}
+    with ContinuousBatchedGenerator(params, config, n_slots=4,
+                                    **kw) as gen:
+        futures = [gen.submit(p, n) for p in prompts]
+        out["continuous"] = ([f.result(timeout=300).tolist()
+                              for f in futures],
+                             gen.spec_accepted, gen.spec_drafted)
+    with BatchedGenerator(params, config, max_batch=4, max_wait_s=0.5,
+                          **kw) as gen:
+        futures = [gen.submit(p, n) for p in prompts]
+        out["bucketed"] = ([f.result(timeout=300).tolist()
+                            for f in futures],
+                           gen.spec_accepted, gen.spec_drafted)
+        require(gen.spec_batches == 1, "the identical draft did not "
+                                       "speculate in one batch")
+    return out
+
+
+def _check_spec_sync_free(torch, gen) -> None:
+    """10 speculative ticks (greedy and sampling) on the idle engine
+    under torch.cuda.set_sync_debug_mode("error")."""
+    import traceback
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for sampling in (False, True):
+            for _ in range(5):
+                gen._spec_tick(sampling)
+    except RuntimeError:
+        torch.cuda.set_sync_debug_mode(0)
+        fail(f"a speculative tick synchronises with the card:\n"
+             f"{traceback.format_exc()[-3000:]}")
+    torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    print("phase9 10 speculative ticks (greedy and sampling) ran under "
+          "set_sync_debug_mode('error') without a synchronising op",
+          flush=True)
+
+
+def phase_speculative(torch, flagship, draft_config, root, params4,
+                      baseline: dict):
+    """9: speculative serving of phase 7b's restored flagship, with the
+    small draft from its checkpoint, through ``build_server`` (k=4,
+    --spec-inexact, both engines). The restored params' ids against the
+    in-memory ones; the flagship as its own draft in f32 (every proposal
+    accepted, ids = generate's) and bf16 (the exactness gate's
+    measurement: how often flash-decode and the einsum window agree);
+    the small draft over HTTP (tokens/s, acceptance, time to first
+    token); the gate with spec_exact_only=True; exact launch counts; the
+    tick under set_sync_debug_mode("error") and torch.profiler."""
+    from kubeflow_tpu_torch import ops
+    from kubeflow_tpu_torch.models.decode import generate
+    from kubeflow_tpu_torch.models.transformer import init_params
+    from kubeflow_tpu_torch.runtime.server import build_server
+    from kubeflow_tpu_torch.runtime.serving import (
+        BatchedGenerator, ContinuousBatchedGenerator)
+
+    c, dc, V, dev = flagship, draft_config, flagship.vocab_size, "cuda"
+    L, Ld, k = c.n_layers, dc.n_layers, 4
+    prompt_len, n_stagger = 128, 16
+    rng = torch.Generator().manual_seed(17)
+
+    def prompt(n):
+        return torch.randint(0, V, (n,), generator=rng).tolist()
+
+    target = ["--config", _write_config(root, "flagship.json", c),
+              "--checkpoint", os.path.join(root, "flagship"), "--device",
+              dev, "--port", "0"]
+    spec = ["--draft-config", _write_config(root, "draft.json", dc),
+            "--draft-checkpoint", os.path.join(root, "draft"), "--spec-k",
+            str(k), "--spec-inexact"]
+    stats: dict = {}
+    launches = {"flash_attention": 0, "flash_decode": 0}
+
+    # 1. the restore: --checkpoint's ids against the in-memory params'
+    probe = [prompt(prompt_len) for _ in range(2)]
+    server = build_server(target).start()
+    try:
+        served = [_post(server.url, {"prompt": p, "max_new_tokens": 32})
+                  ["ids"] for p in probe]
+    finally:
+        server.stop()
+    with ContinuousBatchedGenerator(params4, c, device=dev) as gen:
+        in_memory = [gen.generate_sync(p, 32, timeout=300).tolist()
+                     for p in probe]
+    print(f"phase9 --checkpoint serves step 4's params: greedy ids equal "
+          f"the in-memory params' engine's: {served == in_memory}",
+          flush=True)
+    require(served == in_memory, "the restored params serve other ids")
+
+    # 2. and 3. the flagship as its own draft, f32 then bf16
+    prompts4 = [prompt(prompt_len) for _ in range(4)]
+    batch4 = torch.tensor(prompts4, device=dev)
+    c32 = c.replace(dtype="float32")
+    want32, margin = _greedy_margins(torch, params4, batch4, c32, 32)
+    require(generate(params4, batch4, c32, 32).tolist() == want32,
+            "the written-out greedy loop is not generate's")
+    for engine, (ids, acc, drafted) in _identical_draft(
+            torch, params4, c32, prompts4, 32).items():
+        same = [a == b for a, b in zip(ids, want32)]
+        print(f"phase9 f32, the flagship as its own draft, {engine}: "
+              f"accepted {acc} of {drafted} proposals; ids equal "
+              f"generate's for {sum(same)} of 4 requests (smallest "
+              f"top-1/top-2 logit margin of generate's steps "
+              f"{margin:.3e})", flush=True)
+        require(acc == drafted > 0 and all(same),
+                f"f32 identical draft ({engine}): accepted {acc} of "
+                f"{drafted}, ids equal {same}")
+        stats[f"f32_identical_{engine}"] = {"accepted": acc,
+                                            "drafted": drafted}
+    stats["f32_min_margin"] = margin
+    want16 = generate(params4, batch4, c, 32).tolist()
+    for engine, (ids, acc, drafted) in _identical_draft(
+            torch, params4, c, prompts4, 32).items():
+        diffs = [_first_diff(a, b) for a, b in zip(ids, want16)]
+        print(f"phase9 bf16, the flagship as its own draft, {engine}: "
+              f"acceptance {acc / drafted:.4f} ({acc} of {drafted}); per "
+              f"request, the first position where the ids leave "
+              f"generate's (None: equal): {diffs}", flush=True)
+        stats[f"bf16_identical_{engine}"] = {
+            "accepted": acc, "drafted": drafted, "first_diff": diffs}
+
+    # 4. the small draft over HTTP, bucketed then continuous, each with
+    # one sampled request added; 6. launches exact
+    greedy = [prompt(prompt_len) for _ in range(8)]
+    server = build_server(target + spec + ["--engine", "bucketed"]).start()
+    gen = server.generator
+    try:
+        ops.reset_launch_counts()
+        _check_ids(_post(server.url, {"prompt": prompt(8),
+                                      "max_new_tokens": 2}), 2, V, "warm-up")
+        outs, wall = _concurrent(server.url, [
+            {"prompt": p, "max_new_tokens": 64} for p in greedy] + [
+            {"prompt": prompt(prompt_len), "max_new_tokens": 64,
+             "temperature": 0.8}])
+        for i, out in enumerate(outs):
+            _check_ids(out, 64, V, f"speculative bucketed request {i}")
+        counts = ops.launch_counts()
+        want = {"flash_attention": gen.spec_batches * (L + Ld),
+                "flash_decode": gen.spec_blocks * (k + 1) * Ld,
+                "flash_decode_int8": 0}
+        bucketed = {"tokens_per_s": 9 * 64 / wall, "wall_s": wall,
+                    "spec_batches": gen.spec_batches,
+                    "spec_blocks": gen.spec_blocks,
+                    "acceptance": gen.spec_accepted / gen.spec_drafted}
+        print(f"phase9 bucketed, small draft (6 layers, 8 heads of 64), 8 "
+              f"greedy + 1 sampled (prompt {prompt_len}, 64 new): "
+              f"{bucketed['tokens_per_s']:.1f} generated tokens/s (phase "
+              f"3, no draft: {baseline.get('bucketed_tokens_per_s', 0):.1f})"
+              f", {wall:.3f} s, {gen.spec_batches} speculative batches of "
+              f"{gen.batches_total} (warm-up included), {gen.spec_blocks} "
+              f"blocks, acceptance {bucketed['acceptance']:.4f}; launches "
+              f"{counts} expected {want}", flush=True)
+        require(gen.spec_batches == gen.batches_total and
+                all(n == want.get(name, 0) for name, n in counts.items())
+                and want["flash_decode"] > 0,
+                f"bucketed speculative launches {counts}, expected {want}")
+        for name in launches:
+            launches[name] += want[name]
+    finally:
+        server.stop()
+    stats["bucketed_small_draft"] = bucketed
+
+    stagger = [prompt(prompt_len) for _ in range(n_stagger)] + \
+        [prompt(prompt_len)]
+    server = build_server(target + spec).start()
+    gen = server.generator
+    try:
+        ops.reset_launch_counts()
+        run = _staggered(server.url, stagger, 64, V,
+                         temperatures=[0.0] * n_stagger + [0.8])
+        counts = ops.launch_counts()
+        want = {"flash_attention": 0, "flash_decode_int8": 0,
+                "flash_decode": gen.spec_ticks * (k + 1) * Ld}
+        continuous = {k_: v for k_, v in run.items() if k_ != "ids"}
+        continuous.update(spec_ticks=gen.spec_ticks,
+                          acceptance=gen.spec_accepted / gen.spec_drafted)
+        print(f"phase9 continuous, small draft, {n_stagger} greedy + 1 "
+              f"sampled streamed requests 25 ms apart (prompt "
+              f"{prompt_len}, 64 new): {run['tokens_per_s']:.1f} generated "
+              f"tokens/s (phase 8, no draft: "
+              f"{baseline.get('continuous_tokens_per_s', 0):.1f}), wall "
+              f"{run['wall_s']:.3f} s, time to first token median "
+              f"{1e3 * run['ttft_median_s']:.1f} ms max "
+              f"{1e3 * run['ttft_max_s']:.1f} ms, {gen.spec_ticks} ticks, "
+              f"acceptance {continuous['acceptance']:.4f}; launches "
+              f"{counts} expected {want}", flush=True)
+        require(all(n == want.get(name, 0) for name, n in counts.items())
+                and want["flash_decode"] > 0,
+                f"continuous speculative launches {counts}, expected {want}")
+        launches["flash_decode"] += want["flash_decode"]
+        stats["continuous_small_draft"] = continuous
+
+        # 7. the tick never synchronises; 10 ticks profiled
+        _check_spec_sync_free(torch, gen)
+        prof = {"shape": "10 speculative ticks, continuous engine, 8 "
+                         "slots, small draft, k=4",
+                **_profile(torch, lambda: [gen._spec_tick(False).cpu()
+                                           for _ in range(10)])}
+        _print_profile("phase9", prof)
+        if prof["device_busy_ms"]:
+            print(f"phase9 a speculative tick: wall "
+                  f"{prof['wall_ms'] / 10:.2f} ms, device busy "
+                  f"{prof['device_busy_ms'] / 10:.3f} ms (idle "
+                  f"{100 * prof['device_idle_share']:.1f}%), "
+                  f"{prof['device_kernels'] / 10:.0f} kernels", flush=True)
+        stats["tick_profile"] = prof
+    finally:
+        server.stop()
+
+    # 5. the gate: spec_exact_only=True on the card's flash-decode path
+    draft = init_params(torch.Generator(device=dev).manual_seed(1), dc,
+                        device=dev)
+    p = prompt(prompt_len)
+    with BatchedGenerator(params4, c, draft_params=draft, draft_config=dc,
+                          device=dev) as gen:
+        ids = gen.generate_sync(p, 16, timeout=300).tolist()
+        fell_back = gen.spec_batches == 0
+    plain = generate(params4, torch.tensor([p], device=dev), c,
+                     16)[0].tolist()
+    try:
+        ContinuousBatchedGenerator(params4, c, draft_params=draft,
+                                   draft_config=dc, device=dev).close()
+        refused = None
+    except ValueError as e:
+        refused = str(e)
+    print(f"phase9 spec_exact_only=True: the bucketed engine fell back to "
+          f"generate: {fell_back}, ids equal generate's: {ids == plain}; "
+          f"the continuous engine refused the draft: {refused!r}",
+          flush=True)
+    require(fell_back and ids == plain and refused is not None and
+            "spec_exact_only=False" in refused,
+            "the exactness gate did not hold on the card")
+    return stats, launches
+
+
 # --------------------------------------------------------------- phase 5
 def _time_flash(torch, timer, b, s, h, d, seed=4, lse=False):
     import torch.nn.functional as F
@@ -1389,13 +1819,16 @@ def _time_flash(torch, timer, b, s, h, d, seed=4, lse=False):
     q, k, v = (torch.randn((b, s, h, d), generator=g, device="cuda",
                            dtype=torch.bfloat16) for _ in range(3))
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-    err = (flash_attention_cuda(q, k, v, True).float() -
-           flash_attention_plain(q, k, v, True).float()).abs().max().item()
+    got = flash_attention_cuda(q, k, v, True)
+    want = flash_attention_plain(q, k, v, True)
+    err = (got.float() - want.float()).abs().max().item()
+    tiles_ok, _ = check_tiles(got, want)
     nbytes = 4 * b * s * h * d * 2 + (b * h * s * 4 if lse else 0)
     flops = 4 * b * h * d * (s * (s + 1) // 2)
     b_ms, b_by = bound(nbytes, flops, "bfloat16")
     return {
         "max_abs_err": err, "flops": flops,
+        "agrees": err <= BF16_TOL and tiles_ok,
         "ms": timer.ms(lambda: flash_attention_cuda(q, k, v, True, lse)),
         "plain_ms": timer.ms(lambda: flash_attention_plain(q, k, v, True,
                                                            lse)),
@@ -1565,6 +1998,10 @@ def phase_times(torch, errs, counts):
     full = {name: _time_decode(torch, timer, [S - 1] * 8, quant)
             for name, quant in (("flash_decode", False),
                                 ("flash_decode_int8", True))}
+    # the small draft's shapes (phase 9: d_head 64), printed
+    draft = {"flash_attention": _time_flash(torch, timer, 8, 128, 8, 64),
+             "flash_decode": _time_decode(torch, timer, [159] * 8, False,
+                                          D=64)}
     rows = []
     for name, r in main.items():
         _print_row(name, r)
@@ -1573,6 +2010,13 @@ def phase_times(torch, errs, counts):
         if name in full:
             _print_row(name, full[name])
             wide[f"{name}_full_cache"] = full[name]
+        if name in draft:
+            _print_row(name, draft[name])
+            require(draft[name].pop("agrees", draft[name]["max_abs_err"]
+                                    <= BF16_TOL),
+                    f"{name} disagrees with its plain version at the small "
+                    f"draft's shape")
+            wide[f"{name}_draft_d64"] = draft[name]
         require(r.pop("agrees", r["max_abs_err"] <= BF16_TOL),
                 f"{name} disagrees with its plain version at the main "
                 f"path's shape")
@@ -1611,6 +2055,10 @@ def main() -> int:
     sys.path.insert(0, here)
     from kubeflow_tpu_torch.ops import _build
     from kubeflow_tpu_torch.tools.train_step_time import FLAGSHIP
+
+    # the "small" draft of ci/spec_acceptance.py: half the width and depth,
+    # so 8 heads of 64 and 4 KV heads
+    SMALL_DRAFT = FLAGSHIP.replace(d_model=512, d_ff=2048, n_layers=6)
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1664,6 +2112,31 @@ def main() -> int:
     # a kernel's launches: the sum over the main paths that run it
     for name, n in train["launches"].items():
         counts[name] = counts.get(name, 0) + n
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the checkpoints of phases 7b and 9 live under build/ (ignored by
+    # git) and are deleted at the end of the run
+    root = os.path.join(here, "build", f"smoke-checkpoints-{os.getpid()}")
+    os.makedirs(root, exist_ok=True)
+    baseline = {"bucketed_tokens_per_s":
+                stats["serve_8x128p_64n_tokens_per_s"],
+                "continuous_tokens_per_s":
+                stats["continuous"]["staggered"]["tokens_per_s"]}
+    try:
+        params4, train["checkpoint"], launched = phase_checkpoint(
+            torch, FLAGSHIP, SMALL_DRAFT, root)
+        for name, n in launched.items():
+            counts[name] += n
+        gc.collect()
+        torch.cuda.empty_cache()
+        stats["speculative"], launched = phase_speculative(
+            torch, FLAGSHIP, SMALL_DRAFT, root, params4, baseline)
+        for name, n in launched.items():
+            counts[name] += n
+        del params4
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    gc.collect()
     torch.cuda.empty_cache()
     rows, wide = phase_times(torch, errs, counts)
     print(json.dumps({"serving": stats, "train": train,

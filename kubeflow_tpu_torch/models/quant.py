@@ -45,7 +45,7 @@ def quantize_params(params: dict) -> dict:
         return params
     if "router" in params["blocks"]:
         raise NotImplementedError("MoE params are not ported yet "
-                                  "(ROADMAP queue A item 5, MoE and LoRA)")
+                                  "(ROADMAP queue A, MoE and LoRA)")
     out = dict(params)
     out["blocks"] = {
         name: (quantize_weight(w, BLOCK_AXES[name])

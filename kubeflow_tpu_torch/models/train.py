@@ -2,11 +2,11 @@
 
 Port of ``kubeflow_tpu/models/train.py`` for a single device (the sharded
 ``make_sharded_train_step`` and the pipeline rules come with the
-multi-device slice of the port, ROADMAP queue A item 4). The reference
-jits forward, backward and optimizer into one XLA program; here the step
-runs eagerly: the forward and autograd's backward go through the
-hand-written flash-attention kernels on the card, and the optimizer is a
-few ``torch._foreach_*`` passes over the parameter leaves.
+multi-device slice of the port: ROADMAP queue A, multi-device). The
+reference jits forward, backward and optimizer into one XLA program; the
+step here runs eagerly: the forward and autograd's backward go through
+the hand-written flash-attention kernels on the card, and the optimizer
+is a few ``torch._foreach_*`` passes over the parameter leaves.
 
 Params are the port's stacked dict tree (models/transformer.py). Gradients
 come from ``torch.autograd.grad`` over its leaves, so nothing accumulates

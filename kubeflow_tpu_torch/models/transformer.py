@@ -68,7 +68,7 @@ class TransformerConfig:
         if self.attention in ("ring", "ulysses"):
             raise NotImplementedError(
                 f"attention={self.attention!r} is not ported yet (ROADMAP "
-                f"queue A item 4, multi-device)")
+                f"queue A, multi-device)")
         if self.attention not in ("auto", "xla", "flash"):
             raise ValueError(f"attention must be auto, xla, or flash; got "
                              f"{self.attention!r}")

@@ -42,18 +42,23 @@ validation, streaming and the OpenAI routes are the same code. The
 engine behind it is the port's ``ContinuousBatchedGenerator`` by default
 (per-token streaming; a client that disconnects or times out cancels its
 request at the next token boundary) or, with ``--engine bucketed``,
-``BatchedGenerator``, which streams a request's ids when its batch
-finishes. Requests block on the engine future, so the HTTP layer is a
-ThreadingHTTPServer: one thread per in-flight request, all batching
-intelligence stays in the engine.
+``BatchedGenerator``, which does not stream (a streamed request gets 400,
+as from the JAX server). Requests block on the engine future, so the
+HTTP layer is a ThreadingHTTPServer: one thread per in-flight request,
+all batching intelligence stays in the engine.
 
 Run standalone (on the card; ``--device cpu`` for a dev box):
 
     python -m kubeflow_tpu_torch.runtime.server --config model.json \
-        --port 8890 --kv-quant --eos-id 2
+        --checkpoint ckpt/ --draft-config draft.json \
+        --draft-checkpoint draft_ckpt/ --spec-inexact --port 8890
 
-Checkpoints, LoRA and draft models are not ported yet: their flags exit
-with the ROADMAP item that will port them.
+``--checkpoint`` serves the latest params of a ``TrainCheckpointer``
+directory (runtime/checkpoint.py). On the card ``--spec-inexact`` is what
+lets a draft speculate: plain decode takes the flash-decode kernel there
+and the verify window is the einsum path, which may round a greedy
+near-tie apart. The LoRA flags are not ported yet: they exit naming the
+ROADMAP item that will port them.
 """
 
 from __future__ import annotations
@@ -751,20 +756,21 @@ class ServingServer:
 
 # -------------------------------------------------------------- entrypoint
 # flags of the JAX package's server that this port does not carry yet,
-# each with the ROADMAP item that will port it
+# each with the ROADMAP queue A item that will port it
 NOT_PORTED = {
-    "checkpoint": "queue A item 6, workload runtime",
-    "draft_config": "queue A item 3, speculative decoding",
-    "draft_checkpoint": "queue A item 3, speculative decoding",
-    "spec_k": "queue A item 3, speculative decoding",
-    "spec_inexact": "queue A item 3, speculative decoding",
-    "lora_config": "queue A item 5, MoE and LoRA",
-    "lora_checkpoint": "queue A item 5, MoE and LoRA",
+    "lora_config": "queue A, MoE and LoRA",
+    "lora_checkpoint": "queue A, MoE and LoRA",
 }
 
 
-def build_generator(params, config, args):
+def build_generator(params, config, args, draft=None):
+    """The engine ``args`` asks for; ``draft`` is (params, config) of a
+    speculative draft model or None."""
     from .serving import BatchedGenerator, ContinuousBatchedGenerator
+    kw = {}
+    if draft is not None:
+        kw = dict(draft_params=draft[0], draft_config=draft[1],
+                  spec_k=args.spec_k, spec_exact_only=not args.spec_inexact)
     if args.engine == "bucketed":
         if args.kv_quant or args.eos_id >= 0 or args.steps_per_sync > 1:
             # refuse rather than silently ignore: the operator asked for
@@ -772,18 +778,38 @@ def build_generator(params, config, args):
             raise SystemExit("--kv-quant/--eos-id/--steps-per-sync "
                              "require --engine continuous")
         return BatchedGenerator(params, config, max_batch=args.slots,
-                                quantize=args.quantize, device=args.device)
+                                quantize=args.quantize, device=args.device,
+                                **kw)
     return ContinuousBatchedGenerator(
         params, config, n_slots=args.slots, quantize=args.quantize,
         kv_quant=args.kv_quant, steps_per_sync=args.steps_per_sync,
         eos_id=args.eos_id if args.eos_id >= 0 else None,
-        device=args.device)
+        device=args.device, **kw)
+
+
+def _load_params(config, seed: int, device, directory: str | None):
+    """``config``'s params drawn from ``seed`` on ``device`` and, with a
+    checkpoint ``directory``, overwritten by its latest params; SystemExit
+    when it holds none."""
+    from ..models.transformer import init_params
+    from .checkpoint import TrainCheckpointer
+    params = init_params(torch.Generator(device=device).manual_seed(seed),
+                         config, device=device)
+    if directory is None:
+        return params
+    with TrainCheckpointer(directory) as ckpt:
+        restored = ckpt.restore_params(params)
+    if restored is None:
+        raise SystemExit(f"no checkpoint found in {directory}")
+    step, params = restored
+    log.info("restored params from step %d of %s", step, directory)
+    return params
 
 
 def build_server(argv=None) -> ServingServer:
     """Parse the command line and return the (not yet started) server."""
     from .. import resolve_device
-    from ..models.transformer import TransformerConfig, init_params
+    from ..models.transformer import TransformerConfig
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--config", required=True,
@@ -819,25 +845,53 @@ def build_server(argv=None) -> ServingServer:
                          "completions: a builtin name (role-tags "
                          "[default], chatml), 'tokenizer', or a path to a "
                          "JSON file with 'turn' + 'generation_prompt'")
+    ap.add_argument("--checkpoint", default=None,
+                    help="TrainCheckpointer directory (runtime/"
+                         "checkpoint.py layout; the latest step's params "
+                         "are restored); absent: randomly initialized "
+                         "params (dev only)")
+    ap.add_argument("--draft-config", default=None,
+                    help="JSON TransformerConfig of a speculative draft "
+                         "model: un-warped requests run draft-propose/"
+                         "verify-once with identical outputs")
+    ap.add_argument("--draft-checkpoint", default=None,
+                    help="TrainCheckpointer directory of the draft's "
+                         "params; absent with --draft-config: a random "
+                         "draft (dev only)")
+    ap.add_argument("--spec-k", type=int, default=4,
+                    help="draft tokens proposed per speculative block")
+    ap.add_argument("--spec-inexact", action="store_true",
+                    help="allow speculation where plain decode would use "
+                         "the flash kernel (on the card, always): the "
+                         "einsum verify window can differ in last-bit "
+                         "rounding, so a greedy near-tie may flip "
+                         "(sampled requests' distribution is unaffected)")
     for name in NOT_PORTED:
-        flag = "--" + name.replace("_", "-")
-        if name == "spec_inexact":
-            ap.add_argument(flag, action="store_true", help="not ported")
-        else:
-            ap.add_argument(flag, default=None, help="not ported")
+        ap.add_argument("--" + name.replace("_", "-"), default=None,
+                        help="not ported")
     args = ap.parse_args(argv)
 
     for name, item in NOT_PORTED.items():
-        if getattr(args, name) not in (None, False):
+        if getattr(args, name) is not None:
             raise SystemExit(f"--{name.replace('_', '-')} is not ported to "
                              f"the PyTorch package yet (ROADMAP {item})")
+    if args.draft_checkpoint and not args.draft_config:
+        raise SystemExit("--draft-checkpoint requires --draft-config")
     device = resolve_device(args.device)
     with open(args.config) as fh:
         config = TransformerConfig(**json.load(fh))
-    log.warning("no checkpoint support yet: serving randomly initialized "
-                "params (dev only)")
-    params = init_params(torch.Generator(device=device).manual_seed(0),
-                         config, device=device)
+    if not args.checkpoint:
+        log.warning("no --checkpoint: serving randomly initialized params")
+    params = _load_params(config, 0, device, args.checkpoint)
+
+    draft = None
+    if args.draft_config:
+        with open(args.draft_config) as fh:
+            draft_config = TransformerConfig(**json.load(fh))
+        if not args.draft_checkpoint:
+            log.warning("no --draft-checkpoint: random draft (dev only)")
+        draft = (_load_params(draft_config, 1, device,
+                              args.draft_checkpoint), draft_config)
 
     tokenizer = None
     if args.tokenizer:
@@ -851,8 +905,8 @@ def build_server(argv=None) -> ServingServer:
     except ValueError as e:
         raise SystemExit(f"--chat-template: {e}")
 
-    return ServingServer(build_generator(params, config, args), config,
-                         host=args.host, port=args.port,
+    return ServingServer(build_generator(params, config, args, draft),
+                         config, host=args.host, port=args.port,
                          tokenizer=tokenizer, model_name=args.model_name,
                          chat_template=chat_template)
 

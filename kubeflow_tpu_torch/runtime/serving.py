@@ -1,7 +1,6 @@
 """Batched generation service: the serving half of the notebook workload.
 
-Port of ``kubeflow_tpu/runtime/serving.py`` without speculative decoding
-(a draft model raises, naming its ROADMAP item). Two engines, one
+Port of ``kubeflow_tpu/runtime/serving.py``. Two engines, one
 submit/Future API:
 
 - ``BatchedGenerator`` — shape-bucketed: a background scheduler thread
@@ -9,10 +8,20 @@ submit/Future API:
   max_new_tokens) — into one batch, pads it to a power of two (capped at
   ``max_batch``) with dummy rows, and runs it to completion through
   ``models/decode.py`` ``generate``, with per-row temperature, top-k and
-  top-p;
+  top-p; it does not stream (the server answers a streamed request 400);
 - ``ContinuousBatchedGenerator`` — requests join and leave a RUNNING
   batch at token boundaries, with chunked prefill admission, an exact
   prefix cache, cooperative cancellation and per-token streaming.
+
+Both speculate with a draft model (models/speculative.py): the same
+greedy ids, the same sampled distributions, with the target's weights
+read once per accepted block instead of once per token. The verify
+window is ``decode_window``'s einsum while a plain decode step on the
+card takes the flash-decode kernel, and the two may round a greedy
+near-tie apart; so where ``uses_flash_decode`` holds (always on CUDA)
+``spec_exact_only=True``, the default, keeps the exact path: the bucketed
+engine runs ``generate`` instead, the continuous engine refuses the
+draft.
 
 Each engine's thread issues all of its CUDA work, so the kernels launch on
 that thread's current stream; HTTP threads only enqueue. Matmul weights
@@ -36,8 +45,10 @@ import torch
 
 from .. import resolve_device
 from ..models.decode import (decode_step, decode_window, generate,
-                             init_kv_cache, sample_token)
+                             init_kv_cache, sample_token, uses_flash_decode)
 from ..models.quant import BLOCK_AXES, is_quantized, quantize_params
+from ..models.speculative import (_categorical, _scaled_probs, emit_block,
+                                  propose_and_verify, speculative_generate)
 
 
 @dataclass
@@ -80,10 +91,6 @@ def cast_matmul_weights(params: dict, dtype: torch.dtype) -> dict:
     return out
 
 
-_DRAFT_REFUSAL = ("speculative decoding (a draft model) is not ported yet "
-                  "(ROADMAP queue A item 3, speculative decoding)")
-
-
 def _serving_params(params: dict, config, device: torch.device,
                     quantize: bool) -> dict:
     """``params`` on ``device``, int8 weight-only when ``quantize``, with
@@ -94,26 +101,46 @@ def _serving_params(params: dict, config, device: torch.device,
     return cast_matmul_weights(params, config.compute_dtype)
 
 
+def _check_draft(draft_params, draft_config, spec_k: int) -> None:
+    if (draft_params is None) != (draft_config is None):
+        raise ValueError("draft_params and draft_config must be "
+                         "provided together")
+    if draft_params is not None and spec_k < 1:
+        raise ValueError(f"spec_k must be >= 1, got {spec_k}")
+
+
 class BatchedGenerator:
     """Coalesce concurrent generate requests into shape-matched batches.
 
     ``submit`` returns a Future resolving to the (max_new_tokens,) int32
-    generated ids; ``generate_sync`` blocks for the result. A batch runs
-    to completion, so a streaming request (``on_token``) receives its ids
-    when its batch finishes, just before the future resolves.
-    """
+    generated ids; ``generate_sync`` blocks for the result.
 
-    supports_streaming = True
+    With ``draft_params``/``draft_config`` set, a batch speculates when
+    no row warps (top-k/top-p), ``spec_exact_only`` does not hold it to
+    the exact path, and prompt + max_new + ``spec_k`` fits both models;
+    otherwise it runs ``generate``. ``spec_batches``/``spec_accepted``/
+    ``spec_drafted`` count the real rows' acceptance dynamics,
+    ``spec_blocks`` the verify blocks run.
+    """
 
     def __init__(self, params, config, *, max_batch: int = 8,
                  max_wait_s: float = 0.01, seed: int = 0,
                  quantize: bool = False, draft_params=None,
-                 draft_config=None, device="cuda"):
-        if draft_params is not None or draft_config is not None:
-            raise NotImplementedError(_DRAFT_REFUSAL)
+                 draft_config=None, spec_k: int = 4,
+                 spec_exact_only: bool = True, device="cuda"):
+        _check_draft(draft_params, draft_config, spec_k)
         self.device = resolve_device(device)
         self.params = _serving_params(params, config, self.device, quantize)
         self.config = config
+        self.draft = None if draft_params is None else (
+            _serving_params(draft_params, draft_config, self.device, False),
+            draft_config)
+        self.spec_k = spec_k
+        self.spec_exact_only = spec_exact_only
+        self.spec_batches = 0
+        self.spec_accepted = 0
+        self.spec_drafted = 0
+        self.spec_blocks = 0
         self.max_batch = max_batch
         self.max_wait_s = max_wait_s
         self._queue: queue.Queue = queue.Queue()
@@ -133,9 +160,9 @@ class BatchedGenerator:
     # ----------------------------------------------------------------- API
     def submit(self, prompt, max_new_tokens: int,
                temperature: float = 0.0, top_k: int = 0,
-               top_p: float = 1.0, on_token=None) -> Future:
+               top_p: float = 1.0) -> Future:
         req = GenerateRequest(np.asarray(prompt, np.int32), max_new_tokens,
-                              temperature, top_k, top_p, on_token=on_token)
+                              temperature, top_k, top_p)
         with self._lifecycle:
             if self._closed:
                 raise RuntimeError("generator is closed")
@@ -248,14 +275,32 @@ class BatchedGenerator:
             top_ps.extend([1.0] * pad)
         prompts = torch.as_tensor(np.stack(rows), dtype=torch.long,
                                   device=self.device)
-        out = generate(self.params, prompts, self.config,
-                       batch[0].max_new_tokens, temperature=temps,
-                       generator=self._rng, top_k=top_ks, top_p=top_ps)
+        max_new = batch[0].max_new_tokens
+        use_spec = (
+            self.draft is not None
+            and all(k <= 0 for k in top_ks)        # no k/p warps
+            and all(p >= 1.0 for p in top_ps)
+            and not (self.spec_exact_only
+                     and uses_flash_decode(self.config, self.device))
+            and prompts.shape[1] + max_new + self.spec_k
+            <= min(self.config.max_seq_len, self.draft[1].max_seq_len))
+        if use_spec:
+            out, stats = speculative_generate(
+                self.params, self.draft[0], prompts, self.config,
+                self.draft[1], max_new, k=self.spec_k, temperature=temps,
+                generator=self._rng)
+            self.spec_batches += 1
+            self.spec_blocks += stats.blocks
+            # per-row stats: the real rows, not the power-of-two dummies
+            n_real = len(batch)
+            self.spec_accepted += int(stats.accepted[:n_real].sum())
+            self.spec_drafted += int(stats.drafted[:n_real].sum())
+        else:
+            out = generate(self.params, prompts, self.config, max_new,
+                           temperature=temps, generator=self._rng,
+                           top_k=top_ks, top_p=top_ps)
         out = out.cpu().numpy()
         for i, req in enumerate(batch):
-            if req.on_token is not None:
-                for tok in out[i]:
-                    req.on_token(int(tok))
             req.future.set_result(out[i])
 
 
@@ -266,6 +311,7 @@ class _Slot:
     req: GenerateRequest | None = None
     target: int = 0           # tokens to emit for the current request
     prefilling: bool = False  # admission in progress; row not armed yet
+    first_unsent: bool = False  # speculative: first token not streamed
 
 
 @dataclass
@@ -279,6 +325,10 @@ class _Admission:
     row_cache: dict
     consumed: int = 0
     last_logits: torch.Tensor | None = None  # (1, V) at the last real token
+    # speculative mode: the draft's own row cache and cursor (prefix-cache
+    # hits may advance the two models by different amounts)
+    d_row_cache: dict | None = None
+    d_consumed: int = 0
 
 
 def _fail(req: GenerateRequest, exc: BaseException) -> None:
@@ -321,6 +371,14 @@ class ContinuousBatchedGenerator:
     - Sampling draws from one ``torch.Generator`` on the engine's device,
       seeded by ``seed``; a tick with no sampling row (the host knows each
       armed row's temperature) samples greedily without it.
+    - With a draft model every tick is one speculative block for all rows
+      (``propose_and_verify``: k+1 draft ``decode_step``s, one target
+      ``decode_window``), each row emitting 1..k+1 tokens; admission
+      chunks the prompt through both models (the prefix cache keyed per
+      model), the splice draws the row's first token from the prompt's
+      last logits, and the tick reads ONE packed (slots, k+6) buffer
+      back — [n_out, done, emit_len, n_acc, first, emit_0..emit_k] a
+      row, ``first`` streamed with a row's first tick.
 
     ``submit`` returns a Future resolving to the (max_new_tokens,) int32
     ids (``pad_id`` after an early ``eos_id``); ``on_token`` streams each
@@ -336,9 +394,8 @@ class ContinuousBatchedGenerator:
                  eos_id: int | None = None, pad_id: int = 0,
                  prefill_chunk: int = 256, prefix_cache_chunks: int = 64,
                  steps_per_sync: int = 1, draft_params=None,
-                 draft_config=None, device="cuda"):
-        if draft_params is not None or draft_config is not None:
-            raise NotImplementedError(_DRAFT_REFUSAL)
+                 draft_config=None, spec_k: int = 4,
+                 spec_exact_only: bool = True, device="cuda"):
         if prefill_chunk < 1:
             raise ValueError(f"prefill_chunk must be >= 1, "
                              f"got {prefill_chunk}")
@@ -348,9 +405,26 @@ class ContinuousBatchedGenerator:
         if steps_per_sync < 1:
             raise ValueError(f"steps_per_sync must be >= 1, "
                              f"got {steps_per_sync}")
+        if steps_per_sync > 1 and draft_params is not None:
+            # the speculative tick is already a multi-token block a sync
+            raise ValueError("steps_per_sync > 1 is not supported "
+                             "together with a draft model")
+        _check_draft(draft_params, draft_config, spec_k)
         self.device = resolve_device(device)
+        if draft_params is not None and spec_exact_only and \
+                uses_flash_decode(config, self.device):
+            raise ValueError(
+                "speculative verification runs the einsum window "
+                "while this config's plain decode would use the "
+                "flash kernel; last-bit kernel divergence can flip "
+                "a greedy near-tie — pass spec_exact_only=False to "
+                "accept that, or use the non-speculative engine")
         self.params = _serving_params(params, config, self.device, quantize)
         self.config = config
+        self.draft = None if draft_params is None else (
+            _serving_params(draft_params, draft_config, self.device, False),
+            draft_config)
+        self.spec_k = spec_k
         self.n_slots = n_slots
         self.cap = max_new_cap or config.max_seq_len
         self.eos_id = eos_id
@@ -378,7 +452,11 @@ class ContinuousBatchedGenerator:
         self.prefill_chunks_total = 0
         self.prefix_cache_hits_total = 0   # chunks SKIPPED via the cache
         self.cancelled_total = 0
+        self.spec_ticks = 0
+        self.spec_drafted = 0
+        self.spec_accepted = 0
         self._state = self._fresh_state()
+        self._dstate = self._fresh_draft_state()
         self._thread = threading.Thread(target=self._loop, daemon=True,
                                         name="kubeflow-tpu-torch-cbatch")
         self._thread.start()
@@ -390,19 +468,33 @@ class ContinuousBatchedGenerator:
 
         def zeros(*shape, dtype):
             return torch.zeros(shape, dtype=dtype, device=dev)
+        # a speculative block writes k+1 cells from a row's cursor, masked
+        # past its budget: the overhang keeps every cell index in range
+        overhang = 0 if self.draft is None else self.spec_k + 1
         return {
             "cache": init_kv_cache(c, n, kv_quant=self.kv_quant, device=dev),
             "logits": zeros(n, c.vocab_size, dtype=torch.float32),
             "pos": zeros(n, dtype=torch.int32),
             "active": zeros(n, dtype=torch.bool),
             "done": zeros(n, dtype=torch.bool),
-            "out": zeros(n, self.cap, dtype=torch.int32),
+            "out": zeros(n, self.cap + overhang, dtype=torch.int32),
             "n_out": zeros(n, dtype=torch.int32),
             "temp": zeros(n, dtype=torch.float32),
             "top_k": zeros(n, dtype=torch.int32),
             "top_p": torch.ones(n, dtype=torch.float32, device=dev),
             "target": zeros(n, dtype=torch.int32),
+            # speculative mode: the newest emitted token not yet consumed
+            # and its position
+            "last": zeros(n, dtype=torch.int32),
+            "lpos": zeros(n, dtype=torch.int32),
         }
+
+    def _fresh_draft_state(self) -> dict | None:
+        """The draft model's full-precision KV cache for every slot."""
+        if self.draft is None:
+            return None
+        return {"cache": init_kv_cache(self.draft[1], self.n_slots,
+                                       device=self.device)}
 
     # ----------------------------------------------------------------- API
     def submit(self, prompt, max_new_tokens: int, temperature: float = 0.0,
@@ -417,6 +509,19 @@ class ContinuousBatchedGenerator:
             raise ValueError("prompt must be non-empty")
         if len(req.prompt) + max_new_tokens > self.config.max_seq_len:
             raise ValueError("prompt + max_new_tokens exceeds max_seq_len")
+        if self.draft is not None:
+            if top_k > 0 or top_p < 1.0:
+                raise ValueError("the speculative engine has no "
+                                 "top-k/top-p warps (both distributions "
+                                 "would need the warp before the ratio "
+                                 "test); use the plain engine")
+            # the verify window may overhang the frontier by up to k
+            # rejected rows before they are overwritten
+            limit = min(self.config.max_seq_len, self.draft[1].max_seq_len)
+            if len(req.prompt) + max_new_tokens + self.spec_k > limit:
+                raise ValueError(
+                    f"prompt + max_new_tokens + spec_k exceeds "
+                    f"max_seq_len {limit}")
         req.future._kubeflow_tpu_request = req   # cancel() handle
         with self._lifecycle:
             if self._closed:
@@ -460,16 +565,19 @@ class ContinuousBatchedGenerator:
         self.close()
 
     # --------------------------------------------------------- device work
-    def _chunk(self, adm: _Admission, start: int) -> torch.Tensor:
+    def _chunk(self, adm: _Admission, start: int,
+               draft: bool = False) -> torch.Tensor:
         """Consume one prompt chunk into the admission's private
-        (L, 1, S, ...) row cache; the (1, V) logits at its last REAL token
-        (padding beyond it writes K/V the decode frontier overwrites
-        before anything reads them)."""
+        (L, 1, S, ...) row cache (the draft's with ``draft``); the (1, V)
+        logits at its last REAL token (padding beyond it writes K/V the
+        decode frontier overwrites before anything reads them)."""
         C = self.prefill_chunk
         tokens = torch.from_numpy(adm.padded[:, start:start + C]).to(
             self.device)
-        logits, _ = decode_window(self.params, adm.row_cache, tokens, start,
-                                  self.config)
+        params, config, cache = (
+            (self.draft[0], self.draft[1], adm.d_row_cache) if draft
+            else (self.params, self.config, adm.row_cache))
+        logits, _ = decode_window(params, cache, tokens, start, config)
         return logits[:, min(adm.real_len - 1 - start, C - 1)].clone()
 
     def _splice(self, adm: _Admission, slot: int) -> None:
@@ -522,6 +630,58 @@ class ContinuousBatchedGenerator:
                                       emit.int()]))
         return torch.stack(flags)
 
+    def _spec_splice(self, adm: _Admission, slot: int) -> None:
+        """Speculative-mode install, in place: both models' row caches,
+        then the row's fields with its first token (drawn from the
+        prompt's last logits: the tick consumes ``last``, it carries no
+        logits), armed last."""
+        st, req = self._state, adm.req
+        for cache, rows in ((self._dstate["cache"], adm.d_row_cache),
+                            (st["cache"], adm.row_cache)):
+            for name, buf in rows.items():
+                cache[name][:, slot].copy_(buf[:, 0])
+        logits = adm.last_logits[0]
+        first = torch.argmax(logits).to(torch.int32)
+        if req.temperature > 0:
+            first = _categorical(_scaled_probs(
+                logits, torch.full((), req.temperature,
+                                   device=self.device)), self._rng)
+        st["done"][slot] = (first == self.eos_id) if self.eos_id is not None \
+            else False
+        st["n_out"][slot] = 1
+        st["out"][slot] = 0
+        st["out"][slot, 0] = first
+        st["temp"][slot] = req.temperature
+        st["target"][slot] = req.max_new_tokens
+        st["last"][slot] = first
+        st["lpos"][slot] = adm.real_len
+        st["active"][slot] = True
+
+    def _spec_tick(self, sampling: bool) -> torch.Tensor:
+        """One speculative block for every row on the device; returns the
+        packed (slots, k+6) int32 flags [n_out, done, emit_len, n_acc,
+        first, emit_0..emit_k] without reading anything back (``first``
+        is the row's splice-drawn first token, streamed with the row's
+        first tick). A row emits the accepted drafts and the closing
+        token, clamped to its budget and cut after its first EOS; a row
+        that does not emit keeps its ``last``/``lpos`` (the block's cache
+        writes past its frontier are overwritten or never read)."""
+        st = self._state
+        alive = st["active"] & ~st["done"] & (st["n_out"] < st["target"])
+        _, _, drafts, n_acc, tail = propose_and_verify(
+            self.params, self.draft[0], st["cache"], self._dstate["cache"],
+            st["last"], st["lpos"], st["temp"],
+            self._rng if sampling else None, self.config, self.draft[1],
+            self.spec_k)
+        emit, emit_len = emit_block(st["out"], st["n_out"], st["last"],
+                                    st["done"], drafts, n_acc, tail, alive,
+                                    st["target"], self.eos_id)
+        st["lpos"] += emit_len
+        return torch.cat([st["n_out"][:, None], st["done"].int()[:, None],
+                          emit_len[:, None],
+                          torch.where(alive, n_acc, 0)[:, None],
+                          st["out"][:, :1], emit], dim=1)
+
     # -------------------------------------------------------------- engine
     def _free_slots(self) -> list[int]:
         return [i for i, s in enumerate(self._slots) if s.req is None]
@@ -531,8 +691,11 @@ class ContinuousBatchedGenerator:
                 if s.req is not None and not s.prefilling]
 
     @staticmethod
-    def _prefix_key(prompt: np.ndarray, upto: int) -> tuple:
-        return upto, hashlib.sha1(prompt[:upto].tobytes()).digest()
+    def _prefix_key(prompt: np.ndarray, upto: int,
+                    draft: bool = False) -> tuple:
+        # keyed per model: a draft's chunk rows live in the same LRU (its
+        # K/V differ from the target's)
+        return draft, upto, hashlib.sha1(prompt[:upto].tobytes()).digest()
 
     def _cacheable_chunks(self, real_len: int) -> int:
         """How many leading chunks of a prompt are prefix-cacheable:
@@ -555,29 +718,47 @@ class ContinuousBatchedGenerator:
                          row_cache=init_kv_cache(self.config, 1,
                                                  kv_quant=self.kv_quant,
                                                  device=self.device))
-        if self.prefix_cache_chunks:
-            for c in range(self._cacheable_chunks(real_len)):
-                key = self._prefix_key(req.prompt, (c + 1) * C)
-                rows = self._prefix_cache.get(key)
-                if rows is None:
-                    break
-                self._prefix_cache.move_to_end(key)  # LRU refresh
-                for name, buf in adm.row_cache.items():
-                    buf[:, :, c * C:(c + 1) * C].copy_(rows[name])
-                adm.consumed += C
-                self.prefix_cache_hits_total += 1
+        adm.consumed = self._take_prefix_hits(req, adm.row_cache, False)
+        if self.draft is not None:
+            adm.d_row_cache = init_kv_cache(self.draft[1], 1,
+                                            device=self.device)
+            adm.d_consumed = self._take_prefix_hits(req, adm.d_row_cache,
+                                                    True)
         self._admitting[slot] = adm
         self._slots[slot] = _Slot(req=req, target=req.max_new_tokens,
                                   prefilling=True)
 
-    def _store_prefix(self, adm: _Admission, start: int) -> None:
-        """Cache rows [start, start + C) of the admission's row cache (a
-        copy: a view would keep the whole row cache alive)."""
+    def _take_prefix_hits(self, req: GenerateRequest, row_cache: dict,
+                          draft: bool) -> int:
+        """Copy every leading chunk whose full-prefix hash the target (the
+        draft with ``draft``) has cached into ``row_cache``; returns the
+        tokens they cover."""
         C = self.prefill_chunk
-        key = self._prefix_key(adm.req.prompt, start + C)
+        consumed = 0
+        if self.prefix_cache_chunks:
+            for c in range(self._cacheable_chunks(len(req.prompt))):
+                key = self._prefix_key(req.prompt, (c + 1) * C, draft)
+                rows = self._prefix_cache.get(key)
+                if rows is None:
+                    break
+                self._prefix_cache.move_to_end(key)  # LRU refresh
+                for name, buf in row_cache.items():
+                    buf[:, :, c * C:(c + 1) * C].copy_(rows[name])
+                consumed += C
+                self.prefix_cache_hits_total += 1
+        return consumed
+
+    def _store_prefix(self, adm: _Admission, start: int,
+                      draft: bool = False) -> None:
+        """Cache rows [start, start + C) of the admission's target row
+        cache (the draft's with ``draft``; a copy: a view would keep the
+        whole row cache alive)."""
+        C = self.prefill_chunk
+        key = self._prefix_key(adm.req.prompt, start + C, draft)
+        row_cache = adm.d_row_cache if draft else adm.row_cache
         self._prefix_cache[key] = {
             name: buf[:, :, start:start + C].clone()
-            for name, buf in adm.row_cache.items()}
+            for name, buf in row_cache.items()}
         self._prefix_cache.move_to_end(key)
         while len(self._prefix_cache) > self.prefix_cache_chunks:
             self._prefix_cache.popitem(last=False)
@@ -595,24 +776,22 @@ class ContinuousBatchedGenerator:
                 _fail(req, CancelledError())
                 self.cancelled_total += 1
                 continue
+            width = adm.padded.shape[1]
+            spec = adm.d_row_cache is not None
             try:
-                if adm.consumed < adm.padded.shape[1]:
-                    start = adm.consumed
-                    adm.last_logits = self._chunk(adm, start)
+                if adm.consumed < width:
+                    adm.last_logits = self._consume(adm, adm.consumed,
+                                                    False)
                     adm.consumed += C
-                    self.prefill_chunks_total += 1
-                    if self.prefix_cache_chunks and \
-                            start // C < self._cacheable_chunks(adm.real_len):
-                        try:
-                            self._store_prefix(adm, start)
-                        except RuntimeError:
-                            # caching is an optimization: failing to
-                            # allocate an entry must not fail a request
-                            # whose prefill succeeded
-                            pass
-                if adm.consumed < adm.padded.shape[1]:
+                if spec and adm.d_consumed < width:
+                    self._consume(adm, adm.d_consumed, True)
+                    adm.d_consumed += C
+                if adm.consumed < width or (spec and adm.d_consumed < width):
                     continue
-                self._splice(adm, slot)
+                if spec:
+                    self._spec_splice(adm, slot)
+                else:
+                    self._splice(adm, slot)
             except Exception as exc:  # noqa: BLE001 — fail THIS request;
                 # other admissions and the running batch continue (a
                 # failed splice leaves the row unarmed)
@@ -622,9 +801,30 @@ class ContinuousBatchedGenerator:
                 continue
             del self._admitting[slot]
             self._slots[slot].prefilling = False
+            # the first token is an emitted token: the next tick's flags
+            # carry it to the stream
+            self._slots[slot].first_unsent = spec
             self.admitted_total += 1
             if len(self._armed()) > 1:
                 self.admitted_while_running += 1
+
+    def _consume(self, adm: _Admission, start: int,
+                 draft: bool) -> torch.Tensor:
+        """One chunk of the admission through the target (the draft with
+        ``draft``), stored in the prefix cache when cacheable; the chunk's
+        last-real-token logits."""
+        C = self.prefill_chunk
+        logits = self._chunk(adm, start, draft)
+        self.prefill_chunks_total += 1
+        if self.prefix_cache_chunks and \
+                start // C < self._cacheable_chunks(adm.real_len):
+            try:
+                self._store_prefix(adm, start, draft)
+            except RuntimeError:
+                # caching is an optimization: failing to allocate an
+                # entry must not fail a request whose prefill succeeded
+                pass
+        return logits
 
     def _fail_all_and_rearm(self, exc: BaseException) -> None:
         """A tick failed part-way through its in-place updates: fail every
@@ -636,6 +836,7 @@ class ContinuousBatchedGenerator:
             self._slots[i] = _Slot()
         self._admitting.clear()
         self._state = self._fresh_state()
+        self._dstate = self._fresh_draft_state()
 
     def _emit_tokens(self, ids: np.ndarray, emitted: np.ndarray) -> None:
         """Deliver one step's ids (already on the host in the packed
@@ -721,6 +922,9 @@ class ContinuousBatchedGenerator:
                 steps = 1
             sampling = any(s.req.temperature > 0 for s in armed)
             try:
+                if self.draft is not None:
+                    self._run_spec_tick(sampling)
+                    continue
                 flags = self._tick(steps, sampling)
                 self.steps_total += steps
                 host = flags.cpu().numpy()   # the sync's one readback
@@ -731,6 +935,36 @@ class ContinuousBatchedGenerator:
                 self._collect_finished(host[-1, 0], host[-1, 1] != 0)
             except Exception as exc:  # noqa: BLE001 — fail the batch
                 self._fail_all_and_rearm(exc)
+
+    def _run_spec_tick(self, sampling: bool) -> None:
+        flags = self._spec_tick(sampling)
+        self.steps_total += 1
+        self.spec_ticks += 1
+        host = flags.cpu().numpy()   # the tick's one readback
+        moved = host[:, 2] > 0
+        self.spec_drafted += int(moved.sum()) * self.spec_k
+        self.spec_accepted += int(host[moved, 3].sum())
+        self._emit_spec_tokens(host)
+        self._collect_finished(host[:, 0], host[:, 1] != 0)
+
+    def _emit_spec_tokens(self, host: np.ndarray) -> None:
+        """A speculative tick's streaming: each row emitted 0..k+1 tokens,
+        delivered in order after the row's first token on its first tick
+        (the packed flags carry them inline)."""
+        for i, slot in enumerate(self._slots):
+            if slot.req is None or slot.prefilling \
+                    or slot.req.on_token is None:
+                continue
+            burst = host[i, 5:5 + int(host[i, 2])]
+            if slot.first_unsent:
+                slot.first_unsent = False
+                burst = np.concatenate([host[i, 4:5], burst])
+            for tok in burst:
+                try:
+                    slot.req.on_token(int(tok))
+                except Exception:  # noqa: BLE001 — the consumer's bug
+                    slot.req.on_token = None
+                    break
 
     def _shutdown(self) -> None:
         stragglers = [s.req for s in self._slots if s.req is not None]

@@ -2,10 +2,11 @@
 
 Port of ``kubeflow_tpu/runtime/trainer.py`` for one device: the train
 step of models/train.py, the device prefetch of runtime/data.py, held-out
-evaluation, throughput accounting and an optional ``torch.profiler``
-window. Checkpoint/resume, LoRA, MoE configs and multi-device meshes are
-later slices of the port; their arguments raise ``NotImplementedError``
-naming the ROADMAP item.
+evaluation, throughput accounting, an optional ``torch.profiler``
+window, and checkpoint/resume through runtime/checkpoint.py. LoRA, MoE
+configs and multi-device meshes are later slices of the port; their
+arguments raise ``NotImplementedError`` naming the ROADMAP queue A item
+by its title.
 
 Loop design: the step returns the loss as a device tensor and the host
 reads it only at log points, so PyTorch's launch queue runs ahead of the
@@ -27,6 +28,7 @@ import torch
 from .. import resolve_device
 from ..models import train as train_lib
 from ..models.transformer import TransformerConfig, model_flops_per_token
+from .checkpoint import TrainCheckpointer
 from .data import prefetch_to_device
 
 log = logging.getLogger("kubeflow_tpu_torch.trainer")
@@ -49,30 +51,31 @@ class TrainerStats:
 class Trainer:
     """Train a dense ``TransformerConfig`` on one device with prefetch and
     throughput accounting. ``device`` defaults to the card and raises
-    where CUDA is absent; pass ``device="cpu"`` to run on the CPU."""
+    where CUDA is absent; pass ``device="cpu"`` to run on the CPU.
+
+    With ``checkpoint_dir`` the Trainer resumes from the latest checkpoint
+    there when it is built, and ``fit`` saves after every step under the
+    ``checkpoint_interval`` policy, keeping ``max_checkpoints``."""
 
     def __init__(self, config: TransformerConfig,
                  train_config: train_lib.TrainConfig | None = None, *,
                  device="cuda", seed: int = 0, profile_dir=None,
                  profile_steps: tuple = (10, 15),
                  stats_history_cap: int = 1000, checkpoint_dir=None,
+                 checkpoint_interval: int = 100, max_checkpoints: int = 3,
                  lora=None, mesh=None):
-        if checkpoint_dir is not None:
-            raise NotImplementedError(
-                "checkpoint_dir: checkpoint/resume is not ported yet "
-                "(ROADMAP queue A item 6, runtime/checkpoint.py)")
         if lora is not None:
             raise NotImplementedError(
-                "lora: LoRA finetuning is not ported yet (ROADMAP queue A "
-                "item 5)")
+                "lora: LoRA finetuning is not ported yet (ROADMAP queue A, "
+                "MoE and LoRA)")
         if type(config) is not TransformerConfig:
             raise NotImplementedError(
                 f"{type(config).__name__}: only the dense TransformerConfig "
-                f"is ported; MoE is ROADMAP queue A item 5")
+                f"is ported (ROADMAP queue A, MoE and LoRA)")
         if mesh is not None:
             raise NotImplementedError(
                 "mesh: multi-device training is not ported yet (ROADMAP "
-                "queue A item 4); the Trainer runs on one device")
+                "queue A, multi-device); the Trainer runs on one device")
         self.config = config
         self.tc = train_config or train_lib.TrainConfig()
         self.device = resolve_device(device)
@@ -87,6 +90,21 @@ class Trainer:
         self._eval_loss = None
         generator = torch.Generator(device=self.device).manual_seed(seed)
         self.params, self.opt_state = self.init_fn(generator)
+        self.checkpointer = None
+        if checkpoint_dir is not None:
+            self.checkpointer = TrainCheckpointer(
+                checkpoint_dir, max_to_keep=max_checkpoints,
+                save_interval_steps=checkpoint_interval)
+            self._maybe_resume()
+
+    def _maybe_resume(self) -> None:
+        """Restore the latest checkpoint into the freshly built state."""
+        restored = self.checkpointer.restore(self.params, self.opt_state)
+        if restored is None:
+            return
+        step, self.params, self.opt_state = restored
+        self.stats.step = step
+        log.info("resumed from checkpoint at step %d", step)
 
     # --------------------------------------------------------------- loop
     def fit(self, source, *, steps: int, log_every: int = 50,
@@ -113,6 +131,9 @@ class Trainer:
                     self.params, self.opt_state, tokens, targets)
                 self.stats.step += 1
                 self.stats.tokens_seen += tokens.numel()
+                if self.checkpointer is not None:
+                    self.checkpointer.save(self.stats.step, self.params,
+                                           self.opt_state)
                 if self.stats.step % log_every == 0 or \
                         self.stats.step == target:
                     # the only host sync point in the loop
@@ -197,9 +218,22 @@ class Trainer:
         prof.export_chrome_trace(str(path))
         log.info("profile trace written to %s", path)
 
+    def save(self, *, force: bool = True) -> None:
+        """Durably persist the current step (idempotent: a step the
+        interval policy already wrote is not written again)."""
+        if self.checkpointer is None:
+            return
+        self.checkpointer.wait()
+        if self.stats.step not in self.checkpointer.all_steps():
+            self.checkpointer.save(self.stats.step, self.params,
+                                   self.opt_state, force=force)
+        self.checkpointer.wait()
+
     def close(self) -> None:
         if self._profiler is not None:
             self._stop_profile()
+        if self.checkpointer is not None:
+            self.checkpointer.close()
 
     def __enter__(self) -> "Trainer":
         return self

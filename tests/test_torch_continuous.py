@@ -440,11 +440,11 @@ def test_cancel_mid_admission(model, jax_ids):
         chunk, entered, go = gen._chunk, threading.Event(), \
             threading.Event()
 
-        def gated_chunk(adm, start):
+        def gated_chunk(adm, start, draft=False):
             if adm.real_len == 24 and start == 8:
                 entered.set()
                 go.wait(timeout=WAIT)
-            return chunk(adm, start)
+            return chunk(adm, start, draft)
         gen._chunk = gated_chunk
         f_b = gen.submit(p_long, 2)
         assert entered.wait(timeout=WAIT)
@@ -558,6 +558,11 @@ def test_a_failed_tick_fails_in_flight_requests_and_the_engine_serves_on(
 
 
 def test_submit_validation_and_the_draft_refusal(model):
+    """Submit validation, and the exactness gate: TINY's
+    decode_attention="flash" puts plain decode on the flash-decode path
+    (its plain version here) while the verify window is the einsum, so a
+    draft is refused with the reference's message unless
+    spec_exact_only=False, which speculates."""
     _, tp, _, tc = model
     with _engine(model, n_slots=1) as gen:
         with pytest.raises(ValueError, match="non-empty"):
@@ -568,9 +573,14 @@ def test_submit_validation_and_the_draft_refusal(model):
                {"prefix_cache_chunks": -1}):
         with pytest.raises(ValueError, match=next(iter(kw))):
             ContinuousBatchedGenerator(tp, tc, device="cpu", **kw)
-    with pytest.raises(NotImplementedError, match="speculative"):
+    with pytest.raises(ValueError, match="spec_exact_only=False"):
         ContinuousBatchedGenerator(tp, tc, draft_params=tp, draft_config=tc,
                                    device="cpu")
+    with _engine(model, n_slots=1, draft_params=tp, draft_config=tc,
+                 spec_exact_only=False) as gen:
+        ids = _ids(gen.submit(np.arange(5), 6))
+        assert gen.spec_ticks >= 1 and gen.spec_drafted > 0
+    assert all(0 <= t < TINY["vocab_size"] for t in ids)
 
 
 def test_engine_defaults_to_the_card(model):
@@ -579,3 +589,227 @@ def test_engine_defaults_to_the_card(model):
     _, tp, _, tc = model
     with pytest.raises(RuntimeError, match="device='cpu'"):
         ContinuousBatchedGenerator(tp, tc)
+
+
+# ------------------------------------------------------------- speculative
+# the exact regime: decode_attention "auto" is the einsum path on the CPU in
+# both packages, for plain decode and the verify window alike
+SPEC = dict(TINY, decode_attention="auto")
+SPEC_DRAFT = dict(SPEC, d_model=32, n_layers=1, d_ff=64)
+SPEC_K = 3
+
+
+@pytest.fixture(scope="module")
+def spec_models():
+    """(target, draft, perturbed draft), each (jax params, port params,
+    jax config, port config); the target's weights are the module's."""
+    jc = jt.TransformerConfig(**SPEC)
+    jp = jax.jit(jt.init_params, static_argnums=1)(jax.random.key(0), jc)
+    jdc = jt.TransformerConfig(**SPEC_DRAFT)
+    jdp = jax.jit(jt.init_params, static_argnums=1)(jax.random.key(7), jdc)
+    rng = np.random.default_rng(3)
+    jnp_ = jax.tree.map(lambda p: p + jnp.asarray(
+        0.02 * rng.standard_normal(p.shape), p.dtype), jp)
+
+    def pair(params, cfg):
+        return (params, convert.to_torch(jax.tree.map(np.asarray, params)),
+                cfg, tt.TransformerConfig(**dataclasses.asdict(cfg)))
+    return pair(jp, jc), pair(jdp, jdc), pair(jnp_, jc)
+
+
+@pytest.fixture(scope="module")
+def jax_spec_ids(spec_models):
+    """ids(prompt, n, **engine_kw): the JAX speculative engine's greedy ids
+    (the small draft, k=3), one engine per setting."""
+    (jp, _, jc, _), (jdp, _, jdc, _), _ = spec_models
+    engines, memo = {}, {}
+
+    def ids(prompt, n, **kw):
+        setting = tuple(sorted(kw.items()))
+        key = (np.asarray(prompt, np.int32).tobytes(), n, setting)
+        if key not in memo:
+            if setting not in engines:
+                engines[setting] = JaxEngine(
+                    jp, jc, n_slots=2, draft_params=jdp, draft_config=jdc,
+                    spec_k=SPEC_K, **kw)
+            memo[key] = [int(t) for t in engines[setting].generate_sync(
+                prompt, n, timeout=WAIT)]
+        return memo[key]
+    yield ids
+    for engine in engines.values():
+        engine.close()
+
+
+def _spec_engine(spec_models, draft="small", **kw):
+    target, small, perturbed = spec_models
+    d = {"small": small, "perturbed": perturbed, "self": target}[draft]
+    return ContinuousBatchedGenerator(
+        target[1], target[3], draft_params=d[1], draft_config=d[3],
+        spec_k=SPEC_K, device="cpu", **kw)
+
+
+def _spec_generate(spec_models, prompt, n, **kw):
+    (jp, _, jc, _), _, _ = spec_models
+    return np.asarray(jd.generate(jp, jnp.asarray(prompt)[None], jc, n,
+                                  **kw))[0].tolist()
+
+
+def test_spec_engine_matches_plain_engine_jax_spec_engine_and_generate(
+        spec_models, jax_spec_ids):
+    """Interleaved depths through fewer slots than requests: every row's
+    greedy ids equal the port's plain engine, the JAX speculative engine
+    and JAX generate, and each stream equals its ids."""
+    (_, tp, _, tc), _, _ = spec_models
+    ps = _prompts(4, 6, seed=61)
+    lens = [12, 5, 17, 9]
+    streams = [[] for _ in ps]
+    with _spec_engine(spec_models, n_slots=2) as gen:
+        got = [_ids(f) for f in [gen.submit(p, n, on_token=st.append)
+                                 for p, n, st in zip(ps, lens, streams)]]
+        assert gen.spec_ticks >= 1 and gen.admitted_while_running >= 1
+        assert gen.spec_drafted == SPEC_K * (gen.spec_drafted // SPEC_K)
+    with ContinuousBatchedGenerator(tp, tc, n_slots=2, device="cpu") as plain:
+        want = [_ids(f) for f in [plain.submit(p, n)
+                                  for p, n in zip(ps, lens)]]
+    assert got == want
+    for p, n, ids, stream in zip(ps, lens, got, streams):
+        assert ids == jax_spec_ids(p, n)
+        assert ids == _spec_generate(spec_models, p, n)
+        assert stream == ids
+
+
+def test_spec_engine_counters_equal_the_jax_engine(spec_models):
+    """One request at a time through both speculative engines: ticks,
+    drafted and accepted agree after each."""
+    (jp, _, jc, _), (jdp, _, jdc, _), _ = spec_models
+    ps = _prompts(3, 7, seed=62)
+    with _spec_engine(spec_models, n_slots=2) as gen, \
+            JaxEngine(jp, jc, n_slots=2, draft_params=jdp, draft_config=jdc,
+                      spec_k=SPEC_K) as jgen:
+        for p, n in zip(ps, (10, 4, 15)):
+            assert gen.generate_sync(p, n, timeout=WAIT).tolist() == \
+                np.asarray(jgen.generate_sync(p, n, timeout=WAIT)).tolist()
+            assert (gen.spec_ticks, gen.spec_drafted, gen.spec_accepted,
+                    gen.prefill_chunks_total) == \
+                (jgen.spec_ticks, jgen.spec_drafted, jgen.spec_accepted,
+                 jgen.prefill_chunks_total)
+
+
+def test_perturbed_draft_is_exact_under_concurrency(spec_models):
+    """A draft that agrees on most argmaxes, not all (blocks end
+    mid-window), twelve submitter threads through four slots: every row
+    equals JAX generate."""
+    ps = _prompts(12, 6, seed=63)
+    outs = {}
+    with _spec_engine(spec_models, draft="perturbed", n_slots=4,
+                      max_new_cap=16) as gen:
+        def worker(i):
+            outs[i] = gen.generate_sync(ps[i], 10, timeout=WAIT).tolist()
+        threads = [threading.Thread(target=worker, args=(i,))
+                   for i in range(12)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=WAIT)
+        assert not any(t.is_alive() for t in threads)
+        assert 0 < gen.spec_accepted < gen.spec_drafted
+    for i, p in enumerate(ps):
+        assert outs[i] == _spec_generate(spec_models, p, 10)
+
+
+def test_spec_stream_bursts_arrive_in_order(spec_models):
+    """A self-draft accepts every proposal, so a tick streams k+1 tokens:
+    the stream is the ids in order, the first token (drawn at the splice)
+    arrives with the first tick's readback ahead of that tick's burst,
+    later ones in bursts, all before the future resolves."""
+    p = _prompts(1, 6, seed=64)[0]
+    seen, holder = [], {}
+    with _spec_engine(spec_models, draft="self", n_slots=2) as gen:
+        holder["f"] = fut = gen.submit(p, 13, on_token=lambda t: seen.append(
+            (int(t), gen.spec_ticks, holder["f"].done())))
+        ids = _ids(fut)
+        assert gen.spec_accepted == gen.spec_drafted > 0
+    assert [t for t, _, _ in seen] == ids
+    assert not any(done for _, _, done in seen)
+    ticks = [tick for _, tick, _ in seen]
+    assert ticks[0] == 1                          # with the first tick
+    bursts = [ticks.count(t) for t in sorted(set(ticks))]
+    assert bursts == [1 + SPEC_K + 1] + [SPEC_K + 1] * 2   # 1 + 3 x 4
+    assert ids == _spec_generate(spec_models, p, 13)
+
+
+def test_spec_eos_cuts_the_block_and_pads(spec_models, jax_spec_ids):
+    p, p2 = _prompts(2, 6, seed=65)
+    eos = _spec_generate(spec_models, p, 12)[5]
+    stream = []
+    with _spec_engine(spec_models, n_slots=2, eos_id=eos, pad_id=0) as gen:
+        got = _ids(gen.submit(p, 12, on_token=stream.append))
+        got2 = gen.generate_sync(p2, 6, timeout=WAIT).tolist()
+    want = jax_spec_ids(p, 12, eos_id=eos)
+    assert got == want == _spec_generate(spec_models, p, 12, eos_id=eos)
+    live = want.index(eos) + 1
+    assert stream == want[:live] and want[live:] == [0] * (12 - live)
+    assert got2 == jax_spec_ids(p2, 6, eos_id=eos)
+
+
+def test_spec_submit_validation(spec_models):
+    target, small, _ = spec_models
+    with _spec_engine(spec_models, n_slots=1) as gen:
+        for kw in ({"top_k": 5}, {"top_p": 0.9}):
+            with pytest.raises(ValueError, match="top-k/top-p"):
+                gen.submit([1, 2, 3], 4, temperature=0.8, **kw)
+        with pytest.raises(ValueError, match="spec_k exceeds max_seq_len"):
+            gen.submit(np.arange(S - 10), 8)        # 118 + 8 + 3 > 128
+        assert len(gen.submit(np.arange(S - 11), 8).result(
+            timeout=WAIT)) == 8                     # 117 + 8 + 3 = 128
+    with pytest.raises(ValueError, match="steps_per_sync"):
+        _spec_engine(spec_models, steps_per_sync=2)
+    with pytest.raises(ValueError, match="together"):
+        ContinuousBatchedGenerator(target[1], target[3], draft_params=small[1],
+                                   device="cpu")
+    with pytest.raises(ValueError, match="spec_k"):
+        ContinuousBatchedGenerator(target[1], target[3],
+                                   draft_params=small[1],
+                                   draft_config=small[3], spec_k=0,
+                                   device="cpu")
+
+
+def test_spec_kv_quant_engine_matches_jax(spec_models, jax_spec_ids):
+    ps = _prompts(2, 7, seed=66)
+    with _spec_engine(spec_models, n_slots=2, kv_quant=True) as gen:
+        got = [_ids(f) for f in [gen.submit(p, 8) for p in ps]]
+    for p, ids in zip(ps, got):
+        assert ids == jax_spec_ids(p, 8, kv_quant=True)
+        assert ids == _spec_generate(spec_models, p, 8, kv_quant=True)
+
+
+def test_spec_sampled_row_beside_greedy_rows(spec_models):
+    p = _prompts(1, 6, seed=67)[0]
+    with _spec_engine(spec_models, n_slots=3, seed=5) as gen:
+        f_greedy = gen.submit(p, 10)
+        f_hot = gen.submit(p, 10, temperature=5.0)
+        f_warm = gen.submit(p, 10, temperature=0.8)
+        greedy, hot, warm = _ids(f_greedy), _ids(f_hot), _ids(f_warm)
+    assert greedy == _spec_generate(spec_models, p, 10)
+    assert hot != greedy
+    assert all(0 <= t < TINY["vocab_size"] for t in hot + warm)
+
+
+def test_a_failed_spec_tick_rebuilds_both_states(spec_models):
+    p = np.arange(6, dtype=np.int32)
+    with _spec_engine(spec_models, n_slots=2) as gen:
+        tick, failed = gen._spec_tick, []
+        old = (gen._state, gen._dstate)
+
+        def flaky(*args):
+            if not failed:
+                failed.append(1)
+                raise RuntimeError("injected tick failure")
+            return tick(*args)
+        gen._spec_tick = flaky
+        with pytest.raises(RuntimeError, match="injected"):
+            gen.submit(p, 5).result(timeout=WAIT)
+        assert gen.generate_sync(p, 5, timeout=WAIT).tolist() == \
+            _spec_generate(spec_models, p, 5)
+        assert gen._state is not old[0] and gen._dstate is not old[1]
+        assert not any(gen._state["active"].tolist())

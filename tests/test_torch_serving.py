@@ -1,8 +1,9 @@
 """The port's serving path (kubeflow_tpu_torch/runtime) on the CPU: the
 batched engine against the port's ``generate`` and the JAX package's
-``BatchedGenerator``, the HTTP endpoint (per-token streaming and cancel
-on disconnect through the continuous engine), and the entry point's
-defaults and refusals.
+``BatchedGenerator`` (speculative batches included), the HTTP endpoint
+(per-token streaming and cancel on disconnect through the continuous
+engine; the bucketed engine's refusal of a stream as the JAX server's),
+and the entry point: checkpoints, draft models, defaults and refusals.
 
 Config: the tiny flagship in float32 (see tests/test_torch_model.py); the
 JAX params are carried across with convert.py. Greedy ids must be equal,
@@ -26,26 +27,39 @@ import torch
 
 from kubeflow_tpu.models.transformer import TransformerConfig as JaxConfig
 from kubeflow_tpu.models.transformer import init_params as jax_init_params
+from kubeflow_tpu.runtime.server import ServingServer as JaxServer
 from kubeflow_tpu.runtime.serving import BatchedGenerator as JaxGenerator
 from kubeflow_tpu_torch import convert
+from kubeflow_tpu_torch.models import train as ttr
 from kubeflow_tpu_torch.models.decode import generate
 from kubeflow_tpu_torch.models.transformer import TransformerConfig
 from kubeflow_tpu_torch.runtime import server as torch_server
+from kubeflow_tpu_torch.runtime.checkpoint import TrainCheckpointer
 from kubeflow_tpu_torch.runtime.server import ServingServer
 from kubeflow_tpu_torch.runtime.serving import (BatchedGenerator,
                                                ContinuousBatchedGenerator)
 
 TINY = dict(vocab_size=512, d_model=64, n_layers=4, n_heads=4, n_kv_heads=2,
             d_ff=128, max_seq_len=128, dtype="float32")
+DRAFT = dict(TINY, d_model=32, n_layers=1, d_ff=64)
 PROMPTS = [[5, 17, 300, 42, 9, 77], [1, 2, 3, 4, 5, 6], [400, 0, 12, 9, 9, 3]]
+
+
+def _converted(fields, seed):
+    jc = JaxConfig(**fields)
+    jp = jax.jit(jax_init_params, static_argnums=1)(jax.random.key(seed), jc)
+    tp = convert.to_torch(jax.tree.map(np.asarray, jp))
+    return jp, tp, jc, TransformerConfig(**dataclasses.asdict(jc))
 
 
 @pytest.fixture(scope="module")
 def model():
-    jc = JaxConfig(**TINY)
-    jp = jax.jit(jax_init_params, static_argnums=1)(jax.random.key(0), jc)
-    tp = convert.to_torch(jax.tree.map(np.asarray, jp))
-    return jp, tp, jc, TransformerConfig(**dataclasses.asdict(jc))
+    return _converted(TINY, 0)
+
+
+@pytest.fixture(scope="module")
+def draft():
+    return _converted(DRAFT, 7)
 
 
 def _submit_all(gen, prompts, max_new, **kw):
@@ -106,20 +120,93 @@ def test_batched_generator_mixes_greedy_and_sampled_rows(model):
     assert s_ids.shape == (5,) and ((0 <= s_ids) & (s_ids < 512)).all()
 
 
-def test_batched_generator_streams_ids_before_resolving(model):
-    _, tp, _, tc = model
-    seen = []
-    with BatchedGenerator(tp, tc, device="cpu") as gen:
-        ids = gen.submit(PROMPTS[2], 4, on_token=seen.append).result(
-            timeout=120)
-    assert seen == ids.tolist()
+def test_batched_generator_submit_takes_no_on_token(model):
+    """The bucketed engine does not stream, as the JAX package's does not:
+    neither ``submit`` takes ``on_token``, neither class claims
+    streaming."""
+    jp, tp, jc, tc = model
+    with BatchedGenerator(tp, tc, device="cpu") as gen, \
+            JaxGenerator(jp, jc) as jgen:
+        for engine in (gen, jgen):
+            with pytest.raises(TypeError, match="on_token"):
+                engine.submit(PROMPTS[2], 4, on_token=print)
+            assert not getattr(engine, "supports_streaming", False)
+        assert gen.generate_sync(PROMPTS[2], 4).tolist() == generate(
+            tp, torch.tensor([PROMPTS[2]]), tc, 4)[0].tolist()
 
 
-def test_batched_generator_refuses_a_draft_model(model):
+def test_batched_generator_speculates_like_the_jax_engine(model, draft):
+    """A draft model behind the bucketed engine: one speculative batch of
+    the three prompts (padded to 4 rows), greedy ids equal to the plain
+    engine's and to the JAX engine's with the same draft, and the
+    acceptance counters equal the JAX engine's (real rows only)."""
+    jp, tp, jc, tc = model
+    jdp, tdp, jdc, tdc = draft
+    with BatchedGenerator(tp, tc, max_batch=4, max_wait_s=0.2,
+                          draft_params=tdp, draft_config=tdc, spec_k=3,
+                          device="cpu") as gen:
+        got = _submit_all(gen, PROMPTS, 10)
+        counters = (gen.batches_total, gen.spec_batches, gen.spec_drafted,
+                    gen.spec_accepted)
+        assert gen.spec_blocks >= -(-10 // 4)
+    with JaxGenerator(jp, jc, max_batch=4, max_wait_s=0.2,
+                      draft_params=jdp, draft_config=jdc, spec_k=3) as jgen:
+        want = _submit_all(jgen, PROMPTS, 10)
+        want_counters = (jgen.batches_total, jgen.spec_batches,
+                         jgen.spec_drafted, jgen.spec_accepted)
+    assert got == want
+    assert counters == want_counters and counters[:2] == (1, 1)
+    assert counters[2] % 3 == 0 and counters[2] > 0
+    with BatchedGenerator(tp, tc, max_batch=4, max_wait_s=0.2,
+                          device="cpu") as plain:
+        assert _submit_all(plain, PROMPTS, 10) == got
+
+
+@pytest.mark.parametrize("request_kw,prompt_len", [
+    ({"temperature": 0.8, "top_k": 50}, 6),     # a warped row
+    ({"temperature": 0.8, "top_p": 0.9}, 6),
+    ({}, 128 - 10 - 2)])                       # P + max_new + k > 128
+def test_batched_generator_falls_back_to_generate(model, draft, request_kw,
+                                                  prompt_len):
     _, tp, _, tc = model
-    with pytest.raises(NotImplementedError, match="speculative"):
+    _, tdp, _, tdc = draft
+    prompt = list(range(1, prompt_len + 1))
+    with BatchedGenerator(tp, tc, draft_params=tdp, draft_config=tdc,
+                          spec_k=3, device="cpu") as gen:
+        ids = gen.generate_sync(prompt, 10, **request_kw)
+        assert (gen.batches_total, gen.spec_batches) == (1, 0)
+    if not request_kw:
+        assert ids.tolist() == generate(tp, torch.tensor([prompt]), tc,
+                                        10)[0].tolist()
+    assert ((ids >= 0) & (ids < 512)).all()
+
+
+@pytest.mark.parametrize("exact_only,spec_batches", [(True, 0), (False, 1)])
+def test_batched_engine_gate_on_the_flash_decode_path(model, draft,
+                                                      exact_only,
+                                                      spec_batches):
+    """decode_attention="flash" is where plain decode takes the
+    flash-decode kernel (on the CPU its plain version) while the verify
+    window is the einsum: by default the engine falls back to generate;
+    spec_exact_only=False speculates. Greedy ids equal generate's."""
+    _, tp, _, tc = model
+    _, tdp, _, tdc = draft
+    fc = tc.replace(decode_attention="flash")
+    with BatchedGenerator(tp, fc, draft_params=tdp, draft_config=tdc,
+                          spec_exact_only=exact_only, device="cpu") as gen:
+        ids = gen.generate_sync(PROMPTS[0], 8)
+        assert gen.spec_batches == spec_batches
+    assert ids.tolist() == generate(tp, torch.tensor([PROMPTS[0]]), fc,
+                                    8)[0].tolist()
+
+
+def test_draft_arguments_are_validated(model):
+    _, tp, _, tc = model
+    with pytest.raises(ValueError, match="together"):
+        BatchedGenerator(tp, tc, draft_params=tp, device="cpu")
+    with pytest.raises(ValueError, match="spec_k"):
         BatchedGenerator(tp, tc, draft_params=tp, draft_config=tc,
-                         device="cpu")
+                         spec_k=0, device="cpu")
 
 
 def test_quantized_engine_matches_quantized_generate(model):
@@ -143,19 +230,28 @@ def test_http_generate_matches_direct_generate(server):
     assert out["usage"] == {"prompt_tokens": 6, "completion_tokens": 6}
 
 
-def test_http_stream_emits_every_token_then_done(server):
-    srv, tp, tc = server
-    status, ctype, body = _post(srv.url, {"prompt": PROMPTS[1],
-                                          "max_new_tokens": 5,
-                                          "stream": True})
-    assert status == 200 and ctype == "text/event-stream"
-    events = [json.loads(line[len("data: "):])
-              for line in body.decode().splitlines()
-              if line.startswith("data: ")]
-    want = generate(tp, torch.tensor([PROMPTS[1]]), tc, 5)[0].tolist()
-    assert [e["token"] for e in events[:-1]] == want
-    assert events[-1]["done"] is True and events[-1]["ids"] == want
-    assert events[-1]["n_tokens"] == 5
+def _refusal(url, payload):
+    with pytest.raises(urllib.error.HTTPError) as err:
+        _post(url, payload)
+    return err.value.code, err.value.headers.get("Content-Type"), \
+        json.loads(err.value.read())
+
+
+def test_http_bucketed_stream_is_refused_as_by_the_jax_server(server,
+                                                             model):
+    """A streamed request to the bucketed engine: 400 and the JAX server's
+    body, word for word; the engine never sees it."""
+    srv, _, _ = server
+    jp, _, jc, _ = model
+    payload = {"prompt": [1, 2, 3], "max_new_tokens": 4, "stream": True}
+    got = _refusal(srv.url, payload)
+    with JaxServer(JaxGenerator(jp, jc), jc, port=0) as jsrv:
+        want = _refusal(jsrv.url, payload)
+    assert got == want
+    assert got == (400, "application/json", {
+        "error": "engine BatchedGenerator does not support streaming; use "
+                 "the continuous engine"})
+    assert srv.generator.requests_total == 0
 
 
 def test_http_concurrent_requests_share_the_engine(server):
@@ -341,12 +437,129 @@ def test_main_without_device_cpu_raises_when_cuda_is_absent(config_file):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--checkpoint", "/nowhere"], ["--lora-config", "l.json"],
-    ["--draft-config", "d.json"]])
+    ["--lora-config", "l.json"], ["--lora-checkpoint", "/nowhere"]])
 def test_unported_flags_exit_naming_the_roadmap(config_file, flags):
-    with pytest.raises(SystemExit, match="ROADMAP"):
+    with pytest.raises(SystemExit, match="ROADMAP queue A, MoE and LoRA"):
         torch_server.main(["--config", config_file, "--device", "cpu",
                            *flags])
+
+
+def _save_params(directory, params, step=3):
+    """A TrainCheckpointer step holding ``params`` and a fresh AdamW
+    state (what a Trainer writes)."""
+    params, opt = ttr.init_train_state(params, ttr.TrainConfig())
+    with TrainCheckpointer(directory) as ckpt:
+        ckpt.save(step, params, opt)
+
+
+def _serve(argv):
+    srv = torch_server.build_server(["--device", "cpu", "--port", "0",
+                                     *argv])
+    return srv.start()
+
+
+@pytest.mark.parametrize("engine", ["bucketed", "continuous"])
+def test_checkpoint_flag_serves_the_saved_params(config_file, model,
+                                                 tmp_path, engine):
+    """--checkpoint restores the latest step's params over the seed-0
+    random ones: the served ids equal an engine's on the params held in
+    memory."""
+    _, tp, _, tc = model
+    _save_params(tmp_path / "ckpt", tp)
+    srv = _serve(["--config", config_file, "--checkpoint",
+                  str(tmp_path / "ckpt"), "--engine", engine])
+    try:
+        _, _, body = _post(srv.url, {"prompt": PROMPTS[0],
+                                     "max_new_tokens": 6})
+    finally:
+        srv.stop()
+    with BatchedGenerator(tp, tc, device="cpu") as gen:
+        want = gen.generate_sync(PROMPTS[0], 6).tolist()
+    assert json.loads(body)["ids"] == want
+
+
+def test_checkpoint_flag_exits_on_an_empty_directory(config_file, tmp_path):
+    with pytest.raises(SystemExit, match="no checkpoint found in"):
+        torch_server.build_server(["--config", config_file, "--device",
+                                   "cpu", "--checkpoint", str(tmp_path)])
+
+
+@pytest.mark.parametrize("engine,counter", [("bucketed", "spec_batches"),
+                                            ("continuous", "spec_ticks")])
+def test_draft_config_flag_serves_speculatively(config_file, model, draft,
+                                                tmp_path, engine, counter):
+    """--draft-config/--draft-checkpoint/--spec-k beside --checkpoint: the
+    engine speculates with the restored draft, its greedy ids are the
+    restored target's, and /healthz reports the acceptance counters."""
+    _, tp, _, tc = model
+    _, tdp, _, _ = draft
+    draft_file = tmp_path / "draft.json"
+    draft_file.write_text(json.dumps(DRAFT))
+    _save_params(tmp_path / "ckpt", tp)
+    _save_params(tmp_path / "dckpt", tdp)
+    srv = _serve(["--config", config_file, "--engine", engine,
+                  "--checkpoint", str(tmp_path / "ckpt"),
+                  "--draft-config", str(draft_file), "--draft-checkpoint",
+                  str(tmp_path / "dckpt"), "--spec-k", "3"])
+    try:
+        gen = srv.generator
+        assert gen.spec_k == 3 and gen.draft is not None
+        for got, want in zip(ttr.tree_leaves(gen.draft[0]),
+                             ttr.tree_leaves(tdp)):
+            assert torch.equal(got, want)
+        _, _, body = _post(srv.url, {"prompt": PROMPTS[1],
+                                     "max_new_tokens": 6})
+        with urllib.request.urlopen(srv.url + "/healthz", timeout=30) as r:
+            health = json.loads(r.read())
+    finally:
+        srv.stop()
+    assert json.loads(body)["ids"] == generate(
+        tp, torch.tensor([PROMPTS[1]]), tc, 6)[0].tolist()
+    assert health[counter] >= 1 and health["spec_drafted"] > 0
+
+
+def test_draft_checkpoint_requires_draft_config(config_file, tmp_path):
+    with pytest.raises(SystemExit, match="requires --draft-config"):
+        torch_server.build_server(["--config", config_file, "--device",
+                                   "cpu", "--draft-checkpoint",
+                                   str(tmp_path)])
+
+
+class _Args:
+    engine = "continuous"
+    slots = 2
+    quantize = False
+    kv_quant = False
+    eos_id = -1
+    steps_per_sync = 1
+    spec_k = 2
+    spec_inexact = False
+    device = "cpu"
+
+
+@pytest.mark.parametrize("engine", ["continuous", "bucketed"])
+def test_spec_inexact_flag_controls_the_flash_decode_gate(model, engine):
+    """decode_attention="flash" puts plain decode on the flash-decode
+    path while the verify window is the einsum: without --spec-inexact
+    the continuous engine refuses the draft and the bucketed engine keeps
+    it but never speculates; with it both speculate (the reference's
+    tests/test_serving_server.py gate test)."""
+    _, tp, _, tc = model
+    fc = tc.replace(decode_attention="flash")
+    args = type("Args", (_Args,), {"engine": engine})
+    if engine == "continuous":
+        with pytest.raises(ValueError, match="spec_exact_only"):
+            torch_server.build_generator(tp, fc, args, draft=(tp, fc))
+    else:
+        with torch_server.build_generator(tp, fc, args,
+                                          draft=(tp, fc)) as gen:
+            gen.generate_sync(PROMPTS[0], 4)
+            assert gen.spec_exact_only and gen.spec_batches == 0
+    args.spec_inexact = True
+    with torch_server.build_generator(tp, fc, args, draft=(tp, fc)) as gen:
+        assert gen.draft is not None
+        gen.generate_sync(PROMPTS[0], 4)
+        assert gen.spec_drafted == gen.spec_accepted > 0
 
 
 @pytest.mark.parametrize("flag", [["--kv-quant"], ["--eos-id", "2"],
