@@ -12,9 +12,12 @@ weights from a seed): it serves over HTTP through ``ServingServer`` and
 (8 slots, 256-token prefill chunks, the prefix cache), trains through
 ``Trainer`` at batch 8 x 1024 with bf16 params and f32 masters, resumes a
 Trainer from a checkpoint, and serves that checkpoint through
-``build_server`` with a speculative draft in both engines. The kernels'
-launch counters, zeroed before each path and read after it, show that
-each path ran its kernels.
+``build_server`` with a speculative draft in both engines; then it serves
+and trains the MoE family at the flagship's width (``FLAGSHIP_MOE``: 8
+experts, top-2) and finetunes the flagship with LoRA, serving the
+adapters through ``build_server --lora-config``. The kernels' launch
+counters, zeroed before each path and read after it, show that each path
+ran its kernels.
 Then it times each kernel beside its bound, its plain version and one
 PyTorch library call computing the same function.
 
@@ -76,6 +79,25 @@ Phases (any failure exits non-zero before the result line):
      (bucketed); spec_exact_only=True falls back (bucketed) or refuses
      (continuous); 10 ticks under set_sync_debug_mode("error") and 10
      under torch.profiler;
+  10. the MoE at the flagship's width (f32 params from a seed, 5.2 GB,
+     and a bf16 serving copy): in f32 at capacity factor 4 (no drops)
+     prefill and a decode step through the kernels vs plain (every
+     pick's expert and slot identical, logits within 2e-5) and an f32
+     continuous engine over HTTP teacher-forced through the plain
+     forward; at the default factor 1.25 in bf16 both engines over HTTP
+     (tokens/s, time to first token), an identical request twice
+     (bit-identical ids), a tick's sync-debug check and profile (idle
+     share, kernels a tick), an int8-weight engine and an MoE target
+     with the small draft, launches exact per engine; the Trainer at b8
+     x s1024 (median of 3 runs of 3 steps, TFLOP/s on active params,
+     peak memory), a falling loss and 12 of each attention kernel a step
+     under remat="mlp", a step-3 checkpoint resumed bit-equal;
+  11. LoRA (rank 8 on wq/wk/wv/wo) over 7b's restored params: 6 adapter
+     steps (ms/step, checkpoint bytes, 12 of each attention kernel a
+     step, the base bit-identical, a falling loss, ``merged_params()`` =
+     ``merge_lora``), then ``build_server`` with --checkpoint,
+     --lora-config and --lora-checkpoint serving 4 greedy requests whose
+     ids equal an engine's on the merge made in memory;
   5. times of each kernel, its plain version and a library call (last, so
      the paths above run on a card not yet warmed by timing loops), with
      the achieved TFLOP/s, the share of the bound, the forward, dK/dV and
@@ -143,6 +165,9 @@ TILE_REL_TOL = 1e-2
 TILE_RMS_FLOOR = 1e-3
 MODEL_GRAD_REL = 5e-4  # f32 model grads through flash vs plain attention,
                        # / max|grad| (the JAX package's pin, test_ops.py)
+# f32 MoE logits, kernel path vs plain path on the same inputs at a
+# non-binding capacity (the same routing): the port's forward pin
+MOE_LOGITS_TOL = 2e-5
 
 
 def fail(msg: str) -> None:
@@ -752,12 +777,12 @@ class _ServedEngine:
     counters are zeroed when it starts, so ``launches`` reads this
     engine's traffic alone."""
 
-    def __init__(self, torch, params, config, **kw):
+    def __init__(self, torch, params, config, phase="phase8", **kw):
         from kubeflow_tpu_torch import ops
         from kubeflow_tpu_torch.runtime.server import ServingServer
         from kubeflow_tpu_torch.runtime.serving import \
             ContinuousBatchedGenerator
-        self.ops = ops
+        self.ops, self.phase = ops, phase
         self.gen = ContinuousBatchedGenerator(params, config, n_slots=8,
                                               device="cuda", **kw)
         self.server = ServingServer(self.gen, config, port=0).start()
@@ -771,7 +796,7 @@ class _ServedEngine:
         counts = self.ops.launch_counts()
         want = {k: 0 for k in counts}
         want[name] = self.gen.steps_total * self.layers
-        print(f"phase8 {what}: {self.gen.steps_total} ticks, launches "
+        print(f"{self.phase} {what}: {self.gen.steps_total} ticks, launches "
               f"{counts}, expected {name} = ticks x {self.layers} = "
               f"{want[name]} and no other", flush=True)
         require(counts == want and want[name] > 0,
@@ -820,7 +845,7 @@ def _stall(torch, served, vocab: int, rng) -> dict:
             "chunks": served.gen.prefill_chunks_total - box["chunks0"]}
 
 
-def _check_sync_free(torch, gen, what: str) -> None:
+def _check_sync_free(torch, gen, what: str, phase="phase8") -> None:
     """A few of the engine's ticks (no readback) on the idle engine under
     torch.cuda.set_sync_debug_mode("error"): an op in the tick that
     waits for the card raises."""
@@ -836,7 +861,7 @@ def _check_sync_free(torch, gen, what: str) -> None:
              f"{traceback.format_exc()[-3000:]}")
     torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
-    print(f"phase8 {what}: 4 ticks (greedy and sampling) ran under "
+    print(f"{phase} {what}: 4 ticks (greedy and sampling) ran under "
           f"set_sync_debug_mode('error') without a synchronising op",
           flush=True)
 
@@ -1102,20 +1127,31 @@ def _f32_anchor(torch, flagship, params, prompts) -> float:
             time.sleep(0.025)
         results = [f.result(timeout=300).tolist() for f in futures]
     plain = c32.replace(attention="xla")
-    worst = 0.0
-    with torch.no_grad():
-        for p, ids in zip(prompts, results):
-            tokens = torch.tensor([p + ids], device="cuda")
-            logits = forward(params, tokens, plain)[0, len(p) - 1:-1]
-            ids_t = torch.tensor(ids, device="cuda")
-            chosen = logits.gather(1, ids_t[:, None])[:, 0]
-            worst = max(worst, (logits.max(dim=1).values - chosen)
-                        .max().item())
+    worst = _teacher_forced_gap(
+        torch, lambda tokens: forward(params, tokens, plain), prompts,
+        results)
     print(f"phase8 f32 engine, 4 staggered requests of 16: the largest gap "
           f"between a greedy token's teacher-forced logit and its "
           f"position's maximum is {worst:.3e} (tol 1e-3)", flush=True)
     require(worst <= 1e-3, "the f32 engine chose a token the f32 forward "
                            "does not rank first")
+    return worst
+
+
+def _teacher_forced_gap(torch, logits_fn, prompts, results) -> float:
+    """The largest gap between a generated token's logit and its
+    position's maximum when each prompt + ids runs through ``logits_fn``
+    (tokens (1, n) → logits (1, n, vocab)): 0 when every token is the
+    forward's argmax."""
+    worst = 0.0
+    with torch.no_grad():
+        for p, ids in zip(prompts, results):
+            tokens = torch.tensor([p + ids], device="cuda")
+            logits = logits_fn(tokens)[0, len(p) - 1:-1]
+            ids_t = torch.tensor(ids, device="cuda")
+            chosen = logits.gather(1, ids_t[:, None])[:, 0]
+            worst = max(worst, (logits.max(dim=1).values - chosen)
+                        .max().item())
     return worst
 
 
@@ -1809,6 +1845,583 @@ def phase_speculative(torch, flagship, draft_config, root, params4,
     return stats, launches
 
 
+# -------------------------------------------------------------- phase 10
+def _tree_bytes(tree) -> int:
+    from kubeflow_tpu_torch.models.train import tree_leaves
+    return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
+
+
+def _record_routing():
+    """Wrap models/moe.py's ``route_indices`` so each call's (expert,
+    slot) is kept; returns (records, restore)."""
+    from kubeflow_tpu_torch.models import moe
+    records, original = [], moe.route_indices
+
+    def recording(*args, **kwargs):
+        out = original(*args, **kwargs)
+        records.append((out[0].clone(), out[1].clone()))
+        return out
+
+    moe.route_indices = recording
+
+    def restore():
+        moe.route_indices = original
+    return records, restore
+
+
+def _same_routing(torch, a: list, b: list) -> bool:
+    return len(a) == len(b) and all(
+        torch.equal(ea, eb) and torch.equal(sa, sb)
+        for (ea, sa), (eb, sb) in zip(a, b))
+
+
+def _moe_kernel_vs_plain(torch, params, c32) -> dict:
+    """f32 at a non-binding capacity: prefill (8 x 128) through the flash
+    forward against plain attention, then one decode step from the same
+    cache through flash-decode against the einsum path. Each pair routes
+    every layer identically (expert and slot of every pick) and its
+    logits agree within MOE_LOGITS_TOL. Launches here are not counted."""
+    from kubeflow_tpu_torch.models.decode import decode_step, prefill
+    plain = c32.replace(attention="xla", decode_attention="xla")
+    prompt = torch.randint(0, c32.vocab_size, (8, 128),
+                           generator=torch.Generator().manual_seed(21)
+                           ).cuda()
+    records, restore = _record_routing()
+    try:
+        with torch.no_grad():
+            lk, _ = prefill(params, prompt, c32)
+            rk = records[:]
+            records.clear()
+            lp, cache = prefill(params, prompt, plain)
+            rp = records[:]
+            records.clear()
+            token = lp.argmax(dim=-1).int()
+            copy = {k: v.clone() for k, v in cache.items()}
+            dk, _ = decode_step(params, copy, token, 128, c32)
+            dk_r = records[:]
+            records.clear()
+            dp, _ = decode_step(params, cache, token, 128, plain)
+            dp_r = records[:]
+    finally:
+        restore()
+    out = {"prefill_max_abs_err": (lk - lp).abs().max().item(),
+           "prefill_same_routing": _same_routing(torch, rk, rp),
+           "decode_max_abs_err": (dk - dp).abs().max().item(),
+           "decode_same_routing": _same_routing(torch, dk_r, dp_r),
+           "routed_layers": len(rk) + len(dk_r)}
+    print(f"phase10 f32, capacity factor {c32.capacity_factor} (no drops): "
+          f"prefill 8 x 128 flash vs plain max|diff| "
+          f"{out['prefill_max_abs_err']:.3e}, decode step flash-decode vs "
+          f"einsum {out['decode_max_abs_err']:.3e} (tol {MOE_LOGITS_TOL:g}); "
+          f"every layer's expert and slot of every pick identical: "
+          f"prefill {out['prefill_same_routing']}, decode "
+          f"{out['decode_same_routing']}", flush=True)
+    require(out["prefill_same_routing"] and out["decode_same_routing"] and
+            len(rk) == len(dk_r) == c32.n_layers,
+            "the kernel path routes otherwise than the plain path")
+    require(out["prefill_max_abs_err"] <= MOE_LOGITS_TOL and
+            out["decode_max_abs_err"] <= MOE_LOGITS_TOL,
+            "the MoE kernel path disagrees with the plain path")
+    return out
+
+
+def _moe_engine_tick(torch, gen) -> dict:
+    """10 ticks of the idle continuous engine (8 rows; dead rows still
+    route their pad tokens), each read back as the engine's loop does:
+    unprofiled wall, then under torch.profiler."""
+    def ticks():
+        for _ in range(10):
+            gen._tick(1, False).cpu()
+    ticks()
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    ticks()
+    tick_ms = (time.monotonic() - t0) / 10 * 1e3
+    prof = {"shape": "10 ticks, continuous engine, 8 slots, MoE bf16",
+            **_profile(torch, ticks)}
+    _print_profile("phase10", prof)
+    busy = prof["device_busy_ms"]
+    out = {"tick_ms_unprofiled": tick_ms, "profile": prof}
+    if busy:
+        out["device_busy_ms_a_tick"] = busy / 10
+        out["device_idle_share_unprofiled"] = 1 - busy / 10 / tick_ms
+        out["kernels_a_tick"] = prof["device_kernels"] / 10
+        print(f"phase10 a tick: {tick_ms:.2f} ms unprofiled, device busy "
+              f"{busy / 10:.3f} ms (idle "
+              f"{100 * out['device_idle_share_unprofiled']:.1f}% of the "
+              f"unprofiled tick), {out['kernels_a_tick']:.0f} kernels",
+              flush=True)
+    return out
+
+
+def _moe_serving(torch, params, moe, draft) -> tuple[dict, dict]:
+    """The MoE served at the default capacity factor in bf16: the bucketed
+    engine over HTTP (8 concurrent 128 → 64), the continuous engine over
+    HTTP (16 streams 25 ms apart; an identical request twice; its tick),
+    an int8-weight engine and a speculative engine with phase 9's small
+    draft; launch counts exact per engine."""
+    from kubeflow_tpu_torch import ops
+    from kubeflow_tpu_torch.runtime.server import ServingServer
+    from kubeflow_tpu_torch.runtime.serving import (
+        BatchedGenerator, ContinuousBatchedGenerator)
+
+    L, V = moe.n_layers, moe.vocab_size
+    rng = torch.Generator().manual_seed(23)
+
+    def prompt(n):
+        return torch.randint(0, V, (n,), generator=rng).tolist()
+
+    stats: dict = {}
+    launches = {"flash_attention": 0, "flash_decode": 0}
+
+    gen = BatchedGenerator(params, moe, max_batch=8, max_wait_s=0.5,
+                           device="cuda")
+    server = ServingServer(gen, moe, port=0).start()
+    try:
+        ops.reset_launch_counts()
+        _check_ids(_post(server.url, {"prompt": prompt(8),
+                                      "max_new_tokens": 2}), 2, V, "warm-up")
+        warm = gen.batches_total
+        outs, wall = _concurrent(server.url, [
+            {"prompt": prompt(128), "max_new_tokens": 64}
+            for _ in range(8)])
+        for i, out in enumerate(outs):
+            _check_ids(out, 64, V, f"MoE bucketed request {i}")
+        batches = gen.batches_total - warm
+        counts = ops.launch_counts()
+        want = {**{k: 0 for k in counts},
+                "flash_attention": (warm + batches) * L,
+                "flash_decode": (warm * 1 + batches * 63) * L}
+        stats["bucketed"] = {"tokens_per_s": 8 * 64 / wall, "wall_s": wall,
+                             "batches": batches}
+        print(f"phase10 bucketed, 8 concurrent greedy (prompt 128, 64 new): "
+              f"{batches} batch(es), {wall:.3f} s, {8 * 64 / wall:.1f} "
+              f"generated tokens/s; launches {counts} expected {want}",
+              flush=True)
+        require(counts == want, f"MoE bucketed launches {counts}, expected "
+                                f"{want}")
+        for name in launches:
+            launches[name] += want[name]
+    finally:
+        server.stop()
+    del gen, server
+
+    served = _ServedEngine(torch, params, moe, phase="phase10")
+    gen = served.gen
+    try:
+        _check_ids(_post(served.url, {"prompt": prompt(128),
+                                      "max_new_tokens": 8}), 8, V, "warm-up")
+        run = _staggered(served.url, [prompt(128) for _ in range(16)], 64,
+                         V)
+        stats["continuous"] = {k: v for k, v in run.items() if k != "ids"}
+        print(f"phase10 continuous, 16 x (prompt 128, 64 new) streamed "
+              f"25 ms apart: {run['tokens_per_s']:.1f} generated tokens/s, "
+              f"wall {run['wall_s']:.3f} s, time to first token median "
+              f"{1e3 * run['ttft_median_s']:.1f} ms max "
+              f"{1e3 * run['ttft_max_s']:.1f} ms, {gen.steps_total} ticks",
+              flush=True)
+        # the same request twice on the idle engine: same slot, the other
+        # rows dead and unchanged, so the same routing and ids
+        p = prompt(128)
+        twice = [_post(served.url, {"prompt": p, "max_new_tokens": 32})
+                 ["ids"] for _ in range(2)]
+        print(f"phase10 an identical request twice: bit-identical ids "
+              f"{twice[0] == twice[1]}", flush=True)
+        require(twice[0] == twice[1], "an identical request gave other ids")
+        launches["flash_decode"] += served.launches("flash_decode",
+                                                    "MoE continuous engine")
+        _check_sync_free(torch, gen, "MoE engine", phase="phase10")
+        stats["tick"] = _moe_engine_tick(torch, gen)
+    finally:
+        served.close()
+    del served, gen
+
+    # int8 weights (per-expert scales, the router in f32)
+    with ContinuousBatchedGenerator(params, moe, quantize=True,
+                                    device="cuda") as gen:
+        ops.reset_launch_counts()
+        futures = [gen.submit(prompt(128), 32) for _ in range(4)]
+        for f in futures:
+            require(len(f.result(timeout=300)) == 32, "int8 MoE request")
+        counts = ops.launch_counts()
+        router = gen.params["blocks"]["router"]
+        require(router.dtype == torch.float32 and
+                gen.params["blocks"]["w_gate"]["q"].dtype == torch.int8,
+                "the int8 engine quantised the router or not the experts")
+        want = gen.steps_total * L
+    print(f"phase10 quantize=True, 4 requests (prompt 128, 32 new): "
+          f"{gen.steps_total} ticks, launches {counts}, expected "
+          f"flash_decode = {want}", flush=True)
+    require(counts["flash_decode"] == want and
+            sum(counts.values()) == want, f"int8 MoE launches {counts}")
+    launches["flash_decode"] += want
+
+    # an MoE target verified through decode_window, the small dense draft
+    dparams, dconfig = draft
+    k = 4
+    with ContinuousBatchedGenerator(
+            params, moe, draft_params=dparams, draft_config=dconfig,
+            spec_k=k, spec_exact_only=False, device="cuda") as gen:
+        ops.reset_launch_counts()
+        futures = [gen.submit(prompt(128), 32) for _ in range(4)]
+        for f in futures:
+            require(len(f.result(timeout=300)) == 32, "speculative request")
+        counts = ops.launch_counts()
+        want = gen.spec_ticks * (k + 1) * dconfig.n_layers
+        stats["speculative"] = {"spec_ticks": gen.spec_ticks,
+                                "acceptance": gen.spec_accepted /
+                                max(gen.spec_drafted, 1)}
+    print(f"phase10 MoE target + small draft, 4 requests (prompt 128, 32 "
+          f"new): {gen.spec_ticks} speculative ticks, acceptance "
+          f"{stats['speculative']['acceptance']:.4f}; launches {counts}, "
+          f"expected flash_decode = spec ticks x {k + 1} x "
+          f"{dconfig.n_layers} = {want}", flush=True)
+    require(counts["flash_decode"] == want > 0 and
+            sum(counts.values()) == want, f"MoE speculative launches "
+                                          f"{counts}")
+    launches["flash_decode"] += want
+    return stats, launches
+
+
+def _moe_train(torch, moe, root) -> tuple[dict, dict]:
+    """The MoE train path at full width (f32 params, bf16 compute):
+    Trainer at b8 x s1024, 2 warm-up steps and 3 timed runs of 3; a
+    falling loss on a repeated batch under remat="mlp"; launches 12 of
+    each attention kernel a step in both; a checkpoint of step 3 resumed
+    bit-equal over steps 4 and 5."""
+    from kubeflow_tpu_torch import ops
+    from kubeflow_tpu_torch.models import train as train_lib
+    from kubeflow_tpu_torch.models.moe import count_active_params
+    from kubeflow_tpu_torch.models.transformer import count_params
+    from kubeflow_tpu_torch.runtime.data import synthetic_lm_batches
+    from kubeflow_tpu_torch.runtime.trainer import Trainer
+    from kubeflow_tpu_torch.tools.train_step_time import timed_fit
+
+    L, V, B, S = moe.n_layers, moe.vocab_size, 8, 1024
+    names = ("flash_attention", "flash_attention_bwd_dkv",
+             "flash_attention_bwd_dq")
+    warm, timed, runs = 2, 3, 3
+    stats: dict = {}
+    torch.cuda.reset_peak_memory_stats()
+    trainer = Trainer(moe, train_lib.TrainConfig(), device="cuda", seed=0)
+    stats["params"] = count_params(trainer.params)
+    src = synthetic_lm_batches(B, S, V, seed=0)
+    ops.reset_launch_counts()
+    trainer.fit(src, steps=warm, log_every=warm)
+    host = [timed_fit(trainer, src, timed) for _ in range(runs)]
+    counts = ops.launch_counts()
+    steps = warm + runs * timed
+    launches = {n: L * steps for n in names}
+    print(f"phase10 train launches {counts} expected {launches}",
+          flush=True)
+    require(all(counts[n] == w for n, w in launches.items()),
+            f"MoE train launches {counts}, expected {launches}")
+    mid = sorted(host, key=lambda r: r["ms_per_step"])[runs // 2]
+    ms = mid["ms_per_step"]
+    tok_s = B * S / ms * 1e3
+    active = count_active_params(moe)
+    stats.update({
+        "ms_per_step": ms, "cpu_ms_per_step": mid["cpu_ms_per_step"],
+        "runs_ms_per_step": [r["ms_per_step"] for r in host],
+        "tokens_per_s": tok_s, "active_params": active,
+        "active_tflops_per_s": 6 * active * tok_s / 1e12,
+        "trainer_dense_formula_tflops_per_s":
+            trainer.stats.model_tflops_per_sec,
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "losses": [x for _, x in trainer.stats.losses]})
+    stats["active_bf16_peak_share"] = \
+        stats["active_tflops_per_s"] * 1e12 / PEAK_FLOPS["bfloat16"]
+    print(f"phase10 train b{B} s{S}, {stats['params']} params "
+          f"({active:.0f} active a token), f32 params + bf16 compute: "
+          f"{ms:.2f} ms/step (median of {runs} runs of {timed}: "
+          f"{[round(x, 2) for x in stats['runs_ms_per_step']]}; CPU "
+          f"{mid['cpu_ms_per_step']:.2f} ms/step), {tok_s:.1f} tokens/s, "
+          f"{stats['active_tflops_per_s']:.2f} TFLOP/s on active params "
+          f"(6 x active x tokens/s; "
+          f"{100 * stats['active_bf16_peak_share']:.2f}% of the bf16 peak; "
+          f"the Trainer's dense formula: "
+          f"{stats['trainer_dense_formula_tflops_per_s']:.2f}), peak "
+          f"memory {stats['peak_mem_gb']:.2f} GB, losses {stats['losses']}",
+          flush=True)
+    require(all(math.isfinite(x) for x in stats["losses"]),
+            f"MoE losses {stats['losses']}")
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # a repeated batch, remat="mlp": the loss falls; the attention is not
+    # recomputed, so the launches stay 12 of each a step
+    one = next(iter(synthetic_lm_batches(B, S, V, seed=5)))
+    with Trainer(moe.replace(remat="mlp"),
+                 train_lib.TrainConfig(warmup_steps=1), device="cuda",
+                 seed=1) as tr:
+        ops.reset_launch_counts()
+        tr.fit([one] * 8, steps=8, log_every=1)
+        counts = ops.launch_counts()
+        curve = [x for _, x in tr.stats.losses]
+    want = {n: 8 * L for n in names}
+    print(f"phase10 remat='mlp', a repeated batch, 8 steps: losses {curve}; "
+          f"launches {counts} expected {want}", flush=True)
+    require(all(math.isfinite(x) for x in curve) and curve[-1] < curve[0],
+            f"the MoE loss on a repeated batch did not fall: {curve}")
+    require(all(counts[n] == w for n, w in want.items()),
+            f"remat='mlp' launches {counts}, expected {want}")
+    for n in names:
+        launches[n] += want[n]
+    stats["remat_mlp_losses"] = curve
+    del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # checkpoint and resume: A saves step 3 and runs on; B resumes at 3;
+    # steps 4 and 5 bit-equal (no step of theirs is saved again)
+    tdir = os.path.join(root, "moe")
+    batches = [next(src) for _ in range(5)]
+    kw = dict(device="cuda", checkpoint_dir=tdir, checkpoint_interval=3,
+              max_checkpoints=1)
+    ops.reset_launch_counts()
+    a = Trainer(moe, train_lib.TrainConfig(), **kw)
+    a.fit(batches[:3], steps=3, log_every=1)
+    a.checkpointer.wait()
+    step_dir = os.path.join(tdir, "3")
+    nbytes = sum(os.path.getsize(os.path.join(step_dir, f))
+                 for f in os.listdir(step_dir))
+    t0 = time.monotonic()
+    b = Trainer(moe, train_lib.TrainConfig(), seed=1, **kw)
+    resume_s = time.monotonic() - t0
+    require(b.stats.step == 3, f"MoE Trainer B resumed at {b.stats.step}")
+    a.fit(batches[3:], steps=2, log_every=1)
+    b.fit(batches[3:], steps=2, log_every=1)
+    losses_a, losses_b = list(a.stats.losses)[3:], list(b.stats.losses)
+    state = [(t.params, t.opt_state.mu, t.opt_state.nu) for t in (a, b)]
+    equal, worst = _tree_diff(torch, dict(zip("pmn", state[1])),
+                              dict(zip("pmn", state[0])))
+    for t in (a, b):
+        t.close()
+    counts = ops.launch_counts()
+    want = {n: 7 * L for n in names}
+    stats["checkpoint"] = {"bytes_per_step": nbytes, "resume_s": resume_s,
+                           "losses_a": losses_a, "losses_b": losses_b,
+                           "bit_equal": equal and losses_a == losses_b,
+                           "worst_leaf_rel_diff": worst}
+    print(f"phase10 MoE checkpoint of step 3: {nbytes / 1e9:.3f} GB on "
+          f"disk; Trainer B built and resumed in {resume_s:.3f} s; steps 4 "
+          f"and 5: A {losses_a}, B {losses_b}; every loss, param and moment "
+          f"bit-equal: {stats['checkpoint']['bit_equal']} (largest leaf "
+          f"difference {worst:.3e}); launches {counts} expected {want}",
+          flush=True)
+    require(stats["checkpoint"]["bit_equal"],
+            "the resumed MoE run is not bit-equal to the uninterrupted one")
+    require(all(counts[n] == w for n, w in want.items()),
+            f"MoE resume launches {counts}, expected {want}")
+    for n in names:
+        launches[n] += want[n]
+    del a, b, state
+    shutil.rmtree(tdir, ignore_errors=True)
+    return stats, launches
+
+
+def phase_moe(torch, moe, draft_config, root) -> tuple[dict, dict]:
+    """10: the MoE family at the flagship's width (``FLAGSHIP_MOE``: 8
+    experts, top-2, capacity factor 1.25, route groups of 2048): f32
+    params from a seed and their bf16 serving copy; the kernel path
+    against the plain path in f32 at a non-binding capacity (same
+    routing, logits within MOE_LOGITS_TOL); the continuous engine over
+    HTTP in f32 at that capacity, its ids teacher-forced through the
+    plain forward; both engines over HTTP in bf16 at the default
+    capacity, an int8 engine and a speculative one; the train path and a
+    resume. Returns stats and the launches of the served and trained
+    paths."""
+    from kubeflow_tpu_torch.models.moe import (expert_capacity,
+                                               init_moe_params, moe_forward,
+                                               num_route_groups)
+    from kubeflow_tpu_torch.models.transformer import init_params
+    from kubeflow_tpu_torch.runtime.serving import cast_matmul_weights
+
+    V = moe.vocab_size
+    params = init_moe_params(torch.Generator(device="cuda").manual_seed(20),
+                             moe, device="cuda")
+    serving = cast_matmul_weights(params, moe.compute_dtype)
+    groups = num_route_groups(8 * 1024, moe.route_group_size)
+    stats: dict = {"f32_param_bytes": _tree_bytes(params),
+                   "bf16_serving_bytes": _tree_bytes(serving),
+                   "route_groups_b8_s1024": groups,
+                   "capacity_b8_s1024": expert_capacity(8192 // groups, moe),
+                   "capacity_decode_8_rows": expert_capacity(8, moe)}
+    del serving
+    print(f"phase10 MoE {moe.n_experts} experts, top-{moe.experts_per_token}"
+          f", capacity factor {moe.capacity_factor}, route groups of "
+          f"{moe.route_group_size} (b8 s1024: {groups} groups, capacity "
+          f"{stats['capacity_b8_s1024']}; a decode step of 8 rows: "
+          f"capacity {stats['capacity_decode_8_rows']}), aux coef "
+          f"{moe.router_aux_coef}: f32 params "
+          f"{stats['f32_param_bytes'] / 1e9:.3f} GB, bf16 serving copy "
+          f"{stats['bf16_serving_bytes'] / 1e9:.3f} GB", flush=True)
+
+    # f32 at capacity factor E/k = 4: every group's capacity covers it
+    free = moe.replace(dtype="float32", capacity_factor=moe.n_experts /
+                       moe.experts_per_token)
+    stats["kernel_vs_plain"] = _moe_kernel_vs_plain(torch, params, free)
+    launches = {"flash_attention": 0, "flash_decode": 0}
+    f32 = _ServedEngine(torch, params, free, phase="phase10")
+    try:
+        rng = torch.Generator().manual_seed(22)
+        prompts = [torch.randint(0, V, (128,), generator=rng).tolist()
+                   for _ in range(4)]
+        run = _staggered(f32.url, prompts, 16, V)
+        plain = free.replace(attention="xla")
+        gap = _teacher_forced_gap(
+            torch, lambda t: moe_forward(params, t, plain)[0], prompts,
+            run["ids"])
+        launches["flash_decode"] += f32.launches("flash_decode",
+                                                 "f32 MoE engine")
+    finally:
+        f32.close()
+    stats["f32_teacher_forced_gap"] = gap
+    print(f"phase10 f32 continuous engine over HTTP, 4 streams of 16, no "
+          f"drops: the largest gap between a streamed token's "
+          f"teacher-forced logit (plain forward) and its position's "
+          f"maximum is {gap:.3e} (tol 1e-3)", flush=True)
+    require(gap <= 1e-3, "the f32 MoE engine chose a token the plain "
+                         "forward does not rank first")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    draft = init_params(torch.Generator(device="cuda").manual_seed(1),
+                        draft_config, device="cuda")
+    stats["serving"], served = _moe_serving(torch, params, moe,
+                                            (draft, draft_config))
+    for name, n in served.items():
+        launches[name] += n
+    del params, draft
+    gc.collect()
+    torch.cuda.empty_cache()
+    stats["train"], trained = _moe_train(torch, moe, root)
+    for name, n in trained.items():
+        launches[name] = launches.get(name, 0) + n
+    return stats, launches
+
+
+# -------------------------------------------------------------- phase 11
+def phase_lora(torch, flagship, root, params4) -> tuple[dict, dict]:
+    """11: LoRA on the flagship. A lora-mode Trainer (LoRAConfig():
+    rank 8, alpha 16, wq/wk/wv/wo) finetunes phase 7b's restored params
+    for 6 steps on a repeated batch, checkpointing the adapters: ms/step,
+    adapter bytes on disk, launches 12 of each attention kernel a step,
+    the base bit-identical after, a falling loss, ``merged_params()`` =
+    ``merge_lora``. Then ``build_server`` with --checkpoint (7b),
+    --lora-config and --lora-checkpoint serves 4 greedy requests whose
+    ids equal an engine's on the merge made in memory."""
+    from kubeflow_tpu_torch import ops
+    from kubeflow_tpu_torch.models import train as train_lib
+    from kubeflow_tpu_torch.models.lora import (LoRAConfig, lora_num_params,
+                                                merge_lora)
+    from kubeflow_tpu_torch.runtime.data import synthetic_lm_batches
+    from kubeflow_tpu_torch.runtime.server import build_server
+    from kubeflow_tpu_torch.runtime.serving import ContinuousBatchedGenerator
+    from kubeflow_tpu_torch.runtime.trainer import Trainer
+    from kubeflow_tpu_torch.tools.train_step_time import timed_fit
+
+    c, L, V = flagship, flagship.n_layers, flagship.vocab_size
+    lora = LoRAConfig()
+    ldir = os.path.join(root, "lora")
+    names = ("flash_attention", "flash_attention_bwd_dkv",
+             "flash_attention_bwd_dq")
+    before = train_lib.tree_map(lambda t: t.detach().clone(), params4)
+    one = next(iter(synthetic_lm_batches(8, 1024, V, seed=7)))
+    # lr 1e-3 from the second step: the bf16 base rounds smaller deltas
+    # away (a weight of ~0.03 has a bf16 ulp of ~2.4e-4)
+    tc = train_lib.TrainConfig(warmup_steps=1, learning_rate=1e-3)
+    ops.reset_launch_counts()
+    with Trainer(c, tc, device="cuda", lora=lora, base_params=params4,
+                 checkpoint_dir=ldir, checkpoint_interval=6) as tr:
+        tr.fit([one] * 2, steps=2, log_every=1)
+        run = timed_fit(tr, [one] * 4, 4)
+        curve = [x for _, x in tr.stats.losses]
+        tr.checkpointer.wait()
+        counts = ops.launch_counts()
+        merged = tr.merged_params()
+        same_merge = all(torch.equal(a, b) for a, b in zip(
+            train_lib.tree_leaves(merged), train_lib.tree_leaves(
+                merge_lora(params4, tr.params, lora))))
+        adapters = train_lib.tree_map(lambda t: t.detach().clone(),
+                                      tr.params)
+        base_kept = all(torch.equal(a, b) for a, b in zip(
+            train_lib.tree_leaves(params4), train_lib.tree_leaves(before)))
+    del merged, before
+    step_dir = os.path.join(ldir, "6")
+    nbytes = sum(os.path.getsize(os.path.join(step_dir, f))
+                 for f in os.listdir(step_dir))
+    want = {n: 6 * L for n in names}
+    stats = {"adapter_params": lora_num_params(c, lora),
+             "ms_per_step": run["ms_per_step"],
+             "cpu_ms_per_step": run["cpu_ms_per_step"],
+             "checkpoint_bytes": nbytes, "losses": curve,
+             "base_bit_identical": base_kept,
+             "merged_params_equal_merge_lora": same_merge}
+    print(f"phase11 LoRA rank {lora.rank} on {','.join(lora.targets)} "
+          f"({stats['adapter_params']} adapter params) over 7b's bf16 "
+          f"flagship, b8 s1024: {run['ms_per_step']:.2f} ms/step (4 timed "
+          f"steps after 2; CPU {run['cpu_ms_per_step']:.2f} ms/step), "
+          f"adapter checkpoint {nbytes / 1e6:.3f} MB on disk, losses "
+          f"{curve}; base bit-identical after: {base_kept}; "
+          f"merged_params() = merge_lora: {same_merge}; launches {counts} "
+          f"expected {want}", flush=True)
+    require(all(counts[n] == w for n, w in want.items()),
+            f"LoRA train launches {counts}, expected {want}")
+    require(base_kept and same_merge, "LoRA changed the base or merged "
+                                      "otherwise")
+    require(all(math.isfinite(x) for x in curve) and curve[-1] < curve[0],
+            f"the LoRA loss on a repeated batch did not fall: {curve}")
+    launches = dict(want)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # serve the finetune: the server restores 7b and the adapters and
+    # merges once; the in-memory engine serves the same merge
+    lora_json = os.path.join(root, "lora.json")
+    with open(lora_json, "w") as fh:
+        json.dump({"rank": lora.rank, "alpha": lora.alpha,
+                   "targets": list(lora.targets)}, fh)
+    rng = torch.Generator().manual_seed(29)
+    prompts = [torch.randint(0, V, (128,), generator=rng).tolist()
+               for _ in range(4)]
+    server = build_server([
+        "--config", _write_config(root, "flagship.json", c),
+        "--checkpoint", os.path.join(root, "flagship"), "--lora-config",
+        lora_json, "--lora-checkpoint", ldir, "--device", "cuda",
+        "--port", "0"])
+    server.start()
+    try:
+        ops.reset_launch_counts()
+        served = [_check_ids(_post(server.url, {"prompt": p,
+                                                "max_new_tokens": 32}),
+                             32, V, f"LoRA request {i}")
+                  for i, p in enumerate(prompts)]
+        ticks = server.generator.steps_total
+        counts = ops.launch_counts()
+    finally:
+        server.stop()
+    require(counts["flash_decode"] == ticks * L and
+            sum(counts.values()) == ticks * L,
+            f"LoRA server launches {counts}, expected flash_decode = "
+            f"{ticks} ticks x {L}")
+    launches["flash_decode"] = ticks * L
+    base32 = train_lib.tree_map(lambda t: t.float(), params4)
+    with ContinuousBatchedGenerator(merge_lora(base32, adapters, lora), c,
+                                    device="cuda") as gen:
+        in_memory = [gen.generate_sync(p, 32, timeout=300).tolist()
+                     for p in prompts]
+    stats["served_equal_in_memory"] = served == in_memory
+    print(f"phase11 build_server --checkpoint --lora-config "
+          f"--lora-checkpoint, 4 greedy requests (prompt 128, 32 new): ids "
+          f"equal the in-memory merge's engine: {served == in_memory}; "
+          f"{ticks} ticks, launches {counts}", flush=True)
+    require(served == in_memory, "the LoRA server serves other ids than "
+                                 "the in-memory merge")
+    return stats, launches
+
+
 # --------------------------------------------------------------- phase 5
 def _time_flash(torch, timer, b, s, h, d, seed=4, lse=False):
     import torch.nn.functional as F
@@ -2054,7 +2667,8 @@ def main() -> int:
     here = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, here)
     from kubeflow_tpu_torch.ops import _build
-    from kubeflow_tpu_torch.tools.train_step_time import FLAGSHIP
+    from kubeflow_tpu_torch.tools.train_step_time import (FLAGSHIP,
+                                                          FLAGSHIP_MOE)
 
     # the "small" draft of ci/spec_acceptance.py: half the width and depth,
     # so 8 heads of 64 and 4 KV heads
@@ -2131,6 +2745,18 @@ def main() -> int:
         torch.cuda.empty_cache()
         stats["speculative"], launched = phase_speculative(
             torch, FLAGSHIP, SMALL_DRAFT, root, params4, baseline)
+        for name, n in launched.items():
+            counts[name] += n
+        # phase 9's servers and engines hold each other in cycles
+        gc.collect()
+        torch.cuda.empty_cache()
+        stats["moe"], launched = phase_moe(torch, FLAGSHIP_MOE, SMALL_DRAFT,
+                                           root)
+        for name, n in launched.items():
+            counts[name] += n
+        gc.collect()
+        torch.cuda.empty_cache()
+        stats["lora"], launched = phase_lora(torch, FLAGSHIP, root, params4)
         for name, n in launched.items():
             counts[name] += n
         del params4

@@ -1,8 +1,9 @@
 """Autoregressive decoding: KV cache, prefill, single-token step, window
 step, generate.
 
-Port of ``kubeflow_tpu/models/decode.py`` for dense models (MoE comes with
-a later slice of the port). The KV cache is preallocated at
+Port of ``kubeflow_tpu/models/decode.py``, for both model families: the
+MLP of each layer is the dense one or the MoE one by config type
+(``_mlp``). The KV cache is preallocated at
 ``max_seq_len`` as stacked (L, B, S, G, D) buffers; GQA caches the
 un-repeated kv heads. Where the JAX package returns an updated copy of the
 cache (immutable arrays), the port writes into the cache tensors in place
@@ -29,10 +30,23 @@ import math
 
 import torch
 
+from .moe import MoEConfig, moe_mlp_block
 from .quant import wcast
 from .transformer import (TransformerConfig, apply_rope, attention_block,
                           mlp_block, rms_norm, rope_frequencies,
                           unstack_layers)
+
+
+def _mlp(x: torch.Tensor, layer: dict,
+         config: TransformerConfig) -> torch.Tensor:
+    """Dense or sparse MLP by config type. At decode the MoE router sees
+    one token a row (N = batch), so a step's expert capacity is
+    ceil(batch/E * factor * k): at a non-binding capacity decode logits
+    equal the full forward's. The aux loss is a training quantity and is
+    dropped here."""
+    if isinstance(config, MoEConfig):
+        return moe_mlp_block(x, layer, config)[0]
+    return mlp_block(x, layer, config)
 
 
 # ------------------------------------------------------------------- cache
@@ -155,7 +169,7 @@ def prefill(params: dict, tokens: torch.Tensor, config: TransformerConfig,
     for i, layer in enumerate(unstack_layers(params["blocks"])):
         x, (k, v) = attention_block(x, layer, c, cos, sin, return_kv=True)
         _write_cache(cache, k, v, 0, layer=i)
-        x = mlp_block(x, layer, c)
+        x = _mlp(x, layer, c)
     x = rms_norm(x, params["final_norm"])
     logits = torch.einsum("bd,dv->bv", x[:, -1],
                           wcast(params["lm_head"], x.dtype))
@@ -242,7 +256,7 @@ def decode_step(params: dict, cache: dict, token: torch.Tensor, pos,
             out = torch.einsum("bgrqk,bkgd->bqgrd", probs, cv).reshape(
                 B, 1, H, D)
         x = x + torch.einsum("bshk,hkd->bsd", out, wcast(layer["wo"], dt))
-        x = mlp_block(x, layer, c)
+        x = _mlp(x, layer, c)
 
     x = rms_norm(x, params["final_norm"])
     logits = torch.einsum("bd,dv->bv", x[:, 0],
@@ -297,7 +311,7 @@ def decode_window(params: dict, cache: dict, tokens: torch.Tensor, pos,
         out = torch.einsum("bgrws,bsgd->bwgrd", probs, cv).reshape(
             B, W, H, D)
         x = x + torch.einsum("bshk,hkd->bsd", out, wcast(layer["wo"], dt))
-        x = mlp_block(x, layer, c)
+        x = _mlp(x, layer, c)
 
     x = rms_norm(x, params["final_norm"])
     logits = torch.einsum("bwd,dv->bwv", x,

@@ -1,10 +1,11 @@
 """Int8 weight-only quantization for the serving path.
 
-Port of ``kubeflow_tpu/models/quant.py`` (dense models). A quantized
+Port of ``kubeflow_tpu/models/quant.py``. A quantized
 weight is a plain ``{"q": int8, "s": f32}`` dict whose scale keeps the
 reduced dims, so slicing the stacked layer axis slices ``q`` and ``s``
 together; ``wcast`` dequantizes at the point of use. Only matmul weights
-quantize: the embedding (a gather) and the norm vectors stay as they are.
+quantize: the embedding (a gather), the norm vectors and the MoE router
+stay as they are.
 """
 
 from __future__ import annotations
@@ -23,6 +24,17 @@ BLOCK_AXES = {
     "w_down": (1,),    # (L, f, d)      contracts f
 }
 
+# MoE expert weights carry an (L, E, ...) experts axis: one scale per
+# expert and output channel. The router stays full precision: its top-k
+# picks are more sensitive to rounding than the expert values, and it is
+# small (d x E).
+MOE_BLOCK_AXES = {
+    **BLOCK_AXES,      # the attention weights are the dense model's
+    "w_gate": (2,),    # (L, E, d, f)   contracts d
+    "w_up": (2,),
+    "w_down": (2,),    # (L, E, f, d)   contracts f
+}
+
 
 def is_quantized(w) -> bool:
     return isinstance(w, dict) and "q" in w and "s" in w
@@ -39,18 +51,16 @@ def quantize_weight(w: torch.Tensor, axes: tuple[int, ...]) -> dict:
 
 def quantize_params(params: dict) -> dict:
     """Serving params → int8 weight-only serving params; the f32 masters
-    of the quantized leaves are dropped. Idempotent. Dense models only:
-    MoE waits for its own slice of the port."""
+    of the quantized leaves are dropped. Idempotent. MoE params (a
+    ``router`` in the blocks) take ``MOE_BLOCK_AXES``."""
     if is_quantized(params.get("lm_head")):
         return params
-    if "router" in params["blocks"]:
-        raise NotImplementedError("MoE params are not ported yet "
-                                  "(ROADMAP queue A, MoE and LoRA)")
+    blocks = params["blocks"]
+    axes = MOE_BLOCK_AXES if "router" in blocks else BLOCK_AXES
     out = dict(params)
     out["blocks"] = {
-        name: (quantize_weight(w, BLOCK_AXES[name])
-               if name in BLOCK_AXES else w)
-        for name, w in params["blocks"].items()
+        name: quantize_weight(w, axes[name]) if name in axes else w
+        for name, w in blocks.items()
     }
     out["lm_head"] = quantize_weight(params["lm_head"], (0,))  # (d, v)
     return out

@@ -219,15 +219,19 @@ def _nll(logits: torch.Tensor, targets: torch.Tensor):
     return torch.where(valid, lse - target_logit, 0.0), valid
 
 
-def loss_fn(params, tokens, targets, config: TransformerConfig):
-    """Next-token cross entropy, mean over non-padding (-1 targets)."""
-    logits = forward(params, tokens, config)
+def token_ce(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """Cross entropy of f32 logits, mean over non-padding (-1 targets)."""
     valid = targets >= 0
     safe = torch.where(valid, targets, 0).long()
     logp = torch.log_softmax(logits, dim=-1)
     nll = -logp.gather(-1, safe[..., None])[..., 0]
     nll = torch.where(valid, nll, 0.0)
     return nll.sum() / valid.sum().clamp_min(1)
+
+
+def loss_fn(params, tokens, targets, config: TransformerConfig):
+    """Next-token cross entropy, mean over non-padding (-1 targets)."""
+    return token_ce(forward(params, tokens, config), targets)
 
 
 def ce_chunk_for(tc: TrainConfig, tokens: torch.Tensor,
@@ -286,10 +290,25 @@ def fused_loss_fn(params, tokens, targets, config: TransformerConfig,
     return chunked_softmax_ce(x, params["lm_head"], targets, chunk_tokens)
 
 
-def build_loss(config: TransformerConfig, tc: TrainConfig | None = None):
+def build_loss(config: TransformerConfig, tc: TrainConfig | None = None,
+               include_aux: bool = True):
     """The loss dispatch — the fused-CE gate in one place, shared by the
-    train step and evaluation. Returns ``loss(params, tokens, targets)``."""
+    train steps and evaluation. Returns ``loss(params, tokens, targets)``.
+    An ``MoEConfig`` takes ``moe_loss_fn``; ``include_aux=False``
+    (evaluation) leaves its router aux out, so exp(loss) is a
+    perplexity."""
+    from .moe import MoEConfig, moe_loss_fn
     tc = tc or TrainConfig()
+
+    if isinstance(config, MoEConfig):
+        loss_config = config if include_aux else \
+            config.replace(router_aux_coef=0.0)
+
+        def _moe_loss(params, tokens, targets):
+            chunk = ce_chunk_for(tc, tokens, loss_config.vocab_size)
+            return moe_loss_fn(params, tokens, targets, loss_config,
+                               ce_chunk_tokens=chunk)
+        return _moe_loss
 
     def _loss(params, tokens, targets):
         chunk = ce_chunk_for(tc, tokens, config.vocab_size)
@@ -302,9 +321,9 @@ def build_loss(config: TransformerConfig, tc: TrainConfig | None = None):
 
 def build_eval_loss(config: TransformerConfig,
                     tc: TrainConfig | None = None):
-    """What evaluation runs: build_loss (the dense model has no auxiliary
-    loss to exclude)."""
-    return build_loss(config, tc)
+    """What evaluation runs: build_loss with the MoE router aux left
+    out."""
+    return build_loss(config, tc, include_aux=False)
 
 
 # -------------------------------------------------------------------- step

@@ -755,14 +755,6 @@ class ServingServer:
 
 
 # -------------------------------------------------------------- entrypoint
-# flags of the JAX package's server that this port does not carry yet,
-# each with the ROADMAP queue A item that will port it
-NOT_PORTED = {
-    "lora_config": "queue A, MoE and LoRA",
-    "lora_checkpoint": "queue A, MoE and LoRA",
-}
-
-
 def build_generator(params, config, args, draft=None):
     """The engine ``args`` asks for; ``draft`` is (params, config) of a
     speculative draft model or None."""
@@ -804,6 +796,28 @@ def _load_params(config, seed: int, device, directory: str | None):
     step, params = restored
     log.info("restored params from step %d of %s", step, directory)
     return params
+
+
+def _merge_adapters(params, config, device, config_path: str,
+                    directory: str):
+    """Serve a finetune: restore the adapters of a lora-mode Trainer's
+    checkpoint in ``directory`` and merge them into ``params`` once;
+    downstream is a plain model. SystemExit when it holds none."""
+    from ..models.lora import LoRAConfig, init_lora_params, merge_lora
+    from .checkpoint import TrainCheckpointer
+    with open(config_path) as fh:
+        lora = LoRAConfig(**json.load(fh))
+    like = init_lora_params(torch.Generator(device=device), config, lora,
+                            device=device)
+    with TrainCheckpointer(directory) as ckpt:
+        restored = ckpt.restore_params(like)
+    if restored is None:
+        raise SystemExit(f"no adapter checkpoint found in {directory}")
+    step, adapters = restored
+    log.info("merged LoRA adapters from step %d (rank %d, %s)", step,
+             lora.rank, ",".join(lora.targets))
+    with torch.no_grad():
+        return merge_lora(params, adapters, lora)
 
 
 def build_server(argv=None) -> ServingServer:
@@ -866,15 +880,19 @@ def build_server(argv=None) -> ServingServer:
                          "einsum verify window can differ in last-bit "
                          "rounding, so a greedy near-tie may flip "
                          "(sampled requests' distribution is unaffected)")
-    for name in NOT_PORTED:
-        ap.add_argument("--" + name.replace("_", "-"), default=None,
-                        help="not ported")
+    ap.add_argument("--lora-config", default=None,
+                    help="JSON of LoRAConfig fields (rank/alpha/targets):"
+                         " merge a finetuned adapter into the base "
+                         "weights at startup")
+    ap.add_argument("--lora-checkpoint", default=None,
+                    help="TrainCheckpointer dir holding the adapters "
+                         "(Trainer lora-mode checkpoints); required with "
+                         "--lora-config")
     args = ap.parse_args(argv)
 
-    for name, item in NOT_PORTED.items():
-        if getattr(args, name) is not None:
-            raise SystemExit(f"--{name.replace('_', '-')} is not ported to "
-                             f"the PyTorch package yet (ROADMAP {item})")
+    if (args.lora_config is None) != (args.lora_checkpoint is None):
+        raise SystemExit("--lora-config and --lora-checkpoint must be "
+                         "provided together")
     if args.draft_checkpoint and not args.draft_config:
         raise SystemExit("--draft-checkpoint requires --draft-config")
     device = resolve_device(args.device)
@@ -883,6 +901,9 @@ def build_server(argv=None) -> ServingServer:
     if not args.checkpoint:
         log.warning("no --checkpoint: serving randomly initialized params")
     params = _load_params(config, 0, device, args.checkpoint)
+    if args.lora_config:
+        params = _merge_adapters(params, config, device, args.lora_config,
+                                 args.lora_checkpoint)
 
     draft = None
     if args.draft_config:

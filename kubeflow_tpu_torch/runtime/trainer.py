@@ -3,10 +3,11 @@
 Port of ``kubeflow_tpu/runtime/trainer.py`` for one device: the train
 step of models/train.py, the device prefetch of runtime/data.py, held-out
 evaluation, throughput accounting, an optional ``torch.profiler``
-window, and checkpoint/resume through runtime/checkpoint.py. LoRA, MoE
-configs and multi-device meshes are later slices of the port; their
-arguments raise ``NotImplementedError`` naming the ROADMAP queue A item
-by its title.
+window, and checkpoint/resume through runtime/checkpoint.py, for both
+model families (a dense ``TransformerConfig`` or an ``MoEConfig``) and
+for LoRA finetuning of a dense base. Multi-device meshes are a later
+slice of the port: ``mesh=`` raises ``NotImplementedError`` naming the
+ROADMAP queue A item by its title.
 
 Loop design: the step returns the loss as a device tensor and the host
 reads it only at log points, so PyTorch's launch queue runs ahead of the
@@ -27,6 +28,7 @@ import torch
 
 from .. import resolve_device
 from ..models import train as train_lib
+from ..models.moe import MoEConfig, make_moe_train_step
 from ..models.transformer import TransformerConfig, model_flops_per_token
 from .checkpoint import TrainCheckpointer
 from .data import prefetch_to_device
@@ -49,13 +51,20 @@ class TrainerStats:
 
 
 class Trainer:
-    """Train a dense ``TransformerConfig`` on one device with prefetch and
-    throughput accounting. ``device`` defaults to the card and raises
-    where CUDA is absent; pass ``device="cpu"`` to run on the CPU.
+    """Train a ``TransformerConfig`` or an ``MoEConfig`` on one device
+    with prefetch and throughput accounting. ``device`` defaults to the
+    card and raises where CUDA is absent; pass ``device="cpu"`` to run on
+    the CPU. An ``MoEConfig`` trains its params in f32 whatever
+    ``bf16_params`` says, as the reference's MoE step does.
 
     With ``checkpoint_dir`` the Trainer resumes from the latest checkpoint
     there when it is built, and ``fit`` saves after every step under the
-    ``checkpoint_interval`` policy, keeping ``max_checkpoints``."""
+    ``checkpoint_interval`` policy, keeping ``max_checkpoints``.
+
+    LoRA mode (``lora=LoRAConfig(...)`` with ``base_params``): ``params``
+    are the adapters, the frozen base rides every step; checkpoints and
+    resume hold the adapters and their optimizer state only, ``evaluate``
+    runs the merged model and ``merged_params()`` returns it."""
 
     def __init__(self, config: TransformerConfig,
                  train_config: train_lib.TrainConfig | None = None, *,
@@ -63,15 +72,7 @@ class Trainer:
                  profile_steps: tuple = (10, 15),
                  stats_history_cap: int = 1000, checkpoint_dir=None,
                  checkpoint_interval: int = 100, max_checkpoints: int = 3,
-                 lora=None, mesh=None):
-        if lora is not None:
-            raise NotImplementedError(
-                "lora: LoRA finetuning is not ported yet (ROADMAP queue A, "
-                "MoE and LoRA)")
-        if type(config) is not TransformerConfig:
-            raise NotImplementedError(
-                f"{type(config).__name__}: only the dense TransformerConfig "
-                f"is ported (ROADMAP queue A, MoE and LoRA)")
+                 lora=None, base_params=None, mesh=None):
         if mesh is not None:
             raise NotImplementedError(
                 "mesh: multi-device training is not ported yet (ROADMAP "
@@ -79,8 +80,29 @@ class Trainer:
         self.config = config
         self.tc = train_config or train_lib.TrainConfig()
         self.device = resolve_device(device)
-        self.init_fn, self.step_fn = train_lib.make_train_step(
-            config, self.tc, self.device)
+        is_moe = isinstance(config, MoEConfig)
+        self.lora = lora
+        self._base = None
+        if lora is not None:
+            from ..models.lora import make_lora_step
+            if is_moe:
+                raise ValueError("LoRA targets the dense family; MoE "
+                                 "adapter routing is not implemented")
+            if base_params is None:
+                raise ValueError("lora mode requires base_params (the "
+                                 "pretrained weights being finetuned)")
+            self._base = train_lib.tree_map(
+                lambda p: p.detach().to(self.device), base_params)
+            self.init_fn, lora_step = make_lora_step(
+                config, lora, self.tc, self.device)
+            self.step_fn = lambda p, o, t, tg: lora_step(self._base, p, o,
+                                                         t, tg)
+        elif is_moe:
+            self.init_fn, self.step_fn = make_moe_train_step(
+                config, self.tc, self.device)
+        else:
+            self.init_fn, self.step_fn = train_lib.make_train_step(
+                config, self.tc, self.device)
         self.stats = TrainerStats(
             losses=deque(maxlen=stats_history_cap),
             evals=deque(maxlen=stats_history_cap))
@@ -163,9 +185,11 @@ class Trainer:
         perplexity over ``source`` (``max_batches`` bounds a generator).
         Changes no parameter or optimizer state; the result is also
         appended to ``stats.evals`` as (step, loss). The loss is
-        ``build_eval_loss``, the train step's own dispatch."""
+        ``build_eval_loss``, the train step's own dispatch without the
+        MoE router aux; in LoRA mode it runs on the merged params."""
         if self._eval_loss is None:
             self._eval_loss = train_lib.build_eval_loss(self.config, self.tc)
+        params = self.params if self.lora is None else self.merged_params()
         bounded = iter(source) if max_batches is None else \
             itertools.islice(iter(source), max_batches)
         # device-side sums; the one readback is after the last batch
@@ -175,7 +199,7 @@ class Trainer:
                 bounded, self.device, buffer_size=prefetch_buffer) as batches:
             for tokens, targets in batches:
                 n = (targets >= 0).sum()
-                total = total + self._eval_loss(self.params, tokens,
+                total = total + self._eval_loss(params, tokens,
                                                 targets) * n
                 count = count + n
                 n_batches += 1
@@ -217,6 +241,17 @@ class Trainer:
         path = self.profile_dir / f"trace_steps_{start}_{stop}.json"
         prof.export_chrome_trace(str(path))
         log.info("profile trace written to %s", path)
+
+    def merged_params(self) -> dict:
+        """LoRA mode: the base with the trained adapters merged in — a
+        plain servable model for generate, speculation and the
+        engines."""
+        if self.lora is None:
+            raise ValueError("merged_params() is for lora mode; in full "
+                             "training self.params already IS the model")
+        from ..models.lora import merge_lora
+        with torch.no_grad():
+            return merge_lora(self._base, self.params, self.lora)
 
     def save(self, *, force: bool = True) -> None:
         """Durably persist the current step (idempotent: a step the

@@ -2,9 +2,10 @@
 
     python3 -m kubeflow_tpu_torch.tools.train_step_time
 
-Holds the flagship configuration (``FLAGSHIP``) that chip_smoke.py and
-the tools share, and the measurement of its train step that chip_smoke.py's
-phase 7 takes too (``timed_fit``, ``host_us_per_call``).
+Holds the flagship configuration (``FLAGSHIP``) and the MoE family at
+its width (``FLAGSHIP_MOE``) that chip_smoke.py and the tools share, and
+the measurement of its train step that chip_smoke.py's phase 7 takes too
+(``timed_fit``, ``host_us_per_call``).
 
 Alone, it trains the flagship (random weights from seed 0) through
 ``Trainer`` at b8 x s1024 with bf16 params and f32 masters: 2 warm-up
@@ -26,6 +27,7 @@ record. Needs one NVIDIA GPU.
 
 from __future__ import annotations
 
+import dataclasses
 import gc
 import json
 import resource
@@ -38,6 +40,7 @@ import time
 import torch
 
 from kubeflow_tpu_torch.models import train as train_lib
+from kubeflow_tpu_torch.models.moe import MoEConfig
 from kubeflow_tpu_torch.models.transformer import TransformerConfig
 from kubeflow_tpu_torch.runtime.data import synthetic_lm_batches
 from kubeflow_tpu_torch.runtime.trainer import Trainer
@@ -46,6 +49,10 @@ from kubeflow_tpu_torch.runtime.trainer import Trainer
 FLAGSHIP = TransformerConfig(vocab_size=32_000, d_model=1024, n_layers=12,
                              n_heads=8, n_kv_heads=4, d_ff=4096,
                              max_seq_len=1024)
+# the MoE family at the flagship's width with MoEConfig's own defaults
+# (8 experts, top-2, capacity factor 1.25, route groups of 2048): ~1.31B
+# params, ~405M active a token
+FLAGSHIP_MOE = MoEConfig(**dataclasses.asdict(FLAGSHIP))
 BATCH, SEQ = 8, 1024
 _ALLOCATOR = ("num_device_alloc", "num_device_free", "num_alloc_retries",
               "num_sync_all_streams")

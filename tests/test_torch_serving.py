@@ -439,7 +439,11 @@ def test_main_without_device_cpu_raises_when_cuda_is_absent(config_file):
 @pytest.mark.parametrize("flags", [
     ["--lora-config", "l.json"], ["--lora-checkpoint", "/nowhere"]])
 def test_unported_flags_exit_naming_the_roadmap(config_file, flags):
-    with pytest.raises(SystemExit, match="ROADMAP queue A, MoE and LoRA"):
+    """The LoRA flags are ported; either one alone exits with the JAX
+    server's pairing message."""
+    with pytest.raises(SystemExit, match="--lora-config and "
+                                         "--lora-checkpoint must be "
+                                         "provided together"):
         torch_server.main(["--config", config_file, "--device", "cpu",
                            *flags])
 
