@@ -15,7 +15,9 @@ Trainer from a checkpoint, and serves that checkpoint through
 ``build_server`` with a speculative draft in both engines; then it serves
 and trains the MoE family at the flagship's width (``FLAGSHIP_MOE``: 8
 experts, top-2) and finetunes the flagship with LoRA, serving the
-adapters through ``build_server --lora-config``. The kernels' launch
+adapters through ``build_server --lora-config``; and drives the
+multi-device entry points (sharded train step, ``Trainer(mesh=...)``,
+tp-sharded decode) on a NCCL world of one rank. The kernels' launch
 counters, zeroed before each path and read after it, show that each path
 ran its kernels.
 Then it times each kernel beside its bound, its plain version and one
@@ -98,6 +100,21 @@ Phases (any failure exits non-zero before the result line):
      ``merge_lora``), then ``build_server`` with --checkpoint,
      --lora-config and --lora-checkpoint serving 4 greedy requests whose
      ids equal an engine's on the merge made in memory;
+  12. multi-device at a world of one rank (NCCL on the card): each
+     differentiated collective of parallel/comm.py the identity forward
+     and backward; ``make_sharded_train_step`` on ``MeshConfig()`` at b8
+     x s1024 with bf16 params, 10 steps a run, attention "auto" and
+     "ulysses", in turns with ``make_train_step`` on phase 7's seed and
+     batches (one-device, auto, ulysses, auto, one-device; losses
+     bit-equal or within 1e-6 relative; ms/step, tokens/s and peak
+     memory of each run beside phase 7's; 12 of each attention kernel a
+     step);
+     a ``Trainer(mesh=...)`` checkpoint of step 4 resumed bit-equal over
+     steps 5-6; ``shard_decode_params`` + greedy ``generate`` (8 x 128 ->
+     64) equal to unsharded (flash-decode launches counted);
+     ``speculative_generate`` of the f32 flagship as its own draft on the
+     sharded params accepting every proposal; ``dryrun_multidevice(1,
+     "cuda")``;
   5. times of each kernel, its plain version and a library call (last, so
      the paths above run on a card not yet warmed by timing loops), with
      the achieved TFLOP/s, the share of the bound, the forward, dK/dV and
@@ -2422,6 +2439,236 @@ def phase_lora(torch, flagship, root, params4) -> tuple[dict, dict]:
     return stats, launches
 
 
+# --------------------------------------------------------------- phase 12
+def _timed_steps(torch, step_fn, state, batches) -> dict:
+    """Run ``batches`` through ``step_fn``: every step's loss, ms/step over
+    the steps after the first two (a synchronised host clock), and the
+    peak device memory of the run (GB)."""
+    params, opt = state
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, t0 = [], None
+    for i, (tokens, targets) in enumerate(batches):
+        if i == 2:
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+        params, opt, loss = step_fn(params, opt, tokens, targets)
+        losses.append(loss)
+    torch.cuda.synchronize()
+    ms = (time.monotonic() - t0) / (len(batches) - 2) * 1e3
+    return {"losses": [x.item() for x in losses], "ms_per_step": ms,
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "state": (params, opt)}
+
+
+def _nccl_collectives(torch, dev) -> None:
+    """The differentiated collectives of parallel/comm.py on the NCCL
+    world of one rank: each is the identity there, forward and backward
+    (the sharded paths skip size-1 axes, so this is what shows NCCL)."""
+    import torch.distributed as dist
+
+    from kubeflow_tpu_torch.parallel import comm
+    g = dist.group.WORLD
+    x = torch.randn(4, 6, device=dev, requires_grad=True)
+    checks = {}
+    for name, fn in (("all_gather/reduce_scatter",
+                      lambda t: comm.AllGather.apply(t, g, 1)),
+                     ("all_reduce", lambda t: comm.ReduceFrom.apply(t, g)),
+                     ("grad all_reduce", lambda t: comm.CopyTo.apply(t, g)),
+                     ("all_to_all", lambda t: comm.AllToAll.apply(t, g, 0,
+                                                                  1))):
+        x.grad = None
+        y = fn(x)
+        y.backward(torch.full_like(y, 2.0))
+        torch.cuda.synchronize()
+        checks[name] = bool(torch.equal(y, x)) and bool(
+            torch.equal(x.grad, torch.full_like(x, 2.0)))
+    m = x.detach().clone()
+    dist.all_reduce(m, op=dist.ReduceOp.MAX, group=g)
+    checks["all_reduce max"] = bool(torch.equal(m, x))
+    print(f"phase12 NCCL world of 1 on {dev}: collectives forward and "
+          f"backward are the identity: {checks}", flush=True)
+    require(all(checks.values()), f"NCCL collectives at world 1: {checks}")
+
+
+def phase_multidevice(torch, flagship, root, phase7: dict):
+    """12: the multi-device entry points on a NCCL world of one rank at the
+    flagship's width: NCCL collectives, make_sharded_train_step (auto and
+    ulysses attention) beside make_train_step on phase 7's seed and
+    batches, a Trainer(mesh=...) resume, tp-sharded generate and
+    speculative decode, and dryrun_multidevice(1, "cuda")."""
+    import tempfile
+
+    from kubeflow_tpu_torch import ops
+    from kubeflow_tpu_torch.models import train as train_lib
+    from kubeflow_tpu_torch.models.decode import generate
+    from kubeflow_tpu_torch.models.speculative import speculative_generate
+    from kubeflow_tpu_torch.models.transformer import init_params
+    from kubeflow_tpu_torch.parallel.mesh import MeshConfig, build_mesh, world
+    from kubeflow_tpu_torch.runtime.data import (shard_batch,
+                                                 synthetic_lm_batches)
+    from kubeflow_tpu_torch.runtime.sharded_decode import shard_decode_params
+    from kubeflow_tpu_torch.runtime.trainer import Trainer
+    from kubeflow_tpu_torch.tools.dryrun_multidevice import (
+        dryrun_multidevice)
+
+    c, L, V, B, S = flagship, flagship.n_layers, flagship.vocab_size, 8, 1024
+    n_steps = 10
+    tc = train_lib.TrainConfig(bf16_params=True)
+    stats: dict = {}
+    attn = ("flash_attention", "flash_attention_bwd_dkv",
+            "flash_attention_bwd_dq")
+    launched: dict = {}
+    t_phase = time.monotonic()
+
+    def take() -> dict:
+        """The launches since the last call, added to the phase's."""
+        counts = ops.launch_counts()
+        ops.reset_launch_counts()
+        for k, n in counts.items():
+            launched[k] = launched.get(k, 0) + n
+        return counts
+    store = tempfile.mkdtemp(prefix="phase12-")
+    with world("cuda", rank=0, world_size=1,
+               store_path=os.path.join(store, "store"), timeout=300) as dev:
+        _nccl_collectives(torch, dev)
+        mesh = build_mesh(MeshConfig(), "cuda")
+        src = synthetic_lm_batches(B, S, V, seed=0)
+        batches = [tuple(torch.from_numpy(shard_batch(x, mesh)).to(dev)
+                         for x in next(src)) for _ in range(n_steps)]
+
+        # phase 7's one-device step and the sharded one (auto and ulysses
+        # attention) on the same seed-0 init and batches, in turns, so
+        # the host's drift between runs falls on both sides
+        turns = ("one_device", "auto", "ulysses", "auto", "one_device")
+        runs: dict = {kind: [] for kind in turns}
+        for kind in turns:
+            if kind == "one_device":
+                init_fn, step_fn = train_lib.make_train_step(c, tc, dev)
+            else:
+                init_fn, step_fn = train_lib.make_sharded_train_step(
+                    mesh, c.replace(attention=kind), tc)
+            state = init_fn(torch.Generator(device=dev).manual_seed(0))
+            ops.reset_launch_counts()
+            run = _timed_steps(torch, step_fn, state, batches)
+            del run["state"], state, init_fn, step_fn
+            runs[kind].append(run)
+            torch.cuda.empty_cache()
+            if kind == "one_device":
+                ops.reset_launch_counts()   # phase 7's path, counted there
+                continue
+            counts = take()
+            got = {k: counts[k] for k in attn}
+            require(got == {k: L * n_steps for k in attn},
+                    f"sharded step launches {got}, expected {L * n_steps} "
+                    f"of each")
+        one = runs["one_device"][0]["losses"]
+        summary = {}
+        for kind in ("one_device", "auto", "ulysses"):
+            losses = [r["losses"] for r in runs[kind]]
+            diff = max(abs(a - b) / abs(b) for r in losses
+                       for a, b in zip(r, one))
+            ms = [r["ms_per_step"] for r in runs[kind]]
+            summary[kind] = {
+                "bit_equal": all(r == one for r in losses),
+                "max_rel_loss_diff": diff, "ms_per_step": ms,
+                "tokens_per_s": [B * S / m * 1e3 for m in ms],
+                "peak_mem_gb": max(r["peak_mem_gb"] for r in runs[kind])}
+            print(f"phase12 {kind} step at world 1, b{B} s{S} bf16 params, "
+                  f"{len(ms)} turn(s) of {n_steps} steps: losses bit-equal "
+                  f"to make_train_step's {summary[kind]['bit_equal']} "
+                  f"(largest relative difference {diff:.3e}); ms/step "
+                  f"{[round(m, 2) for m in ms]}, tokens/s "
+                  f"{[round(t, 1) for t in summary[kind]['tokens_per_s']]}, "
+                  f"peak {summary[kind]['peak_mem_gb']:.3f} GB", flush=True)
+            require(diff <= 1e-6, f"{kind}: the step's losses differ from "
+                                  f"make_train_step's by {diff:.3e}")
+        print(f"phase12 losses of the 10 steps: {one}; launches 12 of each "
+              f"attention kernel a sharded step; phase 7's Trainer in this "
+              f"call: {phase7['ms_per_step']:.2f} ms/step, "
+              f"{phase7['tokens_per_s']:.1f} tokens/s, peak "
+              f"{phase7['peak_mem_gb']:.2f} GB", flush=True)
+        stats["train"] = summary
+
+        # Trainer(mesh=...): A saves step 4, B resumes it, both run 5-6
+        tdir = os.path.join(root, "multidevice")
+        kw = dict(mesh=mesh, checkpoint_dir=tdir, checkpoint_interval=4,
+                  max_checkpoints=1)
+        host = [tuple(x.cpu().numpy() for x in b) for b in batches[:6]]
+        a = Trainer(c, tc, **kw)
+        a.fit(host[:4], steps=4, log_every=1)
+        a.checkpointer.wait()
+        b = Trainer(c, tc, seed=1, **kw)
+        require(b.stats.step == 4, f"Trainer B resumed at {b.stats.step}")
+        a.fit(host[4:], steps=2, log_every=1)
+        b.fit(host[4:], steps=2, log_every=1)
+        losses_a, losses_b = list(a.stats.losses)[4:], list(b.stats.losses)
+        equal, worst = _tree_diff(torch, _state_tree(b), _state_tree(a))
+        for t in (a, b):
+            t.close()
+        counts = take()
+        counts = {k: counts[k] for k in attn}
+        print(f"phase12 Trainer(mesh=...) resumed at step 4: steps 5 and 6 "
+              f"A {losses_a}, B {losses_b}; state bit-equal {equal} "
+              f"(largest leaf difference {worst:.3e}); launches {counts} "
+              f"(8 steps)", flush=True)
+        require(equal and losses_a == losses_b,
+                "the sharded resume is not bit-equal")
+        require(counts == {k: 8 * L for k in attn},
+                f"the sharded Trainer's launches {counts}")
+        stats["resume_bit_equal"] = equal
+        del a, b, batches, host
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # tp-sharded decode: greedy 8 x 128 -> 64 as phase 3, then the
+        # flagship as its own draft (f32: the verify window and
+        # flash-decode then agree on every greedy pick)
+        params = init_params(torch.Generator(device=dev).manual_seed(0), c,
+                             device=dev)
+        rng = torch.Generator().manual_seed(7)
+        prompt = torch.randint(0, V, (8, 128), generator=rng).to(dev)
+        want = generate(params, prompt, c, 64)
+        sharded = shard_decode_params(params, mesh, c)
+        ops.reset_launch_counts()   # the unsharded comparison's
+        got = generate(sharded, prompt, c, 64)
+        torch.cuda.synchronize()
+        n_decode = take()["flash_decode"]
+        print(f"phase12 tp-sharded generate 8 x 128 -> 64: ids equal to "
+              f"unsharded {bool(torch.equal(got, want))}, flash_decode "
+              f"launches {n_decode} (expected {63 * L})", flush=True)
+        require(torch.equal(got, want), "sharded generate diverged")
+        require(n_decode == 63 * L, f"flash_decode launches {n_decode}")
+        c32 = c.replace(dtype="float32")
+        sharded = shard_decode_params(params, mesh, c32)
+        ids, spec = speculative_generate(sharded, sharded, prompt, c32, c32,
+                                         max_new_tokens=64, k=4)
+        greedy = generate(sharded, prompt, c32, 64)
+        accepted, drafted = int(spec.accepted.sum()), int(spec.drafted.sum())
+        print(f"phase12 speculative_generate, the f32 flagship as its own "
+              f"draft on the sharded params: accepted {accepted}/{drafted}, "
+              f"ids equal generate's {bool(torch.equal(ids, greedy))}",
+              flush=True)
+        require(accepted == drafted > 0, f"accepted {accepted}/{drafted}")
+        require(torch.equal(ids, greedy), "sharded speculative ids differ")
+        stats["speculative_accepted"] = [accepted, drafted]
+        take()
+        stats["launches"] = {k: n for k, n in launched.items() if n}
+        print(f"phase12 launches on its sharded paths: {stats['launches']}",
+              flush=True)
+        del params, sharded, want, got, ids, greedy
+        gc.collect()
+        torch.cuda.empty_cache()
+    shutil.rmtree(store, ignore_errors=True)
+    t0 = time.monotonic()
+    stats["dryrun"] = dryrun_multidevice(1, "cuda", timeout=600)
+    stats["seconds"] = time.monotonic() - t_phase
+    print(f"phase12 dryrun_multidevice(1, 'cuda') in "
+          f"{time.monotonic() - t0:.1f} s; phase 12 in "
+          f"{stats['seconds']:.1f} s", flush=True)
+    return stats
+
+
 # --------------------------------------------------------------- phase 5
 def _time_flash(torch, timer, b, s, h, d, seed=4, lse=False):
     import torch.nn.functional as F
@@ -2760,6 +3007,12 @@ def main() -> int:
         for name, n in launched.items():
             counts[name] += n
         del params4
+        gc.collect()
+        torch.cuda.empty_cache()
+        train["multidevice"] = phase_multidevice(torch, FLAGSHIP, root,
+                                                 train)
+        for name, n in train["multidevice"]["launches"].items():
+            counts[name] += n
     finally:
         shutil.rmtree(root, ignore_errors=True)
     gc.collect()

@@ -74,3 +74,14 @@ def opt_state_to_torch(state, device="cpu"):
     return FusedAdamWState(count=int(np.asarray(adam.count)),
                            mu=to_torch(adam.mu, device),
                            nu=to_torch(adam.nu, device))
+
+
+def to_torch_sharded(tree, mesh, config, rules=None):
+    """The reference's params (numpy, as for ``to_torch``) as this rank's
+    shards on ``mesh`` under ``rules`` (default ``DEFAULT_RULES``), on the
+    mesh's device: the same weights on any mesh."""
+    from .models.transformer import param_specs
+    from .parallel.comm import mesh_device
+    from .parallel.partition_rules import shard_tree
+    return shard_tree(to_torch(tree, mesh_device(mesh)),
+                      param_specs(config, rules), mesh)

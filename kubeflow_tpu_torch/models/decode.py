@@ -22,6 +22,15 @@ package, which has no kernel for it.
 
 ``generate`` is a Python loop over decode steps that never reads a value
 back to the host until the end (the JAX package's ``lax.scan``).
+
+Tensor-parallel decode: params placed by
+``runtime.sharded_decode.shard_decode_params`` carry their mesh, and
+every function here runs on them unchanged, on every rank of the mesh
+with the same inputs (SPMD): each rank attends with its own heads over a
+cache of its own kv heads (flash-decode on the rank's G/tp groups),
+sums ``wo``'s and ``w_down``'s partial products over tp, and gathers the
+vocab-sharded logits, so every rank holds the same logits and picks the
+same tokens.
 """
 
 from __future__ import annotations
@@ -30,15 +39,32 @@ import math
 
 import torch
 
+from ..parallel import comm
 from .moe import MoEConfig, moe_mlp_block
 from .quant import wcast
 from .transformer import (TransformerConfig, apply_rope, attention_block,
+                          embed_tokens, layer_weights, lm_head_weight,
                           mlp_block, rms_norm, rope_frequencies,
                           unstack_layers)
 
 
-def _mlp(x: torch.Tensor, layer: dict,
-         config: TransformerConfig) -> torch.Tensor:
+def _placement(params) -> tuple:
+    """(mesh, rules) of params placed by ``shard_decode_params``; (None,
+    None) for params on one device."""
+    return getattr(params, "mesh", None), getattr(params, "rules", None)
+
+
+def _logits(x: torch.Tensor, params: dict, config: TransformerConfig,
+            mesh, rules) -> torch.Tensor:
+    """(..., d) final hidden states → f32 logits over the whole vocab
+    (the rank's vocab slices gathered over tp)."""
+    w = wcast(lm_head_weight(params, config, mesh, rules), x.dtype)
+    logits = torch.einsum("...d,dv->...v", x, w).float()
+    return comm.gather_dim(logits, mesh, "tp", dim=-1)
+
+
+def _mlp(x: torch.Tensor, layer: dict, config: TransformerConfig,
+         mesh=None, rules=None) -> torch.Tensor:
     """Dense or sparse MLP by config type. At decode the MoE router sees
     one token a row (N = batch), so a step's expert capacity is
     ceil(batch/E * factor * k): at a non-binding capacity decode logits
@@ -46,16 +72,18 @@ def _mlp(x: torch.Tensor, layer: dict,
     dropped here."""
     if isinstance(config, MoEConfig):
         return moe_mlp_block(x, layer, config)[0]
-    return mlp_block(x, layer, config)
+    return mlp_block(x, layer, config, mesh, rules)
 
 
 # ------------------------------------------------------------------- cache
 def init_kv_cache(config: TransformerConfig, batch: int,
-                  kv_quant: bool = False, *, device) -> dict:
-    """Zeroed (layers, batch, max_seq, kv_heads, d_head) K/V buffers;
-    ``kv_quant``: int8 buffers + per-(position, kv_head) f32 scales."""
+                  kv_quant: bool = False, *, device, mesh=None) -> dict:
+    """Zeroed (layers, batch, max_seq, kv_heads, d_head) K/V buffers (on a
+    mesh, the rank's kv_heads/tp); ``kv_quant``: int8 buffers +
+    per-(position, kv_head) f32 scales."""
     c = config
-    shape = (c.n_layers, batch, c.max_seq_len, c.n_kv_heads, c.d_head)
+    shape = (c.n_layers, batch, c.max_seq_len,
+             c.n_kv_heads // comm.axis_size(mesh, "tp"), c.d_head)
     if not kv_quant:
         return {"k": torch.zeros(shape, dtype=c.compute_dtype, device=device),
                 "v": torch.zeros(shape, dtype=c.compute_dtype, device=device)}
@@ -161,19 +189,20 @@ def prefill(params: dict, tokens: torch.Tensor, config: TransformerConfig,
     """Run the prompt through a fresh KV cache. tokens: (batch, prompt_len)
     → (logits (batch, vocab) f32 for the LAST position, cache)."""
     c = config
+    mesh, rules = _placement(params)
     B, S = tokens.shape
-    cache = init_kv_cache(c, B, kv_quant=kv_quant, device=tokens.device)
-    x = params["embed"].to(c.compute_dtype)[tokens]
+    cache = init_kv_cache(c, B, kv_quant=kv_quant, device=tokens.device,
+                          mesh=mesh)
+    x = embed_tokens(params, tokens, c, mesh, rules)
     positions = torch.arange(S, device=tokens.device)[None, :].expand(B, S)
     cos, sin = rope_frequencies(c, positions)
     for i, layer in enumerate(unstack_layers(params["blocks"])):
-        x, (k, v) = attention_block(x, layer, c, cos, sin, return_kv=True)
+        x, (k, v) = attention_block(x, layer, c, cos, sin, return_kv=True,
+                                    mesh=mesh, rules=rules)
         _write_cache(cache, k, v, 0, layer=i)
-        x = _mlp(x, layer, c)
+        x = _mlp(x, layer, c, mesh, rules)
     x = rms_norm(x, params["final_norm"])
-    logits = torch.einsum("bd,dv->bv", x[:, -1],
-                          wcast(params["lm_head"], x.dtype))
-    return logits.float(), cache
+    return _logits(x[:, -1], params, c, mesh, rules), cache
 
 
 def uses_flash_decode(config: TransformerConfig,
@@ -205,14 +234,16 @@ def decode_step(params: dict, cache: dict, token: torch.Tensor, pos,
     The token at ``pos`` is written before it is attended; attention
     covers positions ``<= pos``."""
     c = config
+    mesh, rules = _placement(params)
     B = token.shape[0]
     dev = token.device
     per_row = isinstance(pos, torch.Tensor) and pos.dim() == 1
     pos_vec = _row_positions(pos, B, dev)
-    x = params["embed"].to(c.compute_dtype)[token][:, None, :]  # (B,1,D)
+    x = embed_tokens(params, token[:, None], c, mesh, rules)   # (B,1,D)
     cos, sin = rope_frequencies(c, pos_vec[:, None])
     scale = 1.0 / math.sqrt(c.d_head)
     rep = c.n_heads // c.n_kv_heads
+    G = c.n_kv_heads // comm.axis_size(mesh, "tp")
     use_flash = uses_flash_decode(c, dev)
     if not use_flash:
         valid = (torch.arange(c.max_seq_len, device=dev)[None, :]
@@ -224,11 +255,13 @@ def decode_step(params: dict, cache: dict, token: torch.Tensor, pos,
         start = int(pos)
 
     for i, layer in enumerate(unstack_layers(params["blocks"])):
-        h = rms_norm(x, layer["attn_norm"])
+        w = layer_weights(layer, ("attn_norm", "wq", "wk", "wv", "wo"), c,
+                          mesh, rules)
+        h = rms_norm(x, w["attn_norm"])
         dt = h.dtype
-        q = torch.einsum("bsd,dhk->bshk", h, wcast(layer["wq"], dt))
-        k = torch.einsum("bsd,dhk->bshk", h, wcast(layer["wk"], dt))
-        v = torch.einsum("bsd,dhk->bshk", h, wcast(layer["wv"], dt))
+        q = torch.einsum("bsd,dhk->bshk", h, wcast(w["wq"], dt))
+        k = torch.einsum("bsd,dhk->bshk", h, wcast(w["wk"], dt))
+        v = torch.einsum("bsd,dhk->bshk", h, wcast(w["wv"], dt))
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
         if per_row:
@@ -241,13 +274,13 @@ def decode_step(params: dict, cache: dict, token: torch.Tensor, pos,
         if use_flash:
             from ..ops.decode_attention import flash_decode_attention
             out = flash_decode_attention(
-                q[:, 0].reshape(B, c.n_kv_heads, rep, D),
+                q[:, 0].reshape(B, G, rep, D),
                 cache["k"][i], cache["v"][i], pos_vec,
                 k_scale=cache["k_scale"][i] if quant else None,
                 v_scale=cache["v_scale"][i] if quant else None)
             out = out.reshape(B, H, D)[:, None].to(dt)
         else:
-            qg = q.reshape(B, 1, c.n_kv_heads, rep, D)
+            qg = q.reshape(B, 1, G, rep, D)
             ck, cv = _read_cache_layer(cache, i, dt)          # (B, S, G, D)
             logits = torch.einsum("bqgrd,bkgd->bgrqk", qg.float(),
                                   ck.float()) * scale
@@ -255,13 +288,12 @@ def decode_step(params: dict, cache: dict, token: torch.Tensor, pos,
             probs = torch.softmax(logits, dim=-1).to(dt)
             out = torch.einsum("bgrqk,bkgd->bqgrd", probs, cv).reshape(
                 B, 1, H, D)
-        x = x + torch.einsum("bshk,hkd->bsd", out, wcast(layer["wo"], dt))
-        x = _mlp(x, layer, c)
+        y = torch.einsum("bshk,hkd->bsd", out, wcast(w["wo"], dt))
+        x = x + comm.reduce_from(y, mesh, "tp")
+        x = _mlp(x, layer, c, mesh, rules)
 
     x = rms_norm(x, params["final_norm"])
-    logits = torch.einsum("bd,dv->bv", x[:, 0],
-                          wcast(params["lm_head"], x.dtype))
-    return logits.float(), cache
+    return _logits(x[:, 0], params, c, mesh, rules), cache
 
 
 def decode_window(params: dict, cache: dict, tokens: torch.Tensor, pos,
@@ -276,10 +308,11 @@ def decode_window(params: dict, cache: dict, tokens: torch.Tensor, pos,
     ``s <= pos + i`` (the prefix and the causal structure inside the
     window); f32 logits, probabilities in the compute dtype."""
     c = config
+    mesh, rules = _placement(params)
     B, W = tokens.shape
     dev = tokens.device
     pos_vec = _row_positions(pos, B, dev)
-    x = params["embed"].to(c.compute_dtype)[tokens]             # (B, W, D)
+    x = embed_tokens(params, tokens, c, mesh, rules)            # (B, W, D)
     positions = pos_vec[:, None] + torch.arange(W, dtype=torch.int32,
                                                 device=dev)
     cos, sin = rope_frequencies(c, positions)
@@ -287,22 +320,25 @@ def decode_window(params: dict, cache: dict, tokens: torch.Tensor, pos,
     valid = (torch.arange(c.max_seq_len, device=dev)[None, None, :]
              <= positions[:, :, None])[:, None, None]         # (B,1,1,W,S)
     rep = c.n_heads // c.n_kv_heads
+    G = c.n_kv_heads // comm.axis_size(mesh, "tp")
     # window columns from max_seq_len on are past the end for every row
     width = min(W, c.max_seq_len)
     index = _row_index(pos_vec, width, c.max_seq_len)
 
     for i, layer in enumerate(unstack_layers(params["blocks"])):
-        h = rms_norm(x, layer["attn_norm"])
+        w = layer_weights(layer, ("attn_norm", "wq", "wk", "wv", "wo"), c,
+                          mesh, rules)
+        h = rms_norm(x, w["attn_norm"])
         dt = h.dtype
-        q = torch.einsum("bsd,dhk->bshk", h, wcast(layer["wq"], dt))
-        k = torch.einsum("bsd,dhk->bshk", h, wcast(layer["wk"], dt))
-        v = torch.einsum("bsd,dhk->bshk", h, wcast(layer["wv"], dt))
+        q = torch.einsum("bsd,dhk->bshk", h, wcast(w["wq"], dt))
+        k = torch.einsum("bsd,dhk->bshk", h, wcast(w["wk"], dt))
+        v = torch.einsum("bsd,dhk->bshk", h, wcast(w["wv"], dt))
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
         _write_cache_window_rows(cache, k[:, :width], v[:, :width], index,
                                  layer=i)
         _, _, H, D = q.shape
-        qg = q.reshape(B, W, c.n_kv_heads, rep, D)
+        qg = q.reshape(B, W, G, rep, D)
         ck, cv = _read_cache_layer(cache, i, dt)              # (B, S, G, D)
         logits = torch.einsum("bwgrd,bsgd->bgrws", qg.float(),
                               ck.float()) * scale
@@ -310,13 +346,12 @@ def decode_window(params: dict, cache: dict, tokens: torch.Tensor, pos,
         probs = torch.softmax(logits, dim=-1).to(dt)
         out = torch.einsum("bgrws,bsgd->bwgrd", probs, cv).reshape(
             B, W, H, D)
-        x = x + torch.einsum("bshk,hkd->bsd", out, wcast(layer["wo"], dt))
-        x = _mlp(x, layer, c)
+        y = torch.einsum("bshk,hkd->bsd", out, wcast(w["wo"], dt))
+        x = x + comm.reduce_from(y, mesh, "tp")
+        x = _mlp(x, layer, c, mesh, rules)
 
     x = rms_norm(x, params["final_norm"])
-    logits = torch.einsum("bwd,dv->bwv", x,
-                          wcast(params["lm_head"], x.dtype))
-    return logits.float(), cache
+    return _logits(x, params, c, mesh, rules), cache
 
 
 # ---------------------------------------------------------------- generate

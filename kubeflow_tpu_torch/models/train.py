@@ -1,12 +1,17 @@
-"""Training step: loss, optimizer and the one-device update.
+"""Training step: loss, optimizer and the update, on one device or a mesh.
 
-Port of ``kubeflow_tpu/models/train.py`` for a single device (the sharded
-``make_sharded_train_step`` and the pipeline rules come with the
-multi-device slice of the port: ROADMAP queue A, multi-device). The
-reference jits forward, backward and optimizer into one XLA program; the
-step here runs eagerly: the forward and autograd's backward go through
-the hand-written flash-attention kernels on the card, and the optimizer
-is a few ``torch._foreach_*`` passes over the parameter leaves.
+Port of ``kubeflow_tpu/models/train.py`` (the pipeline rules come with
+the pipeline slice of the port: ROADMAP queue A, multi-device part 2).
+The reference jits forward, backward and optimizer into one XLA program;
+the step here runs eagerly: the forward and autograd's backward go
+through the hand-written flash-attention kernels on the card, and the
+optimizer is a few ``torch._foreach_*`` passes over the parameter leaves.
+
+``make_sharded_train_step`` is the step on a mesh, SPMD: every rank runs
+it on its own shards and batch slice (the model's collectives are in
+models/transformer.py); the loss is the global token mean, the grads of
+a weight replicated over a data axis are summed over it, and the clip
+norm counts each element once.
 
 Params are the port's stacked dict tree (models/transformer.py). Gradients
 come from ``torch.autograd.grad`` over its leaves, so nothing accumulates
@@ -26,8 +31,11 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from .. import resolve_device
-from .transformer import (TransformerConfig, forward, forward_hidden,
-                          init_params, lm_head_logits)
+from ..parallel import comm
+from ..parallel.sharding import PartitionRules, sharded_axes, shard_tensor
+from .transformer import (TransformerConfig, check_mesh, forward,
+                          forward_hidden, init_params, lm_head_logits,
+                          lm_head_weight, param_specs)
 
 
 @dataclass(frozen=True)
@@ -126,16 +134,39 @@ def tree_map(fn, tree):
     return tree_unflatten(tree, [fn(x) for x in tree_leaves(tree)])
 
 
+def global_norm(leaves: list[torch.Tensor], mesh=None,
+                shard_axes: list | None = None) -> torch.Tensor:
+    """‖leaves‖ over every element of the full tensors. On a mesh each
+    leaf is a rank's slice, sharded over ``shard_axes[i]``: the squares
+    of the slices are summed over the axes a leaf is sharded on and never
+    over those it is replicated on, so each element counts once."""
+    live = [tuple(a for a in axes if comm.axis_size(mesh, a) > 1)
+            for axes in (shard_axes or [()] * len(leaves))]
+    norms = torch._foreach_norm(leaves)
+    if not any(live):
+        return torch.linalg.vector_norm(torch.stack(norms))
+    groups: dict[tuple, list] = {}
+    for n, axes in zip(norms, live):
+        groups.setdefault(tuple(sorted(axes)), []).append(n)
+    total = 0
+    for axes, ns in groups.items():
+        sq = torch.stack(ns).float().square().sum()
+        total = total + comm.all_reduce_(sq, mesh, axes)
+    return torch.sqrt(total)
+
+
 def fused_clip_adamw(schedule: Callable[[int], float], *, b1: float,
                      b2: float, weight_decay: float, grad_clip: float,
-                     eps: float = 1e-8) -> Optimizer:
+                     eps: float = 1e-8, mesh=None,
+                     shard_axes: list | None = None) -> Optimizer:
     """clip_by_global_norm + adamw in one pass per leaf, the reference's
     per-leaf body (models/train.py:109-137): clip scale
     ``min(1, clip / max(‖g‖, 1e-16))``; lr from the pre-increment count,
     bias correction from the post-increment count. The global norm and
     the clip scale stay on the device (no host sync); ``update`` consumes
     ``state`` (its moments are updated in place) and returns the update
-    tree, which ``apply_update`` adds to the params."""
+    tree, which ``apply_update`` adds to the params. On a mesh the leaves
+    are the rank's slices (``shard_axes`` as in ``global_norm``)."""
 
     def init(params):
         zeros = [torch.zeros_like(p, dtype=torch.float32)
@@ -151,8 +182,7 @@ def fused_clip_adamw(schedule: Callable[[int], float], *, b1: float,
                              "(weight decay)")
         g = tree_leaves(grads)
         mu, nu, p = (tree_leaves(t) for t in (state.mu, state.nu, params))
-        gnorm = torch.linalg.vector_norm(torch.stack(
-            torch._foreach_norm(g)))
+        gnorm = global_norm(g, mesh, shard_axes)
         scale = torch.clamp(grad_clip / torch.clamp(gnorm, min=1e-16),
                             max=1.0)
         count = state.count + 1
@@ -178,15 +208,18 @@ def fused_clip_adamw(schedule: Callable[[int], float], *, b1: float,
     return Optimizer(init, update)
 
 
-def make_optimizer(tc: TrainConfig) -> Optimizer:
+def make_optimizer(tc: TrainConfig, mesh=None,
+                   shard_axes: list | None = None) -> Optimizer:
     """The schedule ``warmup_cosine_decay_schedule(0, lr, warmup,
-    10_000)`` and clip+AdamW, for either value of ``fused_adamw``."""
+    10_000)`` and clip+AdamW, for either value of ``fused_adamw``; on a
+    mesh, over the rank's slices (see ``global_norm``)."""
     def schedule(step: int) -> float:
         return warmup_cosine_decay(step, tc.learning_rate, tc.warmup_steps,
                                    10_000)
     return fused_clip_adamw(schedule, b1=tc.b1, b2=tc.b2,
                             weight_decay=tc.weight_decay,
-                            grad_clip=tc.grad_clip)
+                            grad_clip=tc.grad_clip, mesh=mesh,
+                            shard_axes=shard_axes)
 
 
 @torch.no_grad()
@@ -209,9 +242,19 @@ def apply_update(optimizer: Optimizer, params: dict, opt_state, grads):
 
 
 # -------------------------------------------------------------------- loss
+def _token_nll(logits: torch.Tensor, targets: torch.Tensor):
+    """Per-token negative log-likelihood of f32 logits by log_softmax, 0
+    at -1 targets, and the valid mask (the whole-logits path)."""
+    valid = targets >= 0
+    safe = torch.where(valid, targets, 0).long()
+    logp = torch.log_softmax(logits, dim=-1)
+    nll = -logp.gather(-1, safe[..., None])[..., 0]
+    return torch.where(valid, nll, 0.0), valid
+
+
 def _nll(logits: torch.Tensor, targets: torch.Tensor):
-    """Per-token negative log-likelihood of f32 logits, 0 at -1 targets,
-    and the valid mask."""
+    """Per-token negative log-likelihood of f32 logits by logsumexp, 0 at
+    -1 targets, and the valid mask (the chunked path)."""
     valid = targets >= 0
     safe = torch.where(valid, targets, 0).long()
     lse = torch.logsumexp(logits, dim=-1)
@@ -219,19 +262,58 @@ def _nll(logits: torch.Tensor, targets: torch.Tensor):
     return torch.where(valid, lse - target_logit, 0.0), valid
 
 
+def _vocab_parallel_nll(logits: torch.Tensor, targets: torch.Tensor, mesh):
+    """``_nll`` of logits whose vocab is sharded over tp (the rank's
+    slice): the max, the sum of exponentials and the target's logit are
+    each combined over tp, and no rank holds the whole (b, s, vocab)
+    logits. The max is a constant of the logsumexp's gradient."""
+    valid = targets >= 0
+    rows = logits.shape[-1]
+    local = targets.long() - comm.axis_rank(mesh, "tp") * rows
+    inside = valid & (local >= 0) & (local < rows)
+    m = comm.all_reduce_(logits.detach().amax(dim=-1), mesh, "tp", "max")
+    sumexp = comm.reduce_from(torch.exp(logits - m[..., None]).sum(dim=-1),
+                              mesh, "tp")
+    target_logit = logits.gather(-1, local.clamp(0, rows - 1)[..., None])
+    target_logit = comm.reduce_from(
+        torch.where(inside, target_logit[..., 0], 0.0), mesh, "tp")
+    nll = torch.log(sumexp) + m - target_logit
+    return torch.where(valid, nll, 0.0), valid
+
+
 def token_ce(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
     """Cross entropy of f32 logits, mean over non-padding (-1 targets)."""
-    valid = targets >= 0
-    safe = torch.where(valid, targets, 0).long()
-    logp = torch.log_softmax(logits, dim=-1)
-    nll = -logp.gather(-1, safe[..., None])[..., 0]
-    nll = torch.where(valid, nll, 0.0)
+    nll, valid = _token_nll(logits, targets)
     return nll.sum() / valid.sum().clamp_min(1)
 
 
-def loss_fn(params, tokens, targets, config: TransformerConfig):
-    """Next-token cross entropy, mean over non-padding (-1 targets)."""
-    return token_ce(forward(params, tokens, config), targets)
+def data_axes(rules: PartitionRules | None = None) -> tuple[str, ...]:
+    """The mesh axes the batch is sharded over: (dp, fsdp) and sp."""
+    return tuple(sorted(sharded_axes((rules or PartitionRules()).spec(
+        "batch", "seq"))))
+
+
+def _global_count(valid: torch.Tensor, mesh, rules) -> torch.Tensor:
+    """The valid tokens of the whole batch (every data shard's)."""
+    return comm.all_reduce_(valid.sum(), mesh, data_axes(rules))
+
+
+def loss_fn(params, tokens, targets, config: TransformerConfig, mesh=None,
+            rules: PartitionRules | None = None):
+    """Next-token cross entropy, mean over non-padding (-1 targets). On a
+    mesh: this rank's share of the global token mean (its tokens' nll
+    over every rank's valid count), the whole-vocab CE computed
+    vocab-parallel under tp; the shares sum to the global mean."""
+    if mesh is None:
+        return token_ce(forward(params, tokens, config), targets)
+    x = forward_hidden(params, tokens, config, mesh=mesh, rules=rules)
+    x = comm.copy_to(x, mesh, "tp")
+    logits = lm_head_logits(x, lm_head_weight(params, config, mesh, rules))
+    if comm.axis_size(mesh, "tp") > 1:
+        nll, valid = _vocab_parallel_nll(logits, targets, mesh)
+    else:
+        nll, valid = _token_nll(logits, targets)
+    return nll.sum() / _global_count(valid, mesh, rules).clamp_min(1)
 
 
 def ce_chunk_for(tc: TrainConfig, tokens: torch.Tensor,
@@ -253,13 +335,18 @@ def _ce_chunks(seq_len: int, chunk_tokens: int) -> int:
     return n
 
 
-def _chunk_nll(xs, lm_head, ts):
-    nll, valid = _nll(lm_head_logits(xs, lm_head), ts)
+def _chunk_nll(xs, lm_head, ts, mesh=None):
+    logits = lm_head_logits(xs, lm_head)
+    if comm.axis_size(mesh, "tp") > 1:
+        nll, valid = _vocab_parallel_nll(logits, ts, mesh)
+    else:
+        nll, valid = _nll(logits, ts)
     return nll.sum(), valid.sum()
 
 
 def chunked_softmax_ce(x: torch.Tensor, lm_head, targets: torch.Tensor,
-                       chunk_tokens: int) -> torch.Tensor:
+                       chunk_tokens: int, mesh=None,
+                       rules: PartitionRules | None = None) -> torch.Tensor:
     """Cross entropy fused with the LM-head projection, chunked over the
     sequence: each chunk projects a (b, chunk, d) slice onto the vocab,
     reduces it to logsumexp and target logit, and drops its logits. The
@@ -269,7 +356,9 @@ def chunked_softmax_ce(x: torch.Tensor, lm_head, targets: torch.Tensor,
     The chunk's logits come from ``lm_head_logits``, the whole-logits
     path's projection (in bf16 the product is rounded to bf16 before the
     f32 cast); the reference's chunk asks XLA for an f32 product
-    instead. In f32 the two are the same."""
+    instead. In f32 the two are the same. On a mesh, as ``loss_fn``: the
+    rank's share of the global mean, vocab-parallel under tp (``x`` then
+    the tp-replicated hidden states, ``lm_head`` the rank's slice)."""
     b, s, _ = x.shape
     n = _ce_chunks(s, chunk_tokens)
     c = s // n
@@ -277,23 +366,33 @@ def chunked_softmax_ce(x: torch.Tensor, lm_head, targets: torch.Tensor,
     for i in range(n):
         nll, n_valid = checkpoint(_chunk_nll, x[:, i * c:(i + 1) * c],
                                   lm_head, targets[:, i * c:(i + 1) * c],
-                                  use_reentrant=False)
+                                  mesh, use_reentrant=False)
         total = total + nll
         count = count + n_valid
+    if mesh is not None:
+        count = comm.all_reduce_(count, mesh, data_axes(rules))
     return total / count.clamp_min(1)
 
 
 def fused_loss_fn(params, tokens, targets, config: TransformerConfig,
-                  chunk_tokens: int = 512):
+                  chunk_tokens: int = 512, mesh=None,
+                  rules: PartitionRules | None = None):
     """loss_fn through chunked_softmax_ce."""
-    x = forward_hidden(params, tokens, config)
-    return chunked_softmax_ce(x, params["lm_head"], targets, chunk_tokens)
+    x = forward_hidden(params, tokens, config, mesh=mesh, rules=rules)
+    if mesh is None:
+        return chunked_softmax_ce(x, params["lm_head"], targets,
+                                  chunk_tokens)
+    x = comm.copy_to(x, mesh, "tp")
+    return chunked_softmax_ce(x, lm_head_weight(params, config, mesh, rules),
+                              targets, chunk_tokens, mesh, rules)
 
 
 def build_loss(config: TransformerConfig, tc: TrainConfig | None = None,
-               include_aux: bool = True):
+               include_aux: bool = True, mesh=None,
+               rules: PartitionRules | None = None):
     """The loss dispatch — the fused-CE gate in one place, shared by the
-    train steps and evaluation. Returns ``loss(params, tokens, targets)``.
+    train steps and evaluation. Returns ``loss(params, tokens, targets)``
+    (on a mesh: the rank's share of the global mean, see ``loss_fn``).
     An ``MoEConfig`` takes ``moe_loss_fn``; ``include_aux=False``
     (evaluation) leaves its router aux out, so exp(loss) is a
     perplexity."""
@@ -301,6 +400,10 @@ def build_loss(config: TransformerConfig, tc: TrainConfig | None = None,
     tc = tc or TrainConfig()
 
     if isinstance(config, MoEConfig):
+        if mesh is not None:
+            raise NotImplementedError(
+                "the MoE family on a mesh is not ported yet (ROADMAP queue "
+                "A, multi-device part 2)")
         loss_config = config if include_aux else \
             config.replace(router_aux_coef=0.0)
 
@@ -314,16 +417,17 @@ def build_loss(config: TransformerConfig, tc: TrainConfig | None = None,
         chunk = ce_chunk_for(tc, tokens, config.vocab_size)
         if chunk:
             return fused_loss_fn(params, tokens, targets, config,
-                                 chunk_tokens=chunk)
-        return loss_fn(params, tokens, targets, config)
+                                 chunk_tokens=chunk, mesh=mesh, rules=rules)
+        return loss_fn(params, tokens, targets, config, mesh, rules)
     return _loss
 
 
 def build_eval_loss(config: TransformerConfig,
-                    tc: TrainConfig | None = None):
+                    tc: TrainConfig | None = None, mesh=None,
+                    rules: PartitionRules | None = None):
     """What evaluation runs: build_loss with the MoE router aux left
     out."""
-    return build_loss(config, tc, include_aux=False)
+    return build_loss(config, tc, include_aux=False, mesh=mesh, rules=rules)
 
 
 # -------------------------------------------------------------------- step
@@ -405,3 +509,83 @@ def make_train_step(config: TransformerConfig, tc: TrainConfig | None = None,
     return init_fn, functools.partial(
         train_step, loss=build_loss(config, tc),
         optimizer=make_optimizer(tc), accum_steps=accum_steps)
+
+
+# ------------------------------------------------------------- sharded step
+def opt_state_shardings(opt_state, p_specs: dict):
+    """The spec of each leaf of an optimizer state: a leaf whose path ends
+    with a param's path (``mu/blocks/wq``, ``master/blocks/wq``) takes
+    that param's spec; everything else (the step count) is replicated."""
+    from ..parallel.partition_rules import map_with_path
+    by_path: dict[str, tuple] = {}
+    map_with_path(lambda path, spec: by_path.__setitem__(path, spec),
+                  p_specs)
+
+    def spec(path, leaf):
+        if isinstance(leaf, torch.Tensor):
+            keys = path.split("/")
+            for start in range(len(keys)):
+                found = by_path.get("/".join(keys[start:]))
+                if found is not None:
+                    return found
+        return ()
+    return map_with_path(spec, opt_state)
+
+
+def make_sharded_train_step(mesh, config: TransformerConfig,
+                            tc: TrainConfig | None = None,
+                            rules: PartitionRules | None = None,
+                            accum_steps: int = 1):
+    """``(init_fn, step_fn)`` on ``mesh``, run by every rank (SPMD).
+
+    - ``init_fn(generator)`` draws the full params from ``generator``
+      (seeded alike on every rank) and keeps this rank's shards under
+      ``rules`` (default ``DEFAULT_RULES``); moments and bf16 masters are
+      sharded like the params they shadow;
+    - ``step_fn(params, opt_state, tokens, targets)`` takes this rank's
+      batch slice (rows over (dp, fsdp), sequence block over sp:
+      ``runtime.data.shard_batch``; with ``accum_steps`` > 1 an
+      (accum, batch, seq) slice) and returns (params, opt_state, loss),
+      updated in place, the loss the global token mean on every rank.
+
+    fsdp gathers each layer's weights before use and reduce-scatters
+    their grads; a grad replicated over a data axis (dp, fsdp, sp) is
+    summed over it; the clip norm counts each element once. On a mesh
+    of one rank it is ``make_train_step``'s step, op for op."""
+    tc = tc or TrainConfig()
+    rules = rules or PartitionRules()
+    check_mesh(config, mesh, rules)
+    from .moe import MoEConfig
+    if isinstance(config, MoEConfig):
+        raise NotImplementedError(
+            "the MoE family on a mesh is not ported yet (ROADMAP queue A, "
+            "multi-device part 2)")
+    specs = param_specs(config, rules)
+    leaf_specs = tree_leaves(specs)
+    batch_axes = data_axes(rules)
+    reduce_axes = [tuple(a for a in batch_axes if a not in sharded_axes(s))
+                   for s in leaf_specs]
+    optimizer = make_optimizer(
+        tc, mesh, [tuple(sorted(sharded_axes(s))) for s in leaf_specs])
+    loss = build_loss(config, tc, mesh=mesh, rules=rules)
+    dev = comm.mesh_device(mesh)
+
+    def init_fn(generator: torch.Generator):
+        full = init_params(generator, config, dev)
+        return init_train_state(tree_unflatten(full, [
+            shard_tensor(p, s, mesh)
+            for p, s in zip(tree_leaves(full), leaf_specs)]), tc)
+
+    def step_fn(params, opt_state, tokens, targets):
+        if accum_steps == 1:
+            value, grads = value_and_grad(loss, params, tokens, targets)
+        else:
+            value, grads = accumulated_value_and_grad(loss, params, tokens,
+                                                      targets)
+        for g, axes in zip(tree_leaves(grads), reduce_axes):
+            comm.all_reduce_(g, mesh, axes)
+        comm.all_reduce_(value, mesh, batch_axes)
+        params, opt_state = apply_update(optimizer, params, opt_state, grads)
+        return params, opt_state, value
+
+    return init_fn, step_fn

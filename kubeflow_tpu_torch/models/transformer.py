@@ -1,7 +1,7 @@
 """Flagship workload: decoder-only transformer LM, forward and backward.
 
-Port of ``kubeflow_tpu/models/transformer.py`` (``pipelined_forward``,
-ring and Ulysses attention come with the multi-device slice of the port).
+Port of ``kubeflow_tpu/models/transformer.py`` (``pipelined_forward``
+comes with the pipeline slice of the port).
 Plain functions on tensors, with the JAX package's layouts at every public
 function: (b, s, h, d) attention, and params as a dict whose layer weights
 are stacked on a leading (L, ...) axis (``wq`` (L, d, h, k), ``wo``
@@ -17,10 +17,27 @@ checkpointing per layer (``torch.utils.checkpoint``, non-reentrant), after
 ``resolve_remat_mlp``/``resolve_layer_remat``; it changes memory and
 launches, never values.
 
-Attention dispatch: ``attention="auto"`` takes the hand-written flash
-kernels (ops/attention.py) for CUDA tensors at every sequence length, and
-the plain reference attention on the CPU. The JAX package's TPU gate
+Attention dispatch: ``attention="auto"`` takes ring attention when the
+mesh has sp > 1 (parallel/ring.py), else the hand-written flash kernels
+(ops/attention.py) for CUDA tensors at every sequence length, and the
+plain reference attention on the CPU. The JAX package's TPU gate
 (``FLASH_MIN_SEQ``) was measured on a v5e and is not carried over.
+
+On a mesh (``mesh=``, a DeviceMesh of parallel/mesh.py) each rank runs
+these functions on its local shards, laid out by ``param_logical_specs``
+and the partition rules, with the collectives GSPMD inserts for the
+reference placed by hand (parallel/comm.py):
+
+- fsdp: each layer gathers its weights before use (the backward
+  reduce-scatters their grads), inside the layer's remat region;
+- tp: attention runs on the rank's heads and the FFN on its ``mlp``
+  shard, the input of each goes through ``copy_to`` (its grad summed over
+  tp) and the output of ``wo`` / ``w_down`` through ``reduce_from`` (an
+  all-reduce); the embedding is vocab-sharded, so the lookup is a masked
+  local gather plus an all-reduce, and the LM head gives the rank's vocab
+  slice of the logits;
+- sp: the rank holds one sequence block, its RoPE positions offset by
+  its sp index, and attention is ring or Ulysses.
 """
 
 from __future__ import annotations
@@ -36,6 +53,9 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from .. import resolve_device
+from ..parallel import comm
+from ..parallel.sharding import (PartitionRules, gather_for_compute,
+                                 spec_axes, spec_tree)
 from .quant import is_quantized, wcast
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
@@ -58,20 +78,17 @@ class TransformerConfig:
     # not its attention; True: recompute the whole layer); values do not
     # depend on it
     remat: bool | str = False
-    attention: str = "auto"      # auto | xla | flash
+    attention: str = "auto"      # auto | xla | ring | ulysses | flash
     decode_attention: str = "auto"   # auto | xla | flash
 
     def __post_init__(self):
         if self.remat not in (False, True, "mlp", "attn"):
             raise ValueError(f"remat must be False, True, 'mlp', or "
                              f"'attn'; got {self.remat!r}")
-        if self.attention in ("ring", "ulysses"):
-            raise NotImplementedError(
-                f"attention={self.attention!r} is not ported yet (ROADMAP "
-                f"queue A, multi-device)")
-        if self.attention not in ("auto", "xla", "flash"):
-            raise ValueError(f"attention must be auto, xla, or flash; got "
-                             f"{self.attention!r}")
+        if self.attention not in ("auto", "xla", "ring", "ulysses",
+                                  "flash"):
+            raise ValueError(f"attention must be auto, xla, ring, ulysses "
+                             f"or flash; got {self.attention!r}")
         if self.decode_attention not in ("auto", "xla", "flash"):
             raise ValueError(f"decode_attention must be auto, xla, or "
                              f"flash; got {self.decode_attention!r}")
@@ -98,6 +115,90 @@ class TransformerConfig:
 
 
 # ------------------------------------------------------------------ params
+def param_logical_specs(config: TransformerConfig) -> dict:
+    """Logical-axis names per weight; the partition rules turn them into
+    mesh specs. Layer weights are stacked on a leading 'layers' axis."""
+    return {
+        "embed": ("vocab", "embed"),
+        "blocks": {
+            "attn_norm": ("layers", "norm"),
+            "wq": ("layers", "embed", "heads", "head_dim"),
+            "wk": ("layers", "embed", "kv_heads", "head_dim"),
+            "wv": ("layers", "embed", "kv_heads", "head_dim"),
+            "wo": ("layers", "heads", "head_dim", "embed"),
+            "mlp_norm": ("layers", "norm"),
+            "w_gate": ("layers", "embed", "mlp"),
+            "w_up": ("layers", "embed", "mlp"),
+            "w_down": ("layers", "mlp", "embed"),
+        },
+        "final_norm": ("norm",),
+        "lm_head": ("embed", "vocab"),
+    }
+
+
+@functools.lru_cache(maxsize=64)
+def param_specs(config: TransformerConfig,
+                rules: PartitionRules | None = None) -> dict:
+    """The mesh spec of each weight under ``rules`` (default
+    ``DEFAULT_RULES``), in the params' tree. Shared: don't mutate it."""
+    return spec_tree(param_logical_specs(config), rules)
+
+
+@functools.lru_cache(maxsize=64)
+def _layer_specs(config: TransformerConfig,
+                 rules: PartitionRules | None = None) -> dict:
+    """Each block weight's spec without its stacked layer axis."""
+    return {k: v[1:] for k, v in param_specs(config, rules)["blocks"].items()}
+
+
+_TP_LOGICAL = ("vocab", "heads", "kv_heads", "mlp")
+
+
+def check_mesh(config: TransformerConfig, mesh,
+               rules: PartitionRules | None = None) -> None:
+    """Raise unless the model can run on ``mesh`` under ``rules``: tp on
+    exactly the vocab, heads, kv_heads and mlp axes (the model's tp
+    collectives assume that layout), every sharded dim divisible, no
+    pipeline or expert axis (a later slice of the port)."""
+    if mesh is None:
+        return
+    rules = rules or PartitionRules()
+    size = functools.partial(comm.axis_size, mesh)
+    for axis in ("pp", "ep"):
+        if size(axis) > 1:
+            raise NotImplementedError(
+                f"{axis}={size(axis)}: pipeline and expert parallelism are "
+                f"not ported yet (ROADMAP queue A, multi-device part 2)")
+    if size("tp") > 1:
+        mapping = dict(rules.rules)
+        on_tp = {k for k, v in mapping.items() if "tp" in
+                 ((v,) if isinstance(v, str) else tuple(v or ()))}
+        if on_tp != set(_TP_LOGICAL):
+            raise ValueError(f"the model's tp layout needs {_TP_LOGICAL} "
+                             f"and only those on tp; the rules put "
+                             f"{sorted(on_tp)} there")
+    L, d, f, k = config.n_layers, config.d_model, config.d_ff, config.d_head
+    V, H, G = config.vocab_size, config.n_heads, config.n_kv_heads
+    shapes = {"embed": (V, d), "final_norm": (d,), "lm_head": (d, V),
+              "blocks": {"attn_norm": (L, d), "mlp_norm": (L, d),
+                         "wq": (L, d, H, k), "wk": (L, d, G, k),
+                         "wv": (L, d, G, k), "wo": (L, H, k, d),
+                         "w_gate": (L, d, f), "w_up": (L, d, f),
+                         "w_down": (L, f, d)}}
+
+    def divisible(shapes, specs, path):
+        for name, shape in shapes.items():
+            if isinstance(shape, dict):
+                divisible(shape, specs[name], f"{path}{name}/")
+                continue
+            for dim, entry in zip(shape, specs[name]):
+                if dim % size(entry):
+                    raise ValueError(f"{path}{name}: a dim of {dim} does "
+                                     f"not divide over {entry} "
+                                     f"({size(entry)} ranks)")
+    divisible(shapes, param_specs(config, rules), "")
+
+
 def init_params(generator: torch.Generator, config: TransformerConfig,
                 device="cuda") -> dict:
     """Random params drawn from ``generator`` (on its own device), placed
@@ -238,18 +339,73 @@ def xla_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.einsum("bhqk,bkhd->bqhd", probs, v)
 
 
-def _select_attention(config: TransformerConfig, device: torch.device) -> str:
+def _select_attention(config: TransformerConfig, device: torch.device,
+                      mesh=None) -> str:
     if config.attention != "auto":
-        return config.attention
-    return "flash" if device.type == "cuda" else "xla"
+        kind = config.attention
+    elif comm.axis_size(mesh, "sp") > 1:
+        kind = "ring"
+    else:
+        kind = "flash" if device.type == "cuda" else "xla"
+    if kind in ("xla", "flash") and comm.axis_size(mesh, "sp") > 1:
+        raise ValueError(f"attention={kind!r} sees one sequence block; "
+                         f"with sp > 1 use ring or ulysses")
+    return kind
+
+
+def local_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True) -> torch.Tensor:
+    """Attention over the tensors as given: the flash kernels on CUDA,
+    the plain reference attention on the CPU."""
+    if q.device.type == "cuda":
+        from ..ops.attention import flash_attention
+        return flash_attention(q, k, v, causal=causal)
+    return xla_attention(q, k, v, causal=causal)
+
+
+@functools.lru_cache(maxsize=64)
+def _layer_gathers(config: TransformerConfig, rules, mesh) -> dict:
+    """Per block weight, the (dim, axes) each layer gathers before use:
+    its sharded axes but tp, those of size above 1 (none on one rank)."""
+    out = {}
+    for name, spec in _layer_specs(config, rules).items():
+        dims = [(d, live) for d, entry in enumerate(spec)
+                if (live := tuple(a for a in spec_axes(entry) if a != "tp"
+                                  and comm.axis_size(mesh, a) > 1))]
+        if dims:
+            out[name] = dims
+    return out
+
+
+def layer_weights(layer: dict, names, config: TransformerConfig, mesh,
+                  rules: PartitionRules | None = None) -> dict:
+    """The layer with its weights ``names`` as the rank computes with
+    them: gathered over every sharded axis but tp (the backward
+    reduce-scatters their grads). Without a mesh, or with nothing to
+    gather, the layer as it is."""
+    if mesh is None:
+        return layer
+    gathers = _layer_gathers(config, rules, mesh)
+    if not gathers:
+        return layer
+    out = dict(layer)
+    for n in names:
+        for dim, axes in gathers.get(n, ()):
+            out[n] = comm.all_gather(out[n], mesh, axes, dim)
+    return out
 
 
 def attention_block(x, layer, config: TransformerConfig, cos, sin,
-                    return_kv: bool = False):
+                    return_kv: bool = False, mesh=None,
+                    rules: PartitionRules | None = None):
     """``return_kv=True`` also returns the post-RoPE, pre-GQA-repeat
-    (k, v) — what a decode KV cache stores (models/decode.py prefill)."""
+    (k, v) — what a decode KV cache stores (models/decode.py prefill).
+    On a mesh: the rank's heads (and under sp its sequence block)."""
     c = config
+    layer = layer_weights(layer, ("attn_norm", "wq", "wk", "wv", "wo"), c,
+                          mesh, rules)
     h = rms_norm(x, layer["attn_norm"])
+    h = comm.copy_to(h, mesh, "tp")
     dt = h.dtype
     q = torch.einsum("bsd,dhk->bshk", h, wcast(layer["wq"], dt))
     k = torch.einsum("bsd,dhk->bshk", h, wcast(layer["wk"], dt))
@@ -258,23 +414,68 @@ def attention_block(x, layer, config: TransformerConfig, cos, sin,
     k = apply_rope(k, cos, sin)
     kv = (k, v)
     n_rep = c.n_heads // c.n_kv_heads
-    kr, vr = repeat_kv(k, n_rep), repeat_kv(v, n_rep)
-    if _select_attention(c, x.device) == "flash":
-        from ..ops.attention import flash_attention
-        out = flash_attention(q, kr, vr, causal=True)
+    kind = _select_attention(c, x.device, mesh)
+    if kind == "ulysses":
+        # takes the un-repeated K/V: its all-to-alls move 1/n_rep the bytes
+        from ..parallel.ulysses import ulysses_attention
+        out = ulysses_attention(q, k, v, mesh=mesh, causal=True,
+                                n_rep=n_rep)
     else:
-        out = xla_attention(q, kr, vr, causal=True)
-    x = x + torch.einsum("bshk,hkd->bsd", out, wcast(layer["wo"], dt))
+        kr, vr = repeat_kv(k, n_rep), repeat_kv(v, n_rep)
+        if kind == "ring":
+            from ..parallel.ring import ring_attention
+            out = ring_attention(q, kr, vr, mesh=mesh, causal=True)
+        elif kind == "flash":
+            from ..ops.attention import flash_attention
+            out = flash_attention(q, kr, vr, causal=True)
+        else:
+            out = xla_attention(q, kr, vr, causal=True)
+    y = torch.einsum("bshk,hkd->bsd", out, wcast(layer["wo"], dt))
+    x = x + comm.reduce_from(y, mesh, "tp")
     return (x, kv) if return_kv else x
 
 
-def mlp_block(x, layer, config: TransformerConfig):
+def mlp_block(x, layer, config: TransformerConfig, mesh=None,
+              rules: PartitionRules | None = None):
+    layer = layer_weights(layer, ("mlp_norm", "w_gate", "w_up", "w_down"),
+                          config, mesh, rules)
     h = rms_norm(x, layer["mlp_norm"])
+    h = comm.copy_to(h, mesh, "tp")
     dt = h.dtype
     gate = torch.einsum("bsd,df->bsf", h, wcast(layer["w_gate"], dt))
     up = torch.einsum("bsd,df->bsf", h, wcast(layer["w_up"], dt))
-    return x + torch.einsum("bsf,fd->bsd", F.silu(gate) * up,
-                            wcast(layer["w_down"], dt))
+    y = torch.einsum("bsf,fd->bsd", F.silu(gate) * up,
+                     wcast(layer["w_down"], dt))
+    return x + comm.reduce_from(y, mesh, "tp")
+
+
+def embed_tokens(params: dict, tokens: torch.Tensor,
+                 config: TransformerConfig, mesh=None,
+                 rules: PartitionRules | None = None) -> torch.Tensor:
+    """The embedding lookup in compute dtype. Under tp the table is
+    vocab-sharded: each rank looks up the tokens in its vocab slice
+    (zeros elsewhere) and an all-reduce over tp sums the one nonzero."""
+    embed = params["embed"]
+    if mesh is not None:
+        embed = gather_for_compute(embed, param_specs(config, rules)["embed"],
+                                   mesh)
+    w = embed.to(config.compute_dtype)
+    if comm.axis_size(mesh, "tp") == 1:
+        return w[tokens]
+    rows = w.shape[0]
+    local = tokens.long() - comm.axis_rank(mesh, "tp") * rows
+    inside = (local >= 0) & (local < rows)
+    x = torch.where(inside[..., None], w[local.clamp(0, rows - 1)], 0.0)
+    return comm.reduce_from(x.to(w.dtype), mesh, "tp")
+
+
+def lm_head_weight(params: dict, config: TransformerConfig, mesh=None,
+                   rules: PartitionRules | None = None):
+    """The LM head as the rank computes with it: (d_model, vocab/tp)."""
+    if mesh is None:
+        return params["lm_head"]
+    return gather_for_compute(params["lm_head"],
+                              param_specs(config, rules)["lm_head"], mesh)
 
 
 # ------------------------------------------------------------------- remat
@@ -296,6 +497,7 @@ def _save_flash(ctx, func, *args, **kwargs):
 
 
 def _attn_contexts():
+    from ..ops import attention  # noqa: F401 — registers the policy's op
     return create_selective_checkpoint_contexts(_save_flash)
 
 
@@ -327,19 +529,25 @@ def resolve_layer_remat(config: TransformerConfig, attn_fn, mlp_fn):
 
 def forward_hidden(params: dict, tokens: torch.Tensor,
                    config: TransformerConfig,
-                   positions: torch.Tensor | None = None) -> torch.Tensor:
+                   positions: torch.Tensor | None = None, mesh=None,
+                   rules: PartitionRules | None = None) -> torch.Tensor:
     """tokens: (batch, seq) int → final-norm hidden states (b, s, d); the
     LM head is not applied (the fused chunked CE, models/train.py, takes
-    the hidden states)."""
+    the hidden states). On a mesh, tokens are the rank's rows and
+    sequence block; the positions default to the block's global ones."""
     c = config
-    x = params["embed"].to(c.compute_dtype)[tokens]
+    x = embed_tokens(params, tokens, c, mesh, rules)
     if positions is None:
-        positions = torch.arange(tokens.shape[1], device=tokens.device)
+        s = tokens.shape[1]
+        start = comm.axis_rank(mesh, "sp") * s
+        positions = torch.arange(start, start + s, device=tokens.device)
         positions = positions[None, :].expand(tokens.shape)
     cos, sin = rope_frequencies(c, positions)
-    mlp = resolve_remat_mlp(c, mlp_block)
+    mlp = resolve_remat_mlp(
+        c, lambda x, layer, c: mlp_block(x, layer, c, mesh, rules))
     body = resolve_layer_remat(
-        c, lambda x, layer: attention_block(x, layer, c, cos, sin),
+        c, lambda x, layer: attention_block(x, layer, c, cos, sin,
+                                            mesh=mesh, rules=rules),
         lambda x, layer: mlp(x, layer, c))
     for layer in unstack_layers(params["blocks"]):
         x = body(x, layer)
@@ -347,15 +555,21 @@ def forward_hidden(params: dict, tokens: torch.Tensor,
 
 
 def lm_head_logits(x: torch.Tensor, lm_head) -> torch.Tensor:
-    """(b, s, d) hidden → (b, s, vocab) f32 logits."""
+    """(b, s, d) hidden → (b, s, vocab) f32 logits (the rank's vocab slice
+    under tp)."""
     return torch.einsum("bsd,dv->bsv", x, wcast(lm_head, x.dtype)).float()
 
 
 def forward(params: dict, tokens: torch.Tensor, config: TransformerConfig,
-            positions: torch.Tensor | None = None) -> torch.Tensor:
-    """tokens: (batch, seq) int → logits (batch, seq, vocab) float32."""
-    x = forward_hidden(params, tokens, config, positions=positions)
-    return lm_head_logits(x, params["lm_head"])
+            positions: torch.Tensor | None = None, mesh=None,
+            rules: PartitionRules | None = None) -> torch.Tensor:
+    """tokens: (batch, seq) int → logits (batch, seq, vocab) float32 (on
+    a mesh: the rank's rows and sequence block, every vocab column)."""
+    x = forward_hidden(params, tokens, config, positions=positions,
+                       mesh=mesh, rules=rules)
+    x = comm.copy_to(x, mesh, "tp")
+    logits = lm_head_logits(x, lm_head_weight(params, config, mesh, rules))
+    return comm.gather_replicated(logits, mesh, "tp", dim=-1)
 
 
 def count_params(params) -> int:

@@ -1,0 +1,282 @@
+"""Collectives over named mesh axes, the ones autograd differentiates
+included.
+
+The JAX package has no such module: GSPMD inserts its collectives, and
+shard_map bodies call ``lax`` collectives by axis name. Here each
+collective takes a mesh and the name of one of its axes (or a tuple of
+names: a collective over several axes is one over each in turn), and a
+size-1 axis costs nothing: no call is made, as XLA makes none.
+
+Every collective that takes part in autograd is an
+``autograd.Function`` whose backward is the transposed collective:
+
+- ``all_gather`` (a dim sharded over a data axis, as fsdp shards
+  weights) ↔ reduce-scatter: each rank's grad of the gathered tensor is
+  partial (its own data), so the grads are summed and each rank keeps
+  its slice;
+- ``gather_replicated`` (a tp-sharded dim gathered for computation that
+  is replicated over tp) ↔ the rank's own slice of the grad;
+- ``reduce_from`` (partial sums, after a row-parallel matmul) ↔
+  identity; ``copy_to`` (identity, before a column-parallel matmul) ↔
+  an all-reduce of the grads: Megatron's g and f;
+- ``all_to_all`` ↔ the inverse all-to-all;
+- ``ring_shift`` (send to the next rank, receive from the previous) ↔
+  send to the previous, receive from the next.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.distributed as dist
+
+# newer torch builds name these two collectives *_single and deprecate the
+# older names, which are all that older builds have
+_all_gather_single = getattr(dist, "all_gather_single", None) or \
+    dist.all_gather_into_tensor
+_reduce_scatter_single = getattr(dist, "reduce_scatter_single", None) or \
+    dist.reduce_scatter_tensor
+
+
+# ------------------------------------------------------------------ axes
+def _names(axes) -> tuple[str, ...]:
+    if axes is None:
+        return ()
+    return (axes,) if isinstance(axes, str) else tuple(axes)
+
+
+def axis_size(mesh, axes) -> int:
+    """The number of ranks along ``axes`` (1 without a mesh)."""
+    n = 1
+    if mesh is not None:
+        for a in _names(axes):
+            n *= mesh.size(mesh.mesh_dim_names.index(a))
+    return n
+
+
+def axis_rank(mesh, axes) -> int:
+    """This rank's index along ``axes``, row-major over several (0
+    without a mesh)."""
+    i = 0
+    for a in _names(axes):
+        i = i * axis_size(mesh, a) + (mesh.get_local_rank(a)
+                                      if mesh is not None else 0)
+    return i
+
+
+def mesh_device(mesh) -> torch.device:
+    """The device of this rank's shards on ``mesh``."""
+    if mesh.device_type == "cuda":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device(mesh.device_type)
+
+
+def _live(mesh, axes) -> list[str]:
+    """The axes of ``axes`` whose size is above 1."""
+    return [a for a in _names(axes) if axis_size(mesh, a) > 1]
+
+
+# ------------------------------------------------- plain (no autograd)
+def all_reduce_(x: torch.Tensor, mesh, axes, op: str = "sum"):
+    """In-place all-reduce of ``x`` over ``axes`` (``op`` sum or max);
+    returns ``x``. Not differentiated."""
+    red = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op]
+    for a in _live(mesh, axes):
+        dist.all_reduce(x, op=red, group=mesh.get_group(a))
+    return x
+
+
+def _gather_dim(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    n = dist.get_world_size(group)
+    xt = x.movedim(dim, 0).contiguous()
+    out = xt.new_empty((n * xt.shape[0],) + tuple(xt.shape[1:]))
+    _all_gather_single(out, xt, group=group)
+    return out.movedim(0, dim)
+
+
+def _reduce_scatter_dim(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    n = dist.get_world_size(group)
+    xt = x.movedim(dim, 0).contiguous()
+    out = xt.new_empty((xt.shape[0] // n,) + tuple(xt.shape[1:]))
+    _reduce_scatter_single(out, xt, op=dist.ReduceOp.SUM, group=group)
+    return out.movedim(0, dim)
+
+
+def _own_slice(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    n, r = dist.get_world_size(group), dist.get_rank(group)
+    return x.chunk(n, dim=dim)[r]
+
+
+def gather_dim(x: torch.Tensor, mesh, axes, dim: int) -> torch.Tensor:
+    """All-gather ``x`` along ``dim`` over ``axes`` (row-major: the last
+    axis innermost), not differentiated."""
+    x = x.detach()
+    for a in reversed(_live(mesh, axes)):
+        x = _gather_dim(x, mesh.get_group(a), dim)
+    return x
+
+
+# -------------------------------------------------------- differentiated
+class AllGather(torch.autograd.Function):
+    """all-gather along ``dim`` ↔ reduce-scatter along ``dim``."""
+
+    @staticmethod
+    def forward(ctx, x, group, dim: int):
+        ctx.group, ctx.dim = group, dim
+        return _gather_dim(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _reduce_scatter_dim(g, ctx.group, ctx.dim), None, None
+
+
+class GatherReplicated(torch.autograd.Function):
+    """all-gather along ``dim`` ↔ the rank's own slice of the grad."""
+
+    @staticmethod
+    def forward(ctx, x, group, dim: int):
+        ctx.group, ctx.dim = group, dim
+        return _gather_dim(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _own_slice(g, ctx.group, ctx.dim).contiguous(), None, None
+
+
+class ReduceFrom(torch.autograd.Function):
+    """all-reduce (sum) ↔ identity."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        y = x.clone()
+        dist.all_reduce(y, group=group)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class CopyTo(torch.autograd.Function):
+    """identity ↔ all-reduce (sum) of the grad."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.clone()
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
+
+
+def _all_to_all(x: torch.Tensor, group, split: int,
+                concat: int) -> torch.Tensor:
+    n = dist.get_world_size(group)
+    send = torch.stack(x.chunk(n, dim=split), dim=0).contiguous()
+    recv = torch.empty_like(send)
+    dist.all_to_all_single(recv, send, group=group)
+    return torch.cat(recv.unbind(0), dim=concat)
+
+
+class AllToAll(torch.autograd.Function):
+    """``lax.all_to_all(tiled=True)``: ``split`` cut into n pieces, piece
+    i to rank i, the pieces received concatenated along ``concat`` in
+    rank order ↔ the same with ``split`` and ``concat`` swapped."""
+
+    @staticmethod
+    def forward(ctx, x, group, split: int, concat: int):
+        ctx.group, ctx.split, ctx.concat = group, split, concat
+        return _all_to_all(x, group, split, concat)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (_all_to_all(g, ctx.group, ctx.concat, ctx.split), None,
+                None, None)
+
+
+def _shift(tensors, group, step: int) -> list[torch.Tensor]:
+    """Send each tensor to the rank ``step`` places on along the group's
+    ring, receive the same from the rank ``step`` places back."""
+    ranks = dist.get_process_group_ranks(group)
+    n, r = len(ranks), dist.get_rank(group)
+    to, frm = ranks[(r + step) % n], ranks[(r - step) % n]
+    out = [torch.empty(t.shape, dtype=t.dtype, device=t.device)
+           for t in tensors]
+    ops = []
+    for t, o in zip(tensors, out):
+        ops.append(dist.P2POp(dist.isend, t.contiguous(), to, group))
+        ops.append(dist.P2POp(dist.irecv, o, frm, group))
+    for req in dist.batch_isend_irecv(ops):
+        req.wait()
+    return out
+
+
+class RingShift(torch.autograd.Function):
+    """Each tensor to the next rank of the ring, from the previous one ↔
+    the grads to the previous rank, from the next one. One call moves
+    all its tensors, so the sends and receives of a ring step pair up in
+    the same order on every rank."""
+
+    @staticmethod
+    def forward(ctx, group, *tensors):
+        ctx.group = group
+        return tuple(_shift(tensors, group, +1))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        return (None, *_shift(grads, ctx.group, -1))
+
+
+# ------------------------------------------------------------- wrappers
+def all_gather(x: torch.Tensor, mesh, axes, dim: int) -> torch.Tensor:
+    """Gather ``dim`` over ``axes`` (a data axis: the backward sums each
+    rank's partial grad and scatters it)."""
+    for a in reversed(_live(mesh, axes)):
+        x = AllGather.apply(x, mesh.get_group(a), dim)
+    return x
+
+
+def gather_replicated(x: torch.Tensor, mesh, axes,
+                      dim: int) -> torch.Tensor:
+    """Gather ``dim`` over ``axes`` for computation replicated over them
+    (the backward keeps the rank's own slice)."""
+    for a in reversed(_live(mesh, axes)):
+        x = GatherReplicated.apply(x, mesh.get_group(a), dim)
+    return x
+
+
+def reduce_from(x: torch.Tensor, mesh, axes) -> torch.Tensor:
+    """Sum partial results over ``axes``; the grad passes unchanged."""
+    for a in _live(mesh, axes):
+        x = ReduceFrom.apply(x, mesh.get_group(a))
+    return x
+
+
+def copy_to(x: torch.Tensor, mesh, axes) -> torch.Tensor:
+    """``x`` unchanged; the grad is summed over ``axes``."""
+    for a in _live(mesh, axes):
+        x = CopyTo.apply(x, mesh.get_group(a))
+    return x
+
+
+def all_to_all(x: torch.Tensor, mesh, axis: str, split: int,
+               concat: int) -> torch.Tensor:
+    if axis_size(mesh, axis) == 1:
+        return x
+    return AllToAll.apply(x, mesh.get_group(axis), split, concat)
+
+
+def ring_shift(tensors, mesh, axis: str) -> tuple[torch.Tensor, ...]:
+    if axis_size(mesh, axis) == 1:
+        return tuple(tensors)
+    return RingShift.apply(mesh.get_group(axis), *tensors)
+
+
+def barrier(mesh) -> None:
+    """Every rank of ``mesh`` has reached this call when it returns (an
+    all-reduce over each axis in turn)."""
+    if mesh is not None:
+        all_reduce_(torch.zeros(1, device=mesh_device(mesh)), mesh,
+                    mesh.mesh_dim_names)

@@ -1,4 +1,4 @@
-"""Train-state checkpoint/resume on one device.
+"""Train-state checkpoint/resume, on one device or a mesh.
 
 Port of ``kubeflow_tpu/runtime/checkpoint.py``'s ``TrainCheckpointer``:
 the same save/restore API, retention (``max_to_keep``), cadence
@@ -27,6 +27,19 @@ asynchronous save cannot write from those tensors after ``save`` returns:
 and waits for the copy before it returns; only the file write runs on
 the background thread. A failed background write is raised by the next
 ``save``, ``wait`` or ``close``.
+
+On a mesh (``mesh=``, with ``param_specs``: the params' spec tree the
+train step shards by, ``models.transformer.param_specs``; the optimizer
+state's follows from it by ``opt_state_shardings``) the trees are each
+rank's shards. ``save`` gathers every leaf to its full tensor (a
+collective: every rank calls it) and the mesh's first rank writes them,
+so a sharded checkpoint is the same files as an unsharded one. ``restore``
+reads the full tensors on every rank and keeps each leaf's slice under
+those specs on the mesh it is given, whatever mesh wrote it: a tp = 2
+checkpoint restores onto tp = 4, dp = 4 onto dp = 3 or 5, bit for bit.
+Which steps are saved is decided from what this checkpointer saved, the
+same on every rank; ``wait`` ends with a barrier, so after it every rank
+sees the files the writer wrote.
 """
 
 from __future__ import annotations
@@ -38,6 +51,12 @@ import uuid
 from concurrent.futures import Future, ThreadPoolExecutor
 
 import torch
+import torch.distributed as dist
+
+from ..models.train import opt_state_shardings
+from ..parallel import comm
+from ..parallel.partition_rules import gather_tree
+from ..parallel.sharding import shard_tensor
 
 FORMAT = "kubeflow_tpu_torch.checkpoint/1"
 _TREES = ("params", "opt_state")
@@ -63,14 +82,19 @@ def _flatten(tree, path: str, tensors: dict):
     raise TypeError(f"{path}: cannot checkpoint a {type(tree).__name__}")
 
 
-def _fill(like, node: dict, tensors: dict, path: str):
+def _fill(like, node: dict, tensors: dict, path: str, specs=None,
+          mesh=None):
     """``like`` with its tensors overwritten in place from ``tensors`` and
     its host values from ``node``; a structure or shape that differs
-    from the checkpoint's raises ValueError."""
+    from the checkpoint's raises ValueError. With ``specs`` (a spec tree
+    shaped like ``like``) each tensor takes this rank's slice on
+    ``mesh``."""
     if isinstance(like, torch.Tensor):
         if "tensor" not in node:
             raise ValueError(f"{path}: the checkpoint holds no tensor here")
         src = tensors[node["tensor"]]
+        if specs is not None:
+            src = shard_tensor(src, specs, mesh)
         if tuple(src.shape) != tuple(like.shape):
             raise ValueError(f"{path}: checkpoint shape {tuple(src.shape)}, "
                              f"target shape {tuple(like.shape)}")
@@ -82,7 +106,8 @@ def _fill(like, node: dict, tensors: dict, path: str):
         if saved is None or set(saved) != set(like):
             raise ValueError(f"{path}: keys {sorted(like)} against the "
                              f"checkpoint's {sorted(saved or ())}")
-        return {k: _fill(v, saved[k], tensors, f"{path}/{k}")
+        return {k: _fill(v, saved[k], tensors, f"{path}/{k}",
+                         None if specs is None else specs[k], mesh)
                 for k, v in like.items()}
     if isinstance(like, tuple) and hasattr(like, "_fields"):
         if node.get("tuple") != type(like).__name__:
@@ -90,7 +115,9 @@ def _fill(like, node: dict, tensors: dict, path: str):
                              f"checkpoint's {node.get('tuple')}")
         return type(like)(**{
             f: _fill(getattr(like, f), node["fields"][f], tensors,
-                     f"{path}/{f}") for f in like._fields})
+                     f"{path}/{f}",
+                     None if specs is None else getattr(specs, f), mesh)
+            for f in like._fields})
     if "value" not in node:
         raise ValueError(f"{path}: the checkpoint holds a tensor here")
     return node["value"]
@@ -122,13 +149,19 @@ class TrainCheckpointer:
     Keeps the newest ``max_to_keep`` checkpoints, counted after each
     completed write; persists every ``save_interval_steps`` steps
     (off-cadence saves and steps not newer than the last save are no-ops
-    unless forced)."""
+    unless forced). With ``mesh``, the trees are each rank's shards under
+    ``param_specs`` (and the optimizer state's specs that follow from
+    them), and every rank of the mesh makes the same calls."""
 
     def __init__(self, directory, *, max_to_keep: int = 3,
-                 save_interval_steps: int = 1, async_save: bool = True):
+                 save_interval_steps: int = 1, async_save: bool = True,
+                 mesh=None, param_specs=None):
         if max_to_keep < 1 or save_interval_steps < 1:
             raise ValueError("max_to_keep and save_interval_steps must be "
                              ">= 1")
+        if (mesh is None) != (param_specs is None):
+            raise ValueError("mesh and param_specs go together: the specs "
+                             "say how the mesh shards each leaf")
         self.directory = os.fspath(directory)
         self.max_to_keep = max_to_keep
         self.save_interval_steps = save_interval_steps
@@ -137,6 +170,13 @@ class TrainCheckpointer:
             max_workers=1, thread_name_prefix="kubeflow-tpu-torch-ckpt") \
             if async_save else None
         self._writes: list[tuple[int, Future]] = []
+        self.mesh = mesh
+        self.param_specs = param_specs
+        # on a mesh: the steps saved, known alike on every rank (only the
+        # writer's directory listing is current while it writes)
+        self._saved = self.all_steps() if mesh is not None else None
+        self._writer = mesh is None or \
+            int(mesh.mesh.flatten()[0]) == dist.get_rank()
 
     # ------------------------------------------------------------------ save
     def save(self, step: int, params, opt_state, *,
@@ -145,13 +185,21 @@ class TrainCheckpointer:
         the save-interval policy. The leaves are copied to the host before
         this returns; the write may still be running (``wait``)."""
         self._raise_failed()
-        saved = self.all_steps() + [s for s, _ in self._writes]
+        saved = self._saved if self.mesh is not None else \
+            self.all_steps() + [s for s, _ in self._writes]
         if not force and (step % self.save_interval_steps != 0
                           or any(step <= s for s in saved)):
             return False
         if step in saved:
             raise ValueError(f"step {step} is already saved in "
                              f"{self.directory}")
+        if self.mesh is not None:
+            params, opt_state = (
+                gather_tree(t, self._specs(name, t), self.mesh)
+                for name, t in zip(_TREES, (params, opt_state)))
+            self._saved.append(step)
+            if not self._writer:
+                return True
         tensors: dict = {}
         manifest = {"format": FORMAT, "step": int(step), "trees": {
             name: _flatten(tree, name, tensors)
@@ -226,10 +274,18 @@ class TrainCheckpointer:
             return None
         step, manifest, tensors = loaded
         trees = manifest["trees"]
-        return (step,
-                _fill(like_params, trees["params"], tensors, "params"),
-                _fill(like_opt_state, trees["opt_state"], tensors,
-                      "opt_state"))
+        return (step,) + tuple(
+            _fill(like, trees[name], tensors, name, self._specs(name, like),
+                  self.mesh)
+            for name, like in zip(_TREES, (like_params, like_opt_state)))
+
+    def _specs(self, name: str, like):
+        """The spec tree of the ``name`` tree (None off a mesh)."""
+        if self.mesh is None:
+            return None
+        if name == "params":
+            return self.param_specs
+        return opt_state_shardings(like, self.param_specs)
 
     def restore_params(self, like_params, step: int | None = None):
         """Params only (serving carries no optimizer state): (step,
@@ -239,7 +295,8 @@ class TrainCheckpointer:
             return None
         step, manifest, tensors = loaded
         return step, _fill(like_params, manifest["trees"]["params"],
-                           tensors, "params")
+                           tensors, "params",
+                           self._specs("params", like_params), self.mesh)
 
     # -------------------------------------------------------------- lifecycle
     def all_steps(self) -> list[int]:
@@ -260,6 +317,7 @@ class TrainCheckpointer:
         failed."""
         writes, self._writes = self._writes, []
         errors = [f.exception() for _, f in writes]
+        comm.barrier(self.mesh)
         for exc in errors:
             if exc is not None:
                 raise exc

@@ -1,11 +1,12 @@
 """Host-side input pipeline: batch sources + device prefetch.
 
-Port of ``kubeflow_tpu/runtime/data.py`` for one device. The batch
-sources are numpy only and are the JAX package's, copied (the port
-imports nothing of it): for the same seed and file they give the same
-batches bit for bit. ``prefetch_to_device`` stages the next batches onto
-the device from a background thread, so the host-to-device copy of batch
-N+1 overlaps the step on batch N.
+Port of ``kubeflow_tpu/runtime/data.py``. The batch sources are numpy
+only and are the JAX package's, copied (the port imports nothing of it):
+for the same seed and file they give the same batches bit for bit.
+``prefetch_to_device`` stages the next batches onto the device from a
+background thread, so the host-to-device copy of batch N+1 overlaps the
+step on batch N; with a mesh each rank stages only its slice of each
+batch (``shard_batch``).
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ import numpy as np
 import torch
 
 from .. import resolve_device
+from ..parallel.sharding import PartitionRules, batch_sharding
 
 
 def synthetic_lm_batches(batch_size: int, seq_len: int, vocab_size: int,
@@ -116,6 +118,16 @@ def tokenize_corpus(text_path, tokenizer, out_path, *,
     return n
 
 
+def shard_batch(x, mesh, rules: PartitionRules | None = None):
+    """This rank's slice of a (batch, seq) array, or of an (accum, batch,
+    seq) one: rows over the batch axes (dp, fsdp), the sequence block over
+    sp. A numpy array gives a numpy array, a tensor a tensor."""
+    sharding = batch_sharding(mesh, accum=x.ndim == 3, rules=rules)
+    if isinstance(x, torch.Tensor):
+        return sharding.shard(x)
+    return sharding.shard(torch.from_numpy(np.asarray(x))).numpy()
+
+
 class _Stop:
     pass
 
@@ -143,9 +155,10 @@ def _stage(batch, device: torch.device, stream) -> tuple:
 
 
 def prefetch_to_device(source: Iterable, device="cuda",
-                       buffer_size: int = 2) -> Iterator:
+                       buffer_size: int = 2, mesh=None) -> Iterator:
     """Iterate ``source`` (tuples of numpy arrays) with each batch staged
-    onto ``device`` ahead of consumption, as a tuple of tensors.
+    onto ``device`` ahead of consumption, as a tuple of tensors; with a
+    ``mesh``, this rank's slice of each array (``shard_batch``).
 
     A background thread keeps ``buffer_size`` batches in flight. Errors
     in the source propagate to the consumer; the thread exits when the
@@ -169,6 +182,8 @@ def prefetch_to_device(source: Iterable, device="cuda",
     def producer() -> None:
         try:
             for batch in source:
+                if mesh is not None:
+                    batch = tuple(shard_batch(x, mesh) for x in batch)
                 if not put(_stage(batch, dev, stream)):
                     return
         except BaseException as exc:  # noqa: BLE001 — hand to the consumer

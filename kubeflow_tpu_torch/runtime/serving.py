@@ -94,7 +94,14 @@ def cast_matmul_weights(params: dict, dtype: torch.dtype) -> dict:
 def _serving_params(params: dict, config, device: torch.device,
                     quantize: bool) -> dict:
     """``params`` on ``device``, int8 weight-only when ``quantize``, with
-    the matmul weights in the compute dtype."""
+    the matmul weights in the compute dtype. Params sharded over a mesh
+    are refused: the engines on a tp mesh need one rank to broadcast each
+    tick's admissions to the others."""
+    if getattr(params, "mesh", None) is not None:
+        raise NotImplementedError(
+            "the engines over a tp mesh are not ported yet (ROADMAP queue "
+            "A, multi-device part 2); sharded params serve through "
+            "generate and speculative_generate")
     params = _tree_map(lambda t: t.to(device), params)
     if quantize:
         params = quantize_params(params)

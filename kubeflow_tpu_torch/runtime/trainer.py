@@ -1,13 +1,14 @@
 """Trainer: the training loop a provisioned notebook runs on its card.
 
-Port of ``kubeflow_tpu/runtime/trainer.py`` for one device: the train
-step of models/train.py, the device prefetch of runtime/data.py, held-out
+Port of ``kubeflow_tpu/runtime/trainer.py``: the train step of
+models/train.py, the device prefetch of runtime/data.py, held-out
 evaluation, throughput accounting, an optional ``torch.profiler``
 window, and checkpoint/resume through runtime/checkpoint.py, for both
 model families (a dense ``TransformerConfig`` or an ``MoEConfig``) and
-for LoRA finetuning of a dense base. Multi-device meshes are a later
-slice of the port: ``mesh=`` raises ``NotImplementedError`` naming the
-ROADMAP queue A item by its title.
+for LoRA finetuning of a dense base, on one device; and for the dense
+family on a mesh (``mesh=``: ``make_sharded_train_step``, every rank of
+the mesh running the same Trainer calls on its own shards; the MoE
+family and LoRA on a mesh come with the next slice of the port).
 
 Loop design: the step returns the loss as a device tensor and the host
 reads it only at log points, so PyTorch's launch queue runs ahead of the
@@ -29,7 +30,10 @@ import torch
 from .. import resolve_device
 from ..models import train as train_lib
 from ..models.moe import MoEConfig, make_moe_train_step
-from ..models.transformer import TransformerConfig, model_flops_per_token
+from ..models.transformer import (TransformerConfig, model_flops_per_token,
+                                  param_specs)
+from ..parallel import comm
+from ..parallel.sharding import PartitionRules
 from .checkpoint import TrainCheckpointer
 from .data import prefetch_to_device
 
@@ -64,7 +68,15 @@ class Trainer:
     LoRA mode (``lora=LoRAConfig(...)`` with ``base_params``): ``params``
     are the adapters, the frozen base rides every step; checkpoints and
     resume hold the adapters and their optimizer state only, ``evaluate``
-    runs the merged model and ``merged_params()`` returns it."""
+    runs the merged model and ``merged_params()`` returns it.
+
+    With ``mesh`` (a DeviceMesh of parallel/mesh.py) the Trainer is SPMD:
+    every rank of the mesh builds it with the same arguments and makes
+    the same calls. Params and optimizer state are the rank's shards,
+    ``device`` is the mesh's, ``fit`` and ``evaluate`` stage each rank's
+    slice of every batch, the stats count the whole batch's tokens
+    (TFLOP/s per device), and checkpoints hold the full tensors and
+    resume onto any mesh."""
 
     def __init__(self, config: TransformerConfig,
                  train_config: train_lib.TrainConfig | None = None, *,
@@ -73,17 +85,26 @@ class Trainer:
                  stats_history_cap: int = 1000, checkpoint_dir=None,
                  checkpoint_interval: int = 100, max_checkpoints: int = 3,
                  lora=None, base_params=None, mesh=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh: multi-device training is not ported yet (ROADMAP "
-                "queue A, multi-device); the Trainer runs on one device")
         self.config = config
         self.tc = train_config or train_lib.TrainConfig()
-        self.device = resolve_device(device)
+        self.mesh = mesh
         is_moe = isinstance(config, MoEConfig)
         self.lora = lora
         self._base = None
-        if lora is not None:
+        if mesh is not None and (lora is not None or is_moe):
+            raise NotImplementedError(
+                "LoRA and the MoE family on a mesh are not ported yet "
+                "(ROADMAP queue A, multi-device part 2)")
+        self.device = comm.mesh_device(mesh) if mesh is not None else \
+            resolve_device(device)
+        # on a mesh: the layout the step shards by, and checkpoints with it
+        self._specs = None
+        if mesh is not None:
+            rules = PartitionRules()
+            self._specs = param_specs(config, rules)
+            self.init_fn, self.step_fn = train_lib.make_sharded_train_step(
+                mesh, config, self.tc, rules)
+        elif lora is not None:
             from ..models.lora import make_lora_step
             if is_moe:
                 raise ValueError("LoRA targets the dense family; MoE "
@@ -103,6 +124,8 @@ class Trainer:
         else:
             self.init_fn, self.step_fn = train_lib.make_train_step(
                 config, self.tc, self.device)
+        # the ranks of the data axes: each stages 1/data_shards of a batch
+        self._data_shards = comm.axis_size(mesh, train_lib.data_axes())
         self.stats = TrainerStats(
             losses=deque(maxlen=stats_history_cap),
             evals=deque(maxlen=stats_history_cap))
@@ -116,7 +139,8 @@ class Trainer:
         if checkpoint_dir is not None:
             self.checkpointer = TrainCheckpointer(
                 checkpoint_dir, max_to_keep=max_checkpoints,
-                save_interval_steps=checkpoint_interval)
+                save_interval_steps=checkpoint_interval, mesh=mesh,
+                param_specs=self._specs)
             self._maybe_resume()
 
     def _maybe_resume(self) -> None:
@@ -144,7 +168,8 @@ class Trainer:
         # across fit() calls must not lose the batches staged ahead
         bounded = itertools.islice(iter(source), steps)
         with prefetch_to_device(bounded, self.device,
-                                buffer_size=prefetch_buffer) as batches:
+                                buffer_size=prefetch_buffer,
+                                mesh=self.mesh) as batches:
             for tokens, targets in batches:
                 if self.stats.step >= target:
                     break
@@ -152,7 +177,7 @@ class Trainer:
                 self.params, self.opt_state, loss = self.step_fn(
                     self.params, self.opt_state, tokens, targets)
                 self.stats.step += 1
-                self.stats.tokens_seen += tokens.numel()
+                self.stats.tokens_seen += tokens.numel() * self._data_shards
                 if self.checkpointer is not None:
                     self.checkpointer.save(self.stats.step, self.params,
                                            self.opt_state)
@@ -168,9 +193,11 @@ class Trainer:
                         self.stats.tokens_per_sec = dtok / dt
                         self.stats.steps_per_sec = \
                             (self.stats.step - start_step) / dt
-                        # 3x forward FLOPs for forward + backward
+                        # 3x forward FLOPs for forward + backward, per
+                        # device
                         self.stats.model_tflops_per_sec = \
-                            3 * flops_tok * dtok / dt / 1e12
+                            3 * flops_tok * dtok / dt / 1e12 / (
+                                self.mesh.size() if self.mesh else 1)
                     log.info("step %d loss %.4f %.0f tok/s",
                              self.stats.step, self.stats.last_loss,
                              self.stats.tokens_per_sec)
@@ -188,7 +215,8 @@ class Trainer:
         ``build_eval_loss``, the train step's own dispatch without the
         MoE router aux; in LoRA mode it runs on the merged params."""
         if self._eval_loss is None:
-            self._eval_loss = train_lib.build_eval_loss(self.config, self.tc)
+            self._eval_loss = train_lib.build_eval_loss(self.config, self.tc,
+                                                        mesh=self.mesh)
         params = self.params if self.lora is None else self.merged_params()
         bounded = iter(source) if max_batches is None else \
             itertools.islice(iter(source), max_batches)
@@ -196,11 +224,17 @@ class Trainer:
         total = count = 0
         n_batches = 0
         with torch.no_grad(), prefetch_to_device(
-                bounded, self.device, buffer_size=prefetch_buffer) as batches:
+                bounded, self.device, buffer_size=prefetch_buffer,
+                mesh=self.mesh) as batches:
             for tokens, targets in batches:
-                n = (targets >= 0).sum()
-                total = total + self._eval_loss(params, tokens,
-                                                targets) * n
+                # on a mesh the loss is this rank's share of the global
+                # mean over every rank's valid tokens: summed over the
+                # data axes it is the batch's mean, as step_fn's loss
+                axes = train_lib.data_axes()
+                n = comm.all_reduce_((targets >= 0).sum(), self.mesh, axes)
+                loss = comm.all_reduce_(
+                    self._eval_loss(params, tokens, targets), self.mesh, axes)
+                total = total + loss * n
                 count = count + n
                 n_batches += 1
         n_tokens = int(count)

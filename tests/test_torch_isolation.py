@@ -1,6 +1,8 @@
-"""The PyTorch port stands alone: no module of ``kubeflow_tpu_torch`` and
-not ``chip_smoke.py`` imports JAX or anything of the JAX package, and the
-package imports on a machine with neither ``triton``, ``nvcc`` nor a card.
+"""The PyTorch port stands alone: no module of ``kubeflow_tpu_torch``,
+not ``chip_smoke.py`` and not the rank entry points the multi-rank tests
+spawn (``tests/torch_dist_ranks.py``) imports JAX or anything of the JAX
+package, and the package imports on a machine with neither ``triton``,
+``nvcc`` nor a card.
 """
 
 from __future__ import annotations
@@ -17,7 +19,8 @@ import pytest
 REPO = pathlib.Path(__file__).resolve().parent.parent
 PORT_FILES = sorted(
     p.relative_to(REPO).as_posix()
-    for p in (REPO / "kubeflow_tpu_torch").rglob("*.py")) + ["chip_smoke.py"]
+    for p in (REPO / "kubeflow_tpu_torch").rglob("*.py")) + [
+        "chip_smoke.py", "tests/torch_dist_ranks.py"]
 FORBIDDEN = ("jax", "jaxlib", "kubeflow_tpu")
 
 
@@ -38,8 +41,15 @@ def test_port_module_imports_no_jax(rel):
 
 
 def test_port_file_list_covers_the_package():
-    assert "kubeflow_tpu_torch/runtime/server.py" in PORT_FILES
-    assert len(PORT_FILES) >= 15
+    for rel in ("kubeflow_tpu_torch/runtime/server.py",
+                "kubeflow_tpu_torch/parallel/mesh.py",
+                "kubeflow_tpu_torch/parallel/comm.py",
+                "kubeflow_tpu_torch/parallel/ring.py",
+                "kubeflow_tpu_torch/parallel/ulysses.py",
+                "kubeflow_tpu_torch/runtime/sharded_decode.py",
+                "kubeflow_tpu_torch/tools/dryrun_multidevice.py"):
+        assert rel in PORT_FILES
+    assert len(PORT_FILES) >= 25
 
 
 _PROBE = r"""
@@ -61,6 +71,13 @@ import kubeflow_tpu_torch.runtime.data
 import kubeflow_tpu_torch.runtime.trainer
 import kubeflow_tpu_torch.runtime.server
 import kubeflow_tpu_torch.runtime.serving
+import kubeflow_tpu_torch.runtime.sharded_decode
+import kubeflow_tpu_torch.parallel.partition_rules
+import kubeflow_tpu_torch.parallel.ring
+import kubeflow_tpu_torch.parallel.ulysses
+import kubeflow_tpu_torch.tools.dryrun_multidevice
+sys.path.insert(0, "tests")
+import torch_dist_ranks
 leaked = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "kubeflow_tpu"))
 print("LEAKED", leaked)

@@ -614,13 +614,14 @@ def test_trainer_profile_window_writes_trace(tmp_path):
 @pytest.mark.parametrize("make,error,match", [
     (lambda: Trainer(_small(), device="cpu", lora=object()), ValueError,
      "lora mode requires base_params"),
-    (lambda: Trainer(_small(), device="cpu", mesh=object()),
-     NotImplementedError, "ROADMAP queue A, multi-device")])
+    (lambda: Trainer(_small(), device="cpu", mesh=object(), lora=object()),
+     NotImplementedError, "ROADMAP queue A, multi-device part 2")])
 def test_unported_trainer_arguments_name_their_roadmap_item(make, error,
                                                             match):
-    """``mesh=`` is not ported and names its ROADMAP item; ``lora=`` is,
-    and without ``base_params`` it is refused as the reference refuses
-    it."""
+    """LoRA on a mesh is not ported and names its ROADMAP item (the dense
+    family on a mesh is: tests/test_torch_sharded_train.py); ``lora=``
+    on one device is, and without ``base_params`` it is refused as the
+    reference refuses it."""
     with pytest.raises(error, match=match):
         make()
 
