@@ -2491,12 +2491,15 @@ def _nccl_collectives(torch, dev) -> None:
     require(all(checks.values()), f"NCCL collectives at world 1: {checks}")
 
 
-def phase_multidevice(torch, flagship, root, phase7: dict):
+def phase_multidevice(torch, flagship, root, phase7: dict, moe, lora_base,
+                      phase10: dict):
     """12: the multi-device entry points on a NCCL world of one rank at the
     flagship's width: NCCL collectives, make_sharded_train_step (auto and
     ulysses attention) beside make_train_step on phase 7's seed and
     batches, a Trainer(mesh=...) resume, tp-sharded generate and
-    speculative decode, and dryrun_multidevice(1, "cuda")."""
+    speculative decode, and dryrun_multidevice(1, "cuda"). In the same
+    world, phase 13 (``phase_multidevice_training``) with ``moe``,
+    ``lora_base`` and phase 10's train stats."""
     import tempfile
 
     from kubeflow_tpu_torch import ops
@@ -2583,6 +2586,7 @@ def phase_multidevice(torch, flagship, root, phase7: dict):
                   f"peak {summary[kind]['peak_mem_gb']:.3f} GB", flush=True)
             require(diff <= 1e-6, f"{kind}: the step's losses differ from "
                                   f"make_train_step's by {diff:.3e}")
+        stats["losses"] = one
         print(f"phase12 losses of the 10 steps: {one}; launches 12 of each "
               f"attention kernel a sharded step; phase 7's Trainer in this "
               f"call: {phase7['ms_per_step']:.2f} ms/step, "
@@ -2659,13 +2663,219 @@ def phase_multidevice(torch, flagship, root, phase7: dict):
         del params, sharded, want, got, ids, greedy
         gc.collect()
         torch.cuda.empty_cache()
+        stats["seconds"] = time.monotonic() - t_phase
+        stats["training"] = phase_multidevice_training(
+            torch, flagship, moe, root, dev, mesh, take, lora_base, phase10,
+            stats["losses"])
+        stats["launches"] = {k: n for k, n in launched.items() if n}
     shutil.rmtree(store, ignore_errors=True)
     t0 = time.monotonic()
     stats["dryrun"] = dryrun_multidevice(1, "cuda", timeout=600)
+    dryrun_s = time.monotonic() - t0
+    stats["seconds"] += dryrun_s
+    print(f"phase12 dryrun_multidevice(1, 'cuda') in {dryrun_s:.1f} s; "
+          f"phase 12 in {stats['seconds']:.1f} s", flush=True)
+    ran = [ln for ln in stats["dryrun"] if "skipped" not in ln]
+    skipped = [ln for ln in stats["dryrun"] if "skipped" in ln]
+    print(f"phase13 dryrun_multidevice(1, 'cuda'): ran {len(ran)} "
+          f"layout(s), skipped {len(skipped)}: "
+          f"{[ln.split('] ', 1)[1] for ln in skipped]}", flush=True)
+    require(len(ran) == 1 and len(skipped) == 7,
+            f"the dryrun at one rank: {stats['dryrun']}")
+    return stats
+
+
+# --------------------------------------------------------------- phase 13
+def phase_multidevice_training(torch, flagship, moe, root, dev, mesh, take,
+                               lora_base, phase10: dict,
+                               dense_losses: list) -> dict:
+    """13: the training half of multi-device part 2 on phase 12's NCCL
+    world of one rank, at full width: make_sharded_moe_train_step on
+    MeshConfig() in turns with make_moe_train_step (phase 10's MoE, f32
+    params, 10 steps a turn, losses bit-equal), make_sharded_lora_step in
+    turns with make_lora_step (phase 11's setup, 6 steps, adapters
+    bit-equal, the base untouched), a Trainer(MoEConfig, mesh=...)
+    resumed from a step-3 checkpoint (steps 4-5 bit-equal), a
+    Trainer(lora=..., mesh=...)'s evaluate against the one-device
+    Trainer's, and make_sharded_train_step with the pp arguments
+    (n_microbatches=4, unused at pp = 1) against phase 12's losses.
+    ``take()`` returns the launches since its last call (phase 12's
+    counter)."""
+    from kubeflow_tpu_torch.models import train as train_lib
+    from kubeflow_tpu_torch.models.lora import (LoRAConfig, make_lora_step,
+                                                make_sharded_lora_step)
+    from kubeflow_tpu_torch.models.moe import (make_moe_train_step,
+                                               make_sharded_moe_train_step)
+    from kubeflow_tpu_torch.runtime.data import synthetic_lm_batches
+    from kubeflow_tpu_torch.runtime.trainer import Trainer
+
+    t_phase = time.monotonic()
+    L, V, B, S = moe.n_layers, moe.vocab_size, 8, 1024
+    attn = ("flash_attention", "flash_attention_bwd_dkv",
+            "flash_attention_bwd_dq")
+    stats: dict = {}
+    src = synthetic_lm_batches(B, S, V, seed=0)
+    batches = [tuple(torch.from_numpy(x).to(dev) for x in next(src))
+               for _ in range(10)]
+
+    # the MoE: one-device, sharded, one-device, on the same seed and
+    # batches; each turn's state freed before the next
+    turns = ("one_device", "sharded", "one_device")
+    runs: dict = {k: [] for k in turns}
+    tc = train_lib.TrainConfig()
+    take()
+    for kind in turns:
+        init_fn, step_fn = make_moe_train_step(moe, tc, dev) \
+            if kind == "one_device" else \
+            make_sharded_moe_train_step(mesh, moe, tc)
+        state = init_fn(torch.Generator(device=dev).manual_seed(0))
+        run = _timed_steps(torch, step_fn, state, batches)
+        del run["state"], state, init_fn, step_fn
+        gc.collect()
+        torch.cuda.empty_cache()
+        runs[kind].append(run)
+        counts = take()
+        got = {k: counts.get(k, 0) for k in attn}
+        require(got == {k: L * 10 for k in attn},
+                f"MoE {kind} step launches {got}, expected {L * 10} of each")
+    want = runs["one_device"][0]["losses"]
+    equal = all(r["losses"] == want for rs in runs.values() for r in rs)
+    summary = {kind: {"ms_per_step": [r["ms_per_step"] for r in rs],
+                      "tokens_per_s": [B * S / r["ms_per_step"] * 1e3
+                                       for r in rs],
+                      "peak_mem_gb": max(r["peak_mem_gb"] for r in rs)}
+               for kind, rs in runs.items()}
+    stats["moe"] = {"losses": want, "bit_equal": equal, **summary}
+    for kind, r in summary.items():
+        print(f"phase13 MoE {kind} step at world 1, b{B} s{S}, f32 params: "
+              f"ms/step {[round(m, 2) for m in r['ms_per_step']]}, tokens/s "
+              f"{[round(t, 1) for t in r['tokens_per_s']]}, peak "
+              f"{r['peak_mem_gb']:.2f} GB (phase 10's Trainer: "
+              f"{phase10['ms_per_step']:.2f} ms/step, "
+              f"{phase10['tokens_per_s']:.1f} tokens/s, peak "
+              f"{phase10['peak_mem_gb']:.2f} GB)", flush=True)
+    print(f"phase13 MoE sharded step losses bit-equal to make_moe_train_"
+          f"step's over 10 steps, both one-device turns: {equal}; losses "
+          f"{want}; launches 12 of each attention kernel a step", flush=True)
+    require(equal, "the sharded MoE step's losses differ from the "
+                   "one-device step's")
+
+    # LoRA: phase 11's adapters and batch over its bf16 base, in turns
+    lora = LoRAConfig()
+    ltc = train_lib.TrainConfig(warmup_steps=1, learning_rate=1e-3)
+    one = tuple(torch.from_numpy(x).to(dev) for x in next(iter(
+        synthetic_lm_batches(B, S, flagship.vocab_size, seed=7))))
+    before = [t.detach().clone() for t in train_lib.tree_leaves(lora_base)]
+    adapters = {}
+    for kind, (init_fn, step_fn) in (
+            ("one_device", make_lora_step(flagship, lora, ltc, dev)),
+            ("sharded", make_sharded_lora_step(mesh, flagship, lora, ltc))):
+        lp, opt = init_fn(torch.Generator(device=dev).manual_seed(0))
+        losses = []
+        for _ in range(6):
+            lp, opt, loss = step_fn(lora_base, lp, opt, *one)
+            losses.append(loss.item())
+        adapters[kind] = (losses, lp)
+        counts = take()
+        got = {k: counts.get(k, 0) for k in attn}
+        require(got == {k: 6 * flagship.n_layers for k in attn},
+                f"LoRA {kind} launches {got}")
+    (la, pa), (lb, pb) = adapters["one_device"], adapters["sharded"]
+    equal_lora = la == lb and all(torch.equal(a, b) for a, b in zip(
+        train_lib.tree_leaves(pa), train_lib.tree_leaves(pb)))
+    base_kept = all(torch.equal(a, b) for a, b in zip(
+        train_lib.tree_leaves(lora_base), before))
+    stats["lora"] = {"losses": lb, "bit_equal": equal_lora,
+                     "base_bit_identical": base_kept}
+    print(f"phase13 LoRA sharded step at world 1, 6 steps: losses {lb}; "
+          f"adapters and losses bit-equal to make_lora_step's "
+          f"{equal_lora}; the base bit-identical {base_kept}", flush=True)
+    require(equal_lora and base_kept, "the sharded LoRA step differs from "
+                                      "the one-device step")
+    del before
+
+    # Trainer(lora=..., mesh=...).evaluate against the one-device Trainer's
+    held_out = list(synthetic_lm_batches(B, S, flagship.vocab_size,
+                                         n_batches=2, seed=8))
+    evals = {}
+    for kind, kw in (("one_device", dict(device=dev)),
+                     ("mesh", dict(mesh=mesh))):
+        with Trainer(flagship, ltc, lora=lora, base_params=lora_base,
+                     **kw) as tr:
+            tr.params = pb
+            evals[kind] = tr.evaluate(held_out)
+    take()
+    stats["lora_eval"] = evals
+    print(f"phase13 LoRA Trainer evaluate on 2 held-out batches: mesh "
+          f"{evals['mesh']}, one device {evals['one_device']}", flush=True)
+    require(evals["mesh"] == evals["one_device"],
+            "Trainer(lora=..., mesh=...).evaluate differs from the "
+            "one-device Trainer's")
+    del adapters, pa, pb
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # Trainer(MoEConfig, mesh=...): A saves step 3, B resumes it
+    tdir = os.path.join(root, "moe-mesh")
+    host = [tuple(x.cpu().numpy() for x in b) for b in batches[:5]]
+    kw = dict(mesh=mesh, checkpoint_dir=tdir, checkpoint_interval=3,
+              max_checkpoints=1)
+    a = Trainer(moe, tc, **kw)
+    a.fit(host[:3], steps=3, log_every=1)
+    a.checkpointer.wait()
+    b = Trainer(moe, tc, seed=1, **kw)
+    require(b.stats.step == 3, f"MoE mesh Trainer B resumed at "
+                               f"{b.stats.step}")
+    a.fit(host[3:], steps=2, log_every=1)
+    b.fit(host[3:], steps=2, log_every=1)
+    losses_a, losses_b = list(a.stats.losses)[3:], list(b.stats.losses)
+    state = [(t.params, t.opt_state.mu, t.opt_state.nu) for t in (a, b)]
+    equal, worst = _tree_diff(torch, dict(zip("pmn", state[1])),
+                              dict(zip("pmn", state[0])))
+    for t in (a, b):
+        t.close()
+    counts = take()
+    got = {k: counts.get(k, 0) for k in attn}
+    stats["moe_resume"] = {"losses_a": losses_a, "losses_b": losses_b,
+                           "bit_equal": equal and losses_a == losses_b}
+    print(f"phase13 Trainer(MoEConfig, mesh=...) resumed at step 3: steps 4 "
+          f"and 5 A {losses_a}, B {losses_b}; state bit-equal {equal} "
+          f"(largest leaf difference {worst:.3e}); launches {got} (7 "
+          f"steps)", flush=True)
+    require(stats["moe_resume"]["bit_equal"],
+            "the MoE Trainer's resume on a mesh is not bit-equal")
+    require(got == {k: 7 * L for k in attn}, f"MoE mesh Trainer launches "
+                                             f"{got}")
+    del a, b, state
+    shutil.rmtree(tdir, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the dense step with the pp arguments: at pp = 1 n_microbatches is
+    # unused, as in the reference
+    init_fn, step_fn = train_lib.make_sharded_train_step(
+        mesh, flagship, train_lib.TrainConfig(bf16_params=True),
+        n_microbatches=4)
+    params, opt = init_fn(torch.Generator(device=dev).manual_seed(0))
+    losses = []
+    for tokens, targets in batches[:3]:
+        params, opt, loss = step_fn(params, opt, tokens, targets)
+        losses.append(loss.item())
+    counts = take()
+    stats["dense_pp_args"] = {"losses": losses,
+                              "bit_equal": losses == dense_losses[:3]}
+    print(f"phase13 make_sharded_train_step(n_microbatches=4) at world 1, 3 "
+          f"steps: losses {losses}, bit-equal to phase 12's "
+          f"{stats['dense_pp_args']['bit_equal']}; launches "
+          f"{ {k: counts.get(k, 0) for k in attn} }", flush=True)
+    require(stats["dense_pp_args"]["bit_equal"],
+            "the dense step with the pp arguments differs from phase 12's")
+    del params, opt, batches
+    gc.collect()
+    torch.cuda.empty_cache()
     stats["seconds"] = time.monotonic() - t_phase
-    print(f"phase12 dryrun_multidevice(1, 'cuda') in "
-          f"{time.monotonic() - t0:.1f} s; phase 12 in "
-          f"{stats['seconds']:.1f} s", flush=True)
+    print(f"phase13 in {stats['seconds']:.1f} s (the dryrun's lines come "
+          f"after phase 12's dryrun)", flush=True)
     return stats
 
 
@@ -3006,11 +3216,14 @@ def main() -> int:
         stats["lora"], launched = phase_lora(torch, FLAGSHIP, root, params4)
         for name, n in launched.items():
             counts[name] += n
-        del params4
         gc.collect()
         torch.cuda.empty_cache()
-        train["multidevice"] = phase_multidevice(torch, FLAGSHIP, root,
-                                                 train)
+        # phases 12 and 13 in one NCCL world; 13 finetunes 7b's params
+        # again, with LoRA, and trains the MoE of phase 10
+        train["multidevice"] = phase_multidevice(
+            torch, FLAGSHIP, root, train, FLAGSHIP_MOE, params4,
+            stats["moe"]["train"])
+        del params4
         for name, n in train["multidevice"]["launches"].items():
             counts[name] += n
     finally:

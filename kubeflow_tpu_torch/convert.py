@@ -76,12 +76,15 @@ def opt_state_to_torch(state, device="cpu"):
                            nu=to_torch(adam.nu, device))
 
 
-def to_torch_sharded(tree, mesh, config, rules=None):
+def to_torch_sharded(tree, mesh, config, rules=None, specs=None):
     """The reference's params (numpy, as for ``to_torch``) as this rank's
     shards on ``mesh`` under ``rules`` (default ``DEFAULT_RULES``), on the
-    mesh's device: the same weights on any mesh."""
+    mesh's device: the same weights on any mesh. ``specs`` (a spec tree
+    shaped like ``tree``) lays out another tree, such as LoRA adapters
+    (``models.lora.lora_specs``); by default the model's
+    ``param_specs`` (an MoE's for an ``MoEConfig``)."""
     from .models.transformer import param_specs
     from .parallel.comm import mesh_device
     from .parallel.partition_rules import shard_tree
     return shard_tree(to_torch(tree, mesh_device(mesh)),
-                      param_specs(config, rules), mesh)
+                      specs or param_specs(config, rules), mesh)

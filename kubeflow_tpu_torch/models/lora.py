@@ -1,8 +1,7 @@
 """LoRA finetuning: low-rank adapters over a frozen base model.
 
-Port of ``kubeflow_tpu/models/lora.py`` for one device (``lora_logical_specs``
-and the sharded step come with the multi-device slice of the port: ROADMAP
-queue A, multi-device). Each target weight W trains a rank-r delta
+Port of ``kubeflow_tpu/models/lora.py``. Each target weight W trains a
+rank-r delta
 W + (alpha/r)·A@B; the base stays frozen, so the optimizer state covers
 the adapters only and a finetune's checkpoint is megabytes.
 
@@ -15,6 +14,16 @@ needs no LoRA code: ``merge_lora`` once, then the merged tree is a plain
 model.
 
 B starts at zero, so a fresh adapter reproduces the base model exactly.
+
+On a mesh (``make_sharded_lora_step``) an adapter shards like its base
+weight's input and output axes, the rank axis whole
+(``lora_logical_specs``): ``A_local @ B_local`` is then exactly the
+local block of the merged delta, so the merge needs no communication.
+``A``'s grad contracts over the output axes, ``B``'s over the input
+axes, so each is summed over the axes the other side is sharded on that
+it is not (tp for ``A`` of wq, fsdp for ``B`` of wq), as well as over
+the data axes: each adapter leaf's grad is summed over every axis of
+(dp, fsdp, sp, tp) it is not sharded on.
 """
 
 from __future__ import annotations
@@ -98,6 +107,28 @@ def init_lora_params(generator: torch.Generator, config: TransformerConfig,
     return {"blocks": blocks}
 
 
+def lora_logical_specs(config: TransformerConfig, lora: LoRAConfig) -> dict:
+    """Logical-axis names per adapter leaf: the base weight's rules on
+    the input/output axes, the rank axis unsharded — feed to the
+    partition rules like any other spec tree."""
+    blocks = {}
+    for name in sorted(lora.targets):
+        in_axes, out_axes = _TARGET_AXES[name]
+        blocks[name] = {
+            "A": ("layers", *in_axes, None),
+            "B": ("layers", None, *out_axes),
+        }
+    return {"blocks": blocks}
+
+
+def lora_specs(config: TransformerConfig, lora: LoRAConfig,
+               rules=None) -> dict:
+    """The mesh spec of each adapter leaf under ``rules`` (default
+    ``DEFAULT_RULES``)."""
+    from ..parallel.sharding import spec_tree
+    return spec_tree(lora_logical_specs(config, lora), rules)
+
+
 def merge_lora(params: dict, lora_params: dict, lora: LoRAConfig) -> dict:
     """Base params + (alpha/r)·A@B per target: the effective weights. The
     delta is cast to the base weight's dtype before the add, as in the
@@ -159,6 +190,71 @@ def make_lora_step(config: TransformerConfig, lora: LoRAConfig, tc=None,
         return train_step(lora_params, opt_state, tokens, targets,
                           loss=functools.partial(_loss, base),
                           optimizer=optimizer)
+
+    return init_fn, step_fn
+
+
+def make_sharded_lora_step(mesh, config: TransformerConfig,
+                           lora: LoRAConfig, tc=None, rules=None):
+    """``(init_fn, step_fn)`` for adapter-only training on ``mesh``, run
+    by every rank (SPMD).
+
+    - ``init_fn(generator)`` draws the full adapters from ``generator``
+      (seeded alike on every rank) and returns the rank's shards
+      (``lora_logical_specs`` under ``rules``) with their AdamW state;
+    - ``step_fn(base, lora_params, opt_state, tokens, targets)`` takes
+      the base as the rank's shards (``param_specs``; frozen: it enters
+      the merge detached and is never written) and the rank's batch
+      slice, and returns (lora_params, opt_state, loss), updated in
+      place, the loss the global token mean.
+
+    ``bf16_params`` and a pp mesh are refused, as in the reference. On a
+    mesh of one rank it is ``make_lora_step``'s step, op for op."""
+    from ..parallel import comm
+    from ..parallel.sharding import PartitionRules, sharded_axes
+    from .train import (TrainConfig, build_loss, data_axes,
+                        grad_reduce_axes, make_optimizer, sharded_update,
+                        tree_leaves, tree_map, tree_unflatten)
+    from .transformer import check_mesh
+    tc = tc or TrainConfig()
+    if tc.bf16_params:
+        raise ValueError(
+            "bf16_params is a dense-step lever (f32 master copies of the "
+            "full weights); LoRA adapters are small enough to keep in "
+            "full precision — drop the flag for the lora step")
+    if comm.axis_size(mesh, "pp") > 1:
+        raise ValueError(
+            "LoRA uses the scanned (non-pipelined) forward; a pp>1 mesh "
+            "would silently waste its pipeline axis and disagree with "
+            "evaluation's pipelined path — finetune on a tp/fsdp/dp mesh "
+            "(adapters are small; pipeline parallelism buys nothing here)")
+    rules = rules or PartitionRules()
+    check_mesh(config, mesh, rules)
+    leaf_specs = tree_leaves(lora_specs(config, lora, rules))
+    optimizer = make_optimizer(
+        tc, mesh, [tuple(sorted(sharded_axes(s))) for s in leaf_specs])
+    loss = build_loss(config, tc, mesh=mesh, rules=rules)
+    dev = comm.mesh_device(mesh)
+    from ..parallel.sharding import shard_tensor
+
+    def init_fn(generator: torch.Generator):
+        full = init_lora_params(generator, config, lora, dev)
+        lp = tree_unflatten(full, [
+            shard_tensor(p, s, mesh).requires_grad_()
+            for p, s in zip(tree_leaves(full), leaf_specs)])
+        return lp, optimizer.init(lp)
+
+    def _loss(base, lora_params, tokens, targets):
+        frozen = tree_map(torch.Tensor.detach, base)
+        return loss(merge_lora(frozen, lora_params, lora), tokens, targets)
+
+    step = sharded_update(
+        mesh, _loss, optimizer,
+        grad_reduce_axes(leaf_specs, data_axes(rules) + ("tp",)), rules)
+
+    def step_fn(base, lora_params, opt_state, tokens, targets):
+        return step(lora_params, opt_state, tokens, targets,
+                    loss=functools.partial(_loss, base))
 
     return init_fn, step_fn
 

@@ -1,17 +1,20 @@
 """Training step: loss, optimizer and the update, on one device or a mesh.
 
-Port of ``kubeflow_tpu/models/train.py`` (the pipeline rules come with
-the pipeline slice of the port: ROADMAP queue A, multi-device part 2).
-The reference jits forward, backward and optimizer into one XLA program;
-the step here runs eagerly: the forward and autograd's backward go
-through the hand-written flash-attention kernels on the card, and the
-optimizer is a few ``torch._foreach_*`` passes over the parameter leaves.
+Port of ``kubeflow_tpu/models/train.py``. The reference jits forward,
+backward and optimizer into one XLA program; the step here runs eagerly:
+the forward and autograd's backward go through the hand-written
+flash-attention kernels on the card, and the optimizer is a few
+``torch._foreach_*`` passes over the parameter leaves.
 
 ``make_sharded_train_step`` is the step on a mesh, SPMD: every rank runs
 it on its own shards and batch slice (the model's collectives are in
 models/transformer.py); the loss is the global token mean, the grads of
 a weight replicated over a data axis are summed over it, and the clip
-norm counts each element once.
+norm counts each element once. With pp > 1 the layer stack shards over
+pp (``pipeline_rules``) and the forward pipelines
+(``pipelined_forward_adapter``); every pp rank computes the LM head and
+the loss on the last stage's broadcast output, so no grad is summed over
+pp.
 
 Params are the port's stacked dict tree (models/transformer.py). Gradients
 come from ``torch.autograd.grad`` over its leaves, so nothing accumulates
@@ -32,10 +35,12 @@ from torch.utils.checkpoint import checkpoint
 
 from .. import resolve_device
 from ..parallel import comm
-from ..parallel.sharding import PartitionRules, sharded_axes, shard_tensor
+from ..parallel.sharding import (DEFAULT_RULES, PartitionRules,
+                                 sharded_axes, shard_tensor)
 from .transformer import (TransformerConfig, check_mesh, forward,
                           forward_hidden, init_params, lm_head_logits,
-                          lm_head_weight, param_specs)
+                          lm_head_weight, param_specs,
+                          pipelined_forward_hidden)
 
 
 @dataclass(frozen=True)
@@ -298,22 +303,43 @@ def _global_count(valid: torch.Tensor, mesh, rules) -> torch.Tensor:
     return comm.all_reduce_(valid.sum(), mesh, data_axes(rules))
 
 
-def loss_fn(params, tokens, targets, config: TransformerConfig, mesh=None,
-            rules: PartitionRules | None = None):
-    """Next-token cross entropy, mean over non-padding (-1 targets). On a
-    mesh: this rank's share of the global token mean (its tokens' nll
-    over every rank's valid count), the whole-vocab CE computed
-    vocab-parallel under tp; the shares sum to the global mean."""
+def hidden_ce(params, x, targets, config: TransformerConfig, mesh=None,
+              rules: PartitionRules | None = None,
+              chunk_tokens: int = 0) -> torch.Tensor:
+    """The LM head and the cross entropy on final-norm hidden states
+    ``x``, mean over non-padding (-1 targets); the chunked CE with
+    ``chunk_tokens`` > 0. On a mesh: this rank's share of the global
+    token mean (its tokens' nll over every rank's valid count), the
+    whole-vocab CE computed vocab-parallel under tp; the shares sum to
+    the global mean."""
     if mesh is None:
-        return token_ce(forward(params, tokens, config), targets)
-    x = forward_hidden(params, tokens, config, mesh=mesh, rules=rules)
+        if chunk_tokens:
+            return chunked_softmax_ce(x, params["lm_head"], targets,
+                                      chunk_tokens)
+        return token_ce(lm_head_logits(x, params["lm_head"]), targets)
     x = comm.copy_to(x, mesh, "tp")
-    logits = lm_head_logits(x, lm_head_weight(params, config, mesh, rules))
+    head = lm_head_weight(params, config, mesh, rules)
+    if chunk_tokens:
+        return chunked_softmax_ce(x, head, targets, chunk_tokens, mesh, rules)
+    logits = lm_head_logits(x, head)
     if comm.axis_size(mesh, "tp") > 1:
         nll, valid = _vocab_parallel_nll(logits, targets, mesh)
     else:
         nll, valid = _token_nll(logits, targets)
     return nll.sum() / _global_count(valid, mesh, rules).clamp_min(1)
+
+
+def loss_fn(params, tokens, targets, config: TransformerConfig, mesh=None,
+            rules: PartitionRules | None = None, hidden_impl=None):
+    """Next-token cross entropy, mean over non-padding (-1 targets); on a
+    mesh the rank's share of the global mean (``hidden_ce``).
+    ``hidden_impl`` swaps ``forward_hidden`` (the pipelined stack on a pp
+    mesh)."""
+    if mesh is None:
+        return token_ce(forward(params, tokens, config), targets)
+    x = (hidden_impl or forward_hidden)(params, tokens, config, mesh=mesh,
+                                        rules=rules)
+    return hidden_ce(params, x, targets, config, mesh, rules)
 
 
 def ce_chunk_for(tc: TrainConfig, tokens: torch.Tensor,
@@ -379,55 +405,79 @@ def fused_loss_fn(params, tokens, targets, config: TransformerConfig,
                   rules: PartitionRules | None = None):
     """loss_fn through chunked_softmax_ce."""
     x = forward_hidden(params, tokens, config, mesh=mesh, rules=rules)
-    if mesh is None:
-        return chunked_softmax_ce(x, params["lm_head"], targets,
-                                  chunk_tokens)
-    x = comm.copy_to(x, mesh, "tp")
-    return chunked_softmax_ce(x, lm_head_weight(params, config, mesh, rules),
-                              targets, chunk_tokens, mesh, rules)
+    return hidden_ce(params, x, targets, config, mesh, rules, chunk_tokens)
+
+
+def pipeline_rules() -> PartitionRules:
+    """Partition rules for pipeline configs: the stacked layer axis shards
+    over pp (contiguous layer blocks per stage)."""
+    return PartitionRules(rules=tuple(
+        ("layers", "pp") if k == "layers" else (k, v)
+        for k, v in DEFAULT_RULES))
+
+
+def pipelined_forward_adapter(params, tokens, config, mesh=None,
+                              rules: PartitionRules | None = None, *,
+                              n_microbatches: int):
+    """``forward_hidden``'s signature over the pipelined stack: what
+    ``loss_fn`` runs on a pp mesh (the port's loss takes hidden states,
+    for the vocab-parallel CE)."""
+    return pipelined_forward_hidden(params, tokens, config, mesh,
+                                    n_microbatches, rules)
 
 
 def build_loss(config: TransformerConfig, tc: TrainConfig | None = None,
                include_aux: bool = True, mesh=None,
-               rules: PartitionRules | None = None):
-    """The loss dispatch — the fused-CE gate in one place, shared by the
-    train steps and evaluation. Returns ``loss(params, tokens, targets)``
-    (on a mesh: the rank's share of the global mean, see ``loss_fn``).
-    An ``MoEConfig`` takes ``moe_loss_fn``; ``include_aux=False``
-    (evaluation) leaves its router aux out, so exp(loss) is a
-    perplexity."""
-    from .moe import MoEConfig, moe_loss_fn
+               rules: PartitionRules | None = None,
+               n_microbatches: int | None = None):
+    """The loss dispatch — pp-aware forward selection and the fused-CE
+    gate in one place, shared by the train steps and evaluation. Returns
+    ``loss(params, tokens, targets)`` (on a mesh: the rank's share of the
+    global mean, see ``loss_fn``). With pp > 1 the forward pipelines over
+    ``n_microbatches`` (default 2·pp) and the dense fused CE is off, as
+    in the reference. An ``MoEConfig`` takes ``moe_loss_fn``;
+    ``include_aux=False`` (evaluation) leaves its router aux out, so
+    exp(loss) is a perplexity."""
+    from .moe import MoEConfig, moe_loss_fn, pipelined_moe_forward_hidden
     tc = tc or TrainConfig()
+    pp = comm.axis_size(mesh, "pp")
+    n_micro = n_microbatches or 2 * pp
 
     if isinstance(config, MoEConfig):
-        if mesh is not None:
-            raise NotImplementedError(
-                "the MoE family on a mesh is not ported yet (ROADMAP queue "
-                "A, multi-device part 2)")
         loss_config = config if include_aux else \
             config.replace(router_aux_coef=0.0)
+        hidden_impl = None if pp == 1 else functools.partial(
+            pipelined_moe_forward_hidden, n_microbatches=n_micro)
 
         def _moe_loss(params, tokens, targets):
             chunk = ce_chunk_for(tc, tokens, loss_config.vocab_size)
             return moe_loss_fn(params, tokens, targets, loss_config,
-                               ce_chunk_tokens=chunk)
+                               ce_chunk_tokens=chunk, mesh=mesh, rules=rules,
+                               hidden_impl=hidden_impl)
         return _moe_loss
 
+    hidden = functools.partial(pipelined_forward_adapter,
+                               n_microbatches=n_micro) if pp > 1 else None
+
     def _loss(params, tokens, targets):
-        chunk = ce_chunk_for(tc, tokens, config.vocab_size)
+        chunk = ce_chunk_for(tc, tokens, config.vocab_size) \
+            if pp == 1 else 0
         if chunk:
             return fused_loss_fn(params, tokens, targets, config,
                                  chunk_tokens=chunk, mesh=mesh, rules=rules)
-        return loss_fn(params, tokens, targets, config, mesh, rules)
+        return loss_fn(params, tokens, targets, config, mesh, rules,
+                       hidden_impl=hidden)
     return _loss
 
 
 def build_eval_loss(config: TransformerConfig,
                     tc: TrainConfig | None = None, mesh=None,
-                    rules: PartitionRules | None = None):
+                    rules: PartitionRules | None = None,
+                    n_microbatches: int | None = None):
     """What evaluation runs: build_loss with the MoE router aux left
     out."""
-    return build_loss(config, tc, include_aux=False, mesh=mesh, rules=rules)
+    return build_loss(config, tc, include_aux=False, mesh=mesh, rules=rules,
+                      n_microbatches=n_microbatches)
 
 
 # -------------------------------------------------------------------- step
@@ -532,51 +582,33 @@ def opt_state_shardings(opt_state, p_specs: dict):
     return map_with_path(spec, opt_state)
 
 
-def make_sharded_train_step(mesh, config: TransformerConfig,
-                            tc: TrainConfig | None = None,
-                            rules: PartitionRules | None = None,
-                            accum_steps: int = 1):
-    """``(init_fn, step_fn)`` on ``mesh``, run by every rank (SPMD).
+def mesh_rules(mesh, rules: PartitionRules | None = None) -> PartitionRules:
+    """``rules``, or the default for ``mesh``: ``pipeline_rules()`` when
+    pp > 1, else ``DEFAULT_RULES``."""
+    if rules is not None:
+        return rules
+    return pipeline_rules() if comm.axis_size(mesh, "pp") > 1 \
+        else PartitionRules()
 
-    - ``init_fn(generator)`` draws the full params from ``generator``
-      (seeded alike on every rank) and keeps this rank's shards under
-      ``rules`` (default ``DEFAULT_RULES``); moments and bf16 masters are
-      sharded like the params they shadow;
-    - ``step_fn(params, opt_state, tokens, targets)`` takes this rank's
-      batch slice (rows over (dp, fsdp), sequence block over sp:
-      ``runtime.data.shard_batch``; with ``accum_steps`` > 1 an
-      (accum, batch, seq) slice) and returns (params, opt_state, loss),
-      updated in place, the loss the global token mean on every rank.
 
-    fsdp gathers each layer's weights before use and reduce-scatters
-    their grads; a grad replicated over a data axis (dp, fsdp, sp) is
-    summed over it; the clip norm counts each element once. On a mesh
-    of one rank it is ``make_train_step``'s step, op for op."""
-    tc = tc or TrainConfig()
-    rules = rules or PartitionRules()
-    check_mesh(config, mesh, rules)
-    from .moe import MoEConfig
-    if isinstance(config, MoEConfig):
-        raise NotImplementedError(
-            "the MoE family on a mesh is not ported yet (ROADMAP queue A, "
-            "multi-device part 2)")
-    specs = param_specs(config, rules)
-    leaf_specs = tree_leaves(specs)
+def grad_reduce_axes(spec_leaves, axes) -> list[tuple[str, ...]]:
+    """Per leaf spec, the axes of ``axes`` its grad is summed over: those
+    it is not sharded on (a shard's grad is already its own)."""
+    return [tuple(a for a in axes if a not in sharded_axes(s))
+            for s in spec_leaves]
+
+
+def sharded_update(mesh, loss, optimizer: Optimizer, reduce_axes: list,
+                   rules: PartitionRules | None = None,
+                   accum_steps: int = 1):
+    """The SPMD step body shared by the sharded steps: ``step(params,
+    opt_state, tokens, targets, loss=loss)`` takes the grads of ``loss``
+    (accumulated over the leading axis with ``accum_steps`` > 1), sums
+    each leaf's over its ``reduce_axes``, the loss over the data axes,
+    and applies the update in place."""
     batch_axes = data_axes(rules)
-    reduce_axes = [tuple(a for a in batch_axes if a not in sharded_axes(s))
-                   for s in leaf_specs]
-    optimizer = make_optimizer(
-        tc, mesh, [tuple(sorted(sharded_axes(s))) for s in leaf_specs])
-    loss = build_loss(config, tc, mesh=mesh, rules=rules)
-    dev = comm.mesh_device(mesh)
 
-    def init_fn(generator: torch.Generator):
-        full = init_params(generator, config, dev)
-        return init_train_state(tree_unflatten(full, [
-            shard_tensor(p, s, mesh)
-            for p, s in zip(tree_leaves(full), leaf_specs)]), tc)
-
-    def step_fn(params, opt_state, tokens, targets):
+    def step(params, opt_state, tokens, targets, loss=loss):
         if accum_steps == 1:
             value, grads = value_and_grad(loss, params, tokens, targets)
         else:
@@ -587,5 +619,54 @@ def make_sharded_train_step(mesh, config: TransformerConfig,
         comm.all_reduce_(value, mesh, batch_axes)
         params, opt_state = apply_update(optimizer, params, opt_state, grads)
         return params, opt_state, value
+    return step
 
-    return init_fn, step_fn
+
+def make_sharded_train_step(mesh, config: TransformerConfig,
+                            tc: TrainConfig | None = None,
+                            rules: PartitionRules | None = None,
+                            accum_steps: int = 1,
+                            n_microbatches: int | None = None):
+    """``(init_fn, step_fn)`` on ``mesh``, run by every rank (SPMD).
+
+    - ``init_fn(generator)`` draws the full params from ``generator``
+      (seeded alike on every rank) and keeps this rank's shards under
+      ``rules`` (default ``DEFAULT_RULES``; ``pipeline_rules()`` when
+      pp > 1); moments and bf16 masters are sharded like the params they
+      shadow;
+    - ``step_fn(params, opt_state, tokens, targets)`` takes this rank's
+      batch slice (rows over (dp, fsdp), sequence block over sp:
+      ``runtime.data.shard_batch``, laid out for ``n_microbatches`` on a
+      pp mesh; with ``accum_steps`` > 1 an (accum, batch, seq) slice)
+      and returns (params, opt_state, loss), updated in place, the loss
+      the global token mean on every rank.
+
+    fsdp gathers each layer's weights before use and reduce-scatters
+    their grads; a grad replicated over a data axis (dp, fsdp, sp) is
+    summed over it; the clip norm counts each element once. With pp > 1
+    the forward pipelines over ``n_microbatches`` (default 2·pp). An
+    ``MoEConfig`` takes ``make_sharded_moe_train_step``. On a mesh of one
+    rank it is ``make_train_step``'s step, op for op."""
+    tc = tc or TrainConfig()
+    rules = mesh_rules(mesh, rules)
+    from .moe import MoEConfig, make_sharded_moe_train_step
+    if isinstance(config, MoEConfig):
+        return make_sharded_moe_train_step(mesh, config, tc, rules,
+                                           accum_steps, n_microbatches)
+    check_mesh(config, mesh, rules)
+    leaf_specs = tree_leaves(param_specs(config, rules))
+    optimizer = make_optimizer(
+        tc, mesh, [tuple(sorted(sharded_axes(s))) for s in leaf_specs])
+    loss = build_loss(config, tc, mesh=mesh, rules=rules,
+                      n_microbatches=n_microbatches)
+    dev = comm.mesh_device(mesh)
+
+    def init_fn(generator: torch.Generator):
+        full = init_params(generator, config, dev)
+        return init_train_state(tree_unflatten(full, [
+            shard_tensor(p, s, mesh)
+            for p, s in zip(tree_leaves(full), leaf_specs)]), tc)
+
+    return init_fn, sharded_update(
+        mesh, loss, optimizer, grad_reduce_axes(leaf_specs, data_axes(rules)),
+        rules, accum_steps)

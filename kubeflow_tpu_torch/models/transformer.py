@@ -1,7 +1,6 @@
 """Flagship workload: decoder-only transformer LM, forward and backward.
 
-Port of ``kubeflow_tpu/models/transformer.py`` (``pipelined_forward``
-comes with the pipeline slice of the port).
+Port of ``kubeflow_tpu/models/transformer.py``.
 Plain functions on tensors, with the JAX package's layouts at every public
 function: (b, s, h, d) attention, and params as a dict whose layer weights
 are stacked on a leading (L, ...) axis (``wq`` (L, d, h, k), ``wo``
@@ -37,7 +36,11 @@ reference placed by hand (parallel/comm.py):
   local gather plus an all-reduce, and the LM head gives the rank's vocab
   slice of the logits;
 - sp: the rank holds one sequence block, its RoPE positions offset by
-  its sp index, and attention is ring or Ulysses.
+  its sp index, and attention is ring or Ulysses;
+- pp: the rank holds one stage's layers (``pipeline_rules`` put the
+  stacked layer axis on pp) and ``pipelined_forward`` runs the GPipe
+  schedule of parallel/pipeline.py over the stages, the embedding and
+  the LM head outside it, the stage body the layer body above.
 """
 
 from __future__ import annotations
@@ -140,8 +143,18 @@ def param_logical_specs(config: TransformerConfig) -> dict:
 def param_specs(config: TransformerConfig,
                 rules: PartitionRules | None = None) -> dict:
     """The mesh spec of each weight under ``rules`` (default
-    ``DEFAULT_RULES``), in the params' tree. Shared: don't mutate it."""
-    return spec_tree(param_logical_specs(config), rules)
+    ``DEFAULT_RULES``), in the params' tree: ``param_logical_specs``, or
+    ``moe_param_logical_specs`` for an ``MoEConfig``. Shared: don't
+    mutate it."""
+    return spec_tree(_logical_specs(config), rules)
+
+
+def _logical_specs(config: TransformerConfig) -> dict:
+    """The logical specs of the config's family."""
+    from .moe import MoEConfig, moe_param_logical_specs
+    if isinstance(config, MoEConfig):
+        return moe_param_logical_specs(config)
+    return param_logical_specs(config)
 
 
 @functools.lru_cache(maxsize=64)
@@ -154,49 +167,58 @@ def _layer_specs(config: TransformerConfig,
 _TP_LOGICAL = ("vocab", "heads", "kv_heads", "mlp")
 
 
+def _axis_sizes(config: TransformerConfig) -> dict:
+    """Each logical axis' length on this config."""
+    c = config
+    return {"vocab": c.vocab_size, "embed": c.d_model, "heads": c.n_heads,
+            "kv_heads": c.n_kv_heads, "head_dim": c.d_head, "mlp": c.d_ff,
+            "layers": c.n_layers, "norm": c.d_model,
+            "experts": getattr(c, "n_experts", 1)}
+
+
 def check_mesh(config: TransformerConfig, mesh,
                rules: PartitionRules | None = None) -> None:
     """Raise unless the model can run on ``mesh`` under ``rules``: tp on
     exactly the vocab, heads, kv_heads and mlp axes (the model's tp
-    collectives assume that layout), every sharded dim divisible, no
-    pipeline or expert axis (a later slice of the port)."""
+    collectives assume that layout), the stacked layer axis on pp when
+    pp > 1 (a rank holds its stage's layers), and every sharded dim
+    divisible: the layers by pp, an MoE's experts by ep. A dense model on
+    an ep axis runs replicated over it, as in the reference (its batch
+    is not sharded there)."""
     if mesh is None:
         return
     rules = rules or PartitionRules()
     size = functools.partial(comm.axis_size, mesh)
-    for axis in ("pp", "ep"):
-        if size(axis) > 1:
-            raise NotImplementedError(
-                f"{axis}={size(axis)}: pipeline and expert parallelism are "
-                f"not ported yet (ROADMAP queue A, multi-device part 2)")
+    mapping = dict(rules.rules)
+
+    def axes_of(logical):
+        return set(spec_axes(mapping.get(logical)))
     if size("tp") > 1:
-        mapping = dict(rules.rules)
-        on_tp = {k for k, v in mapping.items() if "tp" in
-                 ((v,) if isinstance(v, str) else tuple(v or ()))}
+        on_tp = {k for k in mapping if "tp" in axes_of(k)}
         if on_tp != set(_TP_LOGICAL):
             raise ValueError(f"the model's tp layout needs {_TP_LOGICAL} "
                              f"and only those on tp; the rules put "
                              f"{sorted(on_tp)} there")
-    L, d, f, k = config.n_layers, config.d_model, config.d_ff, config.d_head
-    V, H, G = config.vocab_size, config.n_heads, config.n_kv_heads
-    shapes = {"embed": (V, d), "final_norm": (d,), "lm_head": (d, V),
-              "blocks": {"attn_norm": (L, d), "mlp_norm": (L, d),
-                         "wq": (L, d, H, k), "wk": (L, d, G, k),
-                         "wv": (L, d, G, k), "wo": (L, H, k, d),
-                         "w_gate": (L, d, f), "w_up": (L, d, f),
-                         "w_down": (L, f, d)}}
+    if size("pp") > 1 and axes_of("layers") != {"pp"}:
+        raise ValueError(f"pp={size('pp')}: the rules must put the stacked "
+                         f"'layers' axis on pp (pipeline_rules()); they put "
+                         f"it on {sorted(axes_of('layers'))}")
+    lengths = _axis_sizes(config)
 
-    def divisible(shapes, specs, path):
-        for name, shape in shapes.items():
-            if isinstance(shape, dict):
-                divisible(shape, specs[name], f"{path}{name}/")
+    def divisible(node, path):
+        for name, axes in node.items():
+            if isinstance(axes, dict):
+                divisible(axes, f"{path}{name}/")
                 continue
-            for dim, entry in zip(shape, specs[name]):
-                if dim % size(entry):
-                    raise ValueError(f"{path}{name}: a dim of {dim} does "
-                                     f"not divide over {entry} "
-                                     f"({size(entry)} ranks)")
-    divisible(shapes, param_specs(config, rules), "")
+            for ax in axes:
+                if ax is None:
+                    continue
+                n = size(mapping[ax])
+                if lengths[ax] % n:
+                    raise ValueError(
+                        f"{path}{name}: its {ax} axis of {lengths[ax]} does "
+                        f"not divide over {mapping[ax]} ({n} ranks)")
+    divisible(_logical_specs(config), "")
 
 
 def init_params(generator: torch.Generator, config: TransformerConfig,
@@ -366,11 +388,13 @@ def local_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 @functools.lru_cache(maxsize=64)
 def _layer_gathers(config: TransformerConfig, rules, mesh) -> dict:
     """Per block weight, the (dim, axes) each layer gathers before use:
-    its sharded axes but tp, those of size above 1 (none on one rank)."""
+    its sharded axes but tp and ep (the rank computes on its heads, mlp
+    slice and experts), those of size above 1 (none on one rank)."""
     out = {}
     for name, spec in _layer_specs(config, rules).items():
         dims = [(d, live) for d, entry in enumerate(spec)
-                if (live := tuple(a for a in spec_axes(entry) if a != "tp"
+                if (live := tuple(a for a in spec_axes(entry)
+                                  if a not in ("tp", "ep")
                                   and comm.axis_size(mesh, a) > 1))]
         if dims:
             out[name] = dims
@@ -380,7 +404,7 @@ def _layer_gathers(config: TransformerConfig, rules, mesh) -> dict:
 def layer_weights(layer: dict, names, config: TransformerConfig, mesh,
                   rules: PartitionRules | None = None) -> dict:
     """The layer with its weights ``names`` as the rank computes with
-    them: gathered over every sharded axis but tp (the backward
+    them: gathered over every sharded axis but tp and ep (the backward
     reduce-scatters their grads). Without a mesh, or with nothing to
     gather, the layer as it is."""
     if mesh is None:
@@ -538,20 +562,70 @@ def forward_hidden(params: dict, tokens: torch.Tensor,
     c = config
     x = embed_tokens(params, tokens, c, mesh, rules)
     if positions is None:
-        s = tokens.shape[1]
-        start = comm.axis_rank(mesh, "sp") * s
-        positions = torch.arange(start, start + s, device=tokens.device)
-        positions = positions[None, :].expand(tokens.shape)
+        positions = block_positions(tokens, mesh).expand(tokens.shape)
     cos, sin = rope_frequencies(c, positions)
-    mlp = resolve_remat_mlp(
-        c, lambda x, layer, c: mlp_block(x, layer, c, mesh, rules))
-    body = resolve_layer_remat(
-        c, lambda x, layer: attention_block(x, layer, c, cos, sin,
-                                            mesh=mesh, rules=rules),
-        lambda x, layer: mlp(x, layer, c))
+    body = _layer_body(c, cos, sin, mesh, rules)
     for layer in unstack_layers(params["blocks"]):
         x = body(x, layer)
     return rms_norm(x, params["final_norm"])
+
+
+def block_positions(tokens: torch.Tensor, mesh=None) -> torch.Tensor:
+    """(1, seq) positions of the rank's sequence block: offset by its sp
+    index on a mesh."""
+    s = tokens.shape[1]
+    start = comm.axis_rank(mesh, "sp") * s
+    return torch.arange(start, start + s, device=tokens.device)[None, :]
+
+
+def _layer_body(c: TransformerConfig, cos, sin, mesh, rules):
+    """``body(x, layer)``: one layer, attention then FFN, under the remat
+    policies."""
+    mlp = resolve_remat_mlp(
+        c, lambda x, layer, c: mlp_block(x, layer, c, mesh, rules))
+    return resolve_layer_remat(
+        c, lambda x, layer: attention_block(x, layer, c, cos, sin,
+                                            mesh=mesh, rules=rules),
+        lambda x, layer: mlp(x, layer, c))
+
+
+def pipelined_forward_hidden(params: dict, tokens: torch.Tensor,
+                             config: TransformerConfig, mesh,
+                             n_microbatches: int,
+                             rules: PartitionRules | None = None):
+    """``forward_hidden`` with the layer stack pipelined over ``pp``
+    (parallel/pipeline.py): the embedding runs before the pipeline on
+    every stage, the final norm after it. The stage body is the layer
+    body on the stage's layers, the rank's local weights, with the fsdp
+    gathers and tp collectives of ``layer_weights`` / ``attention_block``
+    / ``mlp_block``; under sp it runs ring (or Ulysses) attention over
+    sp with the RoPE tables of the rank's sequence block. The tables are
+    (1, seq), shared by every microbatch, as in the reference."""
+    from ..parallel.pipeline import pipeline_apply, split_stages
+    c = config
+    x = embed_tokens(params, tokens, c, mesh, rules)
+    cos, sin = rope_frequencies(c, block_positions(tokens, mesh))
+    body = _layer_body(c, cos, sin, mesh, rules)
+
+    def stage_fn(stage_layers, act):
+        for layer in unstack_layers(stage_layers):
+            act = body(act, layer)
+        return act
+
+    x = pipeline_apply(split_stages(params["blocks"], 1), x, stage_fn,
+                       mesh=mesh, n_microbatches=n_microbatches)
+    return rms_norm(x, params["final_norm"])
+
+
+def pipelined_forward(params: dict, tokens: torch.Tensor,
+                      config: TransformerConfig, mesh, n_microbatches: int,
+                      rules: PartitionRules | None = None) -> torch.Tensor:
+    """``forward`` with the layer stack pipelined over ``pp``: logits
+    (batch, seq, vocab) float32 of the rank's rows and sequence block,
+    every vocab column, on every pp rank."""
+    x = pipelined_forward_hidden(params, tokens, config, mesh,
+                                 n_microbatches, rules)
+    return _full_logits(params, x, config, mesh, rules)
 
 
 def lm_head_logits(x: torch.Tensor, lm_head) -> torch.Tensor:
@@ -567,6 +641,12 @@ def forward(params: dict, tokens: torch.Tensor, config: TransformerConfig,
     a mesh: the rank's rows and sequence block, every vocab column)."""
     x = forward_hidden(params, tokens, config, positions=positions,
                        mesh=mesh, rules=rules)
+    return _full_logits(params, x, config, mesh, rules)
+
+
+def _full_logits(params, x, config, mesh, rules) -> torch.Tensor:
+    """The LM head on hidden states: every vocab column (gathered over
+    tp)."""
     x = comm.copy_to(x, mesh, "tp")
     logits = lm_head_logits(x, lm_head_weight(params, config, mesh, rules))
     return comm.gather_replicated(logits, mesh, "tp", dim=-1)

@@ -21,7 +21,18 @@ Every collective that takes part in autograd is an
   an all-reduce of the grads: Megatron's g and f;
 - ``all_to_all`` ↔ the inverse all-to-all;
 - ``ring_shift`` (send to the next rank, receive from the previous) ↔
-  send to the previous, receive from the next.
+  send to the previous, receive from the next;
+- ``stage_shift`` (a pipeline tick: send to the next stage, receive from
+  the previous, the two ends posting nothing) ↔ the grads the other way;
+- ``broadcast_from_last`` (the last stage's result to every stage) ↔ the
+  grad to the last stage once, as it is (every stage computes the same
+  loss from the broadcast result, so the sum over stages would count it
+  once per stage).
+
+A rank that does not use what a differentiated collective gave it would
+never run that node's backward, and its peers would wait for ever in
+theirs. ``tie`` joins such a tensor to one the rank does use, with a
+zero grad, so that every rank runs every backward collective.
 """
 
 from __future__ import annotations
@@ -213,6 +224,96 @@ def _shift(tensors, group, step: int) -> list[torch.Tensor]:
     return out
 
 
+def _p2p(send, recv_specs, group, step: int, device) -> list[torch.Tensor]:
+    """Send the tensors ``send`` to the rank ``step`` places on along the
+    group (none when empty) and receive tensors of ``recv_specs``
+    ((shape, dtype) pairs) from the rank ``step`` places back (none when
+    empty), in one ``batch_isend_irecv``. No wrap-around: a rank with no
+    such neighbour must pass nothing for it. The waits take the process
+    group's timeout, so a peer that never posts fails the call."""
+    ranks = dist.get_process_group_ranks(group)
+    r = dist.get_rank(group)
+    out = [torch.empty(shape, dtype=dt, device=device)
+           for shape, dt in recv_specs]
+    ops = [dist.P2POp(dist.isend, t.contiguous(), ranks[r + step], group)
+           for t in send]
+    ops += [dist.P2POp(dist.irecv, o, ranks[r - step], group) for o in out]
+    if ops:
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+    return out
+
+
+class StageShift(torch.autograd.Function):
+    """One pipeline tick over a group: the tensors ``send`` to the next
+    rank, tensors of ``recv_specs`` from the previous ↔ the grads of what
+    was received to the previous rank, the grads of what was sent from
+    the next. Returns the received tensors and a token, a 0-d zero: a
+    rank that only sends has nothing else to tie into its result.
+    ``anchor`` is a tensor on the rank's path to every input it
+    differentiates, so that ``autograd.grad`` runs the backward of a node
+    that only receives (its outputs alone would not reach an input)."""
+
+    @staticmethod
+    def forward(ctx, group, recv_specs, anchor, *send):
+        ctx.group, ctx.device = group, anchor.device
+        ctx.send_specs = [(t.shape, t.dtype) for t in send]
+        got = _p2p(send, recv_specs, group, +1, anchor.device)
+        return (*got, anchor.new_zeros(()))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        back = _p2p(grads[:-1], ctx.send_specs, ctx.group, -1, ctx.device)
+        return (None, None, None, *back)
+
+
+class _Anchor(torch.autograd.Function):
+    """A 0-d zero with an edge to each of ``tensors`` and no grad for
+    any: a node hung from it lies on the path to every one of them."""
+
+    @staticmethod
+    def forward(ctx, like, *tensors):
+        ctx.n = len(tensors)
+        return like.new_zeros(())
+
+    @staticmethod
+    def backward(ctx, g):
+        return (None,) * (ctx.n + 1)
+
+
+class BroadcastFromLast(torch.autograd.Function):
+    """The last rank's ``x`` on every rank of the group (the others pass
+    a tensor of its shape and dtype) ↔ the grad, unchanged, to the last
+    rank's ``x`` and nothing to the others'."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ranks = dist.get_process_group_ranks(group)
+        ctx.last = dist.get_rank(group) == len(ranks) - 1
+        y = x.clone().contiguous()
+        dist.broadcast(y, src=ranks[-1], group=group)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        return (g if ctx.last else None), None
+
+
+class Tie(torch.autograd.Function):
+    """``x`` unchanged, with ``tied`` as extra inputs whose grad is zero:
+    their producers' backward still runs."""
+
+    @staticmethod
+    def forward(ctx, x, *tied):
+        ctx.like = [(t.shape, t.dtype, t.device) for t in tied]
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (g, *(torch.zeros(s, dtype=dt, device=dev)
+                     for s, dt, dev in ctx.like))
+
+
 class RingShift(torch.autograd.Function):
     """Each tensor to the next rank of the ring, from the previous one ↔
     the grads to the previous rank, from the next one. One call moves
@@ -272,6 +373,44 @@ def ring_shift(tensors, mesh, axis: str) -> tuple[torch.Tensor, ...]:
     if axis_size(mesh, axis) == 1:
         return tuple(tensors)
     return RingShift.apply(mesh.get_group(axis), *tensors)
+
+
+def stage_shift(send, recv_specs, anchor, mesh,
+                axis: str) -> tuple[list[torch.Tensor], torch.Tensor]:
+    """A pipeline tick over ``axis``: ``send`` (tensors, or nothing) to
+    the next rank of the axis, tensors of ``recv_specs`` (or nothing)
+    from the previous; the first rank receives nothing and the last
+    sends nothing. Returns (the received tensors, the node's token). With
+    grads enabled ``anchor`` must come from ``anchor_of``."""
+    out = StageShift.apply(mesh.get_group(axis), tuple(recv_specs), anchor,
+                           *send)
+    return list(out[:-1]), out[-1]
+
+
+def anchor_of(tensors, device) -> torch.Tensor:
+    """The anchor of ``stage_shift``: a 0-d zero on the path to every
+    tensor of ``tensors`` that requires grad (a plain zero when none
+    does, or grads are off)."""
+    live = [t for t in tensors if t.requires_grad]
+    like = torch.zeros((), device=device)
+    if not (live and torch.is_grad_enabled()):
+        return like
+    return _Anchor.apply(like, *live)
+
+
+def broadcast_from_last(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
+    """The last rank of ``axis``'s ``x`` on every rank of it; the grad
+    reaches the last rank's ``x`` once."""
+    if axis_size(mesh, axis) == 1:
+        return x
+    return BroadcastFromLast.apply(x, mesh.get_group(axis))
+
+
+def tie(x: torch.Tensor, *tied) -> torch.Tensor:
+    """``x``, with the tensors ``tied`` joined to it at a zero grad (their
+    backward collectives run on this rank too)."""
+    tied = [t for t in tied if t.requires_grad]
+    return Tie.apply(x, *tied) if tied and torch.is_grad_enabled() else x
 
 
 def barrier(mesh) -> None:

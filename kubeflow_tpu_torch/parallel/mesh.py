@@ -137,7 +137,14 @@ def _ranks(ranks, size: int) -> list[int]:
 
 
 def _device_mesh(device, arr: torch.Tensor) -> DeviceMesh:
-    return DeviceMesh(torch.device(device).type, arr, mesh_dim_names=AXES)
+    mesh = DeviceMesh(torch.device(device).type, arr, mesh_dim_names=AXES)
+    if mesh.device_type == "cuda" and arr.shape[AXES.index("pp")] > 1:
+        # NCCL needs every rank of a group in its first batch_isend_irecv
+        # when that is the group's first collective, and a pipeline's
+        # first tick joins two stages: one all-reduce over pp comes first
+        dist.all_reduce(torch.zeros(1, device="cuda"),
+                        group=mesh.get_group("pp"))
+    return mesh
 
 
 def build_mesh(config: MeshConfig, device="cuda", ranks=None) -> DeviceMesh:

@@ -9,9 +9,11 @@ moments sit at ``mu/blocks/wq`` (or ``inner/mu/blocks/wq`` inside a
 with the param's own path ``blocks/wq``. Scalars, size-1 tensors and host
 values (the step count) are replicated.
 
-``TRANSFORMER_RULES`` / ``MOE_RULES`` reproduce ``param_logical_specs``
-under ``DEFAULT_RULES`` (tests/test_torch_parallel.py holds them to it);
-the MoE table waits for the sharded MoE step.
+``TRANSFORMER_RULES`` / ``MOE_RULES`` (``rules_for`` picks by config)
+reproduce ``param_specs`` of each family under ``DEFAULT_RULES``
+(tests/test_torch_parallel.py and tests/test_torch_sharded_moe.py hold
+them to it): a tree laid out by either table is laid out as the sharded
+steps and their checkpoints lay it out.
 """
 
 from __future__ import annotations

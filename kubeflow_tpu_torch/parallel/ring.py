@@ -47,21 +47,6 @@ def _block_attention(q, k, v, *, scale, mask):
     return contrib, row_sum, row_max
 
 
-class _Tie(torch.autograd.Function):
-    """``x`` unchanged, with ``tied`` as extra inputs whose grad is zero:
-    their producers' backward still runs."""
-
-    @staticmethod
-    def forward(ctx, x, *tied):
-        ctx.like = [(t.shape, t.dtype, t.device) for t in tied]
-        return x.view_as(x)
-
-    @staticmethod
-    def backward(ctx, g):
-        return (g, *(torch.zeros(s, dtype=dt, device=dev)
-                     for s, dt, dev in ctx.like))
-
-
 def ring_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                    mesh, axis_name: str = "sp",
                    causal: bool = True) -> torch.Tensor:
@@ -107,7 +92,7 @@ def _ring_local(q, k, v, *, mesh, axis_name: str, axis_size: int,
                  + contrib.float() * beta.transpose(1, 2)[..., None])
             m = m_new
         elif t == axis_size - 1:
-            o = _Tie.apply(o, k_cur, v_cur)
+            o = comm.Tie.apply(o, k_cur, v_cur)
         if t < axis_size - 1:
             # the reference rotates once more after the last block; that
             # rotation's result is never read, so the port leaves it out

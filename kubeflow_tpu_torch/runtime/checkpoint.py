@@ -29,14 +29,17 @@ the background thread. A failed background write is raised by the next
 ``save``, ``wait`` or ``close``.
 
 On a mesh (``mesh=``, with ``param_specs``: the params' spec tree the
-train step shards by, ``models.transformer.param_specs``; the optimizer
-state's follows from it by ``opt_state_shardings``) the trees are each
-rank's shards. ``save`` gathers every leaf to its full tensor (a
+train step shards by, ``models.transformer.param_specs`` — an MoE's
+under an ``MoEConfig``, the layer axis over pp under
+``pipeline_rules()`` — or ``models.lora.lora_specs`` for adapters; the
+optimizer state's follows from it by ``opt_state_shardings``) the trees
+are each rank's shards. ``save`` gathers every leaf to its full tensor (a
 collective: every rank calls it) and the mesh's first rank writes them,
 so a sharded checkpoint is the same files as an unsharded one. ``restore``
 reads the full tensors on every rank and keeps each leaf's slice under
 those specs on the mesh it is given, whatever mesh wrote it: a tp = 2
-checkpoint restores onto tp = 4, dp = 4 onto dp = 3 or 5, bit for bit.
+checkpoint restores onto tp = 4, dp = 4 onto dp = 3 or 5, pp = 2 onto
+pp = 1 and back, ep = 2 onto ep = 4, bit for bit.
 Which steps are saved is decided from what this checkpointer saved, the
 same on every rank; ``wait`` ends with a barrier, so after it every rank
 sees the files the writer wrote.

@@ -6,7 +6,8 @@ for the same seed and file they give the same batches bit for bit.
 ``prefetch_to_device`` stages the next batches onto the device from a
 background thread, so the host-to-device copy of batch N+1 overlaps the
 step on batch N; with a mesh each rank stages only its slice of each
-batch (``shard_batch``).
+batch (``shard_batch``; on a pp mesh laid out for the pipeline's
+microbatches).
 """
 
 from __future__ import annotations
@@ -20,7 +21,8 @@ import numpy as np
 import torch
 
 from .. import resolve_device
-from ..parallel.sharding import PartitionRules, batch_sharding
+from ..parallel import comm
+from ..parallel.sharding import PartitionRules, batch_sharding, shard_tensor
 
 
 def synthetic_lm_batches(batch_size: int, seq_len: int, vocab_size: int,
@@ -118,14 +120,35 @@ def tokenize_corpus(text_path, tokenizer, out_path, *,
     return n
 
 
-def shard_batch(x, mesh, rules: PartitionRules | None = None):
+def shard_batch(x, mesh, rules: PartitionRules | None = None,
+                n_microbatches: int | None = None):
     """This rank's slice of a (batch, seq) array, or of an (accum, batch,
     seq) one: rows over the batch axes (dp, fsdp), the sequence block over
-    sp. A numpy array gives a numpy array, a tensor a tensor."""
-    sharding = batch_sharding(mesh, accum=x.ndim == 3, rules=rules)
-    if isinstance(x, torch.Tensor):
-        return sharding.shard(x)
-    return sharding.shard(torch.from_numpy(np.asarray(x))).numpy()
+    sp. A numpy array gives a numpy array, a tensor a tensor.
+
+    On a mesh with pp > 1 the rows are laid out for the pipeline's
+    ``n_microbatches`` (default 2·pp, the sharded steps' default):
+    microbatch m is the global rows [m·mb, (m+1)·mb), as in the
+    reference, so a rank takes its share of each microbatch in turn, and
+    its local microbatch m is its share of the global one (MoE routing
+    groups, which are global, depend on it). Elsewhere a rank's rows are
+    one contiguous block."""
+    t = x if isinstance(x, torch.Tensor) else torch.from_numpy(np.asarray(x))
+    pp = comm.axis_size(mesh, "pp")
+    if pp > 1:
+        m = n_microbatches or 2 * pp
+        lead = t.shape[:-2]
+        B = t.shape[-2]
+        if B % m:
+            raise ValueError(f"batch {B} not divisible by {m} microbatches")
+        micro = t.reshape(*lead, m, B // m, t.shape[-1])
+        spec = (None,) * (len(lead) + 1) + \
+            (rules or PartitionRules()).spec("batch", "seq")
+        local = shard_tensor(micro, spec, mesh)
+        local = local.reshape(*lead, -1, local.shape[-1])
+    else:
+        local = batch_sharding(mesh, accum=x.ndim == 3, rules=rules).shard(t)
+    return local if isinstance(x, torch.Tensor) else local.numpy()
 
 
 class _Stop:

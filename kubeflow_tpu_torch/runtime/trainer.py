@@ -5,10 +5,11 @@ models/train.py, the device prefetch of runtime/data.py, held-out
 evaluation, throughput accounting, an optional ``torch.profiler``
 window, and checkpoint/resume through runtime/checkpoint.py, for both
 model families (a dense ``TransformerConfig`` or an ``MoEConfig``) and
-for LoRA finetuning of a dense base, on one device; and for the dense
-family on a mesh (``mesh=``: ``make_sharded_train_step``, every rank of
-the mesh running the same Trainer calls on its own shards; the MoE
-family and LoRA on a mesh come with the next slice of the port).
+for LoRA finetuning of a dense base, on one device or on a mesh
+(``mesh=``: ``make_sharded_train_step``, ``make_sharded_moe_train_step``
+or ``make_sharded_lora_step``, every rank of the mesh running the same
+Trainer calls on its own shards; pp meshes pipeline the dense and MoE
+families).
 
 Loop design: the step returns the loss as a device tensor and the host
 reads it only at log points, so PyTorch's launch queue runs ahead of the
@@ -29,11 +30,12 @@ import torch
 
 from .. import resolve_device
 from ..models import train as train_lib
-from ..models.moe import MoEConfig, make_moe_train_step
+from ..models.moe import (MoEConfig, make_moe_train_step,
+                          make_sharded_moe_train_step)
 from ..models.transformer import (TransformerConfig, model_flops_per_token,
                                   param_specs)
 from ..parallel import comm
-from ..parallel.sharding import PartitionRules
+from ..parallel.partition_rules import shard_tree
 from .checkpoint import TrainCheckpointer
 from .data import prefetch_to_device
 
@@ -72,11 +74,13 @@ class Trainer:
 
     With ``mesh`` (a DeviceMesh of parallel/mesh.py) the Trainer is SPMD:
     every rank of the mesh builds it with the same arguments and makes
-    the same calls. Params and optimizer state are the rank's shards,
-    ``device`` is the mesh's, ``fit`` and ``evaluate`` stage each rank's
-    slice of every batch, the stats count the whole batch's tokens
-    (TFLOP/s per device), and checkpoints hold the full tensors and
-    resume onto any mesh."""
+    the same calls. Params and optimizer state are the rank's shards
+    (on a pp mesh the layer axis over pp, ``pipeline_rules``), ``device``
+    is the mesh's, ``fit`` and ``evaluate`` stage each rank's slice of
+    every batch, the stats count the whole batch's tokens (TFLOP/s per
+    device), and checkpoints hold the full tensors and resume onto any
+    mesh. In LoRA mode ``base_params`` are the full base weights; each
+    rank keeps its shards of them."""
 
     def __init__(self, config: TransformerConfig,
                  train_config: train_lib.TrainConfig | None = None, *,
@@ -91,33 +95,40 @@ class Trainer:
         is_moe = isinstance(config, MoEConfig)
         self.lora = lora
         self._base = None
-        if mesh is not None and (lora is not None or is_moe):
-            raise NotImplementedError(
-                "LoRA and the MoE family on a mesh are not ported yet "
-                "(ROADMAP queue A, multi-device part 2)")
+        if lora is not None and is_moe:
+            raise ValueError("LoRA targets the dense family; MoE adapter "
+                             "routing is not implemented")
+        if lora is not None and base_params is None:
+            raise ValueError("lora mode requires base_params (the "
+                             "pretrained weights being finetuned)")
         self.device = comm.mesh_device(mesh) if mesh is not None else \
             resolve_device(device)
         # on a mesh: the layout the step shards by, and checkpoints with it
-        self._specs = None
+        self._rules = self._specs = None
         if mesh is not None:
-            rules = PartitionRules()
-            self._specs = param_specs(config, rules)
-            self.init_fn, self.step_fn = train_lib.make_sharded_train_step(
-                mesh, config, self.tc, rules)
-        elif lora is not None:
-            from ..models.lora import make_lora_step
-            if is_moe:
-                raise ValueError("LoRA targets the dense family; MoE "
-                                 "adapter routing is not implemented")
-            if base_params is None:
-                raise ValueError("lora mode requires base_params (the "
-                                 "pretrained weights being finetuned)")
+            self._rules = train_lib.mesh_rules(mesh)
+        if lora is not None:
+            from ..models.lora import (lora_specs, make_lora_step,
+                                       make_sharded_lora_step)
             self._base = train_lib.tree_map(
                 lambda p: p.detach().to(self.device), base_params)
-            self.init_fn, lora_step = make_lora_step(
-                config, lora, self.tc, self.device)
+            if mesh is None:
+                self.init_fn, lora_step = make_lora_step(
+                    config, lora, self.tc, self.device)
+            else:
+                self._base = shard_tree(
+                    self._base, param_specs(config, self._rules), mesh)
+                self._specs = lora_specs(config, lora, self._rules)
+                self.init_fn, lora_step = make_sharded_lora_step(
+                    mesh, config, lora, self.tc, self._rules)
             self.step_fn = lambda p, o, t, tg: lora_step(self._base, p, o,
                                                          t, tg)
+        elif mesh is not None:
+            self._specs = param_specs(config, self._rules)
+            make = make_sharded_moe_train_step if is_moe else \
+                train_lib.make_sharded_train_step
+            self.init_fn, self.step_fn = make(mesh, config, self.tc,
+                                              self._rules)
         elif is_moe:
             self.init_fn, self.step_fn = make_moe_train_step(
                 config, self.tc, self.device)
@@ -213,10 +224,11 @@ class Trainer:
         Changes no parameter or optimizer state; the result is also
         appended to ``stats.evals`` as (step, loss). The loss is
         ``build_eval_loss``, the train step's own dispatch without the
-        MoE router aux; in LoRA mode it runs on the merged params."""
+        MoE router aux (pipelined on a pp mesh); in LoRA mode it runs on
+        the merged params."""
         if self._eval_loss is None:
-            self._eval_loss = train_lib.build_eval_loss(self.config, self.tc,
-                                                        mesh=self.mesh)
+            self._eval_loss = train_lib.build_eval_loss(
+                self.config, self.tc, mesh=self.mesh, rules=self._rules)
         params = self.params if self.lora is None else self.merged_params()
         bounded = iter(source) if max_batches is None else \
             itertools.islice(iter(source), max_batches)

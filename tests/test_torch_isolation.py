@@ -46,6 +46,7 @@ def test_port_file_list_covers_the_package():
                 "kubeflow_tpu_torch/parallel/comm.py",
                 "kubeflow_tpu_torch/parallel/ring.py",
                 "kubeflow_tpu_torch/parallel/ulysses.py",
+                "kubeflow_tpu_torch/parallel/pipeline.py",
                 "kubeflow_tpu_torch/runtime/sharded_decode.py",
                 "kubeflow_tpu_torch/tools/dryrun_multidevice.py"):
         assert rel in PORT_FILES
@@ -75,6 +76,9 @@ import kubeflow_tpu_torch.runtime.sharded_decode
 import kubeflow_tpu_torch.parallel.partition_rules
 import kubeflow_tpu_torch.parallel.ring
 import kubeflow_tpu_torch.parallel.ulysses
+import kubeflow_tpu_torch.parallel.pipeline
+import kubeflow_tpu_torch.models.moe
+import kubeflow_tpu_torch.models.lora
 import kubeflow_tpu_torch.tools.dryrun_multidevice
 sys.path.insert(0, "tests")
 import torch_dist_ranks

@@ -282,13 +282,13 @@ def test_shardings_are_the_references_placements():
 
 
 def test_model_refuses_a_mesh_it_cannot_run_on():
-    """Checked before any collective: pp/ep (a later slice), tp that does
-    not divide the kv heads, and attention that sees one sequence block
-    under sp."""
+    """Checked before any collective: pp without the layer axis on it
+    (the default rules), tp that does not divide the kv heads, and
+    attention that sees one sequence block under sp."""
     cfg = tt.TransformerConfig(vocab_size=128, d_model=32, n_layers=2,
                                n_heads=4, n_kv_heads=2, d_ff=48)
 
-    with pytest.raises(NotImplementedError, match="multi-device part 2"):
+    with pytest.raises(ValueError, match="'layers' axis on pp"):
         tt.check_mesh(cfg, FakeMesh(pp=2))
     with pytest.raises(ValueError, match="kv_heads|does not divide"):
         tt.check_mesh(cfg, FakeMesh(tp=4))

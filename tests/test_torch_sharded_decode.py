@@ -145,13 +145,16 @@ def test_sharded_speculative_ids_equal_jax(jax_side, port_side, name):
 
 
 def test_dryrun_multidevice_on_four_cpu_ranks():
-    """Layouts 1 (fsdp/tp/sp ring) and 6 (tp serving) at n = 4; layout 4
-    (the hybrid mesh) needs a multiple of 8 and is skipped, as in the
-    reference."""
+    """Layouts 1 (fsdp/tp/sp ring), 2 (pp), 3 (ep2) and 6 (tp serving)
+    at n = 4; those that need a multiple of 8 (ep4, pp x ep, pp x sp, the
+    hybrid mesh) are skipped, as in the reference, with a line that says
+    so."""
     lines = dryrun_multidevice(4, "cpu", timeout=240.0)
-    assert [ln.split(":")[0] for ln in lines] == [
-        "[dryrun] fsdp+tp+sp(ring)", "[dryrun] tp-serving"]
-    assert "accepted 18/18" in lines[1]
+    ran = [ln for ln in lines if "skipped" not in ln]
+    assert [ln.split(":")[0] for ln in ran] == [
+        "[dryrun] fsdp+tp+sp(ring)", "[dryrun] pp(gpipe)+tp",
+        "[dryrun] ep(moe)+tp", "[dryrun] tp-serving"]
+    assert "accepted 18/18" in ran[-1]
 
 
 @pytest.mark.parametrize("engine", ["BatchedGenerator",

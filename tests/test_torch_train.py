@@ -615,13 +615,13 @@ def test_trainer_profile_window_writes_trace(tmp_path):
     (lambda: Trainer(_small(), device="cpu", lora=object()), ValueError,
      "lora mode requires base_params"),
     (lambda: Trainer(_small(), device="cpu", mesh=object(), lora=object()),
-     NotImplementedError, "ROADMAP queue A, multi-device part 2")])
+     ValueError, "lora mode requires base_params")])
 def test_unported_trainer_arguments_name_their_roadmap_item(make, error,
                                                             match):
-    """LoRA on a mesh is not ported and names its ROADMAP item (the dense
-    family on a mesh is: tests/test_torch_sharded_train.py); ``lora=``
-    on one device is, and without ``base_params`` it is refused as the
-    reference refuses it."""
+    """``lora=`` is ported on one device and on a mesh
+    (tests/test_torch_sharded_lora.py); without ``base_params`` it is
+    refused on either, as the reference refuses it, before anything is
+    built."""
     with pytest.raises(error, match=match):
         make()
 

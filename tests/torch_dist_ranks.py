@@ -1,6 +1,7 @@
 """Rank entry points of the multi-rank parity tests
 (tests/test_torch_parallel.py, test_torch_sharded_train.py,
-test_torch_sharded_decode.py).
+test_torch_sharded_decode.py, test_torch_pipeline.py,
+test_torch_sharded_moe.py, test_torch_sharded_lora.py).
 
 Each function runs in every process of a gloo world on the CPU started by
 ``kubeflow_tpu_torch.parallel.mesh.spawn``, and returns rank 0's results
@@ -23,7 +24,8 @@ import torch.distributed as dist
 
 from kubeflow_tpu_torch import convert
 from kubeflow_tpu_torch.models import train as ttr
-from kubeflow_tpu_torch.models.transformer import TransformerConfig, param_specs
+from kubeflow_tpu_torch.models.transformer import (TransformerConfig,
+                                                   init_params, param_specs)
 from kubeflow_tpu_torch.parallel import comm
 from kubeflow_tpu_torch.parallel.mesh import (MeshConfig, build_hybrid_mesh,
                                               build_mesh, mesh_config)
@@ -53,8 +55,20 @@ def _np_tree(tree):
     return tree
 
 
-def _full_params(params, mesh, config):
-    return _np_tree(gather_tree(params, param_specs(config), mesh))
+def _full_params(params, mesh, config, rules=None):
+    return _np_tree(gather_tree(params, param_specs(config, rules), mesh))
+
+
+def _model_config(config: dict, case: dict):
+    """The case's model: a TransformerConfig, or an MoEConfig when the
+    case carries ``moe`` (the MoE fields); ``attention`` if it names one."""
+    from kubeflow_tpu_torch.models.moe import MoEConfig
+    kw = dict(config)
+    if case.get("attention"):
+        kw["attention"] = case["attention"]
+    if case.get("moe") is not None:
+        return MoEConfig(**kw, **case["moe"])
+    return TransformerConfig(**kw)
 
 
 # --------------------------------------------------------------- parallel
@@ -173,39 +187,100 @@ def deadlock(rank: int, world: int) -> None:
         dist.all_reduce(torch.ones(1))
 
 
+def pipe_deadlock(rank: int, world: int) -> None:
+    """Stage 1 of pp = 2 waits in a pipeline tick's receive whose send
+    never comes (stage 0 idles past the collective timeout)."""
+    import time
+    mesh = build_mesh(MeshConfig(pp=2), "cpu")
+    if rank == 1:
+        comm.stage_shift([], [((2,), torch.float32)], torch.zeros(()), mesh,
+                         "pp")
+    else:
+        time.sleep(8)
+
+
 # ------------------------------------------------------------------ train
 def _step_case(case: dict, config: dict) -> dict:
-    c = TransformerConfig(**config, attention=case["attention"])
+    """Two steps (and a third from the start with a clip that does not
+    bind, for the first step's grads) of the family's sharded step from
+    the case's params: dense or MoE (``make_sharded_train_step``), or
+    LoRA adapters over the case's ``base`` (``make_sharded_lora_step``)."""
+    from kubeflow_tpu_torch.models import lora as tl
+    c = _model_config(config, case)
     mesh, member = _mesh(case["mesh"])
     if not member:
         return {}
+    rules = ttr.mesh_rules(mesh)
+    n_micro = case.get("n_micro")
+    lora = tl.LoRAConfig(**case["lora"]) if "lora" in case else None
+    if lora is not None:
+        base = convert.to_torch_sharded(case["base"], mesh, c)
+        base_before = [x.clone() for x in ttr.tree_leaves(base)]
+        specs = tl.lora_specs(c, lora)
+    else:
+        specs = param_specs(c, rules)
+
+    def start(tc):
+        params, opt = ttr.init_train_state(convert.to_torch_sharded(
+            case["params"], mesh, c, rules, specs=specs), tc)
+        if lora is None:
+            _, step_fn = ttr.make_sharded_train_step(
+                mesh, c, tc, accum_steps=case["accum"],
+                n_microbatches=n_micro)
+        else:
+            _, lora_step = tl.make_sharded_lora_step(mesh, c, lora, tc)
+
+            def step_fn(p, o, t, tg):
+                return lora_step(base, p, o, t, tg)
+        return step_fn, params, opt
+
+    def batch(x):
+        return _t(shard_batch(x, mesh, n_microbatches=n_micro))
+
     tc = ttr.TrainConfig(**case["tc"])
-    _, step_fn = ttr.make_sharded_train_step(mesh, c, tc,
-                                             accum_steps=case["accum"])
-    params, opt = ttr.init_train_state(
-        convert.to_torch_sharded(case["params"], mesh, c), tc)
+    step_fn, params, opt = start(tc)
     losses = []
     for tokens, targets in case["batches"]:
-        params, opt, loss = step_fn(params, opt,
-                                    _t(shard_batch(tokens, mesh)),
-                                    _t(shard_batch(targets, mesh)))
+        params, opt, loss = step_fn(params, opt, batch(tokens),
+                                    batch(targets))
         losses.append(loss.item())
-    out = {"losses": losses, "params": _full_params(params, mesh, c)}
+    out = {"losses": losses,
+           "params": _np_tree(gather_tree(params, specs, mesh)),
+           "replicas_equal": _replicas_equal(params, specs, mesh)}
+    if lora is not None:
+        out["base_kept"] = all(torch.equal(a, b) for a, b in zip(
+            ttr.tree_leaves(base), base_before))
     # one step more from the same start with a clip that does not bind:
     # the first moment is then (1 - b1) x the step's gradient, reduced
     # over the mesh, scale included
     tc = ttr.TrainConfig(**case["tc"], grad_clip=1e9)
-    _, step_fn = ttr.make_sharded_train_step(mesh, c, tc,
-                                             accum_steps=case["accum"])
-    params, opt = ttr.init_train_state(
-        convert.to_torch_sharded(case["params"], mesh, c), tc)
+    step_fn, params, opt = start(tc)
     tokens, targets = case["batches"][0]
-    step_fn(params, opt, _t(shard_batch(tokens, mesh)),
-            _t(shard_batch(targets, mesh)))
+    step_fn(params, opt, batch(tokens), batch(targets))
     out["grads"] = _np_tree(ttr.tree_map(
-        lambda m: m / (1 - tc.b1), gather_tree(opt.mu, param_specs(c),
-                                               mesh)))
+        lambda m: m / (1 - tc.b1), gather_tree(opt.mu, specs, mesh)))
+    out["replicas_equal"] &= _replicas_equal(opt.mu, specs, mesh)
     return out
+
+
+def _replicas_equal(tree, specs, mesh) -> bool:
+    """Whether every rank holding the same slice of a leaf (the ranks
+    along each axis it is not sharded on) holds the same values: a grad
+    left partial on some replicas (on one pp stage, say) makes them
+    drift apart, which the gathered tensors of one rank would not
+    show."""
+    from kubeflow_tpu_torch.parallel.sharding import sharded_axes
+    same = True
+    for x, spec in zip(ttr.tree_leaves(tree), ttr.tree_leaves(specs)):
+        axes = [a for a in mesh.mesh_dim_names
+                if a not in sharded_axes(spec)]
+        hi = comm.all_reduce_(x.detach().clone(), mesh, axes, "max")
+        lo = -comm.all_reduce_(-x.detach(), mesh, axes, "max")
+        same &= bool(torch.equal(hi, x)) and bool(torch.equal(lo, x))
+    # the answer of every rank: true only if no rank found a difference
+    differs = torch.tensor(0.0 if same else 1.0)
+    return comm.all_reduce_(differs, mesh, mesh.mesh_dim_names,
+                            "max").item() == 0.0
 
 
 def _vocab_case(case: dict, config: dict) -> dict:
@@ -254,7 +329,7 @@ def _resume_case(case: dict, config: dict) -> dict:
     steps 5-6 on the same batches and evaluate."""
     from kubeflow_tpu_torch.runtime.data import synthetic_lm_batches
     from kubeflow_tpu_torch.runtime.trainer import Trainer
-    c = TransformerConfig(**config)
+    c = _model_config(config, case)
     mesh, member = _mesh(case["mesh"])
     if not member:
         return {}
@@ -297,54 +372,103 @@ def _eval_case(case: dict, config: dict) -> dict:
                 "params": _full_params(tr.params, mesh, c)}
 
 
+def _trainer_eval_case(case: dict, config: dict) -> dict:
+    """Trainer(mesh=...).evaluate of the case's params (dense or MoE), or
+    of its adapters over its base (LoRA), on the held-out batches."""
+    from kubeflow_tpu_torch.models import lora as tl
+    from kubeflow_tpu_torch.runtime.trainer import Trainer
+    c = _model_config(config, case)
+    mesh, member = _mesh(case["mesh"])
+    if not member:
+        return {}
+    kw = {}
+    specs = None
+    if "lora" in case:
+        lora = tl.LoRAConfig(**case["lora"])
+        kw = dict(lora=lora, base_params=convert.to_torch(case["base"]))
+        specs = tl.lora_specs(c, lora)
+    with Trainer(c, ttr.TrainConfig(), mesh=mesh, **kw) as tr:
+        tr.params = convert.to_torch_sharded(
+            case["params"], mesh, c, ttr.mesh_rules(mesh), specs=specs)
+        return {"eval": tr.evaluate(case["batches"])}
+
+
 def _restore_case(case: dict, config: dict) -> dict:
     """A checkpoint of mesh ``from`` restored onto each mesh of ``to``:
     every leaf of params and optimizer state bit-equal, the step kept,
-    and one more train step on the new mesh."""
+    and one more train step on the new mesh. With ``chain`` each mesh of
+    ``to`` writes the state it restored again, and the next restores
+    that (A → B → C, each hop bit-equal to A's state)."""
     from kubeflow_tpu_torch.runtime.checkpoint import TrainCheckpointer
-    c = TransformerConfig(**config)
+    c = _model_config(config, case)
     tc = ttr.TrainConfig(warmup_steps=1)
+
+    def specs(mesh):
+        return param_specs(c, ttr.mesh_rules(mesh))
+
+    def full_state(params, opt, mesh):
+        return [gather_tree(t, s, mesh) for t, s in (
+            (params, specs(mesh)),
+            (opt, ttr.opt_state_shardings(opt, specs(mesh))))]
+
+    def batch(mesh, seed, rows=None):
+        cfg = mesh_config(mesh)
+        rows = rows or 2 * cfg.dp * cfg.fsdp * (2 * cfg.pp if cfg.pp > 1
+                                                else 1)
+        tokens = np.random.default_rng(seed).integers(0, c.vocab_size,
+                                                      (rows, 16))
+        targets = np.roll(tokens, -1, axis=1)
+        return (_t(shard_batch(tokens, mesh)),
+                _t(shard_batch(targets, mesh)))
+
     mesh, member = _mesh(case["from"])
+    # every rank of the world gathers the want state (a collective of the
+    # source mesh's ranks), so each later hop's members hold it
     want = None
     if member:
         init_fn, step_fn = ttr.make_sharded_train_step(mesh, c, tc)
         params, opt = init_fn(torch.Generator().manual_seed(0))
-        tokens = np.random.default_rng(1).integers(0, c.vocab_size, (8, 16))
-        targets = np.roll(tokens, -1, axis=1)
-        params, opt, _ = step_fn(params, opt, _t(shard_batch(tokens, mesh)),
-                                 _t(shard_batch(targets, mesh)))
+        params, opt, _ = step_fn(params, opt, *batch(mesh, 1, rows=8))
         with TrainCheckpointer(case["dir"], mesh=mesh,
-                               param_specs=param_specs(c)) as ckpt:
+                               param_specs=specs(mesh)) as ckpt:
             assert ckpt.save(3, params, opt)
-        want = [gather_tree(t, s, mesh) for t, s in (
-            (params, param_specs(c)),
-            (opt, ttr.opt_state_shardings(opt, param_specs(c))))]
+        want = full_state(params, opt, mesh)
+    want = _broadcast_from_zero(want)
     out = {}
-    for label, sizes in case["to"].items():
+    src = case["dir"]
+    for hop, (label, sizes) in enumerate(case["to"].items()):
         new, member = _mesh(sizes)
-        if not member:
-            continue
-        init_fn, step_fn = ttr.make_sharded_train_step(new, c, tc)
-        like_p, like_o = init_fn(torch.Generator().manual_seed(7))
-        with TrainCheckpointer(case["dir"], mesh=new,
-                               param_specs=param_specs(c)) as ckpt:
-            step, params, opt = ckpt.restore(like_p, like_o)
-        got = [gather_tree(t, s, new) for t, s in (
-            (params, param_specs(c)),
-            (opt, ttr.opt_state_shardings(opt, param_specs(c))))]
-        equal = all(torch.equal(x, y) for g, w in zip(got, want)
-                    for x, y in zip(_leaves(g), _leaves(w)))
-        cfg = mesh_config(new)
-        batch = 2 * cfg.dp * cfg.fsdp
-        tokens = np.random.default_rng(2).integers(0, c.vocab_size,
-                                                   (batch, 16))
-        targets = np.roll(tokens, -1, axis=1)
-        _, _, loss = step_fn(params, opt, _t(shard_batch(tokens, new)),
-                             _t(shard_batch(targets, new)))
-        out[label] = {"step": step, "equal": equal,
-                      "wq_local": tuple(params["blocks"]["wq"].shape),
-                      "loss": loss.item()}
+        dst = f"{case['dir']}-{hop}" if case.get("chain") else None
+        if member:
+            init_fn, step_fn = ttr.make_sharded_train_step(new, c, tc)
+            like_p, like_o = init_fn(torch.Generator().manual_seed(7))
+            with TrainCheckpointer(src, mesh=new,
+                                   param_specs=specs(new)) as ckpt:
+                step, params, opt = ckpt.restore(like_p, like_o)
+            got = full_state(params, opt, new)
+            equal = all(torch.equal(x, y) for g, w in zip(got, want)
+                        for x, y in zip(_leaves(g), _leaves(w)))
+            if dst is not None:
+                with TrainCheckpointer(dst, mesh=new,
+                                       param_specs=specs(new)) as ckpt:
+                    assert ckpt.save(3, params, opt)
+            _, _, loss = step_fn(params, opt, *batch(new, 2))
+            out[label] = {"step": step, "equal": equal,
+                          "wq_local": tuple(params["blocks"]["wq"].shape),
+                          "w_gate_local": tuple(
+                              params["blocks"]["w_gate"].shape),
+                          "loss": loss.item()}
+        dist.barrier()
+        if dst is not None:
+            src = dst
     return out
+
+
+def _broadcast_from_zero(obj):
+    """Rank 0's picklable ``obj`` on every rank of the world."""
+    box = [obj]
+    dist.broadcast_object_list(box, src=0)
+    return box[0]
 
 
 def _world1_case(case: dict, config: dict) -> dict:
@@ -398,6 +522,186 @@ def _remat_case(case: dict, config: dict) -> dict:
             for k, (losses, leaves) in runs.items()}
 
 
+def _world1_families_case(case: dict, config: dict) -> dict:
+    """On a mesh of one rank the MoE and LoRA sharded steps are the
+    one-device steps: losses and params bit-equal."""
+    from kubeflow_tpu_torch.models import lora as tl
+    from kubeflow_tpu_torch.models import moe as tm
+    mesh, member = _mesh({})
+    if dist.get_rank() != 0:
+        return {}
+    tc = ttr.TrainConfig(warmup_steps=2)
+    moe = _model_config(config, case)
+    c = TransformerConfig(**config)
+    lora = tl.LoRAConfig()
+    base = init_params(torch.Generator().manual_seed(5), c, "cpu")
+    out = {}
+    for family, makers in (
+            ("moe", (lambda: ttr.make_sharded_train_step(mesh, moe, tc),
+                     lambda: tm.make_moe_train_step(moe, tc, "cpu"))),
+            ("lora", (lambda: tl.make_sharded_lora_step(mesh, c, lora, tc),
+                      lambda: tl.make_lora_step(c, lora, tc, "cpu")))):
+        runs = []
+        for make in makers:
+            init_fn, step_fn = make()
+            params, opt = init_fn(torch.Generator().manual_seed(0))
+            losses = []
+            for tokens, targets in case["batches"]:
+                args = (params, opt, _t(tokens[0]), _t(targets[0]))
+                if family == "lora":
+                    args = (base,) + args
+                params, opt, loss = step_fn(*args)
+                losses.append(loss)
+            runs.append((losses, ttr.tree_leaves(params)))
+        (la, pa), (lb, pb) = runs
+        out[family] = {
+            "losses_equal": all(torch.equal(x, y) for x, y in zip(la, lb)),
+            "params_equal": all(torch.equal(x, y) for x, y in zip(pa, pb))}
+    return out
+
+
+# --------------------------------------------------------------- pipeline
+def _pipe_apply_case(case: dict) -> dict:
+    """``pipeline_apply`` of a tanh layer stack at pp4 × dp2: the value
+    and the grads of input and params (summed over dp), gathered."""
+    from kubeflow_tpu_torch.parallel.pipeline import (pipeline_apply,
+                                                      split_stages)
+    mesh, member = _mesh(case["mesh"])
+    if not member:
+        return {}
+    rows = (("dp", "fsdp"), None)
+    params = {"w": shard_tensor(_t(case["w"]), ("pp", None, None), mesh),
+              "b": shard_tensor(_t(case["b"]), ("pp", None), mesh)}
+    params = {k: v.requires_grad_() for k, v in params.items()}
+    x = shard_tensor(_t(case["x"]), rows, mesh).requires_grad_()
+
+    def stage_fn(p, h):
+        for i in range(p["w"].shape[0]):
+            h = torch.tanh(h @ p["w"][i] + p["b"][i])
+        return h
+
+    y = pipeline_apply(split_stages(params, 1), x, stage_fn, mesh=mesh,
+                       n_microbatches=case["n_micro"])
+    value = (y * shard_tensor(_t(case["cot"]), rows, mesh)).sum()
+    gw, gb, gx = torch.autograd.grad(value, [params["w"], params["b"], x])
+    for g in (value.detach(), gw, gb):
+        comm.all_reduce_(g, mesh, ("dp", "fsdp"))
+    return {"value": value.item(),
+            "w": unshard_tensor(gw, ("pp", None, None), mesh).numpy(),
+            "b": unshard_tensor(gb, ("pp", None), mesh).numpy(),
+            "x": unshard_tensor(gx, rows, mesh).numpy()}
+
+
+def _pipe_forward_case(case: dict, config: dict) -> dict:
+    """``pipelined_forward``'s logits and the grads of sum(logits * cot)
+    on the case's mesh, gathered (grads summed over the data axes)."""
+    from kubeflow_tpu_torch.models.transformer import pipelined_forward
+    from kubeflow_tpu_torch.parallel.sharding import sharded_axes
+    c = TransformerConfig(**config)
+    mesh, member = _mesh(case["mesh"])
+    if not member:
+        return {}
+    rules = ttr.mesh_rules(mesh)
+    n_micro = case["n_micro"]
+    params = ttr.tree_map(lambda p: p.requires_grad_(),
+                          convert.to_torch_sharded(case["params"], mesh, c,
+                                                   rules))
+    tokens = _t(shard_batch(case["tokens"], mesh, n_microbatches=n_micro))
+    # the cotangent's rows and sequence laid out as shard_batch lays out
+    # the tokens: each data rank's share of every microbatch
+    cot = _t(case["cot"])
+    B, S, V = cot.shape
+    cot = shard_tensor(cot.reshape(n_micro, B // n_micro, S, V),
+                       (None, ("dp", "fsdp"), "sp", None), mesh)
+    cot = cot.reshape(-1, *cot.shape[2:])
+    logits = pipelined_forward(params, tokens, c, mesh, n_micro, rules)
+    value = (logits * cot).sum()
+    specs = param_specs(c, rules)
+    grads = torch.autograd.grad(value, ttr.tree_leaves(params))
+    axes = ttr.data_axes(rules)
+    for g, spec in zip(grads, ttr.tree_leaves(specs)):
+        comm.all_reduce_(g, mesh, [a for a in axes
+                                   if a not in sharded_axes(spec)])
+    value = comm.all_reduce_(value.detach(), mesh, axes)
+    full = comm.gather_dim(comm.gather_dim(logits.detach(), mesh, "sp", 1),
+                           mesh, ("dp", "fsdp"), 0)
+    # back from the microbatch-major layout to the batch's row order
+    D = comm.axis_size(mesh, ("dp", "fsdp"))
+    full = full.reshape(D, n_micro, -1, S, V).transpose(0, 1).reshape(
+        B, S, V)
+    return {"value": value.item(), "logits": full.numpy(),
+            "grads": _np_tree(gather_tree(
+                ttr.tree_unflatten(params, list(grads)), specs, mesh))}
+
+
+def _pipe_comm_case() -> dict:
+    """The pipeline's collectives on pp = 4: a tick's shift moves each
+    stage's tensor to the next stage and its grad back; the broadcast
+    from the last stage returns the grad to the last stage once."""
+    mesh, member = _mesh({"pp": 4})
+    if not member:
+        return {}
+    s = comm.axis_rank(mesh, "pp")
+    got = {}
+    x = torch.full((3,), float(s + 1)).requires_grad_()
+    anchor = comm.anchor_of([x], x.device)
+    # stage s sends (s + 1) forward, stage s + 1 receives it
+    send = [x] if s < 3 else []
+    recv = [((3,), torch.float32)] if s > 0 else []
+    received, token = comm.stage_shift(send, recv, anchor, mesh, "pp")
+    y = x * 0 if s == 0 else received[0] * 10
+    y = comm.tie(y, token)
+    y.sum().backward()
+    got["shift_value"] = s == 0 or float(received[0][0].detach()) == s
+    # the grad of stage s's x is the next stage's 10; the last stage
+    # sends nothing and uses no x
+    got["shift_grad"] = float(x.grad[0]) == 10.0 if s < 3 else \
+        x.grad is None
+    x = torch.full((2,), float(s)).requires_grad_()
+    y = comm.broadcast_from_last(x, mesh, "pp")
+    (y * 5).sum().backward()
+    got["broadcast_value"] = bool(torch.equal(y, torch.full((2,), 3.0)))
+    got["broadcast_grad"] = x.grad is not None and float(x.grad[0]) == 5.0 \
+        if s == 3 else x.grad is None
+    return got
+
+
+def _moe_errors_case(case: dict, config: dict) -> dict:
+    """The pipelined MoE's refusals: pp × sp, and routing groups that a
+    microbatch would change."""
+    from kubeflow_tpu_torch.models.moe import pipelined_moe_forward_hidden
+    c = _model_config(config, case)
+    out = {}
+    for name, sizes in case["meshes"].items():
+        mesh, member = _mesh(sizes)
+        if not member:
+            continue
+        params = convert.to_torch_sharded(case["params"], mesh, c,
+                                          ttr.mesh_rules(mesh))
+        tokens = _t(shard_batch(case["tokens"], mesh, n_microbatches=4))
+        try:
+            pipelined_moe_forward_hidden(params, tokens, c, mesh, 4)
+            out[name] = None
+        except (ValueError, NotImplementedError) as exc:
+            out[name] = (type(exc).__name__, str(exc))
+    return out
+
+
+def pipeline_suite(rank: int, world: int, job: dict) -> dict:
+    out = {}
+    for case in job["cases"]:
+        kind = case["kind"]
+        if kind == "pipe_apply":
+            out[case["name"]] = _pipe_apply_case(case)
+        elif kind == "pipe_forward":
+            out[case["name"]] = _pipe_forward_case(case, case["config"])
+        elif kind == "pipe_comm":
+            out["pipe_comm"] = _pipe_comm_case()
+        else:
+            out.update(train_suite(rank, world, {"cases": [case]}))
+    return out
+
+
 def _leaves(tree) -> list:
     if isinstance(tree, dict):
         return [x for k in sorted(tree) for x in _leaves(tree[k])]
@@ -413,7 +717,9 @@ def train_suite(rank: int, world: int, job: dict) -> dict:
         fn = {"step": _step_case, "vocab": _vocab_case, "clip": _clip_case,
               "resume": _resume_case, "restore": _restore_case,
               "world1": _world1_case, "remat": _remat_case,
-              "eval": _eval_case}[kind]
+              "eval": _eval_case, "trainer_eval": _trainer_eval_case,
+              "moe_errors": _moe_errors_case,
+              "world1_families": _world1_families_case}[kind]
         out[case["name"]] = fn(case, config)
     return out
 
