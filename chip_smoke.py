@@ -152,6 +152,9 @@ PEAK_FLOPS = {"bfloat16": 989e12,  # dense tensor-core bf16, published
 BF16_TOL = 2e-2    # |kernel - plain|: ~4 bf16 ulps at |o| ~ 1; the two
                    # round p to bf16 against different running maxima
 F32_TOL = 2e-5     # the JAX package's own kernel pin (tests/test_ops.py)
+# the card's name and power limit (nvidia-smi), printed beside phase 14's
+# numbers
+CARD: list = []
 LSE_TOL = 1e-4     # f32 row log-sum-exp, summation order only
 # the JAX server's reply to a streamed request on the bucketed engine
 STREAM_REFUSAL = ("engine BatchedGenerator does not support streaming; use "
@@ -185,6 +188,9 @@ MODEL_GRAD_REL = 5e-4  # f32 model grads through flash vs plain attention,
 # f32 MoE logits, kernel path vs plain path on the same inputs at a
 # non-binding capacity (the same routing): the port's forward pin
 MOE_LOGITS_TOL = 2e-5
+# phase 14: device events (kernels, copies, sets) by which the profiler's
+# record of 10 identical sharded and unsharded ticks may differ
+DEVICE_EVENT_SLACK = 5
 
 
 def fail(msg: str) -> None:
@@ -627,6 +633,11 @@ def _device_ms(evt) -> float:
     return us / 1e3
 
 
+# the runtime and driver calls that launch a kernel
+_LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                 "cuLaunchKernelEx")
+
+
 def _profile(torch, fn) -> dict:
     """Run ``fn`` once under torch.profiler: host wall, device busy time
     by kernel class, kernel count, idle share."""
@@ -639,12 +650,14 @@ def _profile(torch, fn) -> dict:
         torch.cuda.synchronize()
         wall_ms = (time.monotonic() - t0) * 1e3
     by_class: dict[str, float] = {}
+    by_key: dict[str, int] = {}
     launches = 0
     for evt in prof.key_averages():
         if getattr(evt, "device_type", None) != torch.autograd.DeviceType.CUDA:
             continue
         cls = _kernel_class(evt.key)
         by_class[cls] = by_class.get(cls, 0.0) + _device_ms(evt)
+        by_key[evt.key] = by_key.get(evt.key, 0) + evt.count
         launches += evt.count
     busy = sum(by_class.values())
     top = sorted(((evt.key[:90], _device_ms(evt), evt.count)
@@ -652,6 +665,9 @@ def _profile(torch, fn) -> dict:
                   if getattr(evt, "device_type", None)
                   == torch.autograd.DeviceType.CUDA),
                  key=lambda kv: -kv[1])[:12]
+    # the kernels the host launched (the device's events can drop a few)
+    host_launches = sum(evt.count for evt in prof.key_averages()
+                        if evt.key in _LAUNCH_CALLS)
     # the host's side: ops and runtime calls by self CPU time (the
     # profiler's own cost included)
     host = sorted(((evt.key[:90], evt.self_cpu_time_total / 1e3, evt.count)
@@ -661,7 +677,9 @@ def _profile(torch, fn) -> dict:
                   key=lambda kv: -kv[1])[:8]
     return {"wall_ms": wall_ms, "device_busy_ms": busy if busy else None,
             "device_idle_share": (1 - busy / wall_ms) if busy else None,
-            "device_kernels": launches, "busy_ms_by_class": by_class,
+            "device_kernels": launches, "host_launches": host_launches,
+            "device_counts": by_key,
+            "busy_ms_by_class": by_class,
             "top_kernels_ms_count": top, "top_host_ms_count": host}
 
 
@@ -1942,10 +1960,10 @@ def _moe_kernel_vs_plain(torch, params, c32) -> dict:
     return out
 
 
-def _moe_engine_tick(torch, gen) -> dict:
-    """10 ticks of the idle continuous engine (8 rows; dead rows still
-    route their pad tokens), each read back as the engine's loop does:
-    unprofiled wall, then under torch.profiler."""
+def _engine_tick(torch, gen, phase="phase10", what="MoE bf16") -> dict:
+    """10 ticks of the idle continuous engine (8 rows; an MoE's dead rows
+    still route their pad tokens), each read back as the engine's loop
+    does: unprofiled wall, then under torch.profiler."""
     def ticks():
         for _ in range(10):
             gen._tick(1, False).cpu()
@@ -1954,20 +1972,22 @@ def _moe_engine_tick(torch, gen) -> dict:
     t0 = time.monotonic()
     ticks()
     tick_ms = (time.monotonic() - t0) / 10 * 1e3
-    prof = {"shape": "10 ticks, continuous engine, 8 slots, MoE bf16",
+    prof = {"shape": f"10 ticks, continuous engine, 8 slots, {what}",
             **_profile(torch, ticks)}
-    _print_profile("phase10", prof)
+    _print_profile(phase, prof)
     busy = prof["device_busy_ms"]
-    out = {"tick_ms_unprofiled": tick_ms, "profile": prof}
+    out = {"tick_ms_unprofiled": tick_ms, "profile": prof,
+           "kernels_a_tick": prof["device_kernels"] / 10,
+           "launches_a_tick": prof["host_launches"] / 10}
     if busy:
         out["device_busy_ms_a_tick"] = busy / 10
         out["device_idle_share_unprofiled"] = 1 - busy / 10 / tick_ms
-        out["kernels_a_tick"] = prof["device_kernels"] / 10
-        print(f"phase10 a tick: {tick_ms:.2f} ms unprofiled, device busy "
-              f"{busy / 10:.3f} ms (idle "
+        print(f"{phase} a tick ({what}): {tick_ms:.2f} ms unprofiled, "
+              f"device busy {busy / 10:.3f} ms (idle "
               f"{100 * out['device_idle_share_unprofiled']:.1f}% of the "
-              f"unprofiled tick), {out['kernels_a_tick']:.0f} kernels",
-              flush=True)
+              f"unprofiled tick), {out['kernels_a_tick']:.1f} kernels on "
+              f"the device, {out['launches_a_tick']:.1f} launched by the "
+              f"host", flush=True)
     return out
 
 
@@ -2048,7 +2068,7 @@ def _moe_serving(torch, params, moe, draft) -> tuple[dict, dict]:
         launches["flash_decode"] += served.launches("flash_decode",
                                                     "MoE continuous engine")
         _check_sync_free(torch, gen, "MoE engine", phase="phase10")
-        stats["tick"] = _moe_engine_tick(torch, gen)
+        stats["tick"] = _engine_tick(torch, gen)
     finally:
         served.close()
     del served, gen
@@ -2667,6 +2687,8 @@ def phase_multidevice(torch, flagship, root, phase7: dict, moe, lora_base,
         stats["training"] = phase_multidevice_training(
             torch, flagship, moe, root, dev, mesh, take, lora_base, phase10,
             stats["losses"])
+        stats["mesh_serving"] = phase_mesh_serving_and_elastic(
+            torch, flagship, moe, root, dev, mesh, take, lora_base)
         stats["launches"] = {k: n for k, n in launched.items() if n}
     shutil.rmtree(store, ignore_errors=True)
     t0 = time.monotonic()
@@ -2876,6 +2898,435 @@ def phase_multidevice_training(torch, flagship, moe, root, dev, mesh, take,
     stats["seconds"] = time.monotonic() - t_phase
     print(f"phase13 in {stats['seconds']:.1f} s (the dryrun's lines come "
           f"after phase 12's dryrun)", flush=True)
+    return stats
+
+
+# --------------------------------------------------------------- phase 14
+class _DictNotebookClient:
+    """A Notebook store of one process for the elastic agent: ``get``
+    returns a copy, ``patch`` merges annotations (None deletes)."""
+
+    def __init__(self, annotations: dict):
+        self.obj = {"kind": "Notebook", "metadata": {
+            "name": "nb", "namespace": "smoke", "annotations":
+            dict(annotations)}}
+
+    def get(self, kind, namespace, name):
+        return json.loads(json.dumps(self.obj))
+
+    def patch(self, kind, namespace, name, body):
+        anns = self.obj["metadata"]["annotations"]
+        for k, v in body["metadata"]["annotations"].items():
+            if v is None:
+                anns.pop(k, None)
+            else:
+                anns[k] = v
+
+    def annotation(self, key):
+        return self.obj["metadata"]["annotations"].get(key)
+
+
+def _engine_staggered(gen, prompts: list, max_new: int) -> dict:
+    """One request a prompt submitted 25 ms apart straight to the engine:
+    ids, wall (first submit to last id), generated tokens/s, median time
+    to first token."""
+    first: dict = {}
+    t_sub: dict = {}
+    futures = []
+    t0 = time.monotonic()
+    for i, p in enumerate(prompts):
+        t_sub[i] = time.monotonic()
+        futures.append(gen.submit(p, max_new, on_token=(
+            lambda tok, i=i: first.setdefault(i, time.monotonic()))))
+        time.sleep(0.025)
+    ids = [[int(t) for t in f.result(timeout=600)] for f in futures]
+    wall = time.monotonic() - t0
+    ttft = sorted(first[i] - t_sub[i] for i in first)
+    return {"ids": ids, "wall_s": wall,
+            "tokens_per_s": len(prompts) * max_new / wall,
+            "ttft_median_s": ttft[len(ttft) // 2] if ttft else None}
+
+
+def _serve_both(torch, make, prompts: list, max_new: int, take, what: str,
+                drive="staggered", profile=False) -> dict:
+    """The same traffic through the unsharded engine and the sharded one
+    (``make(sharded)`` builds each), one after the other: ids prompt by
+    prompt, tokens/s, ticks and the launches of each (the sharded
+    engine's count toward the phase through ``take``; the unsharded
+    comparison's and, with ``profile``, the timed idle ticks' are
+    dropped)."""
+    from kubeflow_tpu_torch import ops
+    out = {}
+    for side in ("unsharded", "sharded"):
+        ops.reset_launch_counts()
+        with make(side == "sharded") as gen:
+            if drive == "staggered":
+                run = _engine_staggered(gen, prompts, max_new)
+            else:  # one after the other: the rows beside are the same
+                t0 = time.monotonic()
+                run = {"ids": [[int(t) for t in gen.generate_sync(
+                    p, max_new, timeout=600)] for p in prompts]}
+                run["wall_s"] = time.monotonic() - t0
+                run["tokens_per_s"] = len(prompts) * max_new / run["wall_s"]
+            counts = take() if side == "sharded" else ops.launch_counts()
+            run["ticks"] = getattr(gen, "steps_total", None)
+            run["batches"] = getattr(gen, "batches_total", None)
+            run["launches"] = {k: n for k, n in counts.items() if n}
+            if profile:
+                tick = _engine_tick(torch, gen, "phase14", f"{what}, {side}")
+                run["tick"] = {k: v for k, v in tick.items()
+                               if k != "profile"}
+                run["tick"]["device_counts"] = \
+                    tick["profile"]["device_counts"]
+            ops.reset_launch_counts()
+        out[side] = run
+    same = out["sharded"]["ids"] == out["unsharded"]["ids"]
+    out["ids_equal"] = same
+    un, sh = out["unsharded"], out["sharded"]
+    print(f"phase14 {what}: ids equal to the unsharded engine's prompt by "
+          f"prompt {same}; tokens/s sharded {sh['tokens_per_s']:.1f} "
+          f"unsharded {un['tokens_per_s']:.1f}; ticks {sh['ticks']} / "
+          f"{un['ticks']}, batches {sh['batches']} / {un['batches']}; "
+          f"launches sharded {sh['launches']} unsharded {un['launches']}",
+          flush=True)
+    require(same, f"{what}: the sharded engine's ids differ from the "
+                  f"unsharded engine's")
+    return out
+
+
+def phase_mesh_serving_and_elastic(torch, flagship, moe, root, dev, mesh,
+                                   take, params4) -> dict:
+    """14: the serving half of multi-device and elastic training on phase
+    12's NCCL world of one rank (MeshConfig()), at the flagship's width.
+    Phase 7b's bf16 flagship through shard_decode_params: phase 3's
+    traffic (8 x 128 -> 64) in the bucketed engine and phase 8's (16
+    streams 25 ms apart) in the continuous engine, then an int8 engine
+    (quantize, kv_quant), each beside the unsharded engine; phase 10's
+    flagship-MoE (bf16, and its f32 factor-4 twin) through generate and
+    the continuous engine; an ElasticTrainer whose ElasticAgent drains
+    and reshards to 1 slice between fits, against an uninterrupted
+    Trainer; a CheckpointMigrationDriver checkpoint at step 4 resumed
+    into a fresh Trainer. At world 1 no plan is broadcast: the sharded
+    engines launch what the unsharded ones do, tick for tick."""
+    from kubeflow_tpu_torch import ops
+    from kubeflow_tpu_torch.models import train as train_lib
+    from kubeflow_tpu_torch.models.decode import generate
+    from kubeflow_tpu_torch.models.moe import init_moe_params
+    from kubeflow_tpu_torch.models.transformer import param_specs
+    from kubeflow_tpu_torch.parallel.mesh import MeshConfig
+    from kubeflow_tpu_torch.runtime.data import synthetic_lm_batches
+    from kubeflow_tpu_torch.runtime.elastic import (ElasticAgent,
+                                                    ElasticTrainer)
+    from kubeflow_tpu_torch.runtime.migrate import CheckpointMigrationDriver
+    from kubeflow_tpu_torch.runtime.serving import (
+        BatchedGenerator, ContinuousBatchedGenerator)
+    from kubeflow_tpu_torch.runtime.sharded_decode import shard_decode_params
+    from kubeflow_tpu_torch.runtime.trainer import Trainer
+    from kubeflow_tpu_torch.utils import names
+
+    t_phase = time.monotonic()
+    c, L, V = flagship, flagship.n_layers, flagship.vocab_size
+    stats: dict = {"card": CARD[0]}
+    print(f"phase14 on {CARD[0]}: a NCCL world of one rank, "
+          f"MeshConfig()", flush=True)
+    rng = torch.Generator().manual_seed(31)
+
+    def prompt(n):
+        return torch.randint(0, V, (n,), generator=rng).tolist()
+
+    # ---- dense bf16: bucketed (phase 3's traffic), continuous (phase 8's)
+    sharded = shard_decode_params(params4, mesh, c)
+    batch = [prompt(128) for _ in range(8)]
+
+    def bucketed(on_mesh):
+        return BatchedGenerator(sharded if on_mesh else params4, c,
+                                max_batch=8, max_wait_s=0.5, device="cuda")
+
+    def run_bucketed(on_mesh):
+        with bucketed(on_mesh) as gen:
+            gen.generate_sync(prompt(8), 2, timeout=600)     # warm-up
+            ops.reset_launch_counts()
+            t0 = time.monotonic()
+            futures = [gen.submit(p, 64) for p in batch]
+            ids = [[int(t) for t in f.result(timeout=600)] for f in futures]
+            wall = time.monotonic() - t0
+            counts = take() if on_mesh else ops.launch_counts()
+            ops.reset_launch_counts()
+            return {"ids": ids, "wall_s": wall,
+                    "tokens_per_s": 8 * 64 / wall,
+                    "batches": gen.batches_total - 1, "launches": counts}
+    b_un, b_sh = run_bucketed(False), run_bucketed(True)
+    want = {"flash_attention": b_sh["batches"] * L,
+            "flash_decode": b_sh["batches"] * 63 * L}
+    got = {k: b_sh["launches"].get(k, 0) for k in want}
+    same_counts = got == {k: b_un["launches"].get(k, 0) for k in want}
+    stats["bucketed"] = {
+        "ids_equal": b_sh["ids"] == b_un["ids"],
+        "tokens_per_s": {"sharded": b_sh["tokens_per_s"],
+                         "unsharded": b_un["tokens_per_s"]},
+        "batches": [b_sh["batches"], b_un["batches"]], "launches": got}
+    print(f"phase14 bucketed engine, 8 x (prompt 128, 64 new) on the "
+          f"sharded bf16 flagship (phase 7b's step-4 params): ids equal to "
+          f"the unsharded engine's prompt by prompt "
+          f"{stats['bucketed']['ids_equal']}; {b_sh['tokens_per_s']:.1f} "
+          f"generated tokens/s sharded, {b_un['tokens_per_s']:.1f} "
+          f"unsharded; batches {b_sh['batches']} / {b_un['batches']}; "
+          f"launches {got} (= unsharded {same_counts}, expected {want})",
+          flush=True)
+    require(stats["bucketed"]["ids_equal"], "sharded bucketed ids differ")
+    require(got == want and same_counts,
+            f"sharded bucketed launches {got}, expected {want}")
+    launched = dict(got)
+
+    def continuous(**kw):
+        def make(on_mesh):
+            return ContinuousBatchedGenerator(
+                sharded if on_mesh else params4, c, n_slots=8,
+                device="cuda", **kw)
+        return make
+    streams = [prompt(128) for _ in range(16)]
+    run = _serve_both(torch, continuous(), streams, 64, take,
+                      "continuous engine, 16 x (prompt 128, 64 new) 25 ms "
+                      "apart", profile=True)
+    for side in ("sharded", "unsharded"):
+        r = run[side]
+        r["flash_decode_a_tick"] = r["launches"].get("flash_decode", 0) / \
+            r["ticks"]
+    sh, un = run["sharded"], run["unsharded"]
+    print(f"phase14 continuous engine: flash_decode a tick sharded "
+          f"{sh['flash_decode_a_tick']:.2f} unsharded "
+          f"{un['flash_decode_a_tick']:.2f} (expected {L}); kernels a tick "
+          f"launched by the host sharded "
+          f"{sh['tick']['launches_a_tick']:.1f} unsharded "
+          f"{un['tick']['launches_a_tick']:.1f} (on the device "
+          f"{sh['tick']['kernels_a_tick']:.1f} / "
+          f"{un['tick']['kernels_a_tick']:.1f}); tick ms sharded "
+          f"{sh['tick']['tick_ms_unprofiled']:.2f} unsharded "
+          f"{un['tick']['tick_ms_unprofiled']:.2f}; time to first token "
+          f"median {1e3 * sh['ttft_median_s']:.1f} / "
+          f"{1e3 * un['ttft_median_s']:.1f} ms; on {CARD[0]}", flush=True)
+    require(sh["launches"] == {"flash_decode": sh["ticks"] * L},
+            f"sharded continuous launches {sh['launches']}, ticks "
+            f"{sh['ticks']}")
+    # the check covers ``_tick`` only (``_engine_tick`` calls it
+    # directly): the loop's plan and agreement are not in the window, and
+    # at world 1 they make no call. The host's launches must be equal;
+    # the device's events (kernels, copies, sets) equal within
+    # DEVICE_EVENT_SLACK over the 10 ticks, since the profiler's device
+    # record drops a few (7193-7198 of the ~7200 launched in earlier runs)
+    dev_sh, dev_un = (r["tick"]["kernels_a_tick"] * 10 for r in (sh, un))
+    a, b = (r["tick"].pop("device_counts") for r in (sh, un))
+    if abs(dev_sh - dev_un) > DEVICE_EVENT_SLACK:
+        differ = {k: (a.get(k, 0), b.get(k, 0)) for k in set(a) | set(b)
+                  if a.get(k, 0) != b.get(k, 0)}
+        print(f"phase14 device events that differ over 10 ticks "
+              f"(sharded, unsharded): {differ}", flush=True)
+    require(sh["flash_decode_a_tick"] == un["flash_decode_a_tick"] == L and
+            sh["tick"]["launches_a_tick"] == un["tick"]["launches_a_tick"]
+            > 0 and abs(dev_sh - dev_un) <= DEVICE_EVENT_SLACK,
+            "the sharded tick launches other kernels than the "
+            "unsharded one at world 1")
+    stats["continuous"] = {k: {kk: vv for kk, vv in v.items() if kk != "ids"}
+                           if isinstance(v, dict) else v
+                           for k, v in run.items()}
+    stats["dense_seconds"] = time.monotonic() - t_phase
+    launched["flash_decode"] += sh["launches"].get("flash_decode", 0)
+
+    # ---- int8 weights and KV on the sharded tree
+    q_prompts = [prompt(128) for _ in range(8)]
+    run = _serve_both(torch, continuous(quantize=True, kv_quant=True),
+                      q_prompts, 32, take,
+                      "int8 engine (quantize, kv_quant), 8 x (prompt 128, "
+                      "32 new)")
+    sh = run["sharded"]
+    require(sh["launches"] == {"flash_decode_int8": sh["ticks"] * L},
+            f"sharded int8 launches {sh['launches']}")
+    stats["int8"] = {"ids_equal": run["ids_equal"],
+                     "tokens_per_s": sh["tokens_per_s"],
+                     "launches": sh["launches"]}
+    launched["flash_decode_int8"] = sh["launches"].get("flash_decode_int8",
+                                                       0)
+    del sharded
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- the MoE (phase 10's seed-20 params), bf16 then the f32 twin
+    mparams = init_moe_params(torch.Generator(device="cuda").manual_seed(20),
+                              moe, device="cuda")
+    stats["moe"] = {}
+    for label, mc, drive in (
+            ("bf16", moe, "in_turn"),
+            ("f32_factor4", moe.replace(dtype="float32", capacity_factor=(
+                moe.n_experts / moe.experts_per_token)), "staggered")):
+        msharded = shard_decode_params(mparams, mesh, mc)
+        m_prompts = torch.randint(0, V, (4, 128), generator=rng).to(dev)
+        want_ids = generate(mparams, m_prompts, mc, 32)
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()    # the unsharded comparison's launches
+        got_ids = generate(msharded, m_prompts, mc, 32)
+        torch.cuda.synchronize()
+        counts = take()
+        require(counts.get("flash_decode", 0) == 31 * L,
+                f"MoE sharded generate launches {counts}")
+        launched["flash_decode"] += counts.get("flash_decode", 0)
+        launched["flash_attention"] += counts.get("flash_attention", 0)
+
+        def make(on_mesh, mc=mc, msharded=msharded):
+            return ContinuousBatchedGenerator(
+                msharded if on_mesh else mparams, mc, n_slots=8,
+                device="cuda")
+        run = _serve_both(torch, make, m_prompts.tolist(), 32, take,
+                          f"MoE {label} continuous engine, 4 x (prompt "
+                          f"128, 32 new) "
+                          + ("one after the other" if drive == "in_turn"
+                             else "25 ms apart"), drive=drive)
+        sh = run["sharded"]
+        launched["flash_decode"] += sh["launches"].get("flash_decode", 0)
+        gen_equal = bool(torch.equal(got_ids, want_ids))
+        stats["moe"][label] = {"generate_ids_equal": gen_equal,
+                               "engine_ids_equal": run["ids_equal"],
+                               "engine_tokens_per_s": sh["tokens_per_s"],
+                               "launches": sh["launches"]}
+        print(f"phase14 MoE {label} (experts over ep, capacity factor "
+              f"{mc.capacity_factor}): sharded generate 4 x 128 -> 32 ids "
+              f"equal to unsharded {gen_equal}; engine ids equal "
+              f"{run['ids_equal']}", flush=True)
+        require(gen_equal, f"MoE {label}: sharded generate ids differ")
+        del msharded
+    del mparams
+    gc.collect()
+    torch.cuda.empty_cache()
+    stats["serving_seconds"] = time.monotonic() - t_phase
+    print(f"phase14 serving: dense bf16 {stats['dense_seconds']:.1f} s, "
+          f"with int8 and the MoE {stats['serving_seconds']:.1f} s",
+          flush=True)
+
+    # ---- elastic and migration against one uninterrupted Trainer
+    t_train = time.monotonic()
+    tc = train_lib.TrainConfig(bf16_params=True)
+    src = synthetic_lm_batches(8, 1024, V, seed=0)
+    host = [next(src) for _ in range(6)]
+    attn = ("flash_attention", "flash_attention_bwd_dkv",
+            "flash_attention_bwd_dq")
+    ops.reset_launch_counts()
+    u = Trainer(c, tc, mesh=mesh)
+    u.fit(host[:4], steps=4, log_every=1)
+    mdir = os.path.join(root, "migration")
+    holder = {}
+    driver = CheckpointMigrationDriver(
+        lambda nb: mdir, lambda nb: (u.stats.step, u.params, u.opt_state),
+        lambda nb: (holder["b"].params, holder["b"].opt_state), mesh=mesh,
+        param_specs=param_specs(c, train_lib.mesh_rules(mesh)))
+    client = _DictNotebookClient({names.RUNTIME_STEP_ANNOTATION: "4"})
+    nb = client.get("Notebook", "smoke", "nb")
+    t0 = time.monotonic()
+    token = driver.checkpoint(client, nb)
+    ckpt_s = time.monotonic() - t0
+    step_dir = os.path.join(mdir, "4")
+    ckpt_bytes = sum(os.path.getsize(os.path.join(step_dir, f))
+                     for f in os.listdir(step_dir))
+    u.fit(host[4:], steps=2, log_every=1)
+    want_losses = [x for _, x in u.stats.losses]
+
+    # the elastic trainer: 4 steps, the agent's drain (a forced save)
+    # and reshard to 1 slice (a no-op on one card), 2 steps
+    edir = os.path.join(root, "elastic")
+    agent_client = _DictNotebookClient({
+        names.ELASTIC_ANNOTATION: "true",
+        names.ELASTIC_SLICES_ANNOTATION: "1",
+        names.ELASTIC_CURRENT_SLICES_ANNOTATION: "1"})
+    et = ElasticTrainer(MeshConfig(), 1, c, tc, edir, device="cuda")
+    agent = ElasticAgent(et, agent_client, "smoke", "nb")
+    et.fit(host[:4], steps=4, log_every=1)
+    agent_client.patch("Notebook", "smoke", "nb", {"metadata": {
+        "annotations": {names.ELASTIC_RESIZE_ANNOTATION: "Draining",
+                        names.ELASTIC_TARGET_ANNOTATION: "1"}}})
+    t0 = time.monotonic()
+    agent.poll_once()
+    drain_s = time.monotonic() - t0
+    acks = [agent_client.annotation(names.ELASTIC_ACK_ANNOTATION)]
+    agent_client.patch("Notebook", "smoke", "nb", {"metadata": {
+        "annotations": {names.ELASTIC_RESIZE_ANNOTATION: "Resharding"}}})
+    agent.poll_once()
+    acks.append(agent_client.annotation(names.ELASTIC_ACK_ANNOTATION))
+    agent_client.patch("Notebook", "smoke", "nb", {"metadata": {
+        "annotations": {names.ELASTIC_RESIZE_ANNOTATION: None,
+                        names.ELASTIC_ACK_ANNOTATION: None}}})
+    agent.poll_once()
+    et.fit(host[4:], steps=2, log_every=1)
+    e_losses = [x for _, x in et.stats.losses]
+    saved = sorted(os.listdir(edir))
+    try:
+        et.resize(2)
+        refused = None
+    except ValueError as exc:
+        refused = str(exc)
+    et_equal, _ = _tree_diff(torch, _state_tree(et.trainer), _state_tree(u))
+    et.close()
+    del et, agent
+    stats["elastic"] = {"losses": e_losses,
+                        "bit_equal": e_losses == want_losses and et_equal,
+                        "acks": acks, "drain_save_s": drain_s,
+                        "saved_steps": saved, "resize_2_refused": refused}
+    print(f"phase14 ElasticTrainer(MeshConfig(), 1, flagship, bf16 params): "
+          f"4 steps, the agent's drain (forced durable save of step 4) "
+          f"{drain_s:.3f} s, acks {acks}, 2 steps; losses {e_losses} "
+          f"bit-equal to an uninterrupted Trainer's "
+          f"{stats['elastic']['bit_equal']}; resize(2) on one card: "
+          f"{refused!r}; on {CARD[0]}", flush=True)
+    require(stats["elastic"]["bit_equal"],
+            "the elastic run is not bit-equal to the uninterrupted one")
+    require(acks == ["Draining", "Resharding"] and saved == ["4"],
+            f"elastic handshake acks {acks}, saved steps {saved}")
+    require(refused is not None and "exceed" in refused,
+            f"resize(2) on one card: {refused!r}")
+
+    # migration: the step-4 checkpoint resumed into a fresh Trainer
+    holder["b"] = b = Trainer(c, tc, mesh=mesh, seed=1)
+    t0 = time.monotonic()
+    step, b.params, b.opt_state = driver.resume(client, nb, token)
+    torch.cuda.synchronize()
+    resume_s = time.monotonic() - t0
+    b.stats.step = step
+    b.fit(host[4:], steps=2, log_every=1)
+    b_losses = [x for _, x in b.stats.losses]
+    b_equal, worst = _tree_diff(torch, _state_tree(b), _state_tree(u))
+    counts = take()
+    b.close()
+    u.close()
+    del b, u, holder
+    stats["migration"] = {
+        "token": token, "checkpoint_s": ckpt_s, "resume_s": resume_s,
+        "bytes": ckpt_bytes, "losses": b_losses,
+        "bit_equal": b_losses == want_losses[4:] and b_equal,
+        "resumed_annotation": client.annotation(
+            names.RESUMED_STEP_ANNOTATION)}
+    print(f"phase14 migration of a live flagship Trainer at step 4: "
+          f"checkpoint {ckpt_s:.3f} s, {ckpt_bytes / 1e9:.3f} GB on disk; "
+          f"resume into a fresh Trainer {resume_s:.3f} s; token {token}; "
+          f"steps 5-6 {b_losses} bit-equal to the uninterrupted run "
+          f"{stats['migration']['bit_equal']} (largest leaf difference "
+          f"{worst:.3e}); on {CARD[0]}", flush=True)
+    require(stats["migration"]["bit_equal"] and step == 4 and
+            stats["migration"]["resumed_annotation"] == "4",
+            "the migrated run is not bit-equal to the uninterrupted one")
+    got = {k: counts.get(k, 0) for k in attn}
+    # U 6 steps, the elastic trainer 6, B 2
+    require(got == {k: 14 * L for k in attn},
+            f"elastic and migration launches {got}, expected {14 * L} each")
+    for k in attn:
+        launched[k] = launched.get(k, 0) + got[k]
+    shutil.rmtree(mdir, ignore_errors=True)
+    shutil.rmtree(edir, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    stats["training_seconds"] = time.monotonic() - t_train
+    stats["launches"] = launched
+    stats["seconds"] = time.monotonic() - t_phase
+    print(f"phase14 launches on its paths {launched}; serving "
+          f"{stats['serving_seconds']:.1f} s, elastic and migration "
+          f"{stats['training_seconds']:.1f} s; phase 14 in "
+          f"{stats['seconds']:.1f} s", flush=True)
     return stats
 
 
@@ -3136,6 +3587,7 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
     print(f"card: {smi}", flush=True)
+    CARD.append(smi)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} device "
           f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}",
           flush=True)

@@ -68,10 +68,13 @@ def _mlp(x: torch.Tensor, layer: dict, config: TransformerConfig,
     """Dense or sparse MLP by config type. At decode the MoE router sees
     one token a row (N = batch), so a step's expert capacity is
     ceil(batch/E * factor * k): at a non-binding capacity decode logits
-    equal the full forward's. The aux loss is a training quantity and is
-    dropped here."""
+    equal the full forward's. On a mesh every rank holds the whole batch
+    (``replicated``): the routing groups are the step's rows, each rank
+    runs its experts' slots and the combine is summed over (tp, ep). The
+    aux loss is a training quantity and is dropped here."""
     if isinstance(config, MoEConfig):
-        return moe_mlp_block(x, layer, config)[0]
+        return moe_mlp_block(x, layer, config, mesh, rules,
+                             replicated=True)[0]
     return mlp_block(x, layer, config, mesh, rules)
 
 
@@ -392,6 +395,16 @@ def sample_token(logits: torch.Tensor, generator: torch.Generator | None,
     return torch.where(temperature > 0.0, sampled, greedy)
 
 
+def check_lengths(prompt_len: int, max_new_tokens: int,
+                  config: TransformerConfig) -> None:
+    """Raise the ValueError ``generate`` raises for a prompt and budget
+    that do not fit ``config.max_seq_len``."""
+    if prompt_len + max_new_tokens > config.max_seq_len:
+        raise ValueError(
+            f"prompt_len {prompt_len} + max_new_tokens {max_new_tokens} "
+            f"exceeds max_seq_len {config.max_seq_len}")
+
+
 def generate(params: dict, prompt: torch.Tensor, config: TransformerConfig,
              max_new_tokens: int, temperature=0.0,
              generator: torch.Generator | None = None, top_k=0,
@@ -406,10 +419,7 @@ def generate(params: dict, prompt: torch.Tensor, config: TransformerConfig,
     cache with per-position scales."""
     c = config
     B, prompt_len = prompt.shape
-    if prompt_len + max_new_tokens > c.max_seq_len:
-        raise ValueError(
-            f"prompt_len {prompt_len} + max_new_tokens {max_new_tokens} "
-            f"exceeds max_seq_len {c.max_seq_len}")
+    check_lengths(prompt_len, max_new_tokens, c)
     dev = prompt.device
     temps = torch.as_tensor(temperature, dtype=torch.float32).expand(B)
     sampling = bool((temps > 0).any())

@@ -242,21 +242,25 @@ def _mlp_weights(layer: dict, config: MoEConfig, mesh, rules) -> dict:
 
 
 def moe_mlp_block(x: torch.Tensor, layer: dict, config: MoEConfig,
-                  mesh=None, rules: PartitionRules | None = None):
+                  mesh=None, rules: PartitionRules | None = None, *,
+                  replicated: bool = False):
     """Sparse MLP: group → route → gather into expert slots → per-expert
     gated FFN → gate-weighted gather back. Returns (x + out, aux).
 
     Tokens split into G groups of g <= route_group_size in (batch, seq)
     order, each routed with its own capacity. On a mesh ``x`` is the
     rank's rows and sequence block and the groups are the global batch's
-    (see the module's notes)."""
+    (see the module's notes). ``replicated``: ``x`` is the whole batch on
+    every rank (decode), so the router logits are not gathered over the
+    data axes, which would count each row once per data rank; the ep
+    slots and the (tp, ep) sum are as in training."""
     c = config
     layer = _mlp_weights(layer, c, mesh, rules)
     h = rms_norm(x, layer["mlp_norm"])
     b, s, D = h.shape
     E, k = c.n_experts, c.experts_per_token
     logits = torch.matmul(h.float(), wcast(layer["router"], torch.float32))
-    rows, seq = _batch_axes(rules)
+    rows, seq = ((), ()) if replicated else _batch_axes(rules)
     full = comm.all_gather(comm.all_gather(logits, mesh, seq, 1), mesh,
                            rows, 0)
     Bg, Sg = full.shape[:2]

@@ -37,6 +37,8 @@ zero grad, so that every rank runs every backward collective.
 
 from __future__ import annotations
 
+import datetime
+
 import torch
 import torch.distributed as dist
 
@@ -419,3 +421,71 @@ def barrier(mesh) -> None:
     if mesh is not None:
         all_reduce_(torch.zeros(1, device=mesh_device(mesh)), mesh,
                     mesh.mesh_dim_names)
+
+
+# ------------------------------------------------------------ host plans
+# How long a rank may wait on a mesh's plan group. A follower waits there
+# while its driver has nothing to send, which may be for ever; a peer that
+# dies ends the wait at once, as its sockets close.
+PLAN_TIMEOUT = datetime.timedelta(days=365)
+
+
+def is_mesh_root(mesh) -> bool:
+    """Whether this process is ``mesh``'s first rank, the one at every
+    coordinate 0 (True off a mesh)."""
+    return mesh is None or _root(mesh) == dist.get_rank()
+
+
+def _root(mesh) -> int:
+    return int(mesh.mesh.flatten()[0])
+
+
+def make_plan_group(mesh) -> None:
+    """Give ``mesh`` its plan group: one gloo group over all its ranks,
+    on the host, whose waits ``PLAN_TIMEOUT`` bounds instead of the
+    world's collective timeout (None on a mesh of one rank). Every rank
+    of the world calls it as it builds the mesh, since groups are made
+    collectively."""
+    ranks = sorted(int(r) for r in mesh.mesh.flatten())
+    mesh.plan_group = None if len(ranks) == 1 else dist.new_group(
+        ranks, timeout=PLAN_TIMEOUT, backend="gloo")
+
+
+def _plan_group(mesh):
+    """``mesh``'s plan group, or None off a mesh or on one of size 1."""
+    if mesh is None or mesh.mesh.numel() == 1:
+        return None
+    group = getattr(mesh, "plan_group", None)
+    if group is None:
+        raise ValueError("this mesh has no plan group: build it with "
+                         "parallel.mesh.build_mesh or build_hybrid_mesh")
+    return group
+
+
+def broadcast_plan(obj, mesh):
+    """The mesh's first rank's picklable ``obj`` on every rank of
+    ``mesh`` (the others pass anything, None by custom); ``obj`` as it is
+    off a mesh or on one of size 1. One broadcast on the mesh's plan
+    group, on the host: a rank may wait in it as long as the first rank
+    has nothing to send."""
+    group = _plan_group(mesh)
+    if group is None:
+        return obj
+    box = [obj]
+    dist.broadcast_object_list(box, src=_root(mesh), group=group)
+    return box[0]
+
+
+def any_failed(flag: int, mesh) -> int:
+    """The largest ``flag`` over the ranks of ``mesh`` (0: none failed),
+    ``flag`` itself off a mesh or on one of size 1: a max all-reduce of
+    one int on the mesh's plan group. Every rank calls it, so a failure
+    on one rank becomes a failure of the whole mesh. The plan group's own
+    sequence of calls pairs them, whatever the mesh's other groups were
+    left waiting in."""
+    group = _plan_group(mesh)
+    if group is None:
+        return int(flag)
+    x = torch.tensor([int(flag)], dtype=torch.int32)
+    dist.all_reduce(x, op=dist.ReduceOp.MAX, group=group)
+    return int(x.item())

@@ -42,6 +42,7 @@ import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 
 from .. import resolve_device
+from . import comm
 
 AXES = ("dp", "fsdp", "pp", "sp", "tp", "ep")
 
@@ -91,6 +92,10 @@ def mesh_config(mesh: DeviceMesh | None) -> MeshConfig:
 
 
 # ----------------------------------------------------------------- world
+# the collective timeout of the world this process is in (``world``)
+_world_timeout: datetime.timedelta | None = None
+
+
 @contextlib.contextmanager
 def world(device="cuda", *, rank: int, world_size: int,
           store_path: str | None = None, init_method: str | None = None,
@@ -105,7 +110,9 @@ def world(device="cuda", *, rank: int, world_size: int,
     ``store_path`` (a file no earlier world used) or ``init_method``
     (``env://``, ``tcp://host:port``, ``file://...``). ``timeout`` bounds
     the rendezvous and every collective, so a rank whose peer is gone
-    fails instead of waiting for ever."""
+    fails instead of waiting for ever; the meshes built in the world give
+    their groups the same timeout."""
+    global _world_timeout
     dev = resolve_device(device)
     if (store_path is None) == (init_method is None):
         raise ValueError("pass exactly one of store_path and init_method")
@@ -120,9 +127,11 @@ def world(device="cuda", *, rank: int, world_size: int,
     else:
         kw["init_method"] = init_method
     dist.init_process_group(**kw)
+    _world_timeout = kw["timeout"]
     try:
         yield dev
     finally:
+        _world_timeout = None
         dist.destroy_process_group()
 
 
@@ -144,6 +153,15 @@ def _device_mesh(device, arr: torch.Tensor) -> DeviceMesh:
         # first tick joins two stages: one all-reduce over pp comes first
         dist.all_reduce(torch.zeros(1, device="cuda"),
                         group=mesh.get_group("pp"))
+    if _world_timeout is not None and mesh.get_coordinate() is not None:
+        # an axis over fewer ranks than the world gets a group of its
+        # own, made with torch's default timeout (30 min under gloo, 10
+        # under NCCL) rather than the world's
+        for a in AXES:
+            group = mesh.get_group(a)
+            if group is not dist.group.WORLD and group.size() > 1:
+                group.set_timeout(_world_timeout)
+    comm.make_plan_group(mesh)
     return mesh
 
 

@@ -54,7 +54,6 @@ import uuid
 from concurrent.futures import Future, ThreadPoolExecutor
 
 import torch
-import torch.distributed as dist
 
 from ..models.train import opt_state_shardings
 from ..parallel import comm
@@ -178,8 +177,7 @@ class TrainCheckpointer:
         # on a mesh: the steps saved, known alike on every rank (only the
         # writer's directory listing is current while it writes)
         self._saved = self.all_steps() if mesh is not None else None
-        self._writer = mesh is None or \
-            int(mesh.mesh.flatten()[0]) == dist.get_rank()
+        self._writer = comm.is_mesh_root(mesh)
 
     # ------------------------------------------------------------------ save
     def save(self, step: int, params, opt_state, *,

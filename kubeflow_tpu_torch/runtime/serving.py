@@ -28,11 +28,40 @@ that thread's current stream; HTTP threads only enqueue. Matmul weights
 are cast to the compute dtype once at load instead of on every call:
 ``wcast`` of the cast weight gives the same values, without re-reading the
 f32 masters every step.
+
+Over a mesh (params from ``runtime.sharded_decode.shard_decode_params``)
+the engines are SPMD: every rank of the mesh builds the engine with the
+same params, seed and options, and only the mesh's first rank, the
+*driver*, takes requests (``submit`` raises on the others). The reference
+is single-controller and needs none of this. Each engine iteration the
+driver makes every decision that depends on its host (which queued
+requests to admit into which slot, cancellations, whether anything
+waits, draining; for the bucketed engine the batch it took) and
+broadcasts it as one plan (``comm.broadcast_plan``); the other ranks
+apply the same plan to their own state, so every rank runs the same
+chunks, prefix-cache hits, ticks and sampling draws on the same logits
+(gathered over tp). Followers deliver nothing: their engine thread ends
+when a plan says drain. Plans travel on the mesh's plan group
+(``comm.make_plan_group``), a gloo group on the host whose waits the
+world's collective timeout does not end: the followers wait in the
+broadcast while the driver idles. One engine at a time serves on a mesh.
+
+A failure on one rank of a mesh reaches every rank through
+``comm.any_failed``, on the same group. A failure before the iteration's
+first collective (the plan's cancellations and admissions) or after its
+device work (the tokens' delivery) fails every in-flight request on
+every rank; each rank rebuilds its state and the engine serves on. A
+failure inside the device work (the bucketed engine's whole batch) may
+leave the mesh's collectives out of step, so it closes the engine on
+every rank; the peers learn of it when the collective they wait in
+ends at the world's timeout (under NCCL the watchdog may end their
+process instead). On a mesh of one rank nothing is broadcast or agreed.
 """
 
 from __future__ import annotations
 
 import collections
+import dataclasses
 import hashlib
 import queue
 import threading
@@ -44,11 +73,13 @@ import numpy as np
 import torch
 
 from .. import resolve_device
-from ..models.decode import (decode_step, decode_window, generate,
-                             init_kv_cache, sample_token, uses_flash_decode)
+from ..models.decode import (check_lengths, decode_step, decode_window,
+                             generate, init_kv_cache, sample_token,
+                             uses_flash_decode)
 from ..models.quant import BLOCK_AXES, is_quantized, quantize_params
 from ..models.speculative import (_categorical, _scaled_probs, emit_block,
                                   propose_and_verify, speculative_generate)
+from ..parallel import comm
 
 
 @dataclass
@@ -91,21 +122,95 @@ def cast_matmul_weights(params: dict, dtype: torch.dtype) -> dict:
     return out
 
 
+def _engine_device(params, device) -> torch.device:
+    """The engine's device: ``device``, or for params sharded over a mesh
+    the mesh's (``device`` must name the same kind)."""
+    mesh = getattr(params, "mesh", None)
+    if mesh is None:
+        return resolve_device(device)
+    if torch.device(device).type != mesh.device_type:
+        raise ValueError(f"params sharded over a {mesh.device_type} mesh "
+                         f"cannot serve on device {device!r}")
+    return comm.mesh_device(mesh)
+
+
 def _serving_params(params: dict, config, device: torch.device,
                     quantize: bool) -> dict:
     """``params`` on ``device``, int8 weight-only when ``quantize``, with
-    the matmul weights in the compute dtype. Params sharded over a mesh
-    are refused: the engines on a tp mesh need one rank to broadcast each
-    tick's admissions to the others."""
+    the matmul weights in the compute dtype. Sharded params stay on their
+    mesh's device, quantize with global scales (every rank calls this)
+    and keep their placement."""
     if getattr(params, "mesh", None) is not None:
-        raise NotImplementedError(
-            "the engines over a tp mesh are not ported yet (ROADMAP queue "
-            "A, multi-device part 2); sharded params serve through "
-            "generate and speculative_generate")
+        if quantize:
+            params = quantize_params(params)
+        return params.with_tree(cast_matmul_weights(params,
+                                                    config.compute_dtype))
     params = _tree_map(lambda t: t.to(device), params)
     if quantize:
         params = quantize_params(params)
     return cast_matmul_weights(params, config.compute_dtype)
+
+
+def _serving_draft(draft_params, draft_config, mesh, device):
+    """The draft's serving params and config, or None; a draft sharded
+    over a mesh must be on the target's."""
+    if draft_params is None:
+        return None
+    dmesh = getattr(draft_params, "mesh", None)
+    if dmesh is not None and dmesh is not mesh:
+        raise ValueError("a sharded draft must be sharded over the "
+                         "target's mesh")
+    return (_serving_params(draft_params, draft_config, device, False),
+            draft_config)
+
+
+# what a rank reports of its part of an iteration: no failure, a failure
+# where every rank is in step (outside the collectives), or one inside them
+_OK, _IN_STEP, _INSIDE = 0, 1, 2
+
+
+def _agree(failure: BaseException | None, mesh,
+           inside: bool = False) -> tuple[BaseException | None, bool]:
+    """The iteration's failure as every rank of ``mesh`` sees it (this
+    rank's exception, one naming a peer when only a peer failed, or None),
+    and whether a rank failed inside the iteration's collectives
+    (``inside``: this one did), leaving the mesh's groups out of step. A
+    failed agreement counts as such a failure."""
+    code = _OK if failure is None else _INSIDE if inside else _IN_STEP
+    try:
+        worst = comm.any_failed(code, mesh)
+    except Exception as exc:  # noqa: BLE001 — the mesh itself failed
+        return failure or exc, True
+    if worst != _OK and failure is None:
+        failure = RuntimeError("the engine failed on another rank of its "
+                               "mesh")
+    return failure, worst == _INSIDE
+
+
+def _spmd(mesh) -> bool:
+    """Whether params on ``mesh`` serve over more than one rank."""
+    return mesh is not None and mesh.size() > 1
+
+
+def _claim(mesh) -> None:
+    """Reserve ``mesh``'s plan group for one engine: the plans of two
+    would interleave on it."""
+    if _spmd(mesh):
+        if getattr(mesh, "serving", False):
+            raise ValueError("another engine serves on this mesh; close it "
+                             "first, or shard onto a mesh of its own")
+        mesh.serving = True
+
+
+def _release(mesh) -> None:
+    if _spmd(mesh):
+        mesh.serving = False
+
+
+def _refuse_follower(mesh) -> None:
+    if not comm.is_mesh_root(mesh):
+        raise RuntimeError("requests go to the mesh's first rank (the "
+                           "driver); this rank follows its plans")
 
 
 def _check_draft(draft_params, draft_config, spec_k: int) -> None:
@@ -128,6 +233,12 @@ class BatchedGenerator:
     otherwise it runs ``generate``. ``spec_batches``/``spec_accepted``/
     ``spec_drafted`` count the real rows' acceptance dynamics,
     ``spec_blocks`` the verify blocks run.
+
+    Over a mesh (sharded params) every rank builds it; the driver
+    broadcasts each batch it takes, and every rank runs it. A batch is
+    device work throughout, so on a mesh its failure closes the engine on
+    every rank; the driver fails the batches ``generate`` refuses for
+    their length before it broadcasts them.
     """
 
     def __init__(self, params, config, *, max_batch: int = 8,
@@ -136,12 +247,13 @@ class BatchedGenerator:
                  draft_config=None, spec_k: int = 4,
                  spec_exact_only: bool = True, device="cuda"):
         _check_draft(draft_params, draft_config, spec_k)
-        self.device = resolve_device(device)
+        self.device = _engine_device(params, device)
+        self._mesh = getattr(params, "mesh", None)
+        self._spmd = _spmd(self._mesh)
         self.params = _serving_params(params, config, self.device, quantize)
         self.config = config
-        self.draft = None if draft_params is None else (
-            _serving_params(draft_params, draft_config, self.device, False),
-            draft_config)
+        self.draft = _serving_draft(draft_params, draft_config, self._mesh,
+                                    self.device)
         self.spec_k = spec_k
         self.spec_exact_only = spec_exact_only
         self.spec_batches = 0
@@ -160,6 +272,7 @@ class BatchedGenerator:
         self.batch_sizes: collections.deque = collections.deque(maxlen=1024)
         self.batches_total = 0
         self.requests_total = 0
+        _claim(self._mesh)
         self._thread = threading.Thread(target=self._scheduler, daemon=True,
                                         name="kubeflow-tpu-torch-serving")
         self._thread.start()
@@ -168,6 +281,7 @@ class BatchedGenerator:
     def submit(self, prompt, max_new_tokens: int,
                temperature: float = 0.0, top_k: int = 0,
                top_p: float = 1.0) -> Future:
+        _refuse_follower(self._mesh)
         req = GenerateRequest(np.asarray(prompt, np.int32), max_new_tokens,
                               temperature, top_k, top_p)
         with self._lifecycle:
@@ -183,6 +297,8 @@ class BatchedGenerator:
                            top_p).result(timeout=timeout)
 
     def close(self) -> None:
+        """Fail what is queued and stop. On a follower: wait for the
+        driver's close to end the engine thread."""
         with self._lifecycle:
             if self._closed:
                 return
@@ -233,29 +349,87 @@ class BatchedGenerator:
                 self._pending.append(req)
         return batch
 
-    def _scheduler(self) -> None:
-        while True:  # pump: scheduler; sentinel batch=None breaks via return
+    def _next_batch(self) -> list[GenerateRequest] | None:
+        """The driver's next batch (None on close), and over a mesh the
+        same batch on every rank: the driver broadcasts its rows; the
+        followers, which wait in the broadcast meanwhile, run them as
+        requests of their own."""
+        if not self._spmd:
+            return self._take_batch()
+        if comm.is_mesh_root(self._mesh):
+            batch = self._take_runnable()
+            plan = None if batch is None else [
+                (r.prompt, r.max_new_tokens, r.temperature, r.top_k, r.top_p)
+                for r in batch]
+            try:
+                comm.broadcast_plan(plan, self._mesh)
+            except Exception as exc:  # noqa: BLE001 — fail the batch too
+                for req in batch or ():
+                    _fail(req, exc)
+                raise
+            return batch
+        plan = comm.broadcast_plan(None, self._mesh)
+        return None if plan is None else [GenerateRequest(*row)
+                                          for row in plan]
+
+    def _take_runnable(self) -> list[GenerateRequest] | None:
+        """``_take_batch``, failing here each batch that ``generate``
+        refuses for its length (a batch's rows share their lengths)."""
+        while True:  # bounded: each turn takes requests off the queue
             batch = self._take_batch()
             if batch is None:
-                # drain: fail any stragglers so callers don't hang
-                stragglers = list(self._pending)
-                self._pending.clear()
-                while True:  # bounded: drains queue until Empty
-                    try:
-                        req = self._queue.get_nowait()
-                    except queue.Empty:
-                        break
-                    if req is not None:
-                        stragglers.append(req)
-                for req in stragglers:
-                    req.future.set_exception(RuntimeError("generator closed"))
-                return
+                return None
             try:
-                self._run_batch(batch)
-            except Exception as exc:  # noqa: BLE001 — deliver per-request
+                check_lengths(len(batch[0].prompt), batch[0].max_new_tokens,
+                              self.config)
+                return batch
+            except ValueError as exc:
                 for req in batch:
-                    if not req.future.done():
-                        req.future.set_exception(exc)
+                    _fail(req, exc)
+
+    def _scheduler(self) -> None:
+        while True:  # pump: scheduler; sentinel batch=None breaks via return
+            try:
+                batch = self._next_batch()
+            except Exception as exc:  # noqa: BLE001 — the mesh failed:
+                self._drain(exc)      # nothing more can run
+                return
+            if batch is None:
+                self._drain(RuntimeError("generator closed"))
+                return
+            failure, out, broken = None, None, False
+            try:
+                out = self._run_batch(batch)
+            except Exception as exc:  # noqa: BLE001 — deliver per-request
+                failure = exc
+            if self._spmd:
+                failure, broken = _agree(failure, self._mesh, inside=True)
+            for i, req in enumerate(batch):
+                if failure is not None:
+                    _fail(req, failure)
+                elif not req.future.done():
+                    req.future.set_result(out[i])
+            if broken:
+                self._drain(failure)
+                return
+
+    def _drain(self, exc: BaseException) -> None:
+        """Refuse further submits and fail every straggler with ``exc``
+        so callers don't hang."""
+        with self._lifecycle:
+            self._closed = True
+        _release(self._mesh)
+        stragglers = list(self._pending)
+        self._pending.clear()
+        while True:  # bounded: drains queue until Empty
+            try:
+                req = self._queue.get_nowait()
+            except queue.Empty:
+                break
+            if req is not None:
+                stragglers.append(req)
+        for req in stragglers:
+            _fail(req, exc)
 
     @staticmethod
     def _bucket_size(n: int) -> int:
@@ -265,7 +439,8 @@ class BatchedGenerator:
             size *= 2
         return size
 
-    def _run_batch(self, batch: list[GenerateRequest]) -> None:
+    def _run_batch(self, batch: list[GenerateRequest]) -> np.ndarray:
+        """Run one batch; its rows' ids, in batch order, on the host."""
         self.batch_sizes.append(len(batch))
         self.batches_total += 1
         self.requests_total += len(batch)
@@ -306,9 +481,7 @@ class BatchedGenerator:
             out = generate(self.params, prompts, self.config, max_new,
                            temperature=temps, generator=self._rng,
                            top_k=top_ks, top_p=top_ps)
-        out = out.cpu().numpy()
-        for i, req in enumerate(batch):
-            req.future.set_result(out[i])
+        return out.cpu().numpy()
 
 
 # ===================================================== continuous batching
@@ -336,6 +509,19 @@ class _Admission:
     # hits may advance the two models by different amounts)
     d_row_cache: dict | None = None
     d_consumed: int = 0
+
+
+@dataclass
+class _Plan:
+    """One continuous-engine iteration's host decisions: made by the
+    driver, applied by every rank of its mesh."""
+    # (slot, request) admissions to begin; over the wire (slot, prompt,
+    # max_new_tokens, temperature, top_k, top_p)
+    admit: list = field(default_factory=list)
+    # slots whose admitting or running request was cancelled
+    cancel: list = field(default_factory=list)
+    waiting: bool = False  # requests wait in the queue: one step a sync
+    drain: bool = False    # close(): admit nothing more, finish, stop
 
 
 def _fail(req: GenerateRequest, exc: BaseException) -> None:
@@ -386,6 +572,12 @@ class ContinuousBatchedGenerator:
       last logits, and the tick reads ONE packed (slots, k+6) buffer
       back — [n_out, done, emit_len, n_acc, first, emit_0..emit_k] a
       row, ``first`` streamed with a row's first tick.
+    - Over a mesh (sharded params) every rank builds the engine and the
+      driver broadcasts each iteration's ``_Plan``. Every rank applies it,
+      then agrees on failure before the iteration's first collective: an
+      admission that fails on a mesh fails every in-flight request, as a
+      failed delivery does (the ranks' states must not part), and a
+      failure inside the device work closes the engine on every rank.
 
     ``submit`` returns a Future resolving to the (max_new_tokens,) int32
     ids (``pad_id`` after an early ``eos_id``); ``on_token`` streams each
@@ -417,7 +609,9 @@ class ContinuousBatchedGenerator:
             raise ValueError("steps_per_sync > 1 is not supported "
                              "together with a draft model")
         _check_draft(draft_params, draft_config, spec_k)
-        self.device = resolve_device(device)
+        self.device = _engine_device(params, device)
+        self._mesh = getattr(params, "mesh", None)
+        self._spmd = _spmd(self._mesh)
         if draft_params is not None and spec_exact_only and \
                 uses_flash_decode(config, self.device):
             raise ValueError(
@@ -428,9 +622,8 @@ class ContinuousBatchedGenerator:
                 "accept that, or use the non-speculative engine")
         self.params = _serving_params(params, config, self.device, quantize)
         self.config = config
-        self.draft = None if draft_params is None else (
-            _serving_params(draft_params, draft_config, self.device, False),
-            draft_config)
+        self.draft = _serving_draft(draft_params, draft_config, self._mesh,
+                                    self.device)
         self.spec_k = spec_k
         self.n_slots = n_slots
         self.cap = max_new_cap or config.max_seq_len
@@ -464,6 +657,7 @@ class ContinuousBatchedGenerator:
         self.spec_accepted = 0
         self._state = self._fresh_state()
         self._dstate = self._fresh_draft_state()
+        _claim(self._mesh)
         self._thread = threading.Thread(target=self._loop, daemon=True,
                                         name="kubeflow-tpu-torch-cbatch")
         self._thread.start()
@@ -479,7 +673,8 @@ class ContinuousBatchedGenerator:
         # past its budget: the overhang keeps every cell index in range
         overhang = 0 if self.draft is None else self.spec_k + 1
         return {
-            "cache": init_kv_cache(c, n, kv_quant=self.kv_quant, device=dev),
+            "cache": init_kv_cache(c, n, kv_quant=self.kv_quant, device=dev,
+                                   mesh=self._mesh),
             "logits": zeros(n, c.vocab_size, dtype=torch.float32),
             "pos": zeros(n, dtype=torch.int32),
             "active": zeros(n, dtype=torch.bool),
@@ -501,12 +696,17 @@ class ContinuousBatchedGenerator:
         if self.draft is None:
             return None
         return {"cache": init_kv_cache(self.draft[1], self.n_slots,
-                                       device=self.device)}
+                                       device=self.device,
+                                       mesh=self._draft_mesh())}
+
+    def _draft_mesh(self):
+        return getattr(self.draft[0], "mesh", None)
 
     # ----------------------------------------------------------------- API
     def submit(self, prompt, max_new_tokens: int, temperature: float = 0.0,
                top_k: int = 0, top_p: float = 1.0, *,
                on_token=None) -> Future:
+        _refuse_follower(self._mesh)
         if max_new_tokens > self.cap:
             raise ValueError(f"max_new_tokens {max_new_tokens} exceeds "
                              f"engine cap {self.cap}")
@@ -557,7 +757,8 @@ class ContinuousBatchedGenerator:
                            top_p).result(timeout=timeout)
 
     def close(self) -> None:
-        """Finish what is running or admitting, fail what is queued."""
+        """Finish what is running or admitting, fail what is queued. On a
+        follower: wait for the driver's close to end the engine thread."""
         with self._lifecycle:
             if self._closed:
                 return
@@ -724,11 +925,13 @@ class ContinuousBatchedGenerator:
         adm = _Admission(req=req, padded=padded, real_len=real_len,
                          row_cache=init_kv_cache(self.config, 1,
                                                  kv_quant=self.kv_quant,
-                                                 device=self.device))
+                                                 device=self.device,
+                                                 mesh=self._mesh))
         adm.consumed = self._take_prefix_hits(req, adm.row_cache, False)
         if self.draft is not None:
             adm.d_row_cache = init_kv_cache(self.draft[1], 1,
-                                            device=self.device)
+                                            device=self.device,
+                                            mesh=self._draft_mesh())
             adm.d_consumed = self._take_prefix_hits(req, adm.d_row_cache,
                                                     True)
         self._admitting[slot] = adm
@@ -777,12 +980,6 @@ class ContinuousBatchedGenerator:
         C = self.prefill_chunk
         for slot, adm in list(self._admitting.items()):
             req = adm.req
-            if req.cancelled.is_set():
-                del self._admitting[slot]
-                self._slots[slot] = _Slot()
-                _fail(req, CancelledError())
-                self.cancelled_total += 1
-                continue
             width = adm.padded.shape[1]
             spec = adm.d_row_cache is not None
             try:
@@ -801,7 +998,10 @@ class ContinuousBatchedGenerator:
                     self._splice(adm, slot)
             except Exception as exc:  # noqa: BLE001 — fail THIS request;
                 # other admissions and the running batch continue (a
-                # failed splice leaves the row unarmed)
+                # failed splice leaves the row unarmed); on a mesh the
+                # whole iteration fails, on every rank
+                if self._spmd:
+                    raise
                 del self._admitting[slot]
                 self._slots[slot] = _Slot()
                 _fail(req, exc)
@@ -830,13 +1030,18 @@ class ContinuousBatchedGenerator:
             except RuntimeError:
                 # caching is an optimization: failing to allocate an
                 # entry must not fail a request whose prefill succeeded
-                pass
+                # (on a mesh it must: the ranks' caches would part)
+                if self._spmd:
+                    raise
         return logits
 
-    def _fail_all_and_rearm(self, exc: BaseException) -> None:
+    def _fail_all_and_rearm(self, exc: BaseException,
+                            extra=()) -> None:
         """A tick failed part-way through its in-place updates: fail every
-        in-flight request and rebuild the state from zero (the engine
-        keeps serving)."""
+        in-flight request (and those of ``extra``) and rebuild the state
+        from zero (the engine keeps serving)."""
+        for req in extra:
+            _fail(req, exc)
         for i, s in enumerate(self._slots):
             if s.req is not None:
                 _fail(s.req, exc)
@@ -862,97 +1067,172 @@ class ContinuousBatchedGenerator:
 
     def _collect_finished(self, n_out: np.ndarray,
                           done: np.ndarray) -> None:
-        freed, finished = [], []
-        for i, slot in enumerate(self._slots):
-            if slot.req is None or slot.prefilling:
-                continue
-            if slot.req.cancelled.is_set():
-                _fail(slot.req, CancelledError())
-                self._slots[i] = _Slot()
-                freed.append(i)
-                self.cancelled_total += 1
-            elif n_out[i] >= slot.target or done[i]:
-                finished.append(i)
-        if finished:
-            out = self._state["out"].cpu().numpy()
-            for i in finished:
-                slot = self._slots[i]
-                ids = out[i, :slot.target].copy()
-                ids[int(n_out[i]):] = self.pad_id   # EOS'd early: pad
-                if not slot.req.future.done():
-                    slot.req.future.set_result(ids)
-                self._slots[i] = _Slot()
-        for i in freed + finished:
+        finished = [i for i, slot in enumerate(self._slots)
+                    if slot.req is not None and not slot.prefilling
+                    and (n_out[i] >= slot.target or done[i])]
+        if not finished:
+            return
+        out = self._state["out"].cpu().numpy()
+        for i in finished:
+            slot = self._slots[i]
+            ids = out[i, :slot.target].copy()
+            ids[int(n_out[i]):] = self.pad_id   # EOS'd early: pad
+            if not slot.req.future.done():
+                slot.req.future.set_result(ids)
+            self._slots[i] = _Slot()
             self._state["active"][i] = False
 
+    # ---------------------------------------------------------------- plans
+    def _make_plan(self, draining: bool, block: bool) -> _Plan:
+        """The driver's decisions for one iteration: the cancelled slots,
+        then as many queued arrivals as there are free slots (waiting for
+        one with ``block``: when fully idle, nothing decoding or
+        admitting)."""
+        plan = _Plan(drain=draining)
+        plan.cancel = [i for i, s in enumerate(self._slots)
+                       if s.req is not None and s.req.cancelled.is_set()]
+        free = self._free_slots()
+        while not plan.drain and free:
+            try:
+                req = self._queue.get(block=block)
+            except queue.Empty:
+                break
+            block = False
+            if req is None:
+                # close(): finish what is running and admitting (those
+                # requests were accepted), admit nothing new
+                plan.drain = True
+                break
+            if req.cancelled.is_set():  # cancelled while queued
+                _fail(req, CancelledError())
+                self.cancelled_total += 1
+                continue
+            plan.admit.append((free.pop(0), req))
+        plan.waiting = not self._queue.empty()
+        return plan
+
+    def _exchange(self, plan: _Plan | None) -> _Plan:
+        """The driver's plan on every rank of the mesh (as it is off a
+        mesh): the admissions travel as their request fields, and each
+        follower admits requests of its own that nobody reads."""
+        if not self._spmd:
+            return plan
+        if plan is not None:
+            comm.broadcast_plan(dataclasses.replace(plan, admit=[
+                (slot, r.prompt, r.max_new_tokens, r.temperature, r.top_k,
+                 r.top_p) for slot, r in plan.admit]), self._mesh)
+            return plan
+        wire = comm.broadcast_plan(None, self._mesh)
+        return dataclasses.replace(wire, admit=[
+            (slot, GenerateRequest(*fields)) for slot, *fields in wire.admit])
+
+    def _apply(self, plan: _Plan) -> None:
+        """Free the cancelled slots, then begin the plan's admissions."""
+        for slot in plan.cancel:
+            req = self._slots[slot].req
+            self._admitting.pop(slot, None)
+            self._slots[slot] = _Slot()
+            self._state["active"][slot] = False
+            _fail(req, CancelledError())
+            self.cancelled_total += 1
+        for slot, req in plan.admit:
+            try:
+                self._begin_admission(req, slot)
+            except Exception as exc:  # noqa: BLE001 — this request (on a
+                if self._spmd:               # mesh: every rank's)
+                    raise
+                _fail(req, exc)
+
     def _loop(self) -> None:
+        driver = comm.is_mesh_root(self._mesh)
         draining = False
         while True:  # pump: decode loop; exits when draining and slots idle
-            # stage as many arrivals as there are free slots; block for
-            # work only when fully idle (nothing decoding or admitting)
-            block = (not draining and not self._armed()
-                     and not self._admitting)
-            while not draining:
-                free = self._free_slots()
-                if not free:
-                    break
-                try:
-                    req = self._queue.get(block=block)
-                except queue.Empty:
-                    break
-                block = False
-                if req is None:
-                    # close(): finish what is running and admitting (those
-                    # requests were accepted), admit nothing new
-                    draining = True
-                    break
-                if req.cancelled.is_set():  # cancelled while queued
-                    _fail(req, CancelledError())
-                    self.cancelled_total += 1
-                    continue
-                try:
-                    self._begin_admission(req, free[0])
-                except Exception as exc:  # noqa: BLE001 — this request
-                    _fail(req, exc)
-            self._advance_admissions()
-            armed = self._armed()
-            if not armed:
-                if draining and not self._admitting:
-                    self._shutdown()
-                    return
-                continue
-            # multi-step sync amortizes the readback over `steps` tokens,
-            # but drops to one step while anything admits or waits, so it
-            # never costs admission latency
-            steps = self.steps_per_sync
-            if steps > 1 and (self._admitting or not self._queue.empty()):
-                steps = 1
-            sampling = any(s.req.temperature > 0 for s in armed)
+            # the driver blocks for work only when fully idle (nothing
+            # decoding or admitting); its followers wait in the exchange
+            block = not draining and not self._armed() and not self._admitting
+            plan = self._make_plan(draining, block) if driver else None
             try:
-                if self.draft is not None:
-                    self._run_spec_tick(sampling)
-                    continue
-                flags = self._tick(steps, sampling)
-                self.steps_total += steps
-                host = flags.cpu().numpy()   # the sync's one readback
-                # stream BEFORE collection so every token is delivered
-                # before the request's future resolves
-                for s in range(host.shape[0]):
-                    self._emit_tokens(host[s, 2], host[s, 3] != 0)
-                self._collect_finished(host[-1, 0], host[-1, 1] != 0)
-            except Exception as exc:  # noqa: BLE001 — fail the batch
-                self._fail_all_and_rearm(exc)
+                plan = self._exchange(plan)
+            except Exception as exc:  # noqa: BLE001 — the mesh failed:
+                # nothing more can run; the plan's arrivals fail too
+                self._fail_all_and_rearm(exc, [] if plan is None else
+                                         [r for _, r in plan.admit])
+                self._shutdown(exc)
+                return
+            draining = draining or plan.drain
+            failure, broken = self._iterate(plan)
+            if failure is not None:
+                self._fail_all_and_rearm(failure,
+                                         [r for _, r in plan.admit])
+                if broken:
+                    self._shutdown(failure)
+                    return
+            if draining and not self._armed() and not self._admitting:
+                self._shutdown()
+                return
 
-    def _run_spec_tick(self, sampling: bool) -> None:
-        flags = self._spec_tick(sampling)
-        self.steps_total += 1
-        self.spec_ticks += 1
-        host = flags.cpu().numpy()   # the tick's one readback
-        moved = host[:, 2] > 0
-        self.spec_drafted += int(moved.sum()) * self.spec_k
-        self.spec_accepted += int(host[moved, 3].sum())
-        self._emit_spec_tokens(host)
-        self._collect_finished(host[:, 0], host[:, 1] != 0)
+    def _iterate(self, plan: _Plan) -> tuple[BaseException | None, bool]:
+        """Apply ``plan``, then run the iteration's device work and deliver
+        what it made. Returns the failure as every rank sees it, and
+        whether it came inside the device work on some rank."""
+        failure, broken = None, False
+        try:
+            self._apply(plan)  # host work: no collective
+        except Exception as exc:  # noqa: BLE001 — fail the batch
+            failure = exc
+        if self._spmd:
+            # agreed before any rank enters the iteration's first collective
+            failure, broken = _agree(failure, self._mesh)
+        if failure is not None:
+            return failure, broken
+        inside = True
+        try:
+            host, steps = self._device_work(plan)
+            inside = False
+            if host is not None:
+                self._deliver(host, steps)
+        except Exception as exc:  # noqa: BLE001 — fail the batch
+            failure = exc
+        if self._spmd:
+            return _agree(failure, self._mesh, inside)
+        return failure, False
+
+    def _device_work(self, plan: _Plan) -> tuple[np.ndarray | None, int]:
+        """Every collective of the iteration: the admissions' next chunks
+        and, when any row is armed, the tick, read back. Returns the host
+        flags (None when nothing is armed) and the tick's steps."""
+        self._advance_admissions()
+        armed = self._armed()
+        if not armed:
+            return None, 0
+        sampling = any(s.req.temperature > 0 for s in armed)
+        if self.draft is not None:
+            # the tick's one readback
+            return self._spec_tick(sampling).cpu().numpy(), 1
+        # multi-step sync amortizes the readback over `steps` tokens, but
+        # drops to one step while anything admits or waits, so it never
+        # costs admission latency
+        steps = self.steps_per_sync
+        if self._admitting or plan.waiting:
+            steps = 1
+        return self._tick(steps, sampling).cpu().numpy(), steps
+
+    def _deliver(self, host: np.ndarray, steps: int) -> None:
+        """A tick's tokens to their streams, then its finished requests to
+        their futures (every token is delivered before the request's
+        future resolves)."""
+        self.steps_total += steps
+        if self.draft is not None:
+            self.spec_ticks += 1
+            moved = host[:, 2] > 0
+            self.spec_drafted += int(moved.sum()) * self.spec_k
+            self.spec_accepted += int(host[moved, 3].sum())
+            self._emit_spec_tokens(host)
+            self._collect_finished(host[:, 0], host[:, 1] != 0)
+            return
+        for s in range(host.shape[0]):
+            self._emit_tokens(host[s, 2], host[s, 3] != 0)
+        self._collect_finished(host[-1, 0], host[-1, 1] != 0)
 
     def _emit_spec_tokens(self, host: np.ndarray) -> None:
         """A speculative tick's streaming: each row emitted 0..k+1 tokens,
@@ -973,7 +1253,12 @@ class ContinuousBatchedGenerator:
                     slot.req.on_token = None
                     break
 
-    def _shutdown(self) -> None:
+    def _shutdown(self, exc: BaseException | None = None) -> None:
+        """Refuse further submits and fail what is left with ``exc``
+        (default: the generator is closed)."""
+        with self._lifecycle:
+            self._closed = True
+        _release(self._mesh)
         stragglers = [s.req for s in self._slots if s.req is not None]
         while True:  # bounded: drains queue until Empty
             try:
@@ -983,4 +1268,4 @@ class ContinuousBatchedGenerator:
             if req is not None:
                 stragglers.append(req)
         for req in stragglers:
-            _fail(req, RuntimeError("generator closed"))
+            _fail(req, exc or RuntimeError("generator closed"))

@@ -27,6 +27,7 @@ from collections import deque
 from dataclasses import dataclass, field
 
 import torch
+import torch.distributed as dist
 
 from .. import resolve_device
 from ..models import train as train_lib
@@ -80,7 +81,7 @@ class Trainer:
     every batch, the stats count the whole batch's tokens (TFLOP/s per
     device), and checkpoints hold the full tensors and resume onto any
     mesh. In LoRA mode ``base_params`` are the full base weights; each
-    rank keeps its shards of them."""
+    rank keeps its shards of them. A rank outside ``mesh`` is refused."""
 
     def __init__(self, config: TransformerConfig,
                  train_config: train_lib.TrainConfig | None = None, *,
@@ -101,6 +102,12 @@ class Trainer:
         if lora is not None and base_params is None:
             raise ValueError("lora mode requires base_params (the "
                              "pretrained weights being finetuned)")
+        if mesh is not None and \
+                dist.get_rank() not in mesh.mesh.flatten().tolist():
+            raise ValueError(
+                f"rank {dist.get_rank()} is not in the mesh "
+                f"{mesh.mesh.flatten().tolist()}: build the Trainer on the "
+                f"mesh's ranks only (the others build the mesh and wait)")
         self.device = comm.mesh_device(mesh) if mesh is not None else \
             resolve_device(device)
         # on a mesh: the layout the step shards by, and checkpoints with it

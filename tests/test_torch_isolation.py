@@ -48,9 +48,13 @@ def test_port_file_list_covers_the_package():
                 "kubeflow_tpu_torch/parallel/ulysses.py",
                 "kubeflow_tpu_torch/parallel/pipeline.py",
                 "kubeflow_tpu_torch/runtime/sharded_decode.py",
+                "kubeflow_tpu_torch/runtime/elastic.py",
+                "kubeflow_tpu_torch/runtime/migrate.py",
+                "kubeflow_tpu_torch/utils/k8s.py",
+                "kubeflow_tpu_torch/utils/names.py",
                 "kubeflow_tpu_torch/tools/dryrun_multidevice.py"):
         assert rel in PORT_FILES
-    assert len(PORT_FILES) >= 25
+    assert len(PORT_FILES) >= 29
 
 
 _PROBE = r"""
@@ -73,6 +77,8 @@ import kubeflow_tpu_torch.runtime.trainer
 import kubeflow_tpu_torch.runtime.server
 import kubeflow_tpu_torch.runtime.serving
 import kubeflow_tpu_torch.runtime.sharded_decode
+import kubeflow_tpu_torch.runtime.elastic
+import kubeflow_tpu_torch.runtime.migrate
 import kubeflow_tpu_torch.parallel.partition_rules
 import kubeflow_tpu_torch.parallel.ring
 import kubeflow_tpu_torch.parallel.ulysses

@@ -159,17 +159,13 @@ def test_dryrun_multidevice_on_four_cpu_ranks():
 
 @pytest.mark.parametrize("engine", ["BatchedGenerator",
                                     "ContinuousBatchedGenerator"])
-def test_engines_refuse_sharded_params(jax_side, engine):
-    """The engines over a tp mesh need one rank broadcasting each tick's
-    admissions to the others (not ported): sharded params are refused,
-    naming the ROADMAP item, before any thread starts."""
-    from kubeflow_tpu_torch import convert
-    from kubeflow_tpu_torch.models.transformer import TransformerConfig
-    from kubeflow_tpu_torch.runtime import serving
-    from kubeflow_tpu_torch.runtime.sharded_decode import (ShardedParams,
-                                                           decode_rules)
-    params = ShardedParams(convert.to_torch(jax_side["params"]),
-                           mesh=object(), rules=decode_rules())
-    with pytest.raises(NotImplementedError, match="multi-device part 2"):
-        getattr(serving, engine)(params, TransformerConfig(**CONFIG),
-                                 device="cpu")
+def test_engines_refuse_submit_on_a_follower(port_side, engine):
+    """Every rank of the mesh builds the engine on its sharded params;
+    only the mesh's first rank (the driver) takes requests, and submit
+    on every other rank raises, naming the driver
+    (tests/test_torch_sharded_serving.py drives the engines)."""
+    every = port_side["follower_submit"][engine]
+    assert every[0] == "driver"
+    assert len(every) == 4
+    for msg in every[1:]:
+        assert "first rank" in msg and "driver" in msg

@@ -1,7 +1,8 @@
 """Rank entry points of the multi-rank parity tests
 (tests/test_torch_parallel.py, test_torch_sharded_train.py,
 test_torch_sharded_decode.py, test_torch_pipeline.py,
-test_torch_sharded_moe.py, test_torch_sharded_lora.py).
+test_torch_sharded_moe.py, test_torch_sharded_lora.py,
+test_torch_sharded_serving.py, test_torch_elastic.py).
 
 Each function runs in every process of a gloo world on the CPU started by
 ``kubeflow_tpu_torch.parallel.mesh.spawn``, and returns rank 0's results
@@ -17,6 +18,8 @@ the ranks outside it skip the case.
 from __future__ import annotations
 
 import math
+import time
+from concurrent.futures import CancelledError
 
 import numpy as np
 import torch
@@ -776,4 +779,642 @@ def decode_suite(rank: int, world: int, job: dict) -> dict:
         out["spec"] = spec
     out["finite"] = math.isfinite(float(np.abs(
         out["steps"]["sharded"]["window"]).max()))
+    out["follower_submit"] = _follower_submits(sharded, c)
+    return out
+
+
+def _follower_submits(sharded, config) -> dict:
+    """Each engine built over the mesh on every rank: what ``submit``
+    raises on each follower (rank 0, the driver, takes requests)."""
+    from kubeflow_tpu_torch.runtime import serving
+    out = {}
+    for name in ("BatchedGenerator", "ContinuousBatchedGenerator"):
+        gen = getattr(serving, name)(sharded, config, device="cpu")
+        msg = "driver"
+        if dist.get_rank() != 0:
+            try:
+                gen.submit(np.arange(4, dtype=np.int32), 2)
+                msg = "accepted"
+            except RuntimeError as exc:
+                msg = str(exc)
+        gen.close()
+        every = [None] * dist.get_world_size()
+        dist.all_gather_object(every, msg)
+        out[name] = every
+    return out
+
+
+# ---------------------------------------------------------------- serving
+def _record_requests(gen) -> list:
+    """Every request ``gen`` admits on this rank, in admission order: the
+    driver's own, a follower's built from the driver's plans."""
+    seen = []
+    if hasattr(gen, "_begin_admission"):
+        begin = gen._begin_admission
+
+        def recording(req, slot):
+            seen.append(req)
+            return begin(req, slot)
+        gen._begin_admission = recording
+    else:
+        run = gen._run_batch
+
+        def recording(batch):
+            seen.extend(batch)
+            return run(batch)
+        gen._run_batch = recording
+    return seen
+
+
+def _outcomes(requests, timeout: float = 60.0) -> list:
+    """Each request's ids, or the name of the exception it failed with."""
+    out = []
+    for req in requests:
+        try:
+            out.append([int(t) for t in req.future.result(timeout=timeout)])
+        except BaseException as exc:  # noqa: BLE001 — reported
+            out.append(type(exc).__name__)
+    return out
+
+
+# a group of the whole world for the tests' own barriers: the engine
+# threads' collectives may run on the default group (a mesh axis spanning
+# the world is that group), and two threads' collectives on one group
+# would pair up in different orders on different ranks
+_SYNC = []
+
+
+def _sync() -> None:
+    dist.barrier(group=_SYNC[0])
+
+
+_COUNTERS = ("admitted_total", "admitted_while_running", "steps_total",
+             "prefill_chunks_total", "prefix_cache_hits_total",
+             "cancelled_total", "spec_ticks", "spec_drafted",
+             "spec_accepted", "batches_total")
+
+
+def _serve(engine_cls, params, config, drive, **kw) -> dict:
+    """Build the engine on every rank, let the driver ``drive`` it after
+    every rank is recording, close it on every rank once the driver is
+    done (a follower's close waits for the driver's); this rank's view:
+    its requests' outcomes in admission order, the counters, and what
+    ``drive`` returned on the driver."""
+    gen = engine_cls(params, config, device="cpu", **kw)
+    seen = _record_requests(gen)
+    _sync()
+    got = None
+    try:
+        if dist.get_rank() == 0:
+            got = drive(gen)
+    finally:
+        _sync()
+        gen.close()
+    return {"outcomes": _outcomes(seen), "driven": got,
+            "counters": {k: getattr(gen, k) for k in _COUNTERS
+                         if hasattr(gen, k)}}
+
+
+def _ids(fut, timeout: float = 60.0) -> list:
+    return [int(t) for t in fut.result(timeout=timeout)]
+
+
+def _drive_dense(prompts, long_prompt, n):
+    """The prompts one after the other, one admitted while another
+    decodes, a cancellation, and a prefix-cache hit."""
+    def drive(gen):
+        out = {"plain": [_ids(gen.submit(p, n)) for p in prompts[:2]]}
+        late, streamed = {}, []
+
+        def admit_late(tok):
+            streamed.append(tok)
+            if len(streamed) == 3:
+                late["f"] = gen.submit(prompts[2], n)
+        first = gen.submit(prompts[3], n, on_token=admit_late)
+        out["running"] = _ids(first)
+        out["late"] = _ids(late["f"])
+        holder, delivered = {}, []
+
+        def cancel_at_2(tok):
+            delivered.append(tok)
+            if len(delivered) == 2:
+                gen.cancel(holder["f"])
+        holder["f"] = gen.submit(prompts[0], n, on_token=cancel_at_2)
+        try:
+            holder["f"].result(timeout=60)
+            out["cancelled"] = False
+        except CancelledError:
+            out["cancelled"] = True
+        out["prefix"] = [_ids(gen.submit(long_prompt, n)) for _ in range(2)]
+        return out
+    return drive
+
+
+def _drive_each(prompts, n, **kw):
+    """All the prompts at once."""
+    def drive(gen):
+        futs = [gen.submit(p, n, **kw) for p in prompts]
+        return [_ids(f) for f in futs]
+    return drive
+
+
+def _drive_in_turn(prompts, n, **kw):
+    """One prompt after the other: the same ticks, and so the same
+    sampling draws, on every engine with the same seed."""
+    def drive(gen):
+        return [_ids(gen.submit(p, n, **kw)) for p in prompts]
+    return drive
+
+
+def _quant_scales_equal(full, sharded) -> bool:
+    """Whether each rank's int8 weights and scales are its slice of the
+    unsharded tree's ``quantize_params``."""
+    from kubeflow_tpu_torch.models.quant import quantize_params
+    qf, qs = quantize_params(full), quantize_params(sharded)
+    mesh, specs = sharded.mesh, sharded.specs
+    pairs = [(qf["lm_head"], qs["lm_head"], specs["lm_head"], (0,))]
+    from kubeflow_tpu_torch.models.quant import BLOCK_AXES
+    pairs += [(qf["blocks"][k], qs["blocks"][k], specs["blocks"][k], axes)
+              for k, axes in BLOCK_AXES.items()]
+    same = True
+    for f, s, spec, axes in pairs:
+        scale_spec = tuple(None if d in axes else e
+                           for d, e in enumerate(spec))
+        same &= torch.equal(shard_tensor(f["q"], spec, mesh), s["q"])
+        same &= torch.equal(shard_tensor(f["s"], scale_spec, mesh), s["s"])
+    return bool(same)
+
+
+def serving_suite(rank: int, world: int, job: dict) -> dict:
+    """Both engines over meshes of the whole world: dense on tp2 and tp4
+    (greedy, a late admission, a cancellation, a prefix-cache hit,
+    steps_per_sync 4, speculation with a sharded draft, sampling, int8),
+    the MoE on tp x ep and fsdp x ep, and a failure on one rank. Returns
+    this rank's view of each case."""
+    from kubeflow_tpu_torch.models.decode import generate
+    from kubeflow_tpu_torch.models.moe import MoEConfig
+    from kubeflow_tpu_torch.runtime.serving import (
+        BatchedGenerator, ContinuousBatchedGenerator as Continuous)
+    from kubeflow_tpu_torch.runtime.sharded_decode import shard_decode_params
+    _SYNC[:] = [dist.new_group()]
+    c = TransformerConfig(**job["config"])
+    dc = TransformerConfig(**job["draft_config"])
+    mc = MoEConfig(**job["moe_config"])
+    full = convert.to_torch(job["params"])
+    draft_full = convert.to_torch(job["draft_params"])
+    moe_full = convert.to_torch(job["moe_params"])
+    prompts = [np.asarray(p, np.int32) for p in job["prompts"]]
+    long_prompt = np.asarray(job["long_prompt"], np.int32)
+    n = job["max_new"]
+    out = {}
+    with torch.no_grad():
+        for name, tp in (("tp2", 2), ("tp4", 4)):
+            mesh = build_mesh(MeshConfig.auto(world, tp=tp), "cpu")
+            sh = shard_decode_params(full, mesh, c)
+            out[f"{name}_continuous"] = _serve(
+                Continuous, sh, c, _drive_dense(prompts, long_prompt, n),
+                n_slots=4, prefill_chunk=8)
+            out[f"{name}_bucketed"] = _serve(
+                BatchedGenerator, sh, c, _drive_each(prompts, n),
+                max_batch=4, max_wait_s=0.5)
+            if tp == 2:
+                out["tp2_sync4"] = _serve(Continuous, sh, c,
+                                          _drive_each(prompts, n),
+                                          n_slots=4, prefill_chunk=8,
+                                          steps_per_sync=4)
+                draft = shard_decode_params(draft_full, mesh, dc)
+                out["tp2_spec"] = _serve(
+                    Continuous, sh, c, _drive_each(prompts, n), n_slots=4,
+                    prefill_chunk=8, draft_params=draft, draft_config=dc,
+                    spec_k=3)
+                out["tp2_sampled"] = _serve(
+                    Continuous, sh, c,
+                    _drive_in_turn(prompts, n, temperature=0.8), n_slots=4,
+                    prefill_chunk=8, seed=5)
+                out["tp2_int8"] = _serve(Continuous, sh, c,
+                                         _drive_each(prompts, n), n_slots=4,
+                                         prefill_chunk=8, quantize=True,
+                                         kv_quant=True)
+                out["int8_scales_equal"] = _quant_scales_equal(full, sh)
+                if rank == 0:
+                    # the unsharded engine at the same seed, on rank 0
+                    out["unsharded_sampled"] = _serve_alone(
+                        Continuous, full, c,
+                        _drive_in_turn(prompts, n, temperature=0.8),
+                        n_slots=4, prefill_chunk=8, seed=5)
+                for where in ("admission", "delivery"):
+                    out[f"tp2_failure_{where}"] = _failure_case(
+                        Continuous, sh, c, prompts, n, where)
+        for name, axes in (("tp2_ep2", dict(tp=2, ep=2)),
+                           ("fsdp2_ep2", dict(ep=2))):
+            mesh = build_mesh(MeshConfig.auto(world, **axes), "cpu")
+            sh = shard_decode_params(moe_full, mesh, mc)
+            out[f"moe_{name}_generate"] = generate(
+                sh, torch.from_numpy(np.stack(prompts)), mc, n).numpy()
+            out[f"moe_{name}_continuous"] = _serve(
+                Continuous, sh, mc, _drive_each(prompts, n), n_slots=4,
+                prefill_chunk=8)
+            out[f"moe_{name}_local_w_gate"] = tuple(
+                sh["blocks"]["w_gate"].shape)
+    return out
+
+
+def _serve_alone(engine_cls, params, config, drive, **kw):
+    with engine_cls(params, config, device="cpu", **kw) as gen:
+        return drive(gen)
+
+
+def _fail_once(gen, name: str, before: bool, record=None) -> None:
+    """Make ``gen``'s method ``name`` raise on its first call: before it
+    runs with ``before`` (``record`` then sees its arguments, as the
+    recording wrapper it replaces would), else after it returned."""
+    method, failed = getattr(gen, name), []
+
+    def flaky(*args):
+        if failed:
+            return method(*args)
+        failed.append(1)
+        if not before:
+            method(*args)
+        elif record is not None:
+            record(*args)
+        raise RuntimeError(f"injected {name} failure on rank 1")
+    setattr(gen, name, flaky)
+
+
+def _failure_case(engine_cls, params, config, prompts, n, where) -> dict:
+    """A failure on rank 1 only, ``where`` = "admission" (raising as it
+    begins the first admission, before the iteration's collectives) or
+    "delivery" (as it collects the first tick's finished rows, after
+    them): every rank fails the request, rebuilds its state, and serves
+    the next one; a follower's submit raises."""
+    gen = engine_cls(params, config, device="cpu", n_slots=2,
+                     prefill_chunk=8)
+    seen = _record_requests(gen)
+    out = {}
+    if dist.get_rank() == 1:
+        if where == "admission":
+            _fail_once(gen, "_begin_admission", True,
+                       lambda req, slot: seen.append(req))
+        else:
+            _fail_once(gen, "_collect_finished", False)
+    if dist.get_rank() != 0:
+        try:
+            gen.submit(prompts[0], n)
+            out["follower_submit"] = "accepted"
+        except RuntimeError as exc:
+            out["follower_submit"] = str(exc)
+    _sync()
+    try:
+        if dist.get_rank() == 0:
+            t0 = time.monotonic()
+            try:
+                gen.submit(prompts[0], n).result(timeout=60)
+                out["first"] = "served"
+            except RuntimeError as exc:
+                out["first"] = str(exc)
+            out["fail_seconds"] = time.monotonic() - t0
+            out["second"] = _ids(gen.submit(prompts[1], n))
+    finally:
+        _sync()
+        gen.close()
+    out["outcomes"] = _outcomes(seen)
+    out["active_after"] = bool(gen._state["active"].any())
+    return out
+
+
+def _broken_cases(engines: dict, prompt, n) -> dict:
+    """Each engine of ``engines`` (on a mesh of its own) fails on rank 1
+    as it enters its first device work, before its collectives, which
+    the driver then waits in until the world's timeout: each engine
+    closes on every rank. The engines fail together. This rank's view of
+    each: the request's outcome and its seconds on the driver, whether
+    the engine thread ended and whether a later submit is refused."""
+    seen = {name: _record_requests(gen) for name, gen in engines.items()}
+    if dist.get_rank() == 1:
+        for name, gen in engines.items():
+            if hasattr(gen, "_tick"):
+                _fail_once(gen, "_tick", True)
+            else:
+                _fail_once(gen, "_run_batch", True, seen[name].extend)
+    _sync()
+    out = {name: {} for name in engines}
+    if dist.get_rank() == 0:
+        t0 = time.monotonic()
+        futs = {name: gen.submit(prompt, n) for name, gen in engines.items()}
+        for name, fut in futs.items():
+            try:
+                fut.result(timeout=120)
+                out[name]["first"] = "served"
+            except Exception as exc:  # noqa: BLE001 — reported
+                out[name]["first"] = type(exc).__name__
+            out[name]["fail_seconds"] = time.monotonic() - t0
+    for name, gen in engines.items():
+        gen._thread.join(timeout=60)
+        out[name]["thread_ended"] = not gen._thread.is_alive()
+        if dist.get_rank() == 0:
+            try:
+                gen.submit(prompt, n)
+                out[name]["later_submit"] = "accepted"
+            except RuntimeError as exc:
+                out[name]["later_submit"] = str(exc)
+        gen.close()
+        out[name]["outcomes"] = _outcomes(seen[name])
+    return out
+
+
+# ---------------------------------------------------------------- elastic
+class DictClient:
+    """A Notebook store of one process: ``get`` returns a copy,
+    ``patch`` merges annotations (None deletes), as the control plane's
+    client does for the calls the agents make."""
+
+    def __init__(self, annotations: dict):
+        self.obj = {"kind": "Notebook", "metadata": {
+            "name": "nb", "namespace": "elastic-ns",
+            "annotations": dict(annotations)}}
+        self.calls = 0
+
+    def get(self, kind, namespace, name):
+        self.calls += 1
+        import copy
+        return copy.deepcopy(self.obj)
+
+    def patch(self, kind, namespace, name, body):
+        self.calls += 1
+        anns = self.obj["metadata"]["annotations"]
+        for k, v in body["metadata"]["annotations"].items():
+            if v is None:
+                anns.pop(k, None)
+            else:
+                anns[k] = v
+
+    def annotation(self, key):
+        return self.obj["metadata"]["annotations"].get(key)
+
+
+class NoClient:
+    """The client of a rank that must never read or patch."""
+
+    def __getattr__(self, name):
+        raise AssertionError(f"rank {dist.get_rank()} called client.{name}")
+
+
+def _seed_checkpoint(directory, params_np, tc) -> None:
+    """A step-0 checkpoint of the given (reference-initialised) params
+    and their fresh optimizer state: a Trainer built on the directory
+    starts from them."""
+    from kubeflow_tpu_torch.runtime.checkpoint import TrainCheckpointer
+    params, opt = ttr.init_train_state(convert.to_torch(params_np), tc)
+    with TrainCheckpointer(directory) as ckpt:
+        ckpt.save(0, params, opt, force=True)
+
+
+def _full_state(trainer, config) -> list:
+    """Copies of the trainer's params and optimizer state as full
+    tensors (a collective of its mesh; the optimizer updates the live
+    ones in place)."""
+    specs = param_specs(config, ttr.mesh_rules(trainer.mesh))
+    return [[x.clone() for x in _leaves(gather_tree(trainer.params, specs,
+                                                    trainer.mesh))],
+            [x.clone() for x in _leaves(gather_tree(
+                trainer.opt_state,
+                ttr.opt_state_shardings(trainer.opt_state, specs),
+                trainer.mesh))]]
+
+
+def _bit_equal(a: list, b: list) -> bool:
+    return all(torch.equal(x, y) for la, lb in zip(a, b)
+               for x, y in zip(la, lb))
+
+
+def _raising_source():
+    raise AssertionError("a standby rank drew a batch")
+    yield  # noqa: unreachable — makes this a generator
+
+
+def _elastic_cycle(job, c, tc, per) -> dict:
+    """3 → 2 → 3 slices of ``per``: fit, shrink, fit, grow, fit."""
+    from kubeflow_tpu_torch.runtime.elastic import ElasticTrainer
+    rank = dist.get_rank()
+    out = {"mesh_dp": [], "standby": [], "params": {}, "carried": []}
+    with ElasticTrainer(per, 3, c, tc, job["dir"], device="cpu") as et:
+        first_mesh = et.mesh
+        def note(step):
+            out["mesh_dp"].append(None if et.standby
+                                  else mesh_config(et.mesh).dp)
+            out["standby"].append(et.standby)
+            if not et.standby:
+                state = _full_state(et.trainer, c)
+                if rank == 0:   # the leaves in sorted-key order
+                    out["params"][step] = [x.numpy() for x in state[0]]
+                return state
+        for i, (chunk, steps) in enumerate(zip(job["batches"],
+                                               (4, 3, 3))):
+            if i:
+                before = note(f"before_{i}")
+                et.shrink() if i == 1 else et.grow()
+                after = note(f"after_{i}")
+                # a rank in both meshes holds the same state before and
+                # after (standby on one side: nothing to hold)
+                out["carried"].append(before is None or after is None
+                                      or _bit_equal(before, after))
+                if et.standby:
+                    st = et.fit(_raising_source(), steps=steps)
+                    out["standby_fit_step"] = st.step
+                    out["standby_eval"] = et.evaluate(_raising_source())
+            et.fit(chunk, steps=steps, log_every=1)
+            note(et.stats.step)
+        out["step"] = et.stats.step
+        out["losses"] = list(et.stats.losses)
+        out["tokens_seen"] = et.stats.tokens_seen
+        out["events"] = [e[:3] for e in et.resize_events]
+        # 3 → 2 → 3 made two meshes: growing back reused the first
+        out["meshes_made"] = len(et._meshes)
+        out["mesh_reused"] = et.mesh is first_mesh
+        # no-ops and bounds, checked before any save
+        et.resize(3)
+        out["events_after_noop"] = len(et.resize_events)
+        for bad in (0, 4):
+            try:
+                et.resize(bad)
+                out[f"resize_{bad}"] = "accepted"
+            except ValueError as exc:
+                out[f"resize_{bad}"] = str(exc)
+    with ElasticTrainer(per, 3, c, tc, job["dir"] + "-cap", device="cpu",
+                        resize_events_cap=1) as et:
+        et.shrink()
+        et.grow()
+        out["capped_events"] = [e[:2] for e in et.resize_events]
+        out["capped_maxlen"] = et.resize_events.maxlen
+    return out
+
+
+def _agent_cycle(job, c, tc, per) -> dict:
+    """ElasticAgent on every rank of the world, bound to a 2-slice
+    ElasticTrainer: a Draining then Resharding-to-1 walk between fits.
+    Rank 0 alone holds the Notebook."""
+    from kubeflow_tpu_torch.runtime.elastic import (ElasticAgent,
+                                                    ElasticTrainer)
+    from kubeflow_tpu_torch.utils import names
+    rank = dist.get_rank()
+    client = DictClient(job["annotations"]) if rank == 0 else NoClient()
+    trail = []
+    with ElasticTrainer(per, 2, c, tc, job["agent_dir"],
+                        device="cpu") as et:
+        agent = ElasticAgent(et, client, "elastic-ns", "nb")
+
+        def turn(annotations=None):
+            if annotations is not None and rank == 0:
+                client.patch("Notebook", "elastic-ns", "nb",
+                             {"metadata": {"annotations": annotations}})
+            agent.poll_once()
+            trail.append({
+                "ack": client.annotation(names.ELASTIC_ACK_ANNOTATION)
+                if rank == 0 else None,
+                "n_slices": et.n_slices, "step": et.stats.step,
+                "standby": et.standby,
+                "mesh_dp": None if et.standby else mesh_config(et.mesh).dp})
+        et.fit(job["agent_batches"][0], steps=2, log_every=1)
+        turn({names.ELASTIC_RESIZE_ANNOTATION: "Draining",
+              names.ELASTIC_TARGET_ANNOTATION: "1"})
+        turn()                                   # idempotent
+        before = None if et.standby else _full_state(et.trainer, c)
+        turn({names.ELASTIC_RESIZE_ANNOTATION: "Resharding"})
+        after = None if et.standby else _full_state(et.trainer, c)
+        carried = before is None or after is None or \
+            _bit_equal(before, after)
+        turn({names.ELASTIC_RESIZE_ANNOTATION: None,
+              names.ELASTIC_ACK_ANNOTATION: None})
+        et.fit(job["agent_batches"][1], steps=2, log_every=1)
+        out = {"trail": trail, "step": et.stats.step, "carried": carried,
+               "losses": list(et.stats.losses),
+               "current": client.annotation(
+                   names.ELASTIC_CURRENT_SLICES_ANNOTATION)
+               if rank == 0 else None}
+    return out
+
+
+def _migration_cycle(job, c, tc) -> dict:
+    """CheckpointMigrationDriver on a 2-rank mesh: Trainer A (fsdp 2) at
+    step 4 checkpointed, then resumed into a fresh Trainer on the same
+    mesh and into one on tp 2; each continues two steps beside A."""
+    from kubeflow_tpu_torch.runtime.migrate import CheckpointMigrationDriver
+    from kubeflow_tpu_torch.runtime.trainer import Trainer
+    from kubeflow_tpu_torch.utils import names
+    rank = dist.get_rank()
+    fsdp, member = _mesh({"fsdp": 2})
+    tp, _ = _mesh({"tp": 2})
+    out = {}
+    outside = None
+    if not member:
+        try:
+            Trainer(c, tc, mesh=fsdp)
+        except ValueError as exc:
+            outside = str(exc)
+    out["outside"] = outside
+    if not member:
+        return out
+    client = DictClient({names.RUNTIME_STEP_ANNOTATION: "4"}) \
+        if rank == 0 else NoClient()
+    nb = {"kind": "Notebook", "metadata": {"name": "nb",
+                                           "namespace": "elastic-ns"}}
+    first, rest = job["mig_batches"][:4], job["mig_batches"][4:]
+    with Trainer(c, tc, mesh=fsdp, checkpoint_dir=job["mig_seed"]) as a:
+        a.fit(first, steps=4, log_every=1)
+        at4 = _full_state(a, c)
+
+        def driver(trainer, mesh):
+            return CheckpointMigrationDriver(
+                lambda notebook: job["mig_dir"],
+                lambda notebook: (a.stats.step, a.params, a.opt_state),
+                lambda notebook: (trainer.params, trainer.opt_state),
+                mesh=mesh,
+                param_specs=param_specs(c, ttr.mesh_rules(mesh)))
+        out["token"] = driver(a, fsdp).checkpoint(client, nb)
+        a.fit(rest, steps=2, log_every=1)
+        out["losses_a"] = [x for _, x in a.stats.losses][-2:]
+        for name, mesh in (("fsdp2", fsdp), ("tp2", tp)):
+            with Trainer(c, tc, mesh=mesh, seed=1) as b:
+                step, b.params, b.opt_state = driver(b, mesh).resume(
+                    client, nb, out["token"])
+                b.stats.step = step
+                out[f"{name}_step"] = step
+                out[f"{name}_restored_equal"] = _bit_equal(
+                    _full_state(b, c), at4)
+                b.fit(rest, steps=2, log_every=1)
+                out[f"{name}_losses"] = [x for _, x in b.stats.losses]
+    if rank == 0:
+        out["resumed_annotation"] = client.annotation(
+            names.RESUMED_STEP_ANNOTATION)
+    return out
+
+
+def elastic_suite(rank: int, world: int, job: dict) -> dict:
+    """ElasticTrainer 3 → 2 → 3 over the world's 6 ranks (2 standby on 2
+    slices), ElasticAgent driving a resize, and migration across meshes.
+    Returns this rank's view."""
+    c = TransformerConfig(**job["config"])
+    tc = ttr.TrainConfig(**job["tc"])
+    per = MeshConfig(**job["per_slice"])
+    if rank == 0:
+        for d in (job["dir"], job["dir"] + "-cap", job["agent_dir"],
+                  job["mig_seed"]):
+            _seed_checkpoint(d, job["init"], tc)
+    dist.barrier()
+    return {"cycle": _elastic_cycle(job, c, tc, per),
+            "agent": _agent_cycle(job, c, tc, per),
+            "migration": _migration_cycle(job, c, tc)}
+
+
+def idle_suite(rank: int, world: int, job: dict) -> dict:
+    """Both engines over tp 2 meshes of ranks 0 and 1, in a world of 3
+    whose collectives time out after ``job["timeout"]`` seconds; rank 2
+    only joins in making the meshes (groups are made collectively), so
+    that each mesh has a tp group of its own rather than the world's.
+    Each engine on a mesh of its own: a request, an idle longer than
+    that timeout, another request; a second engine on a busy mesh is
+    refused. Then each engine, on one more mesh, through a failure
+    inside its device work on rank 1 (``_broken_cases``). This rank's
+    view of each engine's requests, and of each failure (nothing on
+    rank 2)."""
+    from kubeflow_tpu_torch.runtime.serving import (
+        BatchedGenerator, ContinuousBatchedGenerator)
+    from kubeflow_tpu_torch.runtime.sharded_decode import shard_decode_params
+    _SYNC[:] = [dist.new_group([0, 1])]
+    meshes = [build_mesh(MeshConfig(tp=2), "cpu", ranks=[0, 1])
+              for _ in range(4)]
+    if rank == 2:
+        return {}
+    c = TransformerConfig(**job["config"])
+    full = convert.to_torch(job["params"])
+    sharded = [shard_decode_params(full, mesh, c) for mesh in meshes]
+    prompts = [np.asarray(p, np.int32) for p in job["prompts"]]
+    engines = {"bucketed": BatchedGenerator(sharded[0], c, device="cpu"),
+               "continuous": ContinuousBatchedGenerator(sharded[1], c,
+                                                        device="cpu")}
+    seen = {name: _record_requests(gen) for name, gen in engines.items()}
+    out = {}
+    try:  # a second engine on a mesh that serves: its plans would mix
+        ContinuousBatchedGenerator(sharded[0], c, device="cpu")
+        out["second_engine"] = "built"
+    except ValueError as exc:
+        out["second_engine"] = str(exc)
+    if rank == 0:
+        for prompt in prompts:
+            for name, gen in engines.items():
+                out[name] = out.get(name, []) + [
+                    _ids(gen.submit(prompt, job["max_new"]))]
+            if prompt is not prompts[-1]:
+                time.sleep(job["idle"])
+    _sync()
+    for gen in engines.values():
+        gen.close()
+    out["outcomes"] = {name: _outcomes(reqs) for name, reqs in seen.items()}
+    out["broken"] = _broken_cases(
+        {"bucketed": BatchedGenerator(sharded[2], c, device="cpu"),
+         "continuous": ContinuousBatchedGenerator(sharded[3], c,
+                                                  device="cpu",
+                                                  n_slots=2)},
+        prompts[0], job["max_new"])
     return out
