@@ -17,7 +17,9 @@ and trains the MoE family at the flagship's width (``FLAGSHIP_MOE``: 8
 experts, top-2) and finetunes the flagship with LoRA, serving the
 adapters through ``build_server --lora-config``; and drives the
 multi-device entry points (sharded train step, ``Trainer(mesh=...)``,
-tp-sharded decode) on a NCCL world of one rank. The kernels' launch
+tp-sharded decode) on a NCCL world of one rank, and starts an h100-1
+notebook's container: its world through ``runtime/bootstrap.py`` from
+the env the port's pod spec renders. The kernels' launch
 counters, zeroed before each path and read after it, show that each path
 ran its kernels.
 Then it times each kernel beside its bound, its plain version and one
@@ -115,6 +117,16 @@ Phases (any failure exits non-zero before the result line):
      ``speculative_generate`` of the f32 flagship as its own draft on the
      sharded params accepting every proposal; ``dryrun_multidevice(1,
      "cuda")``;
+  15. a notebook container's start on an h100-1 slice, after phases 12-14's
+     world has ended: the StatefulSet ``apply_gpu_spec`` renders, worker
+     0's env from it (pod index 0, a free coordinator port),
+     ``initialize_slice`` + ``verify_slice`` (NCCL, device_count 1; an
+     h100-16 expectation raises TimeoutError), ``Trainer(mesh=...)`` on
+     ``build_mesh(MeshConfig.auto(1))`` for 3 steps at b8 x s1024 with
+     bf16 params, bit-equal to a one-device Trainer (12 of each attention
+     kernel a step), greedy ``generate`` 8 x 128 -> 16 on
+     ``shard_decode_params`` of the trained params equal to the
+     unsharded ``generate``; ms/step, peak memory and the phase's seconds;
   5. times of each kernel, its plain version and a library call (last, so
      the paths above run on a card not yet warmed by timing loops), with
      the achieved TFLOP/s, the share of the bound, the forward, dK/dV and
@@ -188,9 +200,6 @@ MODEL_GRAD_REL = 5e-4  # f32 model grads through flash vs plain attention,
 # f32 MoE logits, kernel path vs plain path on the same inputs at a
 # non-binding capacity (the same routing): the port's forward pin
 MOE_LOGITS_TOL = 2e-5
-# phase 14: device events (kernels, copies, sets) by which the profiler's
-# record of 10 identical sharded and unsharded ticks may differ
-DEVICE_EVENT_SLACK = 5
 
 
 def fail(msg: str) -> None:
@@ -638,6 +647,13 @@ _LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
                  "cuLaunchKernelEx")
 
 
+def _enqueues(key: str) -> bool:
+    """Whether a CUDA API call of that name puts work on the
+    device: a launch (of a kernel or a graph), a copy or a set."""
+    return key.startswith("cu") and any(
+        t in key for t in ("Launch", "Memcpy", "Memset"))
+
+
 def _profile(torch, fn) -> dict:
     """Run ``fn`` once under torch.profiler: host wall, device busy time
     by kernel class, kernel count, idle share."""
@@ -668,6 +684,12 @@ def _profile(torch, fn) -> dict:
     # the kernels the host launched (the device's events can drop a few)
     host_launches = sum(evt.count for evt in prof.key_averages()
                         if evt.key in _LAUNCH_CALLS)
+    # every call that put work on the device (launches, copies, sets):
+    # exact, where the device's record loses events over a run
+    host_enqueues = sum(evt.count for evt in prof.key_averages()
+                        if getattr(evt, "device_type", None)
+                        != torch.autograd.DeviceType.CUDA
+                        and _enqueues(evt.key))
     # the host's side: ops and runtime calls by self CPU time (the
     # profiler's own cost included)
     host = sorted(((evt.key[:90], evt.self_cpu_time_total / 1e3, evt.count)
@@ -678,6 +700,7 @@ def _profile(torch, fn) -> dict:
     return {"wall_ms": wall_ms, "device_busy_ms": busy if busy else None,
             "device_idle_share": (1 - busy / wall_ms) if busy else None,
             "device_kernels": launches, "host_launches": host_launches,
+            "host_enqueues": host_enqueues,
             "device_counts": by_key,
             "busy_ms_by_class": by_class,
             "top_kernels_ms_count": top, "top_host_ms_count": host}
@@ -1978,7 +2001,8 @@ def _engine_tick(torch, gen, phase="phase10", what="MoE bf16") -> dict:
     busy = prof["device_busy_ms"]
     out = {"tick_ms_unprofiled": tick_ms, "profile": prof,
            "kernels_a_tick": prof["device_kernels"] / 10,
-           "launches_a_tick": prof["host_launches"] / 10}
+           "launches_a_tick": prof["host_launches"] / 10,
+           "enqueues_a_tick": prof["host_enqueues"] / 10}
     if busy:
         out["device_busy_ms_a_tick"] = busy / 10
         out["device_idle_share_unprofiled"] = 1 - busy / 10 / tick_ms
@@ -3110,21 +3134,27 @@ def phase_mesh_serving_and_elastic(torch, flagship, moe, root, dev, mesh,
             f"{sh['ticks']}")
     # the check covers ``_tick`` only (``_engine_tick`` calls it
     # directly): the loop's plan and agreement are not in the window, and
-    # at world 1 they make no call. The host's launches must be equal;
-    # the device's events (kernels, copies, sets) equal within
-    # DEVICE_EVENT_SLACK over the 10 ticks, since the profiler's device
-    # record drops a few (7193-7198 of the ~7200 launched in earlier runs)
-    dev_sh, dev_un = (r["tick"]["kernels_a_tick"] * 10 for r in (sh, un))
+    # at world 1 they make no call. The host's calls that put work on the
+    # device (kernel launches, copies, sets) must be equal over the 10
+    # ticks. The device's own record is printed, not compared: it loses
+    # kernels as a run goes on (one every 2-3 profiled windows of the
+    # same ticks, and now and then a block of 20-40) while the host's
+    # calls stay exact
     a, b = (r["tick"].pop("device_counts") for r in (sh, un))
-    if abs(dev_sh - dev_un) > DEVICE_EVENT_SLACK:
-        differ = {k: (a.get(k, 0), b.get(k, 0)) for k in set(a) | set(b)
-                  if a.get(k, 0) != b.get(k, 0)}
-        print(f"phase14 device events that differ over 10 ticks "
-              f"(sharded, unsharded): {differ}", flush=True)
+    differ = {k: (a.get(k, 0), b.get(k, 0)) for k in set(a) | set(b)
+              if a.get(k, 0) != b.get(k, 0)}
+    print(f"phase14 calls putting work on the device over 10 ticks "
+          f"(launches, copies, sets): sharded "
+          f"{sh['tick']['enqueues_a_tick'] * 10:.0f} unsharded "
+          f"{un['tick']['enqueues_a_tick'] * 10:.0f}; device events "
+          f"recorded {sh['tick']['kernels_a_tick'] * 10:.0f} / "
+          f"{un['tick']['kernels_a_tick'] * 10:.0f}, {len(differ)} kinds "
+          f"recorded unequally", flush=True)
     require(sh["flash_decode_a_tick"] == un["flash_decode_a_tick"] == L and
-            sh["tick"]["launches_a_tick"] == un["tick"]["launches_a_tick"]
-            > 0 and abs(dev_sh - dev_un) <= DEVICE_EVENT_SLACK,
-            "the sharded tick launches other kernels than the "
+            sh["tick"]["enqueues_a_tick"] == un["tick"]["enqueues_a_tick"]
+            > 0 and sh["tick"]["launches_a_tick"] ==
+            un["tick"]["launches_a_tick"],
+            "the sharded tick puts other work on the device than the "
             "unsharded one at world 1")
     stats["continuous"] = {k: {kk: vv for kk, vv in v.items() if kk != "ids"}
                            if isinstance(v, dict) else v
@@ -3328,6 +3358,190 @@ def phase_mesh_serving_and_elastic(torch, flagship, moe, root, dev, mesh,
           f"{stats['training_seconds']:.1f} s; phase 14 in "
           f"{stats['seconds']:.1f} s", flush=True)
     return stats
+
+
+# --------------------------------------------------------------- phase 15
+def _free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _worker_env(sts: dict, nb_name: str, pod_index: str) -> dict:
+    """The env of the notebook container of ``sts``'s pod ``pod_index``,
+    its pod-index fieldRef resolved as the kubelet would."""
+    from kubeflow_tpu_torch.utils import k8s, names
+    container = k8s.pod_spec_notebook_container(
+        sts["spec"]["template"]["spec"], nb_name)
+    env = {}
+    for e in container["env"]:
+        if "valueFrom" in e:
+            path = e["valueFrom"]["fieldRef"]["fieldPath"]
+            require(path == f"metadata.labels['{names.POD_INDEX_LABEL}']",
+                    f"{e['name']} refers to {path}")
+            env[e["name"]] = pod_index
+        else:
+            env[e["name"]] = e["value"]
+    return env
+
+
+def phase_bootstrap(torch, flagship) -> tuple[dict, dict]:
+    """15: the notebook container's start path on an h100-1 slice: the
+    controller's StatefulSet (``apply_gpu_spec``), worker 0's env from it,
+    ``initialize_slice`` and ``verify_slice`` (NCCL, one card; an h100-16
+    expectation raises TimeoutError), then ``Trainer(mesh=...)`` on
+    ``build_mesh(MeshConfig.auto(device_count))`` for 3 steps at b8 x
+    s1024 with bf16 params after a one-device Trainer on the same seed
+    and batches (losses bit-equal), and greedy ``generate`` (8 x 128 ->
+    16) on ``shard_decode_params`` of the trained params (ids equal to
+    the unsharded ``generate``'s). Returns (stats, the launches of the
+    mesh Trainer and the sharded ``generate``)."""
+    import torch.distributed as dist
+
+    from kubeflow_tpu_torch import ops
+    from kubeflow_tpu_torch.controllers.notebook import apply_gpu_spec
+    from kubeflow_tpu_torch.gpu.topology import parse_short_name
+    from kubeflow_tpu_torch.models import train as train_lib
+    from kubeflow_tpu_torch.models.decode import generate
+    from kubeflow_tpu_torch.parallel.mesh import (MeshConfig, build_mesh,
+                                                  leave_world)
+    from kubeflow_tpu_torch.runtime.bootstrap import (SliceEnv,
+                                                      initialize_slice,
+                                                      verify_slice)
+    from kubeflow_tpu_torch.runtime.data import synthetic_lm_batches
+    from kubeflow_tpu_torch.runtime.sharded_decode import shard_decode_params
+    from kubeflow_tpu_torch.runtime.trainer import Trainer
+    from kubeflow_tpu_torch.utils import names
+
+    t_phase = time.monotonic()
+    c, L, V, B, S, n_steps = (flagship, flagship.n_layers,
+                              flagship.vocab_size, 8, 1024, 3)
+    require(not dist.is_initialized(), "phase 12's world is still formed")
+    # the StatefulSet of an h100-1 notebook, as the reference's
+    # generate_statefulset leaves it before its accelerator layer
+    spec = parse_short_name("h100-1")
+    nb_name = "smoke"
+    container = {"name": nb_name, "image": "jupyter-pytorch-cuda:v1"}
+    notebook = {"kind": "Notebook", "metadata": {
+        "name": nb_name, "namespace": "user-ns",
+        "annotations": {names.TPU_ACCELERATOR_ANNOTATION: spec.short_name}},
+        "spec": {"template": {"spec": {"containers": [dict(container)]}}}}
+    sts = {"kind": "StatefulSet",
+           "metadata": {"name": nb_name, "namespace": "user-ns"},
+           "spec": {"replicas": 1, "serviceName": nb_name, "template": {
+               "metadata": {"labels": {"statefulset": nb_name}},
+               "spec": {"containers": [dict(container)]}}}}
+    apply_gpu_spec(sts, notebook, spec, nb_name)
+    env = _worker_env(sts, nb_name, "0")
+    env["KFTPU_COORDINATOR_PORT"] = str(_free_port())
+    resources = sts["spec"]["template"]["spec"]["containers"][0]["resources"]
+    print(f"phase15 {spec.short_name} StatefulSet: replicas "
+          f"{sts['spec']['replicas']}, resources {resources}, nodeSelector "
+          f"{sts['spec']['template']['spec']['nodeSelector']}; worker 0's "
+          f"env {env}", flush=True)
+    require(sts["spec"]["replicas"] == 1 and resources["limits"] == {
+        names.GPU_RESOURCE_KEY: "1"}, f"the h100-1 StatefulSet: {sts}")
+
+    stats: dict = {}
+    launched: dict = {}
+    t0 = time.monotonic()
+    slice_env = initialize_slice(SliceEnv.from_env(env), timeout=120)
+    try:
+        report = verify_slice(slice_env)
+        stats["bootstrap_s"] = time.monotonic() - t0
+        print(f"phase15 initialize_slice + verify_slice in "
+              f"{stats['bootstrap_s']:.2f} s: {report}", flush=True)
+        require(report["backend"] == "nccl" and report["device_count"] == 1
+                and report["local_device_count"] == 1,
+                f"verify_slice: {report}")
+        wrong = SliceEnv.from_env({**env, "TPU_ACCELERATOR_TYPE": "h100-16"})
+        try:
+            verify_slice(wrong)
+            fail("verify_slice accepted a world of 1 for h100-16")
+        except TimeoutError as exc:
+            print(f"phase15 verify_slice with TPU_ACCELERATOR_TYPE=h100-16: "
+                  f"TimeoutError({exc})", flush=True)
+
+        mesh = build_mesh(MeshConfig.auto(report["device_count"]), "cuda")
+        src = synthetic_lm_batches(B, S, V, seed=0)
+        batches = [next(src) for _ in range(n_steps)]
+        tc = train_lib.TrainConfig(bf16_params=True)
+        runs: dict = {}
+        for kind in ("one_device", "mesh"):
+            kw = {"mesh": mesh} if kind == "mesh" else {}
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            trainer = Trainer(c, tc, seed=0, **kw)
+            ops.reset_launch_counts()
+            trainer.fit(batches[:1], steps=1, log_every=1)
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            trainer.fit(batches[1:], steps=n_steps - 1, log_every=1)
+            torch.cuda.synchronize()
+            runs[kind] = {
+                "losses": [x for _, x in trainer.stats.losses],
+                "ms_per_step": (time.monotonic() - t0) / (n_steps - 1) * 1e3,
+                "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+                "launches": ops.launch_counts()}
+            if kind == "mesh":
+                params = trainer.params
+            trainer.close()
+            del trainer
+            gc.collect()
+            torch.cuda.empty_cache()
+        one, got = runs["one_device"], runs["mesh"]
+        attn = ("flash_attention", "flash_attention_bwd_dkv",
+                "flash_attention_bwd_dq")
+        counts = {k: got["launches"][k] for k in attn}
+        for k, n in counts.items():
+            launched[k] = launched.get(k, 0) + n
+        print(f"phase15 Trainer(mesh=build_mesh(MeshConfig.auto(1))), b{B} "
+              f"s{S} bf16 params, {n_steps} steps: losses {got['losses']}, "
+              f"bit-equal to the one-device Trainer's "
+              f"{got['losses'] == one['losses']}; {got['ms_per_step']:.2f} "
+              f"ms/step over steps 2-{n_steps} (one device "
+              f"{one['ms_per_step']:.2f}), peak {got['peak_mem_gb']:.3f} GB "
+              f"(one device {one['peak_mem_gb']:.3f}); launches {counts} "
+              f"({CARD[0]})", flush=True)
+        require(got["losses"] == one["losses"] and
+                all(math.isfinite(x) for x in got["losses"]),
+                f"the bootstrapped Trainer's losses {got['losses']} differ "
+                f"from one device's {one['losses']}")
+        require(counts == {k: L * n_steps for k in attn},
+                f"the bootstrapped Trainer's launches {counts}, expected "
+                f"{L * n_steps} of each")
+        stats.update({"losses": got["losses"], "train": runs})
+
+        rng = torch.Generator().manual_seed(7)
+        prompt = torch.randint(0, V, (8, 128), generator=rng).to("cuda")
+        want = generate(params, prompt, c, 16)
+        sharded = shard_decode_params(params, mesh, c)
+        ops.reset_launch_counts()
+        ids = generate(sharded, prompt, c, 16)
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        for k in ("flash_attention", "flash_decode"):
+            launched[k] = launched.get(k, 0) + counts[k]
+        print(f"phase15 generate 8 x 128 -> 16 on shard_decode_params of the "
+              f"trained params: ids equal to unsharded "
+              f"{bool(torch.equal(ids, want))}; launches flash_attention "
+              f"{counts['flash_attention']} (expected {L}), flash_decode "
+              f"{counts['flash_decode']} (expected {15 * L})", flush=True)
+        require(torch.equal(ids, want), "the sharded generate's ids differ")
+        require(counts["flash_attention"] == L and
+                counts["flash_decode"] == 15 * L,
+                f"the sharded generate's launches {counts}")
+        del params, sharded, mesh
+    finally:
+        leave_world()
+    gc.collect()
+    torch.cuda.empty_cache()
+    stats["seconds"] = time.monotonic() - t_phase
+    stats["launches"] = launched
+    print(f"phase15 in {stats['seconds']:.1f} s; launches {launched} "
+          f"({CARD[0]})", flush=True)
+    return stats, launched
 
 
 # --------------------------------------------------------------- phase 5
@@ -3682,6 +3896,9 @@ def main() -> int:
         shutil.rmtree(root, ignore_errors=True)
     gc.collect()
     torch.cuda.empty_cache()
+    train["bootstrap"], launched = phase_bootstrap(torch, FLAGSHIP)
+    for name, n in launched.items():
+        counts[name] += n
     rows, wide = phase_times(torch, errs, counts)
     print(json.dumps({"serving": stats, "train": train,
                       "kernels_at_other_shapes": wide}), flush=True)

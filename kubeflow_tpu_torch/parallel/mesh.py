@@ -19,7 +19,8 @@ axes in the reference's order, size-1 axes included, so a spec names
 the same axes on every layout.
 
 ``world`` starts and ends this process's membership of the world: NCCL
-for CUDA, gloo only when the caller asks for the CPU. ``spawn`` starts
+for CUDA, gloo only when the caller asks for the CPU (``join_world`` and
+``leave_world``, which runtime/bootstrap.py shares). ``spawn`` starts
 a world of n local processes and collects what each returns.
 """
 
@@ -92,8 +93,38 @@ def mesh_config(mesh: DeviceMesh | None) -> MeshConfig:
 
 
 # ----------------------------------------------------------------- world
-# the collective timeout of the world this process is in (``world``)
+# the collective timeout of the world this process is in (``join_world``)
 _world_timeout: datetime.timedelta | None = None
+
+
+def join_world(dev: torch.device, *, rank: int, world_size: int,
+               timeout: float, store=None,
+               init_method: str | None = None) -> None:
+    """Make this process rank ``rank`` of a ``world_size`` world on
+    ``dev``: NCCL for a card (made this process's current device), gloo
+    for the CPU. The rendezvous is ``store`` (a ``dist.Store``) or
+    ``init_method``. ``timeout`` bounds the rendezvous and every
+    collective, and the meshes built in the world give their groups the
+    same timeout."""
+    global _world_timeout
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    kw = dict(backend="nccl" if dev.type == "cuda" else "gloo", rank=rank,
+              world_size=world_size,
+              timeout=datetime.timedelta(seconds=timeout))
+    if store is not None:
+        kw["store"] = store
+    else:
+        kw["init_method"] = init_method
+    dist.init_process_group(**kw)
+    _world_timeout = kw["timeout"]
+
+
+def leave_world() -> None:
+    """End this process's world (``join_world``'s)."""
+    global _world_timeout
+    _world_timeout = None
+    dist.destroy_process_group()
 
 
 @contextlib.contextmanager
@@ -109,30 +140,20 @@ def world(device="cuda", *, rank: int, world_size: int,
     ``device="cpu"`` takes gloo. The rendezvous is a ``FileStore`` at
     ``store_path`` (a file no earlier world used) or ``init_method``
     (``env://``, ``tcp://host:port``, ``file://...``). ``timeout`` bounds
-    the rendezvous and every collective, so a rank whose peer is gone
-    fails instead of waiting for ever; the meshes built in the world give
-    their groups the same timeout."""
-    global _world_timeout
+    the rendezvous and every collective (``join_world``)."""
     dev = resolve_device(device)
     if (store_path is None) == (init_method is None):
         raise ValueError("pass exactly one of store_path and init_method")
-    backend = "nccl" if dev.type == "cuda" else "gloo"
     if dev.type == "cuda":
         dev = torch.device("cuda", rank % torch.cuda.device_count())
-        torch.cuda.set_device(dev)
-    kw = dict(backend=backend, rank=rank, world_size=world_size,
-              timeout=datetime.timedelta(seconds=timeout))
-    if store_path is not None:
-        kw["store"] = dist.FileStore(store_path, world_size)
-    else:
-        kw["init_method"] = init_method
-    dist.init_process_group(**kw)
-    _world_timeout = kw["timeout"]
+    store = None if store_path is None else dist.FileStore(store_path,
+                                                           world_size)
+    join_world(dev, rank=rank, world_size=world_size, timeout=timeout,
+               store=store, init_method=init_method)
     try:
         yield dev
     finally:
-        _world_timeout = None
-        dist.destroy_process_group()
+        leave_world()
 
 
 # ------------------------------------------------------------------ mesh

@@ -52,9 +52,14 @@ def test_port_file_list_covers_the_package():
                 "kubeflow_tpu_torch/runtime/migrate.py",
                 "kubeflow_tpu_torch/utils/k8s.py",
                 "kubeflow_tpu_torch/utils/names.py",
-                "kubeflow_tpu_torch/tools/dryrun_multidevice.py"):
+                "kubeflow_tpu_torch/tools/dryrun_multidevice.py",
+                "kubeflow_tpu_torch/runtime/bootstrap.py",
+                "kubeflow_tpu_torch/gpu/topology.py",
+                "kubeflow_tpu_torch/controllers/notebook.py",
+                "kubeflow_tpu_torch/controllers/slicepool.py",
+                "kubeflow_tpu_torch/webhook/mutating.py"):
         assert rel in PORT_FILES
-    assert len(PORT_FILES) >= 29
+    assert len(PORT_FILES) >= 51
 
 
 _PROBE = r"""
@@ -86,6 +91,11 @@ import kubeflow_tpu_torch.parallel.pipeline
 import kubeflow_tpu_torch.models.moe
 import kubeflow_tpu_torch.models.lora
 import kubeflow_tpu_torch.tools.dryrun_multidevice
+import kubeflow_tpu_torch.runtime.bootstrap
+import kubeflow_tpu_torch.gpu.topology
+import kubeflow_tpu_torch.controllers.notebook
+import kubeflow_tpu_torch.controllers.slicepool
+import kubeflow_tpu_torch.webhook.mutating
 sys.path.insert(0, "tests")
 import torch_dist_ranks
 leaked = sorted(m for m in sys.modules

@@ -2,11 +2,14 @@
 (tests/test_torch_parallel.py, test_torch_sharded_train.py,
 test_torch_sharded_decode.py, test_torch_pipeline.py,
 test_torch_sharded_moe.py, test_torch_sharded_lora.py,
-test_torch_sharded_serving.py, test_torch_elastic.py).
+test_torch_sharded_serving.py, test_torch_elastic.py), and the worker
+of the bootstrapped slice (test_torch_bootstrap.py, run as a script).
 
 Each function runs in every process of a gloo world on the CPU started by
 ``kubeflow_tpu_torch.parallel.mesh.spawn``, and returns rank 0's results
-(numpy) to the parent, which holds them against the JAX package. This
+(numpy) to the parent, which holds them against the JAX package;
+``bootstrap_worker`` forms its world itself, from the env the controller
+injects. This
 module imports torch, numpy and the port, never JAX: the parent computes
 the JAX side and passes its inputs in as numpy arrays.
 
@@ -17,7 +20,10 @@ the ranks outside it skip the case.
 
 from __future__ import annotations
 
+import json
 import math
+import pickle
+import sys
 import time
 from concurrent.futures import CancelledError
 
@@ -1418,3 +1424,50 @@ def idle_suite(rank: int, world: int, job: dict) -> dict:
                                                   n_slots=2)},
         prompts[0], job["max_new"])
     return out
+
+
+# -------------------------------------------------------------- bootstrap
+def _unflatten(flat: dict) -> dict:
+    """{"a/b": x} → {"a": {"b": x}}."""
+    tree: dict = {}
+    for path, x in flat.items():
+        *parents, leaf = path.split("/")
+        node = tree
+        for key in parents:
+            node = node.setdefault(key, {})
+        node[leaf] = x
+    return tree
+
+
+def bootstrap_worker(job_path: str, out_path: str) -> None:
+    """One worker process of a provisioned slice on the CPU: its world
+    from the TPU_WORKER_* env (runtime/bootstrap.py, gloo), the slice
+    verified at 2 ranks, then ``make_sharded_train_step`` at dp 2 from the
+    job's params (the JAX step's own init, "params/<path>" entries of the
+    .npz) over its batches. Writes the report, the losses and the
+    gathered params to ``out_path`` (a pickle)."""
+    from kubeflow_tpu_torch.parallel.mesh import leave_world
+    from kubeflow_tpu_torch.runtime.bootstrap import (SliceEnv,
+                                                      initialize_slice,
+                                                      verify_slice)
+    torch.set_num_threads(1)
+    job = np.load(job_path)
+    params = _unflatten({k.split("/", 1)[1]: job[k] for k in job.files
+                         if k.startswith("params/")})
+    case = {"mesh": {"dp": 2}, "accum": 1, "tc": {"warmup_steps": 2},
+            "params": params,
+            "batches": list(zip(job["tokens"], job["targets"]))}
+    env = initialize_slice(SliceEnv.from_env(), device="cpu", timeout=60)
+    try:
+        report = verify_slice(env, expected=2)
+        out = _step_case(case, json.loads(str(job["config"])))
+    finally:
+        leave_world()
+    with open(out_path, "wb") as fh:
+        pickle.dump({"report": report, "losses": out["losses"],
+                     "params": out["params"],
+                     "replicas_equal": out["replicas_equal"]}, fh)
+
+
+if __name__ == "__main__":
+    bootstrap_worker(*sys.argv[1:])
