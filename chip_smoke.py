@@ -117,16 +117,27 @@ Phases (any failure exits non-zero before the result line):
      ``speculative_generate`` of the f32 flagship as its own draft on the
      sharded params accepting every proposal; ``dryrun_multidevice(1,
      "cuda")``;
-  15. a notebook container's start on an h100-1 slice, after phases 12-14's
-     world has ended: the StatefulSet ``apply_gpu_spec`` renders, worker
-     0's env from it (pod index 0, a free coordinator port),
-     ``initialize_slice`` + ``verify_slice`` (NCCL, device_count 1; an
-     h100-16 expectation raises TimeoutError), ``Trainer(mesh=...)`` on
-     ``build_mesh(MeshConfig.auto(1))`` for 3 steps at b8 x s1024 with
-     bf16 params, bit-equal to a one-device Trainer (12 of each attention
-     kernel a step), greedy ``generate`` 8 x 128 -> 16 on
-     ``shard_decode_params`` of the trained params equal to the
-     unsharded ``generate``; ms/step, peak memory and the phase's seconds;
+  15. the port's control plane provisions the card, after phases 12-14's
+     world has ended: ``build_manager(simulate_kubelet=True)`` under
+     ``start()`` reconciles an h100-1 Notebook; the simulator's ready
+     hook turns worker 0 Ready only once ``initialize_slice`` +
+     ``verify_slice`` (NCCL, device_count 1) have run on the pod's own
+     env (pod index from its label, a free coordinator port), so
+     SliceReady and ``status.readyReplicas == 1`` are the card's; the
+     StatefulSet requests ``nvidia.com/gpu: 1`` under the H100
+     selectors; an h100-16 Notebook renders 2 replicas, a headless
+     Service and 2 hostnames; in the hook's world an h100-16
+     expectation raises TimeoutError, ``Trainer(mesh=...)`` on
+     ``build_mesh(MeshConfig.auto(1))`` runs 3 steps at b8 x s1024 with
+     bf16 params, bit-equal to a one-device Trainer (12 of each
+     attention kernel a step), greedy ``generate`` 8 x 128 -> 16 on
+     ``shard_decode_params`` of the trained params equals the unsharded
+     ``generate``; the stop annotation takes the h100-1 Notebook to 0
+     replicas, no pods and SliceReady False; then 100 Notebooks (60
+     h100-1, 30 h100-8, 10 h100-16) on a fresh manager with 4 workers
+     all reach SliceReady within 60 s (CR→SliceReady p50/p95 in host
+     ms); writes, reconciles, ms/step, peak memory and the phase's
+     seconds;
   5. times of each kernel, its plain version and a library call (last, so
      the paths above run on a card not yet warmed by timing loops), with
      the achieved TFLOP/s, the share of the bound, the forward, dK/dV and
@@ -3368,94 +3379,239 @@ def _free_port() -> int:
         return sock.getsockname()[1]
 
 
-def _worker_env(sts: dict, nb_name: str, pod_index: str) -> dict:
-    """The env of the notebook container of ``sts``'s pod ``pod_index``,
-    its pod-index fieldRef resolved as the kubelet would."""
+def _pod_env(pod: dict, nb_name: str) -> dict:
+    """The env of the notebook container of ``pod``, its pod-index
+    fieldRef resolved from the pod's own label, as the kubelet would."""
     from kubeflow_tpu_torch.utils import k8s, names
-    container = k8s.pod_spec_notebook_container(
-        sts["spec"]["template"]["spec"], nb_name)
+    container = k8s.pod_spec_notebook_container(pod["spec"], nb_name)
     env = {}
     for e in container["env"]:
         if "valueFrom" in e:
             path = e["valueFrom"]["fieldRef"]["fieldPath"]
             require(path == f"metadata.labels['{names.POD_INDEX_LABEL}']",
                     f"{e['name']} refers to {path}")
-            env[e["name"]] = pod_index
+            env[e["name"]] = k8s.get_label(pod, names.POD_INDEX_LABEL)
         else:
             env[e["name"]] = e["value"]
     return env
 
 
+class _SliceGate:
+    """The simulator's ``ready_hook``: worker 0 of the gated notebook turns
+    Ready only once ``initialize_slice`` and ``verify_slice`` have formed
+    and checked its NCCL world from the pod's own env (the world stays
+    up for the phase); every other pod is not gated. A failure is kept
+    and raised again on every poll, so that pod never turns Ready."""
+
+    def __init__(self, nb_name: str):
+        self.nb_name = nb_name
+        self.env = None
+        self.report = None
+        self.seconds = None
+        self.error = None
+
+    def __call__(self, pod: dict) -> bool:
+        from kubeflow_tpu_torch.runtime.bootstrap import (SliceEnv,
+                                                          initialize_slice,
+                                                          verify_slice)
+        from kubeflow_tpu_torch.utils import k8s, names
+        if k8s.get_label(pod, names.NOTEBOOK_NAME_LABEL) != self.nb_name:
+            return True
+        # one pod, so the simulator never runs this for it on two workers
+        if self.error is not None:
+            raise self.error
+        if self.report is not None:
+            return True
+        try:
+            env = _pod_env(pod, self.nb_name)
+            env["KFTPU_COORDINATOR_PORT"] = str(_free_port())
+            t0 = time.monotonic()
+            slice_env = initialize_slice(SliceEnv.from_env(env), timeout=120)
+            self.env = env
+            self.report = verify_slice(slice_env)
+            self.seconds = time.monotonic() - t0
+        except Exception as exc:  # noqa: BLE001 — kept, raised each poll
+            self.error = exc
+            raise
+        return True
+
+
+def _wait_for(what: str, cond, timeout: float) -> float:
+    """Poll ``cond`` until it holds; the seconds it took. Fails the run
+    at ``timeout``."""
+    t0 = time.monotonic()
+    while not cond():
+        if time.monotonic() - t0 > timeout:
+            fail(f"phase15: {what} did not happen within {timeout:.0f} s")
+        time.sleep(0.01)
+    return time.monotonic() - t0
+
+
+def _reconcile_totals(mgr) -> dict:
+    metric = mgr.metrics.counter("controller_runtime_reconcile_total", "")
+    return {f"{c}/{r}": metric.get({"controller": c, "result": r})
+            for c in ("notebook-controller", "sim-statefulset-controller")
+            for r in ("success", "requeue_after", "error")
+            if metric.get({"controller": c, "result": r})}
+
+
+def _notebook_fleet(n_by_shape: dict, namespaces: int = 10) -> dict:
+    """Reconcile a fleet of Notebooks on a fresh ``build_manager`` under
+    ``start()`` with 4 workers, the kubelet simulator not gated: each
+    CR's create → SliceReady=True latency in ms (host time, measured on
+    the store's watch), the writes (resourceVersions) and reconciles."""
+    from kubeflow_tpu_torch.api import types as api
+    from kubeflow_tpu_torch.main import build_manager
+    from kubeflow_tpu_torch.utils import k8s, names
+
+    mgr = build_manager(simulate_kubelet=True, max_concurrent_reconciles=4)
+    store = mgr.client
+    created: dict = {}
+    ready: dict = {}
+
+    def on_notebook(event) -> None:
+        key = (k8s.namespace(event.obj), k8s.name(event.obj))
+        if key in created and key not in ready and \
+                k8s.condition_true(event.obj, api.CONDITION_SLICE_READY):
+            ready[key] = time.monotonic()
+    store.watch(api.KIND, on_notebook)
+    mgr.start()
+    try:
+        t0 = time.monotonic()
+        i = 0
+        for shape, n in n_by_shape.items():
+            for _ in range(n):
+                key = (f"team-{i % namespaces}", f"nb-{shape}-{i}")
+                created[key] = time.monotonic()
+                store.create(api.new_notebook(key[1], key[0], annotations={
+                    names.TPU_ACCELERATOR_ANNOTATION: shape}))
+                i += 1
+        _wait_for(f"SliceReady on {len(created)} notebooks",
+                  lambda: len(ready) == len(created), 60.0)
+        seconds = time.monotonic() - t0
+    finally:
+        mgr.stop()
+    lat = sorted((ready[k] - created[k]) * 1e3 for k in created)
+    pods = store.list("Pod")
+    stss = store.list("StatefulSet")
+    return {"notebooks": len(created), "pods": len(pods),
+            "replicas": sum(s["spec"]["replicas"] for s in stss),
+            "seconds": seconds,
+            "ready_p50_ms": lat[len(lat) // 2],
+            "ready_p95_ms": lat[min(len(lat) - 1, int(0.95 * len(lat)))],
+            "ready_max_ms": lat[-1], "writes": store._last_rv,
+            "reconciles": _reconcile_totals(mgr)}
+
+
 def phase_bootstrap(torch, flagship) -> tuple[dict, dict]:
-    """15: the notebook container's start path on an h100-1 slice: the
-    controller's StatefulSet (``apply_gpu_spec``), worker 0's env from it,
-    ``initialize_slice`` and ``verify_slice`` (NCCL, one card; an h100-16
-    expectation raises TimeoutError), then ``Trainer(mesh=...)`` on
-    ``build_mesh(MeshConfig.auto(device_count))`` for 3 steps at b8 x
-    s1024 with bf16 params after a one-device Trainer on the same seed
-    and batches (losses bit-equal), and greedy ``generate`` (8 x 128 ->
-    16) on ``shard_decode_params`` of the trained params (ids equal to
-    the unsharded ``generate``'s). Returns (stats, the launches of the
-    mesh Trainer and the sharded ``generate``)."""
+    """15: the port's control plane provisions the card. ``build_manager
+    (simulate_kubelet=True)`` reconciles an h100-1 Notebook under
+    ``start()``; the simulator's ready hook turns worker 0 Ready only once
+    ``initialize_slice`` and ``verify_slice`` have formed its NCCL world
+    from the pod's env, so the Notebook's SliceReady is the card's. In
+    that world: an h100-16 expectation raises TimeoutError, then
+    ``Trainer(mesh=...)`` on ``build_mesh(MeshConfig.auto(device_count))``
+    for 3 steps at b8 x s1024 with bf16 params after a one-device Trainer
+    on the same seed and batches (losses bit-equal), and greedy
+    ``generate`` (8 x 128 -> 16) on ``shard_decode_params`` of the
+    trained params (ids equal to the unsharded ``generate``'s). The same
+    manager renders an h100-16 Notebook (2 replicas, a headless Service,
+    two hostnames; not gated), and the stop annotation takes the h100-1
+    Notebook to 0 replicas. Last, 100 Notebooks (60 h100-1, 30 h100-8,
+    10 h100-16) on a fresh manager must all reach SliceReady within 60 s.
+    Returns (stats, the launches of the mesh Trainer and the sharded
+    ``generate``)."""
     import torch.distributed as dist
 
     from kubeflow_tpu_torch import ops
-    from kubeflow_tpu_torch.controllers.notebook import apply_gpu_spec
-    from kubeflow_tpu_torch.gpu.topology import parse_short_name
+    from kubeflow_tpu_torch.api import types as api
+    from kubeflow_tpu_torch.main import build_manager
     from kubeflow_tpu_torch.models import train as train_lib
     from kubeflow_tpu_torch.models.decode import generate
     from kubeflow_tpu_torch.parallel.mesh import (MeshConfig, build_mesh,
                                                   leave_world)
-    from kubeflow_tpu_torch.runtime.bootstrap import (SliceEnv,
-                                                      initialize_slice,
-                                                      verify_slice)
+    from kubeflow_tpu_torch.runtime.bootstrap import SliceEnv, verify_slice
     from kubeflow_tpu_torch.runtime.data import synthetic_lm_batches
     from kubeflow_tpu_torch.runtime.sharded_decode import shard_decode_params
     from kubeflow_tpu_torch.runtime.trainer import Trainer
-    from kubeflow_tpu_torch.utils import names
+    from kubeflow_tpu_torch.utils import k8s, names
 
     t_phase = time.monotonic()
     c, L, V, B, S, n_steps = (flagship, flagship.n_layers,
                               flagship.vocab_size, 8, 1024, 3)
     require(not dist.is_initialized(), "phase 12's world is still formed")
-    # the StatefulSet of an h100-1 notebook, as the reference's
-    # generate_statefulset leaves it before its accelerator layer
-    spec = parse_short_name("h100-1")
-    nb_name = "smoke"
-    container = {"name": nb_name, "image": "jupyter-pytorch-cuda:v1"}
-    notebook = {"kind": "Notebook", "metadata": {
-        "name": nb_name, "namespace": "user-ns",
-        "annotations": {names.TPU_ACCELERATOR_ANNOTATION: spec.short_name}},
-        "spec": {"template": {"spec": {"containers": [dict(container)]}}}}
-    sts = {"kind": "StatefulSet",
-           "metadata": {"name": nb_name, "namespace": "user-ns"},
-           "spec": {"replicas": 1, "serviceName": nb_name, "template": {
-               "metadata": {"labels": {"statefulset": nb_name}},
-               "spec": {"containers": [dict(container)]}}}}
-    apply_gpu_spec(sts, notebook, spec, nb_name)
-    env = _worker_env(sts, nb_name, "0")
-    env["KFTPU_COORDINATOR_PORT"] = str(_free_port())
-    resources = sts["spec"]["template"]["spec"]["containers"][0]["resources"]
-    print(f"phase15 {spec.short_name} StatefulSet: replicas "
-          f"{sts['spec']['replicas']}, resources {resources}, nodeSelector "
-          f"{sts['spec']['template']['spec']['nodeSelector']}; worker 0's "
-          f"env {env}", flush=True)
-    require(sts["spec"]["replicas"] == 1 and resources["limits"] == {
-        names.GPU_RESOURCE_KEY: "1"}, f"the h100-1 StatefulSet: {sts}")
+    ns, nb_name, big = "user-ns", "smoke", "smoke-big"
+    gate = _SliceGate(nb_name)
+    mgr = build_manager(simulate_kubelet=True, ready_hook=gate)
+    store = mgr.client
+
+    def notebook(name):
+        return store.get(api.KIND, ns, name)
+
+    def slice_ready(name) -> bool:
+        return k8s.condition_true(notebook(name), api.CONDITION_SLICE_READY)
 
     stats: dict = {}
     launched: dict = {}
-    t0 = time.monotonic()
-    slice_env = initialize_slice(SliceEnv.from_env(env), timeout=120)
+    mgr.start()
     try:
-        report = verify_slice(slice_env)
-        stats["bootstrap_s"] = time.monotonic() - t0
-        print(f"phase15 initialize_slice + verify_slice in "
-              f"{stats['bootstrap_s']:.2f} s: {report}", flush=True)
+        store.create(api.new_notebook(nb_name, ns, image=(
+            "kubeflownotebookswg/jupyter-pytorch-cuda-full:v1.9.0"),
+            annotations={names.TPU_ACCELERATOR_ANNOTATION: "h100-1"}))
+        store.create(api.new_notebook(big, ns, annotations={
+            names.TPU_ACCELERATOR_ANNOTATION: "h100-16"}))
+        stats["slice_ready_s"] = _wait_for(
+            f"SliceReady on {nb_name}",
+            lambda: gate.error is not None or slice_ready(nb_name), 180.0)
+        require(gate.error is None,
+                f"the ready hook failed: {gate.error!r}")
+        _wait_for(f"SliceReady on {big}", lambda: slice_ready(big), 30.0)
+        nb = notebook(nb_name)
+        sts = store.get("StatefulSet", ns, nb_name)
+        pod_spec = sts["spec"]["template"]["spec"]
+        resources = pod_spec["containers"][0]["resources"]
+        report = gate.report
+        stats["bootstrap_s"] = gate.seconds
+        print(f"phase15 h100-1 Notebook reconciled by the port's manager: "
+              f"SliceReady {api.get_condition(nb, 'SliceReady')} "
+              f"{stats['slice_ready_s']:.2f} s after the create, "
+              f"status.readyReplicas {nb['status']['readyReplicas']}; "
+              f"StatefulSet replicas {sts['spec']['replicas']}, resources "
+              f"{resources}, nodeSelector {pod_spec['nodeSelector']}; "
+              f"worker 0's env {gate.env}", flush=True)
+        print(f"phase15 the ready hook's initialize_slice + verify_slice in "
+              f"{gate.seconds:.2f} s: {report}", flush=True)
+        require(nb["status"]["readyReplicas"] == 1,
+                f"h100-1 status: {nb['status']}")
+        require(sts["spec"]["replicas"] == 1 and resources == {
+            "requests": {names.GPU_RESOURCE_KEY: "1"},
+            "limits": {names.GPU_RESOURCE_KEY: "1"}} and
+            pod_spec["nodeSelector"] == {
+                names.GKE_GPU_ACCELERATOR_LABEL: "nvidia-h100-80gb",
+                names.NODE_INSTANCE_TYPE_LABEL: "a3-highgpu-1g"},
+            f"the h100-1 StatefulSet: {sts}")
         require(report["backend"] == "nccl" and report["device_count"] == 1
                 and report["local_device_count"] == 1,
                 f"verify_slice: {report}")
-        wrong = SliceEnv.from_env({**env, "TPU_ACCELERATOR_TYPE": "h100-16"})
+        sts16 = store.get("StatefulSet", ns, big)
+        env16 = k8s.env_list_to_dict(
+            sts16["spec"]["template"]["spec"]["containers"][0]["env"])
+        hosts = env16["TPU_WORKER_HOSTNAMES"].split(",")
+        headless = store.get_or_none("Service", ns, f"{big}-workers")
+        print(f"phase15 h100-16 Notebook: replicas "
+              f"{sts16['spec']['replicas']}, serviceName "
+              f"{sts16['spec']['serviceName']}, headless Service "
+              f"{headless is not None}, TPU_WORKER_HOSTNAMES {hosts}, "
+              f"{len(store.list('Pod', ns, {names.NOTEBOOK_NAME_LABEL: big}))}"
+              f" pods Ready (not gated)", flush=True)
+        require(sts16["spec"]["replicas"] == 2 and headless is not None
+                and headless["spec"]["clusterIP"] == "None"
+                and hosts == [f"{big}-{i}.{big}-workers.{ns}.svc"
+                              for i in range(2)],
+                f"the h100-16 render: {sts16}")
+
+        wrong = SliceEnv.from_env({**gate.env,
+                                   "TPU_ACCELERATOR_TYPE": "h100-16"})
         try:
             verify_slice(wrong)
             fail("verify_slice accepted a world of 1 for h100-16")
@@ -3533,10 +3689,42 @@ def phase_bootstrap(torch, flagship) -> tuple[dict, dict]:
                 counts["flash_decode"] == 15 * L,
                 f"the sharded generate's launches {counts}")
         del params, sharded, mesh
+
+        store.patch(api.KIND, ns, nb_name, {"metadata": {"annotations": {
+            names.STOP_ANNOTATION: k8s.now_iso()}}})
+        stats["stop_s"] = _wait_for(
+            f"the stop of {nb_name}",
+            lambda: (store.get("StatefulSet", ns, nb_name)["spec"]
+                     ["replicas"] == 0
+                     and not store.list("Pod", ns, {
+                         names.NOTEBOOK_NAME_LABEL: nb_name})
+                     and not slice_ready(nb_name)), 30.0)
+        cond = api.get_condition(notebook(nb_name), api.CONDITION_SLICE_READY)
+        print(f"phase15 stop annotation: replicas 0, no pods, SliceReady "
+              f"{cond['status']} ({cond['message']}) in "
+              f"{stats['stop_s'] * 1e3:.1f} ms", flush=True)
     finally:
+        mgr.stop()
         leave_world()
+    stats["control_plane"] = {"writes": store._last_rv,
+                              "reconciles": _reconcile_totals(mgr)}
+    print(f"phase15 control plane: {store._last_rv} writes, reconciles "
+          f"{stats['control_plane']['reconciles']}", flush=True)
     gc.collect()
     torch.cuda.empty_cache()
+
+    fleet = _notebook_fleet({"h100-1": 60, "h100-8": 30, "h100-16": 10})
+    stats["fleet"] = fleet
+    print(f"phase15 {fleet['notebooks']} Notebooks (60 h100-1, 30 h100-8, "
+          f"10 h100-16 over 10 namespaces; {fleet['pods']} pods, "
+          f"{fleet['replicas']} replicas) under start() with 4 workers: all "
+          f"SliceReady in {fleet['seconds']:.2f} s; CR→SliceReady p50 "
+          f"{fleet['ready_p50_ms']:.1f} ms, p95 {fleet['ready_p95_ms']:.1f} "
+          f"ms, max {fleet['ready_max_ms']:.1f} ms (host time); "
+          f"{fleet['writes']} writes, reconciles {fleet['reconciles']} "
+          f"({CARD[0]})", flush=True)
+    require(fleet["pods"] == fleet["replicas"] == 60 + 30 + 20,
+            f"the fleet's pods: {fleet}")
     stats["seconds"] = time.monotonic() - t_phase
     stats["launches"] = launched
     print(f"phase15 in {stats['seconds']:.1f} s; launches {launched} "

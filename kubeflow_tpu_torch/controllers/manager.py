@@ -1,0 +1,536 @@
+"""Controller manager: workqueue, watch wiring, requeue semantics.
+
+The port's copy of ``kubeflow_tpu/controllers/manager.py``. It plays the
+role of sigs.k8s.io/controller-runtime's manager + per-controller
+workqueues (reference main.go:58-148 registers reconcilers on one
+manager; SetupWithManager wires watches, notebook_controller.go:778-826):
+
+- a reconcile Request is (namespace, name); events are coalesced per key;
+- reconcilers return a ``Result`` (requeue_after seconds) or raise → error
+  backoff requeue;
+- watches map secondary objects (Pods, Events, owned resources) back to
+  the owning Notebook key.
+
+Two drive modes:
+- ``run_until_idle()``: deterministic draining on the calling thread, for
+  tests and benchmarks;
+- ``start()/stop()``: a pool of ``max_concurrent_reconciles`` daemon
+  worker threads with timed requeues, the production shape.
+
+Dispatch state machine (client-go workqueue parity)
+---------------------------------------------------
+
+Each key is in at most one of three states:
+
+- **queued**: an immediate item waits in the heap; further immediate adds
+  for the key coalesce (dropped).
+- **processing**: a worker is reconciling the key. A key being processed
+  is never handed to a second worker.
+- **dirty**: an event arrived for a key that was processing; when the
+  worker finishes, the key is re-enqueued exactly once. A timed requeue
+  that fires while its key is processing converts to dirty the same way.
+
+Timed requeues (AddAfter) dedup per key on the earliest pending deadline;
+superseded heap entries become ghosts discarded lazily at pop. Error
+backoff is max(per-key exponential, a 10 qps / 100 burst token bucket),
+client-go's DefaultControllerRateLimiter.
+
+Workqueue metrics (``attach_metrics``; label ``name`` = controller):
+``workqueue_adds_total``, ``workqueue_retries_total``, ``workqueue_depth``
+(live queued keys, not ghosts or in-flight items),
+``workqueue_queue_duration_seconds``, ``workqueue_work_duration_seconds``,
+``workqueue_unfinished_work_seconds``,
+``workqueue_longest_running_processor_seconds``, and
+``controller_runtime_reconcile_total{controller,result}``.
+
+The port's locks are plain ``threading`` locks: the reference's lock
+sanitizer (``kubeflow_tpu/utils/sanitizer.py``) is a test tool of the
+reference and is not copied, so nothing here reads ``KFTPU_SANITIZE``.
+Left out until later slices: sharded ownership (``set_sharding``,
+``resync_shards``), the breaker's ``resync_all``, tracing spans, the
+per-phase read/write histograms of the echo client, the manager read
+cache, the health and webhook servers, and leader election.
+"""
+
+from __future__ import annotations
+
+import heapq
+import logging
+import threading
+import time
+from dataclasses import dataclass, field
+from typing import Callable, Protocol
+
+from ..cluster.store import WatchEvent
+from ..utils import k8s
+
+log = logging.getLogger("kubeflow_tpu_torch.manager")
+
+
+@dataclass(frozen=True)
+class Request:
+    namespace: str
+    name: str
+
+
+@dataclass
+class Result:
+    requeue_after: float | None = None  # seconds
+
+
+class Reconciler(Protocol):
+    name: str
+
+    def reconcile(self, req: Request) -> Result | None: ...
+
+
+@dataclass(order=True)
+class _QueueItem:
+    ready_at: float
+    seq: int
+    controller: str = field(compare=False)
+    req: Request = field(compare=False)
+    timed: bool = field(compare=False, default=False)
+
+
+class TokenBucket:
+    """Reserving token bucket (client-go's BucketRateLimiter shape):
+    ``next_delay()`` always admits the caller but returns how long it must
+    wait, going into token debt, so a burst beyond ``burst`` spaces out at
+    ``qps`` instead of being dropped. Thread-safe."""
+
+    def __init__(self, qps: float = 10.0, burst: int = 100) -> None:
+        if qps <= 0:
+            raise ValueError("qps must be positive")
+        self.qps = float(qps)
+        self.burst = float(max(burst, 1))
+        self._tokens = self.burst
+        self._last = time.monotonic()
+        self._lock = threading.Lock()
+
+    def next_delay(self) -> float:
+        """Reserve one token; seconds the caller should wait before acting
+        (0.0 while the burst lasts)."""
+        with self._lock:
+            now = time.monotonic()
+            self._tokens = min(self.burst,
+                               self._tokens + (now - self._last) * self.qps)
+            self._last = now
+            self._tokens -= 1.0
+            if self._tokens >= 0:
+                return 0.0
+            return -self._tokens / self.qps
+
+
+class Manager:
+    ERROR_BACKOFF_BASE = 0.005   # the 5 ms base of client-go's item limiter
+    ERROR_BACKOFF_MAX = 2.0
+
+    def __init__(self, client, max_concurrent_reconciles: int = 4) -> None:
+        self.client = client
+        # pool size AND the default per-controller in-flight cap
+        # (controller-runtime's MaxConcurrentReconciles; register() can
+        # lower it per controller)
+        self.max_concurrent_reconciles = max(1, int(max_concurrent_reconciles))
+        self._reconcilers: dict[str, Reconciler] = {}
+        self._max_concurrent: dict[str, int] = {}
+        self._queue: list[_QueueItem] = []
+        self._queued: set[tuple[str, Request]] = set()
+        # earliest pending timed requeue per key (AddAfter dedup)
+        self._timed_pending: dict[tuple[str, Request], float] = {}
+        # keys being reconciled right now → monotonic start time
+        self._processing: dict[tuple[str, Request], float] = {}
+        # keys that received an immediate add (or a firing timed requeue)
+        # while processing; re-enqueued exactly once when the worker is done
+        self._dirty: set[tuple[str, Request]] = set()
+        # in-flight count per controller (enforces the per-controller cap)
+        self._active: dict[str, int] = {}
+        # ready items parked while their controller is at its cap, spliced
+        # back one at a time as slots free
+        self._capped: dict[str, list[_QueueItem]] = {}
+        self._failures: dict[tuple[str, Request], int] = {}
+        self._cv = threading.Condition()
+        self._seq = 0
+        self._running = False
+        self._threads: list[threading.Thread] = []
+        # the overall error-requeue limiter (10 qps / 100 burst composed
+        # with the per-key exponential by max)
+        self.rate_limiter = TokenBucket(qps=10.0, burst=100)
+        # the registry attach_metrics registered the workqueue family on
+        self.metrics = None
+        self._reconcile_metric = None
+        self._wq_adds = None
+        self._wq_retries = None
+        self._wq_queue_duration = None
+        self._wq_work_duration = None
+
+    def attach_metrics(self, registry) -> None:
+        self.metrics = registry
+        self._reconcile_metric = registry.counter(
+            "controller_runtime_reconcile_total",
+            "Total reconciliations per controller, by result.")
+        self._wq_adds = registry.counter(
+            "workqueue_adds_total",
+            "Total adds handled by the workqueue (every enqueue call, "
+            "coalesced or not).")
+        self._wq_retries = registry.counter(
+            "workqueue_retries_total",
+            "Total retries handled by the workqueue (error-backoff "
+            "requeues + reconciler conflict fast-retries).")
+        self._wq_queue_duration = registry.histogram(
+            "workqueue_queue_duration_seconds",
+            "How long an item stays ready in the workqueue before a "
+            "worker picks it up.")
+        self._wq_work_duration = registry.histogram(
+            "workqueue_work_duration_seconds",
+            "How long processing an item takes.")
+        depth = registry.gauge(
+            "workqueue_depth", "Current depth of the reconcile workqueue.")
+        unfinished = registry.gauge(
+            "workqueue_unfinished_work_seconds",
+            "Sum of in-flight (processing) item ages.")
+        longest = registry.gauge(
+            "workqueue_longest_running_processor_seconds",
+            "Age of the oldest in-flight item.")
+
+        def scrape() -> None:
+            # depth counts live queued work only: immediate keys + the
+            # earliest timed requeue per key, never ghosts or in-flight items
+            with self._cv:
+                now = time.monotonic()
+                per_controller: dict[str, int] = {}
+                for controller, _req in list(self._queued) + \
+                        list(self._timed_pending):
+                    per_controller[controller] = \
+                        per_controller.get(controller, 0) + 1
+                unfinished_per: dict[str, float] = {}
+                longest_per: dict[str, float] = {}
+                for (controller, _req), started in self._processing.items():
+                    age = max(now - started, 0.0)
+                    unfinished_per[controller] = \
+                        unfinished_per.get(controller, 0.0) + age
+                    longest_per[controller] = \
+                        max(longest_per.get(controller, 0.0), age)
+            for name in self._reconcilers:
+                depth.set(per_controller.get(name, 0), {"name": name})
+                unfinished.set(unfinished_per.get(name, 0.0), {"name": name})
+                longest.set(longest_per.get(name, 0.0), {"name": name})
+        registry.on_scrape(scrape)
+
+    def _count_reconcile(self, controller: str, result: str) -> None:
+        if self._reconcile_metric is not None:
+            self._reconcile_metric.inc({"controller": controller,
+                                        "result": result})
+
+    # ---------------------------------------------------------------- wiring
+    def register(self, reconciler: Reconciler,
+                 max_concurrent_reconciles: int | None = None) -> None:
+        """Register a reconciler; ``max_concurrent_reconciles`` caps this
+        controller's in-flight reconciles (default: the manager-wide
+        value)."""
+        self._reconcilers[reconciler.name] = reconciler
+        if max_concurrent_reconciles is not None:
+            self._max_concurrent[reconciler.name] = \
+                max(1, int(max_concurrent_reconciles))
+
+    def watch(self, kind: str, controller: str,
+              mapper: Callable[[dict], list[Request]] | None = None,
+              predicate: Callable[[WatchEvent], bool] | None = None,
+              tee: Callable[[WatchEvent], None] | None = None) -> None:
+        """Wire a store watch into a controller's queue. ``mapper`` converts
+        the observed object into reconcile requests (default: the object's
+        own key; ``owner_mapper`` below is the Owns()-style mapping).
+        ``tee`` observes every event before the predicate and mapper run."""
+
+        def cb(event: WatchEvent) -> None:
+            if tee is not None:
+                try:
+                    tee(event)
+                except Exception:  # a tee must never break dispatch
+                    log.exception("watch tee failed for %s", kind)
+            if predicate is not None and not predicate(event):
+                return
+            reqs = (mapper(event.obj) if mapper is not None
+                    else [Request(k8s.namespace(event.obj),
+                                  k8s.name(event.obj))])
+            for req in reqs:
+                self.enqueue(controller, req)
+        self.client.watch(kind, cb)
+
+    def enqueue(self, controller: str, req: Request,
+                after: float = 0.0) -> None:
+        with self._cv:
+            if self._wq_adds is not None:
+                self._wq_adds.inc({"name": controller})
+            key = (controller, req)
+            if after == 0.0:
+                if key in self._processing:
+                    # in-flight: mark dirty; _finish re-enqueues exactly once
+                    self._dirty.add(key)
+                    return
+                if key in self._queued:
+                    return
+                self._queued.add(key)
+                self._seq += 1
+                heapq.heappush(self._queue,
+                               _QueueItem(time.monotonic(), self._seq,
+                                          controller, req))
+            else:
+                ready_at = time.monotonic() + after
+                pending = self._timed_pending.get(key)
+                if pending is not None and pending <= ready_at:
+                    self._cv.notify_all()
+                    return  # an earlier (or equal) timed requeue exists
+                self._timed_pending[key] = ready_at
+                self._seq += 1
+                heapq.heappush(self._queue,
+                               _QueueItem(ready_at, self._seq, controller,
+                                          req, timed=True))
+            self._cv.notify_all()
+
+    # --------------------------------------------------------------- driving
+    def _cap(self, controller: str) -> int:
+        return self._max_concurrent.get(controller,
+                                        self.max_concurrent_reconciles)
+
+    def _consume_locked(self, item: _QueueItem,
+                        key: tuple[str, Request]) -> None:
+        """Remove a popped item's live-state marker (caller holds _cv)."""
+        if item.timed:
+            del self._timed_pending[key]
+        else:
+            self._queued.discard(key)
+
+    def _requeue_immediate_locked(self, controller: str, req: Request,
+                                  ready_at: float) -> None:
+        """Queue an immediate item unless one is already queued (caller
+        holds _cv): an internal state transition, not a new add."""
+        key = (controller, req)
+        if key not in self._queued:
+            self._queued.add(key)
+            self._seq += 1
+            heapq.heappush(self._queue,
+                           _QueueItem(ready_at, self._seq, controller, req))
+
+    def _unblock_locked(self, controller: str) -> None:
+        """A slot freed for ``controller``: return one of its cap-blocked
+        items to the heap (caller holds _cv), discarding ghosts."""
+        blocked = self._capped.get(controller)
+        while blocked:
+            item = blocked.pop(0)
+            key = (item.controller, item.req)
+            if (item.timed and
+                    self._timed_pending.get(key) != item.ready_at) or \
+                    (not item.timed and key not in self._queued):
+                continue  # superseded while parked; discard the ghost
+            heapq.heappush(self._queue, item)
+            break
+        if not blocked:
+            self._capped.pop(controller, None)
+
+    def _dispatch_one(self, block: bool) -> _QueueItem | None:
+        """Pop the next dispatchable ready item and mark it processing.
+
+        Skips (a) superseded timed ghosts, (b) items whose key is already
+        processing (they convert to dirty, the entry is consumed) and (c)
+        items whose controller is at its in-flight cap (parked in
+        _capped until a slot frees)."""
+        with self._cv:
+            while True:
+                now = time.monotonic()
+                found: _QueueItem | None = None
+                while self._queue and self._queue[0].ready_at <= now:
+                    item = heapq.heappop(self._queue)
+                    key = (item.controller, item.req)
+                    if item.timed:
+                        if self._timed_pending.get(key) != item.ready_at:
+                            continue  # superseded by an earlier requeue
+                    elif key not in self._queued:
+                        continue  # stale entry (defensive)
+                    if key in self._processing:
+                        self._consume_locked(item, key)
+                        self._dirty.add(key)
+                        continue
+                    if self._active.get(item.controller, 0) >= \
+                            self._cap(item.controller):
+                        self._capped.setdefault(item.controller,
+                                                []).append(item)
+                        continue
+                    self._consume_locked(item, key)
+                    found = item
+                    break
+                if found is not None:
+                    started = time.monotonic()
+                    self._processing[(found.controller, found.req)] = started
+                    self._active[found.controller] = \
+                        self._active.get(found.controller, 0) + 1
+                    if self._wq_queue_duration is not None:
+                        self._wq_queue_duration.observe(
+                            max(started - found.ready_at, 0.0),
+                            {"name": found.controller})
+                    return found
+                if not block or not self._running:
+                    return None
+                # the heap head is the earliest future deadline
+                next_future = self._queue[0].ready_at if self._queue else None
+                self._cv.wait(timeout=None if next_future is None
+                              else max(next_future - now, 0))
+
+    def _finish(self, item: _QueueItem) -> None:
+        """Worker is done with ``item``: clear processing state, return a
+        cap-blocked sibling to the heap, and re-enqueue the key iff it went
+        dirty while in flight."""
+        key = (item.controller, item.req)
+        with self._cv:
+            self._processing.pop(key, None)
+            self._active[item.controller] = \
+                max(0, self._active.get(item.controller, 1) - 1)
+            self._unblock_locked(item.controller)
+            if key in self._dirty:
+                self._dirty.discard(key)
+                self._requeue_immediate_locked(item.controller, item.req,
+                                               time.monotonic())
+            self._cv.notify_all()
+
+    def _reconcile_item(self, item: _QueueItem) -> None:
+        rec = self._reconcilers.get(item.controller)
+        if rec is None:
+            return
+        key = (item.controller, item.req)
+        started = time.monotonic()
+        try:
+            result = rec.reconcile(item.req)
+        except Exception as exc:  # noqa: BLE001 — error→requeue, never crash
+            with self._cv:
+                failures = self._failures.get(key, 0) + 1
+                self._failures[key] = failures
+            backoff = max(min(self.ERROR_BACKOFF_BASE * (2 ** failures),
+                              self.ERROR_BACKOFF_MAX),
+                          self.rate_limiter.next_delay())
+            log.warning("reconcile %s %s failed (%s); requeue in %.3fs",
+                        item.controller, item.req, exc, backoff)
+            self._count_reconcile(item.controller, "error")
+            if self._wq_retries is not None:
+                self._wq_retries.inc({"name": item.controller})
+            if self._wq_work_duration is not None:
+                self._wq_work_duration.observe(
+                    time.monotonic() - started, {"name": item.controller})
+            self.enqueue(item.controller, item.req, after=backoff)
+            return
+        with self._cv:
+            self._failures.pop(key, None)
+        if result is not None and result.requeue_after is not None:
+            self._count_reconcile(item.controller, "requeue_after")
+            self.enqueue(item.controller, item.req,
+                         after=result.requeue_after)
+        else:
+            self._count_reconcile(item.controller, "success")
+        if self._wq_work_duration is not None:
+            self._wq_work_duration.observe(
+                time.monotonic() - started, {"name": item.controller})
+
+    def run_until_idle(self, timeout: float = 30.0,
+                       include_delayed_under: float = 0.0) -> int:
+        """Drain the queue on the calling thread; returns the number of
+        reconciles this call ran. Timed requeues further than
+        ``include_delayed_under`` seconds out are left pending.
+
+        Idle means: no live queued item within the window and nothing
+        processing. With background workers running, this call drains
+        alongside them and does not return while their items are in
+        flight. Waits ride the condition variable; there is no polling."""
+        deadline = time.monotonic() + timeout
+        count = 0
+        while time.monotonic() < deadline:
+            item = self._dispatch_one(block=False)
+            if item is not None:
+                try:
+                    self._reconcile_item(item)
+                finally:
+                    self._finish(item)
+                count += 1
+                continue
+            with self._cv:
+                now = time.monotonic()
+                live = [q.ready_at for q in self._queue
+                        if (q.ready_at - now <= include_delayed_under)
+                        and (self._timed_pending.get(
+                                (q.controller, q.req)) == q.ready_at
+                             if q.timed
+                             else (q.controller, q.req) in self._queued)]
+                if not live and not self._processing:
+                    return count
+                ready_now = any(t <= now for t in live)
+                if ready_now and not self._processing:
+                    continue  # dispatchable again (e.g. a dirty re-add raced)
+                wait = deadline - now
+                next_future = min((t for t in live if t > now), default=None)
+                if next_future is not None and not self._processing:
+                    wait = min(wait, next_future - now)
+                if wait > 0:
+                    self._cv.wait(wait)
+        return count
+
+    def start(self) -> None:
+        with self._cv:
+            if self._running:
+                return
+            self._running = True
+        # the pool is raised to the highest per-controller cap
+        n = max(self.max_concurrent_reconciles,
+                *(self._max_concurrent.values() or (1,)))
+        self._threads = [
+            threading.Thread(target=self._worker, daemon=True,
+                             name=f"kubeflow-tpu-torch-manager-{i}")
+            for i in range(n)]
+        for t in self._threads:
+            t.start()
+
+    def is_alive(self) -> bool:
+        """The full pool is running (the healthz hook)."""
+        return bool(self._threads) and all(t.is_alive()
+                                           for t in self._threads)
+
+    def _worker(self) -> None:
+        while True:  # exits on _running=False
+            with self._cv:
+                if not self._running:
+                    return
+            item: _QueueItem | None = None
+            try:
+                item = self._dispatch_one(block=True)
+                if item is None:
+                    continue
+                try:
+                    self._reconcile_item(item)
+                finally:
+                    self._finish(item)
+            except Exception:  # noqa: BLE001 — a worker must never die
+                log.exception("manager worker iteration failed; continuing")
+                if item is not None:
+                    with self._cv:
+                        held = (item.controller, item.req) in self._processing
+                    if held:
+                        self._finish(item)
+
+    def stop(self) -> None:
+        """Stop the pool: in-flight reconciles finish (each join waits at
+        most 5 s)."""
+        with self._cv:
+            self._running = False
+            self._cv.notify_all()
+        for t in self._threads:
+            t.join(timeout=5)
+        self._threads = []
+
+
+def owner_mapper(owner_kind: str) -> Callable[[dict], list[Request]]:
+    """Owns()-style mapping: enqueue the controller owner of the observed
+    object."""
+    def mapper(obj: dict) -> list[Request]:
+        for ref in k8s.get_in(obj, "metadata", "ownerReferences",
+                              default=[]) or []:
+            if ref.get("kind") == owner_kind and ref.get("controller"):
+                return [Request(k8s.namespace(obj), ref["name"])]
+        return []
+    return mapper

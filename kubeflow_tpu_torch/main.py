@@ -1,0 +1,73 @@
+"""The port's composition root: a manager with the core Notebook
+reconciler over the in-process apiserver.
+
+The counterpart of the ``components="core"`` path of
+``kubeflow_tpu/main.py`` ``build_manager``: the core reconciler on one
+manager, and with ``simulate_kubelet`` the StatefulSet/kubelet simulator,
+so a standalone run is a working control plane on one machine::
+
+    mgr = build_manager(simulate_kubelet=True)
+    mgr.start()
+    mgr.client.create(new_notebook("demo", "ns", annotations={
+        "tpu.kubeflow.org/accelerator": "h100-32"}))
+    # → 4 replicas, a headless Service, TPU_WORKER_* env, SliceReady
+    mgr.stop()
+
+Not yet in the port, each an item of ROADMAP.md's queue A: the
+extension manager and the admission webhooks (``components="extension"``
+or ``"all"``), the culler, the slice-pool, slice-repair and scheduler
+reconcilers the reference's core path also starts, the read cache, flags,
+TLS, the webhook server, health endpoints and leader election.
+"""
+
+from __future__ import annotations
+
+from .cluster.store import ClusterStore
+from .controllers import Manager, NotebookReconciler
+from .utils.config import ControllerConfig
+from .utils.metrics import MetricsRegistry
+
+# what each other selection of the reference needs, by ROADMAP.md item
+_NOT_PORTED = {
+    "extension": "queue A item 4 (the extension reconciler and its "
+                 "satellites) and item 5 (the webhooks)",
+    "all": "queue A items 4 and 5 (the extension reconciler and the "
+           "webhooks)",
+}
+
+
+def build_manager(store=None, config: ControllerConfig | None = None, *,
+                  simulate_kubelet: bool = False,
+                  max_concurrent_reconciles: int | None = None,
+                  components: str = "core", ready_hook=None):
+    """Compose the core control plane; returns the manager.
+
+    ``store`` defaults to a fresh in-process ``ClusterStore``; ``config``
+    to ``ControllerConfig.from_env()``; ``max_concurrent_reconciles`` to
+    the config's (4). The manager carries a ``MetricsRegistry``
+    (``mgr.metrics``) with the workqueue family and the notebook series.
+    ``ready_hook(pod) -> bool`` gates the simulator's readiness flip of a
+    pod (chip_smoke.py forms and verifies the pod's NCCL world there).
+    Not started: call ``mgr.start()`` or drive it with
+    ``mgr.run_until_idle()``."""
+    if components != "core":
+        reason = _NOT_PORTED.get(components)
+        if reason is None:
+            raise ValueError(f"unknown components selection: {components!r}")
+        raise ValueError(f"components={components!r} is not ported yet: "
+                         f"ROADMAP.md {reason}")
+    store = store if store is not None else ClusterStore()
+    config = config or ControllerConfig.from_env()
+    if config.enable_culling:
+        raise ValueError("ENABLE_CULLING is not ported yet: ROADMAP.md "
+                         "queue A item 1 (the slice-atomic culler)")
+    if max_concurrent_reconciles is None:
+        max_concurrent_reconciles = config.max_concurrent_reconciles
+    metrics = MetricsRegistry()
+    mgr = Manager(store, max_concurrent_reconciles=max_concurrent_reconciles)
+    mgr.attach_metrics(metrics)
+    NotebookReconciler(store, config, metrics).setup(mgr)
+    if simulate_kubelet:
+        from .cluster.kubelet import StatefulSetSimulator
+        StatefulSetSimulator(store, ready_hook=ready_hook).setup(mgr)
+    return mgr

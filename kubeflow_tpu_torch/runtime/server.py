@@ -169,7 +169,7 @@ class ServingServer:
         # Prometheus exposition (GET /metrics): engine counters mirrored at
         # scrape time, plus the HTTP layer's own request/latency series —
         # the serving analog of the controller's metrics endpoint
-        self.metrics = MetricsRegistry()
+        self.metrics = MetricsRegistry(include_notebook_metrics=False)
         self._m_http = self.metrics.counter(
             "serving_http_requests_total",
             "HTTP requests by route and status code")

@@ -57,9 +57,50 @@ def test_port_file_list_covers_the_package():
                 "kubeflow_tpu_torch/gpu/topology.py",
                 "kubeflow_tpu_torch/controllers/notebook.py",
                 "kubeflow_tpu_torch/controllers/slicepool.py",
-                "kubeflow_tpu_torch/webhook/mutating.py"):
+                "kubeflow_tpu_torch/webhook/mutating.py",
+                "kubeflow_tpu_torch/cluster/errors.py",
+                "kubeflow_tpu_torch/cluster/store.py",
+                "kubeflow_tpu_torch/cluster/events.py",
+                "kubeflow_tpu_torch/cluster/kubelet.py",
+                "kubeflow_tpu_torch/api/types.py",
+                "kubeflow_tpu_torch/api/slicepool.py",
+                "kubeflow_tpu_torch/utils/config.py",
+                "kubeflow_tpu_torch/utils/drift.py",
+                "kubeflow_tpu_torch/utils/metrics.py",
+                "kubeflow_tpu_torch/controllers/manager.py",
+                "kubeflow_tpu_torch/main.py"):
         assert rel in PORT_FILES
-    assert len(PORT_FILES) >= 51
+    assert len(PORT_FILES) >= 63
+
+
+def _references(tree: ast.AST) -> set[str]:
+    """What ci/lint.py's dead-code pass counts as a reference: names,
+    attributes, imported names and identifier-shaped string constants."""
+    refs: set[str] = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Name):
+            refs.add(node.id)
+        elif isinstance(node, ast.Attribute):
+            refs.add(node.attr)
+        elif isinstance(node, ast.ImportFrom):
+            refs.update(a.name for a in node.names)
+        elif isinstance(node, ast.Constant) and \
+                isinstance(node.value, str) and node.value.isidentifier():
+            refs.add(node.value)
+    return refs
+
+
+@pytest.mark.parametrize("rel", sorted(
+    p.relative_to(REPO).as_posix()
+    for p in (REPO / "tests").glob("test_torch_*.py")))
+def test_port_tests_name_no_deadcode_allowlist_entry(rel):
+    """ci/lint.py counts every reference under tests/: a port test naming
+    a deliberately unreferenced definition of the JAX package would make
+    its DEADCODE_ALLOWLIST entry stale and fail the lint gate."""
+    from ci.lint import DEADCODE_ALLOWLIST
+    allowlisted = {name for _, name in DEADCODE_ALLOWLIST}
+    tree = ast.parse((REPO / rel).read_text(), filename=rel)
+    assert not _references(tree) & allowlisted
 
 
 _PROBE = r"""
@@ -96,6 +137,14 @@ import kubeflow_tpu_torch.gpu.topology
 import kubeflow_tpu_torch.controllers.notebook
 import kubeflow_tpu_torch.controllers.slicepool
 import kubeflow_tpu_torch.webhook.mutating
+import kubeflow_tpu_torch.cluster.store
+import kubeflow_tpu_torch.cluster.events
+import kubeflow_tpu_torch.cluster.kubelet
+import kubeflow_tpu_torch.api.slicepool
+import kubeflow_tpu_torch.utils.config
+import kubeflow_tpu_torch.utils.drift
+import kubeflow_tpu_torch.controllers.manager
+import kubeflow_tpu_torch.main
 sys.path.insert(0, "tests")
 import torch_dist_ranks
 leaked = sorted(m for m in sys.modules

@@ -1,0 +1,731 @@
+"""The port's core lifecycle controller held against the reference's, case
+for case: every case of tests/test_notebook_controller.py runs through
+both stacks (store, Manager, NotebookReconciler and, where the case uses
+it, the StatefulSet simulator), each side with the case's own assertions,
+and then every object of both stores is compared key for key.
+
+The same Notebook goes to both sides; only its accelerator request is
+mapped, to the H100 shape with the same worker count (``v5e-4`` (1 x 4)
+↔ ``h100-4`` (1 x 4), ``v5e-16`` (4 x 4) ↔ ``h100-32`` (4 x 8)).
+``normalise`` (written once, used by the store harness too) drops
+``uid``, ``resourceVersion`` and timestamps, and maps only the
+accelerator seam: the resource key and its per-worker count, the
+nodeSelector, the TPU_ACCELERATOR_TYPE and TPU_TOPOLOGY values and the
+slice label's value, and the request itself (the Notebook's
+annotation, a SlicePool's ``spec.accelerator``). Everything else —
+names, generateName suffixes, labels, annotations, owner references, env
+order, replicas, serviceName, hostnames, condition reasons — must be
+equal. Cases without the simulator are deterministic, so the two sides
+must also make the same number of writes and reconciles; with it, pod
+readiness rides a timed requeue and only the objects are compared.
+"""
+
+from __future__ import annotations
+
+import pytest
+
+from kubeflow_tpu.api import slicepool as ref_pool_api
+from kubeflow_tpu.api import types as ref_api
+from kubeflow_tpu.cluster.kubelet import StatefulSetSimulator as RefSimulator
+from kubeflow_tpu.cluster.store import ClusterStore as RefStore
+from kubeflow_tpu.controllers.manager import Manager as RefManager
+from kubeflow_tpu.controllers.manager import Request as RefRequest
+from kubeflow_tpu.controllers.notebook import (
+    NotebookReconciler as RefReconciler)
+from kubeflow_tpu.utils import k8s as ref_k8s
+from kubeflow_tpu.utils import names as ref_names
+from kubeflow_tpu.utils.config import ControllerConfig as RefConfig
+from kubeflow_tpu.utils.metrics import MetricsRegistry as RefMetrics
+from kubeflow_tpu_torch.api import slicepool as pool_api
+from kubeflow_tpu_torch.api import types as api
+from kubeflow_tpu_torch.cluster.kubelet import StatefulSetSimulator
+from kubeflow_tpu_torch.cluster.store import ClusterStore
+from kubeflow_tpu_torch.controllers import (Manager, NotebookReconciler,
+                                            Request)
+from kubeflow_tpu_torch.utils import k8s, names
+from kubeflow_tpu_torch.utils.config import ControllerConfig
+from kubeflow_tpu_torch.utils.metrics import MetricsRegistry
+
+# each reference request and the port's request with the same workers
+SHAPES = {"v5e-4": "h100-4", "v5e-16": "h100-32"}
+REF_OF = {port: ref for ref, port in SHAPES.items()}
+# what each side renders for a shape, written out (not read back from
+# either package's topology table)
+RENDERED = {
+    "v5e-4": {"nodeSelector": {
+        "cloud.google.com/gke-tpu-accelerator": "tpu-v5-lite-podslice",
+        "cloud.google.com/gke-tpu-topology": "2x2"},
+        "per_worker": "4", "topology": "2x2"},
+    "v5e-16": {"nodeSelector": {
+        "cloud.google.com/gke-tpu-accelerator": "tpu-v5-lite-podslice",
+        "cloud.google.com/gke-tpu-topology": "4x4"},
+        "per_worker": "4", "topology": "4x4"},
+    "h100-4": {"nodeSelector": {
+        "cloud.google.com/gke-accelerator": "nvidia-h100-80gb",
+        "node.kubernetes.io/instance-type": "a3-highgpu-4g"},
+        "per_worker": "4", "topology": "1x4"},
+    "h100-32": {"nodeSelector": {
+        "cloud.google.com/gke-accelerator": "nvidia-h100-80gb",
+        "node.kubernetes.io/instance-type": "a3-highgpu-8g"},
+        "per_worker": "8", "topology": "4x8"},
+}
+RESOURCE_KEY = {"ref": "google.com/tpu", "port": "nvidia.com/gpu"}
+TIMESTAMP_KEYS = frozenset({
+    "creationTimestamp", "deletionTimestamp", "lastTransitionTime",
+    "startedAt", "firstTimestamp", "lastTimestamp", "eventTime",
+    "timeAdded"})
+# where the request itself is written: the slice label, the Notebook's
+# accelerator annotation and a SlicePool's spec.accelerator
+SLICE_KEYS = (names.TPU_SLICE_LABEL, names.TPU_ACCELERATOR_ANNOTATION,
+              "accelerator")
+
+
+# ------------------------------------------------------------ normaliser
+def _shape_of(obj: dict) -> str | None:
+    md = obj.get("metadata") or {}
+    if obj.get("kind") == pool_api.KIND:
+        return (obj.get("spec") or {}).get("accelerator")
+    return ((md.get("labels") or {}).get(names.TPU_SLICE_LABEL)
+            or (md.get("annotations") or {}).get(
+                names.TPU_ACCELERATOR_ANNOTATION))
+
+
+def _walk(value, side: str, shape: str | None):
+    if isinstance(value, list):
+        return [_walk(v, side, shape) for v in value]
+    if not isinstance(value, dict):
+        return value
+    pair = (shape if side == "ref" else REF_OF.get(shape)) \
+        if shape in RENDERED else None
+    want = RENDERED.get(shape)
+    if pair is not None and value.get("name") in (
+            "TPU_ACCELERATOR_TYPE", "TPU_TOPOLOGY") and "value" in value:
+        expected = (shape if value["name"] == "TPU_ACCELERATOR_TYPE"
+                    else want["topology"])
+        if value["value"] == expected:
+            return {**value, "value": f"<{value['name']} of {pair}>"}
+    out = {}
+    for key, val in value.items():
+        if key in ("uid", "resourceVersion"):
+            continue
+        if key in TIMESTAMP_KEYS:
+            out[key] = "<time>"
+        elif key == "workerUIDs" and isinstance(val, dict):
+            out[key] = {n: "<uid>" for n in val}
+        elif pair is not None and key == "nodeSelector" \
+                and val == want["nodeSelector"]:
+            out[key] = f"<node selectors of {pair}>"
+        elif pair is not None and key in ("requests", "limits") \
+                and isinstance(val, dict):
+            out[key] = {
+                ("<accelerator resource>" if k == RESOURCE_KEY[side] else k):
+                (f"<per-worker count of {pair}>"
+                 if k == RESOURCE_KEY[side] and v == want["per_worker"]
+                 else _walk(v, side, shape))
+                for k, v in val.items()}
+        elif pair is not None and key in SLICE_KEYS and val == shape:
+            out[key] = f"<slice {pair}>"
+        else:
+            out[key] = _walk(val, side, shape)
+    return out
+
+
+def normalise(obj: dict, side: str) -> dict:
+    """``obj`` with uid, resourceVersion and timestamps dropped and the
+    accelerator seam of ``side`` ("ref" or "port") mapped to tokens that
+    name the reference's shape."""
+    return _walk(obj, side, _shape_of(obj))
+
+
+# ---------------------------------------------------------------- stacks
+class Stack:
+    """One side's control plane, driven by the case functions below
+    through the names they share (``api``, ``k8s``, ``names``, ...)."""
+
+    def __init__(self, side: str):
+        self.side = side
+        ref = side == "ref"
+        self.api = ref_api if ref else api
+        self.pool_api = ref_pool_api if ref else pool_api
+        self.k8s = ref_k8s if ref else k8s
+        self.names = ref_names if ref else names
+        self.Request = RefRequest if ref else Request
+        self.store = RefStore() if ref else ClusterStore()
+        self.config = RefConfig() if ref else ControllerConfig()
+        self.metrics = RefMetrics() if ref else MetricsRegistry()
+        self.manager = (RefManager if ref else Manager)(self.store)
+        self._reconciler = RefReconciler if ref else NotebookReconciler
+        self._simulator = RefSimulator if ref else StatefulSetSimulator
+        self.drains: list[int] = []
+        self.timed = False
+
+    def reconciler(self):
+        rec = self._reconciler(self.store, self.config, self.metrics)
+        rec.setup(self.manager)
+        return rec
+
+    def simulator(self):
+        self.timed = True   # pod readiness rides a timed requeue
+        sim = self._simulator(self.store, boot_delay_s=0.0)
+        sim.setup(self.manager)
+        return sim
+
+    def accelerator(self, ref_shape: str) -> str:
+        return ref_shape if self.side == "ref" else SHAPES[ref_shape]
+
+    def rendered(self, ref_shape: str) -> dict:
+        return RENDERED[self.accelerator(ref_shape)]
+
+    def drain(self, include_delayed_under: float = 0.0) -> int:
+        n = self.manager.run_until_idle(
+            timeout=10.0, include_delayed_under=include_delayed_under)
+        self.drains.append(n)
+        return n
+
+    def apply(self, nb: dict) -> dict:
+        out = self.store.create(nb)
+        self.drain()
+        return out
+
+    def snapshot(self) -> dict:
+        return {(o["kind"], self.k8s.namespace(o), self.k8s.name(o)):
+                normalise(o, self.side) for o in self.store.all_objects()}
+
+
+def assert_parity(ref: Stack, port: Stack) -> None:
+    """Every object of both stores equal after ``normalise``; with no
+    timed requeue in play, the same writes and the same reconciles too."""
+    want, got = ref.snapshot(), port.snapshot()
+    assert sorted(got) == sorted(want)
+    for key in sorted(want):
+        assert got[key] == want[key], key
+    if not ref.timed:
+        assert port.store._last_rv == ref.store._last_rv   # writes
+        assert port.drains == ref.drains                    # reconciles
+
+
+# ------------------------------------------------ the reference's cases
+def creates_sts_and_service(s):
+    s.reconciler()
+    s.apply(s.api.new_notebook("mynb", "user-ns", image="jupyter:latest"))
+    sts = s.store.get("StatefulSet", "user-ns", "mynb")
+    svc = s.store.get("Service", "user-ns", "mynb")
+    assert sts["spec"]["replicas"] == 1
+    assert sts["spec"]["selector"]["matchLabels"] == {"statefulset": "mynb"}
+    assert s.k8s.get_label(sts, s.names.NOTEBOOK_NAME_LABEL) == "mynb"
+    assert svc["spec"]["type"] == "ClusterIP"
+    assert svc["spec"]["ports"][0]["name"] == "http-notebook"
+    assert svc["spec"]["ports"][0]["port"] == 80
+    assert svc["spec"]["ports"][0]["targetPort"] == 8888
+    assert s.k8s.is_owned_by(sts, s.k8s.uid(
+        s.store.get(s.api.KIND, "user-ns", "mynb")))
+
+
+def container_defaults(s):
+    s.reconciler()
+    s.apply(s.api.new_notebook("mynb", "user-ns"))
+    sts = s.store.get("StatefulSet", "user-ns", "mynb")
+    c = sts["spec"]["template"]["spec"]["containers"][0]
+    assert c["workingDir"] == "/home/jovyan"
+    assert c["ports"][0]["containerPort"] == 8888
+    env = s.k8s.env_list_to_dict(c["env"])
+    assert env["NB_PREFIX"] == "/notebook/user-ns/mynb"
+    assert sts["spec"]["template"]["spec"]["securityContext"]["fsGroup"] == 100
+
+
+def no_fsgroup_when_disabled(s):
+    s.config.add_fsgroup = False
+    s.reconciler()
+    s.apply(s.api.new_notebook("mynb", "ns"))
+    sts = s.store.get("StatefulSet", "ns", "mynb")
+    assert "securityContext" not in sts["spec"]["template"]["spec"]
+
+
+def stop_annotation_scales_to_zero(s):
+    s.reconciler()
+    s.apply(s.api.new_notebook("mynb", "ns"))
+    assert s.store.get("StatefulSet", "ns", "mynb")["spec"]["replicas"] == 1
+    s.store.patch(s.api.KIND, "ns", "mynb", {"metadata": {"annotations": {
+        s.names.STOP_ANNOTATION: "2026-07-29T00:00:00Z"}}})
+    s.drain()
+    assert s.store.get("StatefulSet", "ns", "mynb")["spec"]["replicas"] == 0
+    s.store.patch(s.api.KIND, "ns", "mynb", {"metadata": {"annotations": {
+        s.names.STOP_ANNOTATION: None}}})
+    s.drain()
+    assert s.store.get("StatefulSet", "ns", "mynb")["spec"]["replicas"] == 1
+
+
+def long_name_generate_name(s):
+    s.reconciler()
+    long_name = "a" * 60
+    s.apply(s.api.new_notebook(long_name, "ns"))
+    stss = s.store.list("StatefulSet", "ns",
+                        {s.names.NOTEBOOK_NAME_LABEL: long_name})
+    assert len(stss) == 1
+    assert s.k8s.name(stss[0]).startswith("nb-")
+    assert len(s.k8s.name(stss[0])) <= 52
+    s.manager.enqueue("notebook-controller", s.Request("ns", long_name))
+    s.drain()
+    assert len(s.store.list("StatefulSet", "ns",
+                            {s.names.NOTEBOOK_NAME_LABEL: long_name})) == 1
+
+
+def annotation_propagation_excludes_prefixes(s):
+    s.reconciler()
+    s.apply(s.api.new_notebook("mynb", "ns", annotations={
+        "kubectl.kubernetes.io/last-applied-configuration": "{}",
+        "notebooks.opendatahub.io/inject-auth": "true",
+        "custom/keep": "yes",
+    }))
+    anns = s.store.get("StatefulSet", "ns", "mynb")["metadata"]["annotations"]
+    assert "custom/keep" in anns
+    assert "kubectl.kubernetes.io/last-applied-configuration" not in anns
+    assert "notebooks.opendatahub.io/inject-auth" not in anns
+
+
+def tpu_v5e4_single_host(s):
+    s.reconciler()
+    s.apply(s.api.new_notebook("tpu-nb", "ns", annotations={
+        s.names.TPU_ACCELERATOR_ANNOTATION: s.accelerator("v5e-4")}))
+    sts = s.store.get("StatefulSet", "ns", "tpu-nb")
+    assert sts["spec"]["replicas"] == 1
+    pod_spec = sts["spec"]["template"]["spec"]
+    assert pod_spec["nodeSelector"] == s.rendered("v5e-4")["nodeSelector"]
+    c = pod_spec["containers"][0]
+    assert c["resources"]["requests"][RESOURCE_KEY[s.side]] == "4"
+    assert c["resources"]["limits"][RESOURCE_KEY[s.side]] == "4"
+    env = s.k8s.env_list_to_dict(c["env"])
+    assert env["TPU_WORKER_HOSTNAMES"] == "localhost"
+    assert s.store.get_or_none("Service", "ns", "tpu-nb-workers") is None
+
+
+def tpu_v5e16_multi_host(s):
+    s.reconciler()
+    s.apply(s.api.new_notebook("big", "ns", annotations={
+        s.names.TPU_ACCELERATOR_ANNOTATION: s.accelerator("v5e-16")}))
+    sts = s.store.get("StatefulSet", "ns", "big")
+    assert sts["spec"]["replicas"] == 4
+    assert sts["spec"]["serviceName"] == "big-workers"
+    headless = s.store.get("Service", "ns", "big-workers")
+    assert headless["spec"]["clusterIP"] == "None"
+    assert headless["spec"]["publishNotReadyAddresses"] is True
+    c = sts["spec"]["template"]["spec"]["containers"][0]
+    env = s.k8s.env_list_to_dict(c["env"])
+    assert env["TPU_WORKER_HOSTNAMES"] == ",".join(
+        f"big-{i}.big-workers.ns.svc" for i in range(4))
+    assert env["TPU_TOPOLOGY"] == s.rendered("v5e-16")["topology"]
+    assert c["resources"]["limits"][RESOURCE_KEY[s.side]] == \
+        s.rendered("v5e-16")["per_worker"]
+    worker_id = [e for e in c["env"] if e["name"] == "TPU_WORKER_ID"][0]
+    assert worker_id["valueFrom"]["fieldRef"]["fieldPath"] == \
+        "metadata.labels['apps.kubernetes.io/pod-index']"
+
+
+def long_name_multihost_hostnames_use_real_sts_name(s):
+    s.reconciler()
+    long_name = "n" * 60
+    s.apply(s.api.new_notebook(long_name, "ns", annotations={
+        s.names.TPU_ACCELERATOR_ANNOTATION: s.accelerator("v5e-16")}))
+    sts = s.store.list("StatefulSet", "ns",
+                       {s.names.NOTEBOOK_NAME_LABEL: long_name})[0]
+    real_name = s.k8s.name(sts)
+    assert real_name.startswith("nb-") and real_name != long_name
+    env = s.k8s.env_list_to_dict(
+        sts["spec"]["template"]["spec"]["containers"][0]["env"])
+    for i in range(4):
+        assert f"{real_name}-{i}." in env["TPU_WORKER_HOSTNAMES"]
+    assert long_name not in \
+        env["TPU_WORKER_HOSTNAMES"].split(",")[0].split(".")[0]
+
+
+def cr_labels_and_annotations_reach_pod_template(s):
+    s.reconciler()
+    s.apply(s.api.new_notebook(
+        "mynb", "ns", labels={"poddefault/enable-gpu": "true"},
+        annotations={"sidecar.istio.io/inject": "false",
+                     "kubectl.kubernetes.io/x": "drop"}))
+    tmpl = s.store.get("StatefulSet", "ns", "mynb")["spec"]["template"]
+    assert tmpl["metadata"]["labels"]["poddefault/enable-gpu"] == "true"
+    assert tmpl["metadata"]["annotations"]["sidecar.istio.io/inject"] == \
+        "false"
+    assert "kubectl.kubernetes.io/x" not in tmpl["metadata"]["annotations"]
+
+
+def e2e_slice_ready_with_simulator(s):
+    s.reconciler()
+    s.simulator()
+    s.store.create(s.api.new_notebook("big", "ns", annotations={
+        s.names.TPU_ACCELERATOR_ANNOTATION: s.accelerator("v5e-16")}))
+    s.drain(include_delayed_under=0.1)
+    pods = s.store.list("Pod", "ns", {s.names.NOTEBOOK_NAME_LABEL: "big"})
+    assert len(pods) == 4
+    assert {s.k8s.get_label(p, "apps.kubernetes.io/pod-index")
+            for p in pods} == {"0", "1", "2", "3"}
+    cur = s.store.get(s.api.KIND, "ns", "big")
+    cond = s.api.get_condition(cur, s.api.CONDITION_SLICE_READY)
+    assert cond and cond["status"] == "True"
+    assert cur["status"]["readyReplicas"] == 4
+    s.store.patch(s.api.KIND, "ns", "big", {"metadata": {"annotations": {
+        s.names.STOP_ANNOTATION: "t"}}})
+    s.drain(include_delayed_under=0.1)
+    assert s.store.list("Pod", "ns",
+                        {s.names.NOTEBOOK_NAME_LABEL: "big"}) == []
+    cur = s.store.get(s.api.KIND, "ns", "big")
+    cond = s.api.get_condition(cur, s.api.CONDITION_SLICE_READY)
+    assert cond["status"] == "False"
+
+
+def restart_annotation_bounces_pods(s):
+    s.reconciler()
+    s.simulator()
+    s.store.create(s.api.new_notebook("mynb", "ns"))
+    s.drain(include_delayed_under=0.1)
+    pod = s.store.list("Pod", "ns", {s.names.NOTEBOOK_NAME_LABEL: "mynb"})[0]
+    first_uid = s.k8s.uid(pod)
+    s.store.patch(s.api.KIND, "ns", "mynb", {"metadata": {"annotations": {
+        s.names.RESTART_ANNOTATION: "true"}}})
+    s.drain(include_delayed_under=0.1)
+    cur = s.store.get(s.api.KIND, "ns", "mynb")
+    assert s.k8s.get_annotation(cur, s.names.RESTART_ANNOTATION) is None
+    pods = s.store.list("Pod", "ns", {s.names.NOTEBOOK_NAME_LABEL: "mynb"})
+    assert len(pods) == 1 and s.k8s.uid(pods[0]) != first_uid
+
+
+def deletion_cascades(s):
+    s.reconciler()
+    s.store.create(s.api.new_notebook("mynb", "ns"))
+    s.drain()
+    s.store.delete(s.api.KIND, "ns", "mynb")
+    s.drain()
+    assert s.store.get_or_none("StatefulSet", "ns", "mynb") is None
+    assert s.store.get_or_none("Service", "ns", "mynb") is None
+
+
+def idempotent_no_spurious_updates(s):
+    s.reconciler()
+    s.store.create(s.api.new_notebook("mynb", "ns"))
+    s.drain()
+    rvs = [s.store.get(kind, "ns", "mynb")["metadata"]["resourceVersion"]
+           for kind in ("StatefulSet", "Service")]
+    writes = s.store._last_rv
+    s.manager.enqueue("notebook-controller", s.Request("ns", "mynb"))
+    s.drain()
+    assert [s.store.get(kind, "ns", "mynb")["metadata"]["resourceVersion"]
+            for kind in ("StatefulSet", "Service")] == rvs
+    assert s.store._last_rv == writes   # the second reconcile wrote nothing
+
+
+def service_clusterip_never_copied(s):
+    s.reconciler()
+    s.store.create(s.api.new_notebook("mynb", "ns"))
+    s.drain()
+    svc = s.store.get("Service", "ns", "mynb")
+    svc["spec"]["clusterIP"] = "10.0.0.7"
+    svc["metadata"]["labels"]["drift"] = "yes"
+    s.store.update(svc)
+    s.drain()
+    cur = s.store.get("Service", "ns", "mynb")
+    assert cur["spec"]["clusterIP"] == "10.0.0.7"
+    assert "drift" not in cur["metadata"]["labels"]
+
+
+def _istio(s):
+    s.config.use_istio = True
+    s.reconciler()
+
+
+def virtual_service_created_when_istio_enabled(s):
+    _istio(s)
+    s.apply(s.api.new_notebook("mynb", "user-ns"))
+    vs = s.store.get("VirtualService", "user-ns", "notebook-user-ns-mynb")
+    assert vs["apiVersion"] == "networking.istio.io/v1alpha3"
+    assert vs["spec"]["hosts"] == ["*"]
+    assert vs["spec"]["gateways"] == ["kubeflow/kubeflow-gateway"]
+    http = vs["spec"]["http"][0]
+    assert http["match"][0]["uri"]["prefix"] == "/notebook/user-ns/mynb/"
+    assert http["rewrite"]["uri"] == "/notebook/user-ns/mynb/"
+    dest = http["route"][0]["destination"]
+    assert dest["host"] == "mynb.user-ns.svc.cluster.local"
+    assert dest["port"]["number"] == 80
+    assert s.k8s.is_owned_by(vs, s.k8s.uid(
+        s.store.get(s.api.KIND, "user-ns", "mynb")))
+
+
+def virtual_service_gateway_host_configurable(s):
+    s.config.istio_gateway = "my-ns/my-gw"
+    s.config.istio_host = "notebooks.example.com"
+    s.config.cluster_domain = "corp.local"
+    _istio(s)
+    s.apply(s.api.new_notebook("nb", "ns"))
+    vs = s.store.get("VirtualService", "ns", "notebook-ns-nb")
+    assert vs["spec"]["hosts"] == ["notebooks.example.com"]
+    assert vs["spec"]["gateways"] == ["my-ns/my-gw"]
+    assert (vs["spec"]["http"][0]["route"][0]["destination"]["host"]
+            == "nb.ns.svc.corp.local")
+
+
+def virtual_service_drift_repaired(s):
+    _istio(s)
+    s.apply(s.api.new_notebook("nb", "ns"))
+    vs = s.store.get("VirtualService", "ns", "notebook-ns-nb")
+    vs["spec"]["http"][0]["route"][0]["destination"]["host"] = "evil.svc"
+    s.store.update(vs)
+    s.drain()
+    vs = s.store.get("VirtualService", "ns", "notebook-ns-nb")
+    assert (vs["spec"]["http"][0]["route"][0]["destination"]["host"]
+            == "nb.ns.svc.cluster.local")
+
+
+def no_virtual_service_by_default(s):
+    s.reconciler()
+    s.apply(s.api.new_notebook("nb", "ns"))
+    assert s.store.get_or_none("VirtualService", "ns",
+                               "notebook-ns-nb") is None
+
+
+def worker_env_stable_across_stop_resume_cycles(s):
+    s.reconciler()
+    s.apply(s.api.new_notebook("cyc", "ns", annotations={
+        s.names.TPU_ACCELERATOR_ANNOTATION: s.accelerator("v5e-16")}))
+
+    def rendered():
+        sts = s.store.get("StatefulSet", "ns", "cyc")
+        return (sts["spec"]["replicas"], sts["spec"].get("serviceName"),
+                sts["spec"]["template"])
+
+    replicas0, svc0, template0 = rendered()
+    assert replicas0 == 4
+    for cycle in range(2):
+        s.store.patch(s.api.KIND, "ns", "cyc", {"metadata": {"annotations": {
+            s.names.STOP_ANNOTATION: f"2026-01-0{cycle + 1}T00:00:00Z"}}})
+        s.drain()
+        stopped_replicas, svc_stopped, template_stopped = rendered()
+        assert stopped_replicas == 0
+        scrubbed = s.k8s.deepcopy(template_stopped)
+        scrubbed["metadata"]["annotations"].pop(s.names.STOP_ANNOTATION, None)
+        assert scrubbed == template0
+        assert svc_stopped == svc0
+        s.store.patch(s.api.KIND, "ns", "cyc", {"metadata": {"annotations": {
+            s.names.STOP_ANNOTATION: None}}})
+        s.drain()
+        resumed_replicas, svc_resumed, template_resumed = rendered()
+        assert resumed_replicas == 4
+        assert template_resumed == template0
+        assert svc_resumed == svc0
+    assert s.store.get("Service", "ns", "cyc-workers")
+
+
+def notebook_label_edit_keeps_pods_visible_to_simulator(s):
+    s.reconciler()
+    s.simulator()
+    s.store.create(s.api.new_notebook("mynb", "ns", annotations={
+        s.names.TPU_ACCELERATOR_ANNOTATION: s.accelerator("v5e-4")}))
+    s.drain(include_delayed_under=0.1)
+    pod = s.store.list("Pod", "ns", {s.names.NOTEBOOK_NAME_LABEL: "mynb"})[0]
+    first_uid = s.k8s.uid(pod)
+    cond = s.api.get_condition(s.store.get(s.api.KIND, "ns", "mynb"),
+                               s.api.CONDITION_SLICE_READY)
+    assert cond and cond["status"] == "True"
+    s.store.patch(s.api.KIND, "ns", "mynb",
+                  {"metadata": {"labels": {"team": "research"}}})
+    s.drain(include_delayed_under=0.1)
+    sts = s.store.get("StatefulSet", "ns", "mynb")
+    assert sts["spec"]["template"]["metadata"]["labels"]["team"] == "research"
+    pods = s.store.list("Pod", "ns", {s.names.NOTEBOOK_NAME_LABEL: "mynb"})
+    assert len(pods) == 1 and s.k8s.uid(pods[0]) == first_uid
+    assert sts["status"]["readyReplicas"] == 1
+    cond = s.api.get_condition(s.store.get(s.api.KIND, "ns", "mynb"),
+                               s.api.CONDITION_SLICE_READY)
+    assert cond["status"] == "True"
+
+
+def service_exposes_annotated_serving_port(s):
+    s.reconciler()
+    s.apply(s.api.new_notebook("srv", "ns", annotations={
+        s.names.SERVING_PORT_ANNOTATION: "8890"}))
+    s.apply(s.api.new_notebook("bad", "ns", annotations={
+        s.names.SERVING_PORT_ANNOTATION: "not-a-port"}))
+    s.apply(s.api.new_notebook("plain", "ns"))
+    ports = s.store.get("Service", "ns", "srv")["spec"]["ports"]
+    assert {"name": "http-serving", "port": 8890, "targetPort": 8890,
+            "protocol": "TCP"} in ports
+    assert len(s.store.get("Service", "ns", "bad")["spec"]["ports"]) == 1
+    assert len(s.store.get("Service", "ns", "plain")["spec"]["ports"]) == 1
+
+
+# the 22 cases of tests/test_notebook_controller.py, under their names
+REFERENCE_CASES = {f"test_{fn.__name__}": fn for fn in (
+    creates_sts_and_service, container_defaults, no_fsgroup_when_disabled,
+    stop_annotation_scales_to_zero, long_name_generate_name,
+    annotation_propagation_excludes_prefixes, tpu_v5e4_single_host,
+    tpu_v5e16_multi_host, long_name_multihost_hostnames_use_real_sts_name,
+    cr_labels_and_annotations_reach_pod_template,
+    e2e_slice_ready_with_simulator, restart_annotation_bounces_pods,
+    deletion_cascades, idempotent_no_spurious_updates,
+    service_clusterip_never_copied,
+    virtual_service_created_when_istio_enabled,
+    virtual_service_gateway_host_configurable,
+    virtual_service_drift_repaired, no_virtual_service_by_default,
+    worker_env_stable_across_stop_resume_cycles,
+    notebook_label_edit_keeps_pods_visible_to_simulator,
+    service_exposes_annotated_serving_port)}
+
+
+@pytest.mark.parametrize("case", sorted(REFERENCE_CASES))
+def test_reference_case_through_both_stacks(case):
+    ref, port = Stack("ref"), Stack("port")
+    REFERENCE_CASES[case](ref)
+    REFERENCE_CASES[case](port)
+    assert_parity(ref, port)
+
+
+# ----------------------------------------------- the gates, copied as is
+def scheduler_gate_holds_until_admitted(s):
+    """A gang-annotated notebook the scheduler has queued rolls nothing
+    until its state reads Admitted."""
+    s.reconciler()
+    s.store.create(s.api.new_notebook("gang", "ns", annotations={
+        s.names.TPU_ACCELERATOR_ANNOTATION: s.accelerator("v5e-16"),
+        s.names.SCHED_GANG_ANNOTATION: "1",
+        s.names.SCHED_STATE_ANNOTATION: "Pending"}))
+    s.drain()
+    assert s.store.list("StatefulSet", "ns") == []
+    assert s.store.list("Service", "ns") == []
+    s.store.patch(s.api.KIND, "ns", "gang", {"metadata": {"annotations": {
+        s.names.SCHED_STATE_ANNOTATION: "Admitted"}}})
+    s.drain()
+    sts = s.store.get("StatefulSet", "ns", "gang")
+    assert sts["spec"]["replicas"] == 4
+    # scheduler bookkeeping never reaches the pod template
+    assert s.names.SCHED_STATE_ANNOTATION not in \
+        sts["spec"]["template"]["metadata"]["annotations"]
+
+
+def pool_gate_holds_then_cold_rolls_on_a_bind_miss(s):
+    """A SlicePool of the requested shape holds the cold roll (a warm
+    slice may bind); a bind-miss annotation releases it."""
+    s.reconciler()
+    s.store.create(s.pool_api.new_slice_pool(
+        "warm", s.accelerator("v5e-16"), 1))
+    s.store.create(s.api.new_notebook("pooled", "ns", annotations={
+        s.names.TPU_ACCELERATOR_ANNOTATION: s.accelerator("v5e-16")}))
+    s.drain()
+    assert s.store.list("StatefulSet", "ns") == []
+    s.store.patch(s.api.KIND, "ns", "pooled", {"metadata": {"annotations": {
+        s.names.POOL_BIND_MISS_ANNOTATION: "Contended"}}})
+    s.drain()
+    assert s.store.get("StatefulSet", "ns", "pooled")["spec"]["replicas"] == 4
+
+
+def bound_notebook_points_its_service_at_the_pool_slice(s):
+    """A bound notebook gets no StatefulSet: its Service is an
+    ExternalName to the pool slice and its status mirrors that slice."""
+    s.reconciler()
+    s.store.create(s.api.new_notebook("bound", "ns", annotations={
+        s.names.TPU_ACCELERATOR_ANNOTATION: s.accelerator("v5e-4"),
+        s.names.BOUND_SLICE_ANNOTATION: "tpu-slice-pools/warm-w0"}))
+    s.drain()
+    assert s.store.list("StatefulSet", "ns") == []
+    svc = s.store.get("Service", "ns", "bound")
+    assert svc["spec"]["type"] == "ExternalName"
+    assert svc["spec"]["externalName"] == \
+        "warm-w0.tpu-slice-pools.svc.cluster.local"
+    cond = s.api.get_condition(s.store.get(s.api.KIND, "ns", "bound"),
+                               s.api.CONDITION_POOL_BOUND)
+    assert cond["status"] == "True" and cond["reason"] == "Bound"
+
+
+def restart_and_health_annotations_render_status(s):
+    """The slice-health annotation renders the Slice* condition triple;
+    a restart of a notebook with no pods only strips the annotation."""
+    s.reconciler()
+    s.store.create(s.api.new_notebook("sick", "ns", annotations={
+        s.names.TPU_ACCELERATOR_ANNOTATION: s.accelerator("v5e-4"),
+        s.names.SLICE_HEALTH_ANNOTATION: "Degraded",
+        s.names.SLICE_HEALTH_REASON_ANNOTATION: "NodeNotReady",
+        s.names.RESTART_ANNOTATION: "true"}))
+    s.drain()
+    nb = s.store.get(s.api.KIND, "ns", "sick")
+    assert s.k8s.get_annotation(nb, s.names.RESTART_ANNOTATION) is None
+    cond = s.api.get_condition(nb, s.api.CONDITION_SLICE_DEGRADED)
+    assert cond["status"] == "True" and cond["reason"] == "NodeNotReady"
+
+
+GATE_CASES = {fn.__name__: fn for fn in (
+    scheduler_gate_holds_until_admitted,
+    pool_gate_holds_then_cold_rolls_on_a_bind_miss,
+    bound_notebook_points_its_service_at_the_pool_slice,
+    restart_and_health_annotations_render_status)}
+
+
+@pytest.mark.parametrize("case", sorted(GATE_CASES))
+def test_gate_case_through_both_stacks(case):
+    ref, port = Stack("ref"), Stack("port")
+    GATE_CASES[case](ref)
+    GATE_CASES[case](port)
+    assert_parity(ref, port)
+
+
+def test_normaliser_maps_only_the_accelerator_seam():
+    """A change anywhere but the seam survives ``normalise``: the
+    comparison above would see it."""
+    port = Stack("port")
+    tpu_v5e16_multi_host(port)
+    sts = port.store.get("StatefulSet", "ns", "big")
+    base = normalise(sts, "port")
+    for path, value in ((("spec", "replicas"), 3),
+                        (("spec", "serviceName"), "big"),
+                        (("metadata", "labels", "statefulset"), "other")):
+        changed = k8s.deepcopy(sts)
+        node = changed
+        for key in path[:-1]:
+            node = node[key]
+        node[path[-1]] = value
+        assert normalise(changed, "port") != base, path
+    # the seam maps only the values the shape renders: a wrong count shows
+    wrong = k8s.deepcopy(sts)
+    wrong["spec"]["template"]["spec"]["containers"][0]["resources"][
+        "limits"]["nvidia.com/gpu"] = "4"
+    assert normalise(wrong, "port") != base
+
+
+# ------------------------------------------------- the entry point
+def test_build_manager_matches_the_reference_quick_start():
+    """``main.build_manager(simulate_kubelet=True)`` is the reference's
+    README quick start (a Manager, the NotebookReconciler and the
+    simulator on one store): the same v5e-16 / h100-32 Notebook ends in
+    the same objects, SliceReady on 4 workers."""
+    from kubeflow_tpu_torch.main import build_manager
+    ref = Stack("ref")
+    ref.reconciler()
+    ref.simulator()
+    port = Stack("port")
+    port.manager = build_manager(port.store, port.config,
+                                 simulate_kubelet=True)
+    port.timed = True
+    for s in (ref, port):
+        s.store.create(s.api.new_notebook("demo", "ns", annotations={
+            s.names.TPU_ACCELERATOR_ANNOTATION: s.accelerator("v5e-16")}))
+        s.drain(include_delayed_under=0.1)
+        nb = s.store.get(s.api.KIND, "ns", "demo")
+        assert s.k8s.condition_true(nb, s.api.CONDITION_SLICE_READY)
+        assert nb["status"]["readyReplicas"] == 4
+    assert_parity(ref, port)
+    assert port.manager.metrics.counter(
+        "notebook_create_total", "").get() == 1
+
+
+@pytest.mark.parametrize("components", ["extension", "all", "bogus"])
+def test_build_manager_refuses_what_is_not_ported(components):
+    from kubeflow_tpu_torch.main import build_manager
+    with pytest.raises(ValueError, match="ROADMAP" if components != "bogus"
+                       else "unknown components"):
+        build_manager(components=components)
+
+
+def test_build_manager_refuses_culling():
+    from kubeflow_tpu_torch.main import build_manager
+    config = ControllerConfig()
+    config.enable_culling = True
+    with pytest.raises(ValueError, match="culler"):
+        build_manager(config=config)
