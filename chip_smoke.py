@@ -132,12 +132,20 @@ Phases (any failure exits non-zero before the result line):
      bf16 params, bit-equal to a one-device Trainer (12 of each
      attention kernel a step), greedy ``generate`` 8 x 128 -> 16 on
      ``shard_decode_params`` of the trained params equals the unsharded
-     ``generate``; the stop annotation takes the h100-1 Notebook to 0
-     replicas, no pods and SliceReady False; then 100 Notebooks (60
-     h100-1, 30 h100-8, 10 h100-16) on a fresh manager with 4 workers
-     all reach SliceReady within 60 s (CR→SliceReady p50/p95 in host
-     ms); writes, reconciles, ms/step, peak memory and the phase's
-     seconds;
+     ``generate``; the idle culler (``CullingReconciler`` on the
+     manager, checks enqueued with an advanced clock, probes through a
+     local ``kubectl proxy`` whose Jupyter is a day idle): the h100-1
+     notebook serves the trained params (``ServingServer`` over a
+     continuous engine on the card, its port on the serving-port
+     annotation and the Service), 8 requests arm the observed counter, 8
+     more keep it up past the cull time, and with no traffic it and the
+     h100-16 notebook are culled at one check: replicas [1, 0] and
+     [2, 0], no pods, SliceReady False, flash_decode launches = ticks x
+     12; then 100 Notebooks (60 h100-1, 30 h100-8, 10 h100-16) on a
+     fresh manager with 4 workers, reading through the cache, all reach
+     SliceReady within 60 s (CR→SliceReady p50/p95 in host ms); writes,
+     reconciles, cache lookups and scans, ms/step, peak memory and the
+     phase's seconds;
   5. times of each kernel, its plain version and a library call (last, so
      the paths above run on a card not yet warmed by timing loops), with
      the achieved TFLOP/s, the share of the bound, the forward, dK/dV and
@@ -160,6 +168,7 @@ import gc
 import json
 import math
 import os
+import random
 import re
 import shutil
 import subprocess
@@ -3450,22 +3459,27 @@ def _wait_for(what: str, cond, timeout: float) -> float:
 def _reconcile_totals(mgr) -> dict:
     metric = mgr.metrics.counter("controller_runtime_reconcile_total", "")
     return {f"{c}/{r}": metric.get({"controller": c, "result": r})
-            for c in ("notebook-controller", "sim-statefulset-controller")
+            for c in ("notebook-controller", "sim-statefulset-controller",
+                      "culling-controller")
             for r in ("success", "requeue_after", "error")
             if metric.get({"controller": c, "result": r})}
 
 
 def _notebook_fleet(n_by_shape: dict, namespaces: int = 10) -> dict:
     """Reconcile a fleet of Notebooks on a fresh ``build_manager`` under
-    ``start()`` with 4 workers, the kubelet simulator not gated: each
-    CR's create → SliceReady=True latency in ms (host time, measured on
-    the store's watch), the writes (resourceVersions) and reconciles."""
+    ``start()`` with 4 workers, the kubelet simulator not gated, the
+    reconcilers reading through the manager's cache: each CR's create →
+    SliceReady=True latency in ms (host time, measured on the store's
+    watch), the writes (resourceVersions), reconciles and the cache's
+    index lookups and full scans."""
     from kubeflow_tpu_torch.api import types as api
+    from kubeflow_tpu_torch.cluster.store import ClusterStore
     from kubeflow_tpu_torch.main import build_manager
     from kubeflow_tpu_torch.utils import k8s, names
 
-    mgr = build_manager(simulate_kubelet=True, max_concurrent_reconciles=4)
-    store = mgr.client
+    store = ClusterStore()
+    mgr = build_manager(store, simulate_kubelet=True,
+                        max_concurrent_reconciles=4)
     created: dict = {}
     ready: dict = {}
 
@@ -3500,7 +3514,219 @@ def _notebook_fleet(n_by_shape: dict, namespaces: int = 10) -> dict:
             "ready_p50_ms": lat[len(lat) // 2],
             "ready_p95_ms": lat[min(len(lat) - 1, int(0.95 * len(lat)))],
             "ready_max_ms": lat[-1], "writes": store._last_rv,
-            "reconciles": _reconcile_totals(mgr)}
+            "reconciles": _reconcile_totals(mgr),
+            "cache_index_lookups": mgr.metrics.counter(
+                "cache_index_lookups_total", "").total(),
+            "cache_full_scans": mgr.metrics.counter(
+                "cache_full_scans_total", "").total()}
+
+
+class _KubectlProxy:
+    """Plays ``kubectl proxy`` for the culler's dev-mode probes, so the
+    port's production probers run unchanged. It answers exactly three
+    paths: ``/api/v1/namespaces/{ns}/services/{name}:{port}/proxy/healthz``
+    is forwarded to ``resolve(ns, name, port)`` (the Service must expose
+    that port; its upstream URL, else None); ``.../services/{name}/proxy/
+    notebook/{ns}/{name}/api/kernels`` answers one idle kernel whose
+    ``last_activity`` is ``kernel_age_s`` old; ``.../api/terminals``
+    answers ``[]``. Any other request gets a 404, and every refusal is
+    kept in ``refused`` (the caller fails on it)."""
+
+    HEALTHZ = re.compile(r"^/api/v1/namespaces/([^/]+)/services/"
+                         r"([^/:]+):(\d+)/proxy/healthz$")
+    JUPYTER = re.compile(r"^/api/v1/namespaces/([^/]+)/services/([^/:]+)/"
+                         r"proxy/notebook/([^/]+)/([^/]+)/api/"
+                         r"(kernels|terminals)$")
+
+    def __init__(self, resolve, kernel_age_s: float = 86400.0):
+        import datetime
+        from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+        proxy = self
+        self.resolve = resolve
+        self.refused: list = []
+        self.seen: list = []
+
+        def stamp(t: float) -> str:
+            return datetime.datetime.fromtimestamp(
+                t, datetime.timezone.utc).strftime("%Y-%m-%dT%H:%M:%S.%fZ")
+
+        class Handler(BaseHTTPRequestHandler):
+            def log_message(self, *args):
+                pass
+
+            def _reply(self, code: int, body: bytes) -> None:
+                self.send_response(code)
+                self.send_header("Content-Type", "application/json")
+                self.send_header("Content-Length", str(len(body)))
+                self.end_headers()
+                self.wfile.write(body)
+
+            def _refuse(self, code: int, why: str) -> None:
+                proxy.refused.append((self.path, code, why))
+                self._reply(code, json.dumps({"error": why}).encode())
+
+            def do_GET(self):
+                proxy.seen.append(self.path)
+                m = proxy.HEALTHZ.match(self.path)
+                if m:
+                    upstream = proxy.resolve(m[1], m[2], int(m[3]))
+                    if upstream is None:
+                        return self._refuse(503, "no Service port")
+                    with urllib.request.urlopen(upstream + "/healthz",
+                                                timeout=10) as resp:
+                        return self._reply(resp.status, resp.read())
+                m = proxy.JUPYTER.match(self.path)
+                if m and m[1] == m[3] and m[2] == m[4]:
+                    body = [] if m[5] == "terminals" else [{
+                        "id": "k0", "name": "python3",
+                        "execution_state": "idle", "connections": 0,
+                        "last_activity": stamp(time.time() - kernel_age_s)}]
+                    return self._reply(200, json.dumps(body).encode())
+                self._refuse(404, "not a path kubectl proxy serves here")
+
+        self.httpd = ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+        self.httpd.daemon_threads = True
+        self.thread = threading.Thread(target=self.httpd.serve_forever,
+                                       daemon=True)
+        self.thread.start()
+
+    @property
+    def url(self) -> str:
+        return f"http://127.0.0.1:{self.httpd.server_address[1]}"
+
+    def close(self) -> None:
+        self.httpd.shutdown()
+        self.httpd.server_close()
+        self.thread.join(timeout=5)
+
+
+def _served_port_resolver(store):
+    """``resolve`` for ``_KubectlProxy``: the upstream of a Service port
+    the store's Service ``name`` exposes (a local server on that port)."""
+    def resolve(ns: str, name: str, port: int) -> str | None:
+        svc = store.get_or_none("Service", ns, name)
+        ports = [p.get("port") for p in (svc or {}).get("spec", {})
+                 .get("ports", [])]
+        return f"http://127.0.0.1:{port}" if port in ports else None
+    return resolve
+
+
+def _cull_sequence(store, mgr, offset: list, config, url: str, port: int,
+                   vocab: int, ns: str, nb: str, big: str,
+                   phase: str = "phase15") -> dict:
+    """Drive the idle culler (registered on ``mgr`` with the clock
+    ``time.time() + offset[0]``) through a served notebook's life: a
+    check (initialising the idle clock if the Notebook's own events have
+    not); the serving-port annotation patched to ``port`` (the Service
+    must expose it); 8 requests (128 -> 16) to ``url``, then a check one
+    minute on arms the observed counter at 8; 8 more, then a check the
+    cull time plus one minute on credits the traffic (last-activity =
+    the check's time, no stop annotation) although Jupyter (the proxy's
+    day-old idle kernel) is idle past the cull time; no traffic, the
+    cull time plus one minute on: ``nb`` and ``big`` (idle Jupyter, no
+    serving) are culled at the same check, their StatefulSets to 0
+    replicas, no pods, SliceReady False. Checks are enqueued, never
+    slept out. ``store`` is the backing store (live reads)."""
+    from kubeflow_tpu_torch.api import types as api
+    from kubeflow_tpu_torch.controllers import Request
+    from kubeflow_tpu_torch.controllers.culling import (
+        parse_time, serving_requests_prober)
+    from kubeflow_tpu_torch.utils import k8s, names
+
+    cull_s = config.cull_idle_time_min * 60
+    probe = serving_requests_prober(config)
+    rng = random.Random(15)
+    out: dict = {"probe_ms": [], "tokens_per_s": []}
+
+    def ann(name: str, key: str):
+        return k8s.get_annotation(store.get(api.KIND, ns, name), key)
+
+    def check(advance_s: float, *nbs: str) -> float:
+        """Advance the culler's clock, enqueue one check of each notebook
+        and wait until each has stamped it (or been culled); the clock."""
+        offset[0] += advance_s
+        now = time.time() + offset[0]
+        for name in nbs:
+            mgr.enqueue("culling-controller", Request(ns, name))
+        for name in nbs:
+            _wait_for(f"the culling check of {name}", lambda: (
+                ann(name, names.STOP_ANNOTATION) is not None or parse_time(
+                    ann(name, names.LAST_ACTIVITY_CHECK_TIMESTAMP_ANNOTATION)
+                    or "1970-01-01T00:00:00Z") >= int(now)), 30.0)
+        return now
+
+    def serve_8(what: str) -> None:
+        payloads = [{"prompt": [rng.randrange(vocab) for _ in range(128)],
+                     "max_new_tokens": 16} for _ in range(8)]
+        results, wall = _concurrent(url, payloads)
+        for i, r in enumerate(results):
+            _check_ids(r, 16, vocab, f"{what} request {i}")
+        out["tokens_per_s"].append(8 * 16 / wall)
+
+    def probed() -> int:
+        t0 = time.monotonic()
+        total = probe(store.get(api.KIND, ns, nb), str(port))
+        out["probe_ms"].append((time.monotonic() - t0) * 1e3)
+        require(total is not None, f"{phase}: the serving probe through "
+                                   f"the proxy answered None")
+        return total
+
+    # 1: a check; the Notebook's first check initialised the idle clock
+    check(60.0 + 1.0, nb)
+    init = ann(nb, names.LAST_ACTIVITY_ANNOTATION)
+    require(init is not None, f"{phase}: no idle clock on {nb}")
+    # the author points the culler at the model server (this patch's own
+    # check falls inside the check period, so it probes nothing)
+    store.patch(api.KIND, ns, nb, {"metadata": {"annotations": {
+        names.SERVING_PORT_ANNOTATION: str(port)}}})
+    _wait_for(f"the Service of {nb} exposing port {port}", lambda: any(
+        p.get("port") == port for p in
+        store.get("Service", ns, nb)["spec"]["ports"]), 30.0)
+    # 2: 8 requests; the next check, one minute on, arms the counter
+    serve_8("the first 8")
+    out["requests_total"] = [probed()]
+    check(60.0, nb)
+    require(ann(nb, names.SERVING_REQUESTS_OBSERVED_ANNOTATION) == "8" and
+            ann(nb, names.LAST_ACTIVITY_ANNOTATION) == init,
+            f"{phase}: the first serving check did not arm at 8 without "
+            f"credit: {store.get(api.KIND, ns, nb)['metadata']}")
+    # 3: 8 more; past the cull time the traffic alone keeps it up
+    serve_8("the next 8")
+    out["requests_total"].append(probed())
+    now3 = check(cull_s + 60.0, nb)
+    last = ann(nb, names.LAST_ACTIVITY_ANNOTATION)
+    require(ann(nb, names.SERVING_REQUESTS_OBSERVED_ANNOTATION) == "16" and
+            last == ann(nb, names.LAST_ACTIVITY_CHECK_TIMESTAMP_ANNOTATION)
+            and parse_time(last) >= int(now3) and
+            ann(nb, names.STOP_ANNOTATION) is None,
+            f"{phase}: served traffic past the cull time was not credited: "
+            f"{store.get(api.KIND, ns, nb)['metadata']}")
+    out["credited"] = {"last_activity": last, "idle_jupyter_s":
+                       now3 - parse_time(init)}
+    # 4: no traffic; both notebooks culled at one check. The culler's own
+    # requeue of ``big`` (its check period, on the real clock) must not
+    # have culled it on step 3's clock before this check
+    require(ann(big, names.STOP_ANNOTATION) is None and
+            store.get("StatefulSet", ns, big)["spec"]["replicas"] == 2,
+            f"{phase}: {big} was culled before the traffic-free check: "
+            f"{store.get(api.KIND, ns, big)['metadata']}")
+    t_enqueue = time.monotonic()
+    check(cull_s + 60.0, nb, big)
+    out["requests_total"].append(probed())
+    for name in (nb, big):
+        _wait_for(f"the cull of {name}", lambda: (
+            store.get("StatefulSet", ns, name)["spec"]["replicas"] == 0
+            and not store.list("Pod", ns, {names.NOTEBOOK_NAME_LABEL: name})
+            and not k8s.condition_true(store.get(api.KIND, ns, name),
+                                       api.CONDITION_SLICE_READY)), 30.0)
+    out["t_enqueue"] = t_enqueue
+    out["stop"] = {name: ann(name, names.STOP_ANNOTATION)
+                   for name in (nb, big)}
+    out["culled_total"] = {name: mgr.metrics.notebook_culling_total.get(
+        {"namespace": ns, "name": name}) for name in (nb, big)}
+    require(all(v == 1 for v in out["culled_total"].values()),
+            f"{phase}: notebook_culling_total {out['culled_total']}")
+    return out
 
 
 def phase_bootstrap(torch, flagship) -> tuple[dict, dict]:
@@ -3516,15 +3742,23 @@ def phase_bootstrap(torch, flagship) -> tuple[dict, dict]:
     ``generate`` (8 x 128 -> 16) on ``shard_decode_params`` of the
     trained params (ids equal to the unsharded ``generate``'s). The same
     manager renders an h100-16 Notebook (2 replicas, a headless Service,
-    two hostnames; not gated), and the stop annotation takes the h100-1
-    Notebook to 0 replicas. Last, 100 Notebooks (60 h100-1, 30 h100-8,
-    10 h100-16) on a fresh manager must all reach SliceReady within 60 s.
-    Returns (stats, the launches of the mesh Trainer and the sharded
-    ``generate``)."""
+    two hostnames; not gated). Then the idle culler, registered on the
+    manager with a clock the phase advances and probing through a local
+    ``kubectl proxy`` (``_KubectlProxy``; Jupyter idle for a day): the
+    h100-1 notebook serves the trained params through ``ServingServer``
+    over a continuous engine on the card, its served traffic keeps it up
+    past the cull time, and once the traffic stops it and the h100-16
+    notebook are culled at one check, each StatefulSet straight to 0
+    (``_cull_sequence``). Last, 100 Notebooks (60 h100-1, 30 h100-8, 10
+    h100-16) on a fresh manager must all reach SliceReady within 60 s.
+    Returns (stats, the launches of the mesh Trainer, the sharded
+    ``generate`` and the served requests)."""
     import torch.distributed as dist
 
     from kubeflow_tpu_torch import ops
     from kubeflow_tpu_torch.api import types as api
+    from kubeflow_tpu_torch.cluster.store import ClusterStore
+    from kubeflow_tpu_torch.controllers import CullingReconciler
     from kubeflow_tpu_torch.main import build_manager
     from kubeflow_tpu_torch.models import train as train_lib
     from kubeflow_tpu_torch.models.decode import generate
@@ -3535,6 +3769,7 @@ def phase_bootstrap(torch, flagship) -> tuple[dict, dict]:
     from kubeflow_tpu_torch.runtime.sharded_decode import shard_decode_params
     from kubeflow_tpu_torch.runtime.trainer import Trainer
     from kubeflow_tpu_torch.utils import k8s, names
+    from kubeflow_tpu_torch.utils.config import ControllerConfig
 
     t_phase = time.monotonic()
     c, L, V, B, S, n_steps = (flagship, flagship.n_layers,
@@ -3542,8 +3777,42 @@ def phase_bootstrap(torch, flagship) -> tuple[dict, dict]:
     require(not dist.is_initialized(), "phase 12's world is still formed")
     ns, nb_name, big = "user-ns", "smoke", "smoke-big"
     gate = _SliceGate(nb_name)
-    mgr = build_manager(simulate_kubelet=True, ready_hook=gate)
-    store = mgr.client
+    # mgr.client is the manager's read cache; the backing store is read
+    # live (its resourceVersion counter counts the writes)
+    store = ClusterStore()
+    proxy = _KubectlProxy(_served_port_resolver(store))
+    config = ControllerConfig(dev_mode=True, dev_proxy_url=proxy.url,
+                              cull_idle_time_min=60,
+                              idleness_check_period_min=1)
+    mgr = build_manager(store, config, simulate_kubelet=True,
+                        ready_hook=gate)
+    offset = [0.0]
+    CullingReconciler(mgr.client, config, mgr.metrics,
+                      clock=lambda: time.time() + offset[0]).setup(mgr)
+    # every replicas value each StatefulSet takes, and smoke-big's
+    # StatefulSet and Pod events in write order (which thread wrote them)
+    replicas: dict = {nb_name: [], big: []}
+    big_log: list = []
+
+    def on_sts(event) -> None:
+        name = k8s.name(event.obj)
+        if k8s.namespace(event.obj) != ns or name not in replicas:
+            return
+        seq = replicas[name]
+        r = event.obj["spec"]["replicas"]
+        if not seq or seq[-1][1] != r:
+            seq.append((time.monotonic(), r))
+        if name == big:
+            big_log.append(("StatefulSet", event.type, r,
+                            threading.get_ident()))
+
+    def on_pod(event) -> None:
+        if event.type == "DELETED" and k8s.get_label(
+                event.obj, names.NOTEBOOK_NAME_LABEL) == big:
+            big_log.append(("Pod", event.type, k8s.name(event.obj),
+                            threading.get_ident()))
+    store.watch("StatefulSet", on_sts)
+    store.watch("Pod", on_pod)
 
     def notebook(name):
         return store.get(api.KIND, ns, name)
@@ -3688,23 +3957,70 @@ def phase_bootstrap(torch, flagship) -> tuple[dict, dict]:
         require(counts["flash_attention"] == L and
                 counts["flash_decode"] == 15 * L,
                 f"the sharded generate's launches {counts}")
-        del params, sharded, mesh
 
-        store.patch(api.KIND, ns, nb_name, {"metadata": {"annotations": {
-            names.STOP_ANNOTATION: k8s.now_iso()}}})
-        stats["stop_s"] = _wait_for(
-            f"the stop of {nb_name}",
-            lambda: (store.get("StatefulSet", ns, nb_name)["spec"]
-                     ["replicas"] == 0
-                     and not store.list("Pod", ns, {
-                         names.NOTEBOOK_NAME_LABEL: nb_name})
-                     and not slice_ready(nb_name)), 30.0)
+        # the culled notebook's model server: an engine of the trained
+        # params on the card, behind the port's HTTP server
+        served = _ServedEngine(torch, params, c, phase="phase15")
+        try:
+            require(str(served.gen.device).startswith("cuda"),
+                    f"the served engine runs on {served.gen.device}")
+            del params, sharded, mesh
+            cull = _cull_sequence(store, mgr, offset, config, served.url,
+                                  served.server.port, V, ns, nb_name, big)
+            n_decode = served.launches(
+                "flash_decode", "the culled notebook's 16 served requests")
+        finally:
+            served.close()
+        launched["flash_decode"] = launched.get("flash_decode", 0) + n_decode
+        stats["culling"] = cull
+        seqs = {name: [r for _, r in replicas[name]] for name in replicas}
+        to_zero = {name: next(t for t, r in replicas[name] if r == 0)
+                   - cull["t_enqueue"] for name in replicas}
+        deletes = [e for e in big_log if e[0] == "Pod"]
+        i = big_log.index(deletes[0]) if deletes else 0
+        one_reconcile = (len(deletes) == 2 and big_log[i + 1] == deletes[1]
+                         and deletes[0][3] == deletes[1][3])
         cond = api.get_condition(notebook(nb_name), api.CONDITION_SLICE_READY)
-        print(f"phase15 stop annotation: replicas 0, no pods, SliceReady "
-              f"{cond['status']} ({cond['message']}) in "
-              f"{stats['stop_s'] * 1e3:.1f} ms", flush=True)
+        stats["culling"].update({
+            "replicas": seqs, "check_to_zero_ms":
+            {k: v * 1e3 for k, v in to_zero.items()},
+            "pods_in_one_reconcile": one_reconcile,
+            "proxy_paths": len(proxy.seen)})
+        for what, value in (
+                ("serving probe round trip through the proxy, ms",
+                 cull["probe_ms"]),
+                ("requests_total at each check", cull["requests_total"]),
+                ("served tokens/s, 8 x (128 -> 16) twice",
+                 cull["tokens_per_s"]),
+                ("flash_decode launches = ticks x layers", n_decode),
+                ("traffic-credited check: last-activity, Jupyter idle s",
+                 cull["credited"]),
+                ("culling check enqueue -> 0 replicas, ms",
+                 stats["culling"]["check_to_zero_ms"]),
+                ("replicas each StatefulSet took", seqs),
+                ("smoke-big's 2 pods deleted in one reconcile",
+                 one_reconcile),
+                ("stop annotations", cull["stop"]),
+                ("notebook_culling_total", cull["culled_total"])):
+            print(f"phase15 culler: {what}: {value} ({CARD[0]})", flush=True)
+        print(f"phase15 culled: SliceReady {cond['status']} "
+              f"({cond['message']}); proxy refused {proxy.refused}",
+              flush=True)
+        require(all(v > 0 for v in to_zero.values()),
+                f"a notebook reached 0 replicas before its culling check: "
+                f"{to_zero}")
+        require(seqs == {nb_name: [1, 0], big: [2, 0]},
+                f"the culled StatefulSets' replicas {seqs}")
+        require(one_reconcile, f"smoke-big's pods went in more than one "
+                               f"reconcile: {big_log}")
+        require(not proxy.refused, f"the proxy refused {proxy.refused}")
+        require(cull["requests_total"] == [8, 16, 16],
+                f"requests_total {cull['requests_total']}")
     finally:
         mgr.stop()
+        proxy.close()
+        store.unwatch(on_sts)
+        store.unwatch(on_pod)
         leave_world()
     stats["control_plane"] = {"writes": store._last_rv,
                               "reconciles": _reconcile_totals(mgr)}
@@ -3722,7 +4038,11 @@ def phase_bootstrap(torch, flagship) -> tuple[dict, dict]:
           f"{fleet['ready_p50_ms']:.1f} ms, p95 {fleet['ready_p95_ms']:.1f} "
           f"ms, max {fleet['ready_max_ms']:.1f} ms (host time); "
           f"{fleet['writes']} writes, reconciles {fleet['reconciles']} "
-          f"({CARD[0]})", flush=True)
+          f"(not measured in this run: PERF.md records the same fleet "
+          f"reading the store live at 1041 writes, 361 notebook and 300 "
+          f"simulator reconciles); cache index lookups "
+          f"{fleet['cache_index_lookups']:g}, full scans "
+          f"{fleet['cache_full_scans']:g} ({CARD[0]})", flush=True)
     require(fleet["pods"] == fleet["replicas"] == 60 + 30 + 20,
             f"the fleet's pods: {fleet}")
     stats["seconds"] = time.monotonic() - t_phase

@@ -35,6 +35,7 @@ import time
 from ..controllers.manager import Request, Result, owner_mapper
 from ..utils import k8s, names
 from . import errors
+from .cache import pods_on_node
 from .store import ClusterStore
 
 
@@ -198,9 +199,11 @@ class StatefulSetSimulator:
             mgr.watch("Node", self.name, mapper=self._node_to_sts)
 
     def _node_to_sts(self, node: dict) -> list[Request]:
-        """Node event → the StatefulSets with pods bound to it."""
+        """Node event → the StatefulSets with pods bound to it
+        (cache.pods_on_node: the by-field ``spec.nodeName`` index when the
+        client carries one, O(pods on this node))."""
         out, seen = [], set()
-        for pod in _pods_on_node(self.client, k8s.name(node)):
+        for pod in pods_on_node(self.client, k8s.name(node)):
             for ref in k8s.get_in(pod, "metadata", "ownerReferences",
                                   default=[]) or []:
                 if ref.get("kind") == "StatefulSet":
@@ -455,14 +458,6 @@ class StatefulSetSimulator:
             self.client.update_status(pod)
         except (errors.ConflictError, errors.NotFoundError):
             pass
-
-
-def _pods_on_node(client, node_name: str) -> list[dict]:
-    """Pods bound to ``node_name``: a label-existence LIST filtered on
-    ``spec.nodeName`` (the reference's fallback when its client carries
-    no by-field index)."""
-    return [p for p in client.list("Pod", None, {"statefulset": None})
-            if k8s.get_in(p, "spec", "nodeName") == node_name]
 
 
 def _ordinal_of(pod_name: str, sts_name: str) -> int | None:

@@ -9,7 +9,11 @@ manager; SetupWithManager wires watches, notebook_controller.go:778-826):
 - reconcilers return a ``Result`` (requeue_after seconds) or raise → error
   backoff requeue;
 - watches map secondary objects (Pods, Events, owned resources) back to
-  the owning Notebook key.
+  the owning Notebook key;
+- with a ``read_cache`` (the reference's manager cache, a
+  ``cluster/cache.py`` ``CachingClient``), every watch feeds the cache
+  before its tee and predicate run and backfills the kind once the
+  stream is live, so reconcilers read watch-fed copies.
 
 Two drive modes:
 - ``run_until_idle()``: deterministic draining on the calling thread, for
@@ -41,15 +45,18 @@ Workqueue metrics (``attach_metrics``; label ``name`` = controller):
 ``workqueue_queue_duration_seconds``, ``workqueue_work_duration_seconds``,
 ``workqueue_unfinished_work_seconds``,
 ``workqueue_longest_running_processor_seconds``, and
-``controller_runtime_reconcile_total{controller,result}``.
+``controller_runtime_reconcile_total{controller,result}``; and
+``reconcile_read_seconds`` / ``reconcile_write_seconds{controller}``,
+each reconcile's wall time in client reads and writes as the echo
+client (``cluster/echo.py``) records it through the phase collector of
+``utils/metrics.py``.
 
 The port's locks are plain ``threading`` locks: the reference's lock
 sanitizer (``kubeflow_tpu/utils/sanitizer.py``) is a test tool of the
 reference and is not copied, so nothing here reads ``KFTPU_SANITIZE``.
 Left out until later slices: sharded ownership (``set_sharding``,
 ``resync_shards``), the breaker's ``resync_all``, tracing spans, the
-per-phase read/write histograms of the echo client, the manager read
-cache, the health and webhook servers, and leader election.
+health and webhook servers, and leader election.
 """
 
 from __future__ import annotations
@@ -63,6 +70,7 @@ from typing import Callable, Protocol
 
 from ..cluster.store import WatchEvent
 from ..utils import k8s
+from ..utils import metrics as metrics_mod
 
 log = logging.getLogger("kubeflow_tpu_torch.manager")
 
@@ -126,8 +134,13 @@ class Manager:
     ERROR_BACKOFF_BASE = 0.005   # the 5 ms base of client-go's item limiter
     ERROR_BACKOFF_MAX = 2.0
 
-    def __init__(self, client, max_concurrent_reconciles: int = 4) -> None:
+    def __init__(self, client, read_cache=None,
+                 max_concurrent_reconciles: int = 4) -> None:
         self.client = client
+        # the shared informer layer: when set, every watch this manager
+        # registers feeds its events into the cache and backfills the
+        # kind, so reconciler reads through it are watch-fed
+        self.read_cache = read_cache
         # pool size AND the default per-controller in-flight cap
         # (controller-runtime's MaxConcurrentReconciles; register() can
         # lower it per controller)
@@ -163,6 +176,8 @@ class Manager:
         self._wq_retries = None
         self._wq_queue_duration = None
         self._wq_work_duration = None
+        self._read_seconds = None
+        self._write_seconds = None
 
     def attach_metrics(self, registry) -> None:
         self.metrics = registry
@@ -184,6 +199,16 @@ class Manager:
         self._wq_work_duration = registry.histogram(
             "workqueue_work_duration_seconds",
             "How long processing an item takes.")
+        self._read_seconds = registry.histogram(
+            "reconcile_read_seconds",
+            "Per-reconcile wall spent in client READS (get/list/"
+            "get_owned), by controller. Cached reads keep this in "
+            "microseconds; a regression to wire reads shows here first.")
+        self._write_seconds = registry.histogram(
+            "reconcile_write_seconds",
+            "Per-reconcile wall spent in client WRITES (create/update/"
+            "patch/delete), by controller. Drift-gated patches keep the "
+            "steady state at zero.")
         depth = registry.gauge(
             "workqueue_depth", "Current depth of the reconcile workqueue.")
         unfinished = registry.gauge(
@@ -240,9 +265,16 @@ class Manager:
         """Wire a store watch into a controller's queue. ``mapper`` converts
         the observed object into reconcile requests (default: the object's
         own key; ``owner_mapper`` below is the Owns()-style mapping).
-        ``tee`` observes every event before the predicate and mapper run."""
+        ``tee`` observes every event before the predicate and mapper run,
+        after the manager's read cache (if any) has ingested it."""
+        cache = self.read_cache
 
         def cb(event: WatchEvent) -> None:
+            if cache is not None:
+                try:
+                    cache.feed(event)
+                except Exception:  # cache feeding must never break dispatch
+                    log.exception("cache feed failed for %s", kind)
             if tee is not None:
                 try:
                     tee(event)
@@ -256,6 +288,13 @@ class Manager:
             for req in reqs:
                 self.enqueue(controller, req)
         self.client.watch(kind, cb)
+        if cache is not None:
+            try:
+                cache.backfill(kind)  # idempotent; after the stream is live
+            except Exception:  # noqa: BLE001 — a failed LIST at set-up
+                # leaves this kind's reads live (correct, just slower)
+                log.warning("read-cache backfill for %s failed; reads stay "
+                            "live", kind, exc_info=True)
 
     def enqueue(self, controller: str, req: Request,
                 after: float = 0.0) -> None:
@@ -398,6 +437,7 @@ class Manager:
             return
         key = (item.controller, item.req)
         started = time.monotonic()
+        metrics_mod.phase_collect_start()
         try:
             result = rec.reconcile(item.req)
         except Exception as exc:  # noqa: BLE001 — error→requeue, never crash
@@ -415,6 +455,7 @@ class Manager:
             if self._wq_work_duration is not None:
                 self._wq_work_duration.observe(
                     time.monotonic() - started, {"name": item.controller})
+            self._observe_phases(item.controller)
             self.enqueue(item.controller, item.req, after=backoff)
             return
         with self._cv:
@@ -428,6 +469,15 @@ class Manager:
         if self._wq_work_duration is not None:
             self._wq_work_duration.observe(
                 time.monotonic() - started, {"name": item.controller})
+        self._observe_phases(item.controller)
+
+    def _observe_phases(self, controller: str) -> None:
+        phases = metrics_mod.phase_collect_finish()
+        if self._read_seconds is not None:
+            self._read_seconds.observe(phases.get("read", 0.0),
+                                       {"controller": controller})
+            self._write_seconds.observe(phases.get("write", 0.0),
+                                        {"controller": controller})
 
     def run_until_idle(self, timeout: float = 30.0,
                        include_delayed_under: float = 0.0) -> int:

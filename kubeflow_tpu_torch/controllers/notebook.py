@@ -32,29 +32,37 @@ Service) where the reference calls ``_apply_tpu_spec``. ``apply_gpu_spec``
 keeps a StatefulSet that ``desired_replicas`` put at 0 at 0, so a stopped
 notebook stays stopped.
 
-Left out: the reference's ``EchoTrackingClient`` (its ``not_echo`` watch
-predicate) and its ``CachingClient`` read cache. This reconciler reads the
-store live and filters no echo of its own writes. Over the in-process
-store neither changes what is written: the store delivers a write's watch
-event before the write returns, so the reference's predicate never sees
-its record in time and drops nothing, and the read cache is fed by the
-same synchronous events. With more than one worker an echo can cost an
-extra reconcile, never a different object. The trace-context stamp is
-left out too: it writes only while a tracing provider records.
+Reads and echoes as the reference's: the client is wrapped in
+``cluster/echo.py``'s ``EchoTrackingClient``, whose ``not_echo``
+predicate sits on the Notebook, StatefulSet, Service and VirtualService
+watches, and ``setup`` takes the manager's ``read_cache`` or builds a
+``cluster/cache.py`` ``CachingClient`` teed off its own watches; the
+Event predicate, the re-emission, the ``notebook_running`` scrape and
+the pool gate read through it, and the owned StatefulSet is found by
+the by-owner index. Over the in-process store the echo filter drops
+nothing (the store delivers a write's event before the write returns,
+so the record lands after its echo), as in the reference. Left out: the
+trace-context stamp, which writes only while a tracing provider records
+(ROADMAP.md queue A item 7).
 """
 
 from __future__ import annotations
 
+import logging
 import time
 
 from ..api import slicepool as pool_api
 from ..api import types as api
 from ..cluster import errors, events
+from ..cluster.cache import CachingClient, owned_objects
+from ..cluster.echo import EchoTrackingClient
 from ..gpu.topology import SliceSpec, parse_slice_request
 from ..utils import drift, k8s, names
 from ..utils.config import ControllerConfig
 from ..utils.metrics import MetricsRegistry
 from .manager import Manager, Request, Result, owner_mapper
+
+log = logging.getLogger("kubeflow_tpu_torch.notebook")
 
 DEFAULT_CONTAINER_PORT = 8888
 DEFAULT_SERVICE_PORT = 80
@@ -133,6 +141,9 @@ class NotebookReconciler:
     def __init__(self, client, config: ControllerConfig | None = None,
                  metrics: MetricsRegistry | None = None,
                  wall_clock=time.time):
+        # every write records its rv so our watches drop the echo of our
+        # own writes (cluster/echo.py)
+        client = EchoTrackingClient(client)
         self.client = client
         self.config = config or ControllerConfig()
         self.metrics = metrics or MetricsRegistry()
@@ -143,6 +154,9 @@ class NotebookReconciler:
         # can expire the heartbeat without sleeping
         self.wall_clock = wall_clock
         self.recorder = events.EventRecorder(client, component=self.name)
+        # watch-fed read cache for the Event predicate, the scrape and the
+        # pool gate (built in setup(); without setup() reads stay live)
+        self._read_cache = None
         # (ns, name) → monotonic time a poolable notebook was first seen
         # waiting for a warm-slice bind; past pool_bind_grace_s the core
         # stamps a BindTimeout miss and cold-rolls (in-memory is fine: a
@@ -160,17 +174,48 @@ class NotebookReconciler:
         (notebook_controller.go:778-826): own Notebook, own STS/Service,
         map Pods via the notebook-name label."""
         mgr.register(self)
-        mgr.watch(api.KIND, self.name)
-        mgr.watch("StatefulSet", self.name, mapper=owner_mapper(api.KIND))
-        mgr.watch("Service", self.name, mapper=owner_mapper(api.KIND))
+        # The Event predicate resolves involvedObject → Notebook on every
+        # delivered Event; the reference answers that from its informer
+        # cache (notebook_controller.go:739-767). The manager's read cache
+        # is that layer, fed and backfilled by mgr.watch; a standalone
+        # reconciler builds its own cache teed off the same streams.
+        if mgr.read_cache is not None:
+            cache, tee = mgr.read_cache, None
+        else:
+            cache = CachingClient(self.client, disable_for=(),
+                                  auto_informer=False)
+            tee = cache.feed
+        self._read_cache = cache
+        # drop the echoes of our own status/STS/Service writes
+        ne = self.client.not_echo
+        mgr.watch(api.KIND, self.name, tee=tee, predicate=ne)
+        mgr.watch("StatefulSet", self.name, mapper=owner_mapper(api.KIND),
+                  tee=tee, predicate=ne)
+        mgr.watch("Service", self.name, mapper=owner_mapper(api.KIND),
+                  predicate=ne)
         # bound-aware pod mapping: pool-bound workers live in the pool
         # namespace but belong to a Notebook elsewhere (the bound-namespace
         # label routes them home)
-        mgr.watch("Pod", self.name, mapper=pool_api.pod_notebook_mapper)
+        mgr.watch("Pod", self.name, mapper=pool_api.pod_notebook_mapper,
+                  tee=tee)
         if self.config.enable_slice_pool:
-            # pool events enqueue nothing here: binds surface as Notebook
-            # annotation patches, which the Notebook watch above delivers
-            mgr.watch(pool_api.KIND, self.name, mapper=lambda obj: [])
+            # the bind gate reads SlicePools from the cache; pool events
+            # enqueue nothing here: binds surface as Notebook annotation
+            # patches, which the Notebook watch above delivers
+            mgr.watch(pool_api.KIND, self.name, mapper=lambda obj: [],
+                      tee=tee)
+        # backfill after the watches above are live (watch-then-list; the
+        # rv guard and tombstones make the overlap safe); idempotent when
+        # the manager already backfilled the kind
+        kinds = [api.KIND, "StatefulSet", "Pod"]
+        if self.config.enable_slice_pool:
+            kinds.append(pool_api.KIND)
+        for kind in kinds:
+            try:
+                cache.backfill(kind)
+            except Exception:  # noqa: BLE001 — see Manager.watch
+                log.warning("read-cache backfill for %s failed; reads "
+                            "stay live", kind, exc_info=True)
         # Events of known notebooks' Pods/STSs share the Notebook queue and
         # are re-emitted on the CR (reference predNBEvents + mapEventToRequest,
         # notebook_controller.go:739-767,780-800; delete events are ignored)
@@ -178,7 +223,7 @@ class NotebookReconciler:
                   predicate=self._pred_nb_events)
         if self.config.use_istio:
             mgr.watch("VirtualService", self.name,
-                      mapper=owner_mapper(api.KIND))
+                      mapper=owner_mapper(api.KIND), predicate=ne)
 
     def _pred_nb_events(self, watch_event) -> bool:
         if watch_event.type == "DELETED":
@@ -186,18 +231,21 @@ class NotebookReconciler:
         obj = watch_event.obj
         if not events.is_sts_or_pod_event(obj):
             return False
+        reader = self._read_cache or self.client
         nb_name = events.nb_name_from_involved_object(
-            self.client, obj, names.NOTEBOOK_NAME_LABEL)
+            reader, obj, names.NOTEBOOK_NAME_LABEL)
         if nb_name is None:
             return False
-        return self.client.get_or_none(api.KIND, k8s.namespace(obj),
+        return reader.get_or_none(api.KIND, k8s.namespace(obj),
                                   nb_name) is not None
 
     def _scrape_running(self) -> None:
         """notebook_running is computed at scrape time by listing STSs
         carrying the notebook-name label (reference pkg/metrics/
-        metrics.go:60-99 uses client.HasLabels)."""
-        stss = self.client.list(
+        metrics.go:60-99 uses client.HasLabels), from the read cache's
+        by-label index once ``setup`` has wired it."""
+        reader = self._read_cache or self.client
+        stss = reader.list(
             "StatefulSet",
             label_selector={names.NOTEBOOK_NAME_LABEL: None})
         running = sum(1 for s in stss
@@ -275,11 +323,12 @@ class NotebookReconciler:
         watch (predicate only passes Pod/STS events)."""
         if not events.is_sts_or_pod_event(event):
             return
+        reader = self._read_cache or self.client
         nb_name = events.nb_name_from_involved_object(
-            self.client, event, names.NOTEBOOK_NAME_LABEL)
+            reader, event, names.NOTEBOOK_NAME_LABEL)
         if nb_name is None:
             return
-        notebook = self.client.get_or_none(api.KIND, namespace, nb_name)
+        notebook = reader.get_or_none(api.KIND, namespace, nb_name)
         if notebook is None:
             return
         involved = event.get("involvedObject", {})
@@ -320,9 +369,10 @@ class NotebookReconciler:
             self._reconcile_service(notebook, slice_spec)
             self._update_status(notebook, slice_spec)
             return Result(requeue_after=self.config.pool_poll_s)
+        reader = self._read_cache or self.client
         if not any(k8s.get_in(p, "spec", "accelerator")
                    == slice_spec.short_name
-                   for p in self.client.list(pool_api.KIND)):
+                   for p in reader.list(pool_api.KIND)):
             return None  # no pool serves this topology
         if k8s.get_annotation(notebook, names.STOP_ANNOTATION) is not None:
             # stopped + poolable: no StatefulSet at all — resume re-enters
@@ -650,12 +700,11 @@ class NotebookReconciler:
         return True
 
     def _find_owned_sts(self, notebook: dict) -> dict | None:
-        """Find the STS for a notebook, robust to GenerateName: a
-        namespace LIST filtered by owner uid (ownership is the filter)."""
-        uid = k8s.uid(notebook)
-        for sts in self.client.list("StatefulSet", k8s.namespace(notebook)):
-            if k8s.is_owned_by(sts, uid):
-                return sts
+        """Find the STS for a notebook, robust to GenerateName: the
+        by-owner index when the client carries one, else a namespace LIST
+        filtered by owner uid (ownership is the one filter on both)."""
+        for sts in owned_objects(self.client, "StatefulSet", notebook):
+            return sts
         return None
 
     def _reconcile_statefulset(self, notebook: dict,

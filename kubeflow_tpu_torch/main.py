@@ -1,10 +1,14 @@
 """The port's composition root: a manager with the core Notebook
-reconciler over the in-process apiserver.
+reconciler and the idle culler over the in-process apiserver.
 
 The counterpart of the ``components="core"`` path of
-``kubeflow_tpu/main.py`` ``build_manager``: the core reconciler on one
-manager, and with ``simulate_kubelet`` the StatefulSet/kubelet simulator,
-so a standalone run is a working control plane on one machine::
+``kubeflow_tpu/main.py`` ``build_manager`` (``setup_controllers``,
+``kubeflow_tpu/controllers/__init__.py``): one watch-fed ``CachingClient``
+the reconcilers read through (Secrets, ConfigMaps and Events read live),
+the core reconciler, the culler when ``config.enable_culling`` is set,
+and with ``simulate_kubelet`` the StatefulSet/kubelet simulator on the
+same cache, so a standalone run is a working control plane on one
+machine::
 
     mgr = build_manager(simulate_kubelet=True)
     mgr.start()
@@ -15,15 +19,16 @@ so a standalone run is a working control plane on one machine::
 
 Not yet in the port, each an item of ROADMAP.md's queue A: the
 extension manager and the admission webhooks (``components="extension"``
-or ``"all"``), the culler, the slice-pool, slice-repair and scheduler
-reconcilers the reference's core path also starts, the read cache, flags,
-TLS, the webhook server, health endpoints and leader election.
+or ``"all"``), the slice-pool, slice-repair and scheduler reconcilers the
+reference's core path also starts, flags, TLS, the webhook server,
+health endpoints and leader election.
 """
 
 from __future__ import annotations
 
+from .cluster.cache import CachingClient
 from .cluster.store import ClusterStore
-from .controllers import Manager, NotebookReconciler
+from .controllers import CullingReconciler, Manager, NotebookReconciler
 from .utils.config import ControllerConfig
 from .utils.metrics import MetricsRegistry
 
@@ -39,17 +44,23 @@ _NOT_PORTED = {
 def build_manager(store=None, config: ControllerConfig | None = None, *,
                   simulate_kubelet: bool = False,
                   max_concurrent_reconciles: int | None = None,
-                  components: str = "core", ready_hook=None):
+                  components: str = "core", ready_hook=None, prober=None):
     """Compose the core control plane; returns the manager.
 
     ``store`` defaults to a fresh in-process ``ClusterStore``; ``config``
     to ``ControllerConfig.from_env()``; ``max_concurrent_reconciles`` to
-    the config's (4). The manager carries a ``MetricsRegistry``
-    (``mgr.metrics``) with the workqueue family and the notebook series.
-    ``ready_hook(pod) -> bool`` gates the simulator's readiness flip of a
-    pod (chip_smoke.py forms and verifies the pod's NCCL world there).
-    Not started: call ``mgr.start()`` or drive it with
-    ``mgr.run_until_idle()``."""
+    the config's (4). ``mgr.client`` and ``mgr.read_cache`` are the
+    ``CachingClient`` over ``store`` (reads from the cache, writes to the
+    store); read ``store`` itself for what the cache does not show, its
+    resourceVersion counter for one. The manager carries a
+    ``MetricsRegistry`` (``mgr.metrics``) with the workqueue family, the
+    reconcile-phase histograms, the cache's index counters and the
+    notebook series. With ``config.enable_culling`` the culler runs,
+    probing Jupyter through ``prober(notebook)`` when one is given (else
+    over HTTP, as the reference's). ``ready_hook(pod) -> bool`` gates the
+    simulator's readiness flip of a pod (chip_smoke.py forms and verifies
+    the pod's NCCL world there). Not started: call ``mgr.start()`` or
+    drive it with ``mgr.run_until_idle()``."""
     if components != "core":
         reason = _NOT_PORTED.get(components)
         if reason is None:
@@ -58,16 +69,22 @@ def build_manager(store=None, config: ControllerConfig | None = None, *,
                          f"ROADMAP.md {reason}")
     store = store if store is not None else ClusterStore()
     config = config or ControllerConfig.from_env()
-    if config.enable_culling:
-        raise ValueError("ENABLE_CULLING is not ported yet: ROADMAP.md "
-                         "queue A item 1 (the slice-atomic culler)")
     if max_concurrent_reconciles is None:
         max_concurrent_reconciles = config.max_concurrent_reconciles
     metrics = MetricsRegistry()
-    mgr = Manager(store, max_concurrent_reconciles=max_concurrent_reconciles)
+    # the manager cache: watch-fed, payload kinds and Events read live
+    read_client = CachingClient(store, auto_informer=False,
+                                disable_for=("Secret", "ConfigMap", "Event"))
+    read_client.attach_metrics(metrics)
+    mgr = Manager(read_client, read_cache=read_client,
+                  max_concurrent_reconciles=max_concurrent_reconciles)
     mgr.attach_metrics(metrics)
-    NotebookReconciler(store, config, metrics).setup(mgr)
+    NotebookReconciler(read_client, config, metrics).setup(mgr)
+    if config.enable_culling:
+        kwargs = {"prober": prober} if prober is not None else {}
+        CullingReconciler(read_client, config, metrics, **kwargs).setup(mgr)
     if simulate_kubelet:
         from .cluster.kubelet import StatefulSetSimulator
-        StatefulSetSimulator(store, ready_hook=ready_hook).setup(mgr)
+        StatefulSetSimulator(mgr.read_cache,
+                             ready_hook=ready_hook).setup(mgr)
     return mgr

@@ -387,6 +387,11 @@ class BatchedGenerator:
                 for req in batch:
                     _fail(req, exc)
 
+    # the engine thread never differentiates: params a Trainer hands over
+    # are leaves that require grad, and under grad mode every op of a
+    # tick would record a graph (the KV cache's in-place writes chaining
+    # it from tick to tick)
+    @torch.no_grad()
     def _scheduler(self) -> None:
         while True:  # pump: scheduler; sentinel batch=None breaks via return
             try:
@@ -1143,6 +1148,7 @@ class ContinuousBatchedGenerator:
                     raise
                 _fail(req, exc)
 
+    @torch.no_grad()  # as _scheduler's: the engine never differentiates
     def _loop(self) -> None:
         driver = comm.is_mesh_root(self._mesh)
         draining = False

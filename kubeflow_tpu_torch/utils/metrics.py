@@ -4,17 +4,21 @@ A copy of the surface of ``kubeflow_tpu/utils/metrics.py`` that the
 port uses (the port imports nothing of the JAX package): counters,
 gauges and histograms, ``on_scrape`` callbacks and ``expose``. The
 serving endpoint registers its own series; the controller manager
-registers the workqueue family and the notebook reconciler the
-reference's notebook series (components/notebook-controller/pkg/metrics/
-metrics.go:13-99): ``notebook_running`` (a gauge computed at scrape
-time), ``notebook_create_total`` and ``notebook_create_failed_total``;
-the culler's two come with the culler.
+registers the workqueue family and the two reconcile-phase histograms,
+the read cache its index counters, and the registry carries the
+reference's five notebook series (components/notebook-controller/pkg/
+metrics/metrics.go:13-99): ``notebook_running`` (a gauge computed at
+scrape time), ``notebook_create_total``, ``notebook_create_failed_total``,
+``notebook_culling_total`` and ``last_notebook_culling_timestamp_seconds``
+(``record_culling``). The phase collector below splits each reconcile's
+wall time into client reads and writes.
 Plain ``threading.Lock``s stand in for the reference's tracked locks.
 """
 
 from __future__ import annotations
 
 import threading
+import time
 from typing import Callable
 
 
@@ -57,6 +61,11 @@ class _Metric:
     def get(self, labels: dict[str, str] | None = None) -> float:
         with self._lock:
             return self._values.get(_labels_key(labels), 0.0)
+
+    def total(self) -> float:
+        """Sum over every label combination."""
+        with self._lock:
+            return sum(self._values.values())
 
     def expose(self) -> str:
         lines = [f"# HELP {self.name} {_escape_help(self.help)}",
@@ -121,6 +130,33 @@ class _Histogram:
         return "\n".join(lines)
 
 
+# --------------------------------------------------------- phase collector
+# Per-reconcile read/write wall decomposition: the manager opens a window
+# on the worker thread (phase_collect_start), the echo client attributes
+# each verb's duration to "read" or "write" (phase_record), and the
+# manager observes the totals into reconcile_read_seconds /
+# reconcile_write_seconds at the end. Thread-local, so concurrent workers
+# never mix phases; recording outside a window (watch threads, scrape
+# callbacks) is a no-op.
+_phase_tls = threading.local()
+
+
+def phase_collect_start() -> None:
+    _phase_tls.acc = {"read": 0.0, "write": 0.0}
+
+
+def phase_record(phase: str, seconds: float) -> None:
+    acc = getattr(_phase_tls, "acc", None)
+    if acc is not None:
+        acc[phase] = acc.get(phase, 0.0) + seconds
+
+
+def phase_collect_finish() -> dict[str, float]:
+    acc = getattr(_phase_tls, "acc", None) or {}
+    _phase_tls.acc = None
+    return acc
+
+
 class MetricsRegistry:
     """Get-or-create registry of counters, gauges and histograms, plus
     the reference's notebook series unless ``include_notebook_metrics``
@@ -138,6 +174,11 @@ class MetricsRegistry:
         self.notebook_create_failed_total = self.counter(
             "notebook_create_failed_total",
             "Total failure times of creating notebooks")
+        self.notebook_culling_total = self.counter(
+            "notebook_culling_total", "Total times of culling notebooks")
+        self.last_culling_timestamp = self.gauge(
+            "last_notebook_culling_timestamp_seconds",
+            "Timestamp of the last notebook culling in seconds")
         self.notebook_running = self.gauge(
             "notebook_running", "Current running notebooks in the cluster")
 
@@ -164,6 +205,10 @@ class MetricsRegistry:
 
     def on_scrape(self, fn: Callable[[], None]) -> None:
         self._scrape_callbacks.append(fn)
+
+    def record_culling(self, namespace: str, name: str) -> None:
+        self.notebook_culling_total.inc({"namespace": namespace, "name": name})
+        self.last_culling_timestamp.set(time.time())
 
     def expose(self) -> str:
         for fn in list(self._scrape_callbacks):

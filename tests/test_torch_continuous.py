@@ -241,6 +241,21 @@ def test_engine_matches_jax_generate_and_jax_engine(model, jax_ids):
         assert ids == jax_ids(p, n)
 
 
+def test_trainable_params_serve_without_recording_a_graph(model, jax_ids):
+    """Params a Trainer hands over are leaves that require grad: the
+    engine serves them with the same ids, and its KV cache never joins
+    an autograd graph (under grad mode every tick would chain one)."""
+    _, tp, _, tc = model
+    trainable = torch.utils._pytree.tree_map(
+        lambda v: v.detach().clone().requires_grad_(), tp)
+    p = _prompts(1, 6, seed=5)[0]
+    with ContinuousBatchedGenerator(trainable, tc, device="cpu",
+                                    n_slots=2) as gen:
+        assert _ids(gen.submit(p, 8)) == jax_ids(p, 8)
+        cache = gen._state["cache"]
+        assert not any(t.requires_grad for t in cache.values())
+
+
 def test_late_request_joins_the_running_batch(model, jax_ids):
     p_long, p_late = _prompts(2, 5, seed=3)
     gate = _Gate(at=3)

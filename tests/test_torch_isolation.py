@@ -68,9 +68,12 @@ def test_port_file_list_covers_the_package():
                 "kubeflow_tpu_torch/utils/drift.py",
                 "kubeflow_tpu_torch/utils/metrics.py",
                 "kubeflow_tpu_torch/controllers/manager.py",
-                "kubeflow_tpu_torch/main.py"):
+                "kubeflow_tpu_torch/main.py",
+                "kubeflow_tpu_torch/cluster/echo.py",
+                "kubeflow_tpu_torch/cluster/cache.py",
+                "kubeflow_tpu_torch/controllers/culling.py"):
         assert rel in PORT_FILES
-    assert len(PORT_FILES) >= 63
+    assert len(PORT_FILES) >= 66
 
 
 def _references(tree: ast.AST) -> set[str]:
@@ -92,7 +95,8 @@ def _references(tree: ast.AST) -> set[str]:
 
 @pytest.mark.parametrize("rel", sorted(
     p.relative_to(REPO).as_posix()
-    for p in (REPO / "tests").glob("test_torch_*.py")))
+    for p in (REPO / "tests").glob("test_torch_*.py")) + [
+        "tests/torch_parity.py"])
 def test_port_tests_name_no_deadcode_allowlist_entry(rel):
     """ci/lint.py counts every reference under tests/: a port test naming
     a deliberately unreferenced definition of the JAX package would make
@@ -144,6 +148,9 @@ import kubeflow_tpu_torch.api.slicepool
 import kubeflow_tpu_torch.utils.config
 import kubeflow_tpu_torch.utils.drift
 import kubeflow_tpu_torch.controllers.manager
+import kubeflow_tpu_torch.cluster.echo
+import kubeflow_tpu_torch.cluster.cache
+import kubeflow_tpu_torch.controllers.culling
 import kubeflow_tpu_torch.main
 sys.path.insert(0, "tests")
 import torch_dist_ranks

@@ -23,10 +23,9 @@ from kubeflow_tpu_torch.controllers import Manager, Request, Result
 from kubeflow_tpu_torch.utils.metrics import MetricsRegistry
 
 
-# families the port leaves out: the echo client's per-phase histograms
-# and the culler's two series
-LEFT_OUT = ("reconcile_read_seconds", "reconcile_write_seconds",
-            "notebook_culling_total", "last_notebook_culling_timestamp")
+# families the port leaves out: none (the exposition is compared family
+# for family)
+LEFT_OUT: tuple[str, ...] = ()
 
 
 class RecordingReconciler:
@@ -207,7 +206,10 @@ def test_reconcile_and_workqueue_metrics():
         exposed.append({line for line in exposition.splitlines()
                         if line.startswith(("controller_runtime_",
                                             "workqueue_adds", "workqueue_retries",
-                                            "workqueue_depth", "# TYPE"))
+                                            "workqueue_depth", "# TYPE",
+                                            "reconcile_read_seconds_count",
+                                            "reconcile_write_seconds_count",
+                                            "notebook_culling_total"))
                         and not any(f in line for f in LEFT_OUT)})
     assert exposed[1] == exposed[0]
 

@@ -7,7 +7,7 @@ and then every object of both stores is compared key for key.
 The same Notebook goes to both sides; only its accelerator request is
 mapped, to the H100 shape with the same worker count (``v5e-4`` (1 x 4)
 ↔ ``h100-4`` (1 x 4), ``v5e-16`` (4 x 4) ↔ ``h100-32`` (4 x 8)).
-``normalise`` (written once, used by the store harness too) drops
+``normalise`` (tests/torch_parity.py, beside ``Stack``) drops
 ``uid``, ``resourceVersion`` and timestamps, and maps only the
 accelerator seam: the resource key and its per-worker count, the
 nodeSelector, the TPU_ACCELERATOR_TYPE and TPU_TOPOLOGY values and the
@@ -24,184 +24,8 @@ from __future__ import annotations
 
 import pytest
 
-from kubeflow_tpu.api import slicepool as ref_pool_api
-from kubeflow_tpu.api import types as ref_api
-from kubeflow_tpu.cluster.kubelet import StatefulSetSimulator as RefSimulator
-from kubeflow_tpu.cluster.store import ClusterStore as RefStore
-from kubeflow_tpu.controllers.manager import Manager as RefManager
-from kubeflow_tpu.controllers.manager import Request as RefRequest
-from kubeflow_tpu.controllers.notebook import (
-    NotebookReconciler as RefReconciler)
-from kubeflow_tpu.utils import k8s as ref_k8s
-from kubeflow_tpu.utils import names as ref_names
-from kubeflow_tpu.utils.config import ControllerConfig as RefConfig
-from kubeflow_tpu.utils.metrics import MetricsRegistry as RefMetrics
-from kubeflow_tpu_torch.api import slicepool as pool_api
-from kubeflow_tpu_torch.api import types as api
-from kubeflow_tpu_torch.cluster.kubelet import StatefulSetSimulator
-from kubeflow_tpu_torch.cluster.store import ClusterStore
-from kubeflow_tpu_torch.controllers import (Manager, NotebookReconciler,
-                                            Request)
-from kubeflow_tpu_torch.utils import k8s, names
-from kubeflow_tpu_torch.utils.config import ControllerConfig
-from kubeflow_tpu_torch.utils.metrics import MetricsRegistry
-
-# each reference request and the port's request with the same workers
-SHAPES = {"v5e-4": "h100-4", "v5e-16": "h100-32"}
-REF_OF = {port: ref for ref, port in SHAPES.items()}
-# what each side renders for a shape, written out (not read back from
-# either package's topology table)
-RENDERED = {
-    "v5e-4": {"nodeSelector": {
-        "cloud.google.com/gke-tpu-accelerator": "tpu-v5-lite-podslice",
-        "cloud.google.com/gke-tpu-topology": "2x2"},
-        "per_worker": "4", "topology": "2x2"},
-    "v5e-16": {"nodeSelector": {
-        "cloud.google.com/gke-tpu-accelerator": "tpu-v5-lite-podslice",
-        "cloud.google.com/gke-tpu-topology": "4x4"},
-        "per_worker": "4", "topology": "4x4"},
-    "h100-4": {"nodeSelector": {
-        "cloud.google.com/gke-accelerator": "nvidia-h100-80gb",
-        "node.kubernetes.io/instance-type": "a3-highgpu-4g"},
-        "per_worker": "4", "topology": "1x4"},
-    "h100-32": {"nodeSelector": {
-        "cloud.google.com/gke-accelerator": "nvidia-h100-80gb",
-        "node.kubernetes.io/instance-type": "a3-highgpu-8g"},
-        "per_worker": "8", "topology": "4x8"},
-}
-RESOURCE_KEY = {"ref": "google.com/tpu", "port": "nvidia.com/gpu"}
-TIMESTAMP_KEYS = frozenset({
-    "creationTimestamp", "deletionTimestamp", "lastTransitionTime",
-    "startedAt", "firstTimestamp", "lastTimestamp", "eventTime",
-    "timeAdded"})
-# where the request itself is written: the slice label, the Notebook's
-# accelerator annotation and a SlicePool's spec.accelerator
-SLICE_KEYS = (names.TPU_SLICE_LABEL, names.TPU_ACCELERATOR_ANNOTATION,
-              "accelerator")
-
-
-# ------------------------------------------------------------ normaliser
-def _shape_of(obj: dict) -> str | None:
-    md = obj.get("metadata") or {}
-    if obj.get("kind") == pool_api.KIND:
-        return (obj.get("spec") or {}).get("accelerator")
-    return ((md.get("labels") or {}).get(names.TPU_SLICE_LABEL)
-            or (md.get("annotations") or {}).get(
-                names.TPU_ACCELERATOR_ANNOTATION))
-
-
-def _walk(value, side: str, shape: str | None):
-    if isinstance(value, list):
-        return [_walk(v, side, shape) for v in value]
-    if not isinstance(value, dict):
-        return value
-    pair = (shape if side == "ref" else REF_OF.get(shape)) \
-        if shape in RENDERED else None
-    want = RENDERED.get(shape)
-    if pair is not None and value.get("name") in (
-            "TPU_ACCELERATOR_TYPE", "TPU_TOPOLOGY") and "value" in value:
-        expected = (shape if value["name"] == "TPU_ACCELERATOR_TYPE"
-                    else want["topology"])
-        if value["value"] == expected:
-            return {**value, "value": f"<{value['name']} of {pair}>"}
-    out = {}
-    for key, val in value.items():
-        if key in ("uid", "resourceVersion"):
-            continue
-        if key in TIMESTAMP_KEYS:
-            out[key] = "<time>"
-        elif key == "workerUIDs" and isinstance(val, dict):
-            out[key] = {n: "<uid>" for n in val}
-        elif pair is not None and key == "nodeSelector" \
-                and val == want["nodeSelector"]:
-            out[key] = f"<node selectors of {pair}>"
-        elif pair is not None and key in ("requests", "limits") \
-                and isinstance(val, dict):
-            out[key] = {
-                ("<accelerator resource>" if k == RESOURCE_KEY[side] else k):
-                (f"<per-worker count of {pair}>"
-                 if k == RESOURCE_KEY[side] and v == want["per_worker"]
-                 else _walk(v, side, shape))
-                for k, v in val.items()}
-        elif pair is not None and key in SLICE_KEYS and val == shape:
-            out[key] = f"<slice {pair}>"
-        else:
-            out[key] = _walk(val, side, shape)
-    return out
-
-
-def normalise(obj: dict, side: str) -> dict:
-    """``obj`` with uid, resourceVersion and timestamps dropped and the
-    accelerator seam of ``side`` ("ref" or "port") mapped to tokens that
-    name the reference's shape."""
-    return _walk(obj, side, _shape_of(obj))
-
-
-# ---------------------------------------------------------------- stacks
-class Stack:
-    """One side's control plane, driven by the case functions below
-    through the names they share (``api``, ``k8s``, ``names``, ...)."""
-
-    def __init__(self, side: str):
-        self.side = side
-        ref = side == "ref"
-        self.api = ref_api if ref else api
-        self.pool_api = ref_pool_api if ref else pool_api
-        self.k8s = ref_k8s if ref else k8s
-        self.names = ref_names if ref else names
-        self.Request = RefRequest if ref else Request
-        self.store = RefStore() if ref else ClusterStore()
-        self.config = RefConfig() if ref else ControllerConfig()
-        self.metrics = RefMetrics() if ref else MetricsRegistry()
-        self.manager = (RefManager if ref else Manager)(self.store)
-        self._reconciler = RefReconciler if ref else NotebookReconciler
-        self._simulator = RefSimulator if ref else StatefulSetSimulator
-        self.drains: list[int] = []
-        self.timed = False
-
-    def reconciler(self):
-        rec = self._reconciler(self.store, self.config, self.metrics)
-        rec.setup(self.manager)
-        return rec
-
-    def simulator(self):
-        self.timed = True   # pod readiness rides a timed requeue
-        sim = self._simulator(self.store, boot_delay_s=0.0)
-        sim.setup(self.manager)
-        return sim
-
-    def accelerator(self, ref_shape: str) -> str:
-        return ref_shape if self.side == "ref" else SHAPES[ref_shape]
-
-    def rendered(self, ref_shape: str) -> dict:
-        return RENDERED[self.accelerator(ref_shape)]
-
-    def drain(self, include_delayed_under: float = 0.0) -> int:
-        n = self.manager.run_until_idle(
-            timeout=10.0, include_delayed_under=include_delayed_under)
-        self.drains.append(n)
-        return n
-
-    def apply(self, nb: dict) -> dict:
-        out = self.store.create(nb)
-        self.drain()
-        return out
-
-    def snapshot(self) -> dict:
-        return {(o["kind"], self.k8s.namespace(o), self.k8s.name(o)):
-                normalise(o, self.side) for o in self.store.all_objects()}
-
-
-def assert_parity(ref: Stack, port: Stack) -> None:
-    """Every object of both stores equal after ``normalise``; with no
-    timed requeue in play, the same writes and the same reconciles too."""
-    want, got = ref.snapshot(), port.snapshot()
-    assert sorted(got) == sorted(want)
-    for key in sorted(want):
-        assert got[key] == want[key], key
-    if not ref.timed:
-        assert port.store._last_rv == ref.store._last_rv   # writes
-        assert port.drains == ref.drains                    # reconciles
+from kubeflow_tpu_torch.utils import k8s
+from torch_parity import RESOURCE_KEY, Stack, assert_parity, normalise
 
 
 # ------------------------------------------------ the reference's cases
@@ -723,9 +547,26 @@ def test_build_manager_refuses_what_is_not_ported(components):
         build_manager(components=components)
 
 
-def test_build_manager_refuses_culling():
+def test_build_manager_enable_culling_gate():
+    """tests/test_culling.py's ``test_enable_culling_gate`` on both entry
+    points: the reference's ``setup_controllers`` and the port's
+    ``build_manager`` register ``culling-controller`` only with
+    ``enable_culling``, and the port's manager reads through its cache."""
+    from kubeflow_tpu.cluster.store import ClusterStore as RefStore
+    from kubeflow_tpu.controllers import setup_controllers
+    from kubeflow_tpu.controllers.culling import (
+        JupyterActivity as RefActivity)
+    from kubeflow_tpu.utils.config import ControllerConfig as RefConfig
+    from kubeflow_tpu_torch.cluster.store import ClusterStore
+    from kubeflow_tpu_torch.controllers.culling import JupyterActivity
     from kubeflow_tpu_torch.main import build_manager
-    config = ControllerConfig()
-    config.enable_culling = True
-    with pytest.raises(ValueError, match="culler"):
-        build_manager(config=config)
+    from kubeflow_tpu_torch.utils.config import ControllerConfig
+    for enable in (False, True):
+        ref = setup_controllers(RefStore(), RefConfig(enable_culling=enable),
+                                prober=lambda nb: RefActivity())
+        port = build_manager(ClusterStore(),
+                             ControllerConfig(enable_culling=enable),
+                             prober=lambda nb: JupyterActivity())
+        assert ("culling-controller" in port._reconcilers) == \
+            ("culling-controller" in ref._reconcilers) == enable
+        assert port.read_cache is not None and port.client is port.read_cache

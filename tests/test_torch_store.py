@@ -2,7 +2,7 @@
 case of tests/test_store.py runs on both stores, each with the case's own
 assertions; both must raise the same error classes (by name), make the
 same writes, and end in the same objects (compared through the
-notebook-controller harness's ``normalise``).
+harness's ``normalise`` (tests/torch_parity.py)).
 """
 
 from __future__ import annotations
@@ -16,7 +16,7 @@ from kubeflow_tpu.utils import k8s as ref_k8s
 from kubeflow_tpu_torch.cluster import errors
 from kubeflow_tpu_torch.cluster.store import ClusterStore, WatchEvent
 from kubeflow_tpu_torch.utils import k8s
-from test_torch_notebook_controller import normalise
+from torch_parity import normalise
 
 
 class Side:
