@@ -19,7 +19,8 @@ adapters through ``build_server --lora-config``; and drives the
 multi-device entry points (sharded train step, ``Trainer(mesh=...)``,
 tp-sharded decode) on a NCCL world of one rank, and starts an h100-1
 notebook's container: its world through ``runtime/bootstrap.py`` from
-the env the port's pod spec renders. The kernels' launch
+the env the port's pod spec renders; then it rolls a notebook whose node
+dies onto a new world and resumes its training. The kernels' launch
 counters, zeroed before each path and read after it, show that each path
 ran its kernels.
 Then it times each kernel beside its bound, its plain version and one
@@ -146,6 +147,24 @@ Phases (any failure exits non-zero before the result line):
      SliceReady within 60 s (CR→SliceReady p50/p95 in host ms); writes,
      reconciles, cache lookups and scans, ms/step, peak memory and the
      phase's seconds;
+  16. slice repair on the card: ``build_manager`` with its slice repair
+     reconciler under ``start()``; an h100-1 Notebook SliceReady in
+     world A (the ready hook's NCCL world for its pod); in it a
+     ``Trainer(mesh=...)`` with a ``checkpoint_dir`` runs 4 steps at b8 x
+     s1024 with bf16 params and saves step 4 durably, greedy
+     ``generate`` 8 x 128 -> 16 gives the ids; the worker's node is
+     killed: the StatefulSet is rolled whole (replicas 1, 0, 1), the
+     hook ends world A and forms and verifies world B for the new pod
+     (kill -> Degraded -> 0 replicas -> SliceReady in host ms), the
+     Degraded, RepairStarted and Repaired events, one repair duration
+     sample; in world B a fresh Trainer restores step 4 (``generate``
+     ids equal) and runs steps 5-6: 6 losses bit-equal to an
+     uninterrupted 6-step Trainer, 12 of each attention kernel a step;
+     then, on a second stack with one repairer on an advanced clock, a
+     wedged h100-8 notebook (its pods' ``verify_slice`` refused on one
+     card) is quarantined after 2 timed-out repairs, starts no repair
+     while quarantined, and reaches SliceReady once its image is fixed
+     and the quarantine cleared; the phase's seconds and peak memory;
   5. times of each kernel, its plain version and a library call (last, so
      the paths above run on a card not yet warmed by timing loops), with
      the achieved TFLOP/s, the share of the bound, the forward, dK/dV and
@@ -3406,20 +3425,29 @@ def _pod_env(pod: dict, nb_name: str) -> dict:
 
 
 class _SliceGate:
-    """The simulator's ``ready_hook``: worker 0 of the gated notebook turns
-    Ready only once ``initialize_slice`` and ``verify_slice`` have formed
-    and checked its NCCL world from the pod's own env (the world stays
-    up for the phase); every other pod is not gated. A failure is kept
-    and raised again on every poll, so that pod never turns Ready."""
+    """The simulator's ``ready_hook``: a pod of the gated notebook (one
+    worker) turns Ready only once ``initialize_slice`` and
+    ``verify_slice`` have formed and checked its NCCL world from the
+    pod's own env, on a free coordinator port; every other pod is not
+    gated. One world per pod uid: a pod of a new uid (the old pod is
+    gone, as a slice-atomic repair rolls it) first ends the world formed
+    for the old one (``leave_world``), then forms its own. ``worlds``
+    lists each world formed (pod uid, seconds, report). A failure is kept
+    and raised again on every poll, so that pod never turns Ready.
+    ``device="cpu"`` forms gloo worlds (the tests)."""
 
-    def __init__(self, nb_name: str):
+    def __init__(self, nb_name: str, device: str = "cuda"):
         self.nb_name = nb_name
+        self.device = device
+        self.uid = None
         self.env = None
         self.report = None
         self.seconds = None
         self.error = None
+        self.worlds: list = []
 
     def __call__(self, pod: dict) -> bool:
+        from kubeflow_tpu_torch.parallel.mesh import leave_world
         from kubeflow_tpu_torch.runtime.bootstrap import (SliceEnv,
                                                           initialize_slice,
                                                           verify_slice)
@@ -3429,29 +3457,36 @@ class _SliceGate:
         # one pod, so the simulator never runs this for it on two workers
         if self.error is not None:
             raise self.error
-        if self.report is not None:
+        if k8s.uid(pod) == self.uid:
             return True
         try:
+            if self.uid is not None:
+                leave_world()
             env = _pod_env(pod, self.nb_name)
             env["KFTPU_COORDINATOR_PORT"] = str(_free_port())
             t0 = time.monotonic()
-            slice_env = initialize_slice(SliceEnv.from_env(env), timeout=120)
+            slice_env = initialize_slice(SliceEnv.from_env(env),
+                                         device=self.device, timeout=120)
             self.env = env
             self.report = verify_slice(slice_env)
             self.seconds = time.monotonic() - t0
+            self.uid = k8s.uid(pod)
+            self.worlds.append({"uid": self.uid, "seconds": self.seconds,
+                                "report": self.report})
         except Exception as exc:  # noqa: BLE001 — kept, raised each poll
             self.error = exc
             raise
         return True
 
 
-def _wait_for(what: str, cond, timeout: float) -> float:
+def _wait_for(what: str, cond, timeout: float,
+              phase: str = "phase15") -> float:
     """Poll ``cond`` until it holds; the seconds it took. Fails the run
     at ``timeout``."""
     t0 = time.monotonic()
     while not cond():
         if time.monotonic() - t0 > timeout:
-            fail(f"phase15: {what} did not happen within {timeout:.0f} s")
+            fail(f"{phase}: {what} did not happen within {timeout:.0f} s")
         time.sleep(0.01)
     return time.monotonic() - t0
 
@@ -3460,7 +3495,7 @@ def _reconcile_totals(mgr) -> dict:
     metric = mgr.metrics.counter("controller_runtime_reconcile_total", "")
     return {f"{c}/{r}": metric.get({"controller": c, "result": r})
             for c in ("notebook-controller", "sim-statefulset-controller",
-                      "culling-controller")
+                      "culling-controller", "slice-repair-controller")
             for r in ("success", "requeue_after", "error")
             if metric.get({"controller": c, "result": r})}
 
@@ -4052,6 +4087,483 @@ def phase_bootstrap(torch, flagship) -> tuple[dict, dict]:
     return stats, launched
 
 
+# --------------------------------------------------------------- phase 16
+def _notebook_reasons(store, ns: str, name: str) -> set:
+    """The reasons of the Events written on Notebook ``ns/name``."""
+    return {e["reason"] for e in store.list("Event", ns)
+            if (e.get("involvedObject") or {}).get("kind") == "Notebook"
+            and e["involvedObject"].get("name") == name}
+
+
+def _repair_sequence(store, mgr, gate, ns: str, name: str,
+                     timeout: float = 180.0) -> dict:
+    """Kill the node of the one worker of ``name`` (an h100-1 Notebook of
+    ``mgr``, SliceReady in the world ``gate`` formed for its pod) and
+    wait until the slice repair reconciler has rolled its StatefulSet
+    whole, 1 -> 0 -> 1, and the gate has formed and verified a new world
+    for the new pod: SliceReady again, the slice's health cleared and
+    the SliceRepaired event written. Watches on the backing ``store``
+    record every replicas value, the first Degraded health, each
+    SliceRepairing condition that turns True and the first SliceReady
+    after the scale to 0 (host times)."""
+    from kubeflow_tpu_torch.api import types as api
+    from kubeflow_tpu_torch.cluster.kubelet import kill_node
+    from kubeflow_tpu_torch.controllers.slicerepair import (DEGRADED,
+                                                            slice_health)
+    from kubeflow_tpu_torch.utils import k8s, names
+
+    seen: dict = {"replicas": [store.get("StatefulSet", ns, name)[
+        "spec"]["replicas"]], "repairing": 0, "degraded": None,
+        "zero": None, "ready": None}
+    repairing = [False]
+
+    def mine(event) -> bool:
+        return event.type != "DELETED" and k8s.namespace(event.obj) == ns \
+            and k8s.name(event.obj) == name
+
+    def on_sts(event) -> None:
+        if not mine(event):
+            return
+        r = event.obj["spec"]["replicas"]
+        if seen["replicas"][-1] != r:
+            seen["replicas"].append(r)
+        if r == 0 and seen["zero"] is None:
+            seen["zero"] = time.monotonic()
+
+    def on_notebook(event) -> None:
+        if not mine(event):
+            return
+        now = time.monotonic()
+        if seen["degraded"] is None and slice_health(event.obj) == DEGRADED:
+            seen["degraded"] = now
+        up = k8s.condition_true(event.obj, api.CONDITION_SLICE_REPAIRING)
+        if up and not repairing[0]:
+            seen["repairing"] += 1
+        repairing[0] = up
+        if seen["zero"] is not None and seen["ready"] is None and \
+                k8s.condition_true(event.obj, api.CONDITION_SLICE_READY):
+            seen["ready"] = now
+
+    def repaired() -> bool:
+        nb = store.get(api.KIND, ns, name)
+        return gate.error is not None or (
+            len(gate.worlds) == 2 and slice_health(nb) is None and
+            k8s.condition_true(nb, api.CONDITION_SLICE_READY) and
+            "SliceRepaired" in _notebook_reasons(store, ns, name))
+
+    store.watch("StatefulSet", on_sts)
+    store.watch(api.KIND, on_notebook)
+    try:
+        pod = store.list("Pod", ns, {names.NOTEBOOK_NAME_LABEL: name})[0]
+        node = pod["spec"]["nodeName"]
+        t_kill = time.monotonic()
+        kill_node(store, node)
+        seconds = _wait_for(f"the repair of {name}", repaired, timeout,
+                            phase="phase16")
+    finally:
+        store.unwatch(on_sts)
+        store.unwatch(on_notebook)
+    require(gate.error is None, f"phase16: the ready hook failed in the "
+                                f"repair: {gate.error!r}")
+    nb = store.get(api.KIND, ns, name)
+    pods = store.list("Pod", ns, {names.NOTEBOOK_NAME_LABEL: name})
+    out = {"seconds": seconds, "node": node,
+           "nodes_after": [p["spec"]["nodeName"] for p in pods],
+           "replicas": seen["replicas"], "repairing_true": seen["repairing"],
+           "health": slice_health(nb),
+           "reasons": sorted(_notebook_reasons(store, ns, name)),
+           "repairs_total": mgr.metrics.counter(
+               "slice_repairs_total", "").total(),
+           "repair_duration_samples": mgr.metrics.histogram(
+               "slice_repair_duration_seconds", "").total_count(),
+           "world": gate.worlds[-1]}
+    for key, start, end in (("kill_to_degraded_ms", t_kill, "degraded"),
+                            ("degraded_to_zero_ms", seen["degraded"], "zero"),
+                            ("zero_to_ready_ms", seen["zero"], "ready")):
+        out[key] = None if start is None or seen[end] is None else \
+            (seen[end] - start) * 1e3
+    require(set(out["replicas"]) <= {0, 1} and out["replicas"][-1] == 1
+            and 0 in out["replicas"],
+            f"phase16: the replicas the slice took: {out['replicas']}")
+    require(out["repairing_true"] >= 1 and out["health"] is None,
+            f"phase16: SliceRepairing seen True {out['repairing_true']} "
+            f"times, health {out['health']}")
+    require(out["repairs_total"] >= 1 and
+            out["repair_duration_samples"] == 1,
+            f"phase16: slice_repairs_total {out['repairs_total']}, "
+            f"slice_repair_duration_seconds samples "
+            f"{out['repair_duration_samples']}")
+    require({"SliceDegraded", "SliceRepairStarted", "SliceRepaired"} <=
+            set(out["reasons"]), f"phase16: events {out['reasons']}")
+    require(node not in out["nodes_after"],
+            f"phase16: the worker is back on the dead node {node}")
+    return out
+
+
+class _WedgedGate:
+    """The quarantine part's ``ready_hook``: a pod of ``nb_name`` turns
+    Ready only once ``fixed`` is set. Until then its slice check is
+    ``verify_slice`` on the pod's own env in this process's world of one
+    card, which an h100-8 slice refuses (TimeoutError): the wedged
+    image. The verdict is kept per pod uid, as a readiness probe that
+    keeps failing; ``refusals`` maps each uid to its error."""
+
+    def __init__(self, nb_name: str):
+        self.nb_name = nb_name
+        self.fixed = False
+        self.refusals: dict = {}
+
+    def __call__(self, pod: dict) -> bool:
+        from kubeflow_tpu_torch.runtime.bootstrap import (SliceEnv,
+                                                          verify_slice)
+        from kubeflow_tpu_torch.utils import k8s, names
+        if k8s.get_label(pod, names.NOTEBOOK_NAME_LABEL) != self.nb_name \
+                or self.fixed:
+            return True
+        uid = k8s.uid(pod)
+        if uid not in self.refusals:
+            try:
+                verify_slice(SliceEnv.from_env(_pod_env(pod, self.nb_name)))
+                self.refusals[uid] = None
+            except TimeoutError as exc:
+                self.refusals[uid] = str(exc)
+        return self.refusals[uid] is None
+
+
+def _quarantine_sequence(ns: str = "quarantine-ns",
+                         name: str = "wedged") -> dict:
+    """Quarantine on a second ``build_manager`` stack, with its repair
+    reconciler off and one ``SliceRepairReconciler`` registered on the
+    manager with a clock (``time.time() + offset``) this advances, so
+    each notebook has one writer. An h100-8 Notebook whose pods fail
+    their slice check (``_WedgedGate``) gets a preemption notice on its
+    node; two repairs time out (K = 2), each rolled slice-atomically, and
+    the notebook is quarantined; three checks further on, no repair has
+    started. Then the image is fixed (the gate admits its pods without a
+    world) and the quarantine annotation cleared: repairs resume and the
+    notebook reaches SliceReady. Checks are enqueued after the clock
+    advances, never slept out. Needs a formed world of one rank."""
+    from kubeflow_tpu_torch.api import types as api
+    from kubeflow_tpu_torch.cluster.kubelet import preempt_node
+    from kubeflow_tpu_torch.cluster.store import ClusterStore
+    from kubeflow_tpu_torch.controllers import (Request,
+                                                SliceRepairReconciler)
+    from kubeflow_tpu_torch.controllers.slicerepair import (
+        DEGRADED, QUARANTINED, REPAIRING, slice_health)
+    from kubeflow_tpu_torch.main import build_manager
+    from kubeflow_tpu_torch.utils import k8s, names
+    from kubeflow_tpu_torch.utils.config import ControllerConfig
+
+    store = ClusterStore()
+    config = ControllerConfig(enable_slice_repair=False,
+                              slice_repair_timeout_s=60.0,
+                              slice_repair_max_failures=2,
+                              slice_repair_backoff_base_s=1.0,
+                              slice_repair_backoff_max_s=5.0)
+    gate = _WedgedGate(name)
+    mgr = build_manager(store, config, simulate_kubelet=True,
+                        ready_hook=gate)
+    require("slice-repair-controller" not in mgr._reconcilers,
+            "phase16: enable_slice_repair=False registered a repairer")
+    offset = [0.0]
+    SliceRepairReconciler(mgr.client, config, mgr.metrics,
+                          clock=lambda: time.time() + offset[0]).setup(mgr)
+    replicas: list = [None]
+
+    def on_sts(event) -> None:
+        if event.type != "DELETED" and k8s.name(event.obj) == name and \
+                replicas[-1] != event.obj["spec"]["replicas"]:
+            replicas.append(event.obj["spec"]["replicas"])
+
+    def nb():
+        return store.get(api.KIND, ns, name)
+
+    def repairs() -> float:
+        return mgr.metrics.counter("slice_repairs_total", "").total()
+
+    def pod_uids() -> list:
+        return [k8s.uid(p) for p in
+                store.list("Pod", ns, {names.NOTEBOOK_NAME_LABEL: name})]
+
+    def refused_pod() -> bool:
+        uids = pod_uids()
+        return len(uids) == 1 and gate.refusals.get(uids[0]) is not None
+
+    def check(advance_s: float, what: str, cond) -> None:
+        offset[0] += advance_s
+        mgr.enqueue("slice-repair-controller", Request(ns, name))
+        _wait_for(what, cond, 60.0, phase="phase16")
+
+    store.watch("StatefulSet", on_sts)
+    out: dict = {}
+    t0 = time.monotonic()
+    mgr.start()
+    try:
+        store.create(api.new_notebook(name, ns, annotations={
+            names.TPU_ACCELERATOR_ANNOTATION: "h100-8"}))
+        _wait_for(f"the slice check of {name}'s pod", refused_pod, 60.0,
+                  phase="phase16")
+        first = pod_uids()[0]
+        preempt_node(store, store.get("Pod", ns, f"{name}-0")["spec"][
+            "nodeName"])
+        # the first repair rolls the slice onto a pod the check refuses
+        _wait_for("the first repair's roll", lambda: slice_health(nb()) ==
+                  REPAIRING and refused_pod() and pod_uids()[0] != first,
+                  60.0, phase="phase16")
+        check(config.slice_repair_timeout_s + 1, "the first repair's "
+              "timeout", lambda: slice_health(nb()) == DEGRADED)
+        second = pod_uids()[0]
+        check(config.slice_repair_backoff_max_s + 1, "the second repair's "
+              "roll", lambda: repairs() == 2 and refused_pod() and
+              pod_uids()[0] != second)
+        check(config.slice_repair_timeout_s + 1, "the quarantine",
+              lambda: slice_health(nb()) == QUARANTINED)
+        quarantined = nb()
+        out["quarantine"] = k8s.get_annotation(quarantined,
+                                               names.QUARANTINE_ANNOTATION)
+        out["repairs_at_quarantine"] = repairs()
+        out["quarantines_total"] = mgr.metrics.counter(
+            "slice_quarantines_total", "").get({"namespace": ns})
+        out["quarantined_condition"] = k8s.condition_true(
+            quarantined, api.CONDITION_SLICE_QUARANTINED)
+        for _ in range(3):     # advanced checks: no repair starts
+            check(config.slice_repair_timeout_s * 2, "a quarantined check",
+                  lambda: mgr.run_until_idle(timeout=10) >= 0)
+        out["repairs_after_checks"] = repairs()
+        out["health_after_checks"] = slice_health(nb())
+        # the image is fixed; the operator clears the poison pill
+        gate.fixed = True
+        store.patch(api.KIND, ns, name, {"metadata": {"annotations": {
+            names.QUARANTINE_ANNOTATION: None}}})
+        out["cleared_to_ready_s"] = _wait_for(
+            f"SliceReady on {name} after the clear", lambda: (
+                slice_health(nb()) is None and
+                k8s.condition_true(nb(), api.CONDITION_SLICE_READY)),
+            60.0, phase="phase16")
+    finally:
+        mgr.stop()
+        store.unwatch(on_sts)
+    out["replicas"] = replicas[1:]
+    out["reasons"] = sorted(_notebook_reasons(store, ns, name))
+    out["refusals"] = sorted({v for v in gate.refusals.values() if v})
+    out["seconds"] = time.monotonic() - t0
+    require(out["quarantine"] is not None and
+            out["quarantines_total"] == 1 and out["quarantined_condition"],
+            f"phase16: the wedged notebook was not quarantined: {out}")
+    require(out["repairs_after_checks"] == out["repairs_at_quarantine"] == 2
+            and out["health_after_checks"] == QUARANTINED,
+            f"phase16: a repair started while quarantined: {out}")
+    require({"SliceQuarantined", "SliceQuarantineCleared"} <=
+            set(out["reasons"]), f"phase16: events {out['reasons']}")
+    require(set(out["replicas"]) <= {0, 1} and out["replicas"][-1] == 1,
+            f"phase16: the wedged slice's replicas {out['replicas']}")
+    require(out["refusals"] and all(
+        "want 8" in r for r in out["refusals"]),
+        f"phase16: the slice check's refusals {out['refusals']}")
+    return out
+
+
+def phase_repair(torch, flagship) -> tuple[dict, dict]:
+    """16: slice repair on the card. ``build_manager(simulate_kubelet=
+    True)`` with its slice repair reconciler, under ``start()``, an
+    h100-1 Notebook SliceReady in world A (the gate's NCCL world for its
+    pod). In world A a ``Trainer(mesh=...)`` with a ``checkpoint_dir``
+    runs 4 steps at b8 x s1024 with bf16 params and saves step 4
+    durably, and greedy ``generate`` (8 x 128 -> 16) of its params gives
+    ``ids_before``; the Trainer and its mesh are closed. Then the
+    worker's node dies (``_repair_sequence``): the StatefulSet is rolled
+    whole 1 -> 0 -> 1 and the gate ends world A and forms and verifies
+    world B for the new pod. In world B a fresh Trainer (another seed)
+    on the same directory restores step 4: its ``generate`` equals
+    ``ids_before`` id for id, and steps 5-6 make 6 losses bit-equal to
+    an uninterrupted 6-step Trainer on the same seed and batches. Last,
+    the quarantine of a wedged h100-8 notebook on a second stack
+    (``_quarantine_sequence``). Returns (stats, the launches of the
+    resumed path: world A's steps and generate, world B's)."""
+    import torch.distributed as dist
+
+    from kubeflow_tpu_torch import ops
+    from kubeflow_tpu_torch.api import types as api
+    from kubeflow_tpu_torch.cluster.store import ClusterStore
+    from kubeflow_tpu_torch.main import build_manager
+    from kubeflow_tpu_torch.models import train as train_lib
+    from kubeflow_tpu_torch.models.decode import generate
+    from kubeflow_tpu_torch.parallel.mesh import (MeshConfig, build_mesh,
+                                                  leave_world)
+    from kubeflow_tpu_torch.runtime.data import synthetic_lm_batches
+    from kubeflow_tpu_torch.runtime.trainer import Trainer
+    from kubeflow_tpu_torch.utils import k8s, names
+    from kubeflow_tpu_torch.utils.config import ControllerConfig
+
+    t_phase = time.monotonic()
+    torch.cuda.reset_peak_memory_stats()
+    c, L, V, B, S = (flagship, flagship.n_layers, flagship.vocab_size, 8,
+                     1024)
+    require(not dist.is_initialized(), "phase 15's world is still formed")
+    ns, nb_name = "repair-ns", "trainer"
+    attn = ("flash_attention", "flash_attention_bwd_dkv",
+            "flash_attention_bwd_dq")
+    gate = _SliceGate(nb_name)
+    store = ClusterStore()
+    mgr = build_manager(store, ControllerConfig(), simulate_kubelet=True,
+                        ready_hook=gate)
+    require("slice-repair-controller" in mgr._reconcilers,
+            "phase16: build_manager registered no slice repair reconciler")
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        f"smoke-repair-{os.getpid()}")
+    src = synthetic_lm_batches(B, S, V, seed=0)
+    batches = [next(src) for _ in range(6)]
+    tc = train_lib.TrainConfig(bf16_params=True)
+    kw = dict(checkpoint_dir=root, checkpoint_interval=4, max_checkpoints=1)
+    rng = torch.Generator().manual_seed(7)
+    prompt = torch.randint(0, V, (8, 128), generator=rng).to("cuda")
+    stats: dict = {}
+    launched: dict = {}
+
+    def take(got: dict) -> None:
+        """Add the launches since the last reset to ``got`` and to the
+        phase's."""
+        for k, n in ops.launch_counts().items():
+            launched[k] = launched.get(k, 0) + n
+            got[k] = got.get(k, 0) + n
+
+    mgr.start()
+    try:
+        store.create(api.new_notebook(nb_name, ns, image=(
+            "kubeflownotebookswg/jupyter-pytorch-cuda-full:v1.9.0"),
+            annotations={names.TPU_ACCELERATOR_ANNOTATION: "h100-1"}))
+        stats["slice_ready_s"] = _wait_for(
+            f"SliceReady on {nb_name}", lambda: gate.error is not None or
+            k8s.condition_true(store.get(api.KIND, ns, nb_name),
+                               api.CONDITION_SLICE_READY), 180.0,
+            phase="phase16")
+        require(gate.error is None, f"phase16: the ready hook failed: "
+                                    f"{gate.error!r}")
+        print(f"phase16 world A: h100-1 Notebook SliceReady "
+              f"{stats['slice_ready_s']:.2f} s after the create; the gate's "
+              f"initialize_slice + verify_slice in {gate.seconds:.2f} s: "
+              f"{gate.report}", flush=True)
+
+        # world A: 4 steps, step 4 saved durably, then greedy ids
+        counts_a: dict = {}
+        ops.reset_launch_counts()
+        mesh = build_mesh(MeshConfig.auto(gate.report["device_count"]),
+                          "cuda")
+        trainer = Trainer(c, tc, seed=0, mesh=mesh, **kw)
+        t0 = time.monotonic()
+        trainer.fit(batches[:4], steps=4, log_every=1)
+        trainer.save()
+        torch.cuda.synchronize()
+        stats["world_a_train_s"] = time.monotonic() - t0
+        losses = [x for _, x in trainer.stats.losses]
+        ids_before = generate(trainer.params, prompt, c, 16)
+        torch.cuda.synchronize()
+        take(counts_a)
+        trainer.close()
+        del trainer, mesh
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"phase16 world A: Trainer(mesh=...) b{B} s{S} bf16 params, "
+              f"steps 1-4 losses {losses}, step 4 saved durably in "
+              f"{stats['world_a_train_s']:.2f} s; generate 8 x 128 -> 16; "
+              f"launches {counts_a}; the Trainer and its mesh closed "
+              f"({CARD[0]})", flush=True)
+        require(all(counts_a[k] == 4 * L + (L if k == "flash_attention"
+                                             else 0) for k in attn),
+                f"phase16: world A's launches {counts_a}")
+
+        rep = _repair_sequence(store, mgr, gate, ns, nb_name)
+        stats["repair"] = rep
+        print(f"phase16 the worker's node {rep['node']} killed: kill_node -> "
+              f"Degraded {rep['kill_to_degraded_ms']:.1f} ms, Degraded -> "
+              f"replicas 0 {rep['degraded_to_zero_ms']:.1f} ms, replicas 0 "
+              f"-> SliceReady {rep['zero_to_ready_ms']:.1f} ms (host time; "
+              f"the new world's bootstrap in it); replicas {rep['replicas']}, "
+              f"SliceRepairing True {rep['repairing_true']}x, health "
+              f"{rep['health']}, slice_repairs_total {rep['repairs_total']:g},"
+              f" slice_repair_duration_seconds samples "
+              f"{rep['repair_duration_samples']:g}, events {rep['reasons']}, "
+              f"the worker now on {rep['nodes_after']} ({CARD[0]})",
+              flush=True)
+        print(f"phase16 world B formed by the gate for pod "
+              f"{rep['world']['uid']} in {rep['world']['seconds']:.2f} s: "
+              f"verify_slice {rep['world']['report']}", flush=True)
+        require(rep["world"]["report"]["backend"] == "nccl" and
+                rep["world"]["report"]["device_count"] == 1,
+                f"phase16: world B's verify_slice {rep['world']['report']}")
+
+        # world B: a fresh Trainer restores step 4, then steps 5-6
+        counts_b: dict = {}
+        ops.reset_launch_counts()
+        mesh = build_mesh(MeshConfig.auto(gate.report["device_count"]),
+                          "cuda")
+        trainer = Trainer(c, tc, seed=1, mesh=mesh, **kw)
+        require(trainer.stats.step == 4,
+                f"phase16: world B's Trainer resumed at {trainer.stats.step}")
+        ids_after = generate(trainer.params, prompt, c, 16)
+        trainer.fit(batches[4:], steps=2, log_every=1)
+        torch.cuda.synchronize()
+        take(counts_b)
+        losses += [x for _, x in trainer.stats.losses]
+        trainer.close()
+        del trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+        # the uninterrupted run: same seed and batches, no checkpoint
+        ref = Trainer(c, tc, seed=0, mesh=mesh)
+        ref.fit(batches, steps=6, log_every=1)
+        want = [x for _, x in ref.stats.losses]
+        ref.close()
+        del ref, mesh
+        gc.collect()
+        torch.cuda.empty_cache()
+        same_ids = bool(torch.equal(ids_after, ids_before))
+        print(f"phase16 world B: Trainer(seed=1) restored step 4; generate "
+              f"ids equal to world A's {same_ids}; steps 5-6; the 6 losses "
+              f"{losses}, bit-equal to an uninterrupted 6-step Trainer's "
+              f"{losses == want}; launches {counts_b} ({CARD[0]})",
+              flush=True)
+        require(same_ids, "phase16: generate on the restored step 4 "
+                          "differs from world A's")
+        require(losses == want and all(math.isfinite(x) for x in losses),
+                f"phase16: the repaired run's losses {losses} differ from "
+                f"the uninterrupted {want}")
+        require(all(counts_b[k] == 2 * L + (L if k == "flash_attention"
+                                             else 0) for k in attn) and
+                counts_b["flash_decode"] == counts_a["flash_decode"]
+                == 15 * L, f"phase16: world B's launches {counts_b}, "
+                           f"world A's {counts_a}")
+        stats.update({"losses": losses, "ids_equal": same_ids,
+                      "launches_a": counts_a, "launches_b": counts_b})
+
+        q = _quarantine_sequence()
+        stats["quarantine"] = q
+        print(f"phase16 quarantine (second stack, one repairer on an "
+              f"advanced clock): the h100-8 pods' slice check refused "
+              f"{q['refusals']}; 2 timed-out repairs -> quarantined "
+              f"({q['quarantine']}), slice_quarantines_total "
+              f"{q['quarantines_total']:g}, slice_repairs_total "
+              f"{q['repairs_at_quarantine']:g} then "
+              f"{q['repairs_after_checks']:g} after 3 more checks; cleared "
+              f"-> SliceReady in {q['cleared_to_ready_s']:.2f} s; replicas "
+              f"{q['replicas']}; events {q['reasons']}; "
+              f"{q['seconds']:.1f} s", flush=True)
+    finally:
+        mgr.stop()
+        if dist.is_initialized():
+            leave_world()
+        shutil.rmtree(root, ignore_errors=True)
+    stats["control_plane"] = {"writes": store._last_rv,
+                              "reconciles": _reconcile_totals(mgr)}
+    stats["seconds"] = time.monotonic() - t_phase
+    stats["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    print(f"phase16 control plane: {store._last_rv} writes, reconciles "
+          f"{stats['control_plane']['reconciles']}; phase 16 in "
+          f"{stats['seconds']:.1f} s, peak {stats['peak_mem_gb']:.3f} GB; "
+          f"launches {launched} ({CARD[0]})", flush=True)
+    return stats, launched
+
+
 # --------------------------------------------------------------- phase 5
 def _time_flash(torch, timer, b, s, h, d, seed=4, lse=False):
     import torch.nn.functional as F
@@ -4405,6 +4917,11 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     train["bootstrap"], launched = phase_bootstrap(torch, FLAGSHIP)
+    for name, n in launched.items():
+        counts[name] += n
+    gc.collect()
+    torch.cuda.empty_cache()
+    train["repair"], launched = phase_repair(torch, FLAGSHIP)
     for name, n in launched.items():
         counts[name] += n
     rows, wide = phase_times(torch, errs, counts)

@@ -25,10 +25,13 @@ from __future__ import annotations
 import re
 from dataclasses import dataclass
 
+from ..cluster.errors import InvalidError
 from ..utils import names
 
 
-class GpuRequestError(ValueError):
+class GpuRequestError(InvalidError):
+    """A malformed slice request: an API error with code 422 and a
+    ``.message``, as the reference's ``TpuRequestError``."""
     reason = "InvalidGPURequest"
 
 

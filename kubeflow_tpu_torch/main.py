@@ -1,13 +1,15 @@
 """The port's composition root: a manager with the core Notebook
-reconciler and the idle culler over the in-process apiserver.
+reconciler, the idle culler and the slice repair reconciler over the
+in-process apiserver.
 
 The counterpart of the ``components="core"`` path of
 ``kubeflow_tpu/main.py`` ``build_manager`` (``setup_controllers``,
 ``kubeflow_tpu/controllers/__init__.py``): one watch-fed ``CachingClient``
 the reconcilers read through (Secrets, ConfigMaps and Events read live),
 the core reconciler, the culler when ``config.enable_culling`` is set,
-and with ``simulate_kubelet`` the StatefulSet/kubelet simulator on the
-same cache, so a standalone run is a working control plane on one
+the slice repair reconciler when ``config.enable_slice_repair`` is (the
+default), and with ``simulate_kubelet`` the StatefulSet/kubelet simulator
+on the same cache, so a standalone run is a working control plane on one
 machine::
 
     mgr = build_manager(simulate_kubelet=True)
@@ -19,24 +21,25 @@ machine::
 
 Not yet in the port, each an item of ROADMAP.md's queue A: the
 extension manager and the admission webhooks (``components="extension"``
-or ``"all"``), the slice-pool, slice-repair and scheduler reconcilers the
-reference's core path also starts, flags, TLS, the webhook server,
-health endpoints and leader election.
+or ``"all"``), the slice-pool and scheduler reconcilers the reference's
+core path also starts, flags, TLS, the webhook server, health endpoints
+and leader election.
 """
 
 from __future__ import annotations
 
 from .cluster.cache import CachingClient
 from .cluster.store import ClusterStore
-from .controllers import CullingReconciler, Manager, NotebookReconciler
+from .controllers import (CullingReconciler, Manager, NotebookReconciler,
+                          SliceRepairReconciler)
 from .utils.config import ControllerConfig
 from .utils.metrics import MetricsRegistry
 
 # what each other selection of the reference needs, by ROADMAP.md item
 _NOT_PORTED = {
-    "extension": "queue A item 4 (the extension reconciler and its "
-                 "satellites) and item 5 (the webhooks)",
-    "all": "queue A items 4 and 5 (the extension reconciler and the "
+    "extension": "queue A item 5 (the extension reconciler and its "
+                 "satellites) and item 6 (the webhooks)",
+    "all": "queue A items 5 and 6 (the extension reconciler and the "
            "webhooks)",
 }
 
@@ -57,7 +60,9 @@ def build_manager(store=None, config: ControllerConfig | None = None, *,
     reconcile-phase histograms, the cache's index counters and the
     notebook series. With ``config.enable_culling`` the culler runs,
     probing Jupyter through ``prober(notebook)`` when one is given (else
-    over HTTP, as the reference's). ``ready_hook(pod) -> bool`` gates the
+    over HTTP, as the reference's). With ``config.enable_slice_repair``
+    the slice repair reconciler watches Pods and Nodes and rolls a slice
+    whose node or worker fails. ``ready_hook(pod) -> bool`` gates the
     simulator's readiness flip of a pod (chip_smoke.py forms and verifies
     the pod's NCCL world there). Not started: call ``mgr.start()`` or
     drive it with ``mgr.run_until_idle()``."""
@@ -83,6 +88,8 @@ def build_manager(store=None, config: ControllerConfig | None = None, *,
     if config.enable_culling:
         kwargs = {"prober": prober} if prober is not None else {}
         CullingReconciler(read_client, config, metrics, **kwargs).setup(mgr)
+    if config.enable_slice_repair:
+        SliceRepairReconciler(read_client, config, metrics).setup(mgr)
     if simulate_kubelet:
         from .cluster.kubelet import StatefulSetSimulator
         StatefulSetSimulator(mgr.read_cache,

@@ -112,6 +112,16 @@ class _Histogram:
             series[-2] += 1          # +Inf / _count
             series[-1] += value      # _sum
 
+    def count(self, labels: dict[str, str] | None = None) -> float:
+        with self._lock:
+            series = self._series.get(_labels_key(labels))
+        return series[-2] if series else 0.0
+
+    def total_count(self) -> float:
+        """Sum of ``_count`` over every label combination."""
+        with self._lock:
+            return sum(series[-2] for series in self._series.values())
+
     def expose(self) -> str:
         lines = [f"# HELP {self.name} {_escape_help(self.help)}",
                  f"# TYPE {self.name} {self.type}"]

@@ -1,7 +1,7 @@
 """The port's idle culler held against the reference's, case for case.
 
 Every case of tests/test_culling.py (but the pool-bound one, which needs
-the SlicePool reconciler: ROADMAP.md queue A item 2) runs through both
+the SlicePool reconciler: ROADMAP.md queue A item 3) runs through both
 stacks (``torch_parity.Stack``: store, Manager, NotebookReconciler,
 CullingReconciler and the StatefulSet simulator), each side with the
 case's own assertions, the same fake clock and the same fake Jupyter and
@@ -43,6 +43,8 @@ from kubeflow_tpu.controllers.manager import Manager as RefManager
 from kubeflow_tpu.controllers.manager import Request as RefRequest
 from kubeflow_tpu.controllers.notebook import (
     NotebookReconciler as RefReconciler)
+from kubeflow_tpu.controllers.slicerepair import (
+    SliceRepairReconciler as RefSliceRepairReconciler)
 from kubeflow_tpu.utils import k8s as ref_k8s
 from kubeflow_tpu.utils import names as ref_names
 from kubeflow_tpu.utils.config import ControllerConfig as RefConfig
@@ -788,8 +790,9 @@ def test_non_json_body_is_unreachable(proxies):
 def _ref_core(store, config, offset):
     """The reference composed as the port's ``build_manager``: one
     watch-fed read cache the reconcilers read through, the Notebook
-    reconciler, the culler on an offset clock and the simulator on the
-    cache (reference main.py / setup_controllers' core path)."""
+    reconciler, the culler on an offset clock, the slice repair
+    reconciler and the simulator on the cache (reference main.py /
+    setup_controllers' core path)."""
     cache = RefCachingClient(store, auto_informer=False,
                              disable_for=("Secret", "ConfigMap", "Event"))
     metrics = RefMetrics()
@@ -800,6 +803,8 @@ def _ref_core(store, config, offset):
     RefReconciler(cache, config, metrics).setup(mgr)
     ref_culling.CullingReconciler(
         cache, config, metrics, clock=lambda: NOW + offset[0]).setup(mgr)
+    if config.enable_slice_repair:
+        RefSliceRepairReconciler(cache, config, metrics).setup(mgr)
     RefSimulator(mgr.read_cache, boot_delay_s=0.0).setup(mgr)
     return mgr
 

@@ -40,6 +40,20 @@ def test_port_module_imports_no_jax(rel):
     assert not bad, f"{rel} imports {bad}"
 
 
+@pytest.mark.parametrize("rel", PORT_FILES)
+def test_port_module_reads_no_sanitizer_switch(rel):
+    """The port keeps plain locks: no module names the JAX package's
+    ``KFTPU_SANITIZE`` switch as a value or imports a sanitizer."""
+    tree = ast.parse((REPO / rel).read_text(), filename=rel)
+    assert not any(isinstance(node, ast.Constant) and
+                   node.value == "KFTPU_SANITIZE" for node in ast.walk(tree))
+    assert not [m for m in _imported_modules(tree)
+                if m.split(".")[-1] == "sanitizer"]
+    assert not any(isinstance(node, ast.ImportFrom) and
+                   any(a.name == "sanitizer" for a in node.names)
+                   for node in ast.walk(tree))
+
+
 def test_port_file_list_covers_the_package():
     for rel in ("kubeflow_tpu_torch/runtime/server.py",
                 "kubeflow_tpu_torch/parallel/mesh.py",
@@ -71,7 +85,9 @@ def test_port_file_list_covers_the_package():
                 "kubeflow_tpu_torch/main.py",
                 "kubeflow_tpu_torch/cluster/echo.py",
                 "kubeflow_tpu_torch/cluster/cache.py",
-                "kubeflow_tpu_torch/controllers/culling.py"):
+                "kubeflow_tpu_torch/controllers/culling.py",
+                "kubeflow_tpu_torch/utils/tracing.py",
+                "kubeflow_tpu_torch/controllers/slicerepair.py"):
         assert rel in PORT_FILES
     assert len(PORT_FILES) >= 66
 
@@ -151,6 +167,8 @@ import kubeflow_tpu_torch.controllers.manager
 import kubeflow_tpu_torch.cluster.echo
 import kubeflow_tpu_torch.cluster.cache
 import kubeflow_tpu_torch.controllers.culling
+import kubeflow_tpu_torch.utils.tracing
+import kubeflow_tpu_torch.controllers.slicerepair
 import kubeflow_tpu_torch.main
 sys.path.insert(0, "tests")
 import torch_dist_ranks

@@ -570,3 +570,28 @@ def test_build_manager_enable_culling_gate():
         assert ("culling-controller" in port._reconcilers) == \
             ("culling-controller" in ref._reconcilers) == enable
         assert port.read_cache is not None and port.client is port.read_cache
+
+
+def test_build_manager_enable_slice_repair_gate():
+    """The ENABLE_SLICE_REPAIR gate on both entry points: the reference's
+    ``setup_controllers`` and the port's ``build_manager`` register
+    ``slice-repair-controller`` only with ``enable_slice_repair`` (on by
+    default), and the port's reads through the manager's cache."""
+    from kubeflow_tpu.cluster.store import ClusterStore as RefStore
+    from kubeflow_tpu.controllers import setup_controllers
+    from kubeflow_tpu.utils.config import ControllerConfig as RefConfig
+    from kubeflow_tpu_torch.cluster.store import ClusterStore
+    from kubeflow_tpu_torch.main import build_manager
+    from kubeflow_tpu_torch.utils.config import ControllerConfig
+    assert ControllerConfig().enable_slice_repair is \
+        RefConfig().enable_slice_repair is True
+    for enable in (False, True):
+        ref = setup_controllers(RefStore(),
+                                RefConfig(enable_slice_repair=enable))
+        port = build_manager(ClusterStore(),
+                             ControllerConfig(enable_slice_repair=enable))
+        name = "slice-repair-controller"
+        assert (name in port._reconcilers) == (name in ref._reconcilers) \
+            == enable
+        if enable:
+            assert port._reconcilers[name]._read_cache is port.read_cache

@@ -32,6 +32,7 @@ from kubeflow_tpu.utils import names as jnames
 from kubeflow_tpu.utils.config import ControllerConfig
 from kubeflow_tpu.webhook import NotebookMutatingWebhook
 from kubeflow_tpu.controllers import notebook as jnotebook
+from kubeflow_tpu_torch.cluster.errors import InvalidError
 from kubeflow_tpu_torch.controllers.notebook import (apply_gpu_spec,
                                                      headless_service_name)
 from kubeflow_tpu_torch.controllers.slicepool import (slice_hostnames,
@@ -72,7 +73,8 @@ def test_bad_short_names(short):
     with pytest.raises(GpuRequestError) as err:
         parse_short_name(short)
     assert err.value.reason == "InvalidGPURequest"
-    assert isinstance(err.value, ValueError)
+    # an API error, as the reference's TpuRequestError (code 422)
+    assert isinstance(err.value, InvalidError) and err.value.code == 422
 
 
 def test_topologies():
@@ -111,6 +113,27 @@ def test_parse_slice_request_annotations():
     # the keys are the reference's
     assert (ACC, TOPO) == (jnames.TPU_ACCELERATOR_ANNOTATION,
                            jnames.TPU_TOPOLOGY_ANNOTATION)
+
+
+@pytest.mark.parametrize("port_shape,ref_shape", [
+    ("h100-3", "v5e-3"), ("h100-9", "v5e-9"), ("bogus", "bogus")])
+def test_malformed_request_is_an_api_error_as_the_reference(port_shape,
+                                                            ref_shape):
+    """A malformed request raises an ``InvalidError`` on both sides: code
+    422, the reason of each side's error class and a non-empty message
+    (the webhook denies admission with it; the slice-repair reconciler
+    skips the notebook on the class)."""
+    from kubeflow_tpu.cluster.errors import InvalidError as RefInvalid
+    got = {}
+    for side, parse, shape, base in (
+            ("ref", jtopo.parse_slice_request, ref_shape, RefInvalid),
+            ("port", parse_slice_request, port_shape, InvalidError)):
+        with pytest.raises(base) as err:
+            parse({ACC: shape})
+        got[side] = (type(err.value).__mro__[1].__name__, err.value.code,
+                     bool(err.value.message),
+                     err.value.message == str(err.value))
+    assert got["port"] == got["ref"] == ("InvalidError", 422, True, True)
 
 
 # ----------------------------------------------------------------- pod spec

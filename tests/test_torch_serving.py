@@ -286,9 +286,20 @@ def test_http_health_models_and_metrics(server):
         info = json.loads(r.read())
     assert info["model"]["vocab_size"] == tc.vocab_size
     assert info["data"][0]["object"] == "model"
-    with urllib.request.urlopen(srv.url + "/metrics", timeout=30) as r:
-        assert r.headers.get("Content-Type") == "text/plain; version=0.0.4"
-        text = r.read().decode()
+    # the server counts a request after writing its reply (as the JAX
+    # server does), so the POST's line may lag the reply: poll for it,
+    # a few seconds at most
+    line = ('serving_http_requests_total{code="200",method="POST",'
+            'route="/v1/generate"} 1')
+    deadline = time.monotonic() + 5.0
+    while True:
+        with urllib.request.urlopen(srv.url + "/metrics", timeout=30) as r:
+            assert r.headers.get("Content-Type") == \
+                "text/plain; version=0.0.4"
+            text = r.read().decode()
+        if line in text or time.monotonic() > deadline:
+            break
+        time.sleep(0.01)
     assert ('serving_http_requests_total{code="200",method="POST",'
             'route="/v1/generate"} 1') in text
     assert "serving_engine_batches_total 1" in text

@@ -141,3 +141,61 @@ def test_phase15_cull_sequence_on_the_cpu():
     for name in ("smoke", "smoke-big"):
         assert store.get("StatefulSet", "user-ns", name)["spec"][
             "replicas"] == 0
+
+
+def test_phase16_repair_and_quarantine_on_the_cpu():
+    """chip_smoke's phase-16 control-plane drive on the CPU: the port's
+    ``build_manager`` (its slice repair reconciler on) under ``start()``
+    gates an h100-1 notebook's pod on a gloo world the gate forms for it
+    (world A); ``_repair_sequence`` kills the worker's node, the slice is
+    rolled whole 1 -> 0 -> 1 and the gate ends world A and forms world B
+    for the new pod; then ``_quarantine_sequence`` on a second stack
+    quarantines a wedged h100-8 notebook after two timed-out repairs,
+    starts no repair while quarantined and recovers it once cleared.
+    Every manager stops and the world ends in a ``finally``."""
+    import time
+
+    import torch.distributed as dist
+
+    from chip_smoke import _quarantine_sequence, _repair_sequence, _SliceGate
+    from kubeflow_tpu_torch.api import types as api
+    from kubeflow_tpu_torch.cluster.store import ClusterStore
+    from kubeflow_tpu_torch.main import build_manager
+    from kubeflow_tpu_torch.parallel.mesh import leave_world
+    from kubeflow_tpu_torch.utils import k8s, names
+    from kubeflow_tpu_torch.utils.config import ControllerConfig
+
+    assert not dist.is_initialized()
+    store = ClusterStore()
+    gate = _SliceGate("trainer", device="cpu")
+    mgr = build_manager(store, ControllerConfig(), simulate_kubelet=True,
+                        ready_hook=gate)
+    try:
+        mgr.start()
+        try:
+            store.create(api.new_notebook("trainer", "repair-ns",
+                                          annotations={
+                names.TPU_ACCELERATOR_ANNOTATION: "h100-1"}))
+            deadline = time.monotonic() + 60
+            while not k8s.condition_true(
+                    store.get(api.KIND, "repair-ns", "trainer"),
+                    api.CONDITION_SLICE_READY):
+                assert gate.error is None, gate.error
+                assert time.monotonic() < deadline, "never SliceReady"
+                time.sleep(0.01)
+            world_a = dist.group.WORLD
+            rep = _repair_sequence(store, mgr, gate, "repair-ns", "trainer",
+                                   timeout=60.0)
+            assert dist.group.WORLD is not world_a
+        finally:
+            mgr.stop()
+        q = _quarantine_sequence()
+    finally:
+        if dist.is_initialized():
+            leave_world()
+    assert rep["replicas"] == [1, 0, 1]
+    assert [w["report"]["backend"] for w in gate.worlds] == ["gloo", "gloo"]
+    assert gate.worlds[0]["uid"] != gate.worlds[1]["uid"]
+    assert rep["repairs_total"] == 1 and rep["repair_duration_samples"] == 1
+    assert q["replicas"][-1] == 1 and q["quarantines_total"] == 1
+    assert q["repairs_at_quarantine"] == q["repairs_after_checks"] == 2

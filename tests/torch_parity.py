@@ -3,9 +3,10 @@ side, and the normaliser that compares what they write (a helper module:
 pytest collects no tests from it).
 
 ``Stack("ref")`` is the reference's store, Manager, NotebookReconciler,
-StatefulSet simulator and culler; ``Stack("port")`` the port's. A case is
-a function of one stack that uses the names both sides share (``api``,
-``k8s``, ``names``, ``culling``, ...), so the same code drives both.
+StatefulSet simulator, culler and slice repair reconciler;
+``Stack("port")`` the port's. A case is a function of one stack that uses
+the names both sides share (``api``, ``k8s``, ``names``, ``culling``,
+``slicerepair``, ``kubelet``, ...), so the same code drives both.
 
 The same Notebook goes to both sides; only its accelerator request is
 mapped, to the H100 shape with the same worker count (``v5e-4`` (1 x 4)
@@ -24,9 +25,11 @@ from __future__ import annotations
 
 from kubeflow_tpu.api import slicepool as ref_pool_api
 from kubeflow_tpu.api import types as ref_api
+from kubeflow_tpu.cluster import kubelet as ref_kubelet
 from kubeflow_tpu.cluster.kubelet import StatefulSetSimulator as RefSimulator
 from kubeflow_tpu.cluster.store import ClusterStore as RefStore
 from kubeflow_tpu.controllers import culling as ref_culling
+from kubeflow_tpu.controllers import slicerepair as ref_slicerepair
 from kubeflow_tpu.controllers.manager import Manager as RefManager
 from kubeflow_tpu.controllers.manager import Request as RefRequest
 from kubeflow_tpu.controllers.notebook import (
@@ -37,9 +40,10 @@ from kubeflow_tpu.utils.config import ControllerConfig as RefConfig
 from kubeflow_tpu.utils.metrics import MetricsRegistry as RefMetrics
 from kubeflow_tpu_torch.api import slicepool as pool_api
 from kubeflow_tpu_torch.api import types as api
+from kubeflow_tpu_torch.cluster import kubelet
 from kubeflow_tpu_torch.cluster.kubelet import StatefulSetSimulator
 from kubeflow_tpu_torch.cluster.store import ClusterStore
-from kubeflow_tpu_torch.controllers import culling
+from kubeflow_tpu_torch.controllers import culling, slicerepair
 from kubeflow_tpu_torch.controllers import (Manager, NotebookReconciler,
                                             Request)
 from kubeflow_tpu_torch.utils import k8s, names
@@ -151,6 +155,8 @@ class Stack:
         self.names = ref_names if ref else names
         self.Request = RefRequest if ref else Request
         self.culling = ref_culling if ref else culling
+        self.slicerepair = ref_slicerepair if ref else slicerepair
+        self.kubelet = ref_kubelet if ref else kubelet
         self.Config = RefConfig if ref else ControllerConfig
         self.store = RefStore() if ref else ClusterStore()
         self.config = self.Config()
@@ -166,9 +172,13 @@ class Stack:
         rec.setup(self.manager)
         return rec
 
-    def simulator(self):
+    def simulator(self, **kw):
+        """The side's StatefulSet simulator, with no boot delay unless
+        ``kw`` gives one; ``kw`` are its boot delay, node grace and ready
+        hook."""
         self.timed = True   # pod readiness rides a timed requeue
-        sim = self._simulator(self.store, boot_delay_s=0.0)
+        kw.setdefault("boot_delay_s", 0.0)
+        sim = self._simulator(self.store, **kw)
         sim.setup(self.manager)
         return sim
 
@@ -177,6 +187,14 @@ class Stack:
         metrics; ``kw`` are its probers and clock."""
         rec = self.culling.CullingReconciler(self.store, self.config,
                                              self.metrics, **kw)
+        rec.setup(self.manager)
+        return rec
+
+    def repairer(self, **kw):
+        """The side's SliceRepairReconciler on this stack's store, config
+        and metrics; ``kw`` are its clock and rng."""
+        rec = self.slicerepair.SliceRepairReconciler(
+            self.store, self.config, self.metrics, **kw)
         rec.setup(self.manager)
         return rec
 
