@@ -20,7 +20,9 @@ multi-device entry points (sharded train step, ``Trainer(mesh=...)``,
 tp-sharded decode) on a NCCL world of one rank, and starts an h100-1
 notebook's container: its world through ``runtime/bootstrap.py`` from
 the env the port's pod spec renders; then it rolls a notebook whose node
-dies onto a new world and resumes its training. The kernels' launch
+dies onto a new world and resumes its training, and binds a notebook to
+a warm pool slice and migrates its training off a preempted node onto a
+warm spare. The kernels' launch
 counters, zeroed before each path and read after it, show that each path
 ran its kernels.
 Then it times each kernel beside its bound, its plain version and one
@@ -165,6 +167,34 @@ Phases (any failure exits non-zero before the result line):
      card) is quarantined after 2 timed-out repairs, starts no repair
      while quarantined, and reaches SliceReady once its image is fixed
      and the quarantine cleared; the phase's seconds and peak memory;
+  17. the warm SlicePool reconciler on the card, after phase 16's worlds
+     have ended (``_pool_sequence``): ``build_manager`` (its SlicePool
+     reconciler on, its repairer off) under ``start()`` beside one
+     ``SliceRepairReconciler`` whose migrator is a
+     ``CheckpointMigrationDriver`` over the live Trainer; the ready hook
+     checks a pool slice's pod in one spawned child process, each check
+     its own NCCL world of one rank on a free port, ended before it
+     returns (``_WarmChecker``), and forms the cold notebook's world in
+     this process; an h100-1 notebook with no pool (cold CR →
+     SliceReady, host ms) is deleted; the pool ``h100-1-pool``
+     (warmReplicas 1) warms w0; notebook A binds w0 in the first pool
+     reconcile (warm CR → SliceReady beside the cold one, reconciles
+     between, w0's pod uid unchanged and its replicas never 0, the
+     SliceBound event, one bind-latency sample); A's world from w0's
+     pod env, the pool's capacity raised to 2 (w1 checked in the child
+     while A's world lives), ``Trainer(mesh=...)`` 4 steps at b8 x
+     s1024 with bf16 params and ``generate`` 8 x 128 -> 16 on
+     ``shard_decode_params``; a preemption notice on w0's node: the
+     repairer checkpoints step 4, the pool re-binds A to w1 under the
+     same identity and drains w0, world B forms from w1's pod env and
+     the driver restores step 4 (preempt → Checkpointing → Binding →
+     Resuming → SliceReady in host ms, checkpoint s and bytes, restore
+     s); steps 5-6: 6 losses bit-equal to an uninterrupted Trainer,
+     ``generate`` ids equal, 12 of each attention kernel a step; A
+     stopped: w1 released scrubbed (pods recreated, no tenant label or
+     annotation, no idle clock), re-warmed on the card and bound by a
+     notebook of another namespace; ``slicepool_size`` by state; the
+     phase's seconds and peak memory;
   5. times of each kernel, its plain version and a library call (last, so
      the paths above run on a card not yet warmed by timing loops), with
      the achieved TFLOP/s, the share of the bound, the forward, dK/dV and
@@ -3424,6 +3454,20 @@ def _pod_env(pod: dict, nb_name: str) -> dict:
     return env
 
 
+def _form_world(env: dict, device: str = "cuda") -> tuple[dict, float]:
+    """Form the world of a pod's ``env`` on a free coordinator port
+    (``initialize_slice``) and check it (``verify_slice``); returns the
+    report and the seconds both took."""
+    from kubeflow_tpu_torch.runtime.bootstrap import (SliceEnv,
+                                                      initialize_slice,
+                                                      verify_slice)
+    env = dict(env, KFTPU_COORDINATOR_PORT=str(_free_port()))
+    t0 = time.monotonic()
+    report = verify_slice(initialize_slice(SliceEnv.from_env(env),
+                                           device=device, timeout=120))
+    return report, time.monotonic() - t0
+
+
 class _SliceGate:
     """The simulator's ``ready_hook``: a pod of the gated notebook (one
     worker) turns Ready only once ``initialize_slice`` and
@@ -3448,9 +3492,6 @@ class _SliceGate:
 
     def __call__(self, pod: dict) -> bool:
         from kubeflow_tpu_torch.parallel.mesh import leave_world
-        from kubeflow_tpu_torch.runtime.bootstrap import (SliceEnv,
-                                                          initialize_slice,
-                                                          verify_slice)
         from kubeflow_tpu_torch.utils import k8s, names
         if k8s.get_label(pod, names.NOTEBOOK_NAME_LABEL) != self.nb_name:
             return True
@@ -3462,14 +3503,8 @@ class _SliceGate:
         try:
             if self.uid is not None:
                 leave_world()
-            env = _pod_env(pod, self.nb_name)
-            env["KFTPU_COORDINATOR_PORT"] = str(_free_port())
-            t0 = time.monotonic()
-            slice_env = initialize_slice(SliceEnv.from_env(env),
-                                         device=self.device, timeout=120)
-            self.env = env
-            self.report = verify_slice(slice_env)
-            self.seconds = time.monotonic() - t0
+            self.env = _pod_env(pod, self.nb_name)
+            self.report, self.seconds = _form_world(self.env, self.device)
             self.uid = k8s.uid(pod)
             self.worlds.append({"uid": self.uid, "seconds": self.seconds,
                                 "report": self.report})
@@ -3495,7 +3530,8 @@ def _reconcile_totals(mgr) -> dict:
     metric = mgr.metrics.counter("controller_runtime_reconcile_total", "")
     return {f"{c}/{r}": metric.get({"controller": c, "result": r})
             for c in ("notebook-controller", "sim-statefulset-controller",
-                      "culling-controller", "slice-repair-controller")
+                      "culling-controller", "slice-repair-controller",
+                      "slice-pool-controller")
             for r in ("success", "requeue_after", "error")
             if metric.get({"controller": c, "result": r})}
 
@@ -4073,9 +4109,10 @@ def phase_bootstrap(torch, flagship) -> tuple[dict, dict]:
           f"{fleet['ready_p50_ms']:.1f} ms, p95 {fleet['ready_p95_ms']:.1f} "
           f"ms, max {fleet['ready_max_ms']:.1f} ms (host time); "
           f"{fleet['writes']} writes, reconciles {fleet['reconciles']} "
+          f"with the SlicePool reconciler in build_manager and no pool "
           f"(not measured in this run: PERF.md records the same fleet "
-          f"reading the store live at 1041 writes, 361 notebook and 300 "
-          f"simulator reconciles); cache index lookups "
+          f"without it at 1040 writes and 445 notebook, 305 simulator and "
+          f"420 slice-repair reconciles); cache index lookups "
           f"{fleet['cache_index_lookups']:g}, full scans "
           f"{fleet['cache_full_scans']:g} ({CARD[0]})", flush=True)
     require(fleet["pods"] == fleet["replicas"] == 60 + 30 + 20,
@@ -4564,6 +4601,644 @@ def phase_repair(torch, flagship) -> tuple[dict, dict]:
     return stats, launched
 
 
+# --------------------------------------------------------------- phase 17
+def _warm_check_worker(conn) -> None:
+    """The warm checker's process: for each pod env it receives, form a
+    NCCL world of one rank on a free coordinator port (``_form_world``),
+    end it, and send back ``("ok", report, seconds)`` or ``("error",
+    repr, seconds)``; ``None`` ends the loop."""
+    from kubeflow_tpu_torch.parallel.mesh import leave_world
+    while True:
+        env = conn.recv()
+        if env is None:
+            break
+        t0 = time.monotonic()
+        try:
+            report, seconds = _form_world(env)
+            leave_world()
+            conn.send(("ok", report, seconds))
+        except Exception as exc:  # noqa: BLE001 — reported to the parent
+            conn.send(("error", repr(exc), time.monotonic() - t0))
+    conn.close()
+
+
+class _WarmChecker:
+    """The slice check of a pool slice's pod, run in one spawned child
+    process (``_warm_check_worker``): each check forms its own world of
+    one rank there and ends it before it returns, so a notebook's world
+    in this process (one default world a process) is never touched. One
+    check at a time; a pod uid that passed is kept in ``checked``.
+    ``checks`` lists
+    each check (pod uid, slice, seconds, report). A failed check, a
+    child that died or one that did not answer within ``timeout`` is
+    kept in ``error`` and raised on every later call, so that pod never
+    turns Ready. ``close`` ends the child."""
+
+    def __init__(self, timeout: float = 300.0):
+        import multiprocessing as mp
+        ctx = mp.get_context("spawn")
+        self._conn, child = ctx.Pipe()
+        self.proc = ctx.Process(target=_warm_check_worker,
+                                args=(child,), daemon=True,
+                                name="warm-slice-check")
+        self.proc.start()
+        child.close()
+        self.timeout = timeout
+        self._lock = threading.Lock()
+        self.checked: set = set()
+        self.checks: list = []
+        self.error = None
+
+    def __call__(self, pod: dict) -> bool:
+        from kubeflow_tpu_torch.utils import k8s
+        uid = k8s.uid(pod)
+        with self._lock:
+            if self.error is not None:
+                raise self.error
+            if uid in self.checked:
+                return True
+            try:
+                self._conn.send(_pod_env(pod, ""))
+                if not self._conn.poll(self.timeout):
+                    raise TimeoutError(f"no warm check of {k8s.name(pod)} "
+                                       f"within {self.timeout:.0f} s")
+                status, out, seconds = self._conn.recv()
+            except (OSError, EOFError, TimeoutError) as exc:
+                self.error = RuntimeError(f"the warm checker failed: "
+                                          f"{exc!r}")
+                raise self.error from exc
+            if status != "ok":
+                self.error = RuntimeError(f"the warm check of "
+                                          f"{k8s.name(pod)} failed: {out}")
+                raise self.error
+            self.checked.add(uid)
+            self.checks.append({"uid": uid, "pod": k8s.name(pod),
+                                "seconds": seconds, "report": out})
+            return True
+
+    def close(self) -> None:
+        try:
+            self._conn.send(None)
+        except OSError:
+            pass
+        self.proc.join(30)
+        if self.proc.is_alive():
+            self.proc.terminate()
+            self.proc.join(10)
+        self._conn.close()
+
+
+class _PoolGate:
+    """Phase 17's ``ready_hook``: a pod of a pool slice (the pool label)
+    turns Ready once the warm checker's child process has checked it; a
+    pod of the cold baseline notebook once ``cold`` (a ``_SliceGate``)
+    has formed and verified its world in this process; every other pod
+    is not gated."""
+
+    def __init__(self, checker: _WarmChecker, cold: _SliceGate):
+        self.checker = checker
+        self.cold = cold
+
+    def __call__(self, pod: dict) -> bool:
+        from kubeflow_tpu_torch.utils import k8s, names
+        if k8s.get_label(pod, names.POOL_LABEL) is not None:
+            return self.checker(pod)
+        return self.cold(pod)
+
+
+class _PoolRuntime:
+    """A pool-bound notebook's runtime in this process: ``form`` makes
+    its world from the env of the pod of the slice it is bound to (as the
+    notebook's container would, on a free coordinator port) and a mesh
+    over it, ``start`` a ``Trainer`` on that mesh. ``state`` and
+    ``abstract`` are the ``CheckpointMigrationDriver``'s providers: the
+    live train state, and, when the repairer resumes the notebook on its
+    new slice, the trees to restore into — ``abstract`` ends the old
+    world, forms the new one from the newly bound pod's env and builds a
+    fresh Trainer (seed 1) on it. ``worlds`` lists each world formed."""
+
+    def __init__(self, store, ns: str, name: str, config, tc):
+        self.store, self.ns, self.name = store, ns, name
+        self.config, self.tc = config, tc
+        self.trainer = None
+        self.mesh = None
+        self.worlds: list = []
+
+    def form(self) -> dict:
+        from kubeflow_tpu_torch.api import slicepool as pool_api
+        from kubeflow_tpu_torch.api import types as api
+        from kubeflow_tpu_torch.parallel.mesh import MeshConfig, build_mesh
+        bound = pool_api.bound_slice_ref(
+            self.store.get(api.KIND, self.ns, self.name))
+        (pod,) = pool_api.bound_slice_pods(self.store, bound)
+        report, seconds = _form_world(_pod_env(pod, self.name))
+        self.mesh = build_mesh(MeshConfig.auto(report["device_count"]),
+                               "cuda")
+        world = {"slice": bound[1], "pod": pod["metadata"]["uid"],
+                 "seconds": seconds, "report": report}
+        self.worlds.append(world)
+        return world
+
+    def start(self, seed: int):
+        from kubeflow_tpu_torch.runtime.trainer import Trainer
+        self.trainer = Trainer(self.config, self.tc, seed=seed,
+                               mesh=self.mesh)
+        return self.trainer
+
+    def state(self, notebook: dict):
+        t = self.trainer
+        return t.stats.step, t.params, t.opt_state
+
+    def abstract(self, notebook: dict):
+        self.end()
+        self.form()
+        t = self.start(seed=1)
+        return t.params, t.opt_state
+
+    def end(self) -> None:
+        import torch.distributed as dist
+
+        from kubeflow_tpu_torch.parallel.mesh import leave_world
+        if self.trainer is not None:
+            self.trainer.close()
+        self.trainer = self.mesh = None
+        gc.collect()
+        if dist.is_initialized():
+            leave_world()
+
+
+def _pool_sequence(torch, c, tc, B: int, S: int, prompt_len: int,
+                   new: int, timeout: float = 180.0):
+    """Phase 17's drive at any size: ``build_manager`` (its slice repair
+    reconciler off, its SlicePool reconciler on) under ``start()``, one
+    ``SliceRepairReconciler`` registered on it whose migrator is a
+    ``CheckpointMigrationDriver`` over notebook A's live Trainer, the
+    simulator gated by ``_PoolGate``. In order: an h100-1 notebook with
+    no pool (the cold baseline) to SliceReady and deleted; the pool
+    ``h100-1-pool`` (warmReplicas 1) warmed; notebook A bound to its
+    slice w0 in one pool reconcile, no pod rolled; A's world from w0's
+    pod env, the pool's capacity raised to 2 (w1 warmed meanwhile), a
+    Trainer for 4 steps and greedy ``generate`` on
+    ``shard_decode_params``; a preemption notice on w0's node: the
+    repairer checkpoints step 4, the pool re-binds A to w1 under the same
+    identity and drains w0, the driver restores step 4 in world B (formed
+    from w1's pod env); steps 5-6, ``generate`` again, an uninterrupted
+    6-step Trainer on world B's mesh; world B ended, A stopped: w1
+    released scrubbed, re-warmed, bound by notebook B of another
+    namespace. Returns (stats, the launches of A's steps and generates in
+    both worlds)."""
+    import torch.distributed as dist
+
+    from kubeflow_tpu_torch import ops
+    from kubeflow_tpu_torch.api import slicepool as pool_api
+    from kubeflow_tpu_torch.api import types as api
+    from kubeflow_tpu_torch.cluster.kubelet import preempt_node
+    from kubeflow_tpu_torch.cluster.store import ClusterStore
+    from kubeflow_tpu_torch.controllers import SliceRepairReconciler
+    from kubeflow_tpu_torch.main import build_manager
+    from kubeflow_tpu_torch.models.decode import generate
+    from kubeflow_tpu_torch.parallel.mesh import leave_world
+    from kubeflow_tpu_torch.runtime.data import synthetic_lm_batches
+    from kubeflow_tpu_torch.runtime.migrate import CheckpointMigrationDriver
+    from kubeflow_tpu_torch.runtime.sharded_decode import shard_decode_params
+    from kubeflow_tpu_torch.runtime.trainer import Trainer
+    from kubeflow_tpu_torch.utils import k8s, names
+    from kubeflow_tpu_torch.utils.config import (DEFAULT_GPU_IMAGE,
+                                                 ControllerConfig)
+    from kubeflow_tpu_torch.webhook.mutating import _cannot_drive_h100
+
+    require(not dist.is_initialized(), "phase 16's world is still formed")
+    L, V = c.n_layers, c.vocab_size
+    ns, cold_name, a_name = "pool-ns", "cold", "trainer"
+    b_ns, b_name = "pool-b-ns", "second"
+    pool_name, pool_ns = "h100-1-pool", "tpu-slice-pools"
+    attn = ("flash_attention", "flash_attention_bwd_dkv",
+            "flash_attention_bwd_dq")
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        f"smoke-pool-{os.getpid()}")
+    checker = _WarmChecker()
+    gate = _PoolGate(checker, _SliceGate(cold_name))
+    store = ClusterStore()
+    config = ControllerConfig(enable_slice_repair=False)
+    mgr = build_manager(store, config, simulate_kubelet=True,
+                        ready_hook=gate)
+    require("slice-pool-controller" in mgr._reconcilers and
+            "slice-repair-controller" not in mgr._reconcilers,
+            f"phase17: build_manager registered {sorted(mgr._reconcilers)}")
+    runtime = _PoolRuntime(store, ns, a_name, c, tc)
+
+    class _Migration(CheckpointMigrationDriver):
+        """The driver, timed; its restore becomes world B's Trainer's
+        state."""
+        seconds: dict = {}
+
+        def checkpoint(self, client, notebook):
+            t0 = time.monotonic()
+            token = super().checkpoint(client, notebook)
+            self.seconds["checkpoint_s"] = time.monotonic() - t0
+            return token
+
+        def resume(self, client, notebook, token):
+            t0 = time.monotonic()
+            step, params, opt_state = super().resume(client, notebook, token)
+            t = runtime.trainer
+            t.params, t.opt_state, t.stats.step = params, opt_state, step
+            self.seconds["restore_s"] = time.monotonic() - t0
+            self.seconds["resumed_step"] = step
+            return step, params, opt_state
+
+    driver = _Migration(lambda nb: os.path.join(root, k8s.name(nb)),
+                        runtime.state, runtime.abstract)
+    SliceRepairReconciler(mgr.client, config, mgr.metrics,
+                          migrator=driver).setup(mgr)
+    reconciles = mgr.metrics.counter("controller_runtime_reconcile_total", "")
+
+    def reconciled(controller: str) -> float:
+        return sum(reconciles.get({"controller": controller, "result": r})
+                   for r in ("success", "requeue_after", "error"))
+
+    # host times: each create, each first SliceReady, each migration state
+    seen: dict = {"created": {}, "ready": {}, "ready_counts": {},
+                  "bound_counts": {}, "migration": [], "w0_replicas": []}
+
+    def on_notebook(event) -> None:
+        if event.type == "DELETED":
+            return
+        key = k8s.name(event.obj)
+        now = time.monotonic()
+        if key in seen["created"] and key not in seen["bound_counts"] and \
+                pool_api.bound_slice_ref(event.obj) is not None:
+            seen["bound_counts"][key] = reconciled("slice-pool-controller")
+        if key in seen["created"] and key not in seen["ready"] and \
+                k8s.condition_true(event.obj, api.CONDITION_SLICE_READY):
+            seen["ready"][key] = now
+            seen["ready_counts"][key] = {
+                c: reconciled(c) for c in ("notebook-controller",
+                                           "slice-pool-controller")}
+        if key == a_name:
+            state = k8s.get_annotation(event.obj,
+                                       names.MIGRATION_STATE_ANNOTATION)
+            if state and (not seen["migration"] or
+                          seen["migration"][-1][0] != state):
+                seen["migration"].append((state, now))
+            if seen["migration"] and "resumed" not in seen and state is None \
+                    and k8s.condition_true(event.obj,
+                                           api.CONDITION_SLICE_READY):
+                seen["resumed"] = now
+
+    def on_sts(event) -> None:
+        if event.type != "DELETED" and k8s.name(event.obj) == \
+                f"{pool_name}-w0" and (not seen["w0_replicas"] or
+                                       seen["w0_replicas"][-1] !=
+                                       event.obj["spec"]["replicas"]):
+            seen["w0_replicas"].append(event.obj["spec"]["replicas"])
+
+    def create(name: str, namespace: str) -> None:
+        seen["created"][name] = time.monotonic()
+        seen["created_counts"] = {
+            c: reconciled(c) for c in ("notebook-controller",
+                                       "slice-pool-controller")}
+        store.create(api.new_notebook(
+            name, namespace, image=DEFAULT_GPU_IMAGE,
+            annotations={names.TPU_ACCELERATOR_ANNOTATION: "h100-1"}))
+
+    def wait(what: str, cond) -> float:
+        def ok():
+            for err in (checker.error, gate.cold.error):
+                require(err is None, f"phase17: the ready hook failed "
+                                     f"while waiting for {what}: {err!r}")
+            return cond()
+        return _wait_for(what, ok, timeout, phase="phase17")
+
+    def slice_of(i: int):
+        return store.get_or_none("StatefulSet", pool_ns, f"{pool_name}-w{i}")
+
+    def slice_state(i: int):
+        sts = slice_of(i)
+        return sts and k8s.get_annotation(sts, names.POOL_STATE_ANNOTATION)
+
+    def slice_pods(i: int) -> list:
+        return store.list("Pod", pool_ns, {"statefulset": f"{pool_name}-w{i}"})
+
+    def bound(name: str, namespace: str = ns):
+        nb = store.get_or_none(api.KIND, namespace, name)
+        return nb and pool_api.bound_slice_ref(nb)
+
+    def ready_ms(name: str) -> float:
+        return (seen["ready"][name] - seen["created"][name]) * 1e3
+
+    def take(got: dict) -> None:
+        for k, n in ops.launch_counts().items():
+            launched[k] = launched.get(k, 0) + n
+            got[k] = got.get(k, 0) + n
+
+    src = synthetic_lm_batches(B, S, V, seed=0)
+    batches = [next(src) for _ in range(6)]
+    rng = torch.Generator().manual_seed(7)
+    prompt = torch.randint(0, V, (B, prompt_len), generator=rng).to("cuda")
+    stats: dict = {}
+    launched: dict = {}
+    store.watch(api.KIND, on_notebook)
+    store.watch("StatefulSet", on_sts)
+    mgr.start()
+    try:
+        # 1. the cold baseline: no pool matches; its world in this process
+        create(cold_name, ns)
+        wait(f"SliceReady on {cold_name}", lambda: cold_name in seen["ready"])
+        stats["cold_ready_ms"] = ready_ms(cold_name)
+        stats["cold_world"] = gate.cold.worlds[-1]
+        stats["cold_reconciles"] = {
+            k: v - seen["created_counts"][k]
+            for k, v in seen["ready_counts"][cold_name].items()}
+        require(store.get_or_none("StatefulSet", ns, cold_name) is not None,
+                "phase17: the cold notebook rolled no StatefulSet")
+        store.delete(api.KIND, ns, cold_name)
+        wait(f"{cold_name}'s pod gone", lambda: not store.list(
+            "Pod", ns, {names.NOTEBOOK_NAME_LABEL: cold_name}))
+        leave_world()     # the cold notebook's, formed by its gate
+        print(f"phase17 cold baseline: h100-1 Notebook {cold_name} (no "
+              f"matching pool) CR -> SliceReady {stats['cold_ready_ms']:.1f}"
+              f" ms (host time), its own StatefulSet rolled, the ready "
+              f"hook's world in {stats['cold_world']['seconds']:.2f} s "
+              f"({stats['cold_world']['report']['backend']}); reconciles "
+              f"{stats['cold_reconciles']}; deleted ({CARD[0]})",
+              flush=True)
+
+        # 2. the pool warms w0: its pod checked in the checker's process
+        t0 = time.monotonic()
+        store.create(pool_api.new_slice_pool(pool_name, "h100-1", 1))
+        stats["warm_s"] = wait("w0 Warm", lambda: slice_state(0) == "Warm")
+        require(len(checker.checks) == 1, f"phase17: warm checks "
+                                          f"{checker.checks}")
+        w0_pod = slice_pods(0)[0]["metadata"]["uid"]
+        stats["warm_image"] = slice_pods(0)[0]["spec"]["containers"][0][
+            "image"]
+        print(f"phase17 SlicePool {pool_name} (h100-1, warmReplicas 1): "
+              f"{pool_name}-w0 Warming -> Warm in {stats['warm_s']:.2f} s "
+              f"after the create, its pod ({stats['warm_image']}) checked "
+              f"in a child process (world of one on a free port, ended): "
+              f"{checker.checks[-1]['seconds']:.2f} s, "
+              f"{checker.checks[-1]['report']} ({CARD[0]})", flush=True)
+        require(stats["warm_image"] == config.tpu_default_image and
+                not _cannot_drive_h100(stats["warm_image"]),
+                f"phase17: the warm pod's image {stats['warm_image']} "
+                f"cannot drive an H100")
+
+        # 3. bind: notebook A in one pool reconcile, no pod rolled
+        create(a_name, ns)
+        wait(f"SliceReady on {a_name}", lambda: a_name in seen["ready"])
+        nb = store.get(api.KIND, ns, a_name)
+        stats["warm_ready_ms"] = ready_ms(a_name)
+        stats["bind_reconciles"] = {
+            k: v - seen["created_counts"][k]
+            for k, v in seen["ready_counts"][a_name].items()}
+        # pool reconciles that had finished when the bind patch landed
+        stats["pool_reconciles_before_bind"] = \
+            seen["bound_counts"][a_name] - \
+            seen["created_counts"]["slice-pool-controller"]
+        stats["bind"] = {
+            "slice": pool_api.bound_slice_ref(nb),
+            "identity": k8s.get_annotation(nb,
+                                           names.SLICE_IDENTITY_ANNOTATION),
+            "pod_unchanged": slice_pods(0)[0]["metadata"]["uid"] == w0_pod,
+            "w0_replicas": list(seen["w0_replicas"]),
+            "own_statefulset": store.get_or_none("StatefulSet", ns, a_name)
+            is not None,
+            "events": sorted(_notebook_reasons(store, ns, a_name)),
+            "latency_samples": mgr.metrics.histogram(
+                "slicepool_bind_latency_seconds", "").total_count()}
+        print(f"phase17 warm bind: Notebook {a_name} CR -> SliceReady "
+              f"{stats['warm_ready_ms']:.1f} ms (cold "
+              f"{stats['cold_ready_ms']:.1f} ms, same call; host time); "
+              f"reconciles between the two {stats['bind_reconciles']} (the "
+              f"first pool reconcile bound it); "
+              f"{stats['bind']} ({CARD[0]})", flush=True)
+        require(stats["bind"]["slice"] == (pool_ns, f"{pool_name}-w0") and
+                stats["bind"]["pod_unchanged"] and
+                0 not in stats["bind"]["w0_replicas"] and
+                not stats["bind"]["own_statefulset"] and
+                "SliceBound" in stats["bind"]["events"] and
+                stats["bind"]["latency_samples"] == 1 and
+                stats["bind"]["identity"] == "localhost",
+                f"phase17: the warm bind {stats['bind']}")
+        require(stats["pool_reconciles_before_bind"] == 0,
+                f"phase17: {stats['pool_reconciles_before_bind']} pool "
+                f"reconciles finished before the one that bound {a_name}")
+
+        # 4. world A from w0's pod env; the capacity raised to 2, so w1
+        # is checked in the child while world A trains here
+        world_a = runtime.form()
+        store.patch(pool_api.KIND, "", pool_name,
+                    {"spec": {"warmReplicas": 2}})
+        counts_a: dict = {}
+        ops.reset_launch_counts()
+        trainer = runtime.start(seed=0)
+        t0 = time.monotonic()
+        trainer.fit(batches[:4], steps=4, log_every=1)
+        torch.cuda.synchronize()
+        stats["world_a_train_s"] = time.monotonic() - t0
+        losses = [x for _, x in trainer.stats.losses]
+        ids_before = generate(shard_decode_params(trainer.params,
+                                                  runtime.mesh, c),
+                              prompt, c, new)
+        torch.cuda.synchronize()
+        take(counts_a)
+        del trainer
+        stats["w1_warm_s"] = wait("w1 Warm", lambda: slice_state(1) ==
+                                  "Warm")
+        print(f"phase17 world A from {world_a['slice']}'s pod env in "
+              f"{world_a['seconds']:.2f} s: {world_a['report']}; "
+              f"Trainer(mesh=...) b{B} s{S}: steps 1-4 losses {losses} in "
+              f"{stats['world_a_train_s']:.2f} s; generate {B} x "
+              f"{prompt_len} -> {new} on shard_decode_params; launches "
+              f"{counts_a}; meanwhile {pool_name}-w1 warmed (its check in "
+              f"the child: {checker.checks[-1]['seconds']:.2f} s, world A "
+              f"untouched) ({CARD[0]})", flush=True)
+        require(len(checker.checks) == 2 and len(runtime.worlds) == 1,
+                f"phase17: checks {checker.checks}, worlds {runtime.worlds}")
+
+        # 5. a preemption notice on w0's node: migrate to w1
+        node = slice_pods(0)[0]["spec"]["nodeName"]
+        t_preempt = time.monotonic()
+        preempt_node(store, node)
+
+        def migrated() -> bool:
+            nb = store.get(api.KIND, ns, a_name)
+            return "resumed" in seen and \
+                pool_api.bound_slice_ref(nb) == (pool_ns,
+                                                 f"{pool_name}-w1") and \
+                k8s.get_annotation(nb, names.RESUMED_STEP_ANNOTATION) == "4"
+        stats["migration_s"] = wait("the migration of A to w1", migrated)
+        nb = store.get(api.KIND, ns, a_name)
+        states = {s: (t - t_preempt) * 1e3 for s, t in seen["migration"]}
+        ckpt_dir = os.path.join(root, a_name, "4")
+        stats["migration"] = {
+            "states_ms": states, "ready_ms": (seen["resumed"] - t_preempt)
+            * 1e3, **driver.seconds,
+            "checkpoint_bytes": sum(
+                os.path.getsize(os.path.join(ckpt_dir, f))
+                for f in os.listdir(ckpt_dir)),
+            "identity": k8s.get_annotation(nb,
+                                           names.SLICE_IDENTITY_ANNOTATION),
+            "migrations_total": mgr.metrics.counter(
+                "notebook_migrations_total", "").get({"outcome": "success"}),
+            "events": sorted(_notebook_reasons(store, ns, a_name)),
+            "world_b": runtime.worlds[-1]}
+        wait("w0 drained and a fresh slice warming", lambda: slice_of(0)
+             is None and slice_of(2) is not None)
+        mig = stats["migration"]
+        print(f"phase17 preempt_node({node}) -> "
+              + " -> ".join(f"{s} {ms:.1f} ms" for s, ms in states.items())
+              + f" -> SliceReady {mig['ready_ms']:.1f} ms (host time); "
+              f"checkpoint of step 4 {mig['checkpoint_s']:.3f} s, "
+              f"{mig['checkpoint_bytes'] / 1e9:.3f} GB; restore "
+              f"{mig['restore_s']:.3f} s (world B's bootstrap "
+              f"{mig['world_b']['seconds']:.2f} s in it); identity "
+              f"{mig['identity']!r}; notebook_migrations_total "
+              f"{mig['migrations_total']:g}; events {mig['events']}; "
+              f"{pool_name}-w0 drained (deleted), {pool_name}-w2 "
+              f"{slice_state(2)} ({CARD[0]})", flush=True)
+        require(list(states) == ["Checkpointing", "Binding", "Resuming"] and
+                mig["resumed_step"] == 4 and mig["identity"] == "localhost"
+                and mig["migrations_total"] == 1 and
+                {"NotebookMigrationStarted", "NotebookMigrated",
+                 "SliceReleased"} <= set(mig["events"]) and
+                mig["world_b"]["slice"] == f"{pool_name}-w1",
+                f"phase17: the migration {mig}")
+
+        # world B: the restored step 4, then steps 5-6
+        counts_b: dict = {}
+        ops.reset_launch_counts()
+        trainer = runtime.trainer
+        require(trainer.stats.step == 4,
+                f"phase17: world B's Trainer at step {trainer.stats.step}")
+        ids_after = generate(shard_decode_params(trainer.params,
+                                                 runtime.mesh, c),
+                             prompt, c, new)
+        trainer.fit(batches[4:], steps=2, log_every=1)
+        torch.cuda.synchronize()
+        take(counts_b)
+        losses += [x for _, x in trainer.stats.losses]
+        # world B's Trainer closed before the uninterrupted one is built
+        trainer.close()
+        runtime.trainer = None
+        del trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+        ref = Trainer(c, tc, seed=0, mesh=runtime.mesh)
+        ref.fit(batches, steps=6, log_every=1)
+        want = [x for _, x in ref.stats.losses]
+        ref.close()
+        del ref
+        runtime.end()
+        same_ids = bool(torch.equal(ids_after, ids_before))
+        print(f"phase17 world B: step 4 restored; generate ids equal to "
+              f"world A's {same_ids}; steps 5-6; the 6 losses {losses}, "
+              f"bit-equal to an uninterrupted 6-step Trainer's "
+              f"{losses == want}; launches {counts_b}; world B ended "
+              f"({CARD[0]})", flush=True)
+        require(same_ids, "phase17: generate on the restored step 4 differs "
+                          "from world A's")
+        require(losses == want and all(math.isfinite(x) for x in losses),
+                f"phase17: the migrated run's losses {losses} differ from "
+                f"the uninterrupted {want}")
+        require(all(counts_a[k] == 4 * L + (L if k == "flash_attention"
+                                             else 0) for k in attn) and
+                all(counts_b[k] == 2 * L + (L if k == "flash_attention"
+                                             else 0) for k in attn) and
+                counts_a["flash_decode"] == counts_b["flash_decode"] ==
+                (new - 1) * L,
+                f"phase17: launches world A {counts_a}, B {counts_b}")
+        stats.update({"losses": losses, "ids_equal": same_ids,
+                      "launches_a": counts_a, "launches_b": counts_b})
+
+        # 6. A stops: w1 released scrubbed, re-warmed, bound by B
+        w1_pod = slice_pods(1)[0]["metadata"]["uid"]
+        checks = len(checker.checks)
+        t0 = time.monotonic()
+        store.patch(api.KIND, ns, a_name, {"metadata": {"annotations": {
+            names.STOP_ANNOTATION: k8s.now_iso()}}})
+        stats["rewarm_s"] = wait("w1 released and re-warmed", lambda: (
+            bound(a_name) is None and slice_state(1) == "Warm" and
+            len(slice_pods(1)) == 1 and
+            slice_pods(1)[0]["metadata"]["uid"] != w1_pod and
+            len(checker.checks) > checks))
+        w1 = slice_of(1)
+        tenant = {names.NOTEBOOK_NAME_LABEL, names.BOUND_NAMESPACE_LABEL}
+        idle = {names.LAST_ACTIVITY_ANNOTATION,
+                names.LAST_ACTIVITY_CHECK_TIMESTAMP_ANNOTATION}
+        (pod,) = slice_pods(1)
+        scrub = {
+            "annotations": sorted(k8s.annotations(w1) or {}),
+            "labels": sorted(set(k8s.labels(w1) or {}) & tenant),
+            "template_labels": sorted(set(k8s.get_in(
+                w1, "spec", "template", "metadata", "labels",
+                default={}) or {}) & tenant),
+            "template_annotations": k8s.get_in(
+                w1, "spec", "template", "metadata", "annotations"),
+            "pod_labels": sorted(set(k8s.labels(pod) or {}) & tenant),
+            "idle_clock": sorted((set(k8s.annotations(w1) or {}) |
+                                  set(k8s.annotations(pod) or {})) & idle),
+            "pod_recreated": pod["metadata"]["uid"] != w1_pod}
+        stats["release"] = scrub
+        require(scrub == {"annotations": [names.POOL_STATE_ANNOTATION],
+                          "labels": [], "template_labels": [],
+                          "template_annotations": None, "pod_labels": [],
+                          "idle_clock": [], "pod_recreated": True},
+                f"phase17: the released w1 {scrub}")
+        create(b_name, b_ns)
+        wait(f"SliceReady on {b_name}", lambda: b_name in seen["ready"])
+        stats["second_ready_ms"] = ready_ms(b_name)
+        stats["second_slice"] = bound(b_name, b_ns)
+        size = [line for line in mgr.metrics.expose().splitlines()
+                if line.startswith("slicepool_size{")]
+        stats["slicepool_size"] = size
+        stats["warm_checks"] = [x["seconds"] for x in checker.checks]
+        print(f"phase17 {a_name} stopped: {pool_name}-w1 released and "
+              f"scrubbed {scrub}, its new pod checked and Warm in "
+              f"{stats['rewarm_s']:.2f} s; Notebook {b_name} ({b_ns}) CR "
+              f"-> SliceReady {stats['second_ready_ms']:.1f} ms, bound to "
+              f"{stats['second_slice']}; SliceReleased on {a_name} "
+              f"{'SliceReleased' in _notebook_reasons(store, ns, a_name)}; "
+              f"{size}; warm checks (s) {stats['warm_checks']} "
+              f"({CARD[0]})", flush=True)
+        require(stats["second_slice"] == (pool_ns, f"{pool_name}-w1"),
+                f"phase17: {b_name} bound to {stats['second_slice']}")
+    finally:
+        mgr.stop()
+        store.unwatch(on_notebook)
+        store.unwatch(on_sts)
+        checker.close()
+        runtime.end()
+        shutil.rmtree(root, ignore_errors=True)
+    stats["control_plane"] = {"writes": store._last_rv,
+                              "reconciles": _reconcile_totals(mgr)}
+    return stats, launched
+
+
+def phase_pool(torch, flagship) -> tuple[dict, dict]:
+    """17: the warm pool on the card (``_pool_sequence`` at the
+    flagship's width: b8 x s1024 with bf16 params, generate 8 x 128 ->
+    16). Returns (stats, the launches of notebook A's path)."""
+    from kubeflow_tpu_torch.models import train as train_lib
+
+    t_phase = time.monotonic()
+    torch.cuda.reset_peak_memory_stats()
+    stats, launched = _pool_sequence(
+        torch, flagship, train_lib.TrainConfig(bf16_params=True), 8, 1024,
+        128, 16)
+    stats["seconds"] = time.monotonic() - t_phase
+    stats["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"phase17 control plane: {stats['control_plane']['writes']} "
+          f"writes, reconciles {stats['control_plane']['reconciles']}; "
+          f"phase 17 in {stats['seconds']:.1f} s, peak "
+          f"{stats['peak_mem_gb']:.3f} GB; launches {launched} "
+          f"({CARD[0]})", flush=True)
+    return stats, launched
+
+
 # --------------------------------------------------------------- phase 5
 def _time_flash(torch, timer, b, s, h, d, seed=4, lse=False):
     import torch.nn.functional as F
@@ -4922,6 +5597,11 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     train["repair"], launched = phase_repair(torch, FLAGSHIP)
+    for name, n in launched.items():
+        counts[name] += n
+    gc.collect()
+    torch.cuda.empty_cache()
+    train["pool"], launched = phase_pool(torch, FLAGSHIP)
     for name, n in launched.items():
         counts[name] += n
     rows, wide = phase_times(torch, errs, counts)

@@ -21,20 +21,24 @@ Wire shape::
     status: {warm: 1, warming: 1, bound: 3, pending: 0}
 
 The bound edge is annotation-carried on both sides (Notebook's
-``bound-slice`` ↔ StatefulSet's ``pool-bound-to``). The core
-NotebookReconciler reads only ``bound_slice_ref``, ``bound_slice_pods``,
-``pod_notebook_mapper`` and ``KIND``; the pool's reconciler and its CRD
-install and validation come with a later slice.
+``bound-slice`` ↔ StatefulSet's ``pool-bound-to``) so a controller crash
+between the two patches is healed from either side on the next
+reconcile. ``install_slicepool_crd`` installs the CRD (``slicepool_crd``,
+the port's copy of the one manifest of ``kubeflow_tpu/deploy/
+manifests.py`` it needs) and the admission that runs
+``validate_slice_pool``.
 """
 
 from __future__ import annotations
 
+from ..cluster.errors import InvalidError
 from ..utils import k8s, names
 
 GROUP = "tpu.kubeflow.org"
 VERSION = "v1"
 API_VERSION = f"{GROUP}/{VERSION}"
 KIND = "SlicePool"
+PLURAL = "slicepools"
 
 
 def new_slice_pool(name: str, accelerator: str, warm_replicas: int, *,
@@ -58,6 +62,116 @@ def new_slice_pool(name: str, accelerator: str, warm_replicas: int, *,
     if weights:
         pool["spec"]["weights"] = dict(weights)
     return pool
+
+
+def validate_slice_pool(pool: dict) -> None:
+    """Structural + semantic validation the CRD schema/admission enforce:
+    the accelerator must parse to a real H100 slice shape (a pool of
+    unprovisionable slices would warm nothing, silently, forever)."""
+    from ..gpu.topology import GpuRequestError, parse_short_name
+    if k8s.kind(pool) != KIND:
+        raise InvalidError(f"kind must be {KIND}")
+    if pool.get("apiVersion") != API_VERSION:
+        raise InvalidError(f"apiVersion must be {API_VERSION}")
+    if not k8s.name(pool):
+        raise InvalidError("metadata.name required")
+    spec = pool.get("spec") or {}
+    accelerator = spec.get("accelerator")
+    if not accelerator:
+        raise InvalidError("spec.accelerator required")
+    try:
+        parse_short_name(accelerator)
+    except GpuRequestError as exc:
+        raise InvalidError(f"spec.accelerator: {exc}") from exc
+    warm = spec.get("warmReplicas")
+    if not isinstance(warm, int) or warm < 0:
+        raise InvalidError("spec.warmReplicas must be a non-negative int")
+    weights = spec.get("weights")
+    if weights is not None:
+        if not isinstance(weights, dict) or any(
+                not isinstance(w, int) or w < 1 for w in weights.values()):
+            raise InvalidError("spec.weights values must be ints >= 1")
+
+
+def slicepool_crd() -> dict:
+    """CustomResourceDefinition for the warm slice pool (tpu.kubeflow.org/v1
+    SlicePool, cluster-scoped — controllers/slicepool.py). Single served
+    version; the reference's ``deploy/manifests.py`` ``slicepool_crd``."""
+    schema_doc = {
+        "openAPIV3Schema": {
+            "type": "object",
+            "properties": {
+                "spec": {
+                    "type": "object",
+                    "required": ["accelerator", "warmReplicas"],
+                    "properties": {
+                        "accelerator": {"type": "string"},
+                        "warmReplicas": {"type": "integer",
+                                         "format": "int32", "minimum": 0},
+                        "namespace": {"type": "string"},
+                        "weights": {
+                            "type": "object",
+                            "additionalProperties": {"type": "integer",
+                                                     "minimum": 1},
+                        },
+                    },
+                },
+                "status": {
+                    "type": "object",
+                    "properties": {
+                        "warm": {"type": "integer", "format": "int32"},
+                        "warming": {"type": "integer", "format": "int32"},
+                        "bound": {"type": "integer", "format": "int32"},
+                        "pending": {"type": "integer", "format": "int32"},
+                    },
+                },
+            },
+        },
+    }
+    return {
+        "apiVersion": "apiextensions.k8s.io/v1",
+        "kind": "CustomResourceDefinition",
+        "metadata": {"name": f"{PLURAL}.{GROUP}"},
+        "spec": {
+            "group": GROUP,
+            "names": {"kind": KIND, "listKind": "SlicePoolList",
+                      "plural": PLURAL, "singular": "slicepool"},
+            "scope": "Cluster",
+            "versions": [{
+                "name": VERSION,
+                "served": True,
+                "storage": True,
+                "schema": schema_doc,
+                "subresources": {"status": {}},
+                "additionalPrinterColumns": [
+                    {"name": "Accelerator", "type": "string",
+                     "jsonPath": ".spec.accelerator"},
+                    {"name": "Target", "type": "integer",
+                     "jsonPath": ".spec.warmReplicas"},
+                    {"name": "Warm", "type": "integer",
+                     "jsonPath": ".status.warm"},
+                    {"name": "Bound", "type": "integer",
+                     "jsonPath": ".status.bound"},
+                ],
+            }],
+        },
+    }
+
+
+def install_slicepool_crd(store) -> None:
+    """Install the SlicePool CRD + admission into an apiserver — the
+    sibling of the reference's ``api.types.install_notebook_crd``."""
+    from ..cluster.errors import AlreadyExistsError
+    try:
+        store.create(slicepool_crd())
+    except AlreadyExistsError:
+        pass
+
+    def admit(operation, obj, old):
+        if operation in ("CREATE", "UPDATE"):
+            validate_slice_pool(obj)
+        return obj
+    store.register_admission(KIND, admit)
 
 
 # ------------------------------------------------------ bound-slice helpers

@@ -43,10 +43,10 @@ handshake.
 An elastic notebook (``runtime/elastic.py``'s agent on the trainer side)
 shrinks by one slice through an ack-gated handshake instead of stopping,
 and grows back once the slice is whole. A pool-bound notebook takes the
-checkpoint-migration path (``runtime/migrate.py``); its cases need the
-SlicePool reconciler, which is not ported yet (ROADMAP.md queue A item 3),
-so they are held with it. Plain ``threading`` locks stand in for the
-reference's tracked ones.
+checkpoint-migration path (``runtime/migrate.py``): it checkpoints, the
+SlicePool reconciler (``controllers/slicepool.py``) re-binds it to a warm
+slice under the same identity, and it resumes there. Plain ``threading``
+locks stand in for the reference's tracked ones.
 """
 
 from __future__ import annotations

@@ -1,14 +1,16 @@
 """The port's composition root: a manager with the core Notebook
-reconciler, the idle culler and the slice repair reconciler over the
-in-process apiserver.
+reconciler, the idle culler, the slice repair reconciler and the warm
+slice pool reconciler over the in-process apiserver.
 
 The counterpart of the ``components="core"`` path of
 ``kubeflow_tpu/main.py`` ``build_manager`` (``setup_controllers``,
 ``kubeflow_tpu/controllers/__init__.py``): one watch-fed ``CachingClient``
 the reconcilers read through (Secrets, ConfigMaps and Events read live),
-the core reconciler, the culler when ``config.enable_culling`` is set,
-the slice repair reconciler when ``config.enable_slice_repair`` is (the
-default), and with ``simulate_kubelet`` the StatefulSet/kubelet simulator
+the SlicePool CRD and its admission, the core reconciler, the culler
+when ``config.enable_culling`` is set, the slice repair reconciler when
+``config.enable_slice_repair`` is and the SlicePool reconciler when
+``config.enable_slice_pool`` is (both the default), and with
+``simulate_kubelet`` the StatefulSet/kubelet simulator
 on the same cache, so a standalone run is a working control plane on one
 machine::
 
@@ -21,17 +23,18 @@ machine::
 
 Not yet in the port, each an item of ROADMAP.md's queue A: the
 extension manager and the admission webhooks (``components="extension"``
-or ``"all"``), the slice-pool and scheduler reconcilers the reference's
-core path also starts, flags, TLS, the webhook server, health endpoints
+or ``"all"``), the scheduler reconciler the reference's core path also
+starts, flags, TLS, the webhook server, health endpoints
 and leader election.
 """
 
 from __future__ import annotations
 
+from .api.slicepool import install_slicepool_crd
 from .cluster.cache import CachingClient
 from .cluster.store import ClusterStore
 from .controllers import (CullingReconciler, Manager, NotebookReconciler,
-                          SliceRepairReconciler)
+                          SlicePoolReconciler, SliceRepairReconciler)
 from .utils.config import ControllerConfig
 from .utils.metrics import MetricsRegistry
 
@@ -62,10 +65,14 @@ def build_manager(store=None, config: ControllerConfig | None = None, *,
     probing Jupyter through ``prober(notebook)`` when one is given (else
     over HTTP, as the reference's). With ``config.enable_slice_repair``
     the slice repair reconciler watches Pods and Nodes and rolls a slice
-    whose node or worker fails. ``ready_hook(pod) -> bool`` gates the
-    simulator's readiness flip of a pod (chip_smoke.py forms and verifies
-    the pod's NCCL world there). Not started: call ``mgr.start()`` or
-    drive it with ``mgr.run_until_idle()``."""
+    whose node or worker fails. With ``config.enable_slice_pool`` the
+    SlicePool reconciler pre-rolls each pool's warm slices and binds a
+    matching notebook to one in one reconcile. ``store`` gets the
+    SlicePool CRD and its admission in either case, as the reference's
+    ``setup_controllers`` installs them. ``ready_hook(pod) -> bool`` gates
+    the simulator's readiness flip of a pod (chip_smoke.py forms and
+    verifies the pod's NCCL world there). Not started: call
+    ``mgr.start()`` or drive it with ``mgr.run_until_idle()``."""
     if components != "core":
         reason = _NOT_PORTED.get(components)
         if reason is None:
@@ -74,6 +81,7 @@ def build_manager(store=None, config: ControllerConfig | None = None, *,
                          f"ROADMAP.md {reason}")
     store = store if store is not None else ClusterStore()
     config = config or ControllerConfig.from_env()
+    install_slicepool_crd(store)
     if max_concurrent_reconciles is None:
         max_concurrent_reconciles = config.max_concurrent_reconciles
     metrics = MetricsRegistry()
@@ -90,6 +98,8 @@ def build_manager(store=None, config: ControllerConfig | None = None, *,
         CullingReconciler(read_client, config, metrics, **kwargs).setup(mgr)
     if config.enable_slice_repair:
         SliceRepairReconciler(read_client, config, metrics).setup(mgr)
+    if config.enable_slice_pool:
+        SlicePoolReconciler(read_client, config, metrics).setup(mgr)
     if simulate_kubelet:
         from .cluster.kubelet import StatefulSetSimulator
         StatefulSetSimulator(mgr.read_cache,

@@ -3,7 +3,10 @@
 A copy of ``kubeflow_tpu/utils/config.py`` (the port imports nothing of
 the JAX package): the same ``ControllerConfig`` fields, defaults and
 environment variables, so one configuration means the same thing to
-both packages. The reference configures through env vars + kustomize
+both packages, except one default: ``tpu_default_image`` (the default
+image of an accelerator pod, which the SlicePool reconciler pre-rolls
+its warm slices with) is a CUDA PyTorch notebook image, since a JAX or
+libtpu image cannot drive an NVIDIA card. The reference configures through env vars + kustomize
 params.env (SURVEY §5): ENABLE_CULLING, CULL_IDLE_TIME,
 IDLENESS_CHECK_PERIOD, CLUSTER_DOMAIN, DEV, ADD_FSGROUP, USE_ISTIO,
 SET_PIPELINE_RBAC, SET_PIPELINE_SECRET, MLFLOW_ENABLED, GATEWAY_URL,
@@ -22,6 +25,11 @@ def _env_bool(name: str, default: bool) -> bool:
     if v is None:
         return default
     return v.strip().lower() in ("1", "true", "yes", "on")
+
+
+# the default image of an H100 pod (the counterpart of the reference's
+# JAX notebook image): Kubeflow's CUDA PyTorch notebook
+DEFAULT_GPU_IMAGE = "kubeflownotebookswg/jupyter-pytorch-cuda-full:v1.9.0"
 
 
 @dataclass
@@ -129,9 +137,9 @@ class ControllerConfig:
     # proceeds anyway (a down scheduler must never strand creation — the
     # same degrade rule as pool_bind_grace_s)
     sched_admission_grace_s: float = 5.0
-    # TPU-native
-    tpu_default_image: str = "us-docker.pkg.dev/kubeflow-tpu/jax-notebook:latest"
-    image_swap_map: dict = field(default_factory=dict)  # cuda image → jax/libtpu image
+    # the accelerator image (the reference's name and env var)
+    tpu_default_image: str = DEFAULT_GPU_IMAGE
+    image_swap_map: dict = field(default_factory=dict)  # image → CUDA image
 
     @classmethod
     def from_env(cls) -> "ControllerConfig":
@@ -192,7 +200,6 @@ class ControllerConfig:
             sched_poll_s=float(env.get("SCHED_POLL", "0.25")),
             sched_admission_grace_s=float(
                 env.get("SCHED_ADMISSION_GRACE", "5")),
-            tpu_default_image=env.get(
-                "TPU_NOTEBOOK_IMAGE",
-                "us-docker.pkg.dev/kubeflow-tpu/jax-notebook:latest"),
+            tpu_default_image=env.get("TPU_NOTEBOOK_IMAGE",
+                                      DEFAULT_GPU_IMAGE),
         )

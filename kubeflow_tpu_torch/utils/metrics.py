@@ -67,6 +67,14 @@ class _Metric:
         with self._lock:
             return sum(self._values.values())
 
+    def sum_where(self, match: dict[str, str]) -> float:
+        """Sum over every label combination whose labels include
+        ``match``."""
+        want = set(match.items())
+        with self._lock:
+            return sum(v for key, v in self._values.items()
+                       if want <= set(key))
+
     def expose(self) -> str:
         lines = [f"# HELP {self.name} {_escape_help(self.help)}",
                  f"# TYPE {self.name} {self.type}"]

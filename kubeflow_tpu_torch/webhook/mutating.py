@@ -16,10 +16,7 @@ from __future__ import annotations
 
 from ..gpu.topology import GpuRequestError, parse_slice_request
 from ..utils import k8s, names
-
-# the default image of an H100 notebook (the counterpart of the
-# reference's ``tpu_default_image``): Kubeflow's CUDA PyTorch notebook
-DEFAULT_GPU_IMAGE = "kubeflownotebookswg/jupyter-pytorch-cuda-full:v1.9.0"
+from ..utils.config import DEFAULT_GPU_IMAGE
 
 _NOT_FOR_NVIDIA = ("jax", "libtpu", "tpu", "rocm")
 _CUDA = ("cuda", "gpu", "nvidia")

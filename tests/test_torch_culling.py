@@ -1,9 +1,9 @@
 """The port's idle culler held against the reference's, case for case.
 
-Every case of tests/test_culling.py (but the pool-bound one, which needs
-the SlicePool reconciler: ROADMAP.md queue A item 3) runs through both
-stacks (``torch_parity.Stack``: store, Manager, NotebookReconciler,
-CullingReconciler and the StatefulSet simulator), each side with the
+Every case of tests/test_culling.py runs through both stacks
+(``torch_parity.Stack``: store, Manager, NotebookReconciler,
+CullingReconciler, the StatefulSet simulator and, for the pool-bound
+case, the SlicePool reconciler), each side with the
 case's own assertions, the same fake clock and the same fake Jupyter and
 serving probers; then every object of both stores is compared after
 ``normalise`` (the culler's annotation stamps included) and so is
@@ -34,6 +34,7 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 import pytest
 
+from kubeflow_tpu.api import slicepool as ref_pool_api
 from kubeflow_tpu.api import types as ref_api
 from kubeflow_tpu.cluster.cache import CachingClient as RefCachingClient
 from kubeflow_tpu.cluster.kubelet import StatefulSetSimulator as RefSimulator
@@ -41,6 +42,8 @@ from kubeflow_tpu.cluster.store import ClusterStore as RefStore
 from kubeflow_tpu.controllers import culling as ref_culling
 from kubeflow_tpu.controllers.manager import Manager as RefManager
 from kubeflow_tpu.controllers.manager import Request as RefRequest
+from kubeflow_tpu.controllers.slicepool import (
+    SlicePoolReconciler as RefSlicePoolReconciler)
 from kubeflow_tpu.controllers.notebook import (
     NotebookReconciler as RefReconciler)
 from kubeflow_tpu.controllers.slicerepair import (
@@ -341,6 +344,73 @@ def unreachable_serving_endpoint_is_not_activity(s):
     assert s.serving.probes > 0
 
 
+def culling_pool_bound_notebook_releases_not_deletes(s):
+    """Culling a pool-BOUND notebook hands the backing StatefulSet back
+    to the pool (released + scrubbed + re-warmed), never deletes or
+    zeroes it, and the scrub strips tenant residue (user annotations, a
+    leaked idle clock) so the NEXT notebook binding this slice starts
+    with a fresh idle clock."""
+    s.clock = FakeClock()
+    s.jupyter = FakeJupyter(s)
+    s.config = s.Config(enable_culling=True, cull_idle_time_min=60,
+                        idleness_check_period_min=1, pool_poll_s=0.02,
+                        pool_bind_grace_s=5.0)
+    s.reconciler()
+    s.culler(prober=s.jupyter, clock=s.clock)
+    s.pool()
+    s.simulator()
+
+    s.store.create(s.slice_pool("cull-pool", "v5e-16", 1))
+    s.drain(include_delayed_under=0.1)
+    s.store.create(s.api.new_notebook("nb", "ns", annotations={
+        s.names.TPU_ACCELERATOR_ANNOTATION: s.accelerator("v5e-16")}))
+    s.drain(include_delayed_under=0.1)
+    bound = s.pool_api.bound_slice_ref(nb_of(s))
+    assert bound is not None, "notebook never bound the warm slice"
+    # culler probes worker-0 IN THE POOL NAMESPACE and initializes the clock
+    tick(s, 2)
+    assert s.k8s.get_annotation(nb_of(s), s.names.LAST_ACTIVITY_ANNOTATION) \
+        is not None
+    # simulate tenant residue leaking onto the slice (the scrub contract)
+    s.store.patch("StatefulSet", bound[0], bound[1], {"metadata": {
+        "annotations": {
+            s.names.LAST_ACTIVITY_ANNOTATION: "2000-01-01T00:00:00Z",
+            "user.example.com/note": "sticky"}}})
+
+    # idle past the threshold → culled
+    s.jupyter.activity = s.culling.JupyterActivity(kernels=[{
+        "execution_state": "idle",
+        "last_activity": s.culling.format_time(s.clock())}])
+    tick(s, 2)
+    tick(s, 61)
+    assert s.k8s.get_annotation(nb_of(s), s.names.STOP_ANNOTATION) \
+        is not None
+    s.drain(include_delayed_under=0.1)
+
+    # released, NOT deleted — and not scaled to 0 (the cull released the
+    # bind; the slice re-warms at full replicas for the next tenant)
+    sts = s.store.get_or_none("StatefulSet", *bound)
+    assert sts is not None, "culling deleted the pool-backed StatefulSet"
+    assert sts["spec"]["replicas"] == 4
+    assert s.pool_api.bound_slice_ref(nb_of(s)) is None
+    # scrub: tenant residue gone, pool bookkeeping intact
+    anns = s.k8s.annotations(sts) or {}
+    assert s.names.LAST_ACTIVITY_ANNOTATION not in anns
+    assert "user.example.com/note" not in anns
+    assert s.names.POOL_BOUND_TO_ANNOTATION not in anns
+    assert s.k8s.get_label(sts, s.names.POOL_LABEL) == "cull-pool"
+
+    # a NEW notebook re-binds the released slice with a fresh idle clock
+    s.drain(include_delayed_under=0.1)  # let the scrubbed slice re-warm
+    s.jupyter.activity = s.culling.JupyterActivity(
+        kernels=[{"execution_state": "busy"}])
+    s.store.create(s.api.new_notebook("nb2", "ns2", annotations={
+        s.names.TPU_ACCELERATOR_ANNOTATION: s.accelerator("v5e-16")}))
+    s.drain(include_delayed_under=0.1)
+    assert s.pool_api.bound_slice_ref(nb_of(s, "nb2", "ns2")) == bound, \
+        "slice never re-bound"
+
+
 CASES = {fn.__name__: fn for fn in (
     initializes_annotations, busy_kernel_prevents_cull,
     idle_notebook_culled_slice_atomic,
@@ -351,7 +421,8 @@ CASES = {fn.__name__: fn for fn in (
     missing_worker0_during_repair_does_not_strip_activity,
     serving_traffic_prevents_cull, idle_serving_endpoint_still_culls,
     serving_counter_reset_rearms_without_activity_credit,
-    unreachable_serving_endpoint_is_not_activity)}
+    unreachable_serving_endpoint_is_not_activity,
+    culling_pool_bound_notebook_releases_not_deletes)}
 
 
 def culled(s) -> dict:
@@ -473,7 +544,7 @@ class TestStopAnnotationAndIdleness:
         s.config = s.Config(enable_culling=True,
                             cull_idle_time_min=cull_after_min,
                             idleness_check_period_min=0)
-        rec = s._reconciler(s.store, s.config)
+        rec = s.NotebookReconciler(s.store, s.config)
         rec.setup(s.manager)
         last = s.culling.format_time(NOW)
         state = {"off": 0.0}
@@ -788,11 +859,12 @@ def test_non_json_body_is_unreachable(proxies):
 
 # ------------------------------------------------- the slice as a whole
 def _ref_core(store, config, offset):
-    """The reference composed as the port's ``build_manager``: one
-    watch-fed read cache the reconcilers read through, the Notebook
-    reconciler, the culler on an offset clock, the slice repair
-    reconciler and the simulator on the cache (reference main.py /
-    setup_controllers' core path)."""
+    """The reference composed as the port's ``build_manager``: the
+    SlicePool CRD, one watch-fed read cache the reconcilers read through,
+    the Notebook reconciler, the culler on an offset clock, the slice
+    repair and SlicePool reconcilers and the simulator on the cache
+    (reference main.py / setup_controllers' core path)."""
+    ref_pool_api.install_slicepool_crd(store)
     cache = RefCachingClient(store, auto_informer=False,
                              disable_for=("Secret", "ConfigMap", "Event"))
     metrics = RefMetrics()
@@ -805,6 +877,8 @@ def _ref_core(store, config, offset):
         cache, config, metrics, clock=lambda: NOW + offset[0]).setup(mgr)
     if config.enable_slice_repair:
         RefSliceRepairReconciler(cache, config, metrics).setup(mgr)
+    if config.enable_slice_pool:
+        RefSlicePoolReconciler(cache, config, metrics).setup(mgr)
     RefSimulator(mgr.read_cache, boot_delay_s=0.0).setup(mgr)
     return mgr
 

@@ -87,9 +87,10 @@ def test_port_file_list_covers_the_package():
                 "kubeflow_tpu_torch/cluster/cache.py",
                 "kubeflow_tpu_torch/controllers/culling.py",
                 "kubeflow_tpu_torch/utils/tracing.py",
-                "kubeflow_tpu_torch/controllers/slicerepair.py"):
+                "kubeflow_tpu_torch/controllers/slicerepair.py",
+                "kubeflow_tpu_torch/utils/fairness.py"):
         assert rel in PORT_FILES
-    assert len(PORT_FILES) >= 66
+    assert len(PORT_FILES) >= 67
 
 
 def _references(tree: ast.AST) -> set[str]:
@@ -169,6 +170,7 @@ import kubeflow_tpu_torch.cluster.cache
 import kubeflow_tpu_torch.controllers.culling
 import kubeflow_tpu_torch.utils.tracing
 import kubeflow_tpu_torch.controllers.slicerepair
+import kubeflow_tpu_torch.utils.fairness
 import kubeflow_tpu_torch.main
 sys.path.insert(0, "tests")
 import torch_dist_ranks

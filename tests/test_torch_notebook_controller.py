@@ -517,11 +517,15 @@ def test_normaliser_maps_only_the_accelerator_seam():
 def test_build_manager_matches_the_reference_quick_start():
     """``main.build_manager(simulate_kubelet=True)`` is the reference's
     README quick start (a Manager, the NotebookReconciler and the
-    simulator on one store): the same v5e-16 / h100-32 Notebook ends in
-    the same objects, SliceReady on 4 workers."""
+    simulator on one store) with the SlicePool CRD installed and the
+    pool reconciler registered, as the reference's ``setup_controllers``
+    does: the same v5e-16 / h100-32 Notebook ends in the same objects,
+    SliceReady on 4 workers."""
     from kubeflow_tpu_torch.main import build_manager
     ref = Stack("ref")
+    ref.pool_api.install_slicepool_crd(ref.store)
     ref.reconciler()
+    ref.pool()
     ref.simulator()
     port = Stack("port")
     port.manager = build_manager(port.store, port.config,
@@ -595,3 +599,89 @@ def test_build_manager_enable_slice_repair_gate():
             == enable
         if enable:
             assert port._reconcilers[name]._read_cache is port.read_cache
+
+
+def test_build_manager_enable_slice_pool_gate():
+    """The ENABLE_SLICE_POOL gate on both entry points: the reference's
+    ``setup_controllers`` and the port's ``build_manager`` register
+    ``slice-pool-controller`` only with ``enable_slice_pool`` (on by
+    default), the port's reading through the manager's cache; both
+    install the same SlicePool CRD either way."""
+    from kubeflow_tpu.cluster.store import ClusterStore as RefStore
+    from kubeflow_tpu.controllers import setup_controllers
+    from kubeflow_tpu.utils.config import ControllerConfig as RefConfig
+    from kubeflow_tpu_torch.cluster.store import ClusterStore
+    from kubeflow_tpu_torch.main import build_manager
+    from kubeflow_tpu_torch.utils.config import ControllerConfig
+    assert ControllerConfig().enable_slice_pool is \
+        RefConfig().enable_slice_pool is True
+    crd = ("CustomResourceDefinition", "", "slicepools.tpu.kubeflow.org")
+    for enable in (False, True):
+        ref_store, port_store = RefStore(), ClusterStore()
+        ref = setup_controllers(ref_store,
+                                RefConfig(enable_slice_pool=enable))
+        port = build_manager(port_store,
+                             ControllerConfig(enable_slice_pool=enable))
+        name = "slice-pool-controller"
+        assert (name in port._reconcilers) == (name in ref._reconcilers) \
+            == enable
+        if enable:
+            assert port._reconcilers[name]._read_cache is port.read_cache
+        assert normalise(port_store.get(*crd), "port") == \
+            normalise(ref_store.get(*crd), "ref")
+
+
+def test_build_manager_binds_a_warm_h100_1_slice_in_one_reconcile():
+    """On ``build_manager``, an h100-1 Notebook created against a Warm
+    h100-1 pool is bound by the pool's first reconcile after the create:
+    one merge patch on the slice, its pod not rolled (same uid, replicas
+    never 0), no BindTimeout, SliceReady on the bound slice, one bind
+    latency sample and the SliceBound event."""
+    from kubeflow_tpu_torch.api import slicepool as pool_api
+    from kubeflow_tpu_torch.api import types as api
+    from kubeflow_tpu_torch.cluster.store import ClusterStore
+    from kubeflow_tpu_torch.main import build_manager
+    from kubeflow_tpu_torch.utils import names
+    from kubeflow_tpu_torch.utils.config import ControllerConfig
+    store = ClusterStore()
+    mgr = build_manager(store, ControllerConfig(), simulate_kubelet=True)
+    replicas = []
+    store.watch("StatefulSet", lambda ev: replicas.append(
+        ev.obj["spec"]["replicas"]) if ev.type != "DELETED" else None)
+    store.create(pool_api.new_slice_pool("h100-1-pool", "h100-1", 1))
+    mgr.run_until_idle(timeout=10, include_delayed_under=0.01)
+    w0 = store.get("StatefulSet", "tpu-slice-pools", "h100-1-pool-w0")
+    assert k8s.get_annotation(w0, names.POOL_STATE_ANNOTATION) == "Warm"
+    (pod,) = store.list("Pod", "tpu-slice-pools",
+                        {"statefulset": k8s.name(w0)})
+    reconciles = mgr.metrics.counter("controller_runtime_reconcile_total", "")
+
+    def pool_reconciles():
+        return sum(reconciles.get({"controller": "slice-pool-controller",
+                                   "result": r})
+                   for r in ("success", "requeue_after", "error"))
+    before = pool_reconciles()
+    at_bind = []     # pool reconciles finished when the bind patch lands
+
+    def on_notebook(ev):
+        if not at_bind and pool_api.bound_slice_ref(ev.obj) is not None:
+            at_bind.append(pool_reconciles())
+    store.watch(api.KIND, on_notebook)
+    store.create(api.new_notebook("nb", "ns", annotations={
+        names.TPU_ACCELERATOR_ANNOTATION: "h100-1"}))
+    mgr.run_until_idle(timeout=10, include_delayed_under=0.01)
+    nb = store.get(api.KIND, "ns", "nb")
+    assert pool_api.bound_slice_ref(nb) == ("tpu-slice-pools",
+                                            "h100-1-pool-w0")
+    assert at_bind == [before]   # in the first pool reconcile
+    assert k8s.condition_true(nb, api.CONDITION_SLICE_READY)
+    assert k8s.get_annotation(nb, names.POOL_BIND_MISS_ANNOTATION) is None
+    assert k8s.get_annotation(nb, names.SLICE_IDENTITY_ANNOTATION) == \
+        "localhost"
+    (after,) = store.list("Pod", "tpu-slice-pools",
+                          {"statefulset": k8s.name(w0)})
+    assert k8s.uid(after) == k8s.uid(pod) and 0 not in replicas
+    assert store.list("StatefulSet", "ns") == []
+    assert mgr.metrics.histogram("slicepool_bind_latency_seconds",
+                                 "").total_count() == 1
+    assert "SliceBound" in {e["reason"] for e in store.list("Event", "ns")}

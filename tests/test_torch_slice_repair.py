@@ -25,8 +25,9 @@ the injected clock, on both sides) is the one value masked.
 
 The elastic cases drive each package's own ``SimulatedElasticAgent`` with
 ``poll_once`` between drains. The migration branch needs a pool-bound
-notebook and is held with the SlicePool reconciler (ROADMAP.md queue A
-item 3). No case sleeps and no manager is started.
+notebook: tests/test_torch_slicepool.py holds it, with the four migration
+cases of tests/test_slicepool.py. No case sleeps and no manager is
+started.
 """
 
 from __future__ import annotations

@@ -3,19 +3,25 @@ side, and the normaliser that compares what they write (a helper module:
 pytest collects no tests from it).
 
 ``Stack("ref")`` is the reference's store, Manager, NotebookReconciler,
-StatefulSet simulator, culler and slice repair reconciler;
-``Stack("port")`` the port's. A case is a function of one stack that uses
-the names both sides share (``api``, ``k8s``, ``names``, ``culling``,
-``slicerepair``, ``kubelet``, ...), so the same code drives both.
+StatefulSet simulator, culler, slice repair reconciler and SlicePool
+reconciler; ``Stack("port")`` the port's. A case is a function of one
+stack that uses the names both sides share (``api``, ``k8s``,
+``names``, ``culling``, ``slicerepair``, ``kubelet``, ...), so the same
+code drives both.
 
-The same Notebook goes to both sides; only its accelerator request is
-mapped, to the H100 shape with the same worker count (``v5e-4`` (1 x 4)
-↔ ``h100-4`` (1 x 4), ``v5e-16`` (4 x 4) ↔ ``h100-32`` (4 x 8)).
+The same Notebook or SlicePool goes to both sides; only its accelerator
+request is mapped, to the H100 shape with the same worker count
+(``v5e-4`` (1 x 4) ↔ ``h100-4`` (1 x 4), ``v5e-8`` (1 x 8) ↔ ``h100-8``
+(1 x 8), ``v5e-16`` (4 x 4) ↔ ``h100-32`` (4 x 8)).
 ``normalise`` drops ``uid``, ``resourceVersion`` and timestamps, and maps
 only the accelerator seam: the resource key and its per-worker count,
 the nodeSelector, the TPU_ACCELERATOR_TYPE and TPU_TOPOLOGY values and
-the slice label's value, and the request itself (the Notebook's
-annotation, a SlicePool's ``spec.accelerator``). Everything else —
+the slice label's value, the request itself (the Notebook's
+annotation, a SlicePool's ``spec.accelerator``) and the image a warm
+pool slice is rolled with (each side's ``tpu_default_image``: the
+reference's JAX image, the port's CUDA one). A warm pool slice's pods
+carry no slice label: their shape is read from their container's
+TPU_ACCELERATOR_TYPE value. Everything else —
 names, generateName suffixes, labels, annotations (the culler's stamps
 among them), owner references, env order, replicas, serviceName,
 hostnames, condition reasons — must be equal.
@@ -30,6 +36,8 @@ from kubeflow_tpu.cluster.kubelet import StatefulSetSimulator as RefSimulator
 from kubeflow_tpu.cluster.store import ClusterStore as RefStore
 from kubeflow_tpu.controllers import culling as ref_culling
 from kubeflow_tpu.controllers import slicerepair as ref_slicerepair
+from kubeflow_tpu.controllers.slicepool import (
+    SlicePoolReconciler as RefPoolReconciler)
 from kubeflow_tpu.controllers.manager import Manager as RefManager
 from kubeflow_tpu.controllers.manager import Request as RefRequest
 from kubeflow_tpu.controllers.notebook import (
@@ -45,13 +53,13 @@ from kubeflow_tpu_torch.cluster.kubelet import StatefulSetSimulator
 from kubeflow_tpu_torch.cluster.store import ClusterStore
 from kubeflow_tpu_torch.controllers import culling, slicerepair
 from kubeflow_tpu_torch.controllers import (Manager, NotebookReconciler,
-                                            Request)
+                                            Request, SlicePoolReconciler)
 from kubeflow_tpu_torch.utils import k8s, names
 from kubeflow_tpu_torch.utils.config import ControllerConfig
 from kubeflow_tpu_torch.utils.metrics import MetricsRegistry
 
 # each reference request and the port's request with the same workers
-SHAPES = {"v5e-4": "h100-4", "v5e-16": "h100-32"}
+SHAPES = {"v5e-4": "h100-4", "v5e-8": "h100-8", "v5e-16": "h100-32"}
 REF_OF = {port: ref for ref, port in SHAPES.items()}
 # what each side renders for a shape, written out (not read back from
 # either package's topology table)
@@ -60,6 +68,10 @@ RENDERED = {
         "cloud.google.com/gke-tpu-accelerator": "tpu-v5-lite-podslice",
         "cloud.google.com/gke-tpu-topology": "2x2"},
         "per_worker": "4", "topology": "2x2"},
+    "v5e-8": {"nodeSelector": {
+        "cloud.google.com/gke-tpu-accelerator": "tpu-v5-lite-podslice",
+        "cloud.google.com/gke-tpu-topology": "2x4"},
+        "per_worker": "8", "topology": "2x4"},
     "v5e-16": {"nodeSelector": {
         "cloud.google.com/gke-tpu-accelerator": "tpu-v5-lite-podslice",
         "cloud.google.com/gke-tpu-topology": "4x4"},
@@ -68,12 +80,19 @@ RENDERED = {
         "cloud.google.com/gke-accelerator": "nvidia-h100-80gb",
         "node.kubernetes.io/instance-type": "a3-highgpu-4g"},
         "per_worker": "4", "topology": "1x4"},
+    "h100-8": {"nodeSelector": {
+        "cloud.google.com/gke-accelerator": "nvidia-h100-80gb",
+        "node.kubernetes.io/instance-type": "a3-highgpu-8g"},
+        "per_worker": "8", "topology": "1x8"},
     "h100-32": {"nodeSelector": {
         "cloud.google.com/gke-accelerator": "nvidia-h100-80gb",
         "node.kubernetes.io/instance-type": "a3-highgpu-8g"},
         "per_worker": "8", "topology": "4x8"},
 }
 RESOURCE_KEY = {"ref": "google.com/tpu", "port": "nvidia.com/gpu"}
+# the image each side rolls its warm pool slices with
+WARM_IMAGE = {"ref": RefConfig().tpu_default_image,
+              "port": ControllerConfig().tpu_default_image}
 TIMESTAMP_KEYS = frozenset({
     "creationTimestamp", "deletionTimestamp", "lastTransitionTime",
     "startedAt", "firstTimestamp", "lastTimestamp", "eventTime",
@@ -89,9 +108,15 @@ def _shape_of(obj: dict) -> str | None:
     md = obj.get("metadata") or {}
     if obj.get("kind") == pool_api.KIND:
         return (obj.get("spec") or {}).get("accelerator")
-    return ((md.get("labels") or {}).get(names.TPU_SLICE_LABEL)
-            or (md.get("annotations") or {}).get(
-                names.TPU_ACCELERATOR_ANNOTATION))
+    shape = ((md.get("labels") or {}).get(names.TPU_SLICE_LABEL)
+             or (md.get("annotations") or {}).get(
+                 names.TPU_ACCELERATOR_ANNOTATION))
+    if shape is None and obj.get("kind") == "Pod":
+        for c in (obj.get("spec") or {}).get("containers") or []:
+            for e in c.get("env") or []:
+                if e.get("name") == "TPU_ACCELERATOR_TYPE":
+                    return e.get("value")
+    return shape
 
 
 def _walk(value, side: str, shape: str | None):
@@ -127,6 +152,8 @@ def _walk(value, side: str, shape: str | None):
                  if k == RESOURCE_KEY[side] and v == want["per_worker"]
                  else _walk(v, side, shape))
                 for k, v in val.items()}
+        elif key == "image" and val == WARM_IMAGE[side]:
+            out[key] = "<warm image>"
         elif pair is not None and key in SLICE_KEYS and val == shape:
             out[key] = f"<slice {pair}>"
         else:
@@ -162,13 +189,19 @@ class Stack:
         self.config = self.Config()
         self.metrics = RefMetrics() if ref else MetricsRegistry()
         self.manager = (RefManager if ref else Manager)(self.store)
-        self._reconciler = RefReconciler if ref else NotebookReconciler
+        self.NotebookReconciler = RefReconciler if ref \
+            else NotebookReconciler
+        self.SlicePoolReconciler = RefPoolReconciler if ref \
+            else SlicePoolReconciler
         self._simulator = RefSimulator if ref else StatefulSetSimulator
         self.drains: list[int] = []
         self.timed = False
 
-    def reconciler(self):
-        rec = self._reconciler(self.store, self.config, self.metrics)
+    def reconciler(self, **kw):
+        """The side's NotebookReconciler on this stack's store, config and
+        metrics; ``kw`` is its wall clock."""
+        rec = self.NotebookReconciler(self.store, self.config, self.metrics,
+                                      **kw)
         rec.setup(self.manager)
         return rec
 
@@ -197,6 +230,21 @@ class Stack:
             self.store, self.config, self.metrics, **kw)
         rec.setup(self.manager)
         return rec
+
+    def pool(self, **kw):
+        """The side's SlicePoolReconciler on this stack's store, config
+        and metrics; ``kw`` are its clock and wall clock."""
+        rec = self.SlicePoolReconciler(self.store, self.config, self.metrics,
+                                       **kw)
+        rec.setup(self.manager)
+        return rec
+
+    def slice_pool(self, name: str, ref_shape: str, warm: int, **kw) -> dict:
+        """A SlicePool CR of this side for the reference's shape
+        ``ref_shape``: its ``spec.accelerator`` is the side's request;
+        ``kw`` are its namespace and weights."""
+        return self.pool_api.new_slice_pool(name, self.accelerator(ref_shape),
+                                            warm, **kw)
 
     def accelerator(self, ref_shape: str) -> str:
         return ref_shape if self.side == "ref" else SHAPES[ref_shape]
