@@ -22,7 +22,9 @@ notebook's container: its world through ``runtime/bootstrap.py`` from
 the env the port's pod spec renders; then it rolls a notebook whose node
 dies onto a new world and resumes its training, and binds a notebook to
 a warm pool slice and migrates its training off a preempted node onto a
-warm spare. The kernels' launch
+warm spare, and admits two gangs under a tenant quota through the fleet
+scheduler: one trains on the card, the other serves on it once the
+first has gone. The kernels' launch
 counters, zeroed before each path and read after it, show that each path
 ran its kernels.
 Then it times each kernel beside its bound, its plain version and one
@@ -195,6 +197,31 @@ Phases (any failure exits non-zero before the result line):
      annotation, no idle clock), re-warmed on the card and bound by a
      notebook of another namespace; ``slicepool_size`` by state; the
      phase's seconds and peak memory;
+  18. the fleet scheduler on the card (``_sched_sequence``):
+     ``build_manager`` with the scheduler on and
+     ``sched_default_capacity=1`` (the one card is the fleet; no pool)
+     under ``start()``, its poll out of reach so every admission is
+     driven by a watch event; a TPUQuota caps tenant team-ds at 0
+     slices: notebook ds (h100-1, a gang of 1, tier interactive) stays
+     Pending and quota-denied with no StatefulSet, and the core's gate
+     run again past ``sched_admission_grace_s`` raises no
+     SchedulerAdmissionTimeout; notebook train (team-train, h100-1, a
+     gang of 1, tier training) goes Pending → Reserving → Admitted, then
+     its StatefulSet and worker 0 Ready once the ready hook's NCCL world
+     from its pod env passes ``verify_slice``; ``Trainer(mesh=...)`` 4
+     steps at b8 x s1024 with bf16 params, bit-equal to a one-device
+     Trainer (12 of each attention kernel a step); team-ds's quota
+     raised to 1: ds moves to no-capacity with no StatefulSet, train is
+     not preempted (not elastic), ``scheduler_quota_used`` 1 for
+     team-train and 0 for team-ds; train's world ended and the notebook
+     deleted: the first scheduler pass of ds after the deletion's
+     fan-out reserves it, then it is admitted, rolled and its own world
+     formed; greedy ``generate`` 8 x 128 -> 16 on ``shard_decode_params``
+     of train's final params equals the one-device ``generate``; CR →
+     Admitted → SliceReady (host ms) for each, the gang wait per tenant,
+     admissions by outcome, the scheduler's reconciles and writes; then
+     phase 15's 100-notebook fleet twice in turns, without and with the
+     scheduler (reconciles, writes, cache lookups and full scans);
   5. times of each kernel, its plain version and a library call (last, so
      the paths above run on a card not yet warmed by timing loops), with
      the achieved TFLOP/s, the share of the bound, the forward, dK/dV and
@@ -3531,14 +3558,16 @@ def _reconcile_totals(mgr) -> dict:
     return {f"{c}/{r}": metric.get({"controller": c, "result": r})
             for c in ("notebook-controller", "sim-statefulset-controller",
                       "culling-controller", "slice-repair-controller",
-                      "slice-pool-controller")
+                      "slice-pool-controller", "fleet-scheduler")
             for r in ("success", "requeue_after", "error")
             if metric.get({"controller": c, "result": r})}
 
 
-def _notebook_fleet(n_by_shape: dict, namespaces: int = 10) -> dict:
-    """Reconcile a fleet of Notebooks on a fresh ``build_manager`` under
-    ``start()`` with 4 workers, the kubelet simulator not gated, the
+def _notebook_fleet(n_by_shape: dict, namespaces: int = 10,
+                    config=None) -> dict:
+    """Reconcile a fleet of Notebooks on a fresh ``build_manager`` (on
+    ``config``, else the default one) under ``start()`` with 4 workers,
+    the kubelet simulator not gated, the
     reconcilers reading through the manager's cache: each CR's create →
     SliceReady=True latency in ms (host time, measured on the store's
     watch), the writes (resourceVersions), reconciles and the cache's
@@ -3549,7 +3578,7 @@ def _notebook_fleet(n_by_shape: dict, namespaces: int = 10) -> dict:
     from kubeflow_tpu_torch.utils import k8s, names
 
     store = ClusterStore()
-    mgr = build_manager(store, simulate_kubelet=True,
+    mgr = build_manager(store, config, simulate_kubelet=True,
                         max_concurrent_reconciles=4)
     created: dict = {}
     ready: dict = {}
@@ -4109,10 +4138,9 @@ def phase_bootstrap(torch, flagship) -> tuple[dict, dict]:
           f"{fleet['ready_p50_ms']:.1f} ms, p95 {fleet['ready_p95_ms']:.1f} "
           f"ms, max {fleet['ready_max_ms']:.1f} ms (host time); "
           f"{fleet['writes']} writes, reconciles {fleet['reconciles']} "
-          f"with the SlicePool reconciler in build_manager and no pool "
-          f"(not measured in this run: PERF.md records the same fleet "
-          f"without it at 1040 writes and 445 notebook, 305 simulator and "
-          f"420 slice-repair reconciles); cache index lookups "
+          f"with the SlicePool reconciler and the fleet scheduler in "
+          f"build_manager, no pool and no gang (phase 18 runs the fleet "
+          f"without and with the scheduler in turns); cache index lookups "
           f"{fleet['cache_index_lookups']:g}, full scans "
           f"{fleet['cache_full_scans']:g} ({CARD[0]})", flush=True)
     require(fleet["pods"] == fleet["replicas"] == 60 + 30 + 20,
@@ -5239,6 +5267,382 @@ def phase_pool(torch, flagship) -> tuple[dict, dict]:
     return stats, launched
 
 
+# --------------------------------------------------------------- phase 18
+def _sched_sequence(torch, c, tc, B: int, S: int, prompt_len: int,
+                    new: int, device: str = "cuda",
+                    timeout: float = 180.0) -> tuple[dict, dict]:
+    """Phase 18's drive at any size, on ``device`` ("cuda": NCCL worlds;
+    "cpu": gloo worlds, the tests): ``build_manager`` with the fleet
+    scheduler on, ``sched_default_capacity=1`` and the scheduler's poll
+    out of reach, under ``start()``, the simulator gated by a
+    ``_SliceGate`` for each of notebooks ``train`` and ``ds``. In order:
+    a TPUQuota caps team-ds at 0 and ds (h100-1, a gang of 1, tier
+    interactive) is held Pending, quota-denied, with no StatefulSet and,
+    once the core's gate has run again past its grace, no
+    SchedulerAdmissionTimeout; train (team-train, a gang of 1, tier
+    training) is admitted in two phases and rolled, and in its world a
+    ``Trainer(mesh=...)`` takes 4 steps, held bit-equal to a one-device
+    Trainer; the quota raised to 1 leaves ds Pending with no capacity and
+    train unpreempted; train's world is ended and the notebook deleted,
+    and ds is reserved by its first scheduler pass after the deletion,
+    admitted and rolled into a world of its own, where greedy
+    ``generate`` on ``shard_decode_params`` of train's final params is
+    held equal to the one-device ``generate``. Returns (stats, the
+    launches of the main path: train's 4 steps and ds's ``generate``,
+    each counted from 0)."""
+    import torch.distributed as dist
+
+    from kubeflow_tpu_torch import ops
+    from kubeflow_tpu_torch.api import types as api
+    from kubeflow_tpu_torch.api.tpuquota import KIND as QUOTA
+    from kubeflow_tpu_torch.api.tpuquota import new_tpu_quota
+    from kubeflow_tpu_torch.cluster.store import ClusterStore
+    from kubeflow_tpu_torch.controllers import Request
+    from kubeflow_tpu_torch.main import build_manager
+    from kubeflow_tpu_torch.models.decode import generate
+    from kubeflow_tpu_torch.parallel.mesh import (MeshConfig, build_mesh,
+                                                  leave_world)
+    from kubeflow_tpu_torch.runtime.data import synthetic_lm_batches
+    from kubeflow_tpu_torch.runtime.sharded_decode import shard_decode_params
+    from kubeflow_tpu_torch.runtime.trainer import Trainer
+    from kubeflow_tpu_torch.utils import k8s, names
+    from kubeflow_tpu_torch.utils.config import ControllerConfig
+
+    require(not dist.is_initialized(), "phase18: a world is still formed")
+    V = c.vocab_size
+    tenants = {"train": "team-train", "ds": "team-ds"}
+    gates = {name: _SliceGate(name, device) for name in tenants}
+
+    def hook(pod: dict) -> bool:
+        gate = gates.get(k8s.get_label(pod, names.NOTEBOOK_NAME_LABEL))
+        return gate(pod) if gate is not None else True
+    store = ClusterStore()
+    config = ControllerConfig(sched_default_capacity=1,
+                              sched_admission_grace_s=1.0,
+                              sched_poll_s=3600.0)
+    mgr = build_manager(store, config, simulate_kubelet=True,
+                        ready_hook=hook)
+    sched = mgr._reconcilers.get("fleet-scheduler")
+    require(sched is not None, f"phase18: build_manager registered "
+                               f"{sorted(mgr._reconcilers)}")
+    # the scheduler's passes (key, state before, state after, host time)
+    # and writes, recorded on the instance the manager calls
+    passes: list = []
+    writes = {"patch": 0, "create": 0, "update": 0}
+    reconcile = sched.reconcile
+
+    def recorded(req):
+        before = store.get_or_none(api.KIND, req.namespace, req.name)
+        try:
+            return reconcile(req)
+        finally:
+            after = store.get_or_none(api.KIND, req.namespace, req.name)
+            passes.append((req.name, before and k8s.get_annotation(
+                before, names.SCHED_STATE_ANNOTATION), after and
+                k8s.get_annotation(after, names.SCHED_STATE_ANNOTATION),
+                time.monotonic()))
+    sched.reconcile = recorded
+    for verb in writes:
+        def counted(*a, _verb=verb, _fn=getattr(sched.client, verb), **kw):
+            writes[_verb] += 1
+            return _fn(*a, **kw)
+        setattr(sched.client, verb, counted)
+    seen: dict = {"created": {}, "states": {}, "ready": {}, "sts": {}}
+
+    def on_notebook(event) -> None:
+        if event.type == "DELETED":
+            return
+        name, now = k8s.name(event.obj), time.monotonic()
+        st = k8s.get_annotation(event.obj, names.SCHED_STATE_ANNOTATION)
+        seq = seen["states"].setdefault(name, [])
+        if st is not None and (not seq or seq[-1][0] != st):
+            seq.append((st, now))
+        if name in seen["created"] and name not in seen["ready"] and \
+                k8s.condition_true(event.obj, api.CONDITION_SLICE_READY):
+            seen["ready"][name] = now
+
+    def on_sts(event) -> None:
+        name = k8s.name(event.obj)
+        if event.type != "DELETED" and name in tenants:
+            seen["sts"].setdefault(name, time.monotonic())
+
+    def create(name: str, tier: str) -> None:
+        seen["created"][name] = time.monotonic()
+        store.create(api.new_notebook(name, tenants[name], annotations={
+            names.TPU_ACCELERATOR_ANNOTATION: "h100-1",
+            names.SCHED_GANG_ANNOTATION: "1",
+            names.SCHED_TIER_ANNOTATION: tier}))
+
+    def state(name: str):
+        nb = store.get_or_none(api.KIND, tenants[name], name)
+        return nb and k8s.get_annotation(nb, names.SCHED_STATE_ANNOTATION)
+
+    def outcome(name: str, what: str) -> float:
+        return sched.admissions_total.get({"tenant": tenants[name],
+                                           "outcome": what})
+
+    def reasons(name: str) -> set:
+        return _notebook_reasons(store, tenants[name], name)
+
+    def wait(what: str, cond) -> float:
+        def ok():
+            for gate in gates.values():
+                require(gate.error is None, f"phase18: the ready hook "
+                                            f"failed while waiting for "
+                                            f"{what}: {gate.error!r}")
+            return cond()
+        return _wait_for(what, ok, timeout, phase="phase18")
+
+    def ms(name: str, since: float) -> dict:
+        admitted = [t for st, t in seen["states"][name] if st == "Admitted"]
+        return {"admitted": (admitted[0] - since) * 1e3,
+                "slice_ready": (seen["ready"][name] - since) * 1e3}
+
+    def take(got: dict) -> None:
+        for k, n in ops.launch_counts().items():
+            launched[k] = launched.get(k, 0) + n
+            got[k] = got.get(k, 0) + n
+
+    src = synthetic_lm_batches(B, S, V, seed=0)
+    batches = [next(src) for _ in range(4)]
+    rng = torch.Generator().manual_seed(7)
+    prompt = torch.randint(0, V, (B, prompt_len), generator=rng).to(device)
+    stats: dict = {}
+    launched: dict = {}
+    store.watch(api.KIND, on_notebook)
+    store.watch("StatefulSet", on_sts)
+    mgr.start()
+    try:
+        # 1. team-ds frozen at 0 slices: ds queued, never rolled
+        store.create(new_tpu_quota("team-ds-quota", tenants["ds"], 0))
+        create("ds", "interactive")
+        wait("ds quota-denied", lambda: state("ds") == "Pending" and
+             outcome("ds", "quota-denied") >= 1)
+        time.sleep(config.sched_admission_grace_s + 0.5)
+        core = mgr.metrics.counter("controller_runtime_reconcile_total", "")
+
+        def core_passes() -> float:
+            return sum(core.get({"controller": "notebook-controller",
+                                 "result": r})
+                       for r in ("success", "requeue_after", "error"))
+        before = core_passes()
+        mgr.enqueue("notebook-controller", Request(tenants["ds"], "ds"))
+        wait("the core's gate past the grace", lambda: core_passes() > before)
+        stats["denied"] = {
+            "state": state("ds"),
+            "quota_denied": outcome("ds", "quota-denied"),
+            "statefulset": "ds" in seen["sts"],
+            "timeout_event": "SchedulerAdmissionTimeout" in reasons("ds")}
+        denied = stats["denied"]
+        require(denied["state"] == "Pending" and denied["quota_denied"] >= 1
+                and not denied["statefulset"] and
+                not denied["timeout_event"],
+                f"phase18: ds under a quota of 0: {denied}")
+
+        # 2. train admitted in two phases, rolled, its world trains
+        create("train", "training")
+        wait("SliceReady on train", lambda: "train" in seen["ready"])
+        stats["train_states"] = [st for st, _ in seen["states"]["train"]]
+        stats["train_ms"] = ms("train", seen["created"]["train"])
+        require(stats["train_states"] == ["Pending", "Reserving", "Admitted"]
+                and seen["sts"]["train"] >= seen["states"]["train"][-1][1]
+                and "GangAdmitted" in reasons("train"),
+                f"phase18: train's admission {seen['states']['train']}, "
+                f"events {sorted(reasons('train'))}")
+        world_train = gates["train"].worlds[-1]
+        mesh = build_mesh(MeshConfig.auto(
+            world_train["report"]["device_count"]), device)
+        counts_train: dict = {}
+        ops.reset_launch_counts()
+        trainer = Trainer(c, tc, seed=0, mesh=mesh)
+        t0 = time.monotonic()
+        trainer.fit(batches, steps=4, log_every=1)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        stats["train_s"] = time.monotonic() - t0
+        take(counts_train)
+        losses = [x for _, x in trainer.stats.losses]
+        params = trainer.params
+        trainer.close()
+        del trainer
+        one = Trainer(c, tc, seed=0, device=device)
+        one.fit(batches, steps=4, log_every=1)
+        want = [x for _, x in one.stats.losses]
+        one.close()
+        del one
+        ops.reset_launch_counts()     # the comparison's launches
+        gc.collect()
+        if device == "cuda":
+            torch.cuda.empty_cache()
+        stats.update({"losses": losses, "launches_train": counts_train,
+                      "world_train": world_train})
+        require(losses == want and all(math.isfinite(x) for x in losses),
+                f"phase18: train's losses {losses} differ from one "
+                f"device's {want}")
+
+        # 3. team-ds may hold 1 slice, but the one card is train's
+        quota = store.get(QUOTA, "", "team-ds-quota")
+        quota["spec"]["maxSlices"] = 1
+        store.update(quota)
+        wait("ds no-capacity", lambda: outcome("ds", "no-capacity") >= 1)
+        mgr.metrics.expose()          # a scrape computes the usage gauge
+        nb = store.get(api.KIND, tenants["train"], "train")
+        stats["no_capacity"] = {
+            "state": state("ds"), "statefulset": "ds" in seen["sts"],
+            "train_resize": k8s.get_annotation(
+                nb, names.ELASTIC_RESIZE_ANNOTATION),
+            "train_preempted": k8s.get_annotation(
+                nb, names.SCHED_PREEMPTED_ANNOTATION),
+            "preemptions": sched.preemptions_total.total(),
+            "quota_used": {t: sched.quota_used.get({"tenant": t})
+                           for t in tenants.values()}}
+        require(stats["no_capacity"] == {
+            "state": "Pending", "statefulset": False, "train_resize": None,
+            "train_preempted": None, "preemptions": 0,
+            "quota_used": {tenants["train"]: 1, tenants["ds"]: 0}},
+            f"phase18: ds with a quota of 1 {stats['no_capacity']}")
+
+        # 4. train goes: ds is reserved by the pass the deletion fans out
+        leave_world()
+        gc.collect()
+        t_delete = time.monotonic()
+        store.delete(api.KIND, tenants["train"], "train")
+        wait("SliceReady on ds", lambda: "ds" in seen["ready"])
+        after = [p for p in passes if p[0] == "ds" and p[3] >= t_delete]
+        stats["ds_passes_after_delete"] = [p[1:3] for p in after]
+        stats["ds_ms"] = ms("ds", t_delete)
+        require(after and after[0][1:3] == ("Pending", "Reserving") and
+                [st for st, _ in seen["states"]["ds"]] ==
+                ["Pending", "Reserving", "Admitted"] and
+                seen["sts"]["ds"] >= seen["states"]["ds"][-1][1] > t_delete,
+                f"phase18: ds after the deletion: passes "
+                f"{stats['ds_passes_after_delete']}, states "
+                f"{seen['states']['ds']}")
+        world_ds = gates["ds"].worlds[-1]
+        mesh = build_mesh(MeshConfig.auto(
+            world_ds["report"]["device_count"]), device)
+        counts_ds: dict = {}
+        ops.reset_launch_counts()
+        ids = generate(shard_decode_params(params, mesh, c), prompt, c, new)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        take(counts_ds)
+        want_ids = generate(params, prompt, c, new)
+        ops.reset_launch_counts()     # the comparison's launches
+        stats.update({"ids_equal": bool(torch.equal(ids, want_ids)),
+                      "launches_ds": counts_ds, "world_ds": world_ds})
+        require(stats["ids_equal"], "phase18: ds's generate on train's "
+                                    "params differs from one device's")
+        stats["gang_wait_s"] = {
+            t: (sched.gang_wait.count({"tenant": t}),
+                sched.gang_wait.sum({"tenant": t}))
+            for t in tenants.values()}
+        stats["admissions"] = {
+            f"{t}/{o}": sched.admissions_total.get({"tenant": t,
+                                                    "outcome": o})
+            for t in tenants.values()
+            for o in ("admitted", "reverted", "quota-denied", "no-capacity")
+            if sched.admissions_total.get({"tenant": t, "outcome": o})}
+    finally:
+        mgr.stop()
+        store.unwatch(on_notebook)
+        store.unwatch(on_sts)
+        if dist.is_initialized():
+            leave_world()
+    stats["scheduler"] = {"passes": len(passes), "writes": dict(writes)}
+    stats["control_plane"] = {"writes": store._last_rv,
+                              "reconciles": _reconcile_totals(mgr)}
+    return stats, launched
+
+
+def phase_sched(torch, flagship) -> tuple[dict, dict]:
+    """18: the fleet scheduler on the card (``_sched_sequence`` at the
+    flagship's width: b8 x s1024 with bf16 params, generate 8 x 128 ->
+    16), then phase 15's fleet without and with the scheduler, in turns.
+    Returns (stats, the launches of the main path)."""
+    from kubeflow_tpu_torch.models import train as train_lib
+    from kubeflow_tpu_torch.utils.config import ControllerConfig
+
+    t_phase = time.monotonic()
+    L = flagship.n_layers
+    torch.cuda.reset_peak_memory_stats()
+    stats, launched = _sched_sequence(
+        torch, flagship, train_lib.TrainConfig(bf16_params=True), 8, 1024,
+        128, 16)
+    stats["seconds"] = time.monotonic() - t_phase
+    stats["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    gc.collect()
+    torch.cuda.empty_cache()
+    attn = ("flash_attention", "flash_attention_bwd_dkv",
+            "flash_attention_bwd_dq")
+    counts_train, counts_ds = stats["launches_train"], stats["launches_ds"]
+    for what, value in (
+            ("ds under a TPUQuota of 0: Pending, quota-denied evaluations, "
+             "a StatefulSet, a SchedulerAdmissionTimeout past the grace",
+             stats["denied"]),
+            ("train CR -> Admitted -> SliceReady ms (host time)",
+             stats["train_ms"]),
+            ("train's admission states", stats["train_states"]),
+            ("train's world (seconds, report)",
+             (stats["world_train"]["seconds"],
+              stats["world_train"]["report"])),
+            ("Trainer(mesh=...) b8 s1024 4 steps: losses, bit-equal to one "
+             "device's, seconds", (stats["losses"], True,
+                                   stats["train_s"])),
+            ("launches of train's 4 steps", counts_train),
+            ("ds with a quota of 1 while train holds the card",
+             stats["no_capacity"]),
+            ("delete train -> ds Admitted -> SliceReady ms (host time)",
+             stats["ds_ms"]),
+            ("ds's scheduler passes after the deletion (state before, "
+             "after)", stats["ds_passes_after_delete"]),
+            ("ds's world (seconds, report)",
+             (stats["world_ds"]["seconds"], stats["world_ds"]["report"])),
+            ("ds's generate 8 x 128 -> 16 on train's params: ids equal to "
+             "one device's, launches", (stats["ids_equal"], counts_ds)),
+            ("scheduler_gang_wait_seconds per tenant (count, sum s)",
+             stats["gang_wait_s"]),
+            ("scheduler_admissions_total by tenant/outcome",
+             stats["admissions"]),
+            ("the scheduler's reconciles and writes", stats["scheduler"]),
+            ("control plane writes and reconciles",
+             stats["control_plane"])):
+        print(f"phase18 {what}: {value} ({CARD[0]})", flush=True)
+    require(all(counts_train.get(k) == 4 * L for k in attn) and
+            not counts_train.get("flash_decode") and
+            counts_ds.get("flash_attention") == L and
+            counts_ds.get("flash_decode") == (16 - 1) * L and
+            not counts_ds.get("flash_attention_bwd_dkv"),
+            f"phase18: launches train {counts_train}, ds {counts_ds}")
+    fleets = {}
+    for enable in (False, True):
+        fleets[enable] = _notebook_fleet(
+            {"h100-1": 60, "h100-8": 30, "h100-16": 10},
+            config=ControllerConfig(enable_scheduler=enable))
+        f = fleets[enable]
+        print(f"phase18 fleet of phase 15 with the scheduler "
+              f"{'on' if enable else 'off'}: {f['notebooks']} Notebooks "
+              f"SliceReady in {f['seconds']:.2f} s; CR→SliceReady p50 "
+              f"{f['ready_p50_ms']:.1f} ms, p95 {f['ready_p95_ms']:.1f} ms "
+              f"(host time); {f['writes']} writes, reconciles "
+              f"{f['reconciles']}; cache index lookups "
+              f"{f['cache_index_lookups']:g}, full scans "
+              f"{f['cache_full_scans']:g} ({CARD[0]})", flush=True)
+        require(f["pods"] == f["replicas"] == 60 + 30 + 20,
+                f"phase18: the fleet's pods: {f}")
+    require(not any(k.startswith("fleet-scheduler/")
+                    for k in fleets[True]["reconciles"]),
+            f"phase18: the scheduler reconciled a fleet with no gang: "
+            f"{fleets[True]['reconciles']}")
+    stats["fleet"] = {"off": fleets[False], "on": fleets[True]}
+    stats["seconds_with_fleets"] = time.monotonic() - t_phase
+    print(f"phase18 in {stats['seconds']:.1f} s ("
+          f"{stats['seconds_with_fleets']:.1f} s with the two fleets), peak "
+          f"{stats['peak_mem_gb']:.3f} GB; launches {launched} ({CARD[0]})",
+          flush=True)
+    return stats, launched
+
+
 # --------------------------------------------------------------- phase 5
 def _time_flash(torch, timer, b, s, h, d, seed=4, lse=False):
     import torch.nn.functional as F
@@ -5602,6 +6006,11 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     train["pool"], launched = phase_pool(torch, FLAGSHIP)
+    for name, n in launched.items():
+        counts[name] += n
+    gc.collect()
+    torch.cuda.empty_cache()
+    train["sched"], launched = phase_sched(torch, FLAGSHIP)
     for name, n in launched.items():
         counts[name] += n
     rows, wide = phase_times(torch, errs, counts)

@@ -1,4 +1,5 @@
-"""The port's API types: the Notebook CR and the SlicePool CR."""
+"""The port's API types: the Notebook CR, the SlicePool CR and the TPUQuota
+CR."""
 
 from .types import (API_VERSION, GROUP, KIND, SERVED_VERSIONS,
                     STORAGE_VERSION, new_notebook, notebook_container,

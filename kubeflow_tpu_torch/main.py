@@ -1,40 +1,47 @@
 """The port's composition root: a manager with the core Notebook
-reconciler, the idle culler, the slice repair reconciler and the warm
-slice pool reconciler over the in-process apiserver.
+reconciler, the idle culler, the slice repair reconciler, the warm
+slice pool reconciler and the fleet scheduler over the in-process
+apiserver.
 
 The counterpart of the ``components="core"`` path of
 ``kubeflow_tpu/main.py`` ``build_manager`` (``setup_controllers``,
 ``kubeflow_tpu/controllers/__init__.py``): one watch-fed ``CachingClient``
 the reconcilers read through (Secrets, ConfigMaps and Events read live),
-the SlicePool CRD and its admission, the core reconciler, the culler
-when ``config.enable_culling`` is set, the slice repair reconciler when
-``config.enable_slice_repair`` is and the SlicePool reconciler when
-``config.enable_slice_pool`` is (both the default), and with
-``simulate_kubelet`` the StatefulSet/kubelet simulator
-on the same cache, so a standalone run is a working control plane on one
-machine::
+the SlicePool and TPUQuota CRDs and their admission, the core
+reconciler, the culler when ``config.enable_culling`` is set, the slice
+repair reconciler when ``config.enable_slice_repair`` is, the SlicePool
+reconciler when ``config.enable_slice_pool`` is and the fleet scheduler
+when ``config.enable_scheduler`` is (the last three the default), and
+with ``simulate_kubelet`` the StatefulSet/kubelet simulator on the same
+cache, so a standalone run is a working control plane on one machine::
 
     mgr = build_manager(simulate_kubelet=True)
     mgr.start()
     mgr.client.create(new_notebook("demo", "ns", annotations={
         "tpu.kubeflow.org/accelerator": "h100-32"}))
     # → 4 replicas, a headless Service, TPU_WORKER_* env, SliceReady
+    mgr.client.create(new_tpu_quota("team-a-cap", "team-a", 2))
+    mgr.client.create(new_notebook("job", "team-a", annotations={
+        "tpu.kubeflow.org/accelerator": "h100-8",
+        "tpu.kubeflow.org/gang-slices": "2"}))
+    # → Pending → Reserving → Admitted (GangAdmitted), then the roll
     mgr.stop()
 
 Not yet in the port, each an item of ROADMAP.md's queue A: the
 extension manager and the admission webhooks (``components="extension"``
-or ``"all"``), the scheduler reconciler the reference's core path also
-starts, flags, TLS, the webhook server, health endpoints
-and leader election.
+or ``"all"``), flags, TLS, the webhook server, health endpoints and
+leader election.
 """
 
 from __future__ import annotations
 
 from .api.slicepool import install_slicepool_crd
+from .api.tpuquota import install_tpuquota_crd
 from .cluster.cache import CachingClient
 from .cluster.store import ClusterStore
 from .controllers import (CullingReconciler, Manager, NotebookReconciler,
-                          SlicePoolReconciler, SliceRepairReconciler)
+                          SchedulerReconciler, SlicePoolReconciler,
+                          SliceRepairReconciler)
 from .utils.config import ControllerConfig
 from .utils.metrics import MetricsRegistry
 
@@ -67,9 +74,12 @@ def build_manager(store=None, config: ControllerConfig | None = None, *,
     the slice repair reconciler watches Pods and Nodes and rolls a slice
     whose node or worker fails. With ``config.enable_slice_pool`` the
     SlicePool reconciler pre-rolls each pool's warm slices and binds a
-    matching notebook to one in one reconcile. ``store`` gets the
-    SlicePool CRD and its admission in either case, as the reference's
-    ``setup_controllers`` installs them. ``ready_hook(pod) -> bool`` gates
+    matching notebook to one in one reconcile. With
+    ``config.enable_scheduler`` the fleet scheduler admits each
+    gang-annotated notebook whole (``gang-slices``) under its tenant's
+    TPUQuota before the core reconciler rolls it. ``store`` gets the
+    SlicePool and TPUQuota CRDs and their admission in either case, as
+    the reference's ``setup_controllers`` installs them. ``ready_hook(pod) -> bool`` gates
     the simulator's readiness flip of a pod (chip_smoke.py forms and
     verifies the pod's NCCL world there). Not started: call
     ``mgr.start()`` or drive it with ``mgr.run_until_idle()``."""
@@ -82,6 +92,7 @@ def build_manager(store=None, config: ControllerConfig | None = None, *,
     store = store if store is not None else ClusterStore()
     config = config or ControllerConfig.from_env()
     install_slicepool_crd(store)
+    install_tpuquota_crd(store)
     if max_concurrent_reconciles is None:
         max_concurrent_reconciles = config.max_concurrent_reconciles
     metrics = MetricsRegistry()
@@ -100,6 +111,8 @@ def build_manager(store=None, config: ControllerConfig | None = None, *,
         SliceRepairReconciler(read_client, config, metrics).setup(mgr)
     if config.enable_slice_pool:
         SlicePoolReconciler(read_client, config, metrics).setup(mgr)
+    if config.enable_scheduler:
+        SchedulerReconciler(read_client, config, metrics).setup(mgr)
     if simulate_kubelet:
         from .cluster.kubelet import StatefulSetSimulator
         StatefulSetSimulator(mgr.read_cache,

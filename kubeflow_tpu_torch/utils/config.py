@@ -11,7 +11,7 @@ params.env (SURVEY §5): ENABLE_CULLING, CULL_IDLE_TIME,
 IDLENESS_CHECK_PERIOD, CLUSTER_DOMAIN, DEV, ADD_FSGROUP, USE_ISTIO,
 SET_PIPELINE_RBAC, SET_PIPELINE_SECRET, MLFLOW_ENABLED, GATEWAY_URL,
 NOTEBOOK_GATEWAY_NAME/NAMESPACE, K8S_NAMESPACE. Fields the port does not
-read yet (culling, the extension, sharding, repair, the scheduler) are
+read yet (the extension, sharding, leader election) are
 kept so a configuration round-trips unchanged."""
 
 from __future__ import annotations

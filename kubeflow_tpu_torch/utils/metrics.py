@@ -125,6 +125,12 @@ class _Histogram:
             series = self._series.get(_labels_key(labels))
         return series[-2] if series else 0.0
 
+    def sum(self, labels: dict[str, str] | None = None) -> float:
+        """The ``_sum`` of one series (0 where it has no sample)."""
+        with self._lock:
+            series = self._series.get(_labels_key(labels))
+        return series[-1] if series else 0.0
+
     def total_count(self) -> float:
         """Sum of ``_count`` over every label combination."""
         with self._lock:

@@ -35,6 +35,7 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 import pytest
 
 from kubeflow_tpu.api import slicepool as ref_pool_api
+from kubeflow_tpu.api import tpuquota as ref_quota_api
 from kubeflow_tpu.api import types as ref_api
 from kubeflow_tpu.cluster.cache import CachingClient as RefCachingClient
 from kubeflow_tpu.cluster.kubelet import StatefulSetSimulator as RefSimulator
@@ -42,6 +43,8 @@ from kubeflow_tpu.cluster.store import ClusterStore as RefStore
 from kubeflow_tpu.controllers import culling as ref_culling
 from kubeflow_tpu.controllers.manager import Manager as RefManager
 from kubeflow_tpu.controllers.manager import Request as RefRequest
+from kubeflow_tpu.controllers.scheduler import (
+    SchedulerReconciler as RefSchedulerReconciler)
 from kubeflow_tpu.controllers.slicepool import (
     SlicePoolReconciler as RefSlicePoolReconciler)
 from kubeflow_tpu.controllers.notebook import (
@@ -860,11 +863,13 @@ def test_non_json_body_is_unreachable(proxies):
 # ------------------------------------------------- the slice as a whole
 def _ref_core(store, config, offset):
     """The reference composed as the port's ``build_manager``: the
-    SlicePool CRD, one watch-fed read cache the reconcilers read through,
-    the Notebook reconciler, the culler on an offset clock, the slice
-    repair and SlicePool reconcilers and the simulator on the cache
-    (reference main.py / setup_controllers' core path)."""
+    SlicePool and TPUQuota CRDs, one watch-fed read cache the reconcilers
+    read through, the Notebook reconciler, the culler on an offset clock,
+    the slice repair and SlicePool reconcilers, the fleet scheduler and
+    the simulator on the cache (reference main.py / setup_controllers'
+    core path)."""
     ref_pool_api.install_slicepool_crd(store)
+    ref_quota_api.install_tpuquota_crd(store)
     cache = RefCachingClient(store, auto_informer=False,
                              disable_for=("Secret", "ConfigMap", "Event"))
     metrics = RefMetrics()
@@ -879,6 +884,8 @@ def _ref_core(store, config, offset):
         RefSliceRepairReconciler(cache, config, metrics).setup(mgr)
     if config.enable_slice_pool:
         RefSlicePoolReconciler(cache, config, metrics).setup(mgr)
+    if config.enable_scheduler:
+        RefSchedulerReconciler(cache, config, metrics).setup(mgr)
     RefSimulator(mgr.read_cache, boot_delay_s=0.0).setup(mgr)
     return mgr
 

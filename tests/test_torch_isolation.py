@@ -88,9 +88,11 @@ def test_port_file_list_covers_the_package():
                 "kubeflow_tpu_torch/controllers/culling.py",
                 "kubeflow_tpu_torch/utils/tracing.py",
                 "kubeflow_tpu_torch/controllers/slicerepair.py",
-                "kubeflow_tpu_torch/utils/fairness.py"):
+                "kubeflow_tpu_torch/utils/fairness.py",
+                "kubeflow_tpu_torch/controllers/scheduler.py",
+                "kubeflow_tpu_torch/api/tpuquota.py"):
         assert rel in PORT_FILES
-    assert len(PORT_FILES) >= 67
+    assert len(PORT_FILES) >= 69
 
 
 def _references(tree: ast.AST) -> set[str]:
@@ -171,6 +173,8 @@ import kubeflow_tpu_torch.controllers.culling
 import kubeflow_tpu_torch.utils.tracing
 import kubeflow_tpu_torch.controllers.slicerepair
 import kubeflow_tpu_torch.utils.fairness
+import kubeflow_tpu_torch.controllers.scheduler
+import kubeflow_tpu_torch.api.tpuquota
 import kubeflow_tpu_torch.main
 sys.path.insert(0, "tests")
 import torch_dist_ranks

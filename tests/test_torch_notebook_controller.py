@@ -514,19 +514,31 @@ def test_normaliser_maps_only_the_accelerator_seam():
 
 
 # ------------------------------------------------- the entry point
+def _ref_build_manager(ref: Stack) -> None:
+    """The reference composed as the port's ``build_manager(
+    simulate_kubelet=True)`` on ``ref``: the SlicePool and TPUQuota CRDs,
+    the Notebook reconciler, the SlicePool reconciler, the fleet
+    scheduler and the simulator, as the reference's ``setup_controllers``
+    registers them."""
+    ref.pool_api.install_slicepool_crd(ref.store)
+    ref.quota_api.install_tpuquota_crd(ref.store)
+    ref.reconciler()
+    ref.pool()
+    ref.scheduler()
+    ref.simulator()
+
+
 def test_build_manager_matches_the_reference_quick_start():
     """``main.build_manager(simulate_kubelet=True)`` is the reference's
     README quick start (a Manager, the NotebookReconciler and the
-    simulator on one store) with the SlicePool CRD installed and the
-    pool reconciler registered, as the reference's ``setup_controllers``
-    does: the same v5e-16 / h100-32 Notebook ends in the same objects,
-    SliceReady on 4 workers."""
+    simulator on one store) with the SlicePool and TPUQuota CRDs
+    installed and the pool reconciler and the fleet scheduler
+    registered, as the reference's ``setup_controllers`` does: the same
+    v5e-16 / h100-32 Notebook ends in the same objects, SliceReady on 4
+    workers."""
     from kubeflow_tpu_torch.main import build_manager
     ref = Stack("ref")
-    ref.pool_api.install_slicepool_crd(ref.store)
-    ref.reconciler()
-    ref.pool()
-    ref.simulator()
+    _ref_build_manager(ref)
     port = Stack("port")
     port.manager = build_manager(port.store, port.config,
                                  simulate_kubelet=True)
@@ -541,6 +553,54 @@ def test_build_manager_matches_the_reference_quick_start():
     assert_parity(ref, port)
     assert port.manager.metrics.counter(
         "notebook_create_total", "").get() == 1
+
+
+def test_build_manager_admits_a_gang_then_rolls_it():
+    """On ``build_manager``, a Notebook asking for a gang of 2 h100-32
+    slices (v5e-16 on the reference's side) is admitted by the fleet
+    scheduler (Pending, Reserving, Admitted; the reservation stamped; a
+    GangAdmitted event) and then rolled to SliceReady, with no
+    SchedulerAdmissionTimeout: object for object the reference's. The
+    wall-clock ``sched-enqueued-at`` stamp is the one value masked."""
+    from kubeflow_tpu_torch.main import build_manager
+    ref = Stack("ref")
+    _ref_build_manager(ref)
+    port = Stack("port")
+    port.manager = build_manager(port.store, port.config,
+                                 simulate_kubelet=True)
+    port.timed = True
+    states = {}
+    for s in (ref, port):
+        seen = states.setdefault(s.side, [])
+
+        def on_notebook(ev, s=s, seen=seen):
+            st = s.k8s.get_annotation(ev.obj, s.names.SCHED_STATE_ANNOTATION)
+            if ev.type != "DELETED" and (not seen or seen[-1] != st):
+                seen.append(st)
+        s.store.watch(s.api.KIND, on_notebook)
+        s.store.create(s.api.new_notebook("job", "ns", annotations={
+            s.names.TPU_ACCELERATOR_ANNOTATION: s.accelerator("v5e-16"),
+            s.names.SCHED_GANG_ANNOTATION: "2"}))
+        s.drain(include_delayed_under=0.1)
+        nb = s.store.get(s.api.KIND, "ns", "job")
+        anns = nb["metadata"]["annotations"]
+        assert anns[s.names.SCHED_STATE_ANNOTATION] == "Admitted"
+        assert anns[s.names.SCHED_RESERVED_ANNOTATION] == "2"
+        float(anns.pop(s.names.SCHED_ENQUEUED_AT_ANNOTATION))
+        s.store.patch(s.api.KIND, "ns", "job", {"metadata": {
+            "annotations": {s.names.SCHED_ENQUEUED_AT_ANNOTATION: None}}})
+        s.drain(include_delayed_under=0.1)
+        assert s.k8s.condition_true(nb, s.api.CONDITION_SLICE_READY)
+        assert nb["status"]["readyReplicas"] == 4
+        reasons = {e["reason"] for e in s.store.list("Event", "ns")}
+        assert "GangAdmitted" in reasons
+        assert "SchedulerAdmissionTimeout" not in reasons
+    assert states["port"] == states["ref"] == [
+        None, "Pending", "Reserving", "Admitted"]
+    assert_parity(ref, port)
+    assert port.manager.metrics.counter(
+        "scheduler_admissions_total", "").get(
+        {"tenant": "ns", "outcome": "admitted"}) == 1
 
 
 @pytest.mark.parametrize("components", ["extension", "all", "bogus"])
@@ -629,6 +689,66 @@ def test_build_manager_enable_slice_pool_gate():
             assert port._reconcilers[name]._read_cache is port.read_cache
         assert normalise(port_store.get(*crd), "port") == \
             normalise(ref_store.get(*crd), "ref")
+
+
+def test_build_manager_enable_scheduler_gate():
+    """The ENABLE_SCHEDULER gate on both entry points: the reference's
+    ``setup_controllers`` and the port's ``build_manager`` register
+    ``fleet-scheduler`` only with ``enable_scheduler`` (on by default),
+    the port's reading through the manager's cache; both install the
+    same TPUQuota CRD either way. With the scheduler off the core's
+    admission gate is off too: a gang notebook rolls in the drain that
+    follows its create, unscheduled and with no SchedulerAdmissionTimeout
+    (the grace path of a scheduler that is on but silent is held in
+    tests/test_torch_scheduler.py), on both."""
+    from kubeflow_tpu.cluster.store import ClusterStore as RefStore
+    from kubeflow_tpu.controllers import setup_controllers
+    from kubeflow_tpu.utils.config import ControllerConfig as RefConfig
+    from kubeflow_tpu_torch.cluster.store import ClusterStore
+    from kubeflow_tpu_torch.main import build_manager
+    from kubeflow_tpu_torch.utils.config import ControllerConfig
+    assert ControllerConfig().enable_scheduler is \
+        RefConfig().enable_scheduler is True
+    crd = ("CustomResourceDefinition", "", "tpuquotas.tpu.kubeflow.org")
+    for enable in (False, True):
+        ref_store, port_store = RefStore(), ClusterStore()
+        ref = setup_controllers(ref_store,
+                                RefConfig(enable_scheduler=enable))
+        port = build_manager(port_store,
+                             ControllerConfig(enable_scheduler=enable))
+        name = "fleet-scheduler"
+        assert (name in port._reconcilers) == (name in ref._reconcilers) \
+            == enable
+        if enable:
+            assert port._reconcilers[name]._read_cache is port.read_cache
+        assert normalise(port_store.get(*crd), "port") == \
+            normalise(ref_store.get(*crd), "ref")
+    ref = Stack("ref")
+    ref.config = ref.Config(enable_scheduler=False)
+    ref.pool_api.install_slicepool_crd(ref.store)
+    ref.quota_api.install_tpuquota_crd(ref.store)
+    ref.reconciler()
+    ref.pool()
+    ref.simulator()
+    port = Stack("port")
+    port.config = port.Config(enable_scheduler=False)
+    port.manager = build_manager(port.store, port.config,
+                                 simulate_kubelet=True)
+    port.timed = True
+    for s in (ref, port):
+        s.store.create(s.api.new_notebook("job", "ns", annotations={
+            s.names.TPU_ACCELERATOR_ANNOTATION: s.accelerator("v5e-16"),
+            s.names.SCHED_GANG_ANNOTATION: "2"}))
+        s.drain()
+        assert s.store.get_or_none("StatefulSet", "ns", "job") is not None
+        s.drain(include_delayed_under=0.1)
+        nb = s.store.get(s.api.KIND, "ns", "job")
+        assert s.k8s.condition_true(nb, s.api.CONDITION_SLICE_READY)
+        assert s.k8s.get_annotation(nb, s.names.SCHED_STATE_ANNOTATION) \
+            is None
+        assert "SchedulerAdmissionTimeout" not in {
+            e["reason"] for e in s.store.list("Event", "ns")}
+    assert_parity(ref, port)
 
 
 def test_build_manager_binds_a_warm_h100_1_slice_in_one_reconcile():

@@ -199,3 +199,51 @@ def test_phase16_repair_and_quarantine_on_the_cpu():
     assert rep["repairs_total"] == 1 and rep["repair_duration_samples"] == 1
     assert q["replicas"][-1] == 1 and q["quarantines_total"] == 1
     assert q["repairs_at_quarantine"] == q["repairs_after_checks"] == 2
+
+
+def test_phase18_fleet_scheduler_on_the_cpu():
+    """chip_smoke's phase-18 drive (``_sched_sequence``) on the CPU at a
+    tiny size, gloo worlds for the ready hook: on ``build_manager`` with
+    the fleet scheduler and a capacity of one slice, notebook ds is held
+    by its tenant's TPUQuota of 0 (no StatefulSet, no
+    SchedulerAdmissionTimeout past the grace), notebook train is admitted
+    in two phases, rolled and trains 4 steps in its world bit-equal to
+    one device; with the quota raised ds waits for capacity and train is
+    not preempted; train deleted, ds is reserved by its first pass after
+    the deletion, rolled into its own world and generates ids equal to
+    one device's. The manager stops and every world ends in a
+    ``finally``."""
+    import torch
+    import torch.distributed as dist
+
+    from chip_smoke import _sched_sequence
+    from kubeflow_tpu_torch.models.train import TrainConfig
+    from kubeflow_tpu_torch.models.transformer import TransformerConfig
+
+    assert not dist.is_initialized()
+    c = TransformerConfig(vocab_size=512, d_model=64, n_layers=2, n_heads=4,
+                          n_kv_heads=2, d_ff=128, max_seq_len=256,
+                          dtype="float32")
+    stats, launched = _sched_sequence(torch, c, TrainConfig(warmup_steps=2),
+                                      2, 32, 8, 4, device="cpu",
+                                      timeout=60.0)
+    assert not dist.is_initialized()
+    assert stats["denied"]["state"] == "Pending"
+    assert stats["denied"]["quota_denied"] >= 1
+    assert stats["train_states"] == ["Pending", "Reserving", "Admitted"]
+    assert len(stats["losses"]) == 4
+    assert stats["no_capacity"]["quota_used"] == {"team-train": 1,
+                                                  "team-ds": 0}
+    assert stats["ds_passes_after_delete"][0] == ("Pending", "Reserving")
+    assert stats["ids_equal"]
+    assert [w["report"]["backend"] for w in
+            (stats["world_train"], stats["world_ds"])] == ["gloo", "gloo"]
+    admissions = dict(stats["admissions"])
+    assert admissions.pop("team-ds/quota-denied") >= 1
+    assert admissions.pop("team-ds/no-capacity") >= 1
+    assert admissions == {"team-train/admitted": 1, "team-ds/admitted": 1}
+    assert stats["gang_wait_s"]["team-ds"][0] == 1
+    assert stats["gang_wait_s"]["team-ds"][1] > \
+        stats["gang_wait_s"]["team-train"][1]
+    # on the CPU the wrappers take their plain versions: nothing launched
+    assert not any(launched.values())

@@ -3,8 +3,8 @@ side, and the normaliser that compares what they write (a helper module:
 pytest collects no tests from it).
 
 ``Stack("ref")`` is the reference's store, Manager, NotebookReconciler,
-StatefulSet simulator, culler, slice repair reconciler and SlicePool
-reconciler; ``Stack("port")`` the port's. A case is a function of one
+StatefulSet simulator, culler, slice repair reconciler, SlicePool
+reconciler and fleet scheduler; ``Stack("port")`` the port's. A case is a function of one
 stack that uses the names both sides share (``api``, ``k8s``,
 ``names``, ``culling``, ``slicerepair``, ``kubelet``, ...), so the same
 code drives both.
@@ -12,7 +12,8 @@ code drives both.
 The same Notebook or SlicePool goes to both sides; only its accelerator
 request is mapped, to the H100 shape with the same worker count
 (``v5e-4`` (1 x 4) ↔ ``h100-4`` (1 x 4), ``v5e-8`` (1 x 8) ↔ ``h100-8``
-(1 x 8), ``v5e-16`` (4 x 4) ↔ ``h100-32`` (4 x 8)).
+(1 x 8), ``v5e-16`` (4 x 4) ↔ ``h100-32`` (4 x 8), ``v5e-32`` (8 x 4) ↔
+``h100-64`` (8 x 8)).
 ``normalise`` drops ``uid``, ``resourceVersion`` and timestamps, and maps
 only the accelerator seam: the resource key and its per-worker count,
 the nodeSelector, the TPU_ACCELERATOR_TYPE and TPU_TOPOLOGY values and
@@ -30,11 +31,13 @@ hostnames, condition reasons — must be equal.
 from __future__ import annotations
 
 from kubeflow_tpu.api import slicepool as ref_pool_api
+from kubeflow_tpu.api import tpuquota as ref_quota_api
 from kubeflow_tpu.api import types as ref_api
 from kubeflow_tpu.cluster import kubelet as ref_kubelet
 from kubeflow_tpu.cluster.kubelet import StatefulSetSimulator as RefSimulator
 from kubeflow_tpu.cluster.store import ClusterStore as RefStore
 from kubeflow_tpu.controllers import culling as ref_culling
+from kubeflow_tpu.controllers import scheduler as ref_scheduler
 from kubeflow_tpu.controllers import slicerepair as ref_slicerepair
 from kubeflow_tpu.controllers.slicepool import (
     SlicePoolReconciler as RefPoolReconciler)
@@ -47,11 +50,12 @@ from kubeflow_tpu.utils import names as ref_names
 from kubeflow_tpu.utils.config import ControllerConfig as RefConfig
 from kubeflow_tpu.utils.metrics import MetricsRegistry as RefMetrics
 from kubeflow_tpu_torch.api import slicepool as pool_api
+from kubeflow_tpu_torch.api import tpuquota as quota_api
 from kubeflow_tpu_torch.api import types as api
 from kubeflow_tpu_torch.cluster import kubelet
 from kubeflow_tpu_torch.cluster.kubelet import StatefulSetSimulator
 from kubeflow_tpu_torch.cluster.store import ClusterStore
-from kubeflow_tpu_torch.controllers import culling, slicerepair
+from kubeflow_tpu_torch.controllers import culling, scheduler, slicerepair
 from kubeflow_tpu_torch.controllers import (Manager, NotebookReconciler,
                                             Request, SlicePoolReconciler)
 from kubeflow_tpu_torch.utils import k8s, names
@@ -59,7 +63,8 @@ from kubeflow_tpu_torch.utils.config import ControllerConfig
 from kubeflow_tpu_torch.utils.metrics import MetricsRegistry
 
 # each reference request and the port's request with the same workers
-SHAPES = {"v5e-4": "h100-4", "v5e-8": "h100-8", "v5e-16": "h100-32"}
+SHAPES = {"v5e-4": "h100-4", "v5e-8": "h100-8", "v5e-16": "h100-32",
+          "v5e-32": "h100-64"}
 REF_OF = {port: ref for ref, port in SHAPES.items()}
 # what each side renders for a shape, written out (not read back from
 # either package's topology table)
@@ -76,6 +81,10 @@ RENDERED = {
         "cloud.google.com/gke-tpu-accelerator": "tpu-v5-lite-podslice",
         "cloud.google.com/gke-tpu-topology": "4x4"},
         "per_worker": "4", "topology": "4x4"},
+    "v5e-32": {"nodeSelector": {
+        "cloud.google.com/gke-tpu-accelerator": "tpu-v5-lite-podslice",
+        "cloud.google.com/gke-tpu-topology": "4x8"},
+        "per_worker": "4", "topology": "4x8"},
     "h100-4": {"nodeSelector": {
         "cloud.google.com/gke-accelerator": "nvidia-h100-80gb",
         "node.kubernetes.io/instance-type": "a3-highgpu-4g"},
@@ -88,6 +97,10 @@ RENDERED = {
         "cloud.google.com/gke-accelerator": "nvidia-h100-80gb",
         "node.kubernetes.io/instance-type": "a3-highgpu-8g"},
         "per_worker": "8", "topology": "4x8"},
+    "h100-64": {"nodeSelector": {
+        "cloud.google.com/gke-accelerator": "nvidia-h100-80gb",
+        "node.kubernetes.io/instance-type": "a3-highgpu-8g"},
+        "per_worker": "8", "topology": "8x8"},
 }
 RESOURCE_KEY = {"ref": "google.com/tpu", "port": "nvidia.com/gpu"}
 # the image each side rolls its warm pool slices with
@@ -178,11 +191,13 @@ class Stack:
         ref = side == "ref"
         self.api = ref_api if ref else api
         self.pool_api = ref_pool_api if ref else pool_api
+        self.quota_api = ref_quota_api if ref else quota_api
         self.k8s = ref_k8s if ref else k8s
         self.names = ref_names if ref else names
         self.Request = RefRequest if ref else Request
         self.culling = ref_culling if ref else culling
         self.slicerepair = ref_slicerepair if ref else slicerepair
+        self.scheduler_mod = ref_scheduler if ref else scheduler
         self.kubelet = ref_kubelet if ref else kubelet
         self.Config = RefConfig if ref else ControllerConfig
         self.store = RefStore() if ref else ClusterStore()
@@ -238,6 +253,18 @@ class Stack:
                                        **kw)
         rec.setup(self.manager)
         return rec
+
+    def scheduler(self, **kw):
+        """The side's SchedulerReconciler on this stack's store, config
+        and metrics; ``kw`` is its wall clock."""
+        rec = self.scheduler_mod.SchedulerReconciler(
+            self.store, self.config, self.metrics, **kw)
+        rec.setup(self.manager)
+        return rec
+
+    def quota(self, name: str, tenant: str, n: int) -> dict:
+        """A TPUQuota CR of this side: ``tenant`` may hold ``n`` slices."""
+        return self.quota_api.new_tpu_quota(name, tenant, n)
 
     def slice_pool(self, name: str, ref_shape: str, warm: int, **kw) -> dict:
         """A SlicePool CR of this side for the reference's shape
