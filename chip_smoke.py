@@ -3119,14 +3119,15 @@ def phase_mesh_serving_and_elastic(torch, flagship, moe, root, dev, mesh,
     """14: the serving half of multi-device and elastic training on phase
     12's NCCL world of one rank (MeshConfig()), at the flagship's width.
     Phase 7b's bf16 flagship through shard_decode_params: phase 3's
-    traffic (8 x 128 -> 64) in the bucketed engine and phase 8's (16
-    streams 25 ms apart) in the continuous engine, then an int8 engine
-    (quantize, kv_quant), each beside the unsharded engine; phase 10's
-    flagship-MoE (bf16, and its f32 factor-4 twin) through generate and
-    the continuous engine; an ElasticTrainer whose ElasticAgent drains
-    and reshards to 1 slice between fits, against an uninterrupted
-    Trainer; a CheckpointMigrationDriver checkpoint at step 4 resumed
-    into a fresh Trainer. At world 1 no plan is broadcast: the sharded
+    traffic (8 x 128 -> 64) in the bucketed engine and 8 streams 25 ms
+    apart (128 -> 32) in the continuous engine, then an int8 engine
+    (quantize, kv_quant; 4 x 128 -> 32), each beside the unsharded
+    engine; phase 10's flagship-MoE (bf16, and its f32 factor-4 twin)
+    through generate and the continuous engine (2 x 128 -> 32 each); an
+    ElasticTrainer whose ElasticAgent drains and reshards to 1 slice
+    between fits, against an uninterrupted Trainer; a
+    CheckpointMigrationDriver checkpoint at step 4 resumed into a fresh
+    Trainer. At world 1 no plan is broadcast: the sharded
     engines launch what the unsharded ones do, tick for tick."""
     from kubeflow_tpu_torch import ops
     from kubeflow_tpu_torch.models import train as train_lib
@@ -3204,9 +3205,13 @@ def phase_mesh_serving_and_elastic(torch, flagship, moe, root, dev, mesh,
                 sharded if on_mesh else params4, c, n_slots=8,
                 device="cuda", **kw)
         return make
-    streams = [prompt(128) for _ in range(16)]
-    run = _serve_both(torch, continuous(), streams, 64, take,
-                      "continuous engine, 16 x (prompt 128, 64 new) 25 ms "
+    # the serving over a mesh is cut to half the streams and half the new
+    # tokens of phase 8's traffic (and the int8 and MoE runs below to
+    # half their prompts) to keep the whole run's time: every check
+    # stays (ids prompt by prompt, launches a tick)
+    streams = [prompt(128) for _ in range(8)]
+    run = _serve_both(torch, continuous(), streams, 32, take,
+                      "continuous engine, 8 x (prompt 128, 32 new) 25 ms "
                       "apart", profile=True)
     for side in ("sharded", "unsharded"):
         r = run[side]
@@ -3259,10 +3264,10 @@ def phase_mesh_serving_and_elastic(torch, flagship, moe, root, dev, mesh,
     launched["flash_decode"] += sh["launches"].get("flash_decode", 0)
 
     # ---- int8 weights and KV on the sharded tree
-    q_prompts = [prompt(128) for _ in range(8)]
+    q_prompts = [prompt(128) for _ in range(4)]
     run = _serve_both(torch, continuous(quantize=True, kv_quant=True),
                       q_prompts, 32, take,
-                      "int8 engine (quantize, kv_quant), 8 x (prompt 128, "
+                      "int8 engine (quantize, kv_quant), 4 x (prompt 128, "
                       "32 new)")
     sh = run["sharded"]
     require(sh["launches"] == {"flash_decode_int8": sh["ticks"] * L},
@@ -3285,7 +3290,7 @@ def phase_mesh_serving_and_elastic(torch, flagship, moe, root, dev, mesh,
             ("f32_factor4", moe.replace(dtype="float32", capacity_factor=(
                 moe.n_experts / moe.experts_per_token)), "staggered")):
         msharded = shard_decode_params(mparams, mesh, mc)
-        m_prompts = torch.randint(0, V, (4, 128), generator=rng).to(dev)
+        m_prompts = torch.randint(0, V, (2, 128), generator=rng).to(dev)
         want_ids = generate(mparams, m_prompts, mc, 32)
         torch.cuda.synchronize()
         ops.reset_launch_counts()    # the unsharded comparison's launches
@@ -3302,7 +3307,7 @@ def phase_mesh_serving_and_elastic(torch, flagship, moe, root, dev, mesh,
                 msharded if on_mesh else mparams, mc, n_slots=8,
                 device="cuda")
         run = _serve_both(torch, make, m_prompts.tolist(), 32, take,
-                          f"MoE {label} continuous engine, 4 x (prompt "
+                          f"MoE {label} continuous engine, 2 x (prompt "
                           f"128, 32 new) "
                           + ("one after the other" if drive == "in_turn"
                              else "25 ms apart"), drive=drive)
@@ -3314,7 +3319,7 @@ def phase_mesh_serving_and_elastic(torch, flagship, moe, root, dev, mesh,
                                "engine_tokens_per_s": sh["tokens_per_s"],
                                "launches": sh["launches"]}
         print(f"phase14 MoE {label} (experts over ep, capacity factor "
-              f"{mc.capacity_factor}): sharded generate 4 x 128 -> 32 ids "
+              f"{mc.capacity_factor}): sharded generate 2 x 128 -> 32 ids "
               f"equal to unsharded {gen_equal}; engine ids equal "
               f"{run['ids_equal']}", flush=True)
         require(gen_equal, f"MoE {label}: sharded generate ids differ")
@@ -3558,16 +3563,17 @@ def _reconcile_totals(mgr) -> dict:
     return {f"{c}/{r}": metric.get({"controller": c, "result": r})
             for c in ("notebook-controller", "sim-statefulset-controller",
                       "culling-controller", "slice-repair-controller",
-                      "slice-pool-controller", "fleet-scheduler")
+                      "slice-pool-controller", "fleet-scheduler",
+                      "extension-controller")
             for r in ("success", "requeue_after", "error")
             if metric.get({"controller": c, "result": r})}
 
 
 def _notebook_fleet(n_by_shape: dict, namespaces: int = 10,
-                    config=None) -> dict:
+                    config=None, components: str = "core") -> dict:
     """Reconcile a fleet of Notebooks on a fresh ``build_manager`` (on
-    ``config``, else the default one) under ``start()`` with 4 workers,
-    the kubelet simulator not gated, the
+    ``config``, else the default one, and ``components``) under
+    ``start()`` with 4 workers, the kubelet simulator not gated, the
     reconcilers reading through the manager's cache: each CR's create →
     SliceReady=True latency in ms (host time, measured on the store's
     watch), the writes (resourceVersions), reconciles and the cache's
@@ -3579,7 +3585,7 @@ def _notebook_fleet(n_by_shape: dict, namespaces: int = 10,
 
     store = ClusterStore()
     mgr = build_manager(store, config, simulate_kubelet=True,
-                        max_concurrent_reconciles=4)
+                        max_concurrent_reconciles=4, components=components)
     created: dict = {}
     ready: dict = {}
 
@@ -5643,6 +5649,419 @@ def phase_sched(torch, flagship) -> tuple[dict, dict]:
     return stats, launched
 
 
+# --------------------------------------------------------------- phase 19
+# the trust source phase 19 seeds: one valid PEM block (base64 of
+# "certificate-bytes") and one whose body is not base64; the bundle the
+# extension writes into the notebook's namespace holds only the first
+_VALID_PEM = ("-----BEGIN CERTIFICATE-----\nY2VydGlmaWNhdGUtYnl0ZXM=\n"
+              "-----END CERTIFICATE-----")
+_GARBAGE_PEM = ("-----BEGIN CERTIFICATE-----\n!!!not-base64!!!\n"
+                "-----END CERTIFICATE-----")
+
+
+def _ext_sequence(torch, c, tc, B: int, S: int, prompt_len: int,
+                  new: int, device: str = "cuda",
+                  timeout: float = 180.0) -> tuple[dict, dict]:
+    """Phase 19's drive at any size, on ``device`` ("cuda": an NCCL
+    world; "cpu": gloo, the tests): ``build_manager(components="all")``
+    under ``start()``, the simulator gated by a ``_SliceGate`` for
+    notebook ``wb``. The controller namespace first gets the cluster's
+    trust bundle (a valid PEM block and a garbage one) and a runtime-image
+    ImageStream. In order: ``wb`` (h100-1, auth on) is created with the
+    reconciliation lock on the CR, as the reference's webhook sets it;
+    while the lock stands its StatefulSet stays at 0 replicas and no pod
+    exists, and when the extension removes it every prerequisite is
+    there (the three finalizers, the auth ServiceAccount, TLS Service
+    (targetPort 8443), SAR ConfigMap and ClusterRoleBinding, both
+    NetworkPolicies, the HTTPRoute in the controller namespace to the
+    TLS Service on port 443, the ReferenceGrant, the workbench bundle
+    with the valid block only, ``pipeline-runtime-images``); the core
+    scales 0 → 1 and the pod turns Ready once its world passes
+    ``verify_slice``. In that world a ``Trainer(mesh=...)`` takes 2
+    steps, held bit-equal to a one-device Trainer. Auth is switched off
+    on the running notebook: the auth objects go, the CRB finalizer is
+    dropped and the route is replaced by one to ``wb``:80, the pod not
+    rolled (same uid, replicas never 0). Greedy ``generate`` on
+    ``shard_decode_params`` of the trained params is held equal to the
+    one-device ``generate``. Last the Trainer is closed, the world ended
+    and ``wb`` deleted: its route and the ReferenceGrant go with it, its
+    finalizers are stripped and it is gone. Returns (stats, the launches
+    of the main path: the 2 steps and the ``generate``, each counted
+    from 0)."""
+    import torch.distributed as dist
+
+    from kubeflow_tpu_torch import ops
+    from kubeflow_tpu_torch.api import types as api
+    from kubeflow_tpu_torch.cluster.store import ClusterStore
+    from kubeflow_tpu_torch.controllers import (auth, cacert, extension,
+                                                routes, runtime_images)
+    from kubeflow_tpu_torch.main import build_manager
+    from kubeflow_tpu_torch.models.decode import generate
+    from kubeflow_tpu_torch.parallel.mesh import (MeshConfig, build_mesh,
+                                                  leave_world)
+    from kubeflow_tpu_torch.runtime.data import synthetic_lm_batches
+    from kubeflow_tpu_torch.runtime.sharded_decode import shard_decode_params
+    from kubeflow_tpu_torch.runtime.trainer import Trainer
+    from kubeflow_tpu_torch.utils import k8s, names
+    from kubeflow_tpu_torch.utils.config import ControllerConfig
+
+    require(not dist.is_initialized(), "phase19: a world is still formed")
+    V = c.vocab_size
+    ns, name = "ext-ns", "wb"
+    store = ClusterStore()
+    config = ControllerConfig()
+    central = config.controller_namespace
+    gate = _SliceGate(name, device)
+
+    def backend(route: dict) -> tuple:
+        ref = route["spec"]["rules"][0]["backendRefs"][0]
+        return k8s.namespace(route), ref["name"], ref["port"]
+
+    def auth_objects() -> dict:
+        return {kind: store.get_or_none(kind, n_s, n) is not None
+                for kind, n_s, n in (
+                    ("ServiceAccount", ns, auth.sa_name(name)),
+                    ("Service", ns, auth.tls_service_name(name)),
+                    ("ConfigMap", ns, auth.rbac_config_name(name)),
+                    ("ClusterRoleBinding", "", auth.crb_name(ns, name)))}
+
+    def prerequisites(nb: dict) -> dict:
+        """What the extension has provisioned for ``nb``, from the
+        store."""
+        tls = store.get_or_none("Service", ns, auth.tls_service_name(name))
+        bundle = store.get_or_none("ConfigMap", ns, cacert.WORKBENCH_BUNDLE)
+        images = store.get_or_none("ConfigMap", ns,
+                                   runtime_images.CONFIGMAP_NAME)
+        return {
+            "finalizers": sorted(nb["metadata"].get("finalizers") or []),
+            **auth_objects(),
+            "tls_target_port": tls and tls["spec"]["ports"][0]["targetPort"],
+            "network_policies": sorted(
+                k8s.name(p) for p in store.list("NetworkPolicy", ns)),
+            "routes": [backend(r)
+                       for r in routes.find_routes(store, config, nb)],
+            "reference_grant": store.get_or_none(
+                "ReferenceGrant", ns, routes.REFERENCE_GRANT_NAME)
+            is not None,
+            "ca_bundle": bundle and bundle["data"]["ca-bundle.crt"],
+            "runtime_images": sorted((images or {}).get("data") or {})}
+
+    seen: dict = {"lock_off": None, "ready": None, "at_unlock": None,
+                  "gone": None, "replicas": [], "pods": []}
+
+    def on_notebook(event) -> None:
+        if k8s.name(event.obj) != name:
+            return
+        now = time.monotonic()
+        if event.type == "DELETED":
+            seen["gone"] = now
+            return
+        lock = k8s.get_annotation(event.obj, names.STOP_ANNOTATION)
+        if seen["lock_off"] is None and \
+                lock != names.RECONCILIATION_LOCK_VALUE:
+            seen["lock_off"] = now
+            seen["at_unlock"] = prerequisites(event.obj)
+        if seen["ready"] is None and \
+                k8s.condition_true(event.obj, api.CONDITION_SLICE_READY):
+            seen["ready"] = now
+
+    def on_sts(event) -> None:
+        if event.type != "DELETED" and k8s.name(event.obj) == name:
+            n = event.obj["spec"]["replicas"]
+            if not seen["replicas"] or seen["replicas"][-1][0] != n:
+                seen["replicas"].append((n, time.monotonic()))
+
+    def on_pod(event) -> None:
+        if event.type == "ADDED" and \
+                k8s.get_label(event.obj, names.NOTEBOOK_NAME_LABEL) == name:
+            seen["pods"].append((k8s.uid(event.obj), time.monotonic()))
+    # watched before the manager's own watches, so each callback runs
+    # before the event reaches a workqueue
+    store.watch(api.KIND, on_notebook)
+    store.watch("StatefulSet", on_sts)
+    store.watch("Pod", on_pod)
+    mgr = build_manager(store, config, simulate_kubelet=True,
+                        components="all", ready_hook=gate)
+    ext = mgr._reconcilers.get("extension-controller")
+    require(ext is not None and "notebook-controller" in mgr._reconcilers,
+            f"phase19: build_manager(components='all') registered "
+            f"{sorted(mgr._reconcilers)}")
+    # the extension's reconciles and writes by kind, recorded on the
+    # instance the manager calls
+    passes: list = []
+    writes: dict = {}
+    reconcile = ext.reconcile
+
+    def recorded(req):
+        passes.append(time.monotonic())
+        return reconcile(req)
+    ext.reconcile = recorded
+    for verb in ("create", "update", "patch", "delete"):
+        def counted(*a, _verb=verb, _fn=getattr(ext.client, verb), **kw):
+            kind = a[0]["kind"] if _verb in ("create", "update") else a[0]
+            writes[f"{kind}/{_verb}"] = writes.get(f"{kind}/{_verb}", 0) + 1
+            return _fn(*a, **kw)
+        setattr(ext.client, verb, counted)
+
+    def wait(what: str, cond) -> float:
+        def ok():
+            require(gate.error is None, f"phase19: the ready hook failed "
+                                        f"while waiting for {what}: "
+                                        f"{gate.error!r}")
+            return cond()
+        return _wait_for(what, ok, timeout, phase="phase19")
+
+    def take(got: dict) -> None:
+        for k, n in ops.launch_counts().items():
+            launched[k] = launched.get(k, 0) + n
+            got[k] = got.get(k, 0) + n
+
+    store.create({"apiVersion": "v1", "kind": "ConfigMap",
+                  "metadata": {"name": cacert.TRUSTED_CA_BUNDLE,
+                               "namespace": central},
+                  "data": {"ca-bundle.crt":
+                           _VALID_PEM + "\n" + _GARBAGE_PEM}})
+    store.create({
+        "apiVersion": "image.openshift.io/v1", "kind": "ImageStream",
+        "metadata": {"name": "pytorch-runtime", "namespace": central,
+                     "labels": {runtime_images.RUNTIME_IMAGE_LABEL: "true"}},
+        "spec": {"tags": [{
+            "name": "2025a",
+            "from": {"kind": "DockerImage",
+                     "name": config.tpu_default_image},
+            "annotations": {runtime_images.METADATA_ANNOTATION: json.dumps(
+                [{"display_name": "PyTorch CUDA", "metadata": {}}])}}]}})
+    src = synthetic_lm_batches(B, S, V, seed=0)
+    batches = [next(src) for _ in range(2)]
+    rng = torch.Generator().manual_seed(7)
+    prompt = torch.randint(0, V, (B, prompt_len), generator=rng).to(device)
+    stats: dict = {}
+    launched: dict = {}
+    trainer = None
+    mgr.start()
+    try:
+        # 1. created locked: provisioned, unlocked, rolled, Ready
+        t_create = time.monotonic()
+        store.create(api.new_notebook(name, ns, annotations={
+            names.TPU_ACCELERATOR_ANNOTATION: "h100-1",
+            names.INJECT_AUTH_ANNOTATION: "true",
+            names.STOP_ANNOTATION: names.RECONCILIATION_LOCK_VALUE}))
+        wait("SliceReady on wb", lambda: seen["ready"] is not None)
+        unlock = seen["lock_off"]
+        stats["ready_ms"] = {"lock_removed": (unlock - t_create) * 1e3,
+                             "slice_ready": (seen["ready"] - t_create) * 1e3}
+        stats["while_locked"] = {
+            "replicas": sorted({n for n, t in seen["replicas"]
+                                if t < unlock}),
+            "pods": sum(t < unlock for _, t in seen["pods"])}
+        stats["at_unlock"] = at_unlock = seen["at_unlock"]
+        want = {
+            "finalizers": sorted(extension.ALL_FINALIZERS),
+            "ServiceAccount": True, "Service": True, "ConfigMap": True,
+            "ClusterRoleBinding": True, "tls_target_port": 8443,
+            "network_policies": sorted([f"{name}-auth-np",
+                                        f"{name}-ctrl-np"]),
+            "routes": [(central, auth.tls_service_name(name), 443)],
+            "reference_grant": True, "ca_bundle": _VALID_PEM + "\n",
+            "runtime_images": ["pytorch-cuda.json"]}
+        require(stats["while_locked"] == {"replicas": [0], "pods": 0},
+                f"phase19: while locked {stats['while_locked']}, replicas "
+                f"{seen['replicas']}")
+        require(at_unlock == want,
+                f"phase19: at the unlock {at_unlock}, want {want}")
+        require([n for n, _ in seen["replicas"]] == [0, 1] and
+                len(seen["pods"]) == 1,
+                f"phase19: replicas {seen['replicas']}, pods {seen['pods']}")
+        world = gate.worlds[-1]
+        stats["world"] = world
+
+        # 2. two steps on the card in the notebook's world
+        mesh = build_mesh(MeshConfig.auto(world["report"]["device_count"]),
+                          device)
+        counts_train: dict = {}
+        ops.reset_launch_counts()
+        trainer = Trainer(c, tc, seed=0, mesh=mesh)
+        t0 = time.monotonic()
+        trainer.fit(batches, steps=2, log_every=1)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        stats["train_s"] = time.monotonic() - t0
+        take(counts_train)
+        losses = [x for _, x in trainer.stats.losses]
+        params = trainer.params
+        one = Trainer(c, tc, seed=0, device=device)
+        one.fit(batches, steps=2, log_every=1)
+        want_losses = [x for _, x in one.stats.losses]
+        one.close()
+        del one
+        ops.reset_launch_counts()     # the comparison's launches
+        gc.collect()
+        stats.update({"losses": losses, "launches_train": counts_train})
+        require(losses == want_losses and
+                all(math.isfinite(x) for x in losses),
+                f"phase19: wb's losses {losses} differ from one device's "
+                f"{want_losses}")
+
+        # 3. auth off on the running notebook: a plain route, no bounce
+        t_off = time.monotonic()
+        store.patch(api.KIND, ns, name, {"metadata": {"annotations": {
+            names.INJECT_AUTH_ANNOTATION: "false"}}})
+
+        def plain() -> bool:
+            nb = store.get(api.KIND, ns, name)
+            return not any(auth_objects().values()) and \
+                extension.FINALIZER_CRB not in \
+                (nb["metadata"].get("finalizers") or []) and \
+                [backend(r) for r in routes.find_routes(store, config, nb)] \
+                == [(central, name, 80)]
+        wait("the plain route", plain)
+        stats["auth_off_ms"] = (time.monotonic() - t_off) * 1e3
+        after = prerequisites(store.get(api.KIND, ns, name))
+        stats["auth_off"] = {
+            "routes": after["routes"],
+            "network_policies": after["network_policies"],
+            "finalizers": after["finalizers"],
+            "pod_uids": sorted({u for u, _ in seen["pods"]}),
+            "replicas": [n for n, _ in seen["replicas"]]}
+        pod = store.list("Pod", ns, {names.NOTEBOOK_NAME_LABEL: name})
+        require(len(pod) == 1 and k8s.uid(pod[0]) == seen["pods"][0][0] and
+                len(seen["pods"]) == 1 and
+                stats["auth_off"]["replicas"] == [0, 1] and
+                stats["auth_off"]["network_policies"] == [f"{name}-ctrl-np"],
+                f"phase19: after auth off {stats['auth_off']}")
+
+        # 4. generate on the trained params in the same world
+        counts_gen: dict = {}
+        ops.reset_launch_counts()
+        ids = generate(shard_decode_params(params, mesh, c), prompt, c, new)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        take(counts_gen)
+        want_ids = generate(params, prompt, c, new)
+        ops.reset_launch_counts()     # the comparison's launches
+        stats.update({"ids_equal": bool(torch.equal(ids, want_ids)),
+                      "launches_generate": counts_gen})
+        require(stats["ids_equal"], "phase19: wb's generate differs from "
+                                    "one device's")
+
+        # 5. the Trainer closed, the world ended, the notebook deleted
+        trainer.close()
+        trainer = None
+        del params
+        leave_world()
+        gc.collect()
+        t_del = time.monotonic()
+        store.delete(api.KIND, ns, name)
+        wait("wb gone", lambda: seen["gone"] is not None)
+        stats["delete_ms"] = (seen["gone"] - t_del) * 1e3
+        stats["after_delete"] = {
+            "routes": len(store.list("HTTPRoute", central,
+                                     {names.NOTEBOOK_NAME_LABEL: name})),
+            "reference_grant": store.get_or_none(
+                "ReferenceGrant", ns, routes.REFERENCE_GRANT_NAME)
+            is not None,
+            **auth_objects(),
+            "notebook": store.get_or_none(api.KIND, ns, name) is not None}
+        require(not any(stats["after_delete"].values()),
+                f"phase19: after the delete {stats['after_delete']}")
+    finally:
+        if trainer is not None:
+            trainer.close()
+        mgr.stop()
+        for cb in (on_notebook, on_sts, on_pod):
+            store.unwatch(cb)
+        if dist.is_initialized():
+            leave_world()
+    stats["extension"] = {"reconciles": len(passes),
+                          "writes": dict(sorted(writes.items()))}
+    stats["control_plane"] = {"writes": store._last_rv,
+                              "reconciles": _reconcile_totals(mgr)}
+    return stats, launched
+
+
+def phase_ext(torch, flagship, sched_losses: list) -> tuple[dict, dict]:
+    """19: the extension tier on the card (``_ext_sequence`` at the
+    flagship's width: b8 x s1024 with bf16 params, generate 8 x 128 ->
+    16; the 2 losses equal to phase 18's steps 1-2), then phase 15's
+    fleet on ``components="core"`` and ``"all"``, in turns. Returns
+    (stats, the launches of the main path)."""
+    from kubeflow_tpu_torch.models import train as train_lib
+
+    t_phase = time.monotonic()
+    L = flagship.n_layers
+    torch.cuda.reset_peak_memory_stats()
+    stats, launched = _ext_sequence(
+        torch, flagship, train_lib.TrainConfig(bf16_params=True), 8, 1024,
+        128, 16)
+    stats["seconds"] = time.monotonic() - t_phase
+    stats["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    gc.collect()
+    torch.cuda.empty_cache()
+    counts_train, counts_gen = stats["launches_train"], \
+        stats["launches_generate"]
+    for what, value in (
+            ("wb CR -> lock removed -> SliceReady ms (host time)",
+             stats["ready_ms"]),
+            ("while locked: StatefulSet replicas, pods",
+             stats["while_locked"]),
+            ("provisioned at the unlock", stats["at_unlock"]),
+            ("wb's world (seconds, report)",
+             (stats["world"]["seconds"], stats["world"]["report"])),
+            ("Trainer(mesh=...) b8 s1024 2 steps: losses, bit-equal to one "
+             "device's and to phase 18's steps 1-2, seconds",
+             (stats["losses"], True, stats["train_s"])),
+            ("launches of wb's 2 steps", counts_train),
+            ("auth off -> plain route ms (host time)", stats["auth_off_ms"]),
+            ("after auth off", stats["auth_off"]),
+            ("wb's generate 8 x 128 -> 16 on the trained params: ids equal "
+             "to one device's, launches", (stats["ids_equal"], counts_gen)),
+            ("delete -> notebook gone ms (host time)", stats["delete_ms"]),
+            ("after the delete (left behind)", stats["after_delete"]),
+            ("the extension's reconciles and writes by kind",
+             stats["extension"]),
+            ("control plane writes and reconciles",
+             stats["control_plane"])):
+        print(f"phase19 {what}: {value} ({CARD[0]})", flush=True)
+    require(stats["losses"] == list(sched_losses[:2]),
+            f"phase19: losses {stats['losses']} differ from phase 18's "
+            f"steps 1-2 {sched_losses[:2]}")
+    attn = ("flash_attention", "flash_attention_bwd_dkv",
+            "flash_attention_bwd_dq")
+    require(all(counts_train.get(k) == 2 * L for k in attn) and
+            not counts_train.get("flash_decode") and
+            counts_gen.get("flash_attention") == L and
+            counts_gen.get("flash_decode") == (16 - 1) * L and
+            not counts_gen.get("flash_attention_bwd_dkv"),
+            f"phase19: launches train {counts_train}, generate "
+            f"{counts_gen}")
+    fleets = {}
+    for components in ("core", "all"):
+        fleets[components] = f = _notebook_fleet(
+            {"h100-1": 60, "h100-8": 30, "h100-16": 10},
+            components=components)
+        ext = sum(n for k, n in f["reconciles"].items()
+                  if k.startswith("extension-controller/"))
+        print(f"phase19 fleet of phase 15 on components={components!r}: "
+              f"{f['notebooks']} Notebooks SliceReady in "
+              f"{f['seconds']:.2f} s; CR→SliceReady p50 "
+              f"{f['ready_p50_ms']:.1f} ms, p95 {f['ready_p95_ms']:.1f} ms "
+              f"(host time); {f['writes']} writes; extension reconciles "
+              f"{ext:g}; reconciles {f['reconciles']}; cache index lookups "
+              f"{f['cache_index_lookups']:g}, full scans "
+              f"{f['cache_full_scans']:g} ({CARD[0]})", flush=True)
+        require(f["pods"] == f["replicas"] == 60 + 30 + 20,
+                f"phase19: the fleet's pods: {f}")
+        require((ext > 0) == (components == "all"),
+                f"phase19: extension reconciles {ext} on {components}")
+    stats["fleet"] = fleets
+    stats["seconds_with_fleets"] = time.monotonic() - t_phase
+    print(f"phase19 in {stats['seconds']:.1f} s ("
+          f"{stats['seconds_with_fleets']:.1f} s with the two fleets), peak "
+          f"{stats['peak_mem_gb']:.3f} GB; launches {launched} ({CARD[0]})",
+          flush=True)
+    return stats, launched
+
+
 # --------------------------------------------------------------- phase 5
 def _time_flash(torch, timer, b, s, h, d, seed=4, lse=False):
     import torch.nn.functional as F
@@ -6011,6 +6430,12 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     train["sched"], launched = phase_sched(torch, FLAGSHIP)
+    for name, n in launched.items():
+        counts[name] += n
+    gc.collect()
+    torch.cuda.empty_cache()
+    train["ext"], launched = phase_ext(torch, FLAGSHIP,
+                                       train["sched"]["losses"])
     for name, n in launched.items():
         counts[name] += n
     rows, wide = phase_times(torch, errs, counts)

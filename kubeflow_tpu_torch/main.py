@@ -1,11 +1,14 @@
 """The port's composition root: a manager with the core Notebook
 reconciler, the idle culler, the slice repair reconciler, the warm
-slice pool reconciler and the fleet scheduler over the in-process
-apiserver.
+slice pool reconciler, the fleet scheduler and the extension
+reconciler over the in-process apiserver.
 
-The counterpart of the ``components="core"`` path of
-``kubeflow_tpu/main.py`` ``build_manager`` (``setup_controllers``,
-``kubeflow_tpu/controllers/__init__.py``): one watch-fed ``CachingClient``
+The counterpart of ``kubeflow_tpu/main.py`` ``build_manager``
+(``setup_controllers``, ``kubeflow_tpu/controllers/__init__.py``) with
+its ``components`` selection: ``"core"`` (the default) the core binary's
+reconcilers, ``"extension"`` the extension binary's reconciler alone,
+``"all"`` both, the extension reconciler registered after the
+scheduler, as the reference's order has it. One watch-fed ``CachingClient``
 the reconcilers read through (Secrets, ConfigMaps and Events read live),
 the SlicePool and TPUQuota CRDs and their admission, the core
 reconciler, the culler when ``config.enable_culling`` is set, the slice
@@ -27,9 +30,21 @@ cache, so a standalone run is a working control plane on one machine::
     # → Pending → Reserving → Admitted (GangAdmitted), then the roll
     mgr.stop()
 
-Not yet in the port, each an item of ROADMAP.md's queue A: the
-extension manager and the admission webhooks (``components="extension"``
-or ``"all"``), flags, TLS, the webhook server, health endpoints and
+    mgr = build_manager(simulate_kubelet=True, components="all")
+    mgr.client.create(new_notebook("wb", "ns", annotations={
+        "tpu.kubeflow.org/accelerator": "h100-1",
+        "notebooks.opendatahub.io/inject-auth": "true",
+        "kubeflow-resource-stopped": "odh-notebook-controller-lock"}))
+    mgr.run_until_idle()
+    # → finalizers, auth SA/TLS Service/SAR ConfigMap/CRB, NetworkPolicies,
+    #   the HTTPRoute in the controller namespace, the ReferenceGrant;
+    #   the lock removed, then 0 → 1 replicas
+
+Not yet in the port, each an item of ROADMAP.md's queue A: the admission
+webhooks that the reference's ``"extension"`` and ``"all"`` stacks
+install in process (item 6; until then a notebook is locked only by its
+creator, and no webhook mounts the CA bundle, the runtime images or the
+auth sidecar), flags, TLS, the webhook server, health endpoints and
 leader election.
 """
 
@@ -39,26 +54,23 @@ from .api.slicepool import install_slicepool_crd
 from .api.tpuquota import install_tpuquota_crd
 from .cluster.cache import CachingClient
 from .cluster.store import ClusterStore
-from .controllers import (CullingReconciler, Manager, NotebookReconciler,
-                          SchedulerReconciler, SlicePoolReconciler,
-                          SliceRepairReconciler)
+from .controllers import (CullingReconciler, ExtensionReconciler, Manager,
+                          NotebookReconciler, SchedulerReconciler,
+                          SlicePoolReconciler, SliceRepairReconciler)
 from .utils.config import ControllerConfig
 from .utils.metrics import MetricsRegistry
 
-# what each other selection of the reference needs, by ROADMAP.md item
-_NOT_PORTED = {
-    "extension": "queue A item 5 (the extension reconciler and its "
-                 "satellites) and item 6 (the webhooks)",
-    "all": "queue A items 5 and 6 (the extension reconciler and the "
-           "webhooks)",
-}
+# which binaries each selection runs: (core, extension)
+_COMPONENTS = {"core": (True, False), "extension": (False, True),
+               "all": (True, True)}
 
 
 def build_manager(store=None, config: ControllerConfig | None = None, *,
                   simulate_kubelet: bool = False,
                   max_concurrent_reconciles: int | None = None,
                   components: str = "core", ready_hook=None, prober=None):
-    """Compose the core control plane; returns the manager.
+    """Compose the control plane ``components`` selects; returns the
+    manager.
 
     ``store`` defaults to a fresh in-process ``ClusterStore``; ``config``
     to ``ControllerConfig.from_env()``; ``max_concurrent_reconciles`` to
@@ -81,14 +93,15 @@ def build_manager(store=None, config: ControllerConfig | None = None, *,
     SlicePool and TPUQuota CRDs and their admission in either case, as
     the reference's ``setup_controllers`` installs them. ``ready_hook(pod) -> bool`` gates
     the simulator's readiness flip of a pod (chip_smoke.py forms and
-    verifies the pod's NCCL world there). Not started: call
-    ``mgr.start()`` or drive it with ``mgr.run_until_idle()``."""
-    if components != "core":
-        reason = _NOT_PORTED.get(components)
-        if reason is None:
-            raise ValueError(f"unknown components selection: {components!r}")
-        raise ValueError(f"components={components!r} is not ported yet: "
-                         f"ROADMAP.md {reason}")
+    verifies the pod's NCCL world there). ``components`` is ``"core"``
+    (the reconcilers above), ``"extension"`` (the extension reconciler
+    alone: route, network policies, auth resources, CA bundle, runtime
+    images, RBAC, the Elyra secret and the lock) or ``"all"`` (both).
+    Not started: call ``mgr.start()`` or drive it with
+    ``mgr.run_until_idle()``."""
+    if components not in _COMPONENTS:
+        raise ValueError(f"unknown components selection: {components!r}")
+    core, extension = _COMPONENTS[components]
     store = store if store is not None else ClusterStore()
     config = config or ControllerConfig.from_env()
     install_slicepool_crd(store)
@@ -103,16 +116,20 @@ def build_manager(store=None, config: ControllerConfig | None = None, *,
     mgr = Manager(read_client, read_cache=read_client,
                   max_concurrent_reconciles=max_concurrent_reconciles)
     mgr.attach_metrics(metrics)
-    NotebookReconciler(read_client, config, metrics).setup(mgr)
-    if config.enable_culling:
-        kwargs = {"prober": prober} if prober is not None else {}
-        CullingReconciler(read_client, config, metrics, **kwargs).setup(mgr)
-    if config.enable_slice_repair:
-        SliceRepairReconciler(read_client, config, metrics).setup(mgr)
-    if config.enable_slice_pool:
-        SlicePoolReconciler(read_client, config, metrics).setup(mgr)
-    if config.enable_scheduler:
-        SchedulerReconciler(read_client, config, metrics).setup(mgr)
+    if core:
+        NotebookReconciler(read_client, config, metrics).setup(mgr)
+        if config.enable_culling:
+            kwargs = {"prober": prober} if prober is not None else {}
+            CullingReconciler(read_client, config, metrics,
+                              **kwargs).setup(mgr)
+        if config.enable_slice_repair:
+            SliceRepairReconciler(read_client, config, metrics).setup(mgr)
+        if config.enable_slice_pool:
+            SlicePoolReconciler(read_client, config, metrics).setup(mgr)
+        if config.enable_scheduler:
+            SchedulerReconciler(read_client, config, metrics).setup(mgr)
+    if extension:
+        ExtensionReconciler(read_client, config, metrics).setup(mgr)
     if simulate_kubelet:
         from .cluster.kubelet import StatefulSetSimulator
         StatefulSetSimulator(mgr.read_cache,

@@ -163,6 +163,19 @@ def is_owned_by(obj: Obj, owner_uid: str) -> bool:
                                default=[]) or [])
 
 
+def merge_managed_labels(obj: Obj, managed: dict[str, str]) -> bool:
+    """Set every managed label key to its value, keeping the object's
+    other labels (a wholesale replace would fight other controllers over
+    theirs); True when the object changed."""
+    labels = get_in(obj, "metadata", "labels", default=None)
+    if labels is None:
+        labels = {}
+        obj.setdefault("metadata", {})["labels"] = labels
+    missing = {k: v for k, v in managed.items() if labels.get(k) != v}
+    labels.update(missing)
+    return bool(missing)
+
+
 def matches_labels(obj: Obj, selector: dict[str, str | None] | None) -> bool:
     """Equality selector; a ``None`` value means existence (the ``key``
     form of a k8s label selector)."""
@@ -217,6 +230,25 @@ def upsert_env_from(container: dict, name_: str, value_from: dict) -> None:
             e["valueFrom"] = value_from
             return
     env.append({"name": name_, "valueFrom": value_from})
+
+
+def upsert_volume(pod_spec: dict, volume: dict) -> None:
+    vols = pod_spec.setdefault("volumes", [])
+    for i, v in enumerate(vols):
+        if v.get("name") == volume["name"]:
+            vols[i] = volume
+            return
+    vols.append(volume)
+
+
+def upsert_volume_mount(container: dict, mount: dict) -> None:
+    mounts = container.setdefault("volumeMounts", [])
+    for i, m in enumerate(mounts):
+        if m.get("name") == mount["name"] and \
+                m.get("mountPath") == mount.get("mountPath"):
+            mounts[i] = mount
+            return
+    mounts.append(mount)
 
 
 def pod_spec_notebook_container(pod_spec: dict, nb_name: str) -> dict | None:

@@ -25,6 +25,25 @@ LAST_ACTIVITY_CHECK_TIMESTAMP_ANNOTATION = (
 RESTART_ANNOTATION = "notebooks.opendatahub.io/notebook-restart"
 NOTEBOOK_NAME_LABEL = "notebook-name"
 
+# --- the extension reconciler's keys (reference odh
+# notebook_controller.go:53-67, notebook_mutating_webhook.go:86-111) ---
+INJECT_AUTH_ANNOTATION = "notebooks.opendatahub.io/inject-auth"
+MLFLOW_INSTANCE_ANNOTATION = "opendatahub.io/mlflow-instance"
+# the stop annotation's value while the notebook waits for the extension
+# reconciler to provision its prerequisites (the reconciliation lock)
+RECONCILIATION_LOCK_VALUE = "odh-notebook-controller-lock"
+# immutable namespace-name label (NamespaceDefaultLabelName)
+NAMESPACE_NAME_LABEL = "kubernetes.io/metadata.name"
+SERVING_CERT_SECRET_ANNOTATION = (
+    "service.beta.openshift.io/serving-cert-secret-name")
+# the extension's finalizers: cleanup of the cross-namespace and
+# cluster-scoped objects no ownerReference reaches
+ROUTES_CLEANUP_FINALIZER = "kubeflow-tpu.org/route-cleanup"
+REFGRANT_CLEANUP_FINALIZER = "kubeflow-tpu.org/referencegrant-cleanup"
+CRB_CLEANUP_FINALIZER = "kubeflow-tpu.org/crb-cleanup"
+# the finalizer controllers before the auth proxy stamped on Notebooks
+LEGACY_OAUTH_FINALIZER = "notebooks.kubeflow-tpu.org/oauth-client"
+
 # --- the slice request and its pods (gpu/topology.py, controllers/) ---
 # the request on the Notebook: a shorthand ("h100-16"), or a generation
 # plus a topology ("h100" + "2x8"); the keys are the unchanged
@@ -191,6 +210,8 @@ PREEMPTION_TAINT_KEY = "cloud.google.com/impending-node-termination"
 # 144-149); longer notebook names fall back to GenerateName "nb-"
 MAX_STS_NAME_LENGTH = 52
 STS_GENERATE_PREFIX = "nb-"
+# HTTPRoute names are capped at 63 characters (odh notebook_route.go:51-77)
+MAX_ROUTE_NAME_LENGTH = 63
 
 # --- the GPU counterparts of the reference's TPU resource and selectors ---
 # extended-resource key the NVIDIA device plugin exposes cards under
@@ -206,6 +227,18 @@ def sts_name_for_notebook(notebook_name: str) -> tuple[str, bool]:
     if len(notebook_name) > MAX_STS_NAME_LENGTH:
         return STS_GENERATE_PREFIX, True
     return notebook_name, False
+
+
+def route_name_for_notebook(namespace: str,
+                            notebook_name: str) -> tuple[str, bool]:
+    """The central-namespace HTTPRoute's name ``nb-<ns>-<name>``, and
+    whether it is a generateName: past 63 characters the truncated
+    ``nb-<ns>-`` prefix, which the store completes with its suffix
+    (odh notebook_route.go:51-77)."""
+    candidate = f"nb-{namespace}-{notebook_name}"
+    if len(candidate) > MAX_ROUTE_NAME_LENGTH:
+        return f"nb-{namespace}-"[: MAX_ROUTE_NAME_LENGTH - 9] + "-", True
+    return candidate, False
 
 
 def generate_suffix(seed: str, n: int = 8) -> str:

@@ -1,13 +1,13 @@
 """The port's event recording and re-emission held against the
 reference's, case for case.
 
-Every case of tests/test_events.py but ``test_mlflow_pending_event``
-(it needs the extension's ``rbac`` module, ROADMAP.md queue A item 5)
-runs through both stacks (``torch_parity.Stack``: store, Manager and
-NotebookReconciler) with each side's ``EventRecorder``: creation and
-aggregation, StatefulSet and Pod events re-issued on the Notebook, the
-unrelated and foreign ones ignored, no re-emission loop, long names,
-deleted pods and the TTL prune. Each side makes the case's own
+Every case of tests/test_events.py runs through both stacks
+(``torch_parity.Stack``: store, Manager and NotebookReconciler) with
+each side's ``EventRecorder``: creation and aggregation, StatefulSet and
+Pod events re-issued on the Notebook, the unrelated and foreign ones
+ignored, no re-emission loop, long names, deleted pods, the TTL prune
+and the extension's ``MLflowClusterRolePending`` warning from each
+side's ``rbac`` module. Each side makes the case's own
 assertions; then every object of both stores (the Events by their
 aggregation names) is compared after ``normalise``, and so are the
 writes and the reconciles of each drain. The TTL case ages events with
@@ -125,6 +125,21 @@ def reemission_does_not_loop(s):
     assert emitted[0]["count"] == 3
 
 
+def mlflow_pending_event(s):
+    ev, rbac = EVENTS[s.side], s.ext.rbac
+    nb = s.store.create(s.api.new_notebook(
+        "mynb", "ns",
+        annotations={s.names.MLFLOW_INSTANCE_ANNOTATION: "tracking"}))
+    rec = ev.EventRecorder(s.store, component="extension-controller")
+    delay = rbac.reconcile_mlflow_integration(s.store, nb, recorder=rec)
+    assert delay == rbac.MLFLOW_REQUEUE_SECONDS
+    emitted = _notebook_events(s, "ns", "mynb")
+    assert len(emitted) == 1
+    assert emitted[0]["reason"] == "MLflowClusterRolePending"
+    assert emitted[0]["type"] == ev.TYPE_WARNING
+    return delay
+
+
 def sts_event_for_long_name_notebook(s):
     ev = EVENTS[s.side]
     long_name = "n" * 60
@@ -226,7 +241,8 @@ def prune_falls_back_to_first_timestamp(s):
 CASES = {fn.__name__: fn for fn in (
     recorder_creates_and_aggregates, sts_event_reemitted_on_notebook,
     pod_event_resolves_via_label, unrelated_events_ignored,
-    reemission_does_not_loop, sts_event_for_long_name_notebook,
+    reemission_does_not_loop, mlflow_pending_event,
+    sts_event_for_long_name_notebook,
     foreign_sts_sharing_notebook_name_ignored,
     terminal_pod_event_survives_pod_deletion, event_ttl_prune,
     prune_spares_undatable_events_but_dates_microtime,

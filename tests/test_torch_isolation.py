@@ -90,9 +90,18 @@ def test_port_file_list_covers_the_package():
                 "kubeflow_tpu_torch/controllers/slicerepair.py",
                 "kubeflow_tpu_torch/utils/fairness.py",
                 "kubeflow_tpu_torch/controllers/scheduler.py",
-                "kubeflow_tpu_torch/api/tpuquota.py"):
+                "kubeflow_tpu_torch/api/tpuquota.py",
+                "kubeflow_tpu_torch/controllers/extension.py",
+                "kubeflow_tpu_torch/controllers/auth.py",
+                "kubeflow_tpu_torch/controllers/routes.py",
+                "kubeflow_tpu_torch/controllers/netpol.py",
+                "kubeflow_tpu_torch/controllers/rbac.py",
+                "kubeflow_tpu_torch/controllers/cacert.py",
+                "kubeflow_tpu_torch/controllers/elyra.py",
+                "kubeflow_tpu_torch/controllers/runtime_images.py",
+                "kubeflow_tpu_torch/controllers/oauth.py"):
         assert rel in PORT_FILES
-    assert len(PORT_FILES) >= 69
+    assert len(PORT_FILES) >= 78
 
 
 def _references(tree: ast.AST) -> set[str]:
@@ -175,6 +184,15 @@ import kubeflow_tpu_torch.controllers.slicerepair
 import kubeflow_tpu_torch.utils.fairness
 import kubeflow_tpu_torch.controllers.scheduler
 import kubeflow_tpu_torch.api.tpuquota
+import kubeflow_tpu_torch.controllers.extension
+import kubeflow_tpu_torch.controllers.auth
+import kubeflow_tpu_torch.controllers.routes
+import kubeflow_tpu_torch.controllers.netpol
+import kubeflow_tpu_torch.controllers.rbac
+import kubeflow_tpu_torch.controllers.cacert
+import kubeflow_tpu_torch.controllers.elyra
+import kubeflow_tpu_torch.controllers.runtime_images
+import kubeflow_tpu_torch.controllers.oauth
 import kubeflow_tpu_torch.main
 sys.path.insert(0, "tests")
 import torch_dist_ranks

@@ -603,12 +603,109 @@ def test_build_manager_admits_a_gang_then_rolls_it():
         {"tenant": "ns", "outcome": "admitted"}) == 1
 
 
-@pytest.mark.parametrize("components", ["extension", "all", "bogus"])
-def test_build_manager_refuses_what_is_not_ported(components):
+# what each selection registers, in the reference's order
+_SELECTED = {
+    "extension": ["extension-controller"],
+    "all": ["notebook-controller", "slice-repair-controller",
+            "slice-pool-controller", "fleet-scheduler",
+            "extension-controller"],
+    "bogus": None,
+}
+
+
+@pytest.mark.parametrize("components", sorted(_SELECTED))
+def test_build_manager_selects_the_reference_components(components):
+    """``build_manager(components=...)``: ``"extension"`` registers the
+    extension reconciler alone, as the reference's extension binary,
+    ``"all"`` the core binary's reconcilers and then the extension's, the
+    reconcilers the reference's ``setup_controllers(webhooks=False)``
+    registers for the same selection, in its order; an unknown selection
+    raises."""
+    from kubeflow_tpu.cluster.store import ClusterStore as RefStore
+    from kubeflow_tpu.controllers import setup_controllers
+    from kubeflow_tpu.utils.config import ControllerConfig as RefConfig
+    from kubeflow_tpu_torch.cluster.store import ClusterStore
     from kubeflow_tpu_torch.main import build_manager
-    with pytest.raises(ValueError, match="ROADMAP" if components != "bogus"
-                       else "unknown components"):
-        build_manager(components=components)
+    from kubeflow_tpu_torch.utils.config import ControllerConfig
+    want = _SELECTED[components]
+    if want is None:
+        with pytest.raises(ValueError, match="unknown components"):
+            build_manager(components=components)
+        return
+    port = build_manager(ClusterStore(), ControllerConfig(),
+                         components=components)
+    ref = setup_controllers(RefStore(), RefConfig(), webhooks=False,
+                            core=components == "all", extension=True)
+    assert list(port._reconcilers) == list(ref._reconcilers) == want
+    ext = port._reconcilers["extension-controller"]
+    assert ext.client._client is port.read_cache
+
+
+def test_build_manager_all_provisions_unlocks_and_rolls_a_locked_notebook():
+    """On ``build_manager(components="all")`` a Notebook created locked
+    (the stop annotation with the reconciliation lock's value, as the
+    reference's webhook sets it) and asking for auth is held at 0
+    replicas with no pod until the extension reconciler has provisioned
+    its finalizers, auth resources, NetworkPolicies, route in the
+    controller namespace and ReferenceGrant; then the lock goes and the
+    slice rolls 0 → 4 workers to SliceReady: object for object the
+    reference's ``setup_controllers(webhooks=False)`` with its
+    simulator. Deleting it strips the finalizers once the route, the
+    grant and the ClusterRoleBinding are gone, on both."""
+    ref, port = Stack("ref"), Stack("port")
+    seen = {}
+    for s in (ref, port):
+        s.entry_point(simulate_kubelet=True)
+        log = seen.setdefault(s.side, [])
+
+        def on_event(ev, s=s, log=log):
+            if ev.type == "DELETED":
+                return
+            kind = ev.obj["kind"]
+            if kind == s.api.KIND:
+                lock = s.k8s.get_annotation(ev.obj, s.names.STOP_ANNOTATION)
+                entry = ("lock", lock)
+            elif kind == "StatefulSet":
+                entry = ("replicas", ev.obj["spec"]["replicas"])
+            elif kind in ("Pod", "HTTPRoute", "ClusterRoleBinding",
+                          "ReferenceGrant"):
+                entry = (kind, None)
+            else:
+                return
+            if not log or log[-1] != entry:
+                log.append(entry)
+        for kind in (s.api.KIND, "StatefulSet", "Pod", "HTTPRoute",
+                     "ClusterRoleBinding", "ReferenceGrant"):
+            s.store.watch(kind, on_event)
+        s.store.create(s.api.new_notebook("wb", "ns", annotations={
+            s.names.TPU_ACCELERATOR_ANNOTATION: s.accelerator("v5e-16"),
+            s.names.INJECT_AUTH_ANNOTATION: "true",
+            s.names.STOP_ANNOTATION: s.names.RECONCILIATION_LOCK_VALUE}))
+        s.drain(include_delayed_under=0.1)
+        nb = s.store.get(s.api.KIND, "ns", "wb")
+        assert s.k8s.get_annotation(nb, s.names.STOP_ANNOTATION) is None
+        assert s.k8s.condition_true(nb, s.api.CONDITION_SLICE_READY)
+        assert nb["status"]["readyReplicas"] == 4
+        assert sorted(nb["metadata"]["finalizers"]) == sorted(
+            s.ext.extension.ALL_FINALIZERS)
+        unlocked = log.index(("lock", None))
+        assert log[0] == ("lock", s.names.RECONCILIATION_LOCK_VALUE)
+        assert ("Pod", None) not in log[:unlocked]
+        assert {("HTTPRoute", None), ("ClusterRoleBinding", None),
+                ("ReferenceGrant", None)} <= set(log[:unlocked])
+        replicas = [n for what, n in log if what == "replicas"]
+        assert [n for i, n in enumerate(replicas)
+                if i == 0 or replicas[i - 1] != n] == [0, 4]
+    assert seen["port"] == seen["ref"]
+    assert_parity(ref, port)
+    for s in (ref, port):
+        s.store.delete(s.api.KIND, "ns", "wb")
+        s.drain(include_delayed_under=0.1)
+        assert s.store.get_or_none(s.api.KIND, "ns", "wb") is None
+        assert s.store.list("HTTPRoute") == []
+        assert s.store.list("ReferenceGrant") == []
+        assert s.store.list("ClusterRoleBinding") == []
+    assert_parity(ref, port)
 
 
 def test_build_manager_enable_culling_gate():

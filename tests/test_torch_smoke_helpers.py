@@ -247,3 +247,55 @@ def test_phase18_fleet_scheduler_on_the_cpu():
         stats["gang_wait_s"]["team-train"][1]
     # on the CPU the wrappers take their plain versions: nothing launched
     assert not any(launched.values())
+
+
+def test_phase19_extension_tier_on_the_cpu():
+    """chip_smoke's phase-19 drive (``_ext_sequence``) on the CPU at a
+    tiny size, a gloo world for the ready hook: on
+    ``build_manager(components="all")`` notebook wb, created with the
+    reconciliation lock and auth on, stays at 0 replicas with no pod
+    until the extension has provisioned its finalizers, auth objects,
+    NetworkPolicies, route, ReferenceGrant, trust bundle (the valid
+    block only) and runtime images; then it is unlocked, rolled 0 → 1
+    and trains 2 steps in its world bit-equal to one device; auth off
+    replaces the route by a plain one without rolling the pod; its
+    generate equals one device's; deleted, it leaves no route, grant or
+    binding behind. The manager stops and the world ends in a
+    ``finally``."""
+    import torch
+    import torch.distributed as dist
+
+    from chip_smoke import _VALID_PEM, _ext_sequence
+    from kubeflow_tpu_torch.models.train import TrainConfig
+    from kubeflow_tpu_torch.models.transformer import TransformerConfig
+
+    assert not dist.is_initialized()
+    c = TransformerConfig(vocab_size=512, d_model=64, n_layers=2, n_heads=4,
+                          n_kv_heads=2, d_ff=128, max_seq_len=256,
+                          dtype="float32")
+    stats, launched = _ext_sequence(torch, c, TrainConfig(warmup_steps=2),
+                                    2, 32, 8, 4, device="cpu", timeout=60.0)
+    assert not dist.is_initialized()
+    assert stats["while_locked"] == {"replicas": [0], "pods": 0}
+    at_unlock = stats["at_unlock"]
+    assert len(at_unlock["finalizers"]) == 3
+    assert at_unlock["tls_target_port"] == 8443
+    assert at_unlock["routes"] == [("kubeflow-tpu-system", "wb-tls", 443)]
+    assert at_unlock["ca_bundle"] == _VALID_PEM + "\n"
+    assert at_unlock["runtime_images"] == ["pytorch-cuda.json"]
+    assert 0 < stats["ready_ms"]["lock_removed"] < \
+        stats["ready_ms"]["slice_ready"]
+    assert stats["world"]["report"]["backend"] == "gloo"
+    assert len(stats["losses"]) == 2
+    assert stats["auth_off"]["routes"] == [("kubeflow-tpu-system", "wb", 80)]
+    assert len(stats["auth_off"]["pod_uids"]) == 1
+    assert stats["auth_off"]["replicas"] == [0, 1]
+    assert stats["ids_equal"]
+    assert not any(stats["after_delete"].values())
+    ext_writes = stats["extension"]["writes"]
+    assert ext_writes["HTTPRoute/create"] == 2
+    assert ext_writes["HTTPRoute/delete"] >= 2
+    assert ext_writes["ClusterRoleBinding/delete"] >= 1
+    assert ext_writes["Notebook/patch"] == 1       # the lock, once
+    # on the CPU the wrappers take their plain versions: nothing launched
+    assert not any(launched.values())

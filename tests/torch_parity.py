@@ -4,10 +4,13 @@ pytest collects no tests from it).
 
 ``Stack("ref")`` is the reference's store, Manager, NotebookReconciler,
 StatefulSet simulator, culler, slice repair reconciler, SlicePool
-reconciler and fleet scheduler; ``Stack("port")`` the port's. A case is a function of one
-stack that uses the names both sides share (``api``, ``k8s``,
-``names``, ``culling``, ``slicerepair``, ``kubelet``, ...), so the same
-code drives both.
+reconciler, fleet scheduler and extension reconciler; ``Stack("port")``
+the port's. A case is a function of one stack that uses the names both
+sides share (``api``, ``k8s``, ``names``, ``culling``, ``slicerepair``,
+``kubelet``, the extension tier's modules under ``ext``, ...), so the
+same code drives both. ``Stack.entry_point`` swaps a stack's manager for
+the side's whole composition: the reference's ``setup_controllers(...,
+webhooks=False)``, the port's ``build_manager``.
 
 The same Notebook or SlicePool goes to both sides; only its accelerator
 request is mapped, to the H100 shape with the same worker count
@@ -30,13 +33,24 @@ hostnames, condition reasons — must be equal.
 
 from __future__ import annotations
 
+from types import SimpleNamespace
+
 from kubeflow_tpu.api import slicepool as ref_pool_api
 from kubeflow_tpu.api import tpuquota as ref_quota_api
 from kubeflow_tpu.api import types as ref_api
 from kubeflow_tpu.cluster import kubelet as ref_kubelet
 from kubeflow_tpu.cluster.kubelet import StatefulSetSimulator as RefSimulator
 from kubeflow_tpu.cluster.store import ClusterStore as RefStore
+from kubeflow_tpu.controllers import auth as ref_auth
+from kubeflow_tpu.controllers import cacert as ref_cacert
 from kubeflow_tpu.controllers import culling as ref_culling
+from kubeflow_tpu.controllers import elyra as ref_elyra
+from kubeflow_tpu.controllers import extension as ref_extension
+from kubeflow_tpu.controllers import netpol as ref_netpol
+from kubeflow_tpu.controllers import oauth as ref_oauth
+from kubeflow_tpu.controllers import rbac as ref_rbac
+from kubeflow_tpu.controllers import routes as ref_routes
+from kubeflow_tpu.controllers import runtime_images as ref_runtime_images
 from kubeflow_tpu.controllers import scheduler as ref_scheduler
 from kubeflow_tpu.controllers import slicerepair as ref_slicerepair
 from kubeflow_tpu.controllers.slicepool import (
@@ -55,12 +69,26 @@ from kubeflow_tpu_torch.api import types as api
 from kubeflow_tpu_torch.cluster import kubelet
 from kubeflow_tpu_torch.cluster.kubelet import StatefulSetSimulator
 from kubeflow_tpu_torch.cluster.store import ClusterStore
-from kubeflow_tpu_torch.controllers import culling, scheduler, slicerepair
+from kubeflow_tpu_torch.controllers import (auth, cacert, culling, elyra,
+                                            extension, netpol, oauth, rbac,
+                                            routes, runtime_images,
+                                            scheduler, slicerepair)
 from kubeflow_tpu_torch.controllers import (Manager, NotebookReconciler,
                                             Request, SlicePoolReconciler)
 from kubeflow_tpu_torch.utils import k8s, names
 from kubeflow_tpu_torch.utils.config import ControllerConfig
 from kubeflow_tpu_torch.utils.metrics import MetricsRegistry
+
+# the extension tier's modules of each side, under the names both share
+EXT = {"ref": SimpleNamespace(
+           auth=ref_auth, cacert=ref_cacert, elyra=ref_elyra,
+           extension=ref_extension, netpol=ref_netpol, oauth=ref_oauth,
+           rbac=ref_rbac, routes=ref_routes,
+           runtime_images=ref_runtime_images),
+       "port": SimpleNamespace(
+           auth=auth, cacert=cacert, elyra=elyra, extension=extension,
+           netpol=netpol, oauth=oauth, rbac=rbac, routes=routes,
+           runtime_images=runtime_images)}
 
 # each reference request and the port's request with the same workers
 SHAPES = {"v5e-4": "h100-4", "v5e-8": "h100-8", "v5e-16": "h100-32",
@@ -198,6 +226,7 @@ class Stack:
         self.culling = ref_culling if ref else culling
         self.slicerepair = ref_slicerepair if ref else slicerepair
         self.scheduler_mod = ref_scheduler if ref else scheduler
+        self.ext = EXT[side]
         self.kubelet = ref_kubelet if ref else kubelet
         self.Config = RefConfig if ref else ControllerConfig
         self.store = RefStore() if ref else ClusterStore()
@@ -261,6 +290,48 @@ class Stack:
             self.store, self.config, self.metrics, **kw)
         rec.setup(self.manager)
         return rec
+
+    def extension(self, **kw):
+        """The side's ExtensionReconciler on this stack's store, config
+        and metrics."""
+        rec = self.ext.extension.ExtensionReconciler(
+            self.store, self.config, self.metrics, **kw)
+        rec.setup(self.manager)
+        return rec
+
+    def entry_point(self, simulate_kubelet: bool = False):
+        """Replace this stack's manager with the side's whole control
+        plane on its store and config: the reference's
+        ``setup_controllers(webhooks=False)`` (its simulator added as
+        its ``main.build_manager`` adds it), the port's
+        ``build_manager(components="all")``. The reference installs its
+        Notebook CRD first; the port installs none (its store validates
+        no schema, ROADMAP.md queue A item 8), so the port's store is
+        given the reference's CRD object as data, and both stores count
+        the same creates (uids, resourceVersions and generateName
+        suffixes line up). ``self.base`` is the write count once the
+        stack is built."""
+        from kubeflow_tpu.controllers import setup_controllers
+        from kubeflow_tpu.deploy.manifests import notebook_crd
+        if self.side == "ref":
+            self.manager = setup_controllers(self.store, self.config,
+                                             webhooks=False)
+            if simulate_kubelet:
+                self._simulator(self.manager.read_cache).setup(self.manager)
+        else:
+            from kubeflow_tpu_torch.cluster.errors import AlreadyExistsError
+            from kubeflow_tpu_torch.main import build_manager
+            try:   # as the reference's install_notebook_crd creates it
+                self.store.create(notebook_crd())
+            except AlreadyExistsError:
+                pass
+            self.manager = build_manager(
+                self.store, self.config, components="all",
+                simulate_kubelet=simulate_kubelet)
+        if simulate_kubelet:
+            self.timed = True
+        self.base = self.store._last_rv
+        return self.manager
 
     def quota(self, name: str, tenant: str, n: int) -> dict:
         """A TPUQuota CR of this side: ``tenant`` may hold ``n`` slices."""
