@@ -24,7 +24,9 @@ dies onto a new world and resumes its training, and binds a notebook to
 a warm pool slice and migrates its training off a preempted node onto a
 warm spare, and admits two gangs under a tenant quota through the fleet
 scheduler: one trains on the card, the other serves on it once the
-first has gone. The kernels' launch
+first has gone; holds a notebook locked until the extension has
+provisioned it; and admits one through the port's own webhooks. The
+kernels' launch
 counters, zeroed before each path and read after it, show that each path
 ran its kernels.
 Then it times each kernel beside its bound, its plain version and one
@@ -222,6 +224,29 @@ Phases (any failure exits non-zero before the result line):
      admissions by outcome, the scheduler's reconciles and writes; then
      phase 15's 100-notebook fleet twice in turns, without and with the
      scheduler (reconciles, writes, cache lookups and full scans);
+  19. the extension reconciler on the card (``_ext_sequence``):
+     ``build_manager(components="all")`` under ``start()``; an h100-1
+     notebook created with the reconciliation lock and auth on stays at
+     0 replicas with no pod until its finalizers, auth objects,
+     NetworkPolicies, route, ReferenceGrant, trust bundle and runtime
+     images exist, then is unlocked, rolled and trains 2 steps in its
+     world bit-equal to phase 18's; auth off replaces its route without
+     rolling the pod; ``generate`` ids equal; deleted, nothing is left;
+     then phase 15's fleet on ``"core"`` and ``"all"``, in turns;
+  20. the admission webhooks on the card (``_admission_sequence``): the
+     port's AdmissionReview server on 127.0.0.1 (a CREATE review's
+     JSONPatch equal to the in-process mutation, host ms per review; an
+     h100-3 request denied 403; a body that is not JSON 400); then
+     ``build_manager(components="all", webhooks=True)`` under
+     ``start()``: an h100-1 notebook created with a JAX image and no
+     lock is stored locked with the CUDA image and the kube-rbac-proxy
+     sidecar, unlocked by the extension and rolled to SliceReady (CR →
+     unlock → SliceReady in host ms); in its world 2 steps bit-equal to
+     phase 19's and ``generate`` ids equal; the trust bundle's mount
+     parked by a label touch on the running slice (pod spec, pod and
+     world untouched) and a third step bit-equal to one device; a resize
+     and the MLflow annotation's removal denied while it runs; stopped,
+     the parked mount applied; deleted, nothing is left;
   5. times of each kernel, its plain version and a library call (last, so
      the paths above run on a card not yet warmed by timing loops), with
      the achieved TFLOP/s, the share of the bound, the forward, dK/dV and
@@ -6062,6 +6087,525 @@ def phase_ext(torch, flagship, sched_losses: list) -> tuple[dict, dict]:
     return stats, launched
 
 
+# --------------------------------------------------------------- phase 20
+def _apply_json_patch(doc, ops):
+    """RFC 6902 ``add``/``remove``/``replace`` ops applied to a copy of
+    ``doc``."""
+    import copy
+    doc = copy.deepcopy(doc)
+    for op in ops:
+        parts = [p.replace("~1", "/").replace("~0", "~")
+                 for p in op["path"].split("/")[1:]]
+        if not parts:
+            doc = copy.deepcopy(op["value"])
+            continue
+        parent = doc
+        for p in parts[:-1]:
+            parent = parent[p]
+        if op["op"] == "remove":
+            del parent[parts[-1]]
+        else:
+            parent[parts[-1]] = copy.deepcopy(op["value"])
+    return doc
+
+
+def _review_over_http(port: int, path: str, body: bytes) -> tuple:
+    """POST ``body`` to the AdmissionReview server on 127.0.0.1:``port``;
+    (HTTP status, the response's ``response`` or None, host ms)."""
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}",
+                                 data=body,
+                                 headers={"Content-Type": "application/json"})
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(req, timeout=10) as resp:
+            out = resp.status, json.loads(resp.read())["response"]
+    except urllib.error.HTTPError as exc:
+        out = exc.code, None
+    return (*out, (time.perf_counter() - t0) * 1e3)
+
+
+def _admission_server_checks(reviews: int = 20) -> dict:
+    """Phase 20's first part: the port's ``AdmissionServer`` on
+    127.0.0.1, port 0, plain HTTP, over its webhooks on a store of its
+    own. A CREATE review of an h100-1 notebook with a JAX image and auth
+    on is answered with a JSONPatch that, applied to the request's
+    object, equals the in-process ``handle()`` result (the lock, the CUDA
+    image, the original image recorded, the kube-rbac-proxy sidecar with
+    its default resources), ``reviews`` times; an h100-3 request is
+    denied 403 with the ``GpuRequestError`` message; a body that is not
+    JSON gets 400. Returns the host ms of each CREATE review and the
+    answers. The server stops in a ``finally``."""
+    import base64
+
+    from kubeflow_tpu_torch.api import types as api
+    from kubeflow_tpu_torch.cluster.store import ClusterStore
+    from kubeflow_tpu_torch.gpu.topology import (GpuRequestError,
+                                                 parse_slice_request)
+    from kubeflow_tpu_torch.utils import k8s, names
+    from kubeflow_tpu_torch.utils.config import (DEFAULT_GPU_IMAGE,
+                                                 ControllerConfig)
+    from kubeflow_tpu_torch.webhook import (NotebookMutatingWebhook,
+                                            NotebookValidatingWebhook)
+    from kubeflow_tpu_torch.webhook.server import (MUTATE_PATH,
+                                                   VALIDATE_PATH,
+                                                   AdmissionServer)
+
+    store, config = ClusterStore(), ControllerConfig()
+    mutating = NotebookMutatingWebhook(store, config)
+    jax_image = "jupyter/jax-notebook:latest"
+    nb = api.new_notebook("wb", "adm-ns", image=jax_image, annotations={
+        names.TPU_ACCELERATOR_ANNOTATION: "h100-1",
+        names.INJECT_AUTH_ANNOTATION: "true"})
+    bad = api.new_notebook("bad", "adm-ns", annotations={
+        names.TPU_ACCELERATOR_ANNOTATION: "h100-3"})
+    try:
+        parse_slice_request(bad["metadata"]["annotations"])
+        fail("phase20: h100-3 parsed")
+    except GpuRequestError as exc:
+        bad_message = f"invalid GPU request: {exc.message}"
+    want = mutating.handle("CREATE", k8s.deepcopy(nb), None)
+
+    def review(uid: str, obj: dict) -> bytes:
+        return json.dumps({"apiVersion": "admission.k8s.io/v1",
+                           "kind": "AdmissionReview",
+                           "request": {"uid": uid, "operation": "CREATE",
+                                       "object": obj}}).encode()
+
+    srv = AdmissionServer(mutating, NotebookValidatingWebhook(config),
+                          host="127.0.0.1", port=0)
+    srv.start()
+    try:
+        ms, patched = [], None
+        for i in range(reviews):
+            status, resp, t = _review_over_http(srv.port, MUTATE_PATH,
+                                                review(f"c{i}", nb))
+            ms.append(t)
+            require(status == 200 and resp["allowed"] and
+                    resp["uid"] == f"c{i}" and
+                    resp["patchType"] == "JSONPatch",
+                    f"phase20: the CREATE review answered {status} {resp}")
+            patched = _apply_json_patch(nb, json.loads(
+                base64.b64decode(resp["patch"])))
+            require(patched == want, f"phase20: the JSONPatch gives "
+                                     f"{patched}, handle() {want}")
+        status, denied, _ = _review_over_http(srv.port, VALIDATE_PATH,
+                                              review("bad", bad))
+        malformed, _, _ = _review_over_http(srv.port, MUTATE_PATH,
+                                            b"not json")
+    finally:
+        srv.stop()
+    require(not srv.is_serving(), "phase20: the server still serves")
+    sidecar = k8s.find_container(api.notebook_pod_spec(patched),
+                                 "kube-rbac-proxy")
+    out = {
+        "lock": k8s.get_annotation(patched, names.STOP_ANNOTATION),
+        "image": api.notebook_container(patched)["image"],
+        "original_image": k8s.get_annotation(
+            patched, names.TPU_ORIGINAL_IMAGE_ANNOTATION),
+        "sidecar_resources": sidecar and sidecar["resources"],
+        "denied": (status, denied and denied["allowed"],
+                   denied and denied["status"]),
+        "not_json": malformed}
+    want_out = {
+        "lock": names.RECONCILIATION_LOCK_VALUE, "image": DEFAULT_GPU_IMAGE,
+        "original_image": jax_image,
+        "sidecar_resources": {"requests": {"cpu": "100m", "memory": "64Mi"},
+                              "limits": {"cpu": "100m", "memory": "64Mi"}},
+        "denied": (200, False, {"code": 403, "message": bad_message}),
+        "not_json": 400}
+    require(out == want_out, f"phase20: the reviews gave {out}, want "
+                             f"{want_out}")
+    return {"review_ms": ms, **out}
+
+
+def _admission_sequence(torch, c, tc, B: int, S: int, prompt_len: int,
+                        new: int, device: str = "cuda",
+                        timeout: float = 180.0) -> tuple[dict, dict]:
+    """Phase 20's drive at any size, on ``device`` ("cuda": an NCCL
+    world; "cpu": gloo, the tests). First ``_admission_server_checks``.
+    Then ``build_manager(components="all", webhooks=True)`` under
+    ``start()``, the simulator gated by a ``_SliceGate`` for notebook
+    ``adm``: ``adm`` (h100-1, a JAX image, auth on, the MLflow
+    annotation) is created with no stop annotation; the webhook stores
+    it locked, with the CUDA image (the JAX one recorded) and the
+    kube-rbac-proxy sidecar, and while the lock stands its StatefulSet
+    stays at 0 replicas with no pod; the extension unlocks it, the core
+    scales 0 → 1 and the pod turns Ready once its world passes
+    ``verify_slice``. In that world a ``Trainer(mesh=...)`` takes 2
+    steps and greedy ``generate`` on ``shard_decode_params`` of its
+    params is held equal to the one-device ``generate``. Restart gating:
+    the cluster's trust bundle appears in the controller namespace, the
+    extension projects it into the notebook's namespace, and a user
+    update that touches only a label has the webhook's CA mount parked
+    in ``update-pending`` (the template's pod spec and the pod untouched,
+    the label the template's one change, no new world); one more step
+    continues, the 3 losses bit-equal to a
+    one-device Trainer's. A resize to h100-2 and the MLflow annotation's
+    removal are denied (403) while it runs. Stopped, the parked mount is
+    applied (the diff is the one parked) and ``update-pending`` cleared.
+    Last the world ends and ``adm`` is deleted, leaving nothing behind.
+    Returns (stats, the launches of the main path: the 3 steps and the
+    ``generate``, each counted from 0)."""
+    import torch.distributed as dist
+
+    from kubeflow_tpu_torch import ops
+    from kubeflow_tpu_torch.api import types as api
+    from kubeflow_tpu_torch.cluster.store import ClusterStore
+    from kubeflow_tpu_torch.controllers import auth, cacert, routes
+    from kubeflow_tpu_torch.main import build_manager
+    from kubeflow_tpu_torch.models.decode import generate
+    from kubeflow_tpu_torch.parallel.mesh import (MeshConfig, build_mesh,
+                                                  leave_world)
+    from kubeflow_tpu_torch.runtime.data import synthetic_lm_batches
+    from kubeflow_tpu_torch.runtime.sharded_decode import shard_decode_params
+    from kubeflow_tpu_torch.runtime.trainer import Trainer
+    from kubeflow_tpu_torch.utils import k8s, names
+    from kubeflow_tpu_torch.utils.config import (DEFAULT_GPU_IMAGE,
+                                                 ControllerConfig)
+    from kubeflow_tpu_torch.webhook import AdmissionDenied
+    from kubeflow_tpu_torch.webhook.diff import first_differences
+
+    require(not dist.is_initialized(), "phase20: a world is still formed")
+    stats: dict = {"server": _admission_server_checks()}
+    V = c.vocab_size
+    ns, name = "adm-ns", "adm"
+    jax_image = "jupyter/jax-notebook:latest"
+    store = ClusterStore()
+    config = ControllerConfig()
+    central = config.controller_namespace
+    gate = _SliceGate(name, device)
+    seen: dict = {"added": None, "lock_off": None, "ready": None,
+                  "gone": None, "replicas": [], "pods": []}
+
+    def on_notebook(event) -> None:
+        if k8s.name(event.obj) != name:
+            return
+        now = time.monotonic()
+        if event.type == "ADDED":
+            seen["added"] = event.obj
+        elif event.type == "DELETED":
+            seen["gone"] = now
+            return
+        lock = k8s.get_annotation(event.obj, names.STOP_ANNOTATION)
+        if seen["lock_off"] is None and lock is None:
+            seen["lock_off"] = now
+        if seen["ready"] is None and \
+                k8s.condition_true(event.obj, api.CONDITION_SLICE_READY):
+            seen["ready"] = now
+
+    def on_sts(event) -> None:
+        if event.type != "DELETED" and k8s.name(event.obj) == name:
+            n = event.obj["spec"]["replicas"]
+            if not seen["replicas"] or seen["replicas"][-1][0] != n:
+                seen["replicas"].append((n, time.monotonic()))
+
+    def on_pod(event) -> None:
+        if event.type != "MODIFIED" and \
+                k8s.get_label(event.obj, names.NOTEBOOK_NAME_LABEL) == name:
+            seen["pods"].append((event.type, k8s.uid(event.obj),
+                                 time.monotonic()))
+    store.watch(api.KIND, on_notebook)
+    store.watch("StatefulSet", on_sts)
+    store.watch("Pod", on_pod)
+    mgr = build_manager(store, config, simulate_kubelet=True,
+                        components="all", webhooks=True, ready_hook=gate)
+
+    def wait(what: str, cond) -> float:
+        def ok():
+            require(gate.error is None, f"phase20: the ready hook failed "
+                                        f"while waiting for {what}: "
+                                        f"{gate.error!r}")
+            return cond()
+        return _wait_for(what, ok, timeout, phase="phase20")
+
+    def take(got: dict) -> None:
+        for k, n in ops.launch_counts().items():
+            launched[k] = launched.get(k, 0) + n
+            got[k] = got.get(k, 0) + n
+
+    def nb() -> dict:
+        return store.get(api.KIND, ns, name)
+
+    def denial(patch: dict) -> tuple:
+        try:
+            store.patch(api.KIND, ns, name, {"metadata": patch})
+        except AdmissionDenied as exc:
+            return exc.code, exc.message
+        fail(f"phase20: {patch} was admitted on the running notebook")
+
+    src = synthetic_lm_batches(B, S, V, seed=0)
+    batches = [next(src) for _ in range(3)]
+    rng = torch.Generator().manual_seed(7)
+    prompt = torch.randint(0, V, (B, prompt_len), generator=rng).to(device)
+    launched: dict = {}
+    trainer = None
+    mgr.start()
+    try:
+        # 1. admitted locked by the webhook, unlocked, rolled, Ready
+        t_create = time.monotonic()
+        store.create(api.new_notebook(name, ns, image=jax_image, annotations={
+            names.TPU_ACCELERATOR_ANNOTATION: "h100-1",
+            names.INJECT_AUTH_ANNOTATION: "true",
+            names.MLFLOW_INSTANCE_ANNOTATION: "mlflow"}))
+        wait("SliceReady on adm", lambda: seen["ready"] is not None)
+        added, unlock = seen["added"], seen["lock_off"]
+        stats["ready_ms"] = {"lock_removed": (unlock - t_create) * 1e3,
+                             "slice_ready": (seen["ready"] - t_create) * 1e3}
+        stats["admitted"] = {
+            "lock": k8s.get_annotation(added, names.STOP_ANNOTATION),
+            "image": api.notebook_container(added)["image"],
+            "original_image": k8s.get_annotation(
+                added, names.TPU_ORIGINAL_IMAGE_ANNOTATION),
+            "containers": [x["name"] for x in
+                           api.notebook_pod_spec(added)["containers"]]}
+        stats["while_locked"] = {
+            "replicas": sorted({n for n, t in seen["replicas"]
+                                if t < unlock}),
+            "pods": sum(t < unlock for _, _, t in seen["pods"])}
+        want = {"lock": names.RECONCILIATION_LOCK_VALUE,
+                "image": DEFAULT_GPU_IMAGE, "original_image": jax_image,
+                "containers": [name, "kube-rbac-proxy"]}
+        require(stats["admitted"] == want,
+                f"phase20: admitted {stats['admitted']}, want {want}")
+        require(stats["while_locked"] == {"replicas": [0], "pods": 0},
+                f"phase20: while locked {stats['while_locked']}, replicas "
+                f"{seen['replicas']}")
+        pods = [u for t, u, _ in seen["pods"] if t == "ADDED"]
+        require([n for n, _ in seen["replicas"]] == [0, 1] and
+                len(pods) == 1,
+                f"phase20: replicas {seen['replicas']}, pods {seen['pods']}")
+        world = gate.worlds[-1]
+        stats["world"] = world
+
+        # 2. two steps and generate on the card in the notebook's world
+        mesh = build_mesh(MeshConfig.auto(world["report"]["device_count"]),
+                          device)
+        counts_train: dict = {}
+        ops.reset_launch_counts()
+        trainer = Trainer(c, tc, seed=0, mesh=mesh)
+        t0 = time.monotonic()
+        trainer.fit(batches[:2], steps=2, log_every=1)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        stats["train_s"] = time.monotonic() - t0
+        take(counts_train)
+        counts_gen: dict = {}
+        ops.reset_launch_counts()
+        ids = generate(shard_decode_params(trainer.params, mesh, c), prompt,
+                       c, new)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        take(counts_gen)
+        want_ids = generate(trainer.params, prompt, c, new)
+        ops.reset_launch_counts()     # the comparison's launches
+        stats.update({"ids_equal": bool(torch.equal(ids, want_ids)),
+                      "launches_generate": counts_gen})
+        require(stats["ids_equal"], "phase20: adm's generate differs from "
+                                    "one device's")
+
+        # 3. restart gating: the trust bundle's mount is parked
+        sts_before = store.get("StatefulSet", ns, name)["spec"]["template"]
+        pods_before = list(seen["pods"])
+        worlds_before = len(gate.worlds)
+        store.create({"apiVersion": "v1", "kind": "ConfigMap",
+                      "metadata": {"name": cacert.TRUSTED_CA_BUNDLE,
+                                   "namespace": central},
+                      "data": {"ca-bundle.crt": _VALID_PEM}})
+        wait("the workbench bundle", lambda: store.get_or_none(
+            "ConfigMap", ns, cacert.WORKBENCH_BUNDLE) is not None)
+        t_touch = time.monotonic()
+        store.patch(api.KIND, ns, name,
+                    {"metadata": {"labels": {"touch": "1"}}})
+        parked = nb()
+        stats["parked_ms"] = (time.monotonic() - t_touch) * 1e3
+        pending = k8s.get_annotation(parked, names.UPDATE_PENDING_ANNOTATION)
+        mounts = [m["name"] for m in api.notebook_container(parked).get(
+            "volumeMounts", []) or []]
+        stats["parked"] = {"pending": pending and json.loads(pending),
+                           "trusted_ca_mounted": "trusted-ca" in mounts}
+        require(bool(stats["parked"]["pending"]) and
+                not stats["parked"]["trusted_ca_mounted"],
+                f"phase20: after the touch {stats['parked']}")
+
+        counts_step: dict = {}
+        ops.reset_launch_counts()
+        trainer.fit(batches[2:], steps=1, log_every=1)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        take(counts_step)
+        for k, n in counts_step.items():
+            counts_train[k] = counts_train.get(k, 0) + n
+        losses = [x for _, x in trainer.stats.losses]
+        one = Trainer(c, tc, seed=0, device=device)
+        one.fit(batches, steps=3, log_every=1)
+        want_losses = [x for _, x in one.stats.losses]
+        one.close()
+        del one
+        ops.reset_launch_counts()     # the comparison's launches
+        gc.collect()
+        stats.update({"losses": losses, "launches_train": counts_train})
+        require(losses == want_losses and len(losses) == 3 and
+                all(math.isfinite(x) for x in losses),
+                f"phase20: adm's losses {losses} differ from one device's "
+                f"{want_losses}")
+        sts_after = store.get("StatefulSet", ns, name)["spec"]["template"]
+        stats["untouched"] = {
+            "pod_spec_equal": sts_after["spec"] == sts_before["spec"],
+            "template_changes": first_differences(sts_before, sts_after),
+            "pods_added_or_deleted": seen["pods"] != pods_before,
+            "worlds": len(gate.worlds) - worlds_before,
+            "world_formed": dist.is_initialized()}
+        require(stats["untouched"] == {
+            "pod_spec_equal": True,
+            "template_changes": ["metadata.labels.touch: <absent> → '1'"],
+            "pods_added_or_deleted": False, "worlds": 0,
+            "world_formed": True},
+                f"phase20: the parked update touched the slice "
+                f"{stats['untouched']}")
+
+        # 4. a resize and the MLflow removal denied while running
+        stats["denied"] = {
+            "resize": denial({"annotations": {
+                names.TPU_ACCELERATOR_ANNOTATION: "h100-2"}}),
+            "mlflow": denial({"annotations": {
+                names.MLFLOW_INSTANCE_ANNOTATION: None}})}
+        want = {"resize": (403, "cannot change GPU slice of a running "
+                                "notebook (h100-1 → h100-2); stop it "
+                                "first"),
+                "mlflow": (403, "cannot remove the MLflow annotation from "
+                                "a running notebook; stop it first")}
+        require(stats["denied"] == want,
+                f"phase20: denials {stats['denied']}, want {want}")
+
+        # 5. stopped: the parked mount applied, update-pending cleared
+        trainer.close()
+        trainer = None
+        leave_world()
+        gc.collect()
+        store.patch(api.KIND, ns, name, {"metadata": {"annotations": {
+            names.STOP_ANNOTATION: "2026-01-01T00:00:00Z"}}})
+        stopped = nb()
+        wait("adm at 0 replicas", lambda: seen["replicas"][-1][0] == 0)
+        applied = first_differences(parked["spec"], stopped["spec"],
+                                    path="spec")
+        mounts = [m["name"] for m in api.notebook_container(stopped).get(
+            "volumeMounts", []) or []]
+        stats["stopped"] = {
+            "pending": k8s.get_annotation(stopped,
+                                          names.UPDATE_PENDING_ANNOTATION),
+            "trusted_ca_mounted": "trusted-ca" in mounts,
+            "applied_is_parked": applied == stats["parked"]["pending"]}
+        require(stats["stopped"] == {"pending": None,
+                                     "trusted_ca_mounted": True,
+                                     "applied_is_parked": True},
+                f"phase20: stopped {stats['stopped']}; applied {applied}")
+
+        # 6. deleted: nothing of it left
+        t_del = time.monotonic()
+        store.delete(api.KIND, ns, name)
+        wait("adm gone", lambda: seen["gone"] is not None)
+        stats["delete_ms"] = (seen["gone"] - t_del) * 1e3
+        stats["after_delete"] = {
+            "routes": len(store.list("HTTPRoute", central,
+                                     {names.NOTEBOOK_NAME_LABEL: name})),
+            "reference_grant": store.get_or_none(
+                "ReferenceGrant", ns, routes.REFERENCE_GRANT_NAME)
+            is not None,
+            "ClusterRoleBinding": store.get_or_none(
+                "ClusterRoleBinding", "", auth.crb_name(ns, name))
+            is not None,
+            "StatefulSet": store.get_or_none("StatefulSet", ns, name)
+            is not None,
+            "notebook": store.get_or_none(api.KIND, ns, name) is not None}
+        require(not any(stats["after_delete"].values()),
+                f"phase20: after the delete {stats['after_delete']}")
+    finally:
+        if trainer is not None:
+            trainer.close()
+        mgr.stop()
+        for cb in (on_notebook, on_sts, on_pod):
+            store.unwatch(cb)
+        if dist.is_initialized():
+            leave_world()
+    stats["control_plane"] = {"writes": store._last_rv,
+                              "reconciles": _reconcile_totals(mgr)}
+    return stats, launched
+
+
+def phase_admission(torch, flagship, ext_losses: list) -> tuple[dict, dict]:
+    """20: the admission webhooks on the card (``_admission_sequence`` at
+    the flagship's width: b8 x s1024 with bf16 params, generate 8 x 128
+    -> 16; the first 2 losses equal to phase 19's). Returns (stats, the
+    launches of the main path)."""
+    from kubeflow_tpu_torch.models import train as train_lib
+
+    t_phase = time.monotonic()
+    L = flagship.n_layers
+    torch.cuda.reset_peak_memory_stats()
+    stats, launched = _admission_sequence(
+        torch, flagship, train_lib.TrainConfig(bf16_params=True), 8, 1024,
+        128, 16)
+    stats["seconds"] = time.monotonic() - t_phase
+    stats["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    gc.collect()
+    torch.cuda.empty_cache()
+    server = stats["server"]
+    ms = sorted(server["review_ms"])
+    counts_train, counts_gen = stats["launches_train"], \
+        stats["launches_generate"]
+    for what, value in (
+            (f"AdmissionReview CREATE over HTTP, {len(ms)} reviews: host ms "
+             f"min / median / max",
+             (ms[0], ms[len(ms) // 2], ms[-1])),
+            ("the review's JSONPatch = handle(): lock, image, original, "
+             "sidecar resources",
+             (server["lock"], server["image"], server["original_image"],
+              server["sidecar_resources"])),
+            ("h100-3 review (HTTP status, allowed, status); not JSON",
+             (server["denied"], server["not_json"])),
+            ("adm CR -> lock removed -> SliceReady ms (host time)",
+             stats["ready_ms"]),
+            ("as stored at the create", stats["admitted"]),
+            ("while locked: StatefulSet replicas, pods",
+             stats["while_locked"]),
+            ("adm's world (seconds, report)",
+             (stats["world"]["seconds"], stats["world"]["report"])),
+            ("Trainer(mesh=...) b8 s1024 3 steps: losses, bit-equal to one "
+             "device's, the first 2 to phase 19's; seconds of steps 1-2",
+             (stats["losses"], True, stats["train_s"])),
+            ("launches of adm's 3 steps", counts_train),
+            ("adm's generate 8 x 128 -> 16: ids equal to one device's, "
+             "launches", (stats["ids_equal"], counts_gen)),
+            ("label touch on the running slice -> parked ms (host time), "
+             "update-pending", (stats["parked_ms"], stats["parked"])),
+            ("after the parked update and step 3 (the template's pod spec "
+             "equal, its changes, pods added or deleted, new worlds, world "
+             "formed)", stats["untouched"]),
+            ("denied while running", stats["denied"]),
+            ("stopped", stats["stopped"]),
+            ("delete -> notebook gone ms (host time)", stats["delete_ms"]),
+            ("after the delete (left behind)", stats["after_delete"]),
+            ("control plane writes and reconciles",
+             stats["control_plane"])):
+        print(f"phase20 {what}: {value} ({CARD[0]})", flush=True)
+    require(stats["losses"][:2] == list(ext_losses[:2]),
+            f"phase20: losses {stats['losses']} differ from phase 19's "
+            f"{ext_losses}")
+    attn = ("flash_attention", "flash_attention_bwd_dkv",
+            "flash_attention_bwd_dq")
+    require(all(counts_train.get(k) == 3 * L for k in attn) and
+            not counts_train.get("flash_decode") and
+            counts_gen.get("flash_attention") == L and
+            counts_gen.get("flash_decode") == (16 - 1) * L and
+            not counts_gen.get("flash_attention_bwd_dkv"),
+            f"phase20: launches train {counts_train}, generate "
+            f"{counts_gen}")
+    print(f"phase20 in {stats['seconds']:.1f} s, peak "
+          f"{stats['peak_mem_gb']:.3f} GB; launches {launched} ({CARD[0]})",
+          flush=True)
+    return stats, launched
+
+
 # --------------------------------------------------------------- phase 5
 def _time_flash(torch, timer, b, s, h, d, seed=4, lse=False):
     import torch.nn.functional as F
@@ -6436,6 +6980,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     train["ext"], launched = phase_ext(torch, FLAGSHIP,
                                        train["sched"]["losses"])
+    for name, n in launched.items():
+        counts[name] += n
+    gc.collect()
+    torch.cuda.empty_cache()
+    train["admission"], launched = phase_admission(torch, FLAGSHIP,
+                                                   train["ext"]["losses"])
     for name, n in launched.items():
         counts[name] += n
     rows, wide = phase_times(torch, errs, counts)

@@ -2,9 +2,11 @@
 CR."""
 
 from .types import (API_VERSION, GROUP, KIND, SERVED_VERSIONS,
-                    STORAGE_VERSION, new_notebook, notebook_container,
-                    parse_version, validate_notebook)
+                    STORAGE_VERSION, convert_notebook, install_notebook_crd,
+                    new_notebook, notebook_container, parse_version,
+                    validate_notebook)
 
 __all__ = ["API_VERSION", "GROUP", "KIND", "SERVED_VERSIONS",
-           "STORAGE_VERSION", "new_notebook", "notebook_container",
-           "parse_version", "validate_notebook"]
+           "STORAGE_VERSION", "convert_notebook", "install_notebook_crd",
+           "new_notebook", "notebook_container", "parse_version",
+           "validate_notebook"]

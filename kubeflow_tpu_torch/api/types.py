@@ -9,8 +9,13 @@ as the storage version. The slice request rides the annotations
 port an H100 shape such as ``h100-16``), so a Notebook CR applies to
 either package unchanged.
 
-``convert_notebook`` and ``install_notebook_crd`` (the CRD schema and
-the admission that converts versions) come with the webhook slice.
+``notebook_crd`` is the Notebook CRD (the reference's
+``kubeflow_tpu/deploy/manifests.py`` ``notebook_crd``, its one manifest
+the port needs): v1 stored, v1beta1 and v1alpha1 served, each with the
+structural schema of ``api/schema.py``. ``install_notebook_crd`` creates
+it in a store, which then validates every Notebook write against it, and
+registers the typed admission: ``validate_notebook``, then
+``convert_notebook`` to the storage version.
 """
 
 from __future__ import annotations
@@ -94,6 +99,21 @@ def parse_version(notebook: dict) -> str:
     return version
 
 
+def convert_notebook(notebook: dict, to_version: str = STORAGE_VERSION) -> dict:
+    """Convert a Notebook between served versions. The schemas are
+    identical, so this is an apiVersion rewrite (the same object when it
+    is already at ``to_version``)."""
+    parse_version(notebook)
+    if to_version not in SERVED_VERSIONS:
+        raise InvalidError(f"unknown version {to_version!r}")
+    target = f"{GROUP}/{to_version}"
+    if notebook.get("apiVersion") == target:
+        return notebook
+    converted = k8s.deepcopy(notebook)
+    converted["apiVersion"] = target
+    return converted
+
+
 def validate_notebook(notebook: dict) -> None:
     """Structural validation the CRD schema would enforce."""
     if k8s.kind(notebook) != KIND:
@@ -118,3 +138,113 @@ def get_condition(notebook: dict, cond_type: str) -> dict | None:
         if c.get("type") == cond_type:
             return c
     return None
+
+
+# ----------------------------------------------------------------- CRD
+CRD_NAME = f"notebooks.{GROUP}"
+
+
+def _condition_schema() -> dict:
+    return {
+        "type": "object",
+        "properties": {
+            "type": {"type": "string"},
+            "status": {"type": "string"},
+            "reason": {"type": "string"},
+            "message": {"type": "string"},
+            "lastProbeTime": {"type": "string", "format": "date-time"},
+            "lastTransitionTime": {"type": "string", "format": "date-time"},
+        },
+        "required": ["type", "status"],
+    }
+
+
+def _notebook_schema() -> dict:
+    """The storage schema: spec wraps a PodSpec template, typed by
+    ``api/schema.py`` so a malformed container is rejected server-side;
+    semantic checks stay in the validating webhook."""
+    from . import schema
+    return {
+        "openAPIV3Schema": {
+            "type": "object",
+            "properties": {
+                "spec": {
+                    "type": "object",
+                    "required": ["template"],
+                    "properties": {
+                        "template": {
+                            "type": "object",
+                            "required": ["spec"],
+                            "properties": {
+                                "spec": schema.pod_spec_schema(),
+                            },
+                        },
+                    },
+                },
+                "status": {
+                    "type": "object",
+                    "properties": {
+                        "conditions": {"type": "array",
+                                       "items": _condition_schema()},
+                        "readyReplicas": {"type": "integer",
+                                          "format": "int32"},
+                        "containerState": {
+                            "type": "object",
+                            "x-kubernetes-preserve-unknown-fields": True,
+                        },
+                    },
+                },
+            },
+        },
+    }
+
+
+def notebook_crd() -> dict:
+    """The Notebook CustomResourceDefinition: v1 the storage version,
+    v1beta1 and v1alpha1 served with the same schema."""
+    versions = []
+    for version in SERVED_VERSIONS:
+        versions.append({
+            "name": version,
+            "served": True,
+            "storage": version == STORAGE_VERSION,
+            "schema": _notebook_schema(),
+            "subresources": {"status": {}},
+            "additionalPrinterColumns": [
+                {"name": "Ready", "type": "string",
+                 "jsonPath": ".status.conditions[?(@.type=='SliceReady')].status"},
+                {"name": "Age", "type": "date",
+                 "jsonPath": ".metadata.creationTimestamp"},
+            ],
+        })
+    return {
+        "apiVersion": "apiextensions.k8s.io/v1",
+        "kind": "CustomResourceDefinition",
+        "metadata": {"name": CRD_NAME},
+        "spec": {
+            "group": GROUP,
+            "names": {"kind": KIND, "listKind": "NotebookList",
+                      "plural": "notebooks", "singular": "notebook"},
+            "scope": "Namespaced",
+            "versions": versions,
+        },
+    }
+
+
+def install_notebook_crd(store) -> None:
+    """Install the Notebook CRD and its typed admission into a store: the
+    store validates every Notebook write against the CRD's schema, and
+    the admission checks what a schema cannot (``validate_notebook``) and
+    persists at the storage version whatever version was written."""
+    from ..cluster.errors import AlreadyExistsError
+    try:
+        store.create(notebook_crd())
+    except AlreadyExistsError:
+        pass
+
+    def admit(operation, obj, old):
+        if operation in ("CREATE", "UPDATE"):
+            validate_notebook(obj)
+            obj = convert_notebook(obj, STORAGE_VERSION)
+        return obj
+    store.register_admission(KIND, admit)

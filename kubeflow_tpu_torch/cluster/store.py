@@ -19,7 +19,11 @@ controllers rely on, which the parity harness
 - watch fan-out with ADDED/MODIFIED/DELETED events feeding controller
   workqueues, delivered in write order outside the store's lock (a
   callback may re-enter the store);
-- admission plugins run before a create or update is persisted.
+- admission plugins run before a create or update is persisted, then
+  the CRD schema: creating a CustomResourceDefinition registers its
+  served versions' structural schemas, and every later write of that
+  kind is validated against them (the apiserver's order: mutating
+  admission, validating admission, schema, persistence).
 
 One ``threading.RLock`` guards the objects, the resourceVersion counter
 and the watch list. Objects are kept per (kind, namespace), so a
@@ -29,8 +33,8 @@ slot with a fresh dict, so watch events share it without a copy.
 
 Left out, with the HTTP apiserver they serve: the shared wire frames and
 their per-kind resume ring, paginated LISTs with continue tokens, frame
-relays, the watch-cache snapshot handshake, the binary codec, CRD schema
-validation, remote (HTTPS) admission and the store's shards.
+relays, the watch-cache snapshot handshake, the binary codec, remote
+(HTTPS) admission and the store's shards.
 """
 
 from __future__ import annotations
@@ -84,6 +88,9 @@ class ClusterStore:
         self._watches: list[_Watch] = []
         # admission hooks: (kind, fn(operation, obj, old) -> obj | raise)
         self._admission: list[tuple[str, Callable]] = []
+        # CRD structural schemas: kind → {version: openAPIV3Schema}, kept
+        # in step with the CustomResourceDefinition objects
+        self._crd_schemas: dict[str, dict[str, dict]] = {}
 
     def _next_rv(self) -> str:
         """Issue the next resourceVersion (caller holds the lock)."""
@@ -112,7 +119,46 @@ class ClusterStore:
         for kind, fn in self._admission:
             if kind == k8s.kind(obj):
                 obj = fn(operation, obj, old)
+        # the schema holds what will be persisted, after the webhooks
+        self._validate_against_crd(obj)
         return obj
+
+    # ----------------------------------------------------------- CRD schemas
+    def _index_crd(self, crd: dict) -> None:
+        """Register a CRD's served schemas (caller holds the lock)."""
+        kind = k8s.get_in(crd, "spec", "names", "kind")
+        if not kind:
+            return
+        versions = {}
+        for v in k8s.get_in(crd, "spec", "versions", default=[]) or []:
+            s = k8s.get_in(v, "schema", "openAPIV3Schema")
+            if v.get("served") and s:
+                versions[v["name"]] = s
+        if versions:
+            self._crd_schemas[kind] = versions
+
+    def _unindex_crd(self, crd: dict) -> None:
+        """Drop a deleted CRD's schemas (caller holds the lock)."""
+        self._crd_schemas.pop(k8s.get_in(crd, "spec", "names", "kind"), None)
+
+    def _validate_against_crd(self, obj: dict) -> None:
+        with self._lock:
+            versions = self._crd_schemas.get(k8s.kind(obj))
+        if not versions:
+            return
+        version = (obj.get("apiVersion") or "").rpartition("/")[2]
+        schema = versions.get(version)
+        if schema is None:
+            return  # an unserved version: the typed admission denies it
+        from ..api.schema import validate_schema
+        errors = validate_schema(obj, schema)
+        if errors:
+            shown = "; ".join(errors[:5])
+            if len(errors) > 5:
+                shown += f" (+{len(errors) - 5} more)"
+            raise InvalidError(
+                f"{k8s.kind(obj)} {k8s.namespace(obj)}/{k8s.name(obj)} "
+                f"is invalid: {shown}")
 
     # ----------------------------------------------------------------- watch
     def _emit_locked(self, etype: str, obj: dict) -> tuple:
@@ -169,6 +215,8 @@ class ClusterStore:
             md["resourceVersion"] = self._next_rv()
             self._objects.setdefault(bucket, {})[name] = obj
             emitted = [self._emit_locked("ADDED", obj)]
+            if bucket[0] == "CustomResourceDefinition":
+                self._index_crd(obj)
         self._dispatch_all(emitted)
         return k8s.deepcopy(obj)
 
@@ -245,6 +293,8 @@ class ClusterStore:
             else:
                 self._objects[bucket][name] = obj
                 emitted = [self._emit_locked("MODIFIED", obj)]
+                if bucket[0] == "CustomResourceDefinition":
+                    self._index_crd(obj)
         self._dispatch_all(emitted)
         return k8s.deepcopy(obj)
 
@@ -334,6 +384,8 @@ class ClusterStore:
         emitted: list = []
         if obj is None:
             return emitted
+        if bucket[0] == "CustomResourceDefinition":
+            self._unindex_crd(obj)
         final = {**obj, "metadata": {**obj["metadata"],
                                      "resourceVersion": self._next_rv()}}
         emitted.append(self._emit_locked("DELETED", final))

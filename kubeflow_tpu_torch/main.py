@@ -8,10 +8,13 @@ The counterpart of ``kubeflow_tpu/main.py`` ``build_manager``
 its ``components`` selection: ``"core"`` (the default) the core binary's
 reconcilers, ``"extension"`` the extension binary's reconciler alone,
 ``"all"`` both, the extension reconciler registered after the
-scheduler, as the reference's order has it. One watch-fed ``CachingClient``
-the reconcilers read through (Secrets, ConfigMaps and Events read live),
-the SlicePool and TPUQuota CRDs and their admission, the core
-reconciler, the culler when ``config.enable_culling`` is set, the slice
+scheduler, as the reference's order has it. One watch-fed
+``CachingClient`` the reconcilers read through (Secrets, ConfigMaps and
+Events read live), the Notebook, SlicePool and TPUQuota CRDs and their
+admission (the store then validates each of those kinds against its
+CRD's schema), with ``webhooks=True`` the mutating and then the
+validating admission webhook on the store, the core reconciler, the
+culler when ``config.enable_culling`` is set, the slice
 repair reconciler when ``config.enable_slice_repair`` is, the SlicePool
 reconciler when ``config.enable_slice_pool`` is and the fleet scheduler
 when ``config.enable_scheduler`` is (the last three the default), and
@@ -30,28 +33,33 @@ cache, so a standalone run is a working control plane on one machine::
     # → Pending → Reserving → Admitted (GangAdmitted), then the roll
     mgr.stop()
 
-    mgr = build_manager(simulate_kubelet=True, components="all")
-    mgr.client.create(new_notebook("wb", "ns", annotations={
-        "tpu.kubeflow.org/accelerator": "h100-1",
-        "notebooks.opendatahub.io/inject-auth": "true",
-        "kubeflow-resource-stopped": "odh-notebook-controller-lock"}))
+    mgr = build_manager(simulate_kubelet=True, components="all",
+                        webhooks=True)
+    mgr.client.create(new_notebook(
+        "wb", "ns", image="jupyter/jax-notebook", annotations={
+            "tpu.kubeflow.org/accelerator": "h100-1",
+            "notebooks.opendatahub.io/inject-auth": "true"}))
+    # → admitted locked, with the CUDA image and the kube-rbac-proxy
+    #   sidecar (the webhooks)
     mgr.run_until_idle()
     # → finalizers, auth SA/TLS Service/SAR ConfigMap/CRB, NetworkPolicies,
     #   the HTTPRoute in the controller namespace, the ReferenceGrant;
     #   the lock removed, then 0 → 1 replicas
 
-Not yet in the port, each an item of ROADMAP.md's queue A: the admission
-webhooks that the reference's ``"extension"`` and ``"all"`` stacks
-install in process (item 6; until then a notebook is locked only by its
-creator, and no webhook mounts the CA bundle, the runtime images or the
-auth sidecar), flags, TLS, the webhook server, health endpoints and
-leader election.
+The defaults stay ``components="core"`` with no webhooks; the
+reference's ``setup_controllers`` defaults to both binaries with the
+webhooks, which the port's ``build_manager`` takes with its flags
+(ROADMAP.md queue A item 9). Not yet in the port, each an item of that
+queue: flags, TLS profiles, health endpoints and leader election. The
+webhooks' HTTP(S) front (``webhook/server.py`` ``AdmissionServer``) is
+in the port; a store calls it over the wire once the wire is (item 8).
 """
 
 from __future__ import annotations
 
 from .api.slicepool import install_slicepool_crd
 from .api.tpuquota import install_tpuquota_crd
+from .api.types import install_notebook_crd
 from .cluster.cache import CachingClient
 from .cluster.store import ClusterStore
 from .controllers import (CullingReconciler, ExtensionReconciler, Manager,
@@ -68,7 +76,8 @@ _COMPONENTS = {"core": (True, False), "extension": (False, True),
 def build_manager(store=None, config: ControllerConfig | None = None, *,
                   simulate_kubelet: bool = False,
                   max_concurrent_reconciles: int | None = None,
-                  components: str = "core", ready_hook=None, prober=None):
+                  components: str = "core", webhooks: bool = False,
+                  ready_hook=None, prober=None):
     """Compose the control plane ``components`` selects; returns the
     manager.
 
@@ -90,8 +99,14 @@ def build_manager(store=None, config: ControllerConfig | None = None, *,
     ``config.enable_scheduler`` the fleet scheduler admits each
     gang-annotated notebook whole (``gang-slices``) under its tenant's
     TPUQuota before the core reconciler rolls it. ``store`` gets the
-    SlicePool and TPUQuota CRDs and their admission in either case, as
-    the reference's ``setup_controllers`` installs them. ``ready_hook(pod) -> bool`` gates
+    Notebook CRD and its typed admission first, then the SlicePool and
+    TPUQuota CRDs and their admission, in either case, as the
+    reference's ``setup_controllers`` installs them. ``webhooks``
+    installs the mutating webhook, then the validating one, on ``store``
+    itself (admission never reads the cache): a created Notebook is
+    locked, its image swapped for a CUDA one, its mounts and auth
+    sidecar added, and a running one's webhook changes parked in
+    ``update-pending``. ``ready_hook(pod) -> bool`` gates
     the simulator's readiness flip of a pod (chip_smoke.py forms and
     verifies the pod's NCCL world there). ``components`` is ``"core"``
     (the reconcilers above), ``"extension"`` (the extension reconciler
@@ -104,8 +119,14 @@ def build_manager(store=None, config: ControllerConfig | None = None, *,
     core, extension = _COMPONENTS[components]
     store = store if store is not None else ClusterStore()
     config = config or ControllerConfig.from_env()
+    install_notebook_crd(store)
     install_slicepool_crd(store)
     install_tpuquota_crd(store)
+    if webhooks:
+        # mutating before validating, the apiserver's phase order
+        from .webhook import NotebookMutatingWebhook, NotebookValidatingWebhook
+        NotebookMutatingWebhook(store, config).install(store)
+        NotebookValidatingWebhook(config).install(store)
     if max_concurrent_reconciles is None:
         max_concurrent_reconciles = config.max_concurrent_reconciles
     metrics = MetricsRegistry()

@@ -11,6 +11,7 @@ Kubernetes JSON wire form (what ``kubectl get -o json`` shows).
 from __future__ import annotations
 
 import copy
+import re
 import time
 from typing import Any, Iterable
 
@@ -201,6 +202,37 @@ def json_merge_patch(target: Obj, patch: Obj) -> Obj:
     return result
 
 
+# the quantity grammar parse_quantity and the CRD schema
+# (api/schema.py) share: a signed number followed by either an exponent
+# or one valid suffix (binary Ki..Ei, decimal n/u/m/k/M/G/T/P/E), never
+# both; lowercase "ki" and bare "K" are rejected, as on a real apiserver
+QUANTITY_PATTERN = (
+    r"^[+-]?([0-9]+(\.[0-9]*)?|\.[0-9]+)"
+    r"(([eE][+-]?[0-9]+)|Ki|Mi|Gi|Ti|Pi|Ei|[numkMGTPE])?$")
+_QUANTITY_RE = re.compile(QUANTITY_PATTERN)
+_QUANTITY_SUFFIX = {
+    "": 1.0, "n": 1e-9, "u": 1e-6, "m": 1e-3,
+    "k": 1e3, "M": 1e6, "G": 1e9, "T": 1e12, "P": 1e15, "E": 1e18,
+    "Ki": 2**10, "Mi": 2**20, "Gi": 2**30, "Ti": 2**40, "Pi": 2**50,
+    "Ei": 2**60,
+}
+
+
+def parse_quantity(value: str) -> float:
+    """Kubernetes resource.Quantity → float (cores for CPU, bytes for
+    memory). Exactly the QUANTITY_PATTERN grammar; raises ValueError on
+    anything outside it."""
+    text = value.strip()
+    m = _QUANTITY_RE.match(text)
+    if not m:
+        raise ValueError(f"invalid quantity {value!r}")
+    number, tail, exponent = m.group(1), m.group(3) or "", m.group(4)
+    sign = -1.0 if text.startswith("-") else 1.0
+    if exponent:  # scientific notation: the whole thing is the number
+        return sign * float(number + exponent)
+    return sign * float(number) * _QUANTITY_SUFFIX[tail]
+
+
 def find_container(pod_spec: dict, container_name: str) -> dict | None:
     for c in pod_spec.get("containers", []) or []:
         if c.get("name") == container_name:
@@ -232,6 +264,12 @@ def upsert_env_from(container: dict, name_: str, value_from: dict) -> None:
     env.append({"name": name_, "valueFrom": value_from})
 
 
+def remove_env(container: dict, name_: str) -> None:
+    env = container.get("env")
+    if env:
+        container["env"] = [e for e in env if e.get("name") != name_]
+
+
 def upsert_volume(pod_spec: dict, volume: dict) -> None:
     vols = pod_spec.setdefault("volumes", [])
     for i, v in enumerate(vols):
@@ -239,6 +277,12 @@ def upsert_volume(pod_spec: dict, volume: dict) -> None:
             vols[i] = volume
             return
     vols.append(volume)
+
+
+def remove_volume(pod_spec: dict, name_: str) -> None:
+    vols = pod_spec.get("volumes")
+    if vols:
+        pod_spec["volumes"] = [v for v in vols if v.get("name") != name_]
 
 
 def upsert_volume_mount(container: dict, mount: dict) -> None:
@@ -249,6 +293,13 @@ def upsert_volume_mount(container: dict, mount: dict) -> None:
             mounts[i] = mount
             return
     mounts.append(mount)
+
+
+def remove_volume_mount(container: dict, name_: str) -> None:
+    mounts = container.get("volumeMounts")
+    if mounts:
+        container["volumeMounts"] = [m for m in mounts
+                                     if m.get("name") != name_]
 
 
 def pod_spec_notebook_container(pod_spec: dict, nb_name: str) -> dict | None:

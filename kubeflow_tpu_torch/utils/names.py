@@ -44,6 +44,29 @@ CRB_CLEANUP_FINALIZER = "kubeflow-tpu.org/crb-cleanup"
 # the finalizer controllers before the auth proxy stamped on Notebooks
 LEGACY_OAUTH_FINALIZER = "notebooks.kubeflow-tpu.org/oauth-client"
 
+# --- the admission webhooks' keys (reference odh
+# notebook_mutating_webhook.go:86-111, notebook_controller.go:59-66) ---
+# the webhook changes the restart gating parked on a running notebook
+UPDATE_PENDING_ANNOTATION = "notebooks.opendatahub.io/update-pending"
+# the auth sidecar's resources: the legacy combined forms set request and
+# limit together; the split forms win over them
+AUTH_SIDECAR_CPU_ANNOTATION = "notebooks.opendatahub.io/auth-sidecar-cpu"
+AUTH_SIDECAR_MEMORY_ANNOTATION = "notebooks.opendatahub.io/auth-sidecar-memory"
+AUTH_SIDECAR_CPU_REQUEST_ANNOTATION = \
+    "notebooks.opendatahub.io/auth-sidecar-cpu-request"
+AUTH_SIDECAR_CPU_LIMIT_ANNOTATION = \
+    "notebooks.opendatahub.io/auth-sidecar-cpu-limit"
+AUTH_SIDECAR_MEMORY_REQUEST_ANNOTATION = \
+    "notebooks.opendatahub.io/auth-sidecar-memory-request"
+AUTH_SIDECAR_MEMORY_LIMIT_ANNOTATION = \
+    "notebooks.opendatahub.io/auth-sidecar-memory-limit"
+FEAST_LABEL = "opendatahub.io/feast-integration"
+IMAGE_SELECTION_ANNOTATION = "notebooks.opendatahub.io/last-image-selection"
+# the ImageStream lookup namespace of the image selection (empty or
+# missing: the controller namespace)
+WORKBENCH_IMAGE_NAMESPACE_ANNOTATION = \
+    "opendatahub.io/workbench-image-namespace"
+
 # --- the slice request and its pods (gpu/topology.py, controllers/) ---
 # the request on the Notebook: a shorthand ("h100-16"), or a generation
 # plus a topology ("h100" + "2x8"); the keys are the unchanged

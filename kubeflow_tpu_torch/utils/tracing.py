@@ -9,10 +9,12 @@ provider is a no-op that hands out one shared context manager, so the
 tracing-off path allocates nothing; ``set_provider(SDKProvider(exporter))``
 installs a recording one (``InMemorySpanExporter`` collects its spans).
 
-This is what the slice-repair reconciler's migration spans reach
-(``controllers/slicerepair.py``). Not here yet (ROADMAP.md queue A item
-7): the OTLP/HTTP exporter, exemplars, the flight recorder, finished-span
-``emit`` and the manager's reconcile spans. Plain ``threading`` locks
+This is what the slice-repair reconciler's migration spans and the
+mutating webhook's admission spans reach (``controllers/slicerepair.py``,
+``webhook/mutating.py``, which adds events to ``current_span()``). Not
+here yet (ROADMAP.md queue A item 7): the OTLP/HTTP exporter,
+exemplars, the flight recorder, finished-span ``emit`` and the
+manager's reconcile spans. Plain ``threading`` locks
 stand in for the reference's tracked ones.
 """
 
@@ -244,6 +246,18 @@ def is_recording() -> bool:
     building attribute dicts on it, so the no-op path stays
     allocation-free."""
     return _provider.recording
+
+
+def current_span():
+    """The innermost open recording span on this thread (OTel's
+    ``trace.SpanFromContext``); a no-op sink when the provider does not
+    record or no span is open, so callers add events unconditionally."""
+    provider = _provider
+    if isinstance(provider, SDKProvider):
+        stack = getattr(provider._local, "stack", None)
+        if stack:
+            return stack[-1]
+    return _NOOP_SPAN
 
 
 class Tracer:

@@ -863,11 +863,12 @@ def test_non_json_body_is_unreachable(proxies):
 # ------------------------------------------------- the slice as a whole
 def _ref_core(store, config, offset):
     """The reference composed as the port's ``build_manager``: the
-    SlicePool and TPUQuota CRDs, one watch-fed read cache the reconcilers
+    Notebook, SlicePool and TPUQuota CRDs, one watch-fed read cache the reconcilers
     read through, the Notebook reconciler, the culler on an offset clock,
     the slice repair and SlicePool reconcilers, the fleet scheduler and
     the simulator on the cache (reference main.py / setup_controllers'
     core path)."""
+    ref_api.install_notebook_crd(store)
     ref_pool_api.install_slicepool_crd(store)
     ref_quota_api.install_tpuquota_crd(store)
     cache = RefCachingClient(store, auto_informer=False,

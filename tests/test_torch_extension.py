@@ -2,18 +2,27 @@
 case, through both packages' whole control planes.
 
 Every case of tests/test_extension.py but the PEM one (a function of one
-module: tests/test_torch_extension_helpers.py holds it) and 20 of the 23
-of tests/test_extension_matrix.py (the CA-bundle mount lifecycle and the
-two MLflow admission-denial cases need the admission webhooks, ROADMAP.md
-queue A item 6) run on each side's entry point: the reference's
-``setup_controllers(store, config, webhooks=False)`` and the port's
-``build_manager(store, config, components="all")``
-(``torch_parity.Stack.entry_point``), each with the case's own
-assertions. The reference's tests run with the mutating webhook, which
-puts the reconciliation lock (the stop annotation with
-``RECONCILIATION_LOCK_VALUE``) on every created Notebook; here no
+module: tests/test_torch_extension_helpers.py holds it), all 23 of
+tests/test_extension_matrix.py and all 5 of tests/test_notebook_update.py
+run on each side's entry point (``torch_parity.Stack.entry_point``),
+each with the case's own assertions. Twenty of the matrix cases and
+those of tests/test_extension.py run without the admission webhooks: the
+reference's ``setup_controllers(store, config, webhooks=False)`` and the
+port's ``build_manager(store, config, components="all")``. The
+reference's tests run with the mutating webhook, which puts the
+reconciliation lock (the stop annotation with
+``RECONCILIATION_LOCK_VALUE``) on every created Notebook; there no
 webhook runs, so each case writes the lock on the CR it creates, on both
 sides, and the unlock path runs in every case as in the reference's.
+The CA-bundle mount lifecycle, the two MLflow admission-denial cases and
+the update cases run with the webhooks, as the reference's do:
+``setup_controllers(store, config)`` against ``build_manager(store,
+config, components="all", webhooks=True)``; there the webhook writes the
+lock. The two write-path cases of tests/test_notebook_update.py run the
+core alone with no webhooks on both sides
+(``setup_controllers(extension=False, webhooks=False,
+cached_reads=False)`` against ``build_manager(components="core")``),
+each over a client that records the StatefulSet and Service writes.
 
 At the points each case marks and at its end, every object of both
 stores is compared after ``normalise`` (cluster-scoped
@@ -38,25 +47,30 @@ PEM = ("-----BEGIN CERTIFICATE-----\nY2VydGlmaWNhdGUtYnl0ZXM=\n"
 
 
 # ------------------------------------------------------------- the worlds
-def world(s, **config) -> None:
+def world(s, webhooks=False, **config) -> None:
     """The reference's ``world`` fixture on stack ``s``: the side's entry
-    point on a config with the controller namespace set."""
+    point on a config with the controller namespace set, with the
+    admission webhooks or without."""
     s.config = s.Config(controller_namespace=CENTRAL, **config)
-    s.entry_point()
+    s.entry_point(webhooks=webhooks)
+    s.webhooks = webhooks
 
 
-def matrix_world(s) -> None:
+def matrix_world(s, webhooks=False) -> None:
     """tests/test_extension_matrix.py's ``world``: MLflow on, a static
     gateway URL."""
-    world(s, mlflow_enabled=True, gateway_url="gw.example.com")
+    world(s, webhooks=webhooks, mlflow_enabled=True,
+          gateway_url="gw.example.com")
 
 
 def create_nb(s, name="nb", ns="user-ns", annotations=None, **kw) -> dict:
-    """Create a Notebook locked as the reference's webhook locks it, and
-    drain."""
-    anns = {s.names.STOP_ANNOTATION: s.names.RECONCILIATION_LOCK_VALUE}
+    """Create a Notebook, locked as the reference's webhook locks it (by
+    the webhook when the world has one), and drain."""
+    anns = {} if s.webhooks else \
+        {s.names.STOP_ANNOTATION: s.names.RECONCILIATION_LOCK_VALUE}
     anns.update(annotations or {})
-    s.store.create(s.api.new_notebook(name, ns, annotations=anns, **kw))
+    s.store.create(s.api.new_notebook(name, ns, annotations=anns or None,
+                                      **kw))
     s.drain()
     return s.store.get(s.api.KIND, ns, name)
 
@@ -604,6 +618,236 @@ def pipeline_rolebinding_gc_with_notebook(s):
     return {}
 
 
+# ------------------- tests/test_extension_matrix.py, with the webhooks
+def ca_bundle_full_lifecycle_source_appears_then_disappears(s):
+    matrix_world(s, webhooks=True)
+    cacert, k8s, names = s.ext.cacert, s.k8s, s.names
+    create_nb(s)
+    assert s.store.get_or_none("ConfigMap", "user-ns",
+                               cacert.WORKBENCH_BUNDLE) is None
+    s.store.create({"kind": "ConfigMap", "apiVersion": "v1",
+                    "metadata": {"name": cacert.TRUSTED_CA_BUNDLE,
+                                 "namespace": CENTRAL},
+                    "data": {"ca-bundle.crt": PEM}})
+    s.drain()
+    bundle = s.store.get("ConfigMap", "user-ns", cacert.WORKBENCH_BUNDLE)
+    assert PEM in bundle["data"]["ca-bundle.crt"]
+    mark(s, "bundle")
+    touch(s, "1")
+    nb = s.store.get(s.api.KIND, "user-ns", "nb")
+    assert k8s.get_annotation(nb, names.UPDATE_PENDING_ANNOTATION)
+    assert "REQUESTS_CA_BUNDLE" not in k8s.env_list_to_dict(
+        s.api.notebook_container(nb).get("env", []))
+    mark(s, "parked")
+    s.store.patch(s.api.KIND, "user-ns", "nb", {"metadata": {"annotations": {
+        names.STOP_ANNOTATION: "2026-01-01T00:00:00Z"}}})
+    s.drain()
+    nb = s.store.get(s.api.KIND, "user-ns", "nb")
+    env = k8s.env_list_to_dict(s.api.notebook_container(nb).get("env", []))
+    assert env["REQUESTS_CA_BUNDLE"].endswith("ca-bundle.crt")
+    assert any(v["name"] == "trusted-ca"
+               for v in s.api.notebook_pod_spec(nb).get("volumes", []))
+    assert k8s.get_annotation(nb, names.UPDATE_PENDING_ANNOTATION) is None
+    mark(s, "stopped")
+    s.store.delete("ConfigMap", CENTRAL, cacert.TRUSTED_CA_BUNDLE)
+    s.drain()
+    assert s.store.get_or_none("ConfigMap", "user-ns",
+                               cacert.WORKBENCH_BUNDLE) is None
+    touch(s, "2")
+    nb = s.store.get(s.api.KIND, "user-ns", "nb")
+    assert "REQUESTS_CA_BUNDLE" not in k8s.env_list_to_dict(
+        s.api.notebook_container(nb).get("env", []))
+    assert not any(v["name"] == "trusted-ca"
+                   for v in s.api.notebook_pod_spec(nb).get("volumes", []))
+    return {}
+
+
+def mlflow_annotation_removal_denied_only_while_running(s):
+    matrix_world(s, webhooks=True)
+    ann = s.names.MLFLOW_INSTANCE_ANNOTATION
+    cluster_role(s)
+    nb = create_nb(s, annotations={ann: "tracking-1"})
+    assert s.k8s.get_annotation(nb, s.names.STOP_ANNOTATION) is None
+    with pytest.raises(s.wh.AdmissionDenied) as exc:
+        s.store.patch(s.api.KIND, "user-ns", "nb", {"metadata": {
+            "annotations": {ann: None}}})
+    mark(s, "denied")
+    s.store.patch(s.api.KIND, "user-ns", "nb", {"metadata": {"annotations": {
+        s.names.STOP_ANNOTATION: "2026-01-01T00:00:00Z"}}})
+    s.store.patch(s.api.KIND, "user-ns", "nb", {"metadata": {
+        "annotations": {ann: None}}})
+    s.drain()
+    assert s.store.get_or_none("RoleBinding", "user-ns",
+                               s.ext.rbac.mlflow_rb_name("nb")) is None
+    return {"denied": (exc.value.code, exc.value.message)}
+
+
+def mlflow_guard_under_stale_writer(s):
+    matrix_world(s, webhooks=True)
+    ann = s.names.MLFLOW_INSTANCE_ANNOTATION
+    cluster_role(s)
+    create_nb(s, annotations={ann: "tracking-1"})
+    stale = s.store.get(s.api.KIND, "user-ns", "nb")
+    s.store.patch(s.api.KIND, "user-ns", "nb",
+                  {"metadata": {"labels": {"touch": "1"}}})
+    s.k8s.remove_annotation(stale, ann)
+    with pytest.raises(s.errors.ConflictError):
+        s.store.update(stale)
+    fresh = s.store.get(s.api.KIND, "user-ns", "nb")
+    s.k8s.remove_annotation(fresh, ann)
+    with pytest.raises(s.wh.AdmissionDenied) as exc:
+        s.store.update(fresh)
+    s.drain()
+    return {"denied": (exc.value.code, exc.value.message)}
+
+
+# ------------------------------------ tests/test_notebook_update.py
+def update_world(s) -> None:
+    """tests/test_notebook_update.py's ``world``: the whole control plane
+    with the webhooks."""
+    world(s, webhooks=True)
+
+
+def spec_update_propagates_to_statefulset(s):
+    update_world(s)
+    create_nb(s, image="jupyter:2024a")
+    nb = s.store.get(s.api.KIND, "user-ns", "nb")
+    s.api.notebook_container(nb)["image"] = "jupyter:2024b"
+    s.api.notebook_pod_spec(nb)["containers"][0].setdefault(
+        "env", []).append({"name": "NEW_VAR", "value": "yes"})
+    s.store.update(nb)
+    s.drain()
+    sts = s.store.get("StatefulSet", "user-ns", "nb")
+    c = s.k8s.get_in(sts, "spec", "template", "spec", "containers")[0]
+    assert c["image"] == "jupyter:2024b"
+    assert {"name": "NEW_VAR", "value": "yes"} in c["env"]
+    return {}
+
+
+def replica_edit_on_sts_repaired_slice_atomically(s):
+    update_world(s)
+    create_nb(s, annotations={s.names.TPU_ACCELERATOR_ANNOTATION:
+                              s.accelerator("v5e-16")})
+    sts = s.store.get("StatefulSet", "user-ns", "nb")
+    assert sts["spec"]["replicas"] == 4
+    sts["spec"]["replicas"] = 2
+    s.store.update(sts)
+    s.drain()
+    assert s.store.get("StatefulSet", "user-ns", "nb")["spec"][
+        "replicas"] == 4
+    return {}
+
+
+def trusted_ca_mounted_on_update_when_source_appears_later(s):
+    update_world(s)
+    cacert = s.ext.cacert
+    create_nb(s)
+    s.store.patch(s.api.KIND, "user-ns", "nb", {"metadata": {"annotations": {
+        s.names.STOP_ANNOTATION: "2026-01-01T00:00:00Z"}}})
+    s.drain()
+    nb = s.store.get(s.api.KIND, "user-ns", "nb")
+    assert not any(v.get("name") == "trusted-ca"
+                   for v in s.api.notebook_pod_spec(nb).get("volumes", []))
+    s.store.create({"kind": "ConfigMap", "apiVersion": "v1",
+                    "metadata": {"name": cacert.TRUSTED_CA_BUNDLE,
+                                 "namespace": CENTRAL},
+                    "data": {"ca-bundle.crt": PEM}})
+    touch(s, "1")
+    assert s.store.get("ConfigMap", "user-ns", cacert.WORKBENCH_BUNDLE)
+    mark(s, "bundle")
+    touch(s, "2")
+    nb = s.store.get(s.api.KIND, "user-ns", "nb")
+    assert any(v.get("name") == "trusted-ca"
+               for v in s.api.notebook_pod_spec(nb).get("volumes", []))
+    assert any(m.get("mountPath", "").startswith("/etc/pki/tls")
+               for m in s.api.notebook_container(nb).get("volumeMounts", []))
+    return {}
+
+
+class WriteRecorder:
+    """The side's store, recording every PUT and PATCH the control plane
+    sends through it."""
+
+    def __init__(self, store):
+        self._store = store
+        self.updates: list = []
+        self.patches: list = []
+
+    def update(self, obj):
+        self.updates.append(obj["kind"])
+        return self._store.update(obj)
+
+    def patch(self, kind, namespace, name, patch):
+        self.patches.append((kind, namespace, name, patch))
+        return self._store.patch(kind, namespace, name, patch)
+
+    def __getattr__(self, name):
+        return getattr(self._store, name)
+
+
+def core_recorded(s) -> WriteRecorder:
+    """The core alone over a ``WriteRecorder``: the reference's
+    ``setup_controllers(extension=False, webhooks=False,
+    cached_reads=False)``, the port's ``build_manager(components="core")``;
+    the error count of the notebook reconciler is read from
+    ``s.reconcile_errors()``."""
+    client = WriteRecorder(s.store)
+    if s.side == "ref":
+        from kubeflow_tpu.controllers import setup_controllers
+        s.manager = setup_controllers(client, s.config, metrics=s.metrics,
+                                      extension=False, webhooks=False,
+                                      cached_reads=False)
+    else:
+        from kubeflow_tpu_torch.main import build_manager
+        s.manager = build_manager(client, s.config, components="core")
+        s.metrics = s.manager.metrics
+    s.webhooks = False
+    s.base = s.store._last_rv
+    s.reconcile_errors = lambda: s.metrics.counter(
+        "controller_runtime_reconcile_total", "").get(
+        {"controller": "notebook-controller", "result": "error"})
+    return client
+
+
+def statefulset_drift_repair_is_a_minimal_merge_patch(s):
+    client = core_recorded(s)
+    s.store.create(s.api.new_notebook("nb", "user-ns", image="jupyter:2024a"))
+    s.drain()
+    nb = s.store.get(s.api.KIND, "user-ns", "nb")
+    s.api.notebook_container(nb)["image"] = "jupyter:2024b"
+    s.store.update(nb)
+    errors_before = s.reconcile_errors()
+    client.updates.clear()
+    client.patches.clear()
+    s.drain()
+    sts = s.store.get("StatefulSet", "user-ns", "nb")
+    c = s.k8s.get_in(sts, "spec", "template", "spec", "containers")[0]
+    assert c["image"] == "jupyter:2024b"
+    assert "StatefulSet" not in client.updates
+    sts_patches = [p for p in client.patches if p[0] == "StatefulSet"]
+    assert sts_patches
+    for _, _, _, patch in sts_patches:
+        assert set(patch) == {"spec"} and set(patch["spec"]) == {"template"}
+        assert "resourceVersion" not in str(patch)
+    assert s.reconcile_errors() == errors_before
+    return {"patches": sts_patches}
+
+
+def no_drift_means_no_write(s):
+    client = core_recorded(s)
+    s.store.create(s.api.new_notebook("nb", "user-ns", image="jupyter:2024a"))
+    s.drain()
+    client.updates.clear()
+    client.patches.clear()
+    s.store.patch(s.api.KIND, "user-ns", "nb", {"metadata": {"annotations": {
+        "kubectl.kubernetes.io/last-applied-configuration": "{}"}}})
+    s.drain()
+    assert not {"StatefulSet", "Service"} & set(client.updates)
+    assert not [p for p in client.patches
+                if p[0] in ("StatefulSet", "Service")]
+    return {"patches": client.patches}
+
+
 CASES = {f"test_extension.{fn.__name__}": fn for fn in (
     full_provisioning_loop,
     auth_mode_provisions_proxy_resources,
@@ -637,7 +881,16 @@ CASES.update({f"test_extension_matrix.{fn.__name__}": fn for fn in (
     auth_route_reconciled_and_recreated,
     sar_configmap_recreated_on_delete,
     reconciliation_lock_removed_after_provisioning,
-    pipeline_rolebinding_gc_with_notebook)})
+    pipeline_rolebinding_gc_with_notebook,
+    ca_bundle_full_lifecycle_source_appears_then_disappears,
+    mlflow_annotation_removal_denied_only_while_running,
+    mlflow_guard_under_stale_writer)})
+CASES.update({f"test_notebook_update.{fn.__name__}": fn for fn in (
+    spec_update_propagates_to_statefulset,
+    replica_edit_on_sts_repaired_slice_atomically,
+    trusted_ca_mounted_on_update_when_source_appears_later,
+    statefulset_drift_repair_is_a_minimal_merge_patch,
+    no_drift_means_no_write)})
 
 
 @pytest.mark.parametrize("case", sorted(CASES))
@@ -689,3 +942,53 @@ def test_extension_setup_watches_the_reference_kinds():
     from kubeflow_tpu_torch.controllers import extension
     assert extension.CONTRACT == ref_extension.CONTRACT
     assert extension.ALL_FINALIZERS == ref_extension.ALL_FINALIZERS
+
+
+def test_the_cases_cover_the_reference_files():
+    """12 cases of tests/test_extension.py (the PEM one is in
+    tests/test_torch_extension_helpers.py), all 23 of
+    tests/test_extension_matrix.py and all 5 of
+    tests/test_notebook_update.py."""
+    counts = {}
+    for key in CASES:
+        counts[key.split(".")[0]] = counts.get(key.split(".")[0], 0) + 1
+    assert counts == {"test_extension": 12, "test_extension_matrix": 23,
+                      "test_notebook_update": 5}
+
+
+def test_admitted_locked_then_unlocked_to_slice_ready():
+    """``build_manager(components="all", webhooks=True,
+    simulate_kubelet=True)`` against the reference's
+    ``setup_controllers`` with its simulator: a Notebook created with no
+    lock, an image the side's accelerator cannot drive and auth on is
+    stored locked, with the side's accelerator image (the original
+    recorded) and the kube-rbac-proxy sidecar; the extension unlocks it
+    and it rolls to SliceReady. Every object of both stores is equal
+    after ``normalise``, at the create and at the end."""
+    from torch_parity import assert_parity
+    stacks = (Stack("ref"), Stack("port"))
+    stored = {}
+    for s in stacks:
+        s.config = s.Config(controller_namespace=CENTRAL,
+                            tpu_default_image=s.image("default"))
+        s.entry_point(simulate_kubelet=True, webhooks=True)
+        nb = s.store.create(s.api.new_notebook(
+            "wb", "user-ns", image=s.image("foreign"), annotations={
+                s.names.TPU_ACCELERATOR_ANNOTATION: s.accelerator("v5e-1"),
+                s.names.INJECT_AUTH_ANNOTATION: "true"}))
+        assert s.k8s.get_annotation(nb, s.names.STOP_ANNOTATION) == \
+            s.names.RECONCILIATION_LOCK_VALUE
+        assert s.api.notebook_container(nb)["image"] == s.image("default")
+        assert s.k8s.get_annotation(
+            nb, s.names.TPU_ORIGINAL_IMAGE_ANNOTATION) == s.image("foreign")
+        assert [c["name"] for c in s.api.notebook_pod_spec(nb)[
+            "containers"]] == ["wb", "kube-rbac-proxy"]
+        stored[s.side] = normalise(nb, s.side)
+        s.drain(include_delayed_under=0.1)
+        nb = s.store.get(s.api.KIND, "user-ns", "wb")
+        assert s.k8s.get_annotation(nb, s.names.STOP_ANNOTATION) is None
+        assert s.k8s.condition_true(nb, s.api.CONDITION_SLICE_READY)
+        assert s.store.get("StatefulSet", "user-ns", "wb")["spec"][
+            "replicas"] == 1
+    assert stored["port"] == stored["ref"]
+    assert_parity(*stacks)

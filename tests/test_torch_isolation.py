@@ -99,9 +99,14 @@ def test_port_file_list_covers_the_package():
                 "kubeflow_tpu_torch/controllers/cacert.py",
                 "kubeflow_tpu_torch/controllers/elyra.py",
                 "kubeflow_tpu_torch/controllers/runtime_images.py",
-                "kubeflow_tpu_torch/controllers/oauth.py"):
+                "kubeflow_tpu_torch/controllers/oauth.py",
+                "kubeflow_tpu_torch/webhook/validating.py",
+                "kubeflow_tpu_torch/webhook/diff.py",
+                "kubeflow_tpu_torch/webhook/server.py",
+                "kubeflow_tpu_torch/api/schema.py",
+                "kubeflow_tpu_torch/api/podspec_gen.py"):
         assert rel in PORT_FILES
-    assert len(PORT_FILES) >= 78
+    assert len(PORT_FILES) >= 83
 
 
 def _references(tree: ast.AST) -> set[str]:
@@ -193,6 +198,12 @@ import kubeflow_tpu_torch.controllers.cacert
 import kubeflow_tpu_torch.controllers.elyra
 import kubeflow_tpu_torch.controllers.runtime_images
 import kubeflow_tpu_torch.controllers.oauth
+import kubeflow_tpu_torch.webhook
+import kubeflow_tpu_torch.webhook.validating
+import kubeflow_tpu_torch.webhook.diff
+import kubeflow_tpu_torch.webhook.server
+import kubeflow_tpu_torch.api.schema
+import kubeflow_tpu_torch.api.podspec_gen
 import kubeflow_tpu_torch.main
 sys.path.insert(0, "tests")
 import torch_dist_ranks

@@ -516,10 +516,11 @@ def test_normaliser_maps_only_the_accelerator_seam():
 # ------------------------------------------------- the entry point
 def _ref_build_manager(ref: Stack) -> None:
     """The reference composed as the port's ``build_manager(
-    simulate_kubelet=True)`` on ``ref``: the SlicePool and TPUQuota CRDs,
-    the Notebook reconciler, the SlicePool reconciler, the fleet
-    scheduler and the simulator, as the reference's ``setup_controllers``
-    registers them."""
+    simulate_kubelet=True)`` on ``ref``: the Notebook, SlicePool and
+    TPUQuota CRDs, the Notebook reconciler, the SlicePool reconciler, the
+    fleet scheduler and the simulator, as the reference's
+    ``setup_controllers`` registers them."""
+    ref.api.install_notebook_crd(ref.store)
     ref.pool_api.install_slicepool_crd(ref.store)
     ref.quota_api.install_tpuquota_crd(ref.store)
     ref.reconciler()
@@ -531,7 +532,7 @@ def _ref_build_manager(ref: Stack) -> None:
 def test_build_manager_matches_the_reference_quick_start():
     """``main.build_manager(simulate_kubelet=True)`` is the reference's
     README quick start (a Manager, the NotebookReconciler and the
-    simulator on one store) with the SlicePool and TPUQuota CRDs
+    simulator on one store) with the Notebook, SlicePool and TPUQuota CRDs
     installed and the pool reconciler and the fleet scheduler
     registered, as the reference's ``setup_controllers`` does: the same
     v5e-16 / h100-32 Notebook ends in the same objects, SliceReady on 4
@@ -793,11 +794,11 @@ def test_build_manager_enable_scheduler_gate():
     ``setup_controllers`` and the port's ``build_manager`` register
     ``fleet-scheduler`` only with ``enable_scheduler`` (on by default),
     the port's reading through the manager's cache; both install the
-    same TPUQuota CRD either way. With the scheduler off the core's
-    admission gate is off too: a gang notebook rolls in the drain that
-    follows its create, unscheduled and with no SchedulerAdmissionTimeout
-    (the grace path of a scheduler that is on but silent is held in
-    tests/test_torch_scheduler.py), on both."""
+    same Notebook and TPUQuota CRDs either way. With the scheduler off
+    the core's admission gate is off too: a gang notebook rolls in the
+    drain that follows its create, unscheduled and with no
+    SchedulerAdmissionTimeout (the grace path of a scheduler that is on
+    but silent is held in tests/test_torch_scheduler.py), on both."""
     from kubeflow_tpu.cluster.store import ClusterStore as RefStore
     from kubeflow_tpu.controllers import setup_controllers
     from kubeflow_tpu.utils.config import ControllerConfig as RefConfig
@@ -806,7 +807,8 @@ def test_build_manager_enable_scheduler_gate():
     from kubeflow_tpu_torch.utils.config import ControllerConfig
     assert ControllerConfig().enable_scheduler is \
         RefConfig().enable_scheduler is True
-    crd = ("CustomResourceDefinition", "", "tpuquotas.tpu.kubeflow.org")
+    crds = [("CustomResourceDefinition", "", name) for name in (
+        "notebooks.kubeflow.org", "tpuquotas.tpu.kubeflow.org")]
     for enable in (False, True):
         ref_store, port_store = RefStore(), ClusterStore()
         ref = setup_controllers(ref_store,
@@ -818,10 +820,12 @@ def test_build_manager_enable_scheduler_gate():
             == enable
         if enable:
             assert port._reconcilers[name]._read_cache is port.read_cache
-        assert normalise(port_store.get(*crd), "port") == \
-            normalise(ref_store.get(*crd), "ref")
+        for crd in crds:
+            assert normalise(port_store.get(*crd), "port") == \
+                normalise(ref_store.get(*crd), "ref")
     ref = Stack("ref")
     ref.config = ref.Config(enable_scheduler=False)
+    ref.api.install_notebook_crd(ref.store)
     ref.pool_api.install_slicepool_crd(ref.store)
     ref.quota_api.install_tpuquota_crd(ref.store)
     ref.reconciler()

@@ -299,3 +299,57 @@ def test_phase19_extension_tier_on_the_cpu():
     assert ext_writes["Notebook/patch"] == 1       # the lock, once
     # on the CPU the wrappers take their plain versions: nothing launched
     assert not any(launched.values())
+
+
+def test_phase20_admission_on_the_cpu():
+    """chip_smoke's phase-20 drive (``_admission_sequence``) on the CPU at
+    a tiny size, a gloo world for the ready hook: the AdmissionReview
+    server's JSONPatch equals ``handle()`` (lock, CUDA image, original
+    recorded, sidecar at its default resources), h100-3 is denied 403
+    and a body that is not JSON gets 400; on ``build_manager(
+    components="all", webhooks=True)`` notebook adm, created with no
+    lock, is stored locked with the CUDA image and the sidecar, stays at
+    0 replicas with no pod until the extension unlocks it, rolls 0 → 1
+    and trains in its world; its generate equals one device's; a label
+    touch after the trust bundle appears parks the CA mount without
+    touching the template, the pod or the world, and a third step stays
+    bit-equal to one device; a resize and the MLflow removal are denied
+    while it runs; stopped, the parked mount is applied; deleted, it
+    leaves nothing. The manager stops and the world ends in a
+    ``finally``."""
+    import torch
+    import torch.distributed as dist
+
+    from chip_smoke import _admission_sequence
+    from kubeflow_tpu_torch.models.train import TrainConfig
+    from kubeflow_tpu_torch.models.transformer import TransformerConfig
+    from kubeflow_tpu_torch.utils.config import DEFAULT_GPU_IMAGE
+
+    assert not dist.is_initialized()
+    c = TransformerConfig(vocab_size=512, d_model=64, n_layers=2, n_heads=4,
+                          n_kv_heads=2, d_ff=128, max_seq_len=256,
+                          dtype="float32")
+    stats, launched = _admission_sequence(
+        torch, c, TrainConfig(warmup_steps=2), 2, 32, 8, 4, device="cpu",
+        timeout=60.0)
+    assert not dist.is_initialized()
+    server = stats["server"]
+    assert len(server["review_ms"]) == 20
+    assert server["image"] == stats["admitted"]["image"] == DEFAULT_GPU_IMAGE
+    assert server["denied"][2]["code"] == 403 and server["not_json"] == 400
+    assert stats["admitted"]["lock"] == "odh-notebook-controller-lock"
+    assert stats["admitted"]["containers"] == ["adm", "kube-rbac-proxy"]
+    assert stats["while_locked"] == {"replicas": [0], "pods": 0}
+    assert 0 < stats["ready_ms"]["lock_removed"] < \
+        stats["ready_ms"]["slice_ready"]
+    assert stats["world"]["report"]["backend"] == "gloo"
+    assert len(stats["losses"]) == 3 and stats["ids_equal"]
+    assert stats["parked"]["pending"] and \
+        not stats["parked"]["trusted_ca_mounted"]
+    assert stats["untouched"]["worlds"] == 0
+    assert [code for code, _ in stats["denied"].values()] == [403, 403]
+    assert stats["stopped"] == {"pending": None, "trusted_ca_mounted": True,
+                                "applied_is_parked": True}
+    assert not any(stats["after_delete"].values())
+    # on the CPU the wrappers take their plain versions: nothing launched
+    assert not any(launched.values())

@@ -14,16 +14,20 @@ webhooks=False)``, the port's ``build_manager``.
 
 The same Notebook or SlicePool goes to both sides; only its accelerator
 request is mapped, to the H100 shape with the same worker count
-(``v5e-4`` (1 x 4) ↔ ``h100-4`` (1 x 4), ``v5e-8`` (1 x 8) ↔ ``h100-8``
+(``v5e-1`` ↔ ``h100-1``, ``v5e-4`` (1 x 4) ↔ ``h100-4`` (1 x 4), ``v5e-8`` (1 x 8) ↔ ``h100-8``
 (1 x 8), ``v5e-16`` (4 x 4) ↔ ``h100-32`` (4 x 8), ``v5e-32`` (8 x 4) ↔
 ``h100-64`` (8 x 8)).
 ``normalise`` drops ``uid``, ``resourceVersion`` and timestamps, and maps
 only the accelerator seam: the resource key and its per-worker count,
 the nodeSelector, the TPU_ACCELERATOR_TYPE and TPU_TOPOLOGY values and
 the slice label's value, the request itself (the Notebook's
-annotation, a SlicePool's ``spec.accelerator``) and the image a warm
-pool slice is rolled with (each side's ``tpu_default_image``: the
-reference's JAX image, the port's CUDA one). A warm pool slice's pods
+annotation, a SlicePool's ``spec.accelerator``) and the images the
+webhook's swap turns round (``IMAGES``: the image a warm pool slice is
+rolled with, each side's ``tpu_default_image``, the reference's JAX
+image and the port's CUDA one; the image each side's webhook swaps in;
+the image it swaps out, a CUDA image for the reference and a JAX one
+for the port; a swap map's pair), each a token for its role wherever
+it stands as a value. A warm pool slice's pods
 carry no slice label: their shape is read from their container's
 TPU_ACCELERATOR_TYPE value. Everything else —
 names, generateName suffixes, labels, annotations (the culler's stamps
@@ -35,9 +39,12 @@ from __future__ import annotations
 
 from types import SimpleNamespace
 
+from kubeflow_tpu import webhook as ref_webhook
+from kubeflow_tpu.api import schema as ref_schema
 from kubeflow_tpu.api import slicepool as ref_pool_api
 from kubeflow_tpu.api import tpuquota as ref_quota_api
 from kubeflow_tpu.api import types as ref_api
+from kubeflow_tpu.cluster import errors as ref_errors
 from kubeflow_tpu.cluster import kubelet as ref_kubelet
 from kubeflow_tpu.cluster.kubelet import StatefulSetSimulator as RefSimulator
 from kubeflow_tpu.cluster.store import ClusterStore as RefStore
@@ -63,10 +70,15 @@ from kubeflow_tpu.utils import k8s as ref_k8s
 from kubeflow_tpu.utils import names as ref_names
 from kubeflow_tpu.utils.config import ControllerConfig as RefConfig
 from kubeflow_tpu.utils.metrics import MetricsRegistry as RefMetrics
+from kubeflow_tpu.webhook import diff as ref_diff
+from kubeflow_tpu.webhook import mutating as ref_mutating
+from kubeflow_tpu.webhook import server as ref_server
+from kubeflow_tpu_torch import webhook
+from kubeflow_tpu_torch.api import schema
 from kubeflow_tpu_torch.api import slicepool as pool_api
 from kubeflow_tpu_torch.api import tpuquota as quota_api
 from kubeflow_tpu_torch.api import types as api
-from kubeflow_tpu_torch.cluster import kubelet
+from kubeflow_tpu_torch.cluster import errors, kubelet
 from kubeflow_tpu_torch.cluster.kubelet import StatefulSetSimulator
 from kubeflow_tpu_torch.cluster.store import ClusterStore
 from kubeflow_tpu_torch.controllers import (auth, cacert, culling, elyra,
@@ -78,6 +90,7 @@ from kubeflow_tpu_torch.controllers import (Manager, NotebookReconciler,
 from kubeflow_tpu_torch.utils import k8s, names
 from kubeflow_tpu_torch.utils.config import ControllerConfig
 from kubeflow_tpu_torch.utils.metrics import MetricsRegistry
+from kubeflow_tpu_torch.webhook import diff, mutating, server
 
 # the extension tier's modules of each side, under the names both share
 EXT = {"ref": SimpleNamespace(
@@ -89,14 +102,30 @@ EXT = {"ref": SimpleNamespace(
            auth=auth, cacert=cacert, elyra=elyra, extension=extension,
            netpol=netpol, oauth=oauth, rbac=rbac, routes=routes,
            runtime_images=runtime_images)}
+# the admission tier of each side: the webhooks, the diff reporter and
+# the AdmissionReview server
+WH = {"ref": SimpleNamespace(
+          Mutating=ref_webhook.NotebookMutatingWebhook,
+          Validating=ref_webhook.NotebookValidatingWebhook,
+          AdmissionDenied=ref_webhook.AdmissionDenied,
+          mutating=ref_mutating, diff=ref_diff, server=ref_server),
+      "port": SimpleNamespace(
+          Mutating=webhook.NotebookMutatingWebhook,
+          Validating=webhook.NotebookValidatingWebhook,
+          AdmissionDenied=webhook.AdmissionDenied,
+          mutating=mutating, diff=diff, server=server)}
 
 # each reference request and the port's request with the same workers
-SHAPES = {"v5e-4": "h100-4", "v5e-8": "h100-8", "v5e-16": "h100-32",
+SHAPES = {"v5e-1": "h100-1", "v5e-4": "h100-4", "v5e-8": "h100-8", "v5e-16": "h100-32",
           "v5e-32": "h100-64"}
 REF_OF = {port: ref for ref, port in SHAPES.items()}
 # what each side renders for a shape, written out (not read back from
 # either package's topology table)
 RENDERED = {
+    "v5e-1": {"nodeSelector": {
+        "cloud.google.com/gke-tpu-accelerator": "tpu-v5-lite-podslice",
+        "cloud.google.com/gke-tpu-topology": "1x1"},
+        "per_worker": "1", "topology": "1x1"},
     "v5e-4": {"nodeSelector": {
         "cloud.google.com/gke-tpu-accelerator": "tpu-v5-lite-podslice",
         "cloud.google.com/gke-tpu-topology": "2x2"},
@@ -113,6 +142,10 @@ RENDERED = {
         "cloud.google.com/gke-tpu-accelerator": "tpu-v5-lite-podslice",
         "cloud.google.com/gke-tpu-topology": "4x8"},
         "per_worker": "4", "topology": "4x8"},
+    "h100-1": {"nodeSelector": {
+        "cloud.google.com/gke-accelerator": "nvidia-h100-80gb",
+        "node.kubernetes.io/instance-type": "a3-highgpu-1g"},
+        "per_worker": "1", "topology": "1x1"},
     "h100-4": {"nodeSelector": {
         "cloud.google.com/gke-accelerator": "nvidia-h100-80gb",
         "node.kubernetes.io/instance-type": "a3-highgpu-4g"},
@@ -131,9 +164,30 @@ RENDERED = {
         "per_worker": "8", "topology": "8x8"},
 }
 RESOURCE_KEY = {"ref": "google.com/tpu", "port": "nvidia.com/gpu"}
-# the image each side rolls its warm pool slices with
-WARM_IMAGE = {"ref": RefConfig().tpu_default_image,
-              "port": ControllerConfig().tpu_default_image}
+# the images the accelerator seam turns round, by role: "warm" the image
+# each side rolls its warm pool slices with (its default
+# tpu_default_image), "default" the tpu_default_image the webhook cases
+# configure, "foreign" an image the side's webhook swaps out (CUDA for
+# the reference, JAX for the port) and "foreign-digest" a digest-pinned
+# one, "native" one it keeps, "mapped-from"/"mapped-to" a swap map's pair
+IMAGES = {
+    "ref": {"warm": RefConfig().tpu_default_image,
+            "default": "jax-notebook:v1",
+            "foreign": "quay.io/jupyter-cuda:2024",
+            "foreign-digest": "reg.example.com/cuda-notebook@sha256:"
+                              + "c" * 64,
+            "native": "my-jax-notebook:latest",
+            "mapped-from": "custom:cuda", "mapped-to": "custom:tpu"},
+    "port": {"warm": ControllerConfig().tpu_default_image,
+             "default": "cuda-notebook:v1",
+             "foreign": "quay.io/jupyter-jax:2024",
+             "foreign-digest": "reg.example.com/jax-notebook@sha256:"
+                               + "c" * 64,
+             "native": "my-cuda-notebook:latest",
+             "mapped-from": "custom:jax", "mapped-to": "custom:cuda"}}
+IMAGE_TOKENS = {side: {image: f"<{role} image>"
+                       for role, image in images.items()}
+                for side, images in IMAGES.items()}
 TIMESTAMP_KEYS = frozenset({
     "creationTimestamp", "deletionTimestamp", "lastTransitionTime",
     "startedAt", "firstTimestamp", "lastTimestamp", "eventTime",
@@ -161,6 +215,8 @@ def _shape_of(obj: dict) -> str | None:
 
 
 def _walk(value, side: str, shape: str | None):
+    if isinstance(value, str):
+        return IMAGE_TOKENS[side].get(value, value)
     if isinstance(value, list):
         return [_walk(v, side, shape) for v in value]
     if not isinstance(value, dict):
@@ -193,8 +249,6 @@ def _walk(value, side: str, shape: str | None):
                  if k == RESOURCE_KEY[side] and v == want["per_worker"]
                  else _walk(v, side, shape))
                 for k, v in val.items()}
-        elif key == "image" and val == WARM_IMAGE[side]:
-            out[key] = "<warm image>"
         elif pair is not None and key in SLICE_KEYS and val == shape:
             out[key] = f"<slice {pair}>"
         else:
@@ -207,6 +261,17 @@ def normalise(obj: dict, side: str) -> dict:
     accelerator seam of ``side`` ("ref" or "port") mapped to tokens that
     name the reference's shape."""
     return _walk(obj, side, _shape_of(obj))
+
+
+def normalise_result(value, side: str):
+    """What a parity case returns, after ``normalise``: each object on its
+    own (its accelerator request maps its own seam), lists and tuples
+    element by element, a bare string through the seam's images."""
+    if isinstance(value, dict):
+        return normalise(value, side)
+    if isinstance(value, (list, tuple)):
+        return [normalise_result(v, side) for v in value]
+    return _walk(value, side, None)
 
 
 # ---------------------------------------------------------------- stacks
@@ -227,6 +292,9 @@ class Stack:
         self.slicerepair = ref_slicerepair if ref else slicerepair
         self.scheduler_mod = ref_scheduler if ref else scheduler
         self.ext = EXT[side]
+        self.wh = WH[side]
+        self.schema = ref_schema if ref else schema
+        self.errors = ref_errors if ref else errors
         self.kubelet = ref_kubelet if ref else kubelet
         self.Config = RefConfig if ref else ControllerConfig
         self.store = RefStore() if ref else ClusterStore()
@@ -299,35 +367,28 @@ class Stack:
         rec.setup(self.manager)
         return rec
 
-    def entry_point(self, simulate_kubelet: bool = False):
+    def entry_point(self, simulate_kubelet: bool = False,
+                    webhooks: bool = False):
         """Replace this stack's manager with the side's whole control
         plane on its store and config: the reference's
-        ``setup_controllers(webhooks=False)`` (its simulator added as
-        its ``main.build_manager`` adds it), the port's
-        ``build_manager(components="all")``. The reference installs its
-        Notebook CRD first; the port installs none (its store validates
-        no schema, ROADMAP.md queue A item 8), so the port's store is
-        given the reference's CRD object as data, and both stores count
-        the same creates (uids, resourceVersions and generateName
-        suffixes line up). ``self.base`` is the write count once the
-        stack is built."""
-        from kubeflow_tpu.controllers import setup_controllers
-        from kubeflow_tpu.deploy.manifests import notebook_crd
+        ``setup_controllers(..., webhooks=webhooks)`` (its simulator added
+        as its ``main.build_manager`` adds it), the port's
+        ``build_manager(components="all", webhooks=webhooks)``. Each
+        installs its own Notebook CRD first, then the SlicePool and
+        TPUQuota ones, so both stores count the same creates (uids,
+        resourceVersions and generateName suffixes line up). ``self.base``
+        is the write count once the stack is built."""
         if self.side == "ref":
+            from kubeflow_tpu.controllers import setup_controllers
             self.manager = setup_controllers(self.store, self.config,
-                                             webhooks=False)
+                                             webhooks=webhooks)
             if simulate_kubelet:
                 self._simulator(self.manager.read_cache).setup(self.manager)
         else:
-            from kubeflow_tpu_torch.cluster.errors import AlreadyExistsError
             from kubeflow_tpu_torch.main import build_manager
-            try:   # as the reference's install_notebook_crd creates it
-                self.store.create(notebook_crd())
-            except AlreadyExistsError:
-                pass
             self.manager = build_manager(
                 self.store, self.config, components="all",
-                simulate_kubelet=simulate_kubelet)
+                webhooks=webhooks, simulate_kubelet=simulate_kubelet)
         if simulate_kubelet:
             self.timed = True
         self.base = self.store._last_rv
@@ -343,6 +404,10 @@ class Stack:
         ``kw`` are its namespace and weights."""
         return self.pool_api.new_slice_pool(name, self.accelerator(ref_shape),
                                             warm, **kw)
+
+    def image(self, role: str) -> str:
+        """This side's image of ``role`` (``IMAGES``)."""
+        return IMAGES[self.side][role]
 
     def accelerator(self, ref_shape: str) -> str:
         return ref_shape if self.side == "ref" else SHAPES[ref_shape]
