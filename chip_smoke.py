@@ -247,6 +247,25 @@ Phases (any failure exits non-zero before the result line):
      world untouched) and a third step bit-equal to one device; a resize
      and the MLflow annotation's removal denied while it runs; stopped,
      the parked mount applied; deleted, nothing is left;
+  21. the tracing tier on the card (``_trace_sequence``): a local OTLP
+     collector on 127.0.0.1, the port's ``OtlpHttpExporter`` behind a
+     ``FlightRecorder`` in a recording ``SDKProvider``, a JSON log
+     handler with the ``CorrelationFilter`` and a ``HealthServer`` with
+     the manager's registry and the recorder; on ``build_manager(
+     components="all", webhooks=True)`` an h100-1 notebook with a JAX
+     image is locked and swapped by the webhook (its root span with the
+     image-swapped event), stamped once with the trace-context
+     annotation, unlocked and rolled to SliceReady in its world (CR →
+     SliceReady host ms); the debug endpoint serves the stamped trace,
+     every reconcile root a Notebook event caused after the stamp is in
+     it, each with a ``workqueue.wait`` child, and its breakdown sums
+     (queue + wire + reconcile = wall, wire 0); the collector holds
+     every span the recorder holds; a queue-duration exemplar carries
+     the stamped trace id; the JSON log lines of its reconciles carry
+     its key and a trace id; 2 steps bit-equal to phase 20's and to one
+     device's, ``generate`` ids equal; deleted, nothing is left; then
+     phase 15's fleet four times in turns, untraced and recorded
+     (seconds, CPU seconds, spans, traces held, notebooks traced);
   5. times of each kernel, its plain version and a library call (last, so
      the paths above run on a card not yet warmed by timing loops), with
      the achieved TFLOP/s, the share of the bound, the forward, dK/dV and
@@ -4412,8 +4431,11 @@ def _quarantine_sequence(ns: str = "quarantine-ns",
         check(config.slice_repair_backoff_max_s + 1, "the second repair's "
               "roll", lambda: repairs() == 2 and refused_pod() and
               pod_uids()[0] != second)
+        # the repairer writes the annotation, the core reconciler then
+        # mirrors it into the condition: wait for both writes
         check(config.slice_repair_timeout_s + 1, "the quarantine",
-              lambda: slice_health(nb()) == QUARANTINED)
+              lambda: slice_health(nb()) == QUARANTINED and
+              k8s.condition_true(nb(), api.CONDITION_SLICE_QUARANTINED))
         quarantined = nb()
         out["quarantine"] = k8s.get_annotation(quarantined,
                                                names.QUARANTINE_ANNOTATION)
@@ -6218,6 +6240,26 @@ def _admission_server_checks(reviews: int = 20) -> dict:
     return {"review_ms": ms, **out}
 
 
+def _left_behind(store, central: str, ns: str, name: str) -> dict:
+    """What a deleted webhook-admitted notebook ``ns/name`` could leave
+    behind: its routes in ``central``, its ReferenceGrant, its
+    ClusterRoleBinding, its StatefulSet and the notebook itself (all
+    falsy when nothing is left)."""
+    from kubeflow_tpu_torch.api import types as api
+    from kubeflow_tpu_torch.controllers import auth, routes
+    from kubeflow_tpu_torch.utils import names
+    return {
+        "routes": len(store.list("HTTPRoute", central,
+                                 {names.NOTEBOOK_NAME_LABEL: name})),
+        "reference_grant": store.get_or_none(
+            "ReferenceGrant", ns, routes.REFERENCE_GRANT_NAME) is not None,
+        "ClusterRoleBinding": store.get_or_none(
+            "ClusterRoleBinding", "", auth.crb_name(ns, name)) is not None,
+        "StatefulSet": store.get_or_none("StatefulSet", ns, name)
+        is not None,
+        "notebook": store.get_or_none(api.KIND, ns, name) is not None}
+
+
 def _admission_sequence(torch, c, tc, B: int, S: int, prompt_len: int,
                         new: int, device: str = "cuda",
                         timeout: float = 180.0) -> tuple[dict, dict]:
@@ -6251,7 +6293,7 @@ def _admission_sequence(torch, c, tc, B: int, S: int, prompt_len: int,
     from kubeflow_tpu_torch import ops
     from kubeflow_tpu_torch.api import types as api
     from kubeflow_tpu_torch.cluster.store import ClusterStore
-    from kubeflow_tpu_torch.controllers import auth, cacert, routes
+    from kubeflow_tpu_torch.controllers import cacert
     from kubeflow_tpu_torch.main import build_manager
     from kubeflow_tpu_torch.models.decode import generate
     from kubeflow_tpu_torch.parallel.mesh import (MeshConfig, build_mesh,
@@ -6505,18 +6547,7 @@ def _admission_sequence(torch, c, tc, B: int, S: int, prompt_len: int,
         store.delete(api.KIND, ns, name)
         wait("adm gone", lambda: seen["gone"] is not None)
         stats["delete_ms"] = (seen["gone"] - t_del) * 1e3
-        stats["after_delete"] = {
-            "routes": len(store.list("HTTPRoute", central,
-                                     {names.NOTEBOOK_NAME_LABEL: name})),
-            "reference_grant": store.get_or_none(
-                "ReferenceGrant", ns, routes.REFERENCE_GRANT_NAME)
-            is not None,
-            "ClusterRoleBinding": store.get_or_none(
-                "ClusterRoleBinding", "", auth.crb_name(ns, name))
-            is not None,
-            "StatefulSet": store.get_or_none("StatefulSet", ns, name)
-            is not None,
-            "notebook": store.get_or_none(api.KIND, ns, name) is not None}
+        stats["after_delete"] = _left_behind(store, central, ns, name)
         require(not any(stats["after_delete"].values()),
                 f"phase20: after the delete {stats['after_delete']}")
     finally:
@@ -6603,6 +6634,509 @@ def phase_admission(torch, flagship, ext_losses: list) -> tuple[dict, dict]:
     print(f"phase20 in {stats['seconds']:.1f} s, peak "
           f"{stats['peak_mem_gb']:.3f} GB; launches {launched} ({CARD[0]})",
           flush=True)
+    return stats, launched
+
+
+# -------------------------------------------------------------- phase 21
+class _OtlpCollector:
+    """A local OTLP/HTTP collector: an HTTP server on 127.0.0.1 (a free
+    port) that keeps the JSON body of every POST to ``/v1/traces``."""
+
+    def __init__(self):
+        from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+        bodies: list = []
+        self.bodies = bodies
+
+        class Handler(BaseHTTPRequestHandler):
+            def do_POST(self):
+                body = self.rfile.read(int(self.headers["Content-Length"]))
+                if self.path == "/v1/traces":
+                    bodies.append(json.loads(body))
+                self.send_response(200 if self.path == "/v1/traces"
+                                   else 404)
+                self.send_header("Content-Length", "2")
+                self.end_headers()
+                self.wfile.write(b"{}")
+
+            def log_message(self, *args):
+                pass
+
+        self._server = ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+        self.url = f"http://127.0.0.1:{self._server.server_address[1]}"
+        self._thread = threading.Thread(target=self._server.serve_forever,
+                                        daemon=True)
+        self._thread.start()
+
+    def spans(self) -> list:
+        """Every span of every body received so far."""
+        return [span for body in list(self.bodies)
+                for rs in body["resourceSpans"]
+                for ss in rs["scopeSpans"] for span in ss["spans"]]
+
+    def stop(self) -> None:
+        self._server.shutdown()
+        self._thread.join(timeout=5)
+        self._server.server_close()
+
+
+def _otlp_attrs(attributes: list) -> dict:
+    return {a["key"]: next(iter(a["value"].values())) for a in attributes}
+
+
+def _trace_sequence(torch, c, tc, B: int, S: int, prompt_len: int,
+                    new: int, device: str = "cuda",
+                    timeout: float = 180.0) -> tuple[dict, dict]:
+    """Phase 21's drive at any size, on ``device`` ("cuda": an NCCL
+    world; "cpu": gloo, the tests). Recording on: a local
+    ``_OtlpCollector``, ``OtlpHttpExporter(url, flush_interval_s=0.1)``
+    behind ``FlightRecorder(inner=exporter)`` in ``SDKProvider`` (set as
+    the provider), a ``JsonFormatter`` handler with the
+    ``CorrelationFilter`` on a ``StringIO`` (on the port's loggers, at
+    INFO) and a ``HealthServer`` on 127.0.0.1 with the manager's
+    registry and the recorder. Then ``build_manager(components="all",
+    webhooks=True)`` under ``start()``, the simulator gated by a
+    ``_SliceGate`` for notebook ``trc`` (h100-1, a JAX image): the
+    webhook stores it locked with the CUDA image, the notebook
+    reconciler stamps it once with the trace-context annotation, the
+    extension unlocks it and worker 0 turns Ready once its world passes
+    ``verify_slice``. The debug endpoint serves the stamped trace; every
+    ``reconcile`` root of ``trc``'s key that a Notebook event delivered
+    after the stamp caused is in it, each with a ``workqueue.wait``
+    child; its ``trace_phase_breakdown`` sums (wire and apf 0); the
+    webhook's root span carries the image-swapped event; once flushed,
+    the collector holds every span id the recorder holds for ``trc``;
+    a ``workqueue_queue_duration_seconds`` exemplar on ``/metrics``
+    carries the stamped trace id; the JSON log lines of ``trc``'s
+    reconciles carry its key and a trace id. In its world a
+    ``Trainer(mesh=...)`` takes 2 steps (held to a one-device
+    Trainer's) and greedy ``generate`` on ``shard_decode_params`` of its
+    params is held to the one-device ``generate``. Last ``trc`` is
+    deleted and the world ends, leaving nothing behind. In a
+    ``finally``: the exporter shut down, the health server and the
+    collector stopped, the log handler removed, ``NoopProvider()``
+    restored. Returns (stats, the launches of the main path: the 2 steps
+    and the ``generate``, each counted from 0)."""
+    import io
+    import logging
+
+    import torch.distributed as dist
+
+    from kubeflow_tpu_torch import ops
+    from kubeflow_tpu_torch.api import types as api
+    from kubeflow_tpu_torch.cluster.store import ClusterStore
+    from kubeflow_tpu_torch.main import build_manager
+    from kubeflow_tpu_torch.models.decode import generate
+    from kubeflow_tpu_torch.parallel.mesh import (MeshConfig, build_mesh,
+                                                  leave_world)
+    from kubeflow_tpu_torch.runtime.data import synthetic_lm_batches
+    from kubeflow_tpu_torch.runtime.sharded_decode import shard_decode_params
+    from kubeflow_tpu_torch.runtime.trainer import Trainer
+    from kubeflow_tpu_torch.utils import k8s, names, tracing
+    from kubeflow_tpu_torch.utils import logging as logging_mod
+    from kubeflow_tpu_torch.utils.config import (DEFAULT_GPU_IMAGE,
+                                                 ControllerConfig)
+    from kubeflow_tpu_torch.utils.health import HealthServer
+
+    require(not dist.is_initialized(), "phase21: a world is still formed")
+    require(not tracing.is_recording(), "phase21: a provider records")
+    V = c.vocab_size
+    ns, name = "trc-ns", "trc"
+    key = f"{ns}/{name}"
+    jax_image = "jupyter/jax-notebook:latest"
+    stats: dict = {}
+    store = ClusterStore()
+    config = ControllerConfig()
+    central = config.controller_namespace
+    gate = _SliceGate(name, device)
+    seen: dict = {"added": None, "ready": None, "gone": None,
+                  "stamps": [], "stamped_at": None}
+
+    def on_notebook(event) -> None:
+        if k8s.name(event.obj) != name:
+            return
+        if event.type == "ADDED":
+            seen["added"] = event.obj
+        elif event.type == "DELETED":
+            seen["gone"] = time.monotonic()
+            return
+        stamp = k8s.get_annotation(event.obj,
+                                   names.TRACE_CONTEXT_ANNOTATION)
+        seen["stamps"].append(stamp)
+        if stamp is not None and seen["stamped_at"] is None:
+            seen["stamped_at"] = time.time()
+        if seen["ready"] is None and \
+                k8s.condition_true(event.obj, api.CONDITION_SLICE_READY):
+            seen["ready"] = time.monotonic()
+    store.watch(api.KIND, on_notebook)
+
+    collector = _OtlpCollector()
+    exporter = tracing.OtlpHttpExporter(collector.url, flush_interval_s=0.1)
+    recorder = tracing.FlightRecorder(inner=exporter)
+    logs = io.StringIO()
+    handler = logging.StreamHandler(logs)
+    handler.addFilter(logging_mod.CorrelationFilter())
+    handler.setFormatter(logging_mod.JsonFormatter())
+    port_log = logging.getLogger("kubeflow_tpu_torch")
+    level = port_log.level
+    port_log.addHandler(handler)
+    port_log.setLevel(logging.INFO)
+    health = None
+    mgr = None
+    trainer = None
+    launched: dict = {}
+    try:
+        tracing.set_provider(tracing.SDKProvider(recorder))
+        mgr = build_manager(store, config, simulate_kubelet=True,
+                            components="all", webhooks=True,
+                            ready_hook=gate)
+        health = HealthServer(metrics_registry=mgr.metrics,
+                              host="127.0.0.1", port=0,
+                              flight_recorder=recorder)
+        health.start()
+        base = f"http://127.0.0.1:{health.port}"
+
+        def wait(what: str, cond) -> float:
+            def ok():
+                require(gate.error is None,
+                        f"phase21: the ready hook failed while waiting for "
+                        f"{what}: {gate.error!r}")
+                return cond()
+            return _wait_for(what, ok, timeout, phase="phase21")
+
+        def get(path: str) -> tuple[int, str]:
+            with urllib.request.urlopen(base + path, timeout=10) as resp:
+                return resp.status, resp.read().decode()
+
+        def take(got: dict) -> None:
+            for k, n in ops.launch_counts().items():
+                launched[k] = launched.get(k, 0) + n
+                got[k] = got.get(k, 0) + n
+
+        src = synthetic_lm_batches(B, S, V, seed=0)
+        batches = [next(src) for _ in range(2)]
+        rng = torch.Generator().manual_seed(7)
+        prompt = torch.randint(0, V, (B, prompt_len),
+                               generator=rng).to(device)
+        mgr.start()
+
+        # 1. admitted, stamped, unlocked, rolled, Ready: one trace
+        t_create = time.monotonic()
+        store.create(api.new_notebook(name, ns, image=jax_image,
+                                      annotations={
+            names.TPU_ACCELERATOR_ANNOTATION: "h100-1"}))
+        wait("SliceReady on trc", lambda: seen["ready"] is not None)
+        stats["ready_ms"] = (seen["ready"] - t_create) * 1e3
+        added = seen["added"]
+        stats["admitted"] = {
+            "lock": k8s.get_annotation(added, names.STOP_ANNOTATION),
+            "image": api.notebook_container(added)["image"]}
+        require(stats["admitted"] == {
+            "lock": names.RECONCILIATION_LOCK_VALUE,
+            "image": DEFAULT_GPU_IMAGE},
+                f"phase21: admitted {stats['admitted']}")
+        header = k8s.get_annotation(store.get(api.KIND, ns, name),
+                                    names.TRACE_CONTEXT_ANNOTATION)
+        stamped = tracing.parse_traceparent(header)
+        require(stamped is not None,
+                f"phase21: trc's trace-context annotation {header!r}")
+        trace_id = f"{stamped.trace_id:032x}"
+        first = seen["stamps"].index(header)
+        stats["stamp"] = {
+            "values": sorted({s for s in seen["stamps"] if s is not None}),
+            "events_before": first,
+            "events_after": len(seen["stamps"]) - first,
+            "rewritten": any(s != header for s in seen["stamps"][first:])}
+        require(stats["stamp"]["values"] == [header] and
+                not stats["stamp"]["rewritten"],
+                f"phase21: trc's stamps {seen['stamps']}")
+        world = gate.worlds[-1]
+        stats["world"] = world
+
+        # 2. the debug endpoint: the stamped trace and its roots
+        status, body = get(f"/debug/notebooks/{ns}/{name}/trace")
+        require(status == 200, f"phase21: the debug endpoint gave {status}")
+        traces = json.loads(body)["traces"]
+        spans = [s for t in traces for s in t["spans"]]
+        by_parent: dict = {}
+        for s in spans:
+            by_parent.setdefault(s["parent_id"], []).append(s)
+        roots = [s for s in spans if s["name"] == "reconcile" and
+                 s["attributes"].get(tracing.KEY_ATTRIBUTE) == key]
+        joined, controllers = [], set()
+        for root in roots:
+            kids = by_parent.get(root["span_id"], [])
+            enq = [k for k in kids if k["name"] == "workqueue.enqueue"]
+            if enq and enq[0]["attributes"].get("k8s.kind") == api.KIND \
+                    and enq[0]["start"] >= seen["stamped_at"]:
+                joined.append((root, kids))
+                controllers.add(root["attributes"]["controller"])
+        stamped_trace = [t for t in traces if t["trace_id"] == trace_id]
+        stats["trace"] = {
+            "held": len(traces), "roots": len(roots),
+            "joined_roots": len(joined),
+            "joined_in_stamped": sum(r["trace_id"] == trace_id
+                                     for r, _ in joined),
+            "joined_with_wait": sum(any(k["name"] == "workqueue.wait"
+                                        for k in kids)
+                                    for _, kids in joined),
+            "controllers": sorted(controllers),
+            "stamped_spans": (len(stamped_trace[0]["spans"])
+                              if stamped_trace else 0)}
+        t = stats["trace"]
+        require(stamped_trace and t["joined_roots"] >= 1 and
+                t["joined_in_stamped"] == t["joined_roots"] ==
+                t["joined_with_wait"],
+                f"phase21: trc's trace on the debug endpoint {t}")
+        # the breakdown's identity holds where the legs do not overlap:
+        # over each reconcile root with its children (one worker ran it
+        # serially); the whole stitched trace's roots ran on 4 workers,
+        # so its queue legs may overlap (printed, not held)
+        breakdowns = []
+        for root in [s for s in stamped_trace[0]["spans"]
+                     if s["name"] == "reconcile"]:
+            b = tracing.trace_phase_breakdown(
+                [root] + by_parent.get(root["span_id"], []))
+            breakdowns.append(b)
+            require(abs(b["queue"] + b["wire"] + b["reconcile"] -
+                        b["wall"]) <= 1e-9 and
+                    b["wire"] == 0 and b["apf"] == 0,
+                    f"phase21: the breakdown of a {root['attributes']} "
+                    f"root of the stamped trace {b}")
+        stats["breakdown"] = {
+            "roots": len(breakdowns),
+            "sum": {k: sum(b[k] for b in breakdowns)
+                    for k in ("wall", "queue", "wire", "apf", "reconcile")},
+            "trace": tracing.trace_phase_breakdown(
+                stamped_trace[0]["spans"])}
+
+        # the collector: every span the recorder holds for trc, and the
+        # webhook's root span with its image-swapped event
+        held = {s["span_id"] for t in recorder.trace_for(ns, name)
+                for s in t["spans"]}
+        exporter.force_flush()
+        _wait_for("the collector to hold trc's spans",
+                  lambda: held <= {s["spanId"] for s in collector.spans()},
+                  timeout, phase="phase21")
+        hooks = [s for s in collector.spans()
+                 if s["name"] == "notebook-mutating-webhook" and
+                 _otlp_attrs(s["attributes"]).get("notebook.name") == name]
+        stats["exported"] = {
+            "posts": len(collector.bodies),
+            "spans": len(collector.spans()), "trc_spans_held": len(held),
+            "webhook_spans": len(hooks),
+            "image_swapped": sum(any(e["name"] == "image-swapped"
+                                     for e in s["events"]) for s in hooks),
+            "failed": exporter.failed_total}
+        require(stats["exported"]["image_swapped"] >= 1 and
+                stats["exported"]["failed"] == 0,
+                f"phase21: exported {stats['exported']}")
+
+        # a queue-duration exemplar on /metrics carries the stamped id
+        status, text = get("/metrics")
+        exemplars = [ln for ln in text.splitlines()
+                     if ln.startswith("workqueue_queue_duration_seconds_"
+                                      "bucket{") and
+                     f'trace_id="{trace_id}"' in ln]
+        stats["exemplars"] = len(exemplars)
+        require(status == 200 and exemplars,
+                f"phase21: no queue-duration exemplar of {trace_id} on "
+                f"/metrics ({status})")
+
+        # the JSON log lines of trc's reconciles
+        lines = [json.loads(ln) for ln in logs.getvalue().splitlines()]
+        mine = [ln for ln in lines if ln.get("reconcile_key") == key]
+        stats["logs"] = {"lines": len(lines), "trc": len(mine),
+                         "trc_with_trace_id": sum("trace_id" in ln
+                                                  for ln in mine)}
+        require(mine and stats["logs"]["trc_with_trace_id"] == len(mine),
+                f"phase21: trc's log lines {stats['logs']}: {mine[:3]}")
+
+        # 3. two steps and generate on the card in the notebook's world
+        mesh = build_mesh(MeshConfig.auto(world["report"]["device_count"]),
+                          device)
+        counts_train: dict = {}
+        ops.reset_launch_counts()
+        trainer = Trainer(c, tc, seed=0, mesh=mesh)
+        t0 = time.monotonic()
+        trainer.fit(batches, steps=2, log_every=1)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        stats["train_s"] = time.monotonic() - t0
+        take(counts_train)
+        counts_gen: dict = {}
+        ops.reset_launch_counts()
+        ids = generate(shard_decode_params(trainer.params, mesh, c), prompt,
+                       c, new)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        take(counts_gen)
+        want_ids = generate(trainer.params, prompt, c, new)
+        losses = [x for _, x in trainer.stats.losses]
+        trainer.close()
+        trainer = None
+        one = Trainer(c, tc, seed=0, device=device)
+        one.fit(batches, steps=2, log_every=1)
+        want_losses = [x for _, x in one.stats.losses]
+        one.close()
+        del one
+        ops.reset_launch_counts()     # the comparisons' launches
+        gc.collect()
+        stats.update({"losses": losses, "launches_train": counts_train,
+                      "ids_equal": bool(torch.equal(ids, want_ids)),
+                      "launches_generate": counts_gen})
+        require(stats["ids_equal"], "phase21: trc's generate differs from "
+                                    "one device's")
+        require(losses == want_losses and len(losses) == 2 and
+                all(math.isfinite(x) for x in losses),
+                f"phase21: trc's losses {losses} differ from one device's "
+                f"{want_losses}")
+
+        # 4. deleted: nothing of it left
+        leave_world()
+        t_del = time.monotonic()
+        store.delete(api.KIND, ns, name)
+        wait("trc gone", lambda: seen["gone"] is not None)
+        stats["delete_ms"] = (seen["gone"] - t_del) * 1e3
+        stats["after_delete"] = dict(
+            _left_behind(store, central, ns, name),
+            pods=len(store.list("Pod", ns)))
+        require(not any(stats["after_delete"].values()),
+                f"phase21: after the delete {stats['after_delete']}")
+    finally:
+        if trainer is not None:
+            trainer.close()
+        if mgr is not None:
+            mgr.stop()
+        store.unwatch(on_notebook)
+        if dist.is_initialized():
+            leave_world()
+        tracing.set_provider(tracing.NoopProvider())
+        exporter.shutdown()
+        if health is not None:
+            health.stop()
+        collector.stop()
+        port_log.removeHandler(handler)
+        port_log.setLevel(level)
+    stats["control_plane"] = {"writes": store._last_rv,
+                              "reconciles": _reconcile_totals(mgr)}
+    return stats, launched
+
+
+def _traced_fleets(n_by_shape: dict, runs: int = 4) -> list:
+    """Phase 15's fleet (``_notebook_fleet``, ``components="core"``)
+    ``runs`` times in turns: untraced (the no-op provider), then recorded
+    (``SDKProvider(FlightRecorder(inner=InMemorySpanExporter()))``), and
+    again.
+    Each run: its stats and CPU seconds, and for a recorded one the spans
+    recorded, the traces the recorder holds and the notebooks with a
+    trace. The no-op provider is restored in a ``finally``."""
+    from kubeflow_tpu_torch.utils import tracing
+
+    out = []
+    for i in range(runs):
+        recorded = i % 2 == 1
+        every = tracing.InMemorySpanExporter()
+        recorder = tracing.FlightRecorder(inner=every)
+        cpu0 = time.process_time()
+        try:
+            if recorded:
+                tracing.set_provider(tracing.SDKProvider(recorder))
+            fleet = _notebook_fleet(n_by_shape)
+        finally:
+            tracing.set_provider(tracing.NoopProvider())
+        fleet["cpu_s"] = time.process_time() - cpu0
+        fleet["recorded"] = recorded
+        fleet["spans"] = len(every.spans)
+        fleet["traces_held"] = len(recorder._traces)
+        fleet["notebooks_traced"] = sum(k.split("/")[1].startswith("nb-")
+                                        for k in recorder.keys())
+        require(fleet["traces_held"] <= recorder.max_traces,
+                f"phase21: the recorder holds {fleet['traces_held']} "
+                f"traces, above its bound {recorder.max_traces}")
+        out.append(fleet)
+    return out
+
+
+def phase_tracing(torch, flagship, adm_losses: list) -> tuple[dict, dict]:
+    """21: the tracing tier on the card (``_trace_sequence`` at the
+    flagship's width: b8 x s1024 with bf16 params, generate 8 x 128 ->
+    16; the 2 losses equal to phase 20's first two), then phase 15's
+    fleet four times in turns, untraced and recorded
+    (``_traced_fleets``). Returns (stats, the launches of the main
+    path)."""
+    from kubeflow_tpu_torch.models import train as train_lib
+
+    t_phase = time.monotonic()
+    L = flagship.n_layers
+    torch.cuda.reset_peak_memory_stats()
+    stats, launched = _trace_sequence(
+        torch, flagship, train_lib.TrainConfig(bf16_params=True), 8, 1024,
+        128, 16)
+    stats["seconds"] = time.monotonic() - t_phase
+    stats["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    gc.collect()
+    torch.cuda.empty_cache()
+    counts_train, counts_gen = stats["launches_train"], \
+        stats["launches_generate"]
+    for what, value in (
+            ("trc CR -> SliceReady ms (host time), recording on",
+             stats["ready_ms"]),
+            ("as stored at the create", stats["admitted"]),
+            ("the trace-context stamp (one value, never rewritten; Notebook "
+             "events before and after it)", stats["stamp"]),
+            ("trc's world (seconds, report)",
+             (stats["world"]["seconds"], stats["world"]["report"])),
+            ("the debug endpoint: traces held, reconcile roots, roots a "
+             "Notebook event caused after the stamp (in the stamped trace, "
+             "with a workqueue.wait child), their controllers, spans of the "
+             "stamped trace", stats["trace"]),
+            ("the stamped trace's breakdown, s: its reconcile roots, each "
+             "root's (queue + wire + reconcile = wall) summed over them, "
+             "and the whole trace's (roots overlap)", stats["breakdown"]),
+            ("exported to the local collector", stats["exported"]),
+            ("queue-duration exemplars with the stamped trace id",
+             stats["exemplars"]),
+            ("JSON log lines (all, trc's, trc's with a trace_id)",
+             stats["logs"]),
+            ("Trainer(mesh=...) b8 s1024 2 steps: losses, bit-equal to one "
+             "device's and to phase 20's steps 1-2; seconds",
+             (stats["losses"], True, stats["train_s"])),
+            ("launches of trc's 2 steps", counts_train),
+            ("trc's generate 8 x 128 -> 16: ids equal to one device's, "
+             "launches", (stats["ids_equal"], counts_gen)),
+            ("delete -> notebook gone ms (host time)", stats["delete_ms"]),
+            ("after the delete (left behind)", stats["after_delete"]),
+            ("control plane writes and reconciles",
+             stats["control_plane"])):
+        print(f"phase21 {what}: {value} ({CARD[0]})", flush=True)
+    require(stats["losses"] == list(adm_losses[:2]),
+            f"phase21: losses {stats['losses']} differ from phase 20's "
+            f"{adm_losses}")
+    attn = ("flash_attention", "flash_attention_bwd_dkv",
+            "flash_attention_bwd_dq")
+    require(all(counts_train.get(k) == 2 * L for k in attn) and
+            not counts_train.get("flash_decode") and
+            counts_gen.get("flash_attention") == L and
+            counts_gen.get("flash_decode") == (16 - 1) * L and
+            not counts_gen.get("flash_attention_bwd_dkv"),
+            f"phase21: launches train {counts_train}, generate "
+            f"{counts_gen}")
+    t0 = time.monotonic()
+    stats["fleets"] = _traced_fleets({"h100-1": 60, "h100-8": 30,
+                                      "h100-16": 10})
+    for i, f in enumerate(stats["fleets"]):
+        how = "recorded" if f["recorded"] else "untraced"
+        print(f"phase21 fleet run {i + 1} ({how}): "
+              f"100 Notebooks SliceReady in {f['seconds']} s, CPU "
+              f"{f['cpu_s']} s; CR→SliceReady p50 {f['ready_p50_ms']} ms, "
+              f"p95 {f['ready_p95_ms']} ms (host time); {f['writes']} "
+              f"writes; spans {f['spans']}, traces held "
+              f"{f['traces_held']}, notebooks with a trace "
+              f"{f['notebooks_traced']} ({CARD[0]})", flush=True)
+    print(f"phase21 in {stats['seconds']:.1f} s "
+          f"({stats['seconds'] + time.monotonic() - t0:.1f} s with the "
+          f"fleets), peak {stats['peak_mem_gb']:.3f} GB; launches "
+          f"{launched} ({CARD[0]})", flush=True)
     return stats, launched
 
 
@@ -6986,6 +7520,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     train["admission"], launched = phase_admission(torch, FLAGSHIP,
                                                    train["ext"]["losses"])
+    for name, n in launched.items():
+        counts[name] += n
+    gc.collect()
+    torch.cuda.empty_cache()
+    train["tracing"], launched = phase_tracing(
+        torch, FLAGSHIP, train["admission"]["losses"])
     for name, n in launched.items():
         counts[name] += n
     rows, wide = phase_times(torch, errs, counts)

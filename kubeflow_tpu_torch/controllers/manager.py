@@ -51,12 +51,27 @@ each reconcile's wall time in client reads and writes as the echo
 client (``cluster/echo.py``) records it through the phase collector of
 ``utils/metrics.py``.
 
+Tracing (only while ``tracing.is_recording()``; the untraced call
+shapes stay as they are): a watch callback hands ``enqueue`` the
+object's carried ``TRACE_CONTEXT_ANNOTATION``, its kind, the event type
+and the delivery time (``trace_info``); ``_process`` opens each
+reconcile's ``reconcile`` root (controller, namespace, name and the
+``reconcile.key`` the flight recorder binds by), parented on that
+context and backdated over the queue wait, with ``workqueue.enqueue``
+and ``workqueue.wait`` children and, after the reconcile, the phase
+collector's ``reconcile.read``/``reconcile.write`` legs. The queue,
+work and phase histograms take the trace as an exemplar, and a failed
+reconcile is recorded on its root. ``_process`` sets
+``utils/logging.py``'s ``reconcile_key_var`` around every reconcile,
+traced or not.
+
 The port's locks are plain ``threading`` locks: the reference's lock
 sanitizer (``kubeflow_tpu/utils/sanitizer.py``) is a test tool of the
 reference and is not copied, so nothing here reads ``KFTPU_SANITIZE``.
 Left out until later slices: sharded ownership (``set_sharding``,
-``resync_shards``), the breaker's ``resync_all``, tracing spans, the
-health and webhook servers, and leader election.
+``resync_shards``), the breaker's ``resync_all``, the release of an
+item popped under a lost lease (``_release_undispatched``), the health
+and webhook servers' wiring, and leader election.
 """
 
 from __future__ import annotations
@@ -69,10 +84,13 @@ from dataclasses import dataclass, field
 from typing import Callable, Protocol
 
 from ..cluster.store import WatchEvent
-from ..utils import k8s
+from ..utils import k8s, names, tracing
+from ..utils import logging as logging_mod
 from ..utils import metrics as metrics_mod
 
 log = logging.getLogger("kubeflow_tpu_torch.manager")
+
+_TRACER = tracing.get_tracer("kubeflow_tpu_torch.manager")
 
 
 @dataclass(frozen=True)
@@ -162,6 +180,13 @@ class Manager:
         # back one at a time as slots free
         self._capped: dict[str, list[_QueueItem]] = {}
         self._failures: dict[tuple[str, Request], int] = {}
+        # trace carry, filled only while a recording provider is
+        # installed: key → (SpanContext | None, kind, event type, wall
+        # time of the watch delivery), written by watch callbacks and
+        # popped when the key dispatches, so its reconcile root joins the
+        # trace that caused it; coalesced events overwrite (the reconcile
+        # observes the last cause)
+        self._key_trace: dict[tuple[str, Request], tuple] = {}
         self._cv = threading.Condition()
         self._seq = 0
         self._running = False
@@ -285,8 +310,24 @@ class Manager:
             reqs = (mapper(event.obj) if mapper is not None
                     else [Request(k8s.namespace(event.obj),
                                   k8s.name(event.obj))])
+            trace_info = None
+            if tracing.is_recording():
+                # the object's carried trace context and what caused this
+                # enqueue: the workqueue.enqueue/wait spans when the key
+                # dispatches
+                ann = (event.obj.get("metadata") or {}) \
+                    .get("annotations") or {}
+                trace_info = (
+                    tracing.parse_traceparent(
+                        ann.get(names.TRACE_CONTEXT_ANNOTATION)),
+                    kind, event.type, time.time())
             for req in reqs:
-                self.enqueue(controller, req)
+                # the keyword only while tracing: the untraced call shape
+                # stays what it was
+                if trace_info is not None:
+                    self.enqueue(controller, req, trace_info=trace_info)
+                else:
+                    self.enqueue(controller, req)
         self.client.watch(kind, cb)
         if cache is not None:
             try:
@@ -296,12 +337,14 @@ class Manager:
                 log.warning("read-cache backfill for %s failed; reads stay "
                             "live", kind, exc_info=True)
 
-    def enqueue(self, controller: str, req: Request,
-                after: float = 0.0) -> None:
+    def enqueue(self, controller: str, req: Request, after: float = 0.0,
+                trace_info: tuple | None = None) -> None:
         with self._cv:
             if self._wq_adds is not None:
                 self._wq_adds.inc({"name": controller})
             key = (controller, req)
+            if trace_info is not None:
+                self._key_trace[key] = trace_info
             if after == 0.0:
                 if key in self._processing:
                     # in-flight: mark dirty; _finish re-enqueues exactly once
@@ -403,10 +446,20 @@ class Manager:
                     self._processing[(found.controller, found.req)] = started
                     self._active[found.controller] = \
                         self._active.get(found.controller, 0) + 1
+                    queue_wait = max(started - found.ready_at, 0.0)
+                    found.queue_wait = queue_wait  # read by _process
                     if self._wq_queue_duration is not None:
+                        exemplar = None
+                        if tracing.is_recording():
+                            carried = self._key_trace.get(
+                                (found.controller, found.req))
+                            ctx = carried[0] if carried else None
+                            if ctx is not None:
+                                exemplar = {
+                                    "trace_id": f"{ctx.trace_id:032x}"}
                         self._wq_queue_duration.observe(
-                            max(started - found.ready_at, 0.0),
-                            {"name": found.controller})
+                            queue_wait, {"name": found.controller},
+                            exemplar=exemplar)
                     return found
                 if not block or not self._running:
                     return None
@@ -431,6 +484,50 @@ class Manager:
                                                time.monotonic())
             self._cv.notify_all()
 
+    def _process(self, item: _QueueItem) -> None:
+        """Reconcile one dispatched item. Untraced, straight to
+        ``_reconcile_item``; with a recording provider, inside the
+        ``reconcile`` root span (parented on the context the triggering
+        watch event carried, backdated over the queue wait) with its
+        ``workqueue.enqueue``/``workqueue.wait`` children."""
+        key_token = logging_mod.reconcile_key_var.set(
+            f"{item.req.namespace}/{item.req.name}")
+        try:
+            if not tracing.is_recording():
+                self._reconcile_item(item)
+                return
+            with self._cv:
+                carried = self._key_trace.pop((item.controller, item.req),
+                                              None)
+            parent, kind, event_type, delivered_at = \
+                carried if carried is not None else (None, None, None, None)
+            now = time.time()
+            queue_wait = getattr(item, "queue_wait", 0.0)
+            wait_start = now - queue_wait
+            with _TRACER.start_span(
+                    "reconcile",
+                    {"controller": item.controller,
+                     "k8s.namespace": item.req.namespace,
+                     "k8s.name": item.req.name,
+                     tracing.KEY_ATTRIBUTE:
+                         f"{item.req.namespace}/{item.req.name}"},
+                    parent=parent) as span:
+                # the root covers the whole dispatch cycle: backdated to
+                # the watch delivery (or the queue-ready time), the queue
+                # wait is inside the trace, not a gap before it
+                span.start_time = min(delivered_at or wait_start, wait_start)
+                if delivered_at is not None:
+                    _TRACER.emit_span(
+                        "workqueue.enqueue", delivered_at, wait_start,
+                        {"k8s.kind": kind, "event": event_type,
+                         "controller": item.controller})
+                _TRACER.emit_span(
+                    "workqueue.wait", wait_start, now,
+                    {"controller": item.controller})
+                self._reconcile_item(item)
+        finally:
+            logging_mod.reconcile_key_var.reset(key_token)
+
     def _reconcile_item(self, item: _QueueItem) -> None:
         rec = self._reconcilers.get(item.controller)
         if rec is None:
@@ -449,12 +546,14 @@ class Manager:
                           self.rate_limiter.next_delay())
             log.warning("reconcile %s %s failed (%s); requeue in %.3fs",
                         item.controller, item.req, exc, backoff)
+            tracing.current_span().record_exception(exc)
             self._count_reconcile(item.controller, "error")
             if self._wq_retries is not None:
                 self._wq_retries.inc({"name": item.controller})
             if self._wq_work_duration is not None:
                 self._wq_work_duration.observe(
-                    time.monotonic() - started, {"name": item.controller})
+                    time.monotonic() - started, {"name": item.controller},
+                    exemplar=tracing.current_exemplar())
             self._observe_phases(item.controller)
             self.enqueue(item.controller, item.req, after=backoff)
             return
@@ -468,16 +567,35 @@ class Manager:
             self._count_reconcile(item.controller, "success")
         if self._wq_work_duration is not None:
             self._wq_work_duration.observe(
-                time.monotonic() - started, {"name": item.controller})
+                time.monotonic() - started, {"name": item.controller},
+                exemplar=tracing.current_exemplar())
         self._observe_phases(item.controller)
 
     def _observe_phases(self, controller: str) -> None:
         phases = metrics_mod.phase_collect_finish()
         if self._read_seconds is not None:
+            exemplar = tracing.current_exemplar()
             self._read_seconds.observe(phases.get("read", 0.0),
-                                       {"controller": controller})
+                                       {"controller": controller},
+                                       exemplar=exemplar)
             self._write_seconds.observe(phases.get("write", 0.0),
-                                        {"controller": controller})
+                                        {"controller": controller},
+                                        exemplar=exemplar)
+        if tracing.is_recording():
+            # the phase collector's legs: the read and write totals are
+            # exact, their placement (write ending now, read just before)
+            # approximate: the collector sums interleaved verb durations,
+            # it records no intervals
+            now = time.time()
+            read_s = phases.get("read", 0.0)
+            write_s = phases.get("write", 0.0)
+            if write_s > 0.0:
+                _TRACER.emit_span("reconcile.write", now - write_s, now,
+                                  {"controller": controller})
+            if read_s > 0.0:
+                _TRACER.emit_span("reconcile.read", now - write_s - read_s,
+                                  now - write_s,
+                                  {"controller": controller})
 
     def run_until_idle(self, timeout: float = 30.0,
                        include_delayed_under: float = 0.0) -> int:
@@ -495,7 +613,7 @@ class Manager:
             item = self._dispatch_one(block=False)
             if item is not None:
                 try:
-                    self._reconcile_item(item)
+                    self._process(item)
                 finally:
                     self._finish(item)
                 count += 1
@@ -552,7 +670,7 @@ class Manager:
                 if item is None:
                     continue
                 try:
-                    self._reconcile_item(item)
+                    self._process(item)
                 finally:
                     self._finish(item)
             except Exception:  # noqa: BLE001 — a worker must never die

@@ -41,9 +41,14 @@ Event predicate, the re-emission, the ``notebook_running`` scrape and
 the pool gate read through it, and the owned StatefulSet is found by
 the by-owner index. Over the in-process store the echo filter drops
 nothing (the store delivers a write's event before the write returns,
-so the record lands after its echo), as in the reference. Left out: the
-trace-context stamp, which writes only while a tracing provider records
-(ROADMAP.md queue A item 7).
+so the record lands after its echo), as in the reference.
+
+The trace-context stamp (``_stamp_trace_context``): while a tracing
+provider records, the first reconcile of a notebook that carries no
+``TRACE_CONTEXT_ANNOTATION`` writes its reconcile root's traceparent
+there, so every later reconcile, bind and migration of the notebook
+joins one lifecycle trace; the annotation is never copied into the
+StatefulSet's template.
 """
 
 from __future__ import annotations
@@ -57,7 +62,7 @@ from ..cluster import errors, events
 from ..cluster.cache import CachingClient, owned_objects
 from ..cluster.echo import EchoTrackingClient
 from ..gpu.topology import SliceSpec, parse_slice_request
-from ..utils import drift, k8s, names
+from ..utils import drift, k8s, names, tracing
 from ..utils.config import ControllerConfig
 from ..utils.metrics import MetricsRegistry
 from .manager import Manager, Request, Result, owner_mapper
@@ -167,6 +172,10 @@ class NotebookReconciler:
         # sched_admission_grace_s with no scheduler progress the core
         # proceeds anyway (a down scheduler must never strand creation)
         self._sched_pending_since: dict[tuple[str, str], float] = {}
+        # (ns, name) → traceparent this process already stamped: keeps the
+        # reconciles that race the stamp's own watch echo from stamping
+        # again (filled only while a recording provider is installed)
+        self._stamped_traces: dict[tuple[str, str], str] = {}
 
     # ------------------------------------------------------------- wiring
     def setup(self, mgr: Manager) -> None:
@@ -261,9 +270,10 @@ class NotebookReconciler:
         notebook = self.client.get_or_none(api.KIND, req.namespace, req.name)
         if notebook is None:
             # a notebook deleted while waiting for a bind must not leak
-            # its grace-window entries
+            # its grace-window entries (nor its stamped-trace entry)
             self._pool_pending_since.pop((req.namespace, req.name), None)
             self._sched_pending_since.pop((req.namespace, req.name), None)
+            self._stamped_traces.pop((req.namespace, req.name), None)
             event = self.client.get_or_none(events.EVENT_KIND, req.namespace,
                                             req.name)
             if event is not None:
@@ -273,6 +283,7 @@ class NotebookReconciler:
             # upstream reconciler no-ops on deletion (reference :138-140);
             # owner-reference GC reaps STS/Service
             return None
+        self._stamp_trace_context(notebook)
 
         # fleet-scheduler admission (controllers/scheduler.py): a
         # gang-annotated notebook rolls nothing until the scheduler
@@ -338,6 +349,39 @@ class NotebookReconciler:
             "Reissued from %s/%s: %s" % (
                 str(involved.get("kind", "")).lower(),
                 involved.get("name", ""), event.get("message", "")))
+
+    def _stamp_trace_context(self, notebook: dict) -> None:
+        """Anchor the notebook's lifecycle trace: while a recording
+        provider is installed, write the reconcile root's traceparent onto
+        the CR (TRACE_CONTEXT_ANNOTATION) the first time the notebook is
+        reconciled without one. Every later actor (this reconciler's next
+        pass, the pool's bind, the repairer's migration) parents its spans
+        on the carried context, so CR→Ready is one trace. Telemetry only:
+        nothing when tracing is off, and a failed stamp never fails the
+        reconcile."""
+        if not tracing.is_recording():
+            return
+        if k8s.get_annotation(notebook,
+                              names.TRACE_CONTEXT_ANNOTATION) is not None:
+            return
+        key = (k8s.namespace(notebook), k8s.name(notebook))
+        if key in self._stamped_traces:
+            # stamped by an earlier pass whose watch echo has not reached
+            # the cache yet: stamping again would fork the trace
+            return
+        ctx = tracing.current_context()
+        if ctx is None:
+            return  # no root span (a reconciler driven outside a manager)
+        header = tracing.format_traceparent(ctx)
+        self._stamped_traces[key] = header
+        try:
+            self.client.patch(api.KIND, key[0], key[1], {
+                "metadata": {"annotations": {
+                    names.TRACE_CONTEXT_ANNOTATION: header}}})
+        except errors.ApiError as exc:
+            self._stamped_traces.pop(key, None)
+            log.debug("trace-context stamp for %s/%s failed: %s",
+                      key[0], key[1], exc)
 
     # ----------------------------------------------------- warm-pool seams
     def _pool_bind_gate(self, notebook: dict,

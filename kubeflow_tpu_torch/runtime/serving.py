@@ -1045,15 +1045,20 @@ class ContinuousBatchedGenerator:
         """A tick failed part-way through its in-place updates: fail every
         in-flight request (and those of ``extra``) and rebuild the state
         from zero (the engine keeps serving)."""
-        for req in extra:
-            _fail(req, exc)
-        for i, s in enumerate(self._slots):
-            if s.req is not None:
-                _fail(s.req, exc)
-            self._slots[i] = _Slot()
-        self._admitting.clear()
-        self._state = self._fresh_state()
-        self._dstate = self._fresh_draft_state()
+        # rebuild first, fail after: a caller woken by its future reads
+        # the engine's state, which must already be the fresh one (and
+        # the requests fail even if the rebuild raises)
+        failed = list(extra) + [s.req for s in self._slots
+                                if s.req is not None]
+        try:
+            for i in range(len(self._slots)):
+                self._slots[i] = _Slot()
+            self._admitting.clear()
+            self._state = self._fresh_state()
+            self._dstate = self._fresh_draft_state()
+        finally:
+            for req in failed:
+                _fail(req, exc)
 
     def _emit_tokens(self, ids: np.ndarray, emitted: np.ndarray) -> None:
         """Deliver one step's ids (already on the host in the packed
@@ -1082,10 +1087,12 @@ class ContinuousBatchedGenerator:
             slot = self._slots[i]
             ids = out[i, :slot.target].copy()
             ids[int(n_out[i]):] = self.pad_id   # EOS'd early: pad
-            if not slot.req.future.done():
-                slot.req.future.set_result(ids)
+            # free the slot before resolving: the caller the future wakes
+            # may read the engine's state at once
             self._slots[i] = _Slot()
             self._state["active"][i] = False
+            if not slot.req.future.done():
+                slot.req.future.set_result(ids)
 
     # ---------------------------------------------------------------- plans
     def _make_plan(self, draining: bool, block: bool) -> _Plan:
@@ -1109,8 +1116,8 @@ class ContinuousBatchedGenerator:
                 plan.drain = True
                 break
             if req.cancelled.is_set():  # cancelled while queued
-                _fail(req, CancelledError())
                 self.cancelled_total += 1
+                _fail(req, CancelledError())
                 continue
             plan.admit.append((free.pop(0), req))
         plan.waiting = not self._queue.empty()
@@ -1138,8 +1145,9 @@ class ContinuousBatchedGenerator:
             self._admitting.pop(slot, None)
             self._slots[slot] = _Slot()
             self._state["active"][slot] = False
-            _fail(req, CancelledError())
+            # count before resolving: the woken caller may read the count
             self.cancelled_total += 1
+            _fail(req, CancelledError())
         for slot, req in plan.admit:
             try:
                 self._begin_admission(req, slot)

@@ -1,17 +1,24 @@
 """Minimal Prometheus metrics registry (text exposition format).
 
-A copy of the surface of ``kubeflow_tpu/utils/metrics.py`` that the
-port uses (the port imports nothing of the JAX package): counters,
-gauges and histograms, ``on_scrape`` callbacks and ``expose``. The
-serving endpoint registers its own series; the controller manager
-registers the workqueue family and the two reconcile-phase histograms,
-the read cache its index counters, and the registry carries the
-reference's five notebook series (components/notebook-controller/pkg/
-metrics/metrics.go:13-99): ``notebook_running`` (a gauge computed at
-scrape time), ``notebook_create_total``, ``notebook_create_failed_total``,
+The port's copy of ``kubeflow_tpu/utils/metrics.py`` (the port imports
+nothing of the JAX package): counters, gauges and histograms,
+``on_scrape`` callbacks and ``expose``. The serving endpoint registers
+its own series; the controller manager registers the workqueue family
+and the two reconcile-phase histograms, the read cache its index
+counters, and the registry carries the reference's five notebook series
+(components/notebook-controller/pkg/metrics/metrics.go:13-99):
+``notebook_running`` (a gauge computed at scrape time),
+``notebook_create_total``, ``notebook_create_failed_total``,
 ``notebook_culling_total`` and ``last_notebook_culling_timestamp_seconds``
 (``record_culling``). The phase collector below splits each reconcile's
 wall time into client reads and writes.
+
+A histogram observation may carry an exemplar (``observe(...,
+exemplar=tracing.current_exemplar())``): the series' latest one is
+rendered as an OpenMetrics comment on the bucket its value fell into,
+which plain text-format parsers skip. ``METRIC_FAMILY_CATALOG`` and
+``METRIC_FAMILY_LABELS`` name every family the port registers and its
+label names, each entry equal to the reference's for the same family.
 Plain ``threading.Lock``s stand in for the reference's tracked locks.
 """
 
@@ -20,6 +27,93 @@ from __future__ import annotations
 import threading
 import time
 from typing import Callable
+
+# Every metric family name the port registers (one dynamic exception:
+# runtime/server.py's scrape-mirrored ``serving_engine_<counter>``
+# gauges, whose names come from the engine). A new family is a
+# deliberate addition to the exposition surface: it goes here, with the
+# reference's entry for the same family.
+METRIC_FAMILY_CATALOG = frozenset({
+    # the reference's notebook metrics (metrics.go:13-99)
+    "notebook_create_total",
+    "notebook_create_failed_total",
+    "notebook_culling_total",
+    "last_notebook_culling_timestamp_seconds",
+    "notebook_running",
+    # controller-runtime analogs (manager)
+    "controller_runtime_reconcile_total",
+    "workqueue_adds_total",
+    "workqueue_retries_total",
+    "workqueue_queue_duration_seconds",
+    "workqueue_work_duration_seconds",
+    "workqueue_depth",
+    "workqueue_unfinished_work_seconds",
+    "workqueue_longest_running_processor_seconds",
+    "reconcile_read_seconds",
+    "reconcile_write_seconds",
+    # slice pool / repair
+    "slicepool_bind_latency_seconds",
+    "slicepool_bind_misses_total",
+    "slicepool_size",
+    "slice_repairs_total",
+    "slice_repair_duration_seconds",
+    "slice_quarantines_total",
+    "slice_degraded",
+    "notebook_migrations_total",
+    "elastic_resizes_total",
+    # fleet scheduler
+    "scheduler_admissions_total",
+    "scheduler_preemptions_total",
+    "scheduler_gang_wait_seconds",
+    "scheduler_quota_used",
+    # serving
+    "serving_http_requests_total",
+    "serving_generate_seconds_sum",
+    "serving_generate_seconds_count",
+    # read cache
+    "cache_index_lookups_total",
+    "cache_full_scans_total",
+})
+
+# Label names per family: the cardinality contract that goes with the
+# names above. Every literal label dict passed to ``.inc``/``.set``/
+# ``.observe`` in the port uses only these keys; ``()`` is a single
+# unlabeled series.
+METRIC_FAMILY_LABELS = {
+    "cache_full_scans_total": ("kind",),
+    "cache_index_lookups_total": ("index", "kind"),
+    "controller_runtime_reconcile_total": ("controller", "result"),
+    "elastic_resizes_total": ("namespace", "outcome"),
+    "last_notebook_culling_timestamp_seconds": (),
+    "notebook_create_failed_total": (),
+    "notebook_create_total": (),
+    "notebook_culling_total": ("name", "namespace"),
+    "notebook_migrations_total": ("outcome",),
+    "notebook_running": (),
+    "reconcile_read_seconds": ("controller",),
+    "reconcile_write_seconds": ("controller",),
+    "scheduler_admissions_total": ("outcome", "tenant"),
+    "scheduler_gang_wait_seconds": ("tenant",),
+    "scheduler_preemptions_total": ("outcome", "tier"),
+    "scheduler_quota_used": ("tenant",),
+    "serving_generate_seconds_count": (),
+    "serving_generate_seconds_sum": (),
+    "serving_http_requests_total": ("code", "method", "route"),
+    "slice_degraded": ("namespace", "state"),
+    "slice_quarantines_total": ("namespace",),
+    "slice_repair_duration_seconds": ("namespace",),
+    "slice_repairs_total": ("namespace", "reason"),
+    "slicepool_bind_latency_seconds": ("pool",),
+    "slicepool_bind_misses_total": ("reason",),
+    "slicepool_size": ("pool", "state"),
+    "workqueue_adds_total": ("name",),
+    "workqueue_depth": ("name",),
+    "workqueue_longest_running_processor_seconds": ("name",),
+    "workqueue_queue_duration_seconds": ("name",),
+    "workqueue_retries_total": ("name",),
+    "workqueue_unfinished_work_seconds": ("name",),
+    "workqueue_work_duration_seconds": ("name",),
+}
 
 
 def _escape_label_value(value: object) -> str:
@@ -34,6 +128,16 @@ def _escape_help(text: str) -> str:
 
 def _format_labels(key: tuple) -> str:
     return ",".join(f'{k}="{_escape_label_value(v)}"' for k, v in key)
+
+
+def _format_exemplar(exemplar: dict[str, str], value: float,
+                     timestamp: float) -> str:
+    """An OpenMetrics exemplar as an exposition comment, ``# {trace_id=
+    "..."} <value> <ts>`` after the sample: plain Prometheus text parsers
+    read everything after ``#`` as a comment, so the format stays
+    0.0.4-compatible."""
+    labels = _format_labels(tuple(sorted(exemplar.items())))
+    return f" # {{{labels}}} {value:g} {timestamp:.3f}"
 
 
 def _labels_key(labels: dict[str, str] | None) -> tuple:
@@ -105,10 +209,16 @@ class _Histogram:
         self.buckets = tuple(sorted(buckets))
         # labels key → [per-bucket counts..., +Inf count, sum]
         self._series: dict[tuple, list[float]] = {}
+        # labels key → (exemplar labels, observed value, unix ts): the
+        # latest exemplared observation, put at exposition on the bucket
+        # its value fell into (OpenMetrics exemplar semantics)
+        self._exemplars: dict[tuple, tuple[dict[str, str], float,
+                                           float]] = {}
         self._lock = threading.Lock()
 
     def observe(self, value: float,
-                labels: dict[str, str] | None = None) -> None:
+                labels: dict[str, str] | None = None,
+                exemplar: dict[str, str] | None = None) -> None:
         key = _labels_key(labels)
         with self._lock:
             series = self._series.get(key)
@@ -119,6 +229,8 @@ class _Histogram:
                     series[i] += 1
             series[-2] += 1          # +Inf / _count
             series[-1] += value      # _sum
+            if exemplar:
+                self._exemplars[key] = (dict(exemplar), value, time.time())
 
     def count(self, labels: dict[str, str] | None = None) -> float:
         with self._lock:
@@ -131,23 +243,46 @@ class _Histogram:
             series = self._series.get(_labels_key(labels))
         return series[-1] if series else 0.0
 
+    def total_sum(self) -> float:
+        """Sum of ``_sum`` over every label combination (e.g. every
+        controller of reconcile_read_seconds)."""
+        with self._lock:
+            return sum(series[-1] for series in self._series.values())
+
     def total_count(self) -> float:
         """Sum of ``_count`` over every label combination."""
         with self._lock:
             return sum(series[-2] for series in self._series.values())
+
+    def _exemplar_bucket(self, value: float) -> int:
+        """Index of the lowest bucket holding ``value`` (len(buckets) is
+        +Inf)."""
+        for i, le in enumerate(self.buckets):
+            if value <= le:
+                return i
+        return len(self.buckets)
 
     def expose(self) -> str:
         lines = [f"# HELP {self.name} {_escape_help(self.help)}",
                  f"# TYPE {self.name} {self.type}"]
         with self._lock:
             items = sorted((k, list(v)) for k, v in self._series.items())
+            exemplars = dict(self._exemplars)
         for key, series in items:
             base = _format_labels(key)
+            ex = exemplars.get(key)
+            ex_bucket = self._exemplar_bucket(ex[1]) if ex else -1
             for i, le in enumerate(self.buckets):
                 label_s = (base + "," if base else "") + f'le="{le:g}"'
-                lines.append(f"{self.name}_bucket{{{label_s}}} {series[i]:g}")
+                tail = (_format_exemplar(*ex)
+                        if ex and i == ex_bucket else "")
+                lines.append(f"{self.name}_bucket{{{label_s}}} "
+                             f"{series[i]:g}{tail}")
             label_s = (base + "," if base else "") + 'le="+Inf"'
-            lines.append(f"{self.name}_bucket{{{label_s}}} {series[-2]:g}")
+            tail = (_format_exemplar(*ex)
+                    if ex and ex_bucket == len(self.buckets) else "")
+            lines.append(f"{self.name}_bucket{{{label_s}}} "
+                         f"{series[-2]:g}{tail}")
             suffix = f"{{{base}}}" if base else ""
             lines.append(f"{self.name}_sum{suffix} {series[-1]:g}")
             lines.append(f"{self.name}_count{suffix} {series[-2]:g}")

@@ -572,6 +572,63 @@ def test_a_failed_tick_fails_in_flight_requests_and_the_engine_serves_on(
         assert not any(gen._state["active"].tolist())
 
 
+# The engine thread runs a future's callbacks inside set_result /
+# set_exception, so a callback added while the engine is held reads the
+# engine exactly as the caller the future wakes may first read it.
+def test_a_finished_request_frees_its_row_before_it_resolves(model):
+    p = np.arange(4, dtype=np.int32)
+    seen = []
+    with _engine(model, n_slots=1) as gen:
+        gate = _Gate(at=1)
+        f = gen.submit(p, 4, on_token=gate)
+        gate.hold()
+        f.add_done_callback(lambda _: seen.append(
+            (bool(gen._state["active"].any()),
+             [s.req is None for s in gen._slots])))
+        gate.release()
+        assert len(_ids(f)) == 4
+    assert seen == [(False, [True])]
+
+
+def test_a_cancellation_is_counted_before_it_resolves(model):
+    p = np.arange(4, dtype=np.int32)
+    seen = []
+    with _engine(model, n_slots=1) as gen:
+        gate = _Gate(at=1)
+        f = gen.submit(p, 24, on_token=gate)
+        gate.hold()
+        f.add_done_callback(lambda _: seen.append(
+            (gen.cancelled_total, bool(gen._state["active"].any()))))
+        assert gen.cancel(f) is True
+        gate.release()
+        with pytest.raises(CancelledError):
+            f.result(timeout=WAIT)
+    assert seen == [(1, False)]
+
+
+def test_a_failed_tick_rebuilds_the_state_before_it_fails_requests(model):
+    p = np.arange(4, dtype=np.int32)
+    seen = []
+    with _engine(model, n_slots=1) as gen:
+        gate = _Gate(at=1)
+        f = gen.submit(p, 24, on_token=gate)
+        gate.hold()
+        old, tick = gen._state, gen._tick
+
+        def failing(*args):
+            raise RuntimeError("injected tick failure")
+        gen._tick = failing
+        f.add_done_callback(lambda _: seen.append(
+            (gen._state is not old, bool(gen._state["active"].any()),
+             [s.req is None for s in gen._slots])))
+        gate.release()
+        with pytest.raises(RuntimeError, match="injected"):
+            f.result(timeout=WAIT)
+        gen._tick = tick
+        assert len(gen.generate_sync(p, 3, timeout=WAIT)) == 3
+    assert seen == [(True, False, [True])]
+
+
 def test_submit_validation_and_the_draft_refusal(model):
     """Submit validation, and the exactness gate: TINY's
     decode_attention="flash" puts plain decode on the flash-decode path

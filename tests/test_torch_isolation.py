@@ -104,9 +104,11 @@ def test_port_file_list_covers_the_package():
                 "kubeflow_tpu_torch/webhook/diff.py",
                 "kubeflow_tpu_torch/webhook/server.py",
                 "kubeflow_tpu_torch/api/schema.py",
-                "kubeflow_tpu_torch/api/podspec_gen.py"):
+                "kubeflow_tpu_torch/api/podspec_gen.py",
+                "kubeflow_tpu_torch/utils/logging.py",
+                "kubeflow_tpu_torch/utils/health.py"):
         assert rel in PORT_FILES
-    assert len(PORT_FILES) >= 83
+    assert len(PORT_FILES) >= 85
 
 
 def _references(tree: ast.AST) -> set[str]:
@@ -205,6 +207,8 @@ import kubeflow_tpu_torch.webhook.server
 import kubeflow_tpu_torch.api.schema
 import kubeflow_tpu_torch.api.podspec_gen
 import kubeflow_tpu_torch.main
+import kubeflow_tpu_torch.utils.logging
+import kubeflow_tpu_torch.utils.health
 sys.path.insert(0, "tests")
 import torch_dist_ranks
 leaked = sorted(m for m in sys.modules

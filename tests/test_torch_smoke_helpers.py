@@ -353,3 +353,58 @@ def test_phase20_admission_on_the_cpu():
     assert not any(stats["after_delete"].values())
     # on the CPU the wrappers take their plain versions: nothing launched
     assert not any(launched.values())
+
+
+def test_phase21_tracing_on_the_cpu():
+    """chip_smoke's phase-21 drive (``_trace_sequence``) on the CPU at a
+    tiny size, a gloo world for the ready hook: on ``build_manager(
+    components="all", webhooks=True)`` with a recording provider (the
+    port's flight recorder in front of its OTLP exporter, posting to a
+    local collector), notebook trc is locked and swapped by the webhook,
+    stamped once with the trace-context annotation and rolled; the
+    health server's debug endpoint serves the stamped trace with every
+    root a later Notebook event caused, its breakdown sums, the
+    collector holds the recorder's spans and the webhook's span with its
+    image-swapped event, a queue-duration exemplar carries the stamped
+    trace id and the JSON log lines of trc's reconciles carry its key
+    and a trace id; 2 steps and generate equal one device's; deleted, it
+    leaves nothing, and the no-op provider is back. Then two small
+    fleets in turns, untraced and recorded: every notebook traced, the
+    recorder within its bound."""
+    import torch
+    import torch.distributed as dist
+
+    from chip_smoke import _trace_sequence, _traced_fleets
+    from kubeflow_tpu_torch.models.train import TrainConfig
+    from kubeflow_tpu_torch.models.transformer import TransformerConfig
+    from kubeflow_tpu_torch.utils import tracing
+
+    assert not dist.is_initialized()
+    c = TransformerConfig(vocab_size=512, d_model=64, n_layers=2, n_heads=4,
+                          n_kv_heads=2, d_ff=128, max_seq_len=256,
+                          dtype="float32")
+    stats, launched = _trace_sequence(
+        torch, c, TrainConfig(warmup_steps=2), 2, 32, 8, 4, device="cpu",
+        timeout=60.0)
+    assert not dist.is_initialized() and not tracing.is_recording()
+    assert stats["stamp"]["values"] and not stats["stamp"]["rewritten"]
+    assert stats["trace"]["joined_roots"] >= 1
+    assert stats["trace"]["joined_in_stamped"] == \
+        stats["trace"]["joined_roots"]
+    b = stats["breakdown"]["sum"]
+    assert stats["breakdown"]["roots"] >= 1
+    assert abs(b["queue"] + b["wire"] + b["reconcile"] - b["wall"]) <= 1e-9
+    assert stats["exported"]["image_swapped"] >= 1
+    assert stats["exemplars"] >= 1
+    assert stats["logs"]["trc"] >= 1
+    assert stats["logs"]["trc_with_trace_id"] == stats["logs"]["trc"]
+    assert len(stats["losses"]) == 2 and stats["ids_equal"]
+    assert not any(stats["after_delete"].values())
+    assert not any(launched.values())
+    fleets = _traced_fleets({"h100-1": 6, "h100-8": 3, "h100-16": 1},
+                            runs=2)
+    assert [f["recorded"] for f in fleets] == [False, True]
+    assert fleets[0]["spans"] == 0 and fleets[1]["spans"] > 0
+    assert fleets[1]["notebooks_traced"] == 10
+    assert 0 < fleets[1]["traces_held"] <= 512
+    assert not tracing.is_recording()

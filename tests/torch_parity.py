@@ -442,3 +442,60 @@ def assert_parity(ref: Stack, port: Stack) -> None:
     if not ref.timed:
         assert port.store._last_rv == ref.store._last_rv   # writes
         assert port.drains == ref.drains                    # reconciles
+
+
+# ----------------------------------------------------------------- spans
+def tracer_name(name: str) -> str:
+    """A tracer's name with the reference's package prefix mapped onto
+    the port's (``kubeflow_tpu.webhook`` → ``kubeflow_tpu_torch.webhook``)."""
+    if name.startswith("kubeflow_tpu."):
+        return "kubeflow_tpu_torch." + name[len("kubeflow_tpu."):]
+    return name
+
+
+class Ids:
+    """Trace and span ids as ordinal tokens in order of first appearance
+    (``<trace 1>``, ``<span 3>``); an int id and its hex form are one id."""
+
+    def __init__(self):
+        self._tokens: dict = {}
+        self._counts: dict = {}
+
+    def __call__(self, kind: str, value):
+        if value is None:
+            return None
+        if isinstance(value, str):
+            value = int(value, 16)
+        key = (kind, value)
+        if key not in self._tokens:
+            self._counts[kind] = self._counts.get(kind, 0) + 1
+            self._tokens[key] = f"<{kind} {self._counts[kind]}>"
+        return self._tokens[key]
+
+
+def normalise_spans(spans, side: str, ids: Ids | None = None) -> list:
+    """Spans (``Span`` objects or the recorder's span dicts) as compared
+    across the packages: ids as ordinal tokens, the tracer prefix mapped,
+    wall-clock times dropped (start, end, duration, event times), the
+    rest through ``normalise_result``."""
+    ids = ids if ids is not None else Ids()
+    out = []
+    for s in spans:
+        d = s if isinstance(s, dict) else {
+            "name": s.name, "tracer": s.tracer, "trace_id": s.trace_id,
+            "span_id": s.span_id, "parent_id": s.parent_id,
+            "attributes": s.attributes, "status": s.status,
+            "status_description": s.status_description,
+            "events": [{"name": e.name, "attributes": e.attributes}
+                       for e in s.events]}
+        out.append({
+            "name": d["name"], "tracer": tracer_name(d["tracer"]),
+            "trace_id": ids("trace", d["trace_id"]),
+            "span_id": ids("span", d["span_id"]),
+            "parent_id": ids("span", d["parent_id"]),
+            "attributes": dict(d["attributes"]), "status": d["status"],
+            "status_description": d.get("status_description"),
+            "events": [{"name": e["name"],
+                        "attributes": dict(e["attributes"])}
+                       for e in d["events"]]})
+    return normalise_result(out, side)
