@@ -25,8 +25,10 @@ a warm pool slice and migrates its training off a preempted node onto a
 warm spare, and admits two gangs under a tenant quota through the fleet
 scheduler: one trains on the card, the other serves on it once the
 first has gone; holds a notebook locked until the extension has
-provisioned it; and admits one through the port's own webhooks. The
-kernels' launch
+provisioned it; admits one through the port's own webhooks; and
+creates, watches and resumes one over the port's own apiserver, its
+culler probing the card's server through the apiserver's service
+proxy. The kernels' launch
 counters, zeroed before each path and read after it, show that each path
 ran its kernels.
 Then it times each kernel beside its bound, its plain version and one
@@ -264,8 +266,29 @@ Phases (any failure exits non-zero before the result line):
      the stamped trace id; the JSON log lines of its reconciles carry
      its key and a trace id; 2 steps bit-equal to phase 20's and to one
      device's, ``generate`` ids equal; deleted, nothing is left; then
-     phase 15's fleet four times in turns, untraced and recorded
-     (seconds, CPU seconds, spans, traces held, notebooks traced);
+     phase 15's fleet twice in turns, untraced and recorded (seconds,
+     CPU seconds, spans, traces held, notebooks traced);
+  22. the wire's server half on the card (``_wire_sequence``): the
+     port's ``ApiServerProxy`` (APF on) over its sharded store beside
+     ``build_manager(components="all", webhooks=True)``; over HTTP a
+     LIST's anchor rv, a JSON and a binary watch from it, an h100-1
+     notebook POSTed with a JAX image (201, locked, the CUDA image) and
+     rolled to SliceReady in its world (host ms); both streams the same
+     (type, rv) sequence up to SliceReady, each binary frame its JSON
+     twin's object (bytes per event each); the JSON stream closed, a
+     label patched, and a resume from the last rv read replaying exactly
+     the frames missed; 410 with a Status body past an 8-frame ring and
+     from an rv never issued; 2 steps bit-equal to phase 21's and to one
+     device's, ``generate`` ids equal; the culler's probes through the
+     apiserver's service proxy (a Jupyter stand-in, the card's
+     ``ServingServer``): served traffic keeps it up past the cull time,
+     then it is culled, every probe answered 200 through the apiserver;
+     deleted over HTTP, nothing is left; then phase 15's fleet four
+     times in turns on 8 shards and on 1 (SliceReady s, CPU s, the
+     write-lock histogram), the last sharded run over HTTP: a paged
+     LIST equal to the unpaginated one, an rv=0 LIST from the serve
+     cache, a malformed continue 422, and a JSON and a binary Pod
+     watcher's fan-out bytes per frame;
   5. times of each kernel, its plain version and a library call (last, so
      the paths above run on a card not yet warmed by timing loops), with
      the achieved TFLOP/s, the share of the bound, the forward, dK/dV and
@@ -3614,9 +3637,11 @@ def _reconcile_totals(mgr) -> dict:
 
 
 def _notebook_fleet(n_by_shape: dict, namespaces: int = 10,
-                    config=None, components: str = "core") -> dict:
+                    config=None, components: str = "core",
+                    store=None) -> dict:
     """Reconcile a fleet of Notebooks on a fresh ``build_manager`` (on
-    ``config``, else the default one, and ``components``) under
+    ``config``, else the default one, ``components`` and ``store``, else
+    a fresh ``ClusterStore()``) under
     ``start()`` with 4 workers, the kubelet simulator not gated, the
     reconcilers reading through the manager's cache: each CR's create →
     SliceReady=True latency in ms (host time, measured on the store's
@@ -3627,7 +3652,7 @@ def _notebook_fleet(n_by_shape: dict, namespaces: int = 10,
     from kubeflow_tpu_torch.main import build_manager
     from kubeflow_tpu_torch.utils import k8s, names
 
-    store = ClusterStore()
+    store = store if store is not None else ClusterStore()
     mgr = build_manager(store, config, simulate_kubelet=True,
                         max_concurrent_reconciles=4, components=components)
     created: dict = {}
@@ -3656,6 +3681,8 @@ def _notebook_fleet(n_by_shape: dict, namespaces: int = 10,
     finally:
         mgr.stop()
     lat = sorted((ready[k] - created[k]) * 1e3 for k in created)
+    # the manager's read cache attached the store's lock histograms
+    write_lock = mgr.metrics.histogram("store_write_lock_seconds", "")
     pods = store.list("Pod")
     stss = store.list("StatefulSet")
     return {"notebooks": len(created), "pods": len(pods),
@@ -3668,7 +3695,9 @@ def _notebook_fleet(n_by_shape: dict, namespaces: int = 10,
             "cache_index_lookups": mgr.metrics.counter(
                 "cache_index_lookups_total", "").total(),
             "cache_full_scans": mgr.metrics.counter(
-                "cache_full_scans_total", "").total()}
+                "cache_full_scans_total", "").total(),
+            "write_lock": {"count": write_lock.total_count(),
+                           "sum_s": write_lock.total_sum()}}
 
 
 class _KubectlProxy:
@@ -7061,9 +7090,8 @@ def phase_tracing(torch, flagship, adm_losses: list) -> tuple[dict, dict]:
     """21: the tracing tier on the card (``_trace_sequence`` at the
     flagship's width: b8 x s1024 with bf16 params, generate 8 x 128 ->
     16; the 2 losses equal to phase 20's first two), then phase 15's
-    fleet four times in turns, untraced and recorded
-    (``_traced_fleets``). Returns (stats, the launches of the main
-    path)."""
+    fleet twice in turns, untraced and recorded (``_traced_fleets``).
+    Returns (stats, the launches of the main path)."""
     from kubeflow_tpu_torch.models import train as train_lib
 
     t_phase = time.monotonic()
@@ -7123,7 +7151,7 @@ def phase_tracing(torch, flagship, adm_losses: list) -> tuple[dict, dict]:
             f"{counts_gen}")
     t0 = time.monotonic()
     stats["fleets"] = _traced_fleets({"h100-1": 60, "h100-8": 30,
-                                      "h100-16": 10})
+                                      "h100-16": 10}, runs=2)
     for i, f in enumerate(stats["fleets"]):
         how = "recorded" if f["recorded"] else "untraced"
         print(f"phase21 fleet run {i + 1} ({how}): "
@@ -7134,6 +7162,736 @@ def phase_tracing(torch, flagship, adm_losses: list) -> tuple[dict, dict]:
               f"{f['traces_held']}, notebooks with a trace "
               f"{f['notebooks_traced']} ({CARD[0]})", flush=True)
     print(f"phase21 in {stats['seconds']:.1f} s "
+          f"({stats['seconds'] + time.monotonic() - t0:.1f} s with the "
+          f"fleets), peak {stats['peak_mem_gb']:.3f} GB; launches "
+          f"{launched} ({CARD[0]})", flush=True)
+    return stats, launched
+
+
+# --------------------------------------------------------------- phase 22
+def _http(base: str, method: str, path: str, body=None,
+          headers: dict | None = None, timeout: float = 30.0) -> tuple:
+    """One request through ``http.client``: (status, headers, body bytes).
+    A dict ``body`` is sent as JSON."""
+    import http.client
+    from urllib.parse import urlparse
+    u = urlparse(base)
+    conn = http.client.HTTPConnection(u.hostname, u.port, timeout=timeout)
+    try:
+        hdrs = dict(headers or {})
+        if isinstance(body, dict):
+            body = json.dumps(body).encode()
+            hdrs.setdefault("Content-Type", "application/json")
+        conn.request(method, path, body=body, headers=hdrs)
+        resp = conn.getresponse()
+        return resp.status, dict(resp.headers), resp.read()
+    finally:
+        conn.close()
+
+
+class _WatchStream:
+    """One ``?watch=true`` stream of the apiserver, read on a thread
+    through ``http.client``: NDJSON, or with ``binary`` the codec's
+    length-prefixed frames (``Accept:`` the binary media type), decoded
+    with the port's codec. ``frames`` holds (type, rv, object, wire
+    bytes) in order, BOOKMARKs included; ``status`` the response's
+    status (the body of a refused one in ``body``)."""
+
+    def __init__(self, base: str, path: str, binary: bool = False):
+        import http.client
+        import struct
+        from urllib.parse import urlparse
+
+        from kubeflow_tpu_torch.cluster import codec
+        u = urlparse(base)
+        self.binary = binary
+        self.frames: list = []
+        self.error = None
+        self.lock = threading.Lock()
+        self.conn = http.client.HTTPConnection(u.hostname, u.port,
+                                               timeout=60)
+        accept = codec.BINARY_CONTENT_TYPE if binary else "application/json"
+        self.conn.request("GET", path, headers={"Accept": accept})
+        # the response takes the socket over (Connection: close)
+        self.sock = self.conn.sock
+        self.resp = self.conn.getresponse()
+        self.status = self.resp.status
+        self.body = None
+        self.thread = None
+        if self.status != 200:
+            self.body = self.resp.read()
+            self.conn.close()
+            return
+
+        def read() -> None:
+            try:
+                while True:
+                    if binary:
+                        head = self.resp.read(4)
+                        if len(head) < 4:
+                            return
+                        (n,) = struct.unpack(">I", head)
+                        payload = self.resp.read(n)
+                        if len(payload) < n:
+                            return
+                        etype, obj = codec.parse_event(payload)
+                        size = 4 + n
+                    else:
+                        line = self.resp.readline()
+                        if not line:
+                            return
+                        frame = json.loads(line)
+                        etype, obj = frame["type"], frame["object"]
+                        size = len(line)
+                    rv = int(obj["metadata"]["resourceVersion"])
+                    with self.lock:
+                        self.frames.append((etype, rv, obj, size))
+            except (OSError, ValueError) as exc:
+                self.error = exc
+
+        self.thread = threading.Thread(target=read, daemon=True)
+        self.thread.start()
+
+    def events(self) -> list:
+        """The frames so far, BOOKMARKs left out."""
+        with self.lock:
+            return [f for f in self.frames if f[0] != "BOOKMARK"]
+
+    def close(self) -> None:
+        import socket
+        try:
+            self.sock.shutdown(socket.SHUT_RDWR)
+        except OSError:
+            pass
+        if self.thread is not None:
+            self.thread.join(timeout=10)
+        self.resp.close()
+        self.conn.close()
+
+
+class _JupyterStandIn:
+    """The Jupyter server behind a notebook's Service for the culler's
+    dev-mode probes through the apiserver's service proxy:
+    ``/notebook/{ns}/{name}/api/kernels`` answers one idle kernel whose
+    ``last_activity`` is ``kernel_age_s`` old, ``.../api/terminals``
+    answers ``[]``. ``hits`` counts the 200s; any other path gets a 404,
+    kept in ``refused``."""
+
+    PATH = re.compile(r"^/notebook/([^/]+)/([^/]+)/api/(kernels|terminals)$")
+
+    def __init__(self, kernel_age_s: float = 86400.0):
+        import datetime
+        from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+        stand_in = self
+        self.hits = 0
+        self.refused: list = []
+        self.lock = threading.Lock()
+
+        class Handler(BaseHTTPRequestHandler):
+            def log_message(self, *args):
+                pass
+
+            def do_GET(self):
+                m = stand_in.PATH.match(self.path)
+                if m is None:
+                    stand_in.refused.append(self.path)
+                    body, code = b'{"error": "no such path"}', 404
+                else:
+                    age = datetime.datetime.fromtimestamp(
+                        time.time() - kernel_age_s, datetime.timezone.utc)
+                    body = json.dumps([] if m[3] == "terminals" else [{
+                        "id": "k0", "name": "python3",
+                        "execution_state": "idle", "connections": 0,
+                        "last_activity": age.strftime(
+                            "%Y-%m-%dT%H:%M:%S.%fZ")}]).encode()
+                    code = 200
+                    with stand_in.lock:
+                        stand_in.hits += 1
+                self.send_response(code)
+                self.send_header("Content-Type", "application/json")
+                self.send_header("Content-Length", str(len(body)))
+                self.end_headers()
+                self.wfile.write(body)
+
+        self.httpd = ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+        self.httpd.daemon_threads = True
+        self.thread = threading.Thread(target=self.httpd.serve_forever,
+                                       daemon=True)
+        self.thread.start()
+
+    @property
+    def url(self) -> str:
+        return f"http://127.0.0.1:{self.httpd.server_address[1]}"
+
+    def close(self) -> None:
+        self.httpd.shutdown()
+        self.httpd.server_close()
+        self.thread.join(timeout=5)
+
+
+class _Endpoints:
+    """The in-process cluster's Service endpoints as the apiserver serves
+    them: wraps the store for ``ApiServerProxy`` (every call goes to the
+    store) so that a GET of a Service named in ``backends`` ((ns, name)
+    → {annotation key: base URL}) carries those proxy-backend
+    annotations. They are not stored: the notebook reconciler copies its
+    Service's annotations from its desired Service, which names none, so
+    a stored one is dropped at its next reconcile, and one put back on
+    every write makes the two fight for ever (a Service write a
+    reconcile)."""
+
+    def __init__(self, store, backends: dict):
+        self._store = store
+        self._backends = backends
+
+    def get(self, kind: str, namespace: str, name: str) -> dict:
+        from kubeflow_tpu_torch.utils import k8s
+        obj = self._store.get(kind, namespace, name)
+        if kind == "Service":
+            for key, url in self._backends.get((namespace, name),
+                                               {}).items():
+                k8s.set_annotation(obj, key, url)
+        return obj
+
+    def __getattr__(self, name: str):
+        return getattr(self._store, name)
+
+
+def _wire_sequence(torch, c, tc, B: int, S: int, prompt_len: int,
+                   new: int, device: str = "cuda",
+                   timeout: float = 180.0) -> tuple[dict, dict]:
+    """Phase 22's drive at any size, on ``device`` ("cuda": an NCCL
+    world; "cpu": gloo, the tests). The port's ``ClusterStore()`` (8
+    shards) behind its ``ApiServerProxy`` on 127.0.0.1 (APF on, metrics
+    attached), and beside it ``build_manager(components="all",
+    webhooks=True)`` on the same store under ``start()``, the simulator
+    gated by a ``_SliceGate`` for notebook ``wir``, the idle culler in
+    dev mode probing through the apiserver (``dev_proxy_url``) on a
+    clock the phase advances. Over HTTP: a LIST of Notebooks gives the
+    anchor rv; two watches from it with bookmarks, one JSON, one binary;
+    ``wir`` (h100-1, a JAX image) is POSTed and answered 201 locked with
+    the CUDA image; worker 0 turns Ready once its world passes
+    ``verify_slice``; both streams carry the same (type, rv) sequence up
+    to SliceReady, each binary frame decoding to its JSON twin's object.
+    The JSON stream is closed, ``wir``'s labels patched, and the stream
+    reopened from the last rv it read: it replays exactly the frames it
+    missed, in order. A second apiserver over a store with an 8-frame
+    ring answers 410 with a Status body to a resume from before its
+    window and from an rv it never issued. In ``wir``'s world a
+    ``Trainer(mesh=...)`` takes 2 steps (held to one device's) and
+    greedy ``generate`` on ``shard_decode_params`` is held to the
+    one-device ``generate``. Then ``_cull_sequence`` on ``wir`` (served
+    by a ``ServingServer`` over a continuous engine of the trained
+    params) and ``wir-big`` (h100-16), every probe through the
+    apiserver's service proxy to a Jupyter stand-in or the serving
+    server (``_Endpoints`` serves their Services with the backends),
+    each answered 200. Last both notebooks are deleted over
+    HTTP and nothing of ``wir`` is left. Every server stops in a
+    ``finally``. Returns (stats, the launches of the main path: the 2
+    steps, the ``generate`` and the served requests, each counted from
+    0)."""
+    import torch.distributed as dist
+
+    from kubeflow_tpu_torch import ops
+    from kubeflow_tpu_torch.api import types as api
+    from kubeflow_tpu_torch.cluster.apiserver import ApiServerProxy
+    from kubeflow_tpu_torch.cluster.store import ClusterStore
+    from kubeflow_tpu_torch.controllers import CullingReconciler
+    from kubeflow_tpu_torch.main import build_manager
+    from kubeflow_tpu_torch.models.decode import generate
+    from kubeflow_tpu_torch.parallel.mesh import (MeshConfig, build_mesh,
+                                                  leave_world)
+    from kubeflow_tpu_torch.runtime.data import synthetic_lm_batches
+    from kubeflow_tpu_torch.runtime.server import ServingServer
+    from kubeflow_tpu_torch.runtime.serving import ContinuousBatchedGenerator
+    from kubeflow_tpu_torch.runtime.sharded_decode import shard_decode_params
+    from kubeflow_tpu_torch.runtime.trainer import Trainer
+    from kubeflow_tpu_torch.utils import k8s, names
+    from kubeflow_tpu_torch.utils.config import (DEFAULT_GPU_IMAGE,
+                                                 ControllerConfig)
+    from kubeflow_tpu_torch.utils.metrics import MetricsRegistry
+
+    require(not dist.is_initialized(), "phase22: a world is still formed")
+    V, L = c.vocab_size, c.n_layers
+    ns, name, big = "wir-ns", "wir", "wir-big"
+    jax_image = "jupyter/jax-notebook:latest"
+    coll = f"/apis/kubeflow.org/v1/namespaces/{ns}/notebooks"
+    stats: dict = {}
+    launched: dict = {}
+    store = ClusterStore()
+    registry = MetricsRegistry()
+    backends: dict = {}
+    proxy = ApiServerProxy(_Endpoints(store, backends))
+    proxy.attach_metrics(registry)
+    proxy.start()
+    small = jupyter = mgr = trainer = server = None
+    gate = _SliceGate(name, device)
+    streams: list = []
+
+    def wait(what: str, cond, limit: float = timeout) -> float:
+        def ok():
+            require(gate.error is None,
+                    f"phase22: the ready hook failed while waiting for "
+                    f"{what}: {gate.error!r}")
+            return cond()
+        return _wait_for(what, ok, limit, phase="phase22")
+
+    def watch(rv: int, binary: bool) -> "_WatchStream":
+        s = _WatchStream(proxy.url, f"{coll}?watch=true&resourceVersion="
+                         f"{rv}&allowWatchBookmarks=true", binary=binary)
+        require(s.status == 200, f"phase22: a watch from {rv} answered "
+                                 f"{s.status} {s.body!r}")
+        streams.append(s)
+        return s
+
+    def ready_rv(s: "_WatchStream"):
+        return next((rv for t, rv, obj, _ in s.events() if k8s.condition_true(
+            obj, api.CONDITION_SLICE_READY)), None)
+
+    try:
+        jupyter = _JupyterStandIn()
+        config = ControllerConfig(dev_mode=True, dev_proxy_url=proxy.url,
+                                  cull_idle_time_min=60,
+                                  idleness_check_period_min=1)
+        central = config.controller_namespace
+        mgr = build_manager(store, config, simulate_kubelet=True,
+                            components="all", webhooks=True,
+                            ready_hook=gate)
+        offset = [0.0]
+        CullingReconciler(mgr.client, config, mgr.metrics,
+                          clock=lambda: time.time() + offset[0]).setup(mgr)
+        src = synthetic_lm_batches(B, S, V, seed=0)
+        batches = [next(src) for _ in range(2)]
+        rng = torch.Generator().manual_seed(7)
+        prompt = torch.randint(0, V, (B, prompt_len),
+                               generator=rng).to(device)
+        mgr.start()
+
+        # 1. watched from the start, created over the wire
+        status, _, body = _http(proxy.url, "GET", coll)
+        require(status == 200, f"phase22: LIST answered {status}")
+        anchor = int(json.loads(body)["metadata"]["resourceVersion"])
+        js, bs = watch(anchor, False), watch(anchor, True)
+        t_create = time.monotonic()
+        status, _, body = _http(proxy.url, "POST", coll, api.new_notebook(
+            name, ns, image=jax_image, annotations={
+                names.TPU_ACCELERATOR_ANNOTATION: "h100-1"}))
+        require(status == 201, f"phase22: POST answered {status} {body!r}")
+        created = json.loads(body)
+        stats["admitted"] = {
+            "lock": k8s.get_annotation(created, names.STOP_ANNOTATION),
+            "image": api.notebook_container(created)["image"]}
+        require(stats["admitted"] == {
+            "lock": names.RECONCILIATION_LOCK_VALUE,
+            "image": DEFAULT_GPU_IMAGE},
+                f"phase22: admitted {stats['admitted']}")
+        wait("SliceReady on wir's JSON stream",
+             lambda: ready_rv(js) is not None)
+        stats["ready_ms"] = (time.monotonic() - t_create) * 1e3
+        r_rv = ready_rv(js)
+        wait("SliceReady on wir's binary stream",
+             lambda: ready_rv(bs) is not None)
+        upto = {k: [f for f in s.events() if f[1] <= r_rv]
+                for k, s in (("json", js), ("binary", bs))}
+        stats["streams"] = {
+            k: {"events": len(v),
+                "bytes_per_event": sum(f[3] for f in v) / len(v)}
+            for k, v in upto.items()}
+        require([f[:2] for f in upto["json"]] ==
+                [f[:2] for f in upto["binary"]] and upto["json"] and
+                all(a[2] == b[2] for a, b in zip(upto["json"],
+                                                 upto["binary"])),
+                f"phase22: the JSON and binary streams differ up to "
+                f"SliceReady: {[f[:2] for f in upto['json']]} vs "
+                f"{[f[:2] for f in upto['binary']]}")
+        stats["world"] = gate.worlds[-1]
+
+        # 2. resumed, not relisted
+        last = max(f[1] for f in js.events())
+        js.close()
+        status, _, body = _http(
+            proxy.url, "PATCH", f"{coll}/{name}",
+            {"metadata": {"labels": {"wire": "resumed"}}},
+            headers={"Content-Type": "application/merge-patch+json"})
+        require(status == 200, f"phase22: PATCH answered {status}")
+        patched_rv = int(json.loads(body)["metadata"]["resourceVersion"])
+        wait("the patch on the binary stream",
+             lambda: any(f[1] == patched_rv for f in bs.events()))
+        quiet = [len(bs.frames), time.monotonic()]
+
+        def settled() -> bool:
+            if len(bs.frames) != quiet[0]:
+                quiet[:] = [len(bs.frames), time.monotonic()]
+            return time.monotonic() - quiet[1] > 0.5
+        wait("the reconcilers to answer the patch", settled)
+        again = watch(last, False)
+        wait("the resumed stream's connect bookmark",
+             lambda: any(f[0] == "BOOKMARK" for f in again.frames))
+        with again.lock:
+            cut = next(i for i, f in enumerate(again.frames)
+                       if f[0] == "BOOKMARK")
+            replay = [f[:2] for f in again.frames[:cut]]
+            upto_rv = again.frames[cut][1]
+        missed = [f[:2] for f in bs.events() if last < f[1] <= upto_rv]
+        stats["resume"] = {"from": last, "through": upto_rv,
+                           "replayed": len(replay),
+                           "patch_in_it": any(rv == patched_rv
+                                              for _, rv in replay)}
+        require(replay == missed and replay and
+                len({rv for _, rv in replay}) == len(replay) and
+                stats["resume"]["patch_in_it"],
+                f"phase22: resumed from {last}: {replay}, missed {missed}")
+        again.close()
+        small_store = ClusterStore()
+        small_store.watch_cache_capacity = 8
+        small = ApiServerProxy(small_store)
+        small.start()
+        for i in range(20):
+            small_store.create({"kind": "ConfigMap", "apiVersion": "v1",
+                                "metadata": {"name": f"cm-{i}",
+                                             "namespace": ns}})
+        gone = {}
+        for rv in (1, 10**6):
+            status, _, body = _http(
+                small.url, "GET", f"/api/v1/namespaces/{ns}/configmaps?"
+                f"watch=true&resourceVersion={rv}")
+            doc = json.loads(body)
+            gone[rv] = (status, doc.get("kind"), doc.get("reason"))
+        stats["gone"] = gone
+        require(all(v[:2] == (410, "Status") for v in gone.values()),
+                f"phase22: resumes past the ring {gone}")
+
+        # 3. two steps and generate on the card in wir's world
+        world = stats["world"]
+        mesh = build_mesh(MeshConfig.auto(world["report"]["device_count"]),
+                          device)
+        ops.reset_launch_counts()
+        trainer = Trainer(c, tc, seed=0, mesh=mesh)
+        t0 = time.monotonic()
+        trainer.fit(batches, steps=2, log_every=1)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        stats["train_s"] = time.monotonic() - t0
+        counts_train = ops.launch_counts()
+        ops.reset_launch_counts()
+        ids = generate(shard_decode_params(trainer.params, mesh, c), prompt,
+                       c, new)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        counts_gen = ops.launch_counts()
+        want_ids = generate(trainer.params, prompt, c, new)
+        losses = [x for _, x in trainer.stats.losses]
+        params = trainer.params
+        trainer.close()
+        trainer = None
+        one = Trainer(c, tc, seed=0, device=device)
+        one.fit(batches, steps=2, log_every=1)
+        want_losses = [x for _, x in one.stats.losses]
+        one.close()
+        del one
+        ops.reset_launch_counts()     # the comparisons' launches
+        gc.collect()
+        for got in (counts_train, counts_gen):
+            for k, n in got.items():
+                launched[k] = launched.get(k, 0) + n
+        stats.update({"losses": losses, "launches_train": counts_train,
+                      "ids_equal": bool(torch.equal(ids, want_ids)),
+                      "launches_generate": counts_gen})
+        require(stats["ids_equal"], "phase22: wir's generate differs from "
+                                    "one device's")
+        require(losses == want_losses and len(losses) == 2 and
+                all(math.isfinite(x) for x in losses),
+                f"phase22: wir's losses {losses} differ from one device's "
+                f"{want_losses}")
+
+        # 4. culled through the apiserver's service proxy
+        status, _, body = _http(proxy.url, "POST", coll, api.new_notebook(
+            big, ns, annotations={names.TPU_ACCELERATOR_ANNOTATION:
+                                  "h100-16"}))
+        require(status == 201, f"phase22: POST {big} answered {status}")
+        wait(f"SliceReady on {big}", lambda: k8s.condition_true(
+            store.get(api.KIND, ns, big), api.CONDITION_SLICE_READY))
+        gen = ContinuousBatchedGenerator(params, c, n_slots=8, device=device)
+        server = ServingServer(gen, c, port=0).start()
+        del params
+        ops.reset_launch_counts()
+        key = names.PROXY_BACKEND_ANNOTATION
+        # the Jupyter probe's URL names no port: the bare key serves it
+        backends[(ns, name)] = {key: jupyter.url, f"{key}-80": jupyter.url,
+                                f"{key}-{server.port}": server.url}
+        backends[(ns, big)] = {key: jupyter.url}
+        status, _, body = _http(proxy.url, "GET",
+                                f"/api/v1/namespaces/{ns}/services/{name}")
+        served_svc = json.loads(body)
+        stats["backends"] = {k: v for k, v in k8s.annotations(
+            served_svc).items() if k.startswith(key)}
+        require(status == 200 and stats["backends"] == backends[(ns, name)],
+                f"phase22: wir's Service as served {status} {served_svc}")
+        healthz = server.metrics.counter("serving_http_requests_total", "")
+        probes0 = proxy.requests_served
+        cull = _cull_sequence(store, mgr, offset, config, server.url,
+                              server.port, V, ns, name, big, phase="phase22")
+        probes = proxy.requests_served - probes0
+        n_decode = gen.steps_total * L
+        counts_served = ops.launch_counts()
+        stats["culling"] = dict(cull, probes={
+            "through_the_apiserver": probes, "jupyter": jupyter.hits,
+            "healthz": healthz.get({"route": "/healthz", "method": "GET",
+                                    "code": "200"}),
+            "jupyter_refused": list(jupyter.refused)})
+        p = stats["culling"]["probes"]
+        require(probes > 0 and probes == p["jupyter"] + p["healthz"] and
+                not p["jupyter_refused"],
+                f"phase22: probes through the apiserver {p}")
+        require(cull["requests_total"] == [8, 16, 16],
+                f"phase22: requests_total {cull['requests_total']}")
+        # every tick launches flash-decode once a layer, and nothing else
+        # launches (the plain versions run on the CPU)
+        want = {k: (n_decode if k == "flash_decode" and device == "cuda"
+                    else 0) for k in counts_served}
+        require(counts_served == want,
+                f"phase22: the served requests' launches {counts_served}, "
+                f"expected {want} ({gen.steps_total} ticks x {L})")
+        launched["flash_decode"] = launched.get("flash_decode", 0) + \
+            counts_served.get("flash_decode", 0)
+        stats["launches_served"] = counts_served
+        server.stop()
+        server = None
+
+        # 5. deleted over the wire: nothing of wir left
+        leave_world()
+        t_del = time.monotonic()
+        for nb in (name, big):
+            status, _, _ = _http(proxy.url, "DELETE", f"{coll}/{nb}")
+            require(status == 200, f"phase22: DELETE {nb} answered {status}")
+        wait("wir's DELETED on the binary stream", lambda: any(
+            t == "DELETED" and obj["metadata"]["name"] == name
+            for t, _, obj, _ in bs.events()))
+        stats["delete_ms"] = (time.monotonic() - t_del) * 1e3
+        wait("wir's objects gone", lambda: not any(
+            _left_behind(store, central, ns, name).values()) and not
+            store.list("Pod", ns))
+        status, _, _ = _http(proxy.url, "GET", f"{coll}/{name}")
+        stats["after_delete"] = dict(_left_behind(store, central, ns, name),
+                                     pods=len(store.list("Pod", ns)),
+                                     get_status=status)
+        require(status == 404, f"phase22: GET after the delete {status}")
+        stats["fanout"] = {
+            enc: {"bytes": registry.counter("watch_fanout_bytes_total",
+                                            "").get({"encoding": enc}),
+                  "frames": registry.counter("watch_frames_sent_total",
+                                             "").get({"encoding": enc})}
+            for enc in ("json", "binary")}
+        stats["requests_served"] = proxy.requests_served
+    finally:
+        for s in streams:
+            s.close()
+        if trainer is not None:
+            trainer.close()
+        if server is not None:
+            server.stop()
+        if dist.is_initialized():
+            leave_world()
+        if mgr is not None:
+            mgr.stop()
+        proxy.stop()
+        if small is not None:
+            small.stop()
+        if jupyter is not None:
+            jupyter.close()
+    stats["control_plane"] = {"writes": store._last_rv,
+                              "reconciles": _reconcile_totals(mgr)}
+    # two notebooks' lives take ~100 writes; thousands mean a reconciler
+    # fights a write of its own objects
+    require(store._last_rv < 400,
+            f"phase22: {store._last_rv} writes: {stats['control_plane']}")
+    return stats, launched
+
+
+def _wire_fleets(n_by_shape: dict, shards=(8, 1, 8, 1)) -> list:
+    """Phase 15's fleet (``_notebook_fleet``, ``components="core"``) on
+    ``ClusterStore(shards=n)`` for each n in turn: SliceReady seconds,
+    CPU seconds and ``store_write_lock_seconds``' count and sum. The
+    last sharded run's
+    store is served by an ``ApiServerProxy`` with one JSON and one
+    binary Pod watcher open through the run; after it, over HTTP: a
+    ``limit=7`` LIST of Notebooks walked through ``continue`` equals the
+    unpaginated LIST's (namespace, name) set, a ``resourceVersion=0``
+    LIST is served from the serve cache (``apiserver_cache_lists_total``
+    up by one) and a malformed ``continue`` answers 422; and each
+    watcher's fan-out bytes per frame."""
+    from kubeflow_tpu_torch.cluster.apiserver import ApiServerProxy
+    from kubeflow_tpu_torch.cluster.store import ClusterStore
+    from kubeflow_tpu_torch.utils.metrics import MetricsRegistry
+
+    out = []
+    last_sharded = max(i for i, n in enumerate(shards) if n > 1)
+    for i, n in enumerate(shards):
+        store = ClusterStore(shards=n)
+        proxy, watchers = None, []
+        if i == last_sharded:
+            registry = MetricsRegistry()
+            proxy = ApiServerProxy(store)
+            proxy.attach_metrics(registry)
+            proxy.start()
+            for binary in (False, True):
+                watchers.append(_WatchStream(
+                    proxy.url, "/api/v1/pods?watch=true&resourceVersion=0",
+                    binary=binary))
+        try:
+            cpu0 = time.process_time()
+            fleet = _notebook_fleet(n_by_shape, store=store)
+            fleet["cpu_s"] = time.process_time() - cpu0
+            fleet["shards"] = n
+            if proxy is not None:
+                fleet["http"] = _paged_checks(proxy, registry)
+                _wait_for("both Pod watchers to hold the fleet's pods",
+                          lambda: all(len(w.events()) >= fleet["pods"]
+                                      for w in watchers), 60.0,
+                          phase="phase22")
+                fleet["fanout"] = {}
+                for w, enc in zip(watchers, ("json", "binary")):
+                    frames = list(w.frames)
+                    fleet["fanout"][enc] = {
+                        "frames": len(frames),
+                        "bytes_per_frame": sum(f[3] for f in frames)
+                        / len(frames)}
+        finally:
+            for w in watchers:
+                w.close()
+            if proxy is not None:
+                proxy.stop()
+        out.append(fleet)
+    return out
+
+
+def _paged_checks(proxy, registry) -> dict:
+    """Over HTTP, on a fleet's store: the ``limit=7`` walk, the
+    cache-served rv=0 LIST and the malformed continue token."""
+    path = "/apis/kubeflow.org/v1/notebooks"
+    status, _, body = _http(proxy.url, "GET", path)
+    require(status == 200, f"phase22: LIST answered {status}")
+    want = {(n["metadata"]["namespace"], n["metadata"]["name"])
+            for n in json.loads(body)["items"]}
+    got, pages, token = [], 0, None
+    while True:
+        q = f"?limit=7&continue={token}" if token else "?limit=7"
+        status, _, body = _http(proxy.url, "GET", path + q)
+        require(status == 200, f"phase22: page {pages} answered {status}")
+        doc = json.loads(body)
+        require(len(doc["items"]) <= 7, f"phase22: a page of "
+                                        f"{len(doc['items'])}")
+        got += [(n["metadata"]["namespace"], n["metadata"]["name"])
+                for n in doc["items"]]
+        pages += 1
+        token = doc["metadata"].get("continue")
+        if not token:
+            break
+    cache = registry.counter("apiserver_cache_lists_total", "")
+    before = cache.total()
+    status, _, body = _http(proxy.url, "GET", path + "?resourceVersion=0")
+    cached = {(n["metadata"]["namespace"], n["metadata"]["name"])
+              for n in json.loads(body)["items"]}
+    served_from_cache = cache.total() - before
+    bad, _, bad_body = _http(proxy.url, "GET", path + "?continue=!!bad!!")
+    out = {"notebooks": len(want), "pages": pages,
+           "paged_equal": got == sorted(want) and len(got) == len(want),
+           "rv0_from_cache": served_from_cache,
+           "rv0_equal": status == 200 and cached == want,
+           "malformed_continue": (bad, json.loads(bad_body).get("reason"))}
+    require(out["paged_equal"] and out["rv0_from_cache"] == 1 and
+            out["rv0_equal"] and out["malformed_continue"][0] == 422,
+            f"phase22: the paged LISTs {out}")
+    return out
+
+
+def phase_wire(torch, flagship, trc_losses: list) -> tuple[dict, dict]:
+    """22: the wire's server half on the card (``_wire_sequence`` at the
+    flagship's width: b8 x s1024 with bf16 params, generate 8 x 128 ->
+    16; the 2 losses equal to phase 21's), then phase 15's fleet four
+    times in turns on 8 shards and on 1 (``_wire_fleets``). Returns
+    (stats, the launches of the main path)."""
+    from kubeflow_tpu_torch.models import train as train_lib
+
+    t_phase = time.monotonic()
+    L = flagship.n_layers
+    torch.cuda.reset_peak_memory_stats()
+    stats, launched = _wire_sequence(
+        torch, flagship, train_lib.TrainConfig(bf16_params=True), 8, 1024,
+        128, 16)
+    stats["seconds"] = time.monotonic() - t_phase
+    stats["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    gc.collect()
+    torch.cuda.empty_cache()
+    counts_train, counts_gen = stats["launches_train"], \
+        stats["launches_generate"]
+    cull = stats["culling"]
+    for what, value in (
+            ("wir POSTed -> SliceReady on the JSON watch ms (host time)",
+             stats["ready_ms"]),
+            ("as answered to the POST", stats["admitted"]),
+            ("wir's world (seconds, report)",
+             (stats["world"]["seconds"], stats["world"]["report"])),
+            ("the two streams up to SliceReady (events, bytes per event)",
+             stats["streams"]),
+            ("resumed from the last rv read (from, through, frames "
+             "replayed, the patch among them)", stats["resume"]),
+            ("resumes past an 8-frame ring and from an rv never issued "
+             "(status, kind, reason)", stats["gone"]),
+            ("Trainer(mesh=...) b8 s1024 2 steps: losses, bit-equal to one "
+             "device's and to phase 21's steps 1-2; seconds",
+             (stats["losses"], True, stats["train_s"])),
+            ("launches of wir's 2 steps", counts_train),
+            ("wir's generate 8 x 128 -> 16: ids equal to one device's, "
+             "launches", (stats["ids_equal"], counts_gen)),
+            ("wir's Service as the apiserver serves it: its backends",
+             stats["backends"]),
+            ("culler probes through the apiserver's service proxy "
+             "(requests served, Jupyter 200s, serving /healthz 200s)",
+             cull["probes"]),
+            ("serving probe round trip through the apiserver, ms",
+             cull["probe_ms"]),
+            ("requests_total at each check", cull["requests_total"]),
+            ("served tokens/s, 8 x (128 -> 16) twice", cull["tokens_per_s"]),
+            ("launches of the 16 served requests",
+             stats["launches_served"]),
+            ("stop annotations", cull["stop"]),
+            ("delete -> wir's DELETED on the binary watch ms (host time)",
+             stats["delete_ms"]),
+            ("after the delete (left behind)", stats["after_delete"]),
+            ("watch fan-out over the phase (bytes, frames by encoding)",
+             stats["fanout"]),
+            ("control plane writes and reconciles",
+             stats["control_plane"])):
+        print(f"phase22 {what}: {value} ({CARD[0]})", flush=True)
+    require(stats["losses"] == list(trc_losses[:2]),
+            f"phase22: losses {stats['losses']} differ from phase 21's "
+            f"{trc_losses}")
+    attn = ("flash_attention", "flash_attention_bwd_dkv",
+            "flash_attention_bwd_dq")
+    require(all(counts_train.get(k) == 2 * L for k in attn) and
+            not counts_train.get("flash_decode") and
+            counts_gen.get("flash_attention") == L and
+            counts_gen.get("flash_decode") == (16 - 1) * L and
+            not counts_gen.get("flash_attention_bwd_dkv"),
+            f"phase22: launches train {counts_train}, generate "
+            f"{counts_gen}")
+    t0 = time.monotonic()
+    stats["fleets"] = _wire_fleets({"h100-1": 60, "h100-8": 30,
+                                    "h100-16": 10})
+    for i, f in enumerate(stats["fleets"]):
+        print(f"phase22 fleet run {i + 1} (ClusterStore(shards="
+              f"{f['shards']})): 100 Notebooks SliceReady in "
+              f"{f['seconds']} s, CPU {f['cpu_s']} s; CR→SliceReady p50 "
+              f"{f['ready_p50_ms']} ms, p95 {f['ready_p95_ms']} ms (host "
+              f"time); {f['writes']} writes; store_write_lock_seconds "
+              f"count {f['write_lock']['count']}, sum "
+              f"{f['write_lock']['sum_s']} s ({CARD[0]})", flush=True)
+        if "http" in f:
+            print(f"phase22 fleet run {i + 1} over HTTP: {f['http']}; Pod "
+                  f"watchers' fan-out {f['fanout']} ({CARD[0]})",
+                  flush=True)
+    print(f"phase22 in {stats['seconds']:.1f} s "
           f"({stats['seconds'] + time.monotonic() - t0:.1f} s with the "
           f"fleets), peak {stats['peak_mem_gb']:.3f} GB; launches "
           f"{launched} ({CARD[0]})", flush=True)
@@ -7526,6 +8284,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     train["tracing"], launched = phase_tracing(
         torch, FLAGSHIP, train["admission"]["losses"])
+    for name, n in launched.items():
+        counts[name] += n
+    gc.collect()
+    torch.cuda.empty_cache()
+    train["wire"], launched = phase_wire(torch, FLAGSHIP,
+                                         train["tracing"]["losses"])
     for name, n in launched.items():
         counts[name] += n
     rows, wide = phase_times(torch, errs, counts)

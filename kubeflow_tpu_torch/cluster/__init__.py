@@ -1,5 +1,7 @@
-"""The port's in-process apiserver: the store, its API errors, Events and
-the StatefulSet/kubelet simulator."""
+"""The port's in-process apiserver: the sharded store, its API errors,
+Events and the StatefulSet/kubelet simulator; and the HTTP apiserver
+over the store (``apiserver.py``, with its codec, REST mapper, priority
+and fairness and fault plans)."""
 
 from .errors import (AlreadyExistsError, ApiError, ConflictError,
                      InvalidError, NotFoundError)

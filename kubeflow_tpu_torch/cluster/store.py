@@ -3,7 +3,8 @@
 The port's copy of ``ClusterStore`` in ``kubeflow_tpu/cluster/store.py``
 (the port imports nothing of the JAX package): the API semantics the
 controllers rely on, which the parity harness
-(tests/test_torch_store.py) holds against the reference's store:
+(tests/test_torch_store.py, tests/test_torch_store_sharding.py) holds
+against the reference's store:
 
 - optimistic concurrency via metadata.resourceVersion (ConflictError on
   stale updates, what retry.RetryOnConflict loops on in the reference);
@@ -17,43 +18,76 @@ controllers rely on, which the parity harness
 - finalizers + deletionTimestamp two-phase delete, and ownerReference
   cascade GC honouring dependents' finalizers;
 - watch fan-out with ADDED/MODIFIED/DELETED events feeding controller
-  workqueues, delivered in write order outside the store's lock (a
+  workqueues, delivered in write order outside the store's locks (a
   callback may re-enter the store);
 - admission plugins run before a create or update is persisted, then
   the CRD schema: creating a CustomResourceDefinition registers its
   served versions' structural schemas, and every later write of that
   kind is validated against them (the apiserver's order: mutating
-  admission, validating admission, schema, persistence).
+  admission, validating admission, schema, persistence);
+- the wire half the HTTP apiserver (``cluster/apiserver.py``) serves
+  from: one shared ``EventFrame`` per event (its JSON and binary
+  encodings each computed at most once), a bounded per-kind resume ring
+  (``watch_frames`` replays after a resourceVersion, or raises
+  ``GoneError`` past the window), paginated LISTs with continue tokens
+  (``list_page``), and the snapshot handshake of a server-side watch
+  cache (``snapshot_with_frames``).
 
-One ``threading.RLock`` guards the objects, the resourceVersion counter
-and the watch list. Objects are kept per (kind, namespace), so a
-namespaced LIST walks that namespace's objects of the kind only. A stored
-object is never mutated after it is published: every write replaces its
-slot with a fresh dict, so watch events share it without a copy.
+Sharded as etcd splits its state: objects live in per-(kind, namespace)
+shards chosen by FNV-1a (``_shard_index``), each under its own lock,
+while one small lock (the rv allocator) issues resourceVersions, appends
+to the resume rings and feeds the frame relays. A writer takes its
+shard's lock, then the rv lock: watch order is rv order because an rv is
+issued and its frame appended in one hold. Cascade GC and the cache
+snapshot take every shard lock in index order first, the rv lock last.
+A stored object is never mutated after it is published: every write
+replaces its slot with a fresh dict, so frames, serve caches and LIST
+walks share it without a copy.
 
-Left out, with the HTTP apiserver they serve: the shared wire frames and
-their per-kind resume ring, paginated LISTs with continue tokens, frame
-relays, the watch-cache snapshot handshake, the binary codec, remote
-(HTTPS) admission and the store's shards.
+Left out, with the HTTP client that brings them: remote (HTTPS)
+admission through Mutating/ValidatingWebhookConfiguration objects and
+the store's index of those configurations.
 """
 
 from __future__ import annotations
 
+import base64
+import bisect
+import contextlib
 import itertools
+import json
 import threading
 import time
+from collections import deque
 from dataclasses import dataclass
 from typing import Callable, Iterator
 
 from ..utils import k8s
 from ..utils.names import generate_suffix
-from .errors import AlreadyExistsError, ConflictError, InvalidError, NotFoundError
+from . import codec
+from .errors import (AlreadyExistsError, ConflictError, GoneError,
+                     InvalidError, NotFoundError)
 
 CLUSTER_SCOPED_KINDS = {
     "Namespace", "ClusterRole", "ClusterRoleBinding", "OAuthClient",
     "CustomResourceDefinition", "PriorityClass", "Node", "APIServer",
     "MutatingWebhookConfiguration", "ValidatingWebhookConfiguration",
 }
+
+#: default shard count: kinds x namespaces spread well past 8, and taking
+#: every shard lock for a cascade stays cheap
+DEFAULT_SHARDS = 8
+
+#: per-kind resume ring capacity: how many recent events a dropped
+#: watcher can resume across without a full re-LIST
+WATCH_CACHE_CAPACITY = 4096
+
+
+@dataclass(frozen=True)
+class ObjectKey:
+    kind: str
+    namespace: str
+    name: str
 
 
 @dataclass
@@ -62,12 +96,111 @@ class WatchEvent:
     obj: dict
 
 
+class EventFrame:
+    """One watch event, shared by every consumer: ``obj`` is the stored
+    object itself (immutable once published), and each wire encoding is
+    computed at most once however many watchers fan it out. ``rv`` is
+    the event's resourceVersion as an int, the resume cursor."""
+
+    __slots__ = ("rv", "type", "obj", "_obj_bytes", "_obj_bytes_binary")
+
+    def __init__(self, rv: int, type_: str, obj: dict) -> None:
+        self.rv = rv
+        self.type = type_
+        self.obj = obj
+        self._obj_bytes: bytes | None = None
+        self._obj_bytes_binary: bytes | None = None
+
+    def obj_bytes(self) -> bytes:
+        """The object's compact JSON, encoded once and cached (two
+        threads racing may both encode; either result is the same)."""
+        encoded = self._obj_bytes
+        if encoded is None:
+            encoded = json.dumps(self.obj, separators=(",", ":")).encode()
+            self._obj_bytes = encoded
+        return encoded
+
+    def obj_bytes_binary(self) -> bytes:
+        """The object's binary-codec encoding, cached like obj_bytes()."""
+        encoded = self._obj_bytes_binary
+        if encoded is None:
+            encoded = codec.encode(self.obj)
+            self._obj_bytes_binary = encoded
+        return encoded
+
+
+class _WatchRing:
+    """Bounded per-kind ring of recent EventFrames in rv order.
+    ``evicted_rv`` is the rv of the newest frame pushed out: a resume
+    from N is servable iff N >= evicted_rv."""
+
+    __slots__ = ("frames", "evicted_rv", "capacity")
+
+    def __init__(self, capacity: int) -> None:
+        self.frames: deque[EventFrame] = deque()
+        self.evicted_rv = 0
+        self.capacity = capacity
+
+    def append(self, frame: EventFrame) -> int:
+        """Add a frame; returns how many old frames were evicted."""
+        self.frames.append(frame)
+        evicted = 0
+        while len(self.frames) > self.capacity:
+            self.evicted_rv = self.frames.popleft().rv
+            evicted += 1
+        return evicted
+
+    def since(self, rv: int) -> list[EventFrame]:
+        """Frames with rv > ``rv`` (the caller checked servability)."""
+        return [f for f in self.frames if f.rv > rv]
+
+
 @dataclass
 class _Watch:
     kind: str
-    callback: Callable[[WatchEvent], None]
+    callback: Callable
     namespace: str | None = None
     label_selector: dict[str, str] | None = None
+    #: frame relays (the HTTP apiserver, its serve caches) receive the
+    #: shared EventFrame under the rv lock; plain watches receive a
+    #: WatchEvent outside every lock
+    frames: bool = False
+
+
+class _Shard:
+    """One slice of the object state under its own lock."""
+
+    __slots__ = ("lock", "objects")
+
+    def __init__(self) -> None:
+        self.lock = threading.RLock()
+        self.objects: dict[ObjectKey, dict] = {}
+
+
+def _encode_continue(namespace: str, name: str) -> str:
+    """Opaque continue token naming the last key a page served (base64
+    JSON of the cursor, as the real apiserver's token is)."""
+    raw = json.dumps([namespace, name]).encode()
+    return base64.urlsafe_b64encode(raw).decode().rstrip("=")
+
+
+def _decode_continue(token: str) -> tuple[str, str]:
+    pad = "=" * (-len(token) % 4)
+    try:
+        ns, nm = json.loads(base64.urlsafe_b64decode(token + pad))
+        return (str(ns), str(nm))
+    except (ValueError, TypeError):
+        raise InvalidError(f"malformed continue token {token!r}") from None
+
+
+def _shard_index(kind: str, namespace: str, nshards: int) -> int:
+    """FNV-1a (32-bit) over ``kind/namespace``: the same shard in every
+    process, so a namespaced LIST takes exactly one shard lock."""
+    h = 0x811C9DC5
+    for byte in f"{kind}/{namespace}".encode():
+        h ^= byte
+        h = (h * 0x01000193) & 0xFFFFFFFF
+    return h % nshards
 
 
 class ClusterStore:
@@ -78,14 +211,26 @@ class ClusterStore:
     # surfaces the conflict rather than livelock
     PATCH_MAX_RETRIES = 20
 
-    def __init__(self) -> None:
-        self._lock = threading.RLock()
-        # (kind, namespace) → name → stored object
-        self._objects: dict[tuple[str, str], dict[str, dict]] = {}
+    def __init__(self, shards: int = DEFAULT_SHARDS) -> None:
+        self._nshards = max(int(shards), 1)
+        self._shards = [_Shard() for _ in range(self._nshards)]
+        # the rv allocator: issue, ring append and relay feed, always
+        # taken after any shard lock
+        self._rv_lock = threading.RLock()
+        # the CRD schema index: written under a shard lock, read alone
+        self._config_lock = threading.RLock()
         self._rv_counter = itertools.count(1)
         self._last_rv = 0  # latest issued resourceVersion
+        # one sorted-key snapshot for paginated LISTs, keyed on
+        # (kind, namespace, _last_rv) so any write invalidates it
+        self._page_snapshot: tuple | None = None
         self._uid_counter = itertools.count(1)
         self._watches: list[_Watch] = []
+        self._watch_rings: dict[str, _WatchRing] = {}
+        self.watch_cache_capacity = WATCH_CACHE_CAPACITY
+        self._evictions_metric = None  # watch_cache_evictions_total
+        self._list_lock_metric = None  # store_list_lock_seconds
+        self._write_lock_metric = None  # store_write_lock_seconds
         # admission hooks: (kind, fn(operation, obj, old) -> obj | raise)
         self._admission: list[tuple[str, Callable]] = []
         # CRD structural schemas: kind → {version: openAPIV3Schema}, kept
@@ -93,21 +238,43 @@ class ClusterStore:
         self._crd_schemas: dict[str, dict[str, dict]] = {}
 
     def _next_rv(self) -> str:
-        """Issue the next resourceVersion (caller holds the lock)."""
+        """Issue the next resourceVersion (caller holds the rv lock)."""
         self._last_rv = next(self._rv_counter)
         return str(self._last_rv)
 
     # ------------------------------------------------------------------ keys
-    @staticmethod
-    def _bucket_key(kind: str, namespace: str) -> tuple[str, str]:
-        return (kind, "" if kind in CLUSTER_SCOPED_KINDS else namespace)
+    def _key(self, kind: str, namespace: str, name: str) -> ObjectKey:
+        if kind in CLUSTER_SCOPED_KINDS:
+            namespace = ""
+        return ObjectKey(kind, namespace, name)
 
-    def _bucket_of(self, obj: dict) -> tuple[tuple[str, str], str]:
-        return (self._bucket_key(k8s.kind(obj), k8s.namespace(obj)),
-                k8s.name(obj))
+    def _key_of(self, obj: dict) -> ObjectKey:
+        return self._key(k8s.kind(obj), k8s.namespace(obj), k8s.name(obj))
 
-    def _stored(self, bucket: tuple[str, str], name: str) -> dict | None:
-        return self._objects.get(bucket, {}).get(name)
+    def _shard_of(self, key: ObjectKey) -> _Shard:
+        return self._shards[_shard_index(key.kind, key.namespace,
+                                         self._nshards)]
+
+    def _shards_for(self, kind: str, namespace: str | None) -> list[_Shard]:
+        """The shards a LIST visits: one for a namespaced LIST, all of
+        them across namespaces."""
+        if namespace is None:
+            return self._shards
+        return [self._shard_of(self._key(kind, namespace, ""))]
+
+    @contextlib.contextmanager
+    def _all_shards_locked(self):
+        """Every shard lock in ascending index order (cascade GC, the
+        cache snapshot); the rv lock is taken after, never before."""
+        with contextlib.ExitStack() as stack:
+            for shard in self._shards:
+                stack.enter_context(shard.lock)
+            yield
+
+    def _observe_write(self, kind: str, started: float) -> None:
+        if self._write_lock_metric is not None:
+            self._write_lock_metric.observe(time.monotonic() - started,
+                                            {"kind": kind})
 
     # ------------------------------------------------------------- admission
     def register_admission(self, kind: str, fn: Callable) -> None:
@@ -125,7 +292,6 @@ class ClusterStore:
 
     # ----------------------------------------------------------- CRD schemas
     def _index_crd(self, crd: dict) -> None:
-        """Register a CRD's served schemas (caller holds the lock)."""
         kind = k8s.get_in(crd, "spec", "names", "kind")
         if not kind:
             return
@@ -135,14 +301,16 @@ class ClusterStore:
             if v.get("served") and s:
                 versions[v["name"]] = s
         if versions:
-            self._crd_schemas[kind] = versions
+            with self._config_lock:
+                self._crd_schemas[kind] = versions
 
     def _unindex_crd(self, crd: dict) -> None:
-        """Drop a deleted CRD's schemas (caller holds the lock)."""
-        self._crd_schemas.pop(k8s.get_in(crd, "spec", "names", "kind"), None)
+        with self._config_lock:
+            self._crd_schemas.pop(k8s.get_in(crd, "spec", "names", "kind"),
+                                  None)
 
     def _validate_against_crd(self, obj: dict) -> None:
-        with self._lock:
+        with self._config_lock:
             versions = self._crd_schemas.get(k8s.kind(obj))
         if not versions:
             return
@@ -162,42 +330,74 @@ class ClusterStore:
 
     # ----------------------------------------------------------------- watch
     def _emit_locked(self, etype: str, obj: dict) -> tuple:
-        """Snapshot the watchers of one event (caller holds the lock and
-        has stamped ``obj``'s resourceVersion); returns the emission for
-        ``_dispatch_all``."""
-        kind, ns = k8s.kind(obj), k8s.namespace(obj)
-        targets = [w for w in self._watches
-                   if w.kind == kind
-                   and (w.namespace is None or w.namespace == ns)
-                   and k8s.matches_labels(obj, w.label_selector)]
-        return etype, obj, targets
+        """Build the shared frame of one event, append it to the kind's
+        ring, hand it to the frame relays (pure queue work that never
+        re-enters the store, so in rv order) and snapshot the plain
+        watchers. Caller holds the rv lock and stamped ``obj``'s rv in
+        the same hold; returns ``(frame, targets)`` for _dispatch_all."""
+        kind = k8s.kind(obj)
+        ns = k8s.namespace(obj)
+        try:
+            rv = int(k8s.get_in(obj, "metadata", "resourceVersion") or 0)
+        except (TypeError, ValueError):
+            rv = 0
+        frame = EventFrame(rv, etype, obj)
+        ring = self._watch_rings.get(kind)
+        if ring is None:
+            ring = self._watch_rings[kind] = \
+                _WatchRing(self.watch_cache_capacity)
+        evicted = ring.append(frame)
+        if evicted and self._evictions_metric is not None:
+            self._evictions_metric.inc({"kind": kind}, by=evicted)
+        targets = []
+        for w in self._watches:
+            if w.kind != kind \
+                    or (w.namespace is not None and w.namespace != ns) \
+                    or not k8s.matches_labels(obj, w.label_selector):
+                continue
+            if w.frames:
+                w.callback(frame)
+            else:
+                targets.append(w)
+        return frame, targets
 
     @staticmethod
     def _dispatch_all(emitted: list) -> None:
-        """Deliver emitted events outside the lock, in write order. The
-        object is the stored one, shared by every consumer: callbacks
-        treat it as immutable."""
-        for etype, obj, targets in emitted:
+        """Deliver emitted events to the plain watchers outside the
+        locks, in write order. The object is the stored one, shared by
+        every consumer: callbacks treat it as immutable."""
+        for frame, targets in emitted:
             for w in targets:
-                w.callback(WatchEvent(etype, obj))
+                w.callback(WatchEvent(frame.type, frame.obj))
 
-    def watch(self, kind: str, callback: Callable[[WatchEvent], None],
-              namespace: str | None = None,
-              label_selector: dict[str, str] | None = None) -> None:
-        with self._lock:
-            self._watches.append(_Watch(kind, callback, namespace,
-                                        label_selector))
-
-    def unwatch(self, callback: Callable[[WatchEvent], None]) -> None:
-        """Deregister a watch callback (equality, so a bound method
-        handed in again matches)."""
-        with self._lock:
-            self._watches = [w for w in self._watches
-                             if w.callback != callback]
+    def attach_metrics(self, registry) -> None:
+        """Register the ring's eviction counter and the LIST and write
+        lock-hold histograms, eagerly, so an idle store exposes them."""
+        self._evictions_metric = registry.counter(
+            "watch_cache_evictions_total",
+            "Watch-cache ring frames evicted, by kind — each eviction "
+            "narrows the window a reconnecting watcher can resume across "
+            "without a full re-LIST.")
+        self._list_lock_metric = registry.histogram(
+            "store_list_lock_seconds",
+            "Wall time a LIST spent acquiring plus holding the store's "
+            "shard locks, by kind. "
+            "Cache-served (rv=0) LISTs never appear here — this series "
+            "growing with manager count means resyncs are stampeding the "
+            "write path again.")
+        self._write_lock_metric = registry.histogram(
+            "store_write_lock_seconds",
+            "Wall time a write verb spent acquiring plus holding its "
+            "shard's write lock (and the rv allocator nested under it), "
+            "by kind — the sibling of store_list_lock_seconds that the "
+            "shard split is measured by: per-frontend write rates stay "
+            "flat when shards spread contention.")
 
     # ----------------------------------------------------------------- verbs
     def create(self, obj: dict) -> dict:
         obj = k8s.deepcopy(obj)
+        # admission runs outside the locks; a race it let through is
+        # caught at persist (AlreadyExists)
         obj = self._admit("CREATE", obj, None)
         md = k8s.meta(obj)
         if not md.get("name") and md.get("generateName"):
@@ -205,24 +405,31 @@ class ClusterStore:
                 f'{md["generateName"]}{next(self._uid_counter)}', 5)
         if not md.get("name"):
             raise InvalidError("metadata.name or generateName required")
-        bucket, name = self._bucket_of(obj)
+        key = self._key_of(obj)
+        shard = self._shard_of(key)
         md.setdefault("creationTimestamp", k8s.now_iso())
-        with self._lock:
-            if self._stored(bucket, name) is not None:
-                raise AlreadyExistsError(f"{bucket[0]} {bucket[1]}/{name}")
+        started = time.monotonic()
+        with shard.lock:
+            if key in shard.objects:
+                raise AlreadyExistsError(
+                    f"{key.kind} {key.namespace}/{key.name}")
             md["uid"] = f"uid-{next(self._uid_counter)}"
             md["generation"] = 1
-            md["resourceVersion"] = self._next_rv()
-            self._objects.setdefault(bucket, {})[name] = obj
-            emitted = [self._emit_locked("ADDED", obj)]
-            if bucket[0] == "CustomResourceDefinition":
+            with self._rv_lock:
+                md["resourceVersion"] = self._next_rv()
+                shard.objects[key] = obj
+                emitted = [self._emit_locked("ADDED", obj)]
+            if key.kind == "CustomResourceDefinition":
                 self._index_crd(obj)
+        self._observe_write(key.kind, started)
         self._dispatch_all(emitted)
         return k8s.deepcopy(obj)
 
     def get(self, kind: str, namespace: str, name: str) -> dict:
-        with self._lock:
-            obj = self._stored(self._bucket_key(kind, namespace), name)
+        key = self._key(kind, namespace, name)
+        shard = self._shard_of(key)
+        with shard.lock:
+            obj = shard.objects.get(key)
         if obj is None:
             raise NotFoundError(f"{kind} {namespace}/{name}")
         # the stored object is immutable: copy outside the lock
@@ -239,42 +446,135 @@ class ClusterStore:
              label_selector: dict[str, str] | None = None) -> list[dict]:
         """Objects of ``kind`` (in ``namespace``, or in all namespaces when
         None) matching the label selector, in (namespace, name) order."""
-        with self._lock:
-            if namespace is None:
-                buckets = [b for b in self._objects if b[0] == kind]
-            else:
-                buckets = [self._bucket_key(kind, namespace)]
-            refs = [((b[1], n), o) for b in buckets
-                    for n, o in self._objects.get(b, {}).items()]
-        refs.sort(key=lambda pair: pair[0])
-        return [k8s.deepcopy(o) for _, o in refs
-                if k8s.matches_labels(o, label_selector)]
+        items, _, _ = self.list_page(kind, namespace, label_selector)
+        return items
+
+    def list_page(self, kind: str, namespace: str | None = None,
+                  label_selector: dict[str, str] | None = None,
+                  limit: int | None = None,
+                  continue_token: str | None = None,
+                  resource_version: str | None = None,
+                  ) -> tuple[list[dict], str | None, str]:
+        """LIST with the apiserver's chunking (``limit``/``continue``).
+        Returns ``(items, next_continue, list_rv)``; ``next_continue`` is
+        None on the last page.
+
+        Keys come in ``(namespace, name)`` order and the token names the
+        last key a page served, so on a quiet store the pages compose
+        into the unpaginated LIST for every page size; an object written
+        between pages may be missed or seen once, as on the real chunked
+        LIST. ``resource_version`` (``"0"`` or any other form) is served
+        from current state: this store is the state of record. ``list_rv``
+        is the latest issued rv, read before the shard walk, so a write
+        racing the walk has a larger rv and a watch from ``list_rv``
+        replays it."""
+        start_after = (_decode_continue(continue_token)
+                       if continue_token else None)
+        if limit is not None and limit <= 0:
+            limit = None  # limit=0 means no limit, as on the wire
+        lock_started = time.monotonic()
+        with self._rv_lock:
+            list_rv_int = self._last_rv
+            snap = self._page_snapshot
+        # refs under brief per-shard locks; sort, walk and copies outside
+        refs: dict[tuple[str, str], dict] = {}
+        for shard in self._shards_for(kind, namespace):
+            with shard.lock:
+                for okey, oobj in shard.objects.items():
+                    if okey.kind == kind and (namespace is None
+                                              or okey.namespace == namespace):
+                        refs[(okey.namespace, okey.name)] = oobj
+        lock_elapsed = time.monotonic() - lock_started
+        token = (kind, namespace, list_rv_int)
+        if limit is not None and snap is not None and snap[:3] == token:
+            pairs = snap[3]
+        else:
+            pairs = sorted(refs)
+            if limit is not None:
+                with self._rv_lock:
+                    self._page_snapshot = (*token, pairs)
+        start = (bisect.bisect_right(pairs, start_after)
+                 if start_after is not None else 0)
+        out: list[dict] = []
+        last_pair: tuple[str, str] | None = None
+        next_token: str | None = None
+        for pair in pairs[start:]:
+            obj = refs.get(pair)  # deleted since the snapshot: skip
+            if obj is None or not k8s.matches_labels(obj, label_selector):
+                continue
+            if limit is not None and len(out) >= limit:
+                # a full page with a candidate left: cursor at the last
+                # key served
+                next_token = _encode_continue(*last_pair)
+                break
+            out.append(k8s.deepcopy(obj))
+            last_pair = pair
+        if self._list_lock_metric is not None:
+            self._list_lock_metric.observe(lock_elapsed, {"kind": kind})
+        return out, next_token, str(list_rv_int)
+
+    def list_cached(self, kind: str, namespace: str | None = None,
+                    label_selector: dict[str, str] | None = None,
+                    min_resource_version: int | None = None) -> list[dict]:
+        """The rv=0 read-from-cache LIST of an HTTP client: this store is
+        the state of record, so it serves current state (which meets any
+        ``min_resource_version``)."""
+        return self.list(kind, namespace, label_selector)
 
     def update(self, obj: dict) -> dict:
         obj = k8s.deepcopy(obj)
-        bucket, name = self._bucket_of(obj)
-        label = f"{bucket[0]} {bucket[1]}/{name}"
-        with self._lock:
-            old = self._stored(bucket, name)
-        if old is None:
-            raise NotFoundError(label)
-        snapshot_rv = old["metadata"]["resourceVersion"]
+        key = self._key_of(obj)
+        shard = self._shard_of(key)
+        with shard.lock:
+            old_snapshot = shard.objects.get(key)
+        if old_snapshot is None:
+            raise NotFoundError(f"{key.kind} {key.namespace}/{key.name}")
+        snapshot_rv = old_snapshot["metadata"]["resourceVersion"]
         new_rv = k8s.get_in(obj, "metadata", "resourceVersion")
         if new_rv is not None and new_rv != snapshot_rv:
-            raise ConflictError(f"{label}: stale resourceVersion")
-        # admission runs outside the lock; the re-check below confirms the
-        # state it admitted against is still the state being replaced
-        obj = self._admit("UPDATE", obj, k8s.deepcopy(old))
-        with self._lock:
-            old = self._stored(bucket, name)
+            raise ConflictError(
+                f"{key.kind} {key.namespace}/{key.name}: stale resourceVersion")
+        # admission runs outside the locks; the locked pass re-checks that
+        # the state it admitted against is still the state being replaced
+        obj = self._admit("UPDATE", obj, k8s.deepcopy(old_snapshot))
+        # stripping the last finalizer of a deleting object removes it
+        # and cascades, which takes every shard lock; a single-shard pass
+        # that finds the cascade anyway retries once with all of them
+        take_all = bool(
+            (k8s.get_in(obj, "metadata", "deletionTimestamp")
+             or k8s.get_in(old_snapshot, "metadata", "deletionTimestamp"))
+            and not k8s.get_in(obj, "metadata", "finalizers"))
+        started = time.monotonic()
+        emitted: list | None = None
+        for all_shards in ([True] if take_all else [False, True]):
+            emitted = self._apply_update_locked(key, shard, obj, new_rv,
+                                                snapshot_rv, all_shards)
+            if emitted is not None:
+                break
+        self._observe_write(key.kind, started)
+        self._dispatch_all(emitted)
+        return k8s.deepcopy(obj)
+
+    def _apply_update_locked(self, key: ObjectKey, shard: _Shard, obj: dict,
+                             new_rv, snapshot_rv,
+                             take_all: bool) -> list | None:
+        """One locked attempt at an update; returns the emissions, or None
+        when the cascade was reached without every shard lock held."""
+        with contextlib.ExitStack() as stack:
+            if take_all:
+                stack.enter_context(self._all_shards_locked())
+            else:
+                stack.enter_context(shard.lock)
+            old = shard.objects.get(key)
             if old is None:
-                raise NotFoundError(label)
+                raise NotFoundError(f"{key.kind} {key.namespace}/{key.name}")
             # only optimistic writers re-check: a no-RV update keeps the
             # apiserver's unconditional last-write-wins semantics
             if new_rv is not None and \
                     old["metadata"]["resourceVersion"] != snapshot_rv:
-                raise ConflictError(f"{label}: object changed during "
-                                    f"admission")
+                raise ConflictError(
+                    f"{key.kind} {key.namespace}/{key.name}: object changed "
+                    f"during admission")
             md = k8s.meta(obj)
             md["uid"] = old["metadata"]["uid"]
             md["creationTimestamp"] = old["metadata"]["creationTimestamp"]
@@ -284,28 +584,32 @@ class ClusterStore:
                 md["generation"] = old["metadata"].get("generation", 1) + 1
             else:
                 md["generation"] = old["metadata"].get("generation", 1)
-            md["resourceVersion"] = self._next_rv()
             if (k8s.get_in(obj, "metadata", "deletionTimestamp")
                     and not k8s.get_in(obj, "metadata", "finalizers")):
                 # last finalizer stripped → actually remove (two-phase
-                # delete), cascading to dependents
-                emitted = self._remove_and_gc(bucket, name, replacement=obj)
-            else:
-                self._objects[bucket][name] = obj
+                # delete), cascading to dependents on any shard
+                if not take_all:
+                    return None
+                with self._rv_lock:
+                    md["resourceVersion"] = self._next_rv()
+                return self._remove_and_gc(key, replacement=obj)
+            with self._rv_lock:
+                md["resourceVersion"] = self._next_rv()
+                shard.objects[key] = obj
                 emitted = [self._emit_locked("MODIFIED", obj)]
-                if bucket[0] == "CustomResourceDefinition":
-                    self._index_crd(obj)
-        self._dispatch_all(emitted)
-        return k8s.deepcopy(obj)
+            if key.kind == "CustomResourceDefinition":
+                self._index_crd(obj)
+            return emitted
 
     def patch(self, kind: str, namespace: str, name: str, patch: dict) -> dict:
         """RFC 7386 JSON merge patch (client.MergeFrom semantics). Unlike
         update(), it re-merges against the current version on a concurrent
         write, with bounded backoff."""
-        bucket = self._bucket_key(kind, namespace)
+        key = self._key(kind, namespace, name)
+        shard = self._shard_of(key)
         for attempt in range(self.PATCH_MAX_RETRIES):
-            with self._lock:
-                old = self._stored(bucket, name)
+            with shard.lock:
+                old = shard.objects.get(key)
             if old is None:
                 raise NotFoundError(f"{kind} {namespace}/{name}")
             merged = k8s.json_merge_patch(old, patch)
@@ -325,21 +629,25 @@ class ClusterStore:
     def update_status(self, obj: dict) -> dict:
         """Status subresource semantics: only .status is applied. The
         replacement shares the old object's spec/metadata subtrees."""
-        bucket, name = self._bucket_of(obj)
+        key = self._key_of(obj)
+        shard = self._shard_of(key)
         new_status = k8s.deepcopy(obj.get("status", {}))
         new_rv = k8s.get_in(obj, "metadata", "resourceVersion")
-        with self._lock:
-            old = self._stored(bucket, name)
+        started = time.monotonic()
+        with shard.lock:
+            old = shard.objects.get(key)
             if old is None:
-                raise NotFoundError(f"{bucket[0]} {bucket[1]}/{name}")
+                raise NotFoundError(f"{key.kind} {key.namespace}/{key.name}")
             if new_rv is not None and \
                     new_rv != old["metadata"]["resourceVersion"]:
-                raise ConflictError(f"{bucket[0]} {bucket[1]}/{name}")
-            stored = {**old, "status": new_status,
-                      "metadata": {**old["metadata"],
-                                   "resourceVersion": self._next_rv()}}
-            self._objects[bucket][name] = stored
-            emitted = [self._emit_locked("MODIFIED", stored)]
+                raise ConflictError(f"{key.kind} {key.namespace}/{key.name}")
+            with self._rv_lock:
+                stored = {**old, "status": new_status,
+                          "metadata": {**old["metadata"],
+                                       "resourceVersion": self._next_rv()}}
+                shard.objects[key] = stored
+                emitted = [self._emit_locked("MODIFIED", stored)]
+        self._observe_write(key.kind, started)
         self._dispatch_all(emitted)
         return k8s.deepcopy(stored)
 
@@ -347,69 +655,163 @@ class ClusterStore:
         """Two-phase delete: finalizers present → set deletionTimestamp and
         wait for controllers to strip them; else remove + cascade to owned
         objects (background GC)."""
-        bucket = self._bucket_key(kind, namespace)
-        with self._lock:
-            obj = self._stored(bucket, name)
-            if obj is None:
-                raise NotFoundError(f"{kind} {namespace}/{name}")
-            if k8s.get_in(obj, "metadata", "finalizers"):
-                emitted = []
-                if not k8s.get_in(obj, "metadata", "deletionTimestamp"):
-                    emitted.append(self._mark_deleting_locked(bucket, name,
-                                                              obj))
-            else:
-                emitted = self._remove_and_gc(bucket, name)
+        key = self._key(kind, namespace, name)
+        shard = self._shard_of(key)
+        with shard.lock:
+            snapshot = shard.objects.get(key)
+        if snapshot is None:
+            raise NotFoundError(f"{kind} {namespace}/{name}")
+        # removal cascades across shards (every shard lock); the finalizer
+        # mark stays on the object's own shard, retried with every lock if
+        # the object lost its finalizers meanwhile
+        take_all = not k8s.get_in(snapshot, "metadata", "finalizers")
+        started = time.monotonic()
+        emitted: list | None = None
+        for all_shards in ([True] if take_all else [False, True]):
+            emitted = self._apply_delete_locked(key, shard, all_shards)
+            if emitted is not None:
+                break
+        self._observe_write(key.kind, started)
         self._dispatch_all(emitted)
 
-    # ------------------------------------------------------- delete plumbing
-    def _mark_deleting_locked(self, bucket: tuple[str, str], name: str,
-                              obj: dict) -> tuple:
-        """Copy-on-write delete mark (the stored object is immutable)."""
-        marked = {**obj, "metadata": {**obj["metadata"],
-                                      "deletionTimestamp": k8s.now_iso(),
-                                      "resourceVersion": self._next_rv()}}
-        self._objects[bucket][name] = marked
-        return self._emit_locked("MODIFIED", marked)
+    def _apply_delete_locked(self, key: ObjectKey, shard: _Shard,
+                             take_all: bool) -> list | None:
+        """One locked attempt at a delete; returns the emissions, or None
+        when removal was reached without every shard lock held."""
+        with contextlib.ExitStack() as stack:
+            if take_all:
+                stack.enter_context(self._all_shards_locked())
+            else:
+                stack.enter_context(shard.lock)
+            obj = shard.objects.get(key)
+            if obj is None:
+                raise NotFoundError(f"{key.kind} {key.namespace}/{key.name}")
+            if k8s.get_in(obj, "metadata", "finalizers"):
+                if k8s.get_in(obj, "metadata", "deletionTimestamp"):
+                    return []
+                return [self._mark_deleting_locked(key, shard, obj)]
+            if not take_all:
+                return None
+            return self._remove_and_gc(key)
 
-    def _remove_and_gc(self, bucket: tuple[str, str], name: str,
+    # ------------------------------------------------------- delete plumbing
+    def _mark_deleting_locked(self, key: ObjectKey, shard: _Shard,
+                              obj: dict) -> tuple:
+        """Copy-on-write delete mark (the stored object is immutable);
+        caller holds the object's shard lock."""
+        ts = k8s.now_iso()
+        with self._rv_lock:
+            marked = {**obj, "metadata": {**obj["metadata"],
+                                          "deletionTimestamp": ts,
+                                          "resourceVersion":
+                                              self._next_rv()}}
+            shard.objects[key] = marked
+            return self._emit_locked("MODIFIED", marked)
+
+    def _remove_and_gc(self, key: ObjectKey,
                        replacement: dict | None = None) -> list:
         """Remove an object and cascade-delete its dependents through
         ownerReferences, honouring the dependents' own finalizers (caller
-        holds the lock). The DELETED event carries a fresh
-        resourceVersion, as the real apiserver's does."""
-        objs = self._objects.get(bucket, {})
-        obj = objs.pop(name, None)
-        if replacement is not None:
-            obj = replacement
+        holds every shard lock). The DELETED event carries a fresh
+        resourceVersion, as the real apiserver's does: one reusing the
+        object's last rv would sort before newer events and be skipped by
+        a resume past it."""
+        shard = self._shard_of(key)
+        obj = replacement if replacement is not None \
+            else shard.objects.get(key)
+        shard.objects.pop(key, None)
         emitted: list = []
         if obj is None:
             return emitted
-        if bucket[0] == "CustomResourceDefinition":
+        if key.kind == "CustomResourceDefinition":
             self._unindex_crd(obj)
-        final = {**obj, "metadata": {**obj["metadata"],
-                                     "resourceVersion": self._next_rv()}}
-        emitted.append(self._emit_locked("DELETED", final))
+        with self._rv_lock:
+            final = {**obj, "metadata": {**obj["metadata"],
+                                         "resourceVersion": self._next_rv()}}
+            emitted.append(self._emit_locked("DELETED", final))
         owner_uid = k8s.uid(obj)
         if not owner_uid:
             return emitted
-        dependents = [(b, n) for b, bobjs in self._objects.items()
-                      for n, o in bobjs.items()
-                      if k8s.is_owned_by(o, owner_uid)]
-        for dbucket, dname in dependents:
-            dobj = self._stored(dbucket, dname)
+        dependents = [dk for s in self._shards
+                      for dk, dobj in s.objects.items()
+                      if k8s.is_owned_by(dobj, owner_uid)]
+        for dk in dependents:
+            dshard = self._shard_of(dk)
+            dobj = dshard.objects.get(dk)
             if dobj is None:
                 continue
             if k8s.get_in(dobj, "metadata", "finalizers"):
                 if not k8s.get_in(dobj, "metadata", "deletionTimestamp"):
-                    emitted.append(self._mark_deleting_locked(
-                        dbucket, dname, dobj))
+                    emitted.append(self._mark_deleting_locked(dk, dshard,
+                                                              dobj))
             else:
-                emitted.extend(self._remove_and_gc(dbucket, dname))
+                emitted.extend(self._remove_and_gc(dk))
         return emitted
+
+    # ---------------------------------------------------- watch registration
+    def watch(self, kind: str, callback: Callable[[WatchEvent], None],
+              namespace: str | None = None,
+              label_selector: dict[str, str] | None = None) -> None:
+        with self._rv_lock:
+            self._watches.append(_Watch(kind, callback, namespace,
+                                        label_selector))
+
+    def watch_frames(self, kind: str, relay: Callable,
+                     namespace: str | None = None,
+                     label_selector: dict[str, str] | None = None,
+                     since_rv: int | None = None) -> tuple[list, int]:
+        """Register a frame relay and, when ``since_rv`` is given, hand
+        back in the same hold every retained event after it: the
+        resourceVersion resume that spares a reconnecting client its
+        LIST. Returns ``(replay, anchor_rv)``, the anchor being the rv the
+        stream is complete through at registration. Raises GoneError when
+        ``since_rv`` predates the retained window or names an rv this
+        store never issued (a resume against another store must relist)."""
+        with self._rv_lock:
+            replay: list[EventFrame] = []
+            if since_rv is not None:
+                ring = self._watch_rings.get(kind)
+                evicted_rv = ring.evicted_rv if ring is not None else 0
+                if since_rv < evicted_rv or since_rv > self._last_rv:
+                    raise GoneError(
+                        f"too old resource version: {since_rv} (the watch "
+                        f"cache window for {kind} starts at {evicted_rv})")
+                if ring is not None:
+                    replay = [f for f in ring.since(since_rv)
+                              if (namespace is None
+                                  or k8s.namespace(f.obj) == namespace)
+                              and k8s.matches_labels(f.obj, label_selector)]
+            self._watches.append(_Watch(kind, relay, namespace,
+                                        label_selector, frames=True))
+            return replay, self._last_rv
+
+    def snapshot_with_frames(self, kind: str, relay: Callable,
+                             ) -> tuple[list[dict], int]:
+        """Register a frame relay for ``kind`` and return a copy of its
+        current objects and the anchor rv, atomically (every shard lock
+        and the rv lock exclude all writers): a serve cache built from it
+        is consistent from birth."""
+        with self._all_shards_locked():
+            with self._rv_lock:
+                refs = [obj for s in self._shards
+                        for okey, obj in s.objects.items()
+                        if okey.kind == kind]
+                self._watches.append(_Watch(kind, relay, None, None,
+                                            frames=True))
+                anchor = self._last_rv
+        return [k8s.deepcopy(o) for o in refs], anchor
+
+    def unwatch(self, callback: Callable) -> None:
+        """Deregister a watch callback or frame relay (equality, so a
+        bound method handed in again matches)."""
+        with self._rv_lock:
+            self._watches[:] = [w for w in self._watches
+                                if w.callback != callback]
 
     # ----------------------------------------------------------- conveniences
     def all_objects(self) -> Iterator[dict]:
-        with self._lock:
-            refs = [o for objs in self._objects.values()
-                    for o in objs.values()]
+        refs: list[dict] = []
+        for shard in self._shards:
+            with shard.lock:
+                refs.extend(shard.objects.values())
         return iter([k8s.deepcopy(o) for o in refs])

@@ -5,7 +5,9 @@ nothing of the JAX package): counters, gauges and histograms,
 ``on_scrape`` callbacks and ``expose``. The serving endpoint registers
 its own series; the controller manager registers the workqueue family
 and the two reconcile-phase histograms, the read cache its index
-counters, and the registry carries the reference's five notebook series
+counters (and the store's ring and lock-hold families), the HTTP
+apiserver its watch fan-out, cache-LIST and priority-and-fairness
+families, and the registry carries the reference's five notebook series
 (components/notebook-controller/pkg/metrics/metrics.go:13-99):
 ``notebook_running`` (a gauge computed at scrape time),
 ``notebook_create_total``, ``notebook_create_failed_total``,
@@ -73,6 +75,18 @@ METRIC_FAMILY_CATALOG = frozenset({
     # read cache
     "cache_index_lookups_total",
     "cache_full_scans_total",
+    # the wire's server half: API priority & fairness, the store's
+    # watch ring and lock holds, the apiserver's watch fan-out
+    "apf_dispatched_total",
+    "apf_rejected_total",
+    "apf_current_inqueue",
+    "watch_cache_evictions_total",
+    "store_list_lock_seconds",
+    "store_write_lock_seconds",
+    "watch_queue_coalesced_total",
+    "watch_fanout_bytes_total",
+    "watch_frames_sent_total",
+    "apiserver_cache_lists_total",
 })
 
 # Label names per family: the cardinality contract that goes with the
@@ -80,6 +94,10 @@ METRIC_FAMILY_CATALOG = frozenset({
 # ``.observe`` in the port uses only these keys; ``()`` is a single
 # unlabeled series.
 METRIC_FAMILY_LABELS = {
+    "apf_current_inqueue": ("priority_level",),
+    "apf_dispatched_total": ("priority_level",),
+    "apf_rejected_total": ("priority_level",),
+    "apiserver_cache_lists_total": (),
     "cache_full_scans_total": ("kind",),
     "cache_index_lookups_total": ("index", "kind"),
     "controller_runtime_reconcile_total": ("controller", "result"),
@@ -106,6 +124,12 @@ METRIC_FAMILY_LABELS = {
     "slicepool_bind_latency_seconds": ("pool",),
     "slicepool_bind_misses_total": ("reason",),
     "slicepool_size": ("pool", "state"),
+    "store_list_lock_seconds": ("kind",),
+    "store_write_lock_seconds": ("kind",),
+    "watch_cache_evictions_total": ("kind",),
+    "watch_fanout_bytes_total": ("encoding",),
+    "watch_frames_sent_total": ("encoding",),
+    "watch_queue_coalesced_total": (),
     "workqueue_adds_total": ("name",),
     "workqueue_depth": ("name",),
     "workqueue_longest_running_processor_seconds": ("name",),

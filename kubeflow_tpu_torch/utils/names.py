@@ -82,6 +82,11 @@ TPU_ORIGINAL_IMAGE_ANNOTATION = "tpu.kubeflow.org/original-image"
 SERVING_PORT_ANNOTATION = "tpu.kubeflow.org/serving-port"
 SERVING_REQUESTS_OBSERVED_ANNOTATION = \
     "tpu.kubeflow.org/serving-requests-observed"
+# the apiserver's service proxy (cluster/apiserver.py): in-process pods
+# hold no sockets, so a Service names its listener's base URL here, the
+# analog of its ready endpoints; ``<key>-<port-or-port-name>`` maps one
+# port of a multi-port Service, the bare key is the fallback
+PROXY_BACKEND_ANNOTATION = "tpu.kubeflow.org/proxy-backend"
 
 # --- slice health & repair ---
 # current slice health state: "Degraded" | "Repairing" | "Quarantined";

@@ -106,9 +106,15 @@ def test_port_file_list_covers_the_package():
                 "kubeflow_tpu_torch/api/schema.py",
                 "kubeflow_tpu_torch/api/podspec_gen.py",
                 "kubeflow_tpu_torch/utils/logging.py",
-                "kubeflow_tpu_torch/utils/health.py"):
+                "kubeflow_tpu_torch/utils/health.py",
+                "kubeflow_tpu_torch/cluster/codec.py",
+                "kubeflow_tpu_torch/cluster/restmapper.py",
+                "kubeflow_tpu_torch/cluster/faults.py",
+                "kubeflow_tpu_torch/cluster/apf.py",
+                "kubeflow_tpu_torch/cluster/apiserver.py",
+                "kubeflow_tpu_torch/controllers/sharding.py"):
         assert rel in PORT_FILES
-    assert len(PORT_FILES) >= 85
+    assert len(PORT_FILES) >= 91
 
 
 def _references(tree: ast.AST) -> set[str]:
@@ -209,6 +215,12 @@ import kubeflow_tpu_torch.api.podspec_gen
 import kubeflow_tpu_torch.main
 import kubeflow_tpu_torch.utils.logging
 import kubeflow_tpu_torch.utils.health
+import kubeflow_tpu_torch.cluster.codec
+import kubeflow_tpu_torch.cluster.restmapper
+import kubeflow_tpu_torch.cluster.faults
+import kubeflow_tpu_torch.cluster.apf
+import kubeflow_tpu_torch.cluster.apiserver
+import kubeflow_tpu_torch.controllers.sharding
 sys.path.insert(0, "tests")
 import torch_dist_ranks
 leaked = sorted(m for m in sys.modules

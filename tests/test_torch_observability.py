@@ -20,13 +20,17 @@ manager cases drain with ``run_until_idle`` instead of a started pool,
 so both sides dispatch in one order. The slice-repair and slice-pool
 family cases are here too (2); the scheduler's is in
 tests/test_torch_scheduler.py, the traceparent cases in
-tests/test_torch_tracing.py.
+tests/test_torch_tracing.py. The wire's server half (4): the APF half
+of the shard/APF family case, the server and store families of the
+watch-path case, and the server half of the two traceparent/audit
+cases, the reference's ``HttpApiClient`` driving each side's
+apiserver.
 
 Left out, each with the part of the port it waits for: the four
-leader-election cases (``controllers/election.py``), the three wire
-cases and the shard/APF family case (the wire and the sharded manager),
-the client half of the workqueue/client families case (the HTTP
-client) and ``test_render_trace_timeline`` (``cli.py``).
+leader-election cases (``controllers/election.py``), the shard-map half
+of the shard/APF family case (the sharded manager), the client halves
+of the watch-path and workqueue/client families cases (the HTTP client)
+and ``test_render_trace_timeline`` (``cli.py``).
 """
 
 from __future__ import annotations
@@ -1042,5 +1046,192 @@ def test_workqueue_families_exported_via_manager():
                        "workqueue_longest_running_processor_seconds"):
             assert family in text, f"{family} missing from the exposition"
         return sorted(_parse_prometheus(text))
+    got = both(case)
+    assert got["port"] == got["ref"]
+
+
+# ------------------------------------------------ the wire's server half
+def _wire_side(side):
+    """The apiserver, store and APF modules of one side."""
+    if side == "ref":
+        from kubeflow_tpu.cluster import apf as w_apf
+        from kubeflow_tpu.cluster import apiserver as w_apiserver
+        from kubeflow_tpu.cluster import store as w_store
+    else:
+        from kubeflow_tpu_torch.cluster import apf as w_apf
+        from kubeflow_tpu_torch.cluster import apiserver as w_apiserver
+        from kubeflow_tpu_torch.cluster import store as w_store
+    return SimpleNamespace(apf=w_apf, apiserver=w_apiserver, store=w_store)
+
+
+def test_apf_metric_families_exported():
+    """The APF half of tests/test_observability.py's
+    ``test_shard_and_apf_metric_families_exported`` (the shard map waits
+    for the sharded manager): the flow-control trio by priority_level."""
+    def case(m, side):
+        w = _wire_side(side)
+        metrics = m.metrics.MetricsRegistry()
+        dispatcher = w.apf.APFDispatcher(queue_wait_s=0.1)
+        dispatcher.attach_metrics(metrics)
+        meta = {"user_agent": "kubeflow-tpu-manager/m0", "verb": "list",
+                "kind": "Pod"}
+        dispatcher.release(dispatcher.acquire(meta))
+        tenant = {"user_agent": "tenant", "verb": "list", "kind": "Pod"}
+        held = [dispatcher.acquire(tenant)
+                for _ in range(dispatcher.total_seats)]
+        with pytest.raises(w.apf.RejectedError):
+            dispatcher.acquire(tenant)
+        for t in held:
+            dispatcher.release(t)
+        text = metrics.expose()
+        assert 'apf_dispatched_total{priority_level="workload-high"} 1' \
+            in text
+        assert 'apf_rejected_total{priority_level="global-default"} 1' \
+            in text
+        assert 'apf_current_inqueue{priority_level="global-default"} 0' \
+            in text
+        t2, queued = dispatcher.acquire_info(meta)
+        assert queued is False
+        dispatcher.release(t2)
+        return normalise_exposition(text)
+    got = both(case)
+    assert got["port"] == got["ref"]
+
+
+def test_watch_path_metric_families_exported():
+    """The server and store families of tests/test_observability.py's
+    case (the client's two wait for the port's client): ring evictions
+    by kind, the watch queue's coalescing counter, and the fan-out and
+    cache-LIST families ``ApiServerProxy.attach_metrics`` registers,
+    with the store's lock-hold histograms beside them."""
+    from kubeflow_tpu.cluster.http_client import HttpApiClient
+
+    def case(m, side):
+        w = _wire_side(side)
+        store = w.store.ClusterStore()
+        store.watch_cache_capacity = 1
+        metrics = m.metrics.MetricsRegistry()
+        proxy = w.apiserver.ApiServerProxy(store)
+        proxy.attach_metrics(metrics)
+        proxy.start()
+        client = HttpApiClient(proxy.url)
+        try:
+            for name in ("a", "b"):
+                client.create({"kind": "ConfigMap", "apiVersion": "v1",
+                               "metadata": {"name": name, "namespace": "ns"}})
+            coalesce = metrics.counter("watch_queue_coalesced_total", "")
+            q = w.apiserver._WatcherQueue(
+                soft_limit=0,
+                on_coalesce=lambda: coalesce.inc({"kind": "ConfigMap"}))
+            obj = {"kind": "ConfigMap",
+                   "metadata": {"name": "a", "namespace": "ns"}}
+            q.put(w.store.EventFrame(1, "ADDED", obj))
+            q.put(w.store.EventFrame(2, "MODIFIED", obj))
+        finally:
+            client.close()
+            proxy.stop()
+        text = metrics.expose()
+        assert 'watch_cache_evictions_total{kind="ConfigMap"} 1' in text
+        assert 'watch_queue_coalesced_total{kind="ConfigMap"} 1' in text
+        for family in ("watch_fanout_bytes_total", "watch_frames_sent_total",
+                       "apiserver_cache_lists_total",
+                       "store_list_lock_seconds",
+                       'store_write_lock_seconds_count{kind="ConfigMap"} 2'):
+            assert family in text, family
+        return [ln for ln in normalise_exposition(text)
+                if "_seconds_sum" not in ln and "_seconds_bucket" not in ln]
+    got = both(case)
+    assert got["port"] == got["ref"]
+
+
+def test_wire_spans_traceparent_and_audit(tmp_path):
+    """The server half of tests/test_observability.py's case: the
+    reference's client, in a span of its own recording provider, creates
+    through each side's apiserver (recording with its side's provider);
+    the server's ``apiserver.request`` joins the client's trace through
+    the traceparent header, ``apf.wait`` and ``apiserver.handle`` hang
+    under it, and the audit line carries the trace id."""
+    from kubeflow_tpu.cluster.http_client import HttpApiClient
+
+    def case(m, side):
+        w = _wire_side(side)
+        client_exporter = ref_tracing.InMemorySpanExporter()
+        ref_tracing.set_provider(ref_tracing.SDKProvider(client_exporter))
+        server_exporter = client_exporter if side == "ref" else recording(m)
+        audit = tmp_path / f"{side}.ndjson"
+        proxy = w.apiserver.ApiServerProxy(w.store.ClusterStore(),
+                                           audit_log=str(audit))
+        proxy.start()
+        client = HttpApiClient(proxy.url)
+        try:
+            with ref_tracing.get_tracer("test").start_span("op"):
+                client.create({"kind": "ConfigMap", "apiVersion": "v1",
+                               "metadata": {"name": "a", "namespace": "ns"}})
+        finally:
+            client.close()
+            proxy.stop()
+            ref_tracing.set_provider(ref_tracing.NoopProvider())
+        op = client_exporter.by_name("op")[0]
+        rest = client_exporter.by_name("rest.post")[0]
+        server = server_exporter.by_name("apiserver.request")[0]
+        apf_wait = server_exporter.by_name("apf.wait")[0]
+        handle = server_exporter.by_name("apiserver.handle")[0]
+        assert server.trace_id == op.trace_id
+        assert server.parent_id == rest.span_id
+        assert apf_wait.parent_id == server.span_id
+        assert "apf.queued" in apf_wait.attributes
+        assert handle.parent_id == server.span_id
+        line = json.loads(audit.read_text().splitlines()[0])
+        assert line["trace_id"] == f"{op.trace_id:032x}"
+        # two providers draw their span ids apart (and may draw the same
+        # numbers): a server span's parent is named, not tokenised
+        spans = normalise_spans([op, rest], "ref")
+        for span, raw in zip(normalise_spans([server, apf_wait, handle],
+                                             side),
+                             (server, apf_wait, handle)):
+            span.pop("span_id")
+            span["trace_id"] = raw.trace_id == op.trace_id
+            parent = (rest, "rest.post") if raw is server \
+                else (server, "apiserver.request")
+            span["parent_id"] = parent[1] \
+                if raw.parent_id == parent[0].span_id else "<other>"
+            spans.append(span)
+        line["trace_id"] = line["trace_id"] == f"{op.trace_id:032x}"
+        line.pop("ts")
+        line.pop("peer")
+        return spans, line
+    got = both(case)
+    assert got["port"] == got["ref"]
+
+
+def test_audit_trace_id_without_server_side_recording(tmp_path):
+    """tests/test_observability.py's case on each side: the apiserver
+    records no spans, yet its audit line carries the client's trace id
+    from the traceparent header."""
+    def case(m, side):
+        w = _wire_side(side)
+        audit = tmp_path / f"{side}.ndjson"
+        proxy = w.apiserver.ApiServerProxy(w.store.ClusterStore(),
+                                           audit_log=str(audit))
+        proxy.start()
+        try:
+            req = urllib.request.Request(
+                f"{proxy.url}/api/v1/namespaces/ns/configmaps",
+                data=json.dumps({"kind": "ConfigMap", "apiVersion": "v1",
+                                 "metadata": {"name": "a",
+                                              "namespace": "ns"}}).encode(),
+                headers={"Content-Type": "application/json",
+                         "traceparent": "00-" + "ab" * 16 + "-" + "cd" * 8
+                         + "-01"},
+                method="POST")
+            with urllib.request.urlopen(req, timeout=5) as resp:
+                assert resp.status == 201
+        finally:
+            proxy.stop()
+        line = json.loads(audit.read_text().splitlines()[0])
+        assert line["trace_id"] == "ab" * 16
+        line.pop("ts")
+        line.pop("peer")
+        return line
     got = both(case)
     assert got["port"] == got["ref"]

@@ -408,3 +408,58 @@ def test_phase21_tracing_on_the_cpu():
     assert fleets[1]["notebooks_traced"] == 10
     assert 0 < fleets[1]["traces_held"] <= 512
     assert not tracing.is_recording()
+
+
+def test_phase22_wire_on_the_cpu():
+    """chip_smoke's phase-22 drive (``_wire_sequence``) on the CPU at a
+    tiny size, a gloo world for the ready hook: the port's apiserver over
+    its sharded store beside ``build_manager(components="all",
+    webhooks=True)``; notebook wir POSTed over HTTP is answered locked
+    with the CUDA image and rolled; its JSON and binary watches agree up
+    to SliceReady; a resume from the last rv read replays exactly the
+    frames missed; resumes past an 8-frame ring and from an rv never
+    issued answer 410; 2 steps and generate equal one device's; the
+    culler's probes all go through the apiserver's service proxy (to a
+    Jupyter stand-in and the serving server) and cull both notebooks;
+    deleted over HTTP, nothing is left. Then two small fleets, on 8
+    shards over HTTP (paged LIST, rv=0 from the cache, a malformed
+    continue 422) and on 1."""
+    import torch
+    import torch.distributed as dist
+
+    from chip_smoke import _wire_fleets, _wire_sequence
+    from kubeflow_tpu_torch.models.train import TrainConfig
+    from kubeflow_tpu_torch.models.transformer import TransformerConfig
+
+    assert not dist.is_initialized()
+    c = TransformerConfig(vocab_size=512, d_model=64, n_layers=2, n_heads=4,
+                          n_kv_heads=2, d_ff=128, max_seq_len=256,
+                          dtype="float32")
+    stats, launched = _wire_sequence(
+        torch, c, TrainConfig(warmup_steps=2), 2, 32, 8, 4, device="cpu",
+        timeout=60.0)
+    assert not dist.is_initialized()
+    assert stats["streams"]["json"]["events"] == \
+        stats["streams"]["binary"]["events"] > 0
+    assert stats["streams"]["binary"]["bytes_per_event"] < \
+        stats["streams"]["json"]["bytes_per_event"]
+    assert stats["resume"]["replayed"] >= 1 and stats["resume"]["patch_in_it"]
+    assert {v[0] for v in stats["gone"].values()} == {410}
+    assert len(stats["losses"]) == 2 and stats["ids_equal"]
+    assert stats["culling"]["requests_total"] == [8, 16, 16]
+    probes = stats["culling"]["probes"]
+    assert probes["through_the_apiserver"] == \
+        probes["jupyter"] + probes["healthz"] > 0
+    assert not any(v for k, v in stats["after_delete"].items()
+                   if k != "get_status")
+    assert not any(launched.values())
+    fleets = _wire_fleets({"h100-1": 6, "h100-8": 3, "h100-16": 1},
+                          shards=(8, 1))
+    assert [f["shards"] for f in fleets] == [8, 1]
+    assert fleets[0]["http"]["paged_equal"] and \
+        fleets[0]["http"]["pages"] == 2
+    assert fleets[0]["http"]["rv0_from_cache"] == 1
+    assert fleets[0]["http"]["malformed_continue"][0] == 422
+    assert all(f["write_lock"]["count"] > 0 for f in fleets)
+    assert fleets[0]["fanout"]["binary"]["bytes_per_frame"] < \
+        fleets[0]["fanout"]["json"]["bytes_per_frame"]
