@@ -28,7 +28,9 @@ first has gone; holds a notebook locked until the extension has
 provisioned it; admits one through the port's own webhooks; and
 creates, watches and resumes one over the port's own apiserver, its
 culler probing the card's server through the apiserver's service
-proxy. The kernels' launch
+proxy; and reconciles one with the manager on the port's own HTTP
+client, admitted by AdmissionReview, across an apiserver restart. The
+kernels' launch
 counters, zeroed before each path and read after it, show that each path
 ran its kernels.
 Then it times each kernel beside its bound, its plain version and one
@@ -283,12 +285,31 @@ Phases (any failure exits non-zero before the result line):
      apiserver's service proxy (a Jupyter stand-in, the card's
      ``ServingServer``): served traffic keeps it up past the cull time,
      then it is culled, every probe answered 200 through the apiserver;
-     deleted over HTTP, nothing is left; then phase 15's fleet four
-     times in turns on 8 shards and on 1 (SliceReady s, CPU s, the
-     write-lock histogram), the last sharded run over HTTP: a paged
-     LIST equal to the unpaginated one, an rv=0 LIST from the serve
-     cache, a malformed continue 422, and a JSON and a binary Pod
-     watcher's fan-out bytes per frame;
+     deleted over HTTP, nothing is left; then phase 15's fleet twice,
+     on 8 shards and on 1 (SliceReady s, CPU s, the write-lock
+     histogram), the sharded run over HTTP: a paged LIST equal to the
+     unpaginated one, an rv=0 LIST from the serve cache, a malformed
+     continue 422, and a JSON and a binary Pod watcher's fan-out bytes
+     per frame;
+  23. the manager over the wire on the card (``_http_sequence``): the
+     port's ``ApiServerProxy`` over its sharded store with the
+     simulator's own manager beside it, the port's ``AdmissionServer``
+     registered by webhook configurations created through the port's
+     ``HttpApiClient``, and ``build_manager(HttpApiClient(url),
+     components="all")`` recording into a ``FlightRecorder``: an h100-1
+     notebook created through the client is answered locked with the
+     CUDA image after one mutating and one validating AdmissionReview,
+     unlocked, rolled and read SliceReady through the manager's cache
+     (host ms); 2 steps bit-equal to phase 22's and to one device's,
+     ``generate`` ids equal; the controllers' requests by method, the
+     stitched trace's ``rest.*`` spans and a ``wire`` leg above 0, the
+     audit lines carrying its trace id; the apiserver stopped, a second
+     notebook created during the outage, a new apiserver on the same
+     port: every watch resumes from its last rv without a LIST and the
+     second notebook turns SliceReady; both deleted, nothing is left;
+     then phase 15's fleet with the manager on the client, JSON and
+     binary (SliceReady s, CPU s, requests per notebook by method under
+     60, connections opened, echoes dropped);
   5. times of each kernel, its plain version and a library call (last, so
      the paths above run on a card not yet warmed by timing loops), with
      the achieved TFLOP/s, the share of the bound, the forward, dK/dV and
@@ -3625,6 +3646,21 @@ def _wait_for(what: str, cond, timeout: float,
     return time.monotonic() - t0
 
 
+def _settle(count, what: str, phase: str, still_s: float = 0.5,
+            limit: float = 30.0) -> None:
+    """Wait until ``count()`` holds still for ``still_s``: the
+    controllers have answered the last change (``what`` names the
+    count). Fails the run at ``limit``."""
+    last = [count(), time.monotonic()]
+
+    def still() -> bool:
+        now = count()
+        if now != last[0]:
+            last[:] = [now, time.monotonic()]
+        return time.monotonic() - last[1] > still_s
+    _wait_for(f"{what} to settle", still, limit, phase=phase)
+
+
 def _reconcile_totals(mgr) -> dict:
     metric = mgr.metrics.counter("controller_runtime_reconcile_total", "")
     return {f"{c}/{r}": metric.get({"controller": c, "result": r})
@@ -6571,7 +6607,11 @@ def _admission_sequence(torch, c, tc, B: int, S: int, prompt_len: int,
                                      "applied_is_parked": True},
                 f"phase20: stopped {stats['stopped']}; applied {applied}")
 
-        # 6. deleted: nothing of it left
+        # 6. deleted at rest: a reconcile still in flight from the stop
+        # could read the notebook before the delete and create its
+        # StatefulSet again after the cascade (no GC collects an object
+        # whose owner is gone)
+        _settle(lambda: store._last_rv, "adm's writes", "phase20")
         t_del = time.monotonic()
         store.delete(api.KIND, ns, name)
         wait("adm gone", lambda: seen["gone"] is not None)
@@ -6718,8 +6758,11 @@ def _trace_sequence(torch, c, tc, B: int, S: int, prompt_len: int,
     """Phase 21's drive at any size, on ``device`` ("cuda": an NCCL
     world; "cpu": gloo, the tests). Recording on: a local
     ``_OtlpCollector``, ``OtlpHttpExporter(url, flush_interval_s=0.1)``
-    behind ``FlightRecorder(inner=exporter)`` in ``SDKProvider`` (set as
-    the provider), a ``JsonFormatter`` handler with the
+    behind ``FlightRecorder(inner=exporter, traces_per_key=64)`` in
+    ``SDKProvider`` (set as the provider; the ring is wider than the
+    default 8 so that reconciles of ``trc`` that start traces of their
+    own, more of them on a slower host, cannot push the stamped trace
+    out before it is read), a ``JsonFormatter`` handler with the
     ``CorrelationFilter`` on a ``StringIO`` (on the port's loggers, at
     INFO) and a ``HealthServer`` on 127.0.0.1 with the manager's
     registry and the recorder. Then ``build_manager(components="all",
@@ -6800,7 +6843,9 @@ def _trace_sequence(torch, c, tc, B: int, S: int, prompt_len: int,
 
     collector = _OtlpCollector()
     exporter = tracing.OtlpHttpExporter(collector.url, flush_interval_s=0.1)
-    recorder = tracing.FlightRecorder(inner=exporter)
+    # the default ring of 8 traces a key can lose the stamped trace to
+    # the unstamped reconciles that follow it (pod and StatefulSet events)
+    recorder = tracing.FlightRecorder(inner=exporter, traces_per_key=64)
     logs = io.StringIO()
     handler = logging.StreamHandler(logs)
     handler.addFilter(logging_mod.CorrelationFilter())
@@ -7632,6 +7677,11 @@ def _wire_sequence(torch, c, tc, B: int, S: int, prompt_len: int,
         cull = _cull_sequence(store, mgr, offset, config, server.url,
                               server.port, V, ns, name, big, phase="phase22")
         probes = proxy.requests_served - probes0
+        # the serving server counts a request after it has written the
+        # answer, which the proxy may already have relayed
+        served = {"route": "/healthz", "method": "GET", "code": "200"}
+        wait("the last probe's count", lambda: jupyter.hits +
+             healthz.get(served) >= probes, 10.0)
         n_decode = gen.steps_total * L
         counts_served = ops.launch_counts()
         stats["culling"] = dict(cull, probes={
@@ -7708,7 +7758,7 @@ def _wire_sequence(torch, c, tc, B: int, S: int, prompt_len: int,
     return stats, launched
 
 
-def _wire_fleets(n_by_shape: dict, shards=(8, 1, 8, 1)) -> list:
+def _wire_fleets(n_by_shape: dict, shards=(8, 1)) -> list:
     """Phase 15's fleet (``_notebook_fleet``, ``components="core"``) on
     ``ClusterStore(shards=n)`` for each n in turn: SliceReady seconds,
     CPU seconds and ``store_write_lock_seconds``' count and sum. The
@@ -7808,8 +7858,8 @@ def _paged_checks(proxy, registry) -> dict:
 def phase_wire(torch, flagship, trc_losses: list) -> tuple[dict, dict]:
     """22: the wire's server half on the card (``_wire_sequence`` at the
     flagship's width: b8 x s1024 with bf16 params, generate 8 x 128 ->
-    16; the 2 losses equal to phase 21's), then phase 15's fleet four
-    times in turns on 8 shards and on 1 (``_wire_fleets``). Returns
+    16; the 2 losses equal to phase 21's), then phase 15's fleet twice,
+    on 8 shards and on 1 (``_wire_fleets``). Returns
     (stats, the launches of the main path)."""
     from kubeflow_tpu_torch.models import train as train_lib
 
@@ -7878,7 +7928,7 @@ def phase_wire(torch, flagship, trc_losses: list) -> tuple[dict, dict]:
             f"{counts_gen}")
     t0 = time.monotonic()
     stats["fleets"] = _wire_fleets({"h100-1": 60, "h100-8": 30,
-                                    "h100-16": 10})
+                                    "h100-16": 10}, shards=(8, 1))
     for i, f in enumerate(stats["fleets"]):
         print(f"phase22 fleet run {i + 1} (ClusterStore(shards="
               f"{f['shards']})): 100 Notebooks SliceReady in "
@@ -7892,6 +7942,598 @@ def phase_wire(torch, flagship, trc_losses: list) -> tuple[dict, dict]:
                   f"watchers' fan-out {f['fanout']} ({CARD[0]})",
                   flush=True)
     print(f"phase22 in {stats['seconds']:.1f} s "
+          f"({stats['seconds'] + time.monotonic() - t0:.1f} s with the "
+          f"fleets), peak {stats['peak_mem_gb']:.3f} GB; launches "
+          f"{launched} ({CARD[0]})", flush=True)
+    return stats, launched
+
+
+class _EchoDrops:
+    """Counts what the controllers' echo filters drop
+    (``EchoTrackingClient.is_echo`` answering True, by kind) while it is
+    entered; the class's method is restored on the way out."""
+
+    def __init__(self):
+        self.by_kind: dict = {}
+
+    def __enter__(self):
+        from kubeflow_tpu_torch.cluster import echo
+        self._orig = orig = echo.EchoTrackingClient.is_echo
+        by_kind = self.by_kind
+
+        def counted(client, event):
+            out = orig(client, event)
+            if out:
+                kind = event.obj.get("kind")
+                by_kind[kind] = by_kind.get(kind, 0) + 1
+            return out
+        echo.EchoTrackingClient.is_echo = counted
+        return self
+
+    def __exit__(self, *exc):
+        from kubeflow_tpu_torch.cluster import echo
+        echo.EchoTrackingClient.is_echo = self._orig
+        return False
+
+    def total(self) -> int:
+        return sum(self.by_kind.values())
+
+
+def _requests_by_method(registry) -> dict:
+    """``rest_client_requests_total`` summed over codes, by method."""
+    metric = registry.counter("rest_client_requests_total", "")
+    return {m: metric.sum_where({"method": m})
+            for m in ("GET", "POST", "PUT", "PATCH", "DELETE")
+            if metric.sum_where({"method": m})}
+
+
+def _server_side(shards: int = 8, ready_hook=None, audit_log=None):
+    """The apiserver's side of the wire: a ``ClusterStore(shards)`` with
+    the Notebook, SlicePool and TPUQuota CRDs, a ``Manager`` over it with
+    the StatefulSet simulator (its readiness gated by ``ready_hook``)
+    and an ``ApiServerProxy`` on it, neither started. Returns (store,
+    simulator manager, proxy)."""
+    from kubeflow_tpu_torch.api.slicepool import install_slicepool_crd
+    from kubeflow_tpu_torch.api.tpuquota import install_tpuquota_crd
+    from kubeflow_tpu_torch.api.types import install_notebook_crd
+    from kubeflow_tpu_torch.cluster.apiserver import ApiServerProxy
+    from kubeflow_tpu_torch.cluster.cache import CachingClient
+    from kubeflow_tpu_torch.cluster.kubelet import StatefulSetSimulator
+    from kubeflow_tpu_torch.cluster.store import ClusterStore
+    from kubeflow_tpu_torch.controllers import Manager
+
+    store = ClusterStore(shards=shards)
+    install_notebook_crd(store)
+    install_slicepool_crd(store)
+    install_tpuquota_crd(store)
+    # the simulator reads through its own cache, as a kubelet's informers
+    sim_cache = CachingClient(store, auto_informer=False, disable_for=())
+    sim_mgr = Manager(sim_cache, read_cache=sim_cache)
+    StatefulSetSimulator(sim_cache, ready_hook=ready_hook).setup(sim_mgr)
+    return store, sim_mgr, ApiServerProxy(store, audit_log=audit_log)
+
+
+def _http_fleet(n_by_shape: dict, wire_format: str = "json",
+                namespaces: int = 10, components: str = "core",
+                timeout: float = 120.0, phase: str = "phase23") -> dict:
+    """Phase 15's fleet with the manager over the wire: ``_server_side``
+    served by its ``ApiServerProxy``, and ``build_manager(HttpApiClient(
+    url, wire_format=...), components=...)`` under ``start()`` with 4
+    workers. The notebooks are created on the store (so the client's
+    counters hold the controllers' traffic alone); each CR's create →
+    SliceReady latency is taken on a store watch. Returns the seconds to
+    the last SliceReady and the CPU seconds of the fan-out, the
+    controllers' requests per notebook by method (from the first create
+    to the last SliceReady), the connections the client opened by type,
+    what the echo filters dropped by kind, and the writes."""
+    from kubeflow_tpu_torch.api import types as api
+    from kubeflow_tpu_torch.cluster.http_client import HttpApiClient
+    from kubeflow_tpu_torch.main import build_manager
+    from kubeflow_tpu_torch.utils import k8s, names
+
+    store, sim_mgr, proxy = _server_side()
+    client = mgr = None
+    created: dict = {}
+    ready: dict = {}
+
+    def on_notebook(event) -> None:
+        key = (k8s.namespace(event.obj), k8s.name(event.obj))
+        if key in created and key not in ready and \
+                k8s.condition_true(event.obj, api.CONDITION_SLICE_READY):
+            ready[key] = time.monotonic()
+    store.watch(api.KIND, on_notebook)
+    stops: list = []   # each server and manager once started
+    try:
+        sim_mgr.start()
+        stops.append(sim_mgr.stop)
+        proxy.start()
+        stops.append(proxy.stop)
+        client = HttpApiClient(proxy.url, wire_format=wire_format)
+        with _EchoDrops() as echoes:
+            mgr = build_manager(client, max_concurrent_reconciles=4,
+                                components=components)
+            mgr.start()
+            requests = mgr.metrics.counter("rest_client_requests_total", "")
+            _settle(requests.total, "the controllers' requests", phase,
+                    still_s=0.3)
+            base = _requests_by_method(mgr.metrics)
+            cpu0 = time.process_time()
+            t0 = time.monotonic()
+            i = 0
+            for shape, n in n_by_shape.items():
+                for _ in range(n):
+                    key = (f"team-{i % namespaces}", f"nb-{shape}-{i}")
+                    created[key] = time.monotonic()
+                    store.create(api.new_notebook(key[1], key[0], annotations={
+                        names.TPU_ACCELERATOR_ANNOTATION: shape}))
+                    i += 1
+            _wait_for(f"SliceReady on {len(created)} notebooks over "
+                      f"{wire_format}", lambda: len(ready) == len(created),
+                      timeout, phase=phase)
+            seconds = time.monotonic() - t0
+            cpu_s = time.process_time() - cpu0
+            after = _requests_by_method(mgr.metrics)
+    finally:
+        if mgr is not None:
+            mgr.stop()
+        if client is not None:
+            client.close()
+        for stop in reversed(stops):
+            stop()
+    n = len(created)
+    per_method = {m: (after.get(m, 0) - base.get(m, 0)) / n for m in after
+                  if after.get(m, 0) != base.get(m, 0)}
+    conns = mgr.metrics.counter("rest_client_connections_opened_total", "")
+    lat = sorted((ready[k] - created[k]) * 1e3 for k in created)
+    return {"wire_format": wire_format, "notebooks": n, "seconds": seconds,
+            "cpu_s": cpu_s, "ready_p50_ms": lat[len(lat) // 2],
+            "ready_p95_ms": lat[min(len(lat) - 1, int(0.95 * len(lat)))],
+            "requests_per_notebook": sum(per_method.values()),
+            "requests_per_notebook_by_method": per_method,
+            "connections": {t: conns.get({"type": t})
+                            for t in ("pooled", "stream")},
+            "echoes_dropped": dict(echoes.by_kind),
+            "writes": store._last_rv}
+
+
+def _webhook_configuration(kind: str, name: str, url: str) -> dict:
+    """A Mutating/ValidatingWebhookConfiguration whose one webhook sends
+    Notebook CREATEs and UPDATEs to ``url`` (failurePolicy Fail)."""
+    return {"kind": kind, "apiVersion": "admissionregistration.k8s.io/v1",
+            "metadata": {"name": name},
+            "webhooks": [{
+                "name": "notebooks.kubeflow.org", "failurePolicy": "Fail",
+                "clientConfig": {"url": url},
+                "rules": [{"apiGroups": ["kubeflow.org"],
+                           "apiVersions": ["v1"],
+                           "operations": ["CREATE", "UPDATE"],
+                           "resources": ["notebooks"]}]}]}
+
+
+def _http_sequence(torch, c, tc, B: int, S: int, prompt_len: int,
+                   new: int, device: str = "cuda",
+                   timeout: float = 180.0) -> tuple[dict, dict]:
+    """Phase 23's drive at any size, on ``device`` ("cuda": an NCCL
+    world; "cpu": gloo, the tests): the manager over the wire.
+
+    The apiserver's side (``_server_side``: 8 shards, the three CRDs,
+    the simulator gated by a ``_SliceGate`` for notebook ``wcl``) served
+    by its ``ApiServerProxy`` with an audit log; the port's
+    ``AdmissionServer`` (mutating, then validating) on a free port, plain
+    HTTP, registered by a Mutating- and a ValidatingWebhookConfiguration
+    created through a second ``HttpApiClient`` (``kubectl``); and the
+    controllers' side, ``build_manager(HttpApiClient(url),
+    components="all")`` under ``start()`` with a ``FlightRecorder``
+    provider. ``wcl`` (h100-1, a JAX image) is created through
+    ``kubectl``: the answer is locked with the CUDA image, one mutating
+    and one validating AdmissionReview reached the server for its
+    CREATE; the extension unlocks it, worker 0 turns Ready once its
+    world passes ``verify_slice``, and SliceReady is read through the
+    manager's cache. In its world a ``Trainer(mesh=...)`` takes 2 steps
+    (held to one device's) and greedy ``generate`` on
+    ``shard_decode_params`` is held to the one-device ``generate``.
+    Then what the wire shows: the controllers' requests for ``wcl``'s
+    bring-up by method, its stitched trace with its ``rest.*`` spans and
+    a ``wire`` leg above 0, and the audit lines that carry its trace id
+    (the traceparent the client sent). Then the apiserver stops,
+    ``wcl-late`` is created on the store during the outage, a new
+    apiserver starts on the same port: every watch resumes from its
+    last rv (``watch_resumes_total{mode="resume"}``, no relist) and
+    ``wcl-late`` turns SliceReady (no world of its own: the gate holds
+    ``wcl``'s only). Last both are deleted through ``kubectl`` and
+    nothing of either is left. Every server, client and manager stops
+    and the no-op provider is restored in a ``finally``. Returns (stats,
+    the launches of the main path: the 2 steps and the ``generate``,
+    each counted from 0)."""
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+
+    from kubeflow_tpu_torch import ops
+    from kubeflow_tpu_torch.api import types as api
+    from kubeflow_tpu_torch.cluster.apiserver import ApiServerProxy
+    from kubeflow_tpu_torch.cluster.http_client import HttpApiClient
+    from kubeflow_tpu_torch.main import build_manager
+    from kubeflow_tpu_torch.models.decode import generate
+    from kubeflow_tpu_torch.parallel.mesh import (MeshConfig, build_mesh,
+                                                  leave_world)
+    from kubeflow_tpu_torch.runtime.data import synthetic_lm_batches
+    from kubeflow_tpu_torch.runtime.sharded_decode import shard_decode_params
+    from kubeflow_tpu_torch.runtime.trainer import Trainer
+    from kubeflow_tpu_torch.utils import k8s, names, tracing
+    from kubeflow_tpu_torch.utils.config import (DEFAULT_GPU_IMAGE,
+                                                 ControllerConfig)
+    from kubeflow_tpu_torch.webhook import (NotebookMutatingWebhook,
+                                            NotebookValidatingWebhook)
+    from kubeflow_tpu_torch.webhook.server import (MUTATE_PATH,
+                                                   VALIDATE_PATH,
+                                                   AdmissionServer)
+
+    require(not dist.is_initialized(), "phase23: a world is still formed")
+    require(not tracing.is_recording(), "phase23: a provider records")
+    V = c.vocab_size
+    ns, name, late = "wcl-ns", "wcl", "wcl-late"
+    jax_image = "jupyter/jax-notebook:latest"
+    stats: dict = {}
+    launched: dict = {}
+    config = ControllerConfig()
+    central = config.controller_namespace
+    gate = _SliceGate(name, device)
+    audit_dir = tempfile.mkdtemp(prefix="phase23-audit-")
+    audit = os.path.join(audit_dir, "audit.ndjson")
+    store, sim_mgr, proxy = _server_side(ready_hook=gate, audit_log=audit)
+    adm = AdmissionServer(NotebookMutatingWebhook(store, config),
+                          NotebookValidatingWebhook(config),
+                          host="127.0.0.1", port=0)
+    reviews: list = []
+    review = adm.review
+
+    def counted_review(path, body):
+        req = body.get("request") or {}
+        md = (req.get("object") or {}).get("metadata") or {}
+        reviews.append((path, req.get("operation"), md.get("name")))
+        return review(path, body)
+    adm.review = counted_review
+    recorder = tracing.FlightRecorder(traces_per_key=64)
+    kubectl = client = mgr = trainer = None
+
+    def wait(what: str, cond, limit: float = timeout) -> float:
+        def ok():
+            require(gate.error is None,
+                    f"phase23: the ready hook failed while waiting for "
+                    f"{what}: {gate.error!r}")
+            return cond()
+        return _wait_for(what, ok, limit, phase="phase23")
+
+    def ready_in_cache(nb: str) -> bool:
+        obj = mgr.client.get_or_none(api.KIND, ns, nb)
+        return obj is not None and k8s.condition_true(
+            obj, api.CONDITION_SLICE_READY)
+
+    stops: list = []   # each server and manager once started
+    with _EchoDrops() as echoes:
+        try:
+            sim_mgr.start()
+            stops.append(sim_mgr.stop)
+            proxy.start()
+            stops.append(proxy.stop)
+            adm.start()
+            stops.append(adm.stop)
+            kubectl = HttpApiClient(proxy.url)
+            scheme = "http"
+            for kind, cfg_name, path in (
+                    ("MutatingWebhookConfiguration", "wcl-mutating",
+                     MUTATE_PATH),
+                    ("ValidatingWebhookConfiguration", "wcl-validating",
+                     VALIDATE_PATH)):
+                kubectl.create(_webhook_configuration(
+                    kind, cfg_name, f"{scheme}://127.0.0.1:{adm.port}{path}"))
+            stats["admission_scheme"] = scheme
+            tracing.set_provider(tracing.SDKProvider(recorder))
+            client = HttpApiClient(proxy.url)
+            plugins = len(store._admission)
+            mgr = build_manager(client, config, components="all")
+            requests = mgr.metrics.counter("rest_client_requests_total", "")
+            require(not client.supports_inprocess_admission and
+                    len(store._admission) == plugins,
+                    "phase23: build_manager installed admission in process")
+            src = synthetic_lm_batches(B, S, V, seed=0)
+            batches = [next(src) for _ in range(2)]
+            rng = torch.Generator().manual_seed(7)
+            prompt = torch.randint(0, V, (B, prompt_len),
+                                   generator=rng).to(device)
+            mgr.start()
+            _settle(requests.total, "the controllers' requests",
+                    "phase23")
+
+            # 1. created through the client, admitted over AdmissionReview
+            r0 = _requests_by_method(mgr.metrics)
+            t_create = time.monotonic()
+            created = kubectl.create(api.new_notebook(
+                name, ns, image=jax_image,
+                annotations={names.TPU_ACCELERATOR_ANNOTATION: "h100-1"}))
+            stats["post_ms"] = (time.monotonic() - t_create) * 1e3
+            stats["admitted"] = {
+                "lock": k8s.get_annotation(created, names.STOP_ANNOTATION),
+                "image": api.notebook_container(created)["image"],
+                "reviews": {p: sum(1 for r in reviews
+                                   if r == (p, "CREATE", name))
+                            for p in (MUTATE_PATH, VALIDATE_PATH)}}
+            require(stats["admitted"] == {
+                "lock": names.RECONCILIATION_LOCK_VALUE,
+                "image": DEFAULT_GPU_IMAGE,
+                "reviews": {MUTATE_PATH: 1, VALIDATE_PATH: 1}},
+                    f"phase23: admitted {stats['admitted']}")
+            stats["ready_ms"] = 1e3 * wait(
+                "SliceReady on wcl through the manager's cache",
+                lambda: ready_in_cache(name))
+            stats["world"] = gate.worlds[-1]
+            _settle(requests.total, "the controllers' requests",
+                    "phase23")
+            r1 = _requests_by_method(mgr.metrics)
+            stats["requests_bringup"] = {m: r1.get(m, 0) - r0.get(m, 0)
+                                         for m in r1
+                                         if r1.get(m, 0) != r0.get(m, 0)}
+            stats["reviews_bringup"] = {
+                f"{p} {op}": sum(1 for r in reviews if r == (p, op, name))
+                for p in (MUTATE_PATH, VALIDATE_PATH)
+                for op in ("CREATE", "UPDATE")}
+
+            # 2. two steps and generate on the card in wcl's world
+            world = stats["world"]
+            mesh = build_mesh(MeshConfig.auto(world["report"]["device_count"]),
+                              device)
+            ops.reset_launch_counts()
+            trainer = Trainer(c, tc, seed=0, mesh=mesh)
+            t0 = time.monotonic()
+            trainer.fit(batches, steps=2, log_every=1)
+            if device == "cuda":
+                torch.cuda.synchronize()
+            stats["train_s"] = time.monotonic() - t0
+            counts_train = ops.launch_counts()
+            ops.reset_launch_counts()
+            ids = generate(shard_decode_params(trainer.params, mesh, c),
+                           prompt, c, new)
+            if device == "cuda":
+                torch.cuda.synchronize()
+            counts_gen = ops.launch_counts()
+            want_ids = generate(trainer.params, prompt, c, new)
+            losses = [x for _, x in trainer.stats.losses]
+            trainer.close()
+            trainer = None
+            one = Trainer(c, tc, seed=0, device=device)
+            one.fit(batches, steps=2, log_every=1)
+            want_losses = [x for _, x in one.stats.losses]
+            one.close()
+            del one
+            ops.reset_launch_counts()     # the comparisons' launches
+            gc.collect()
+            for got in (counts_train, counts_gen):
+                for k, n in got.items():
+                    launched[k] = launched.get(k, 0) + n
+            stats.update({"losses": losses, "launches_train": counts_train,
+                          "ids_equal": bool(torch.equal(ids, want_ids)),
+                          "launches_generate": counts_gen})
+            require(stats["ids_equal"], "phase23: wcl's generate differs from "
+                                        "one device's")
+            require(losses == want_losses and len(losses) == 2 and
+                    all(math.isfinite(x) for x in losses),
+                    f"phase23: wcl's losses {losses} differ from one device's "
+                    f"{want_losses}")
+            leave_world()
+
+            # 3. what the wire shows: the stitched trace and the audit lines
+            stamp = k8s.get_annotation(store.get(api.KIND, ns, name),
+                                       names.TRACE_CONTEXT_ANNOTATION)
+            stamped = tracing.parse_traceparent(stamp)
+            require(stamped is not None, f"phase23: wcl's stamp {stamp!r}")
+            trace_id = f"{stamped.trace_id:032x}"
+            traces = recorder.trace_for(ns, name)
+            mine = [t for t in traces if t["trace_id"] == trace_id]
+            require(mine, f"phase23: wcl's stamped trace {trace_id} is not "
+                          f"among the {len(traces)} held")
+            spans = mine[0]["spans"]
+            rest = [s for s in spans if s["name"].startswith("rest.")]
+            ids_in = {s["span_id"] for s in spans}
+            by_parent: dict = {}
+            for s in spans:
+                by_parent.setdefault(s["parent_id"], []).append(s)
+            roots = [s for s in spans if s["name"] == "reconcile"]
+            per_root = []
+            for root in roots:
+                b = tracing.trace_phase_breakdown(
+                    [root] + by_parent.get(root["span_id"], []))
+                legs = b["queue"] + b["wire"] + b["reconcile"]
+                require(abs(legs - b["wall"]) <= 1e-9,
+                        f"phase23: a reconcile root's breakdown {b}")
+                per_root.append(b)
+            breakdown = tracing.trace_phase_breakdown(spans)
+            with open(audit) as fh:
+                lines = [json.loads(ln) for ln in fh if ln.strip()]
+            joined = [ln for ln in lines if ln.get("trace_id") == trace_id]
+            stats["trace"] = {
+                "trace_id": trace_id, "spans": len(spans),
+                "rest_spans": {n: sum(1 for s in rest if s["name"] == n)
+                               for n in sorted({s["name"] for s in rest})},
+                "rest_under_a_root": sum(1 for s in rest
+                                         if s["parent_id"] in ids_in),
+                "apiserver_spans": sum(1 for s in spans
+                                       if s["name"] == "apiserver.request"),
+                "roots": len(roots),
+                "breakdown": breakdown,
+                "wire_over_roots": sum(b["wire"] for b in per_root)}
+            stats["audit"] = {
+                "lines": len(lines), "with_wcl_trace_id": len(joined),
+                "first": ({k: joined[0].get(k) for k in ("verb", "path",
+                                                         "code", "trace_id")}
+                          if joined else None)}
+            require(rest and breakdown["wire"] > 0 and joined,
+                    f"phase23: the wire in wcl's trace {stats['trace']}, "
+                    f"audit {stats['audit']}")
+
+            # 4. an apiserver restart: every watch resumes, no relist
+            port = proxy.port
+            resumes = mgr.metrics.counter("watch_resumes_total", "")
+            before = {m: resumes.sum_where({"mode": m})
+                      for m in ("resume", "relist")}
+            t_out = time.monotonic()
+            stops.remove(proxy.stop)
+            proxy.stop()
+            store.create(api.new_notebook(late, ns, annotations={
+                names.TPU_ACCELERATOR_ANNOTATION: "h100-1"}))
+            proxy = ApiServerProxy(store, port=port, audit_log=audit)
+            proxy.start()
+            stops.append(proxy.stop)
+            stats["outage_ms"] = (time.monotonic() - t_out) * 1e3
+            t_back = time.monotonic()
+            wait(f"SliceReady on {late} after the restart",
+                 lambda: k8s.condition_true(store.get(api.KIND, ns, late),
+                                            api.CONDITION_SLICE_READY))
+            stats["late_ready_ms"] = (time.monotonic() - t_back) * 1e3
+            _settle(requests.total, "the controllers' requests",
+                    "phase23")
+            stats["resumes"] = {m: resumes.sum_where({"mode": m}) - before[m]
+                                for m in ("resume", "relist")}
+            require(stats["resumes"]["resume"] >= 1 and
+                    stats["resumes"]["relist"] == 0,
+                    f"phase23: watches after the restart {stats['resumes']}")
+            stats["late_world"] = "none: the gate forms wcl's world only"
+
+            # 5. deleted through the client: nothing of either left
+            t_del = time.monotonic()
+            for nb in (name, late):
+                kubectl.delete(api.KIND, ns, nb)
+            wait("both notebooks' objects gone", lambda: not any(
+                v for nb in (name, late)
+                for v in _left_behind(store, central, ns, nb).values())
+                and not store.list("Pod", ns))
+            stats["delete_ms"] = (time.monotonic() - t_del) * 1e3
+            stats["after_delete"] = {
+                nb: dict(_left_behind(store, central, ns, nb),
+                         pods=len(store.list("Pod", ns)))
+                for nb in (name, late)}
+            _settle(requests.total, "the controllers' requests",
+                    "phase23")
+            r2 = _requests_by_method(mgr.metrics)
+            stats["requests_both_lives"] = {m: r2.get(m, 0) - r0.get(m, 0)
+                                            for m in r2
+                                            if r2.get(m, 0) != r0.get(m, 0)}
+            stats["requests_per_notebook"] = \
+                sum(stats["requests_both_lives"].values()) / 2
+            stats["connections"] = {
+                t: mgr.metrics.counter("rest_client_connections_opened_total",
+                                       "").get({"type": t})
+                for t in ("pooled", "stream")}
+            stats["echoes_dropped"] = dict(echoes.by_kind)
+            stats["reviews"] = len(reviews)
+        finally:
+            if trainer is not None:
+                trainer.close()
+            if dist.is_initialized():
+                leave_world()
+            if mgr is not None:
+                mgr.stop()
+            for cl in (client, kubectl):
+                if cl is not None:
+                    cl.close()
+            tracing.set_provider(tracing.NoopProvider())
+            for stop in reversed(stops):
+                stop()
+            shutil.rmtree(audit_dir, ignore_errors=True)
+    stats["control_plane"] = {"writes": store._last_rv,
+                              "reconciles": _reconcile_totals(mgr)}
+    require(store._last_rv < 600,
+            f"phase23: {store._last_rv} writes: {stats['control_plane']}")
+    return stats, launched
+
+
+def phase_http(torch, flagship, wire_losses: list) -> tuple[dict, dict]:
+    """23: the manager over the wire on the card (``_http_sequence`` at
+    the flagship's width: b8 x s1024 with bf16 params, generate 8 x 128
+    -> 16; the 2 losses equal to phase 22's), then phase 15's fleet with
+    the manager on ``HttpApiClient``, once JSON and once binary
+    (``_http_fleet``), each under 60 requests a notebook. Returns
+    (stats, the launches of the main path)."""
+    from kubeflow_tpu_torch.models import train as train_lib
+
+    t_phase = time.monotonic()
+    L = flagship.n_layers
+    torch.cuda.reset_peak_memory_stats()
+    stats, launched = _http_sequence(
+        torch, flagship, train_lib.TrainConfig(bf16_params=True), 8, 1024,
+        128, 16)
+    stats["seconds"] = time.monotonic() - t_phase
+    stats["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    gc.collect()
+    torch.cuda.empty_cache()
+    counts_train, counts_gen = stats["launches_train"], \
+        stats["launches_generate"]
+    for what, value in (
+            (f"admission over AdmissionReview ({stats['admission_scheme']}"
+             f"://), as the POST answered it", stats["admitted"]),
+            ("POST ms, create -> SliceReady through the manager's cache ms "
+             "(host time)", (stats["post_ms"], stats["ready_ms"])),
+            ("AdmissionReviews for wcl's bring-up by path and operation",
+             stats["reviews_bringup"]),
+            ("wcl's world (seconds, report)",
+             (stats["world"]["seconds"], stats["world"]["report"])),
+            ("Trainer(mesh=...) b8 s1024 2 steps: losses, bit-equal to one "
+             "device's and to phase 22's; seconds",
+             (stats["losses"], True, stats["train_s"])),
+            ("launches of wcl's 2 steps", counts_train),
+            ("wcl's generate 8 x 128 -> 16: ids equal to one device's, "
+             "launches", (stats["ids_equal"], counts_gen)),
+            ("controllers' requests for wcl's bring-up by method",
+             stats["requests_bringup"]),
+            ("wcl's stitched trace (spans, rest.* spans, breakdown s)",
+             stats["trace"]),
+            ("audit lines carrying wcl's trace id (the client's "
+             "traceparent)", stats["audit"]),
+            ("apiserver restart: outage ms, wcl-late create -> SliceReady "
+             "after it ms", (stats["outage_ms"], stats["late_ready_ms"])),
+            ("watch reconnects after the restart by mode",
+             stats["resumes"]),
+            ("wcl-late's world", stats["late_world"]),
+            ("delete -> nothing left ms (host time)", stats["delete_ms"]),
+            ("after the delete (left behind)", stats["after_delete"]),
+            ("controllers' requests over both lives by method; per "
+             "notebook", (stats["requests_both_lives"],
+                          stats["requests_per_notebook"])),
+            ("connections opened by type", stats["connections"]),
+            ("echoes the filters dropped by kind", stats["echoes_dropped"]),
+            ("control plane writes and reconciles",
+             stats["control_plane"])):
+        print(f"phase23 {what}: {value} ({CARD[0]})", flush=True)
+    require(stats["losses"] == list(wire_losses[:2]),
+            f"phase23: losses {stats['losses']} differ from phase 22's "
+            f"{wire_losses}")
+    attn = ("flash_attention", "flash_attention_bwd_dkv",
+            "flash_attention_bwd_dq")
+    require(all(counts_train.get(k) == 2 * L for k in attn) and
+            not counts_train.get("flash_decode") and
+            counts_gen.get("flash_attention") == L and
+            counts_gen.get("flash_decode") == (16 - 1) * L and
+            not counts_gen.get("flash_attention_bwd_dkv"),
+            f"phase23: launches train {counts_train}, generate "
+            f"{counts_gen}")
+    t0 = time.monotonic()
+    stats["fleets"] = [_http_fleet({"h100-1": 60, "h100-8": 30,
+                                    "h100-16": 10}, wire_format=fmt)
+                       for fmt in ("json", "binary")]
+    for f in stats["fleets"]:
+        print(f"phase23 fleet over HTTP ({f['wire_format']}): 100 Notebooks "
+              f"SliceReady in {f['seconds']} s, CPU {f['cpu_s']} s; "
+              f"CR→SliceReady p50 {f['ready_p50_ms']} ms, p95 "
+              f"{f['ready_p95_ms']} ms (host time); requests per notebook "
+              f"{f['requests_per_notebook']} "
+              f"{f['requests_per_notebook_by_method']}; connections "
+              f"{f['connections']}; echoes dropped {f['echoes_dropped']}; "
+              f"{f['writes']} writes ({CARD[0]})", flush=True)
+        require(f["requests_per_notebook"] < 60,
+                f"phase23: {f['requests_per_notebook']} requests a notebook "
+                f"over {f['wire_format']}")
+    print(f"phase23 in {stats['seconds']:.1f} s "
           f"({stats['seconds'] + time.monotonic() - t0:.1f} s with the "
           f"fleets), peak {stats['peak_mem_gb']:.3f} GB; launches "
           f"{launched} ({CARD[0]})", flush=True)
@@ -8290,6 +8932,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     train["wire"], launched = phase_wire(torch, FLAGSHIP,
                                          train["tracing"]["losses"])
+    for name, n in launched.items():
+        counts[name] += n
+    gc.collect()
+    torch.cuda.empty_cache()
+    train["http"], launched = phase_http(torch, FLAGSHIP,
+                                         train["wire"]["losses"])
     for name, n in launched.items():
         counts[name] += n
     rows, wide = phase_times(torch, errs, counts)

@@ -21,10 +21,15 @@ against the reference's store:
   workqueues, delivered in write order outside the store's locks (a
   callback may re-enter the store);
 - admission plugins run before a create or update is persisted, then
-  the CRD schema: creating a CustomResourceDefinition registers its
-  served versions' structural schemas, and every later write of that
-  kind is validated against them (the apiserver's order: mutating
-  admission, validating admission, schema, persistence);
+  remote admission, then the CRD schema: creating a
+  Mutating/ValidatingWebhookConfiguration indexes it, and every later
+  create, update or delete of a kind its rules match POSTs an
+  AdmissionReview to its ``url`` (``cluster/remote_admission.py``;
+  mutating before validating, outside every lock); creating a
+  CustomResourceDefinition registers its served versions' structural
+  schemas, and every later write of that kind is validated against them
+  (the apiserver's order: mutating admission, validating admission,
+  schema, persistence);
 - the wire half the HTTP apiserver (``cluster/apiserver.py``) serves
   from: one shared ``EventFrame`` per event (its JSON and binary
   encodings each computed at most once), a bounded per-kind resume ring
@@ -43,10 +48,6 @@ snapshot take every shard lock in index order first, the rv lock last.
 A stored object is never mutated after it is published: every write
 replaces its slot with a fresh dict, so frames, serve caches and LIST
 walks share it without a copy.
-
-Left out, with the HTTP client that brings them: remote (HTTPS)
-admission through Mutating/ValidatingWebhookConfiguration objects and
-the store's index of those configurations.
 """
 
 from __future__ import annotations
@@ -64,7 +65,7 @@ from typing import Callable, Iterator
 
 from ..utils import k8s
 from ..utils.names import generate_suffix
-from . import codec
+from . import codec, remote_admission
 from .errors import (AlreadyExistsError, ConflictError, GoneError,
                      InvalidError, NotFoundError)
 
@@ -217,7 +218,8 @@ class ClusterStore:
         # the rv allocator: issue, ring append and relay feed, always
         # taken after any shard lock
         self._rv_lock = threading.RLock()
-        # the CRD schema index: written under a shard lock, read alone
+        # the CRD schema and webhook-configuration indexes: written under
+        # a shard lock, read alone
         self._config_lock = threading.RLock()
         self._rv_counter = itertools.count(1)
         self._last_rv = 0  # latest issued resourceVersion
@@ -236,6 +238,9 @@ class ClusterStore:
         # CRD structural schemas: kind → {version: openAPIV3Schema}, kept
         # in step with the CustomResourceDefinition objects
         self._crd_schemas: dict[str, dict[str, dict]] = {}
+        # Mutating/ValidatingWebhookConfiguration objects, kind → {key:
+        # config}: writes of matching kinds call out over AdmissionReview
+        self._webhook_configs: dict[str, dict[ObjectKey, dict]] = {}
 
     def _next_rv(self) -> str:
         """Issue the next resourceVersion (caller holds the rv lock)."""
@@ -286,9 +291,41 @@ class ClusterStore:
         for kind, fn in self._admission:
             if kind == k8s.kind(obj):
                 obj = fn(operation, obj, old)
+        obj = self._run_remote_admission(operation, obj, old)
         # the schema holds what will be persisted, after the webhooks
         self._validate_against_crd(obj)
         return obj
+
+    def _run_remote_admission(self, operation: str, obj: dict,
+                              old: dict | None) -> dict:
+        """AdmissionReview against the indexed webhook configurations
+        (mutating, then validating: the apiserver's order). The index is
+        copied under its lock; the HTTP calls run outside every lock."""
+        ra = remote_admission
+        if k8s.kind(obj) in ra.CONFIG_KINDS:
+            return obj  # configurations themselves are not gated
+        with self._config_lock:
+            mutating = [k8s.deepcopy(c) for c in
+                        self._webhook_configs.get(ra.MUTATING_KIND,
+                                                  {}).values()]
+            validating = [k8s.deepcopy(c) for c in
+                          self._webhook_configs.get(ra.VALIDATING_KIND,
+                                                    {}).values()]
+        if mutating:
+            obj = ra.run_webhooks(mutating, operation, obj, old,
+                                  mutating=True)
+        if validating:
+            ra.run_webhooks(validating, operation, obj, old, mutating=False)
+        return obj
+
+    def _index_webhook_config(self, key: ObjectKey, obj: dict) -> None:
+        with self._config_lock:
+            self._webhook_configs.setdefault(key.kind, {})[key] = \
+                k8s.deepcopy(obj)
+
+    def _unindex_webhook_config(self, key: ObjectKey) -> None:
+        with self._config_lock:
+            self._webhook_configs.get(key.kind, {}).pop(key, None)
 
     # ----------------------------------------------------------- CRD schemas
     def _index_crd(self, crd: dict) -> None:
@@ -421,6 +458,8 @@ class ClusterStore:
                 emitted = [self._emit_locked("ADDED", obj)]
             if key.kind == "CustomResourceDefinition":
                 self._index_crd(obj)
+            elif key.kind in remote_admission.CONFIG_KINDS:
+                self._index_webhook_config(key, obj)
         self._observe_write(key.kind, started)
         self._dispatch_all(emitted)
         return k8s.deepcopy(obj)
@@ -599,6 +638,8 @@ class ClusterStore:
                 emitted = [self._emit_locked("MODIFIED", obj)]
             if key.kind == "CustomResourceDefinition":
                 self._index_crd(obj)
+            elif key.kind in remote_admission.CONFIG_KINDS:
+                self._index_webhook_config(key, obj)
             return emitted
 
     def patch(self, kind: str, namespace: str, name: str, patch: dict) -> dict:
@@ -661,6 +702,10 @@ class ClusterStore:
             snapshot = shard.objects.get(key)
         if snapshot is None:
             raise NotFoundError(f"{kind} {namespace}/{name}")
+        snap = k8s.deepcopy(snapshot)
+        # DELETE-gating webhooks (operations: ["DELETE"]) fire as the
+        # apiserver's do, outside the locks
+        self._run_remote_admission("DELETE", snap, snap)
         # removal cascades across shards (every shard lock); the finalizer
         # mark stays on the object's own shard, retried with every lock if
         # the object lost its finalizers meanwhile
@@ -725,6 +770,8 @@ class ClusterStore:
             return emitted
         if key.kind == "CustomResourceDefinition":
             self._unindex_crd(obj)
+        elif key.kind in remote_admission.CONFIG_KINDS:
+            self._unindex_webhook_config(key)
         with self._rv_lock:
             final = {**obj, "metadata": {**obj["metadata"],
                                          "resourceVersion": self._next_rv()}}

@@ -1,7 +1,8 @@
 """The port's composition root: a manager with the core Notebook
 reconciler, the idle culler, the slice repair reconciler, the warm
 slice pool reconciler, the fleet scheduler and the extension
-reconciler over the in-process apiserver.
+reconciler over the in-process apiserver, or over an apiserver the
+port's ``HttpApiClient`` reaches.
 
 The counterpart of ``kubeflow_tpu/main.py`` ``build_manager``
 (``setup_controllers``, ``kubeflow_tpu/controllers/__init__.py``) with
@@ -46,13 +47,29 @@ cache, so a standalone run is a working control plane on one machine::
     #   the HTTPRoute in the controller namespace, the ReferenceGrant;
     #   the lock removed, then 0 → 1 replicas
 
+Over the wire ``store`` is a ``cluster/http_client.py``
+``HttpApiClient``: its ``rest_client_*`` and ``watch_resumes_total``
+families go to the manager's registry, the read cache hears each
+watch stream's gaps (``set_watch_gap_listener``: a kind whose stream is
+down and cannot resume is read live until its resync lands), and
+nothing is installed in process (``supports_inprocess_admission`` is
+False): the apiserver's side holds the CRDs and the webhook
+configurations, whose ``AdmissionServer`` its store calls over
+AdmissionReview (``cluster/remote_admission.py``)::
+
+    server = ClusterStore()
+    install_notebook_crd(server)            # ... and the other CRDs
+    proxy = ApiServerProxy(server); proxy.start()
+    mgr = build_manager(HttpApiClient(proxy.url), components="all")
+    mgr.start()
+
 The defaults stay ``components="core"`` with no webhooks; the
 reference's ``setup_controllers`` defaults to both binaries with the
 webhooks, which the port's ``build_manager`` takes with its flags
 (ROADMAP.md queue A item 9). Not yet in the port, each an item of that
-queue: flags, TLS profiles, health endpoints and leader election. The
-webhooks' HTTP(S) front (``webhook/server.py`` ``AdmissionServer``) is
-in the port; a store calls it over the wire once the wire is (item 8).
+queue: flags, TLS profiles, health endpoints, leader election and the
+apiserver circuit breaker (no health tracker is attached to the
+client: ``set_health_tracker`` waits for ``CircuitBreaker``).
 """
 
 from __future__ import annotations
@@ -81,7 +98,8 @@ def build_manager(store=None, config: ControllerConfig | None = None, *,
     """Compose the control plane ``components`` selects; returns the
     manager.
 
-    ``store`` defaults to a fresh in-process ``ClusterStore``; ``config``
+    ``store`` defaults to a fresh in-process ``ClusterStore``, or is an
+    ``HttpApiClient`` (see the module's docstring); ``config``
     to ``ControllerConfig.from_env()``; ``max_concurrent_reconciles`` to
     the config's (4). ``mgr.client`` and ``mgr.read_cache`` are the
     ``CachingClient`` over ``store`` (reads from the cache, writes to the
@@ -119,21 +137,32 @@ def build_manager(store=None, config: ControllerConfig | None = None, *,
     core, extension = _COMPONENTS[components]
     store = store if store is not None else ClusterStore()
     config = config or ControllerConfig.from_env()
-    install_notebook_crd(store)
-    install_slicepool_crd(store)
-    install_tpuquota_crd(store)
-    if webhooks:
-        # mutating before validating, the apiserver's phase order
-        from .webhook import NotebookMutatingWebhook, NotebookValidatingWebhook
-        NotebookMutatingWebhook(store, config).install(store)
-        NotebookValidatingWebhook(config).install(store)
+    metrics = MetricsRegistry()
+    if hasattr(store, "attach_metrics"):
+        store.attach_metrics(metrics)  # rest_client_* over the wire
+    # a remote client cannot register in-process admission: there the
+    # apiserver's side holds the CRDs and the webhook configurations
+    if getattr(store, "supports_inprocess_admission", True):
+        install_notebook_crd(store)
+        install_slicepool_crd(store)
+        install_tpuquota_crd(store)
+        if webhooks:
+            # mutating before validating, the apiserver's phase order
+            from .webhook import (NotebookMutatingWebhook,
+                                  NotebookValidatingWebhook)
+            NotebookMutatingWebhook(store, config).install(store)
+            NotebookValidatingWebhook(config).install(store)
     if max_concurrent_reconciles is None:
         max_concurrent_reconciles = config.max_concurrent_reconciles
-    metrics = MetricsRegistry()
     # the manager cache: watch-fed, payload kinds and Events read live
     read_client = CachingClient(store, auto_informer=False,
                                 disable_for=("Secret", "ConfigMap", "Event"))
     read_client.attach_metrics(metrics)
+    if hasattr(store, "set_watch_gap_listener"):
+        # a dropped stream that cannot resume: its kind reads live until
+        # the resync converges the cache
+        store.set_watch_gap_listener(read_client.mark_watch_gap,
+                                     read_client.mark_watch_recovered)
     mgr = Manager(read_client, read_cache=read_client,
                   max_concurrent_reconciles=max_concurrent_reconciles)
     mgr.attach_metrics(metrics)

@@ -7,6 +7,7 @@ its own series; the controller manager registers the workqueue family
 and the two reconcile-phase histograms, the read cache its index
 counters (and the store's ring and lock-hold families), the HTTP
 apiserver its watch fan-out, cache-LIST and priority-and-fairness
+families, the HTTP client its ``rest_client_*`` and watch-resume
 families, and the registry carries the reference's five notebook series
 (components/notebook-controller/pkg/metrics/metrics.go:13-99):
 ``notebook_running`` (a gauge computed at scrape time),
@@ -87,6 +88,12 @@ METRIC_FAMILY_CATALOG = frozenset({
     "watch_fanout_bytes_total",
     "watch_frames_sent_total",
     "apiserver_cache_lists_total",
+    # the wire's client half (cluster/http_client.py)
+    "rest_client_requests_total",
+    "rest_client_retries_total",
+    "rest_client_request_duration_seconds",
+    "rest_client_connections_opened_total",
+    "watch_resumes_total",
 })
 
 # Label names per family: the cardinality contract that goes with the
@@ -110,6 +117,10 @@ METRIC_FAMILY_LABELS = {
     "notebook_running": (),
     "reconcile_read_seconds": ("controller",),
     "reconcile_write_seconds": ("controller",),
+    "rest_client_connections_opened_total": ("type",),
+    "rest_client_request_duration_seconds": ("verb",),
+    "rest_client_requests_total": ("code", "method"),
+    "rest_client_retries_total": ("reason", "verb"),
     "scheduler_admissions_total": ("outcome", "tenant"),
     "scheduler_gang_wait_seconds": ("tenant",),
     "scheduler_preemptions_total": ("outcome", "tier"),
@@ -130,6 +141,7 @@ METRIC_FAMILY_LABELS = {
     "watch_fanout_bytes_total": ("encoding",),
     "watch_frames_sent_total": ("encoding",),
     "watch_queue_coalesced_total": (),
+    "watch_resumes_total": ("kind", "mode"),
     "workqueue_adds_total": ("name",),
     "workqueue_depth": ("name",),
     "workqueue_longest_running_processor_seconds": ("name",),

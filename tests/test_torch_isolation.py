@@ -112,9 +112,11 @@ def test_port_file_list_covers_the_package():
                 "kubeflow_tpu_torch/cluster/faults.py",
                 "kubeflow_tpu_torch/cluster/apf.py",
                 "kubeflow_tpu_torch/cluster/apiserver.py",
-                "kubeflow_tpu_torch/controllers/sharding.py"):
+                "kubeflow_tpu_torch/controllers/sharding.py",
+                "kubeflow_tpu_torch/cluster/http_client.py",
+                "kubeflow_tpu_torch/cluster/remote_admission.py"):
         assert rel in PORT_FILES
-    assert len(PORT_FILES) >= 91
+    assert len(PORT_FILES) >= 93
 
 
 def _references(tree: ast.AST) -> set[str]:
@@ -221,6 +223,8 @@ import kubeflow_tpu_torch.cluster.faults
 import kubeflow_tpu_torch.cluster.apf
 import kubeflow_tpu_torch.cluster.apiserver
 import kubeflow_tpu_torch.controllers.sharding
+import kubeflow_tpu_torch.cluster.http_client
+import kubeflow_tpu_torch.cluster.remote_admission
 sys.path.insert(0, "tests")
 import torch_dist_ranks
 leaked = sorted(m for m in sys.modules

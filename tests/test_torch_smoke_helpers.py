@@ -463,3 +463,57 @@ def test_phase22_wire_on_the_cpu():
     assert all(f["write_lock"]["count"] > 0 for f in fleets)
     assert fleets[0]["fanout"]["binary"]["bytes_per_frame"] < \
         fleets[0]["fanout"]["json"]["bytes_per_frame"]
+
+
+def test_phase23_http_on_the_cpu():
+    """chip_smoke's phase-23 drive (``_http_sequence``) on the CPU at a
+    tiny size, a gloo world for the ready hook: the manager on the port's
+    ``HttpApiClient`` against the port's apiserver; notebook wcl created
+    through a second client is answered locked with the CUDA image after
+    one mutating and one validating AdmissionReview over HTTP, unlocked,
+    rolled and read SliceReady through the manager's cache; 2 steps and
+    generate equal one device's; its stitched trace has ``rest.*`` spans
+    and a ``wire`` leg above 0 and the audit log carries its trace id;
+    across an apiserver restart every watch resumes without a relist and
+    a notebook created during the outage turns SliceReady; deleted,
+    nothing is left. Then a small fleet over JSON and one over binary,
+    each under the 60 requests a notebook of the reference's bound, the
+    echo filters dropping echoes."""
+    import torch
+    import torch.distributed as dist
+
+    from chip_smoke import _http_fleet, _http_sequence
+    from kubeflow_tpu_torch.models.train import TrainConfig
+    from kubeflow_tpu_torch.models.transformer import TransformerConfig
+    from kubeflow_tpu_torch.utils import tracing
+
+    assert not dist.is_initialized()
+    c = TransformerConfig(vocab_size=512, d_model=64, n_layers=2, n_heads=4,
+                          n_kv_heads=2, d_ff=128, max_seq_len=256,
+                          dtype="float32")
+    stats, launched = _http_sequence(
+        torch, c, TrainConfig(warmup_steps=2), 2, 32, 8, 4, device="cpu",
+        timeout=60.0)
+    assert not dist.is_initialized() and not tracing.is_recording()
+    assert stats["admitted"]["reviews"] == {"/mutate-notebook-v1": 1,
+                                            "/validate-notebook-v1": 1}
+    assert len(stats["losses"]) == 2 and stats["ids_equal"]
+    assert stats["trace"]["rest_spans"] and \
+        stats["trace"]["breakdown"]["wire"] > 0
+    assert stats["audit"]["with_wcl_trace_id"] > 0
+    assert stats["resumes"]["resume"] >= 1 and \
+        stats["resumes"]["relist"] == 0
+    assert not any(v for nb in stats["after_delete"].values()
+                   for v in nb.values())
+    assert stats["requests_bringup"].get("POST", 0) > 0
+    assert not any(launched.values())
+    echoes = 0
+    for fmt in ("json", "binary"):
+        fleet = _http_fleet({"h100-1": 6, "h100-8": 3, "h100-16": 1},
+                            wire_format=fmt)
+        assert fleet["notebooks"] == 10
+        assert 0 < fleet["requests_per_notebook"] < 60, fleet
+        assert fleet["connections"]["pooled"] >= 1
+        echoes += sum(fleet["echoes_dropped"].values())
+    # over the wire a write returns before its event: echoes to drop
+    assert echoes > 0

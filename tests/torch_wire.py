@@ -11,7 +11,12 @@ codec, faults, APF, REST mapper, names, the API types) for the port's
 object of the same name, so the test's assertions hold on both runs.
 In-process cases (``errors=True``) swap the error classes and the
 metrics registry too; wire cases keep the reference's, which the
-reference's client raises and counts into.
+reference's client raises and counts into. Client cases (``client=True``)
+swap the client half as well: ``HttpApiClient`` and its module,
+``remote_admission``, ``utils.k8s``, the manager, the notebook
+reconciler and the tracing module, with the error classes and the registry, so the case runs
+reference client against reference server, then port client against
+port server.
 
 ``Tap`` records every response a side's handler writes: status, the
 ``Content-Type`` and ``Retry-After`` headers, the body (JSON, or decoded
@@ -29,6 +34,7 @@ import contextlib
 import inspect
 import json
 import struct
+import sys
 import types
 from types import SimpleNamespace
 
@@ -40,15 +46,23 @@ from kubeflow_tpu.cluster import apiserver as ref_apiserver
 from kubeflow_tpu.cluster import codec as ref_codec
 from kubeflow_tpu.cluster import errors as ref_errors
 from kubeflow_tpu.cluster import faults as ref_faults
+from kubeflow_tpu.cluster import http_client as ref_http_client
+from kubeflow_tpu.cluster import remote_admission as ref_remote_admission
 from kubeflow_tpu.cluster import restmapper as ref_restmapper
 from kubeflow_tpu.cluster import store as ref_store
 from kubeflow_tpu.cluster.http_client import HttpApiClient
+from kubeflow_tpu.controllers import manager as ref_manager
+from kubeflow_tpu.controllers import notebook as ref_notebook
+from kubeflow_tpu.utils import k8s as ref_k8s
 from kubeflow_tpu.utils import metrics as ref_metrics
 from kubeflow_tpu.utils import names as ref_names
+from kubeflow_tpu.utils import tracing as ref_tracing
 from kubeflow_tpu_torch.api import types as api
 from kubeflow_tpu_torch.cluster import (apf, apiserver, codec, errors,
-                                        faults, restmapper, store)
-from kubeflow_tpu_torch.utils import metrics, names
+                                        faults, http_client,
+                                        remote_admission, restmapper, store)
+from kubeflow_tpu_torch.controllers import manager, notebook
+from kubeflow_tpu_torch.utils import k8s, metrics, names, tracing
 from torch_parity import normalise_result
 
 TIMEOUT = 10
@@ -59,19 +73,28 @@ SIDES = {
         codec=ref_codec, faults=ref_faults, apf=ref_apf,
         restmapper=ref_restmapper, names=ref_names, api=ref_api,
         errors=ref_errors, metrics=ref_metrics,
-        ClusterStore=ref_store.ClusterStore,
-        ApiServerProxy=ref_apiserver.ApiServerProxy),
+        http_client=ref_http_client, remote_admission=ref_remote_admission,
+        k8s=ref_k8s, manager=ref_manager, notebook=ref_notebook,
+        tracing=ref_tracing, ClusterStore=ref_store.ClusterStore,
+        ApiServerProxy=ref_apiserver.ApiServerProxy,
+        HttpApiClient=ref_http_client.HttpApiClient),
     "port": SimpleNamespace(
         side="port", store=store, apiserver=apiserver, codec=codec,
         faults=faults, apf=apf, restmapper=restmapper, names=names,
         api=api, errors=errors, metrics=metrics,
+        http_client=http_client, remote_admission=remote_admission,
+        k8s=k8s, manager=manager, notebook=notebook, tracing=tracing,
         ClusterStore=store.ClusterStore,
-        ApiServerProxy=apiserver.ApiServerProxy)}
+        ApiServerProxy=apiserver.ApiServerProxy,
+        HttpApiClient=http_client.HttpApiClient)}
 
 # the modules of the server half whose names a reference test may hold:
 # (attribute of a side, swapped for every case)
 _SERVER_HALF = ("store", "apiserver", "codec", "faults", "apf",
                 "restmapper", "names", "api")
+# the client half, swapped for a client case with the errors and metrics
+_CLIENT_HALF = ("http_client", "remote_admission", "k8s", "manager",
+                "notebook", "tracing", "errors", "metrics")
 
 
 def _twin(name: str, value, flags: tuple[str, ...]):
@@ -101,11 +124,13 @@ def _twin(name: str, value, flags: tuple[str, ...]):
 
 @contextlib.contextmanager
 def side_globals(mp: pytest.MonkeyPatch, module, side: str, *,
-                 errors: bool = False):
+                 errors: bool = False, client: bool = False):
     """For the port's run, swap the reference's server-half names in
-    ``module``'s globals for the port's (restored on the way out)."""
+    ``module``'s globals for the port's (restored on the way out); with
+    ``client`` the client half's too."""
     if side == "port":
-        flags = ("errors", "metrics") if errors else ()
+        flags = _CLIENT_HALF if client else \
+            ("errors", "metrics") if errors else ()
         for name, value in list(vars(module).items()):
             if name.startswith("__"):
                 continue
@@ -113,6 +138,20 @@ def side_globals(mp: pytest.MonkeyPatch, module, side: str, *,
             if twin is not None and twin is not value:
                 mp.setattr(module, name, twin)
     yield
+
+
+def inline_modules(mp: pytest.MonkeyPatch, side: str,
+                   attrs: tuple[str, ...]) -> None:
+    """For the port's run, make an import of each named reference module
+    inside a case's body (``from kubeflow_tpu.utils.metrics import
+    MetricsRegistry`` in a function) find the port's module: its
+    ``sys.modules`` entry is swapped until the case's MonkeyPatch
+    undoes it."""
+    if side != "port":
+        return
+    for attr in attrs:
+        ref_mod = getattr(SIDES["ref"], attr)
+        mp.setitem(sys.modules, ref_mod.__name__, getattr(SIDES["port"], attr))
 
 
 # ------------------------------------------------------------------ tap
@@ -261,8 +300,11 @@ def served(s, st=None, **kw):
 
 
 @contextlib.contextmanager
-def client_of(proxy, **kw):
-    cl = HttpApiClient(proxy.url, **kw)
+def client_of(proxy, s=None, **kw):
+    """The reference's client on ``proxy``, or side ``s``'s; closed on
+    the way out."""
+    cls = HttpApiClient if s is None else s.HttpApiClient
+    cl = cls(proxy.url, **kw)
     try:
         yield cl
     finally:
@@ -351,17 +393,23 @@ def run_both(run) -> dict:
 
 def wire_case(module, name: str, s, mp: pytest.MonkeyPatch, *,
               tmp_path=None, client_kw: dict | None = None,
-              errors: bool = False, **extra) -> tuple:
+              errors: bool = False, client: bool = False,
+              inline: tuple[str, ...] = (), **extra) -> tuple:
     """Run reference test ``module.name`` against side ``s``'s server,
     with the fixtures it names built on that side (``store``, ``server``,
     ``client``, ``json_client``, ``bin_client``, ``proxy`` as the
-    reference's fixtures build them, ``monkeypatch``, ``tmp_path``);
+    reference's fixtures build them, ``monkeypatch``, ``tmp_path``), with
+    the reference's client, or with ``client`` the side's own (and the
+    ``inline`` modules the body imports swapped, ``inline_modules``);
     returns the side's tap and the ``store`` fixture."""
     fn = getattr(module, name)
     params = inspect.signature(fn).parameters
     tap = Tap(s, mp)
+    cs = s if client else None
     with contextlib.ExitStack() as stack:
-        stack.enter_context(side_globals(mp, module, s.side, errors=errors))
+        stack.enter_context(side_globals(mp, module, s.side, errors=errors,
+                                         client=client))
+        inline_modules(mp, s.side, inline)
         values = {"monkeypatch": mp, "tmp_path": tmp_path, **extra}
         st = s.ClusterStore()
         values["store"] = st
@@ -371,10 +419,10 @@ def wire_case(module, name: str, s, mp: pytest.MonkeyPatch, *,
             values["server"] = proxy
             values["proxy"] = (st, proxy)
             values["client"] = stack.enter_context(
-                client_of(proxy, **(client_kw or {})))
+                client_of(proxy, cs, **(client_kw or {})))
             values["json_client"] = values["client"]
             values["bin_client"] = stack.enter_context(
-                client_of(proxy, wire_format="binary",
+                client_of(proxy, cs, wire_format="binary",
                           **(client_kw or {})))
         call_case(fn, values)
     return tap, st
