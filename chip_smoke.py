@@ -29,10 +29,12 @@ provisioned it; admits one through the port's own webhooks; and
 creates, watches and resumes one over the port's own apiserver, its
 culler probing the card's server through the apiserver's service
 proxy; and reconciles one with the manager on the port's own HTTP
-client, admitted by AdmissionReview, across an apiserver restart. The
-kernels' launch
-counters, zeroed before each path and read after it, show that each path
-ran its kernels.
+client, admitted by AdmissionReview, across an apiserver restart; and
+runs the control plane as the port's own binaries, a leader-elected
+pair of core managers and an extension manager, each a process, driven
+by the port's CLI, the leader handing over on SIGTERM. The kernels'
+launch counters, zeroed before each path and read after it, show that
+each path ran its kernels.
 Then it times each kernel beside its bound, its plain version and one
 PyTorch library call computing the same function.
 
@@ -229,8 +231,9 @@ Phases (any failure exits non-zero before the result line):
      phase 15's 100-notebook fleet twice in turns, without and with the
      scheduler (reconciles, writes, cache lookups and full scans);
   19. the extension reconciler on the card (``_ext_sequence``):
-     ``build_manager(components="all")`` under ``start()``; an h100-1
-     notebook created with the reconciliation lock and auth on stays at
+     ``build_manager(components="all", webhooks=False)`` under
+     ``start()``; an h100-1 notebook created with the reconciliation
+     lock and auth on stays at
      0 replicas with no pod until its finalizers, auth objects,
      NetworkPolicies, route, ReferenceGrant, trust bundle and runtime
      images exist, then is unlocked, rolled and trains 2 steps in its
@@ -241,7 +244,7 @@ Phases (any failure exits non-zero before the result line):
      port's AdmissionReview server on 127.0.0.1 (a CREATE review's
      JSONPatch equal to the in-process mutation, host ms per review; an
      h100-3 request denied 403; a body that is not JSON 400); then
-     ``build_manager(components="all", webhooks=True)`` under
+     ``build_manager(components="all")`` (the webhooks in process) under
      ``start()``: an h100-1 notebook created with a JAX image and no
      lock is stored locked with the CUDA image and the kube-rbac-proxy
      sidecar, unlocked by the extension and rolled to SliceReady (CR →
@@ -256,7 +259,7 @@ Phases (any failure exits non-zero before the result line):
      ``FlightRecorder`` in a recording ``SDKProvider``, a JSON log
      handler with the ``CorrelationFilter`` and a ``HealthServer`` with
      the manager's registry and the recorder; on ``build_manager(
-     components="all", webhooks=True)`` an h100-1 notebook with a JAX
+     components="all")`` an h100-1 notebook with a JAX
      image is locked and swapped by the webhook (its root span with the
      image-swapped event), stamped once with the trace-context
      annotation, unlocked and rolled to SliceReady in its world (CR →
@@ -272,7 +275,7 @@ Phases (any failure exits non-zero before the result line):
      CPU seconds, spans, traces held, notebooks traced);
   22. the wire's server half on the card (``_wire_sequence``): the
      port's ``ApiServerProxy`` (APF on) over its sharded store beside
-     ``build_manager(components="all", webhooks=True)``; over HTTP a
+     ``build_manager(components="all")``; over HTTP a
      LIST's anchor rv, a JSON and a binary watch from it, an h100-1
      notebook POSTed with a JAX image (201, locked, the CUDA image) and
      rolled to SliceReady in its world (host ms); both streams the same
@@ -310,6 +313,25 @@ Phases (any failure exits non-zero before the result line):
      then phase 15's fleet with the manager on the client, JSON and
      binary (SliceReady s, CPU s, requests per notebook by method under
      60, connections opened, echoes dropped);
+  24. the control plane as the port's binaries on the card
+     (``_binary_sequence``): the apiserver's side in this process, three
+     controller processes against it, two core managers (``python -m
+     kubeflow_tpu_torch.main --leader-elect --components core
+     --trace-debug``) and one extension manager serving the admission
+     webhooks (``--components extension --webhook-port``), with 6 s
+     leases; one ``python -m kubeflow_tpu_torch.cli apply -f`` registers
+     the webhooks and creates an h100-1 notebook with a JAX image, stored
+     locked with the CUDA image, unlocked by the extension and rolled by
+     the leader to SliceReady (host ms; the standby reconciles nothing),
+     which ``cli get -o json`` reads; 2 steps bit-equal to phase 23's and
+     to one device's, ``generate`` ids equal; ``cli trace`` renders the
+     stamped trace from the leader's debug endpoint; SIGTERM to the
+     leader: exit 0, the standby holds the Lease (host ms, under half
+     the lease); ``cli stop`` through the new leader; an apiserver outage
+     opens its breaker (readyz 503 on ``apiserver``,
+     ``apiserver_breaker_state`` 2), the restart closes it and resyncs;
+     ``cli delete`` leaves nothing; every process exits 0 on SIGTERM and
+     releases its Lease;
   5. times of each kernel, its plain version and a library call (last, so
      the paths above run on a card not yet warmed by timing loops), with
      the achieved TFLOP/s, the share of the bound, the forward, dK/dV and
@@ -3689,8 +3711,9 @@ def _notebook_fleet(n_by_shape: dict, namespaces: int = 10,
     from kubeflow_tpu_torch.utils import k8s, names
 
     store = store if store is not None else ClusterStore()
-    mgr = build_manager(store, config, simulate_kubelet=True,
-                        max_concurrent_reconciles=4, components=components)
+    mgr, _ = build_manager(store, config, simulate_kubelet=True,
+                           max_concurrent_reconciles=4,
+                           components=components, webhooks=False)
     created: dict = {}
     ready: dict = {}
 
@@ -3999,8 +4022,8 @@ def phase_bootstrap(torch, flagship) -> tuple[dict, dict]:
     config = ControllerConfig(dev_mode=True, dev_proxy_url=proxy.url,
                               cull_idle_time_min=60,
                               idleness_check_period_min=1)
-    mgr = build_manager(store, config, simulate_kubelet=True,
-                        ready_hook=gate)
+    mgr, _ = build_manager(store, config, simulate_kubelet=True,
+                           ready_hook=gate, components="core")
     offset = [0.0]
     CullingReconciler(mgr.client, config, mgr.metrics,
                       clock=lambda: time.time() + offset[0]).setup(mgr)
@@ -4441,8 +4464,8 @@ def _quarantine_sequence(ns: str = "quarantine-ns",
                               slice_repair_backoff_base_s=1.0,
                               slice_repair_backoff_max_s=5.0)
     gate = _WedgedGate(name)
-    mgr = build_manager(store, config, simulate_kubelet=True,
-                        ready_hook=gate)
+    mgr, _ = build_manager(store, config, simulate_kubelet=True,
+                           ready_hook=gate, components="core")
     require("slice-repair-controller" not in mgr._reconcilers,
             "phase16: enable_slice_repair=False registered a repairer")
     offset = [0.0]
@@ -4588,8 +4611,8 @@ def phase_repair(torch, flagship) -> tuple[dict, dict]:
             "flash_attention_bwd_dq")
     gate = _SliceGate(nb_name)
     store = ClusterStore()
-    mgr = build_manager(store, ControllerConfig(), simulate_kubelet=True,
-                        ready_hook=gate)
+    mgr, _ = build_manager(store, ControllerConfig(), simulate_kubelet=True,
+                           ready_hook=gate, components="core")
     require("slice-repair-controller" in mgr._reconcilers,
             "phase16: build_manager registered no slice repair reconciler")
     root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
@@ -4966,8 +4989,8 @@ def _pool_sequence(torch, c, tc, B: int, S: int, prompt_len: int,
     gate = _PoolGate(checker, _SliceGate(cold_name))
     store = ClusterStore()
     config = ControllerConfig(enable_slice_repair=False)
-    mgr = build_manager(store, config, simulate_kubelet=True,
-                        ready_hook=gate)
+    mgr, _ = build_manager(store, config, simulate_kubelet=True,
+                           ready_hook=gate, components="core")
     require("slice-pool-controller" in mgr._reconcilers and
             "slice-repair-controller" not in mgr._reconcilers,
             f"phase17: build_manager registered {sorted(mgr._reconcilers)}")
@@ -5438,8 +5461,8 @@ def _sched_sequence(torch, c, tc, B: int, S: int, prompt_len: int,
     config = ControllerConfig(sched_default_capacity=1,
                               sched_admission_grace_s=1.0,
                               sched_poll_s=3600.0)
-    mgr = build_manager(store, config, simulate_kubelet=True,
-                        ready_hook=hook)
+    mgr, _ = build_manager(store, config, simulate_kubelet=True,
+                           ready_hook=hook, components="core")
     sched = mgr._reconcilers.get("fleet-scheduler")
     require(sched is not None, f"phase18: build_manager registered "
                                f"{sorted(mgr._reconcilers)}")
@@ -5775,8 +5798,8 @@ def _ext_sequence(torch, c, tc, B: int, S: int, prompt_len: int,
                   new: int, device: str = "cuda",
                   timeout: float = 180.0) -> tuple[dict, dict]:
     """Phase 19's drive at any size, on ``device`` ("cuda": an NCCL
-    world; "cpu": gloo, the tests): ``build_manager(components="all")``
-    under ``start()``, the simulator gated by a ``_SliceGate`` for
+    world; "cpu": gloo, the tests): ``build_manager(components="all",
+    webhooks=False)`` under ``start()``, the simulator gated by a ``_SliceGate`` for
     notebook ``wb``. The controller namespace first gets the cluster's
     trust bundle (a valid PEM block and a garbage one) and a runtime-image
     ImageStream. In order: ``wb`` (h100-1, auth on) is created with the
@@ -5892,8 +5915,9 @@ def _ext_sequence(torch, c, tc, B: int, S: int, prompt_len: int,
     store.watch(api.KIND, on_notebook)
     store.watch("StatefulSet", on_sts)
     store.watch("Pod", on_pod)
-    mgr = build_manager(store, config, simulate_kubelet=True,
-                        components="all", ready_hook=gate)
+    mgr, _ = build_manager(store, config, simulate_kubelet=True,
+                           components="all", webhooks=False,
+                           ready_hook=gate)
     ext = mgr._reconcilers.get("extension-controller")
     require(ext is not None and "notebook-controller" in mgr._reconcilers,
             f"phase19: build_manager(components='all') registered "
@@ -6330,7 +6354,7 @@ def _admission_sequence(torch, c, tc, B: int, S: int, prompt_len: int,
                         timeout: float = 180.0) -> tuple[dict, dict]:
     """Phase 20's drive at any size, on ``device`` ("cuda": an NCCL
     world; "cpu": gloo, the tests). First ``_admission_server_checks``.
-    Then ``build_manager(components="all", webhooks=True)`` under
+    Then ``build_manager(components="all")`` (the webhooks in process) under
     ``start()``, the simulator gated by a ``_SliceGate`` for notebook
     ``adm``: ``adm`` (h100-1, a JAX image, auth on, the MLflow
     annotation) is created with no stop annotation; the webhook stores
@@ -6414,8 +6438,8 @@ def _admission_sequence(torch, c, tc, B: int, S: int, prompt_len: int,
     store.watch(api.KIND, on_notebook)
     store.watch("StatefulSet", on_sts)
     store.watch("Pod", on_pod)
-    mgr = build_manager(store, config, simulate_kubelet=True,
-                        components="all", webhooks=True, ready_hook=gate)
+    mgr, _ = build_manager(store, config, simulate_kubelet=True,
+                           components="all", ready_hook=gate)
 
     def wait(what: str, cond) -> float:
         def ok():
@@ -6765,8 +6789,8 @@ def _trace_sequence(torch, c, tc, B: int, S: int, prompt_len: int,
     out before it is read), a ``JsonFormatter`` handler with the
     ``CorrelationFilter`` on a ``StringIO`` (on the port's loggers, at
     INFO) and a ``HealthServer`` on 127.0.0.1 with the manager's
-    registry and the recorder. Then ``build_manager(components="all",
-    webhooks=True)`` under ``start()``, the simulator gated by a
+    registry and the recorder. Then ``build_manager(components="all")``
+    (the webhooks in process) under ``start()``, the simulator gated by a
     ``_SliceGate`` for notebook ``trc`` (h100-1, a JAX image): the
     webhook stores it locked with the CUDA image, the notebook
     reconciler stamps it once with the trace-context annotation, the
@@ -6860,9 +6884,8 @@ def _trace_sequence(torch, c, tc, B: int, S: int, prompt_len: int,
     launched: dict = {}
     try:
         tracing.set_provider(tracing.SDKProvider(recorder))
-        mgr = build_manager(store, config, simulate_kubelet=True,
-                            components="all", webhooks=True,
-                            ready_hook=gate)
+        mgr, _ = build_manager(store, config, simulate_kubelet=True,
+                               components="all", ready_hook=gate)
         health = HealthServer(metrics_registry=mgr.metrics,
                               host="127.0.0.1", port=0,
                               flight_recorder=recorder)
@@ -7408,8 +7431,8 @@ def _wire_sequence(torch, c, tc, B: int, S: int, prompt_len: int,
     """Phase 22's drive at any size, on ``device`` ("cuda": an NCCL
     world; "cpu": gloo, the tests). The port's ``ClusterStore()`` (8
     shards) behind its ``ApiServerProxy`` on 127.0.0.1 (APF on, metrics
-    attached), and beside it ``build_manager(components="all",
-    webhooks=True)`` on the same store under ``start()``, the simulator
+    attached), and beside it ``build_manager(components="all")`` (the
+    webhooks in process) on the same store under ``start()``, the simulator
     gated by a ``_SliceGate`` for notebook ``wir``, the idle culler in
     dev mode probing through the apiserver (``dev_proxy_url``) on a
     clock the phase advances. Over HTTP: a LIST of Notebooks gives the
@@ -7499,9 +7522,8 @@ def _wire_sequence(torch, c, tc, B: int, S: int, prompt_len: int,
                                   cull_idle_time_min=60,
                                   idleness_check_period_min=1)
         central = config.controller_namespace
-        mgr = build_manager(store, config, simulate_kubelet=True,
-                            components="all", webhooks=True,
-                            ready_hook=gate)
+        mgr, _ = build_manager(store, config, simulate_kubelet=True,
+                               components="all", ready_hook=gate)
         offset = [0.0]
         CullingReconciler(mgr.client, config, mgr.metrics,
                           clock=lambda: time.time() + offset[0]).setup(mgr)
@@ -8050,8 +8072,8 @@ def _http_fleet(n_by_shape: dict, wire_format: str = "json",
         stops.append(proxy.stop)
         client = HttpApiClient(proxy.url, wire_format=wire_format)
         with _EchoDrops() as echoes:
-            mgr = build_manager(client, max_concurrent_reconciles=4,
-                                components=components)
+            mgr, _ = build_manager(client, max_concurrent_reconciles=4,
+                                   components=components)
             mgr.start()
             requests = mgr.metrics.counter("rest_client_requests_total", "")
             _settle(requests.total, "the controllers' requests", phase,
@@ -8233,7 +8255,7 @@ def _http_sequence(torch, c, tc, B: int, S: int, prompt_len: int,
             tracing.set_provider(tracing.SDKProvider(recorder))
             client = HttpApiClient(proxy.url)
             plugins = len(store._admission)
-            mgr = build_manager(client, config, components="all")
+            mgr, _ = build_manager(client, config, components="all")
             requests = mgr.metrics.counter("rest_client_requests_total", "")
             require(not client.supports_inprocess_admission and
                     len(store._admission) == plugins,
@@ -8537,6 +8559,501 @@ def phase_http(torch, flagship, wire_losses: list) -> tuple[dict, dict]:
           f"({stats['seconds'] + time.monotonic() - t0:.1f} s with the "
           f"fleets), peak {stats['peak_mem_gb']:.3f} GB; launches "
           f"{launched} ({CARD[0]})", flush=True)
+    return stats, launched
+
+
+CORE_LEASE = "kubeflow-tpu-notebook-controller-leader"
+EXTENSION_LEASE = "kubeflow-tpu-extension-controller-leader"
+
+
+def _spawn_binary(module: str, args: list, log_path: str,
+                  env_extra: dict | None = None):
+    """``python -m <module> <args>`` from the checkout this file sits in
+    (``PYTHONPATH`` set to it), stdout and stderr appended to
+    ``log_path``; the caller kills it."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=here, **(env_extra or {}))
+    with open(log_path, "ab") as log:
+        return subprocess.Popen([sys.executable, "-m", module, *args],
+                                cwd=here, env=env, stdout=log,
+                                stderr=subprocess.STDOUT)
+
+
+def _cli(url: str, args: list, timeout: float = 120.0):
+    """One ``python -m kubeflow_tpu_torch.cli --server <url> <args>``
+    process, run to its end: (exit code, stdout, stderr)."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    out = subprocess.run(
+        [sys.executable, "-m", "kubeflow_tpu_torch.cli", "--server", url,
+         *args], cwd=here, env=dict(os.environ, PYTHONPATH=here,
+                                    CUDA_VISIBLE_DEVICES=""),
+        capture_output=True, text=True, timeout=timeout)
+    return out.returncode, out.stdout, out.stderr
+
+
+def _http_get(url: str, timeout: float = 5.0) -> tuple:
+    """(status, body) of a GET; (None, "") when nothing answers."""
+    try:
+        with urllib.request.urlopen(url, timeout=timeout) as resp:
+            return resp.status, resp.read().decode()
+    except urllib.error.HTTPError as err:
+        with err:
+            return err.code, err.read().decode()
+    except OSError:
+        return None, ""
+
+
+def _metric(text: str, family: str, **labels) -> float:
+    """The sum of ``family``'s samples in an exposition whose labels
+    include ``labels``."""
+    pat = re.compile(rf"^{family}(?:\{{([^}}]*)\}})? (\S+)")
+    total = 0.0
+    for line in text.splitlines():
+        m = pat.match(line)
+        if m and all(f'{k}="{v}"' in (m.group(1) or "")
+                     for k, v in labels.items()):
+            total += float(m.group(2))
+    return total
+
+
+def _binary_sequence(torch, c, tc, B: int, S: int, prompt_len: int,
+                     new: int, device: str = "cuda",
+                     timeout: float = 180.0, lease_s: float = 6.0,
+                     renew_s: float = 0.2) -> tuple[dict, dict]:
+    """Phase 24's drive at any size, on ``device`` ("cuda": an NCCL
+    world; "cpu": gloo, the tests): the control plane as the port's own
+    binaries, each a process of its own.
+
+    The apiserver's side stays in this process (``_server_side``: the
+    store, its CRDs, the simulator gated by a ``_SliceGate`` for notebook
+    ``bin``, an ``ApiServerProxy`` with an audit log). Three controller
+    processes against it: two core managers A and B (``python -m
+    kubeflow_tpu_torch.main --api-server URL --leader-elect --components
+    core --health-port P --trace-debug``) and one extension manager E
+    (``--components extension --leader-elect --webhook-port Q``), the
+    leases short through ``LEADER_LEASE_DURATION`` (``lease_s``) and
+    ``LEADER_RENEW_PERIOD`` (``renew_s``). One ``python -m
+    kubeflow_tpu_torch.cli apply -f`` creates the two webhook
+    configurations pointing at E's AdmissionServer and then the h100-1
+    notebook with a JAX image: it is stored locked with the CUDA image,
+    E unlocks it, the leader among A and B rolls it (its reconciles
+    counted on its ``/metrics``, the standby's 0), ``cli get -o json``
+    reads SliceReady. In its world a ``Trainer(mesh=...)`` takes 2 steps
+    (held to one device's) and ``generate`` on ``shard_decode_params``
+    is held to the one-device ``generate``; ``cli trace`` renders its
+    stamped trace from the leader's debug endpoint. Then SIGTERM to the
+    leader: it exits 0, its Lease released, and the standby holds it
+    well under ``lease_s``; ``cli stop`` takes the notebook to 0 replicas
+    through the new leader; the apiserver stops until the new leader's
+    breaker opens (readyz fails on ``apiserver``,
+    ``apiserver_breaker_state`` 2) and comes back on the same port: the
+    breaker closes and ``resync_all`` re-enqueues (its
+    ``workqueue_retries_total`` grows); ``cli delete`` leaves nothing;
+    SIGTERM to the new leader and E, each exiting 0. Every process is
+    killed, every server stopped, in a ``finally`` (a failed run prints
+    each process's log tail). Returns (stats, the launches of the main
+    path: the 2 steps and the ``generate``, each counted from 0)."""
+    import copy
+    import signal
+    import tempfile
+
+    import torch.distributed as dist
+
+    from kubeflow_tpu_torch import ops
+    from kubeflow_tpu_torch.api import types as api
+    from kubeflow_tpu_torch.cluster.apiserver import ApiServerProxy
+    from kubeflow_tpu_torch.models.decode import generate
+    from kubeflow_tpu_torch.parallel.mesh import (MeshConfig, build_mesh,
+                                                  leave_world)
+    from kubeflow_tpu_torch.runtime.data import synthetic_lm_batches
+    from kubeflow_tpu_torch.runtime.sharded_decode import shard_decode_params
+    from kubeflow_tpu_torch.runtime.trainer import Trainer
+    from kubeflow_tpu_torch.utils import k8s, names, tracing
+    from kubeflow_tpu_torch.utils.config import (DEFAULT_GPU_IMAGE,
+                                                 ControllerConfig)
+    from kubeflow_tpu_torch.webhook.server import MUTATE_PATH, VALIDATE_PATH
+
+    require(not dist.is_initialized(), "phase24: a world is still formed")
+    t_phase = time.monotonic()
+    V = c.vocab_size
+    ns, name = "bin-ns", "bin"
+    jax_image = "jupyter/jax-notebook:latest"
+    stats: dict = {}
+    launched: dict = {}
+    central = ControllerConfig().controller_namespace
+    gate = _SliceGate(name, device)
+    work = tempfile.mkdtemp(prefix="phase24-")
+    audit = os.path.join(work, "audit.ndjson")
+    store, sim_mgr, proxy = _server_side(ready_hook=gate, audit_log=audit)
+    seen: dict = {}
+
+    def on_notebook(event) -> None:
+        if k8s.name(event.obj) != name or event.type == "DELETED":
+            return
+        now = time.monotonic()
+        if "created" not in seen:
+            seen["created"] = (now, copy.deepcopy(event.obj))
+        if "ready" not in seen and k8s.condition_true(
+                event.obj, api.CONDITION_SLICE_READY):
+            seen["ready"] = now
+    store.watch(api.KIND, on_notebook)
+    ports = {k: _free_port() for k in ("a", "b", "e", "webhook")}
+    logs = {k: os.path.join(work, f"{k}.log") for k in ("a", "b", "e")}
+    env = {"LEADER_LEASE_DURATION": str(lease_s),
+           "LEADER_RENEW_PERIOD": str(renew_s), "CUDA_VISIBLE_DEVICES": ""}
+    procs: dict = {}
+    trainer = None
+    done = False
+
+    def wait(what: str, cond, limit: float = timeout) -> float:
+        def ok():
+            require(gate.error is None,
+                    f"phase24: the ready hook failed while waiting for "
+                    f"{what}: {gate.error!r}")
+            for k, p in procs.items():
+                require(p.poll() is None or k in stats.get("exited", {}),
+                        f"phase24: process {k} exited {p.returncode} while "
+                        f"waiting for {what}")
+            return cond()
+        return _wait_for(what, ok, limit, phase="phase24")
+
+    def health(k: str, path: str) -> tuple:
+        return _http_get(f"http://127.0.0.1:{ports[k]}{path}")
+
+    def lease_holder(lease: str):
+        obj = store.get_or_none("Lease", central, lease)
+        return obj["spec"].get("holderIdentity") if obj else None
+
+    def identity(k: str):
+        with open(logs[k], errors="replace") as fh:
+            m = re.search(rf"became leader for \S+/{CORE_LEASE} as (\S+)",
+                          fh.read())
+        return m.group(1) if m else None
+
+    def reconciles(k: str) -> float:
+        return _metric(health(k, "/metrics")[1],
+                       "controller_runtime_reconcile_total",
+                       controller="notebook-controller")
+
+    stops: list = []   # each server once started
+    try:
+        sim_mgr.start()
+        stops.append(sim_mgr.stop)
+        proxy.start()
+        stops.append(proxy.stop)
+        url = proxy.url
+        core = ["--api-server", url, "--leader-elect", "--components",
+                "core", "--webhook-port", "0", "--trace-debug"]
+        t_spawn = time.monotonic()
+        for k in ("a", "b"):
+            procs[k] = _spawn_binary(
+                "kubeflow_tpu_torch.main",
+                core + ["--health-port", str(ports[k])], logs[k], env)
+        procs["e"] = _spawn_binary(
+            "kubeflow_tpu_torch.main",
+            ["--api-server", url, "--leader-elect", "--components",
+             "extension", "--webhook-port", str(ports["webhook"]),
+             "--health-port", str(ports["e"])], logs["e"], env)
+        wait("A, B and E ready (readyz 200)", lambda: all(
+            health(k, "/readyz")[0] == 200 for k in ("a", "b", "e")))
+        wait("the core and the extension Lease held", lambda: all(
+            lease_holder(lease) for lease in (CORE_LEASE, EXTENSION_LEASE)))
+        stats["start_s"] = time.monotonic() - t_spawn
+        holder = lease_holder(CORE_LEASE)
+        wait("the leader's log naming its identity",
+             lambda: holder in (identity("a"), identity("b")))
+        lead = "a" if identity("a") == holder else "b"
+        standby = "b" if lead == "a" else "a"
+        stats["leader"] = {"process": lead, "identity": holder,
+                           "extension": lease_holder(EXTENSION_LEASE)}
+
+        # 1. one cli apply: the webhook configurations, then the notebook
+        hook = f"http://127.0.0.1:{ports['webhook']}"
+        docs = [_webhook_configuration("MutatingWebhookConfiguration",
+                                       "bin-mutating", hook + MUTATE_PATH),
+                _webhook_configuration("ValidatingWebhookConfiguration",
+                                       "bin-validating",
+                                       hook + VALIDATE_PATH),
+                api.new_notebook(name, ns, image=jax_image, annotations={
+                    names.TPU_ACCELERATOR_ANNOTATION: "h100-1"})]
+        manifest = os.path.join(work, "bin.json")
+        with open(manifest, "w") as fh:
+            fh.write("\n---\n".join(json.dumps(d) for d in docs))
+        rc, out, err = _cli(url, ["apply", "-f", manifest])
+        stats["apply"] = {"rc": rc, "out": out.strip().splitlines()}
+        require(rc == 0 and f"notebook/{name} created" in out,
+                f"phase24: cli apply rc {rc}: {out} {err}")
+        t_created, created = seen["created"]
+        stats["admitted"] = {
+            "lock": k8s.get_annotation(created, names.STOP_ANNOTATION),
+            "image": api.notebook_container(created)["image"]}
+        require(stats["admitted"] == {"lock": names.RECONCILIATION_LOCK_VALUE,
+                                      "image": DEFAULT_GPU_IMAGE},
+                f"phase24: stored {stats['admitted']}")
+        wait("SliceReady on bin", lambda: "ready" in seen)
+        stats["ready_ms"] = (seen["ready"] - t_created) * 1e3
+        stats["world"] = gate.worlds[-1]
+        rc, out, err = _cli(url, ["-n", ns, "get", "notebook", name,
+                                  "-o", "json"])
+        got = json.loads(out) if rc == 0 else {}
+        stats["cli_get"] = {"rc": rc, "SliceReady": (api.get_condition(
+            got, api.CONDITION_SLICE_READY) or {}).get("status")}
+        require(stats["cli_get"] == {"rc": 0, "SliceReady": "True"},
+                f"phase24: cli get {stats['cli_get']}: {err}")
+        stats["reconciles"] = {"leader": reconciles(lead),
+                               "standby": reconciles(standby)}
+        require(stats["reconciles"]["leader"] > 0 and
+                stats["reconciles"]["standby"] == 0,
+                f"phase24: notebook reconciles {stats['reconciles']}")
+
+        # 2. two steps and generate on the card in bin's world
+        src = synthetic_lm_batches(B, S, V, seed=0)
+        batches = [next(src) for _ in range(2)]
+        rng = torch.Generator().manual_seed(7)
+        prompt = torch.randint(0, V, (B, prompt_len),
+                               generator=rng).to(device)
+        world = stats["world"]
+        mesh = build_mesh(MeshConfig.auto(world["report"]["device_count"]),
+                          device)
+        ops.reset_launch_counts()
+        trainer = Trainer(c, tc, seed=0, mesh=mesh)
+        trainer.fit(batches, steps=2, log_every=1)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        counts_train = ops.launch_counts()
+        ops.reset_launch_counts()
+        ids = generate(shard_decode_params(trainer.params, mesh, c),
+                       prompt, c, new)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        counts_gen = ops.launch_counts()
+        want_ids = generate(trainer.params, prompt, c, new)
+        losses = [x for _, x in trainer.stats.losses]
+        trainer.close()
+        trainer = None
+        one = Trainer(c, tc, seed=0, device=device)
+        one.fit(batches, steps=2, log_every=1)
+        want_losses = [x for _, x in one.stats.losses]
+        one.close()
+        del one
+        ops.reset_launch_counts()     # the comparisons' launches
+        gc.collect()
+        for counts in (counts_train, counts_gen):
+            for k, n in counts.items():
+                launched[k] = launched.get(k, 0) + n
+        stats.update({"losses": losses, "launches_train": counts_train,
+                      "ids_equal": bool(torch.equal(ids, want_ids)),
+                      "launches_generate": counts_gen})
+        require(stats["ids_equal"], "phase24: bin's generate differs from "
+                                    "one device's")
+        require(losses == want_losses and len(losses) == 2 and
+                all(math.isfinite(x) for x in losses),
+                f"phase24: bin's losses {losses} differ from one device's "
+                f"{want_losses}")
+        leave_world()
+
+        # 3. cli trace: the stamped trace from the leader's debug endpoint
+        stamp = tracing.parse_traceparent(k8s.get_annotation(
+            store.get(api.KIND, ns, name), names.TRACE_CONTEXT_ANNOTATION))
+        require(stamp is not None, "phase24: bin carries no trace stamp")
+        trace_id = f"{stamp.trace_id:032x}"
+        rc, out, err = _cli(url, ["-n", ns, "trace", name, "--debug-server",
+                                  f"http://127.0.0.1:{ports[lead]}"])
+        stats["cli_trace"] = {
+            "rc": rc, "traces": len(re.findall(r"^Trace \d+/", out, re.M)),
+            "stamped_shown": trace_id in out,
+            "critical_path": sum(1 for ln in out.splitlines()
+                                 if ln.lstrip().startswith("*")),
+            "lifecycle": next((ln for ln in out.splitlines()
+                               if ln.startswith("Lifecycle:")), None)}
+        require(rc == 0 and stats["cli_trace"]["stamped_shown"] and
+                stats["cli_trace"]["lifecycle"],
+                f"phase24: cli trace {stats['cli_trace']}: {err}")
+
+        # 4. SIGTERM the leader: exit 0, its Lease released, B adopts
+        t_term = time.monotonic()
+        procs[lead].send_signal(signal.SIGTERM)
+        stats.setdefault("exited", {})[lead] = rc = procs[lead].wait(
+            timeout=60)
+        stats["leader_exit_ms"] = (time.monotonic() - t_term) * 1e3
+        require(rc == 0, f"phase24: the leader exited {rc}")
+        wait("the standby holding the core Lease", lambda: (
+            lambda ident: ident is not None and
+            lease_holder(CORE_LEASE) == ident)(identity(standby)),
+             lease_s * 4)
+        stats["handover_ms"] = (time.monotonic() - t_term) * 1e3
+        require(stats["handover_ms"] < lease_s * 1e3 / 2,
+                f"phase24: handover took {stats['handover_ms']:.1f} ms of "
+                f"a {lease_s} s lease")
+        before = reconciles(standby)
+
+        # 5. cli stop: 0 replicas through the new leader
+        t_stop = time.monotonic()
+        rc, out, err = _cli(url, ["-n", ns, "stop", "notebook", name])
+        require(rc == 0, f"phase24: cli stop rc {rc}: {err}")
+        wait("bin at 0 replicas", lambda: (store.get_or_none(
+            "StatefulSet", ns, name) or {}).get("spec", {}).get(
+            "replicas") == 0 and not store.list("Pod", ns))
+        stats["stop_ms"] = (time.monotonic() - t_stop) * 1e3
+        stats["new_leader_reconciles"] = reconciles(standby) - before
+        require(stats["new_leader_reconciles"] > 0,
+                "phase24: the new leader reconciled nothing for the stop")
+
+        # 6. an apiserver outage opens the new leader's breaker
+        _, text = health(standby, "/metrics")
+        retries0 = _metric(text, "workqueue_retries_total")
+        port = proxy.port
+        t_out = time.monotonic()
+        stops.remove(proxy.stop)
+        proxy.stop()
+        wait("the breaker open (readyz failing on apiserver)", lambda: (
+            lambda r: r[0] == 503 and "[-]apiserver failed" in r[1])(
+                health(standby, "/readyz")), 60)
+        stats["breaker_open_ms"] = (time.monotonic() - t_out) * 1e3
+        stats["readyz_open"] = health(standby, "/readyz")
+        _, text = health(standby, "/metrics")
+        stats["breaker_state_open"] = _metric(text, "apiserver_breaker_state")
+        require(stats["breaker_state_open"] == 2.0 and
+                _metric(text, "apiserver_available") == 0.0,
+                f"phase24: breaker state {stats['breaker_state_open']}")
+        proxy = ApiServerProxy(store, port=port, audit_log=audit)
+        proxy.start()
+        stops.append(proxy.stop)
+        t_back = time.monotonic()
+        wait("the breaker closed (readyz 200)",
+             lambda: health(standby, "/readyz")[0] == 200, 60)
+        stats["breaker_close_ms"] = (time.monotonic() - t_back) * 1e3
+        wait("resync_all's re-enqueues", lambda: _metric(
+            health(standby, "/metrics")[1], "workqueue_retries_total")
+            > retries0, 30)
+        _, text = health(standby, "/metrics")
+        stats["breaker"] = {
+            "state": _metric(text, "apiserver_breaker_state"),
+            "transitions": {to: _metric(
+                text, "apiserver_breaker_transitions_total", to=to)
+                for to in ("open", "half_open", "closed")},
+            "resync_retries": _metric(text, "workqueue_retries_total")
+            - retries0}
+        require(stats["breaker"]["state"] == 0.0 and
+                stats["breaker"]["transitions"]["open"] >= 1 and
+                stats["breaker"]["transitions"]["closed"] >= 1,
+                f"phase24: breaker after the restart {stats['breaker']}")
+
+        # 7. cli delete: nothing left
+        t_del = time.monotonic()
+        rc, out, err = _cli(url, ["-n", ns, "delete", "notebook", name])
+        require(rc == 0, f"phase24: cli delete rc {rc}: {err}")
+        wait("bin's objects gone", lambda: not any(
+            _left_behind(store, central, ns, name).values())
+            and not store.list("Pod", ns))
+        stats["delete_ms"] = (time.monotonic() - t_del) * 1e3
+        stats["after_delete"] = dict(_left_behind(store, central, ns, name),
+                                     pods=len(store.list("Pod", ns)))
+
+        # 8. SIGTERM the new leader and E: each exits 0
+        for k in (standby, "e"):
+            t0 = time.monotonic()
+            procs[k].send_signal(signal.SIGTERM)
+            stats["exited"][k] = procs[k].wait(timeout=60)
+            stats.setdefault("exit_ms", {})[k] = \
+                (time.monotonic() - t0) * 1e3
+        stats["exit_ms"][lead] = stats["leader_exit_ms"]
+        require(stats["exited"] == {"a": 0, "b": 0, "e": 0},
+                f"phase24: exit codes {stats['exited']}")
+        stats["released"] = {lease: lease_holder(lease) for lease in
+                             (CORE_LEASE, EXTENSION_LEASE)}
+        require(stats["released"] == {CORE_LEASE: "", EXTENSION_LEASE: ""},
+                f"phase24: leases after the exits {stats['released']}")
+        done = True
+    finally:
+        if trainer is not None:
+            trainer.close()
+        if dist.is_initialized():
+            leave_world()
+        for k, p in procs.items():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for stop in reversed(stops):
+            stop()
+        if not done:
+            for k, path in logs.items():
+                if os.path.exists(path):
+                    with open(path, errors="replace") as fh:
+                        tail = fh.read().splitlines()[-30:]
+                    print(f"phase24 process {k} log tail:", *tail,
+                          sep="\n  ", file=sys.stderr, flush=True)
+        shutil.rmtree(work, ignore_errors=True)
+    stats["seconds"] = time.monotonic() - t_phase
+    stats["writes"] = store._last_rv
+    return stats, launched
+
+
+def phase_binaries(torch, flagship, http_losses: list) -> tuple[dict, dict]:
+    """24: the control plane as the port's binaries on the card
+    (``_binary_sequence`` at the flagship's width: b8 x s1024 with bf16
+    params, generate 8 x 128 -> 16; the 2 losses equal to phase 23's).
+    Returns (stats, the launches of the main path)."""
+    from kubeflow_tpu_torch.models import train as train_lib
+
+    L = flagship.n_layers
+    torch.cuda.reset_peak_memory_stats()
+    stats, launched = _binary_sequence(
+        torch, flagship, train_lib.TrainConfig(bf16_params=True), 8, 1024,
+        128, 16)
+    stats["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    gc.collect()
+    torch.cuda.empty_cache()
+    counts_train, counts_gen = stats["launches_train"], \
+        stats["launches_generate"]
+    for what, value in (
+            ("processes A, B (core) and E (extension) up, Leases held s",
+             stats["start_s"]),
+            ("leader", stats["leader"]),
+            ("cli apply", stats["apply"]),
+            ("stored by E's webhook", stats["admitted"]),
+            ("create -> SliceReady ms (host time)", stats["ready_ms"]),
+            ("cli get -o json", stats["cli_get"]),
+            ("notebook reconciles, leader and standby", stats["reconciles"]),
+            ("bin's world (seconds, report)",
+             (stats["world"]["seconds"], stats["world"]["report"])),
+            ("Trainer(mesh=...) b8 s1024 2 steps: losses, bit-equal to one "
+             "device's and to phase 23's", stats["losses"]),
+            ("launches of bin's 2 steps", counts_train),
+            ("bin's generate 8 x 128 -> 16: ids equal to one device's, "
+             "launches", (stats["ids_equal"], counts_gen)),
+            ("cli trace from the leader's debug endpoint", stats["cli_trace"]),
+            ("SIGTERM -> leader exit ms, -> standby holds the Lease ms "
+             "(lease duration 6 s)",
+             (stats["leader_exit_ms"], stats["handover_ms"])),
+            ("cli stop -> 0 replicas ms; the new leader's reconciles",
+             (stats["stop_ms"], stats["new_leader_reconciles"])),
+            ("apiserver down -> breaker open ms; readyz; state",
+             (stats["breaker_open_ms"], stats["readyz_open"],
+              stats["breaker_state_open"])),
+            ("apiserver back -> breaker closed ms; breaker",
+             (stats["breaker_close_ms"], stats["breaker"])),
+            ("cli delete -> nothing left ms; left behind",
+             (stats["delete_ms"], stats["after_delete"])),
+            ("exit codes; SIGTERM -> exit ms",
+             (stats["exited"], stats["exit_ms"])),
+            ("Leases after the exits", stats["released"])):
+        print(f"phase24 {what}: {value} ({CARD[0]})", flush=True)
+    require(stats["losses"] == list(http_losses[:2]),
+            f"phase24: losses {stats['losses']} differ from phase 23's "
+            f"{http_losses}")
+    attn = ("flash_attention", "flash_attention_bwd_dkv",
+            "flash_attention_bwd_dq")
+    require(all(counts_train.get(k) == 2 * L for k in attn) and
+            not counts_train.get("flash_decode") and
+            counts_gen.get("flash_attention") == L and
+            counts_gen.get("flash_decode") == (16 - 1) * L and
+            not counts_gen.get("flash_attention_bwd_dkv"),
+            f"phase24: launches train {counts_train}, generate "
+            f"{counts_gen}")
+    print(f"phase24 in {stats['seconds']:.1f} s, peak "
+          f"{stats['peak_mem_gb']:.3f} GB; launches {launched} "
+          f"({CARD[0]})", flush=True)
     return stats, launched
 
 
@@ -8938,6 +9455,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     train["http"], launched = phase_http(torch, FLAGSHIP,
                                          train["wire"]["losses"])
+    for name, n in launched.items():
+        counts[name] += n
+    gc.collect()
+    torch.cuda.empty_cache()
+    train["binaries"], launched = phase_binaries(torch, FLAGSHIP,
+                                                 train["http"]["losses"])
     for name, n in launched.items():
         counts[name] += n
     rows, wide = phase_times(torch, errs, counts)

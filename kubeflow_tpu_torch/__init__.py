@@ -13,12 +13,13 @@ card: the hand-written kernels under ``csrc/`` are built at first use
 
 from __future__ import annotations
 
-import torch
 
-
-def resolve_device(device) -> torch.device:
+def resolve_device(device) -> "torch.device":
     """``device`` as a ``torch.device``; a CUDA device must exist — the
-    port never carries on on the CPU unless the caller asked for it."""
+    port never carries on on the CPU unless the caller asked for it.
+    ``torch`` is imported here, not with the package: the control plane
+    and its binaries (``main``, ``cli``) run without it."""
+    import torch
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(

@@ -37,7 +37,27 @@ Each key is in at most one of three states:
 Timed requeues (AddAfter) dedup per key on the earliest pending deadline;
 superseded heap entries become ghosts discarded lazily at pop. Error
 backoff is max(per-key exponential, a 10 qps / 100 burst token bucket),
-client-go's DefaultControllerRateLimiter.
+client-go's DefaultControllerRateLimiter (``controllers/resilience.py``
+``TokenBucket``; ``rate_limiter=False`` turns it off).
+
+The binaries' seams (each optional, each wired by ``setup_controllers``):
+
+- ``leader_elector`` (``controllers/election.py``): workers park while
+  this replica does not hold the lease (watches keep enqueueing); an item
+  popped after the lease moved goes back to the queue untouched
+  (``_release_undispatched``); ``stop()`` joins the pool before it
+  releases the lease, so a standby never runs beside our workers;
+- ``breaker`` (``controllers/resilience.py`` ``CircuitBreaker``): workers
+  park while the apiserver circuit is open, offering the half-open
+  probe; its close runs ``resync_all``, which lists every watched kind
+  and re-enqueues through each watch's predicate and mapper;
+- ``sharding`` (``controllers/sharding.py`` ``ShardCoordinator``, through
+  ``set_sharding``): every enqueue and dispatch is filtered by the
+  namespace's shard, and acquiring shards replays exactly their keys
+  (``resync_shards``);
+- ``health_server`` (``utils/health.py``) and ``webhook_server``
+  (``webhook/server.py``), started and stopped with the manager (the
+  webhook server by ``main.main``).
 
 Workqueue metrics (``attach_metrics``; label ``name`` = controller):
 ``workqueue_adds_total``, ``workqueue_retries_total``, ``workqueue_depth``
@@ -68,10 +88,6 @@ traced or not.
 The port's locks are plain ``threading`` locks: the reference's lock
 sanitizer (``kubeflow_tpu/utils/sanitizer.py``) is a test tool of the
 reference and is not copied, so nothing here reads ``KFTPU_SANITIZE``.
-Left out until later slices: sharded ownership (``set_sharding``,
-``resync_shards``), the breaker's ``resync_all``, the release of an
-item popped under a lost lease (``_release_undispatched``), the health
-and webhook servers' wiring, and leader election.
 """
 
 from __future__ import annotations
@@ -87,6 +103,7 @@ from ..cluster.store import WatchEvent
 from ..utils import k8s, names, tracing
 from ..utils import logging as logging_mod
 from ..utils import metrics as metrics_mod
+from .resilience import TokenBucket
 
 log = logging.getLogger("kubeflow_tpu_torch.manager")
 
@@ -119,41 +136,16 @@ class _QueueItem:
     timed: bool = field(compare=False, default=False)
 
 
-class TokenBucket:
-    """Reserving token bucket (client-go's BucketRateLimiter shape):
-    ``next_delay()`` always admits the caller but returns how long it must
-    wait, going into token debt, so a burst beyond ``burst`` spaces out at
-    ``qps`` instead of being dropped. Thread-safe."""
-
-    def __init__(self, qps: float = 10.0, burst: int = 100) -> None:
-        if qps <= 0:
-            raise ValueError("qps must be positive")
-        self.qps = float(qps)
-        self.burst = float(max(burst, 1))
-        self._tokens = self.burst
-        self._last = time.monotonic()
-        self._lock = threading.Lock()
-
-    def next_delay(self) -> float:
-        """Reserve one token; seconds the caller should wait before acting
-        (0.0 while the burst lasts)."""
-        with self._lock:
-            now = time.monotonic()
-            self._tokens = min(self.burst,
-                               self._tokens + (now - self._last) * self.qps)
-            self._last = now
-            self._tokens -= 1.0
-            if self._tokens >= 0:
-                return 0.0
-            return -self._tokens / self.qps
-
-
 class Manager:
     ERROR_BACKOFF_BASE = 0.005   # the 5 ms base of client-go's item limiter
     ERROR_BACKOFF_MAX = 2.0
+    # how long a parked worker sleeps between breaker checks while the
+    # apiserver circuit is open (each check also offers the probe)
+    BREAKER_PARK_POLL_S = 0.05
 
     def __init__(self, client, read_cache=None,
-                 max_concurrent_reconciles: int = 4) -> None:
+                 max_concurrent_reconciles: int = 4,
+                 rate_limiter=None) -> None:
         self.client = client
         # the shared informer layer: when set, every watch this manager
         # registers feeds its events into the cache and backfills the
@@ -191,9 +183,25 @@ class Manager:
         self._seq = 0
         self._running = False
         self._threads: list[threading.Thread] = []
+        # optional active/passive HA: workers park until this replica
+        # holds the lease
+        self.leader_elector = None
+        # optional healthz/readyz/metrics endpoints and admission server
+        self.health_server = None
+        self.webhook_server = None
         # the overall error-requeue limiter (10 qps / 100 burst composed
-        # with the per-key exponential by max)
-        self.rate_limiter = TokenBucket(qps=10.0, burst=100)
+        # with the per-key exponential by max); False turns it off
+        if rate_limiter is None:
+            rate_limiter = TokenBucket(qps=10.0, burst=100)
+        self.rate_limiter = rate_limiter or None
+        # optional apiserver circuit breaker: workers park while it is open
+        self.breaker = None
+        # (kind, controller, mapper, predicate) per watch: what
+        # resync_all() replays
+        self._watch_specs: list[tuple[str, str, Callable | None,
+                                      Callable | None]] = []
+        # optional sharded ownership (set_sharding); None owns everything
+        self.sharding = None
         # the registry attach_metrics registered the workqueue family on
         self.metrics = None
         self._reconcile_metric = None
@@ -328,6 +336,7 @@ class Manager:
                     self.enqueue(controller, req, trace_info=trace_info)
                 else:
                     self.enqueue(controller, req)
+        self._watch_specs.append((kind, controller, mapper, predicate))
         self.client.watch(kind, cb)
         if cache is not None:
             try:
@@ -337,8 +346,31 @@ class Manager:
                 log.warning("read-cache backfill for %s failed; reads stay "
                             "live", kind, exc_info=True)
 
+    def set_sharding(self, coordinator) -> None:
+        """Install sharded ownership: the coordinator's shard map filters
+        every enqueue (watch mappers included) and every dispatch;
+        acquiring shards replays exactly the moved namespaces' keys
+        through ``resync_shards``. The coordinator starts and stops with
+        the manager."""
+        self.sharding = coordinator
+        coordinator.on_acquired = self.resync_shards
+
+    def resync_shards(self, shards) -> int:
+        """Re-enqueue every watched key whose namespace hashes into
+        ``shards``: the handoff resync after acquiring ownership."""
+        coordinator = self.sharding
+        if coordinator is None:
+            return 0
+        shards = set(shards)
+        shard_map = coordinator.shard_map
+        return self.resync_all(
+            namespace_filter=lambda ns: shard_map.shard_for(ns) in shards)
+
     def enqueue(self, controller: str, req: Request, after: float = 0.0,
                 trace_info: tuple | None = None) -> None:
+        if self.sharding is not None and \
+                not self.sharding.owns_namespace(req.namespace):
+            return  # a foreign shard's key: its owner's watches queue it
         with self._cv:
             if self._wq_adds is not None:
                 self._wq_adds.inc({"name": controller})
@@ -369,6 +401,51 @@ class Manager:
                                _QueueItem(ready_at, self._seq, controller,
                                           req, timed=True))
             self._cv.notify_all()
+
+    def resync_all(self, namespace_filter: Callable[[str], bool] | None
+                   = None) -> int:
+        """Full resync: list every watched kind and re-enqueue through the
+        registered predicates and mappers, the recovery the circuit
+        breaker runs on close. Each re-enqueue counts in
+        ``workqueue_retries_total`` (a resync is a retry of the world).
+        The LISTs ride ``list_cached`` when the client offers it (the
+        apiserver's rv=0 cache-served form), so managers re-listing at
+        once cannot stampede the store's write path.
+        ``namespace_filter`` scopes the resync to matching request
+        namespaces (``resync_shards``). Returns the requests enqueued."""
+        count = 0
+        lister = getattr(self.client, "list_cached", None) or \
+            self.client.list
+        for kind, controller, mapper, predicate in list(self._watch_specs):
+            try:
+                objs = lister(kind)
+            except Exception as exc:  # noqa: BLE001 — one kind failing to
+                # list must not abort the rest of the resync
+                log.warning("resync list %s failed: %s", kind, exc)
+                continue
+            for obj in objs:
+                if predicate is not None:
+                    # replayed through the watch's own filter as a
+                    # synthetic MODIFIED, the informer-resync shape
+                    try:
+                        if not predicate(WatchEvent("MODIFIED", obj)):
+                            continue
+                    except Exception:  # noqa: BLE001 — skip, as the live
+                        # watch path drops a raising predicate too
+                        log.exception("resync predicate failed for %s",
+                                      kind)
+                        continue
+                reqs = (mapper(obj) if mapper is not None
+                        else [Request(k8s.namespace(obj), k8s.name(obj))])
+                for req in reqs:
+                    if namespace_filter is not None and \
+                            not namespace_filter(req.namespace):
+                        continue
+                    if self._wq_retries is not None:
+                        self._wq_retries.inc({"name": controller})
+                    self.enqueue(controller, req)
+                    count += 1
+        return count
 
     # --------------------------------------------------------------- driving
     def _cap(self, controller: str) -> int:
@@ -484,6 +561,37 @@ class Manager:
                                                time.monotonic())
             self._cv.notify_all()
 
+    def _release_undispatched(self, item: _QueueItem) -> None:
+        """Return a popped but unprocessed item to the queue untouched
+        (the lease moved between pop and process): clear the processing
+        state without counting a reconcile, restore the item in its lane
+        (a timed requeue keeps its deadline and AddAfter bookkeeping, an
+        immediate item stays immediate), and turn a dirty mark picked up
+        meanwhile into the immediate re-run it stands for."""
+        key = (item.controller, item.req)
+        with self._cv:
+            self._processing.pop(key, None)
+            self._active[item.controller] = \
+                max(0, self._active.get(item.controller, 1) - 1)
+            self._unblock_locked(item.controller)
+            if item.timed:
+                pending = self._timed_pending.get(key)
+                if pending is None or pending > item.ready_at:
+                    self._timed_pending[key] = item.ready_at
+                    self._seq += 1
+                    heapq.heappush(self._queue,
+                                   _QueueItem(item.ready_at, self._seq,
+                                              item.controller, item.req,
+                                              timed=True))
+            else:
+                self._requeue_immediate_locked(item.controller, item.req,
+                                               item.ready_at)
+            if key in self._dirty:
+                self._dirty.discard(key)
+                self._requeue_immediate_locked(item.controller, item.req,
+                                               time.monotonic())
+            self._cv.notify_all()
+
     def _process(self, item: _QueueItem) -> None:
         """Reconcile one dispatched item. Untraced, straight to
         ``_reconcile_item``; with a recording provider, inside the
@@ -532,6 +640,11 @@ class Manager:
         rec = self._reconcilers.get(item.controller)
         if rec is None:
             return
+        if self.sharding is not None and \
+                not self.sharding.owns_namespace(item.req.namespace):
+            # ownership moved between enqueue and dispatch: drop; the new
+            # owner's handoff resync replays the key
+            return
         key = (item.controller, item.req)
         started = time.monotonic()
         metrics_mod.phase_collect_start()
@@ -541,9 +654,12 @@ class Manager:
             with self._cv:
                 failures = self._failures.get(key, 0) + 1
                 self._failures[key] = failures
-            backoff = max(min(self.ERROR_BACKOFF_BASE * (2 ** failures),
-                              self.ERROR_BACKOFF_MAX),
-                          self.rate_limiter.next_delay())
+            backoff = min(self.ERROR_BACKOFF_BASE * (2 ** failures),
+                          self.ERROR_BACKOFF_MAX)
+            if self.rate_limiter is not None:
+                # MaxOfRateLimiter: the bucket stretches the delay only
+                # once the aggregate error rate spends its burst
+                backoff = max(backoff, self.rate_limiter.next_delay())
             log.warning("reconcile %s %s failed (%s); requeue in %.3fs",
                         item.controller, item.req, exc, backoff)
             tracing.current_span().record_exception(exc)
@@ -644,6 +760,12 @@ class Manager:
             if self._running:
                 return
             self._running = True
+        if self.leader_elector is not None:
+            self.leader_elector.start()
+        if self.sharding is not None:
+            self.sharding.start()
+        if self.health_server is not None:
+            self.health_server.start()
         # the pool is raised to the highest per-controller cap
         n = max(self.max_concurrent_reconciles,
                 *(self._max_concurrent.values() or (1,)))
@@ -666,8 +788,27 @@ class Manager:
                     return
             item: _QueueItem | None = None
             try:
+                if self.leader_elector is not None and \
+                        not self.leader_elector.is_leader():
+                    # a parked standby; watches still enqueue. Leadership
+                    # changes no faster than the renew loop: pace on it
+                    time.sleep(min(self.leader_elector.renew_period / 4,
+                                   0.5))
+                    continue
+                if self.breaker is not None and \
+                        not self.breaker.allow_dispatch():
+                    # the apiserver circuit is open: park and offer the
+                    # half-open probe; its close resyncs
+                    self.breaker.maybe_probe()
+                    time.sleep(self.BREAKER_PARK_POLL_S)
+                    continue
                 item = self._dispatch_one(block=True)
                 if item is None:
+                    continue
+                # the lease may have moved during the blocking pop
+                if self.leader_elector is not None and \
+                        not self.leader_elector.is_leader():
+                    self._release_undispatched(item)
                     continue
                 try:
                     self._process(item)
@@ -682,14 +823,22 @@ class Manager:
                         self._finish(item)
 
     def stop(self) -> None:
-        """Stop the pool: in-flight reconciles finish (each join waits at
-        most 5 s)."""
+        """Stop the pool (in-flight reconciles finish; each join waits at
+        most 5 s), then release the leader lease and every shard lease
+        and stop the health server: the pool quiesces while we still
+        hold the lease, so a standby never runs beside our workers."""
         with self._cv:
             self._running = False
             self._cv.notify_all()
         for t in self._threads:
             t.join(timeout=5)
         self._threads = []
+        if self.leader_elector is not None:
+            self.leader_elector.stop()
+        if self.sharding is not None:
+            self.sharding.stop()
+        if self.health_server is not None:
+            self.health_server.stop()
 
 
 def owner_mapper(owner_kind: str) -> Callable[[dict], list[Request]]:

@@ -8,7 +8,8 @@ and the two reconcile-phase histograms, the read cache its index
 counters (and the store's ring and lock-hold families), the HTTP
 apiserver its watch fan-out, cache-LIST and priority-and-fairness
 families, the HTTP client its ``rest_client_*`` and watch-resume
-families, and the registry carries the reference's five notebook series
+families, the circuit breaker its ``apiserver_*`` availability families
+and the shard coordinator its ownership families, and the registry carries the reference's five notebook series
 (components/notebook-controller/pkg/metrics/metrics.go:13-99):
 ``notebook_running`` (a gauge computed at scrape time),
 ``notebook_create_total``, ``notebook_create_failed_total``,
@@ -94,6 +95,12 @@ METRIC_FAMILY_CATALOG = frozenset({
     "rest_client_request_duration_seconds",
     "rest_client_connections_opened_total",
     "watch_resumes_total",
+    # the binaries: sharded ownership and the apiserver circuit breaker
+    "shard_ownership",
+    "shard_rebalance_total",
+    "apiserver_available",
+    "apiserver_breaker_state",
+    "apiserver_breaker_transitions_total",
 })
 
 # Label names per family: the cardinality contract that goes with the
@@ -104,6 +111,9 @@ METRIC_FAMILY_LABELS = {
     "apf_current_inqueue": ("priority_level",),
     "apf_dispatched_total": ("priority_level",),
     "apf_rejected_total": ("priority_level",),
+    "apiserver_available": (),
+    "apiserver_breaker_state": (),
+    "apiserver_breaker_transitions_total": ("to",),
     "apiserver_cache_lists_total": (),
     "cache_full_scans_total": ("kind",),
     "cache_index_lookups_total": ("index", "kind"),
@@ -128,6 +138,8 @@ METRIC_FAMILY_LABELS = {
     "serving_generate_seconds_count": (),
     "serving_generate_seconds_sum": (),
     "serving_http_requests_total": ("code", "method", "route"),
+    "shard_ownership": ("manager", "shard"),
+    "shard_rebalance_total": ("manager",),
     "slice_degraded": ("namespace", "state"),
     "slice_quarantines_total": ("namespace",),
     "slice_repair_duration_seconds": ("namespace",),

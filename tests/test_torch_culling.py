@@ -910,7 +910,9 @@ def test_slice_culled_whole_through_both_control_planes(proxies):
         if ref:
             mgr = _ref_core(s.store, config, offset)
         else:
-            mgr = build_manager(s.store, config, simulate_kubelet=True)
+            # the core binary, no webhooks
+            mgr, _ = build_manager(s.store, config, simulate_kubelet=True,
+                                   components="core")
             culling.CullingReconciler(
                 mgr.client, config, mgr.metrics,
                 clock=lambda: NOW + offset[0]).setup(mgr)

@@ -799,7 +799,7 @@ def core_recorded(s) -> WriteRecorder:
                                       cached_reads=False)
     else:
         from kubeflow_tpu_torch.main import build_manager
-        s.manager = build_manager(client, s.config, components="core")
+        s.manager, _ = build_manager(client, s.config, components="core")
         s.metrics = s.manager.metrics
     s.webhooks = False
     s.base = s.store._last_rv

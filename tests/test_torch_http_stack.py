@@ -25,17 +25,26 @@ reference's ``build_manager(store=client)``, the port's
   on the same port, each watch resuming from its last resourceVersion
   (``watch_resumes_total{mode="resume"}``, no relist).
 
-The other three wait: the subprocess ``main`` and leader election for
-the binaries' wiring, the intermittent-fault case for the chaos client.
+The two subprocess cases, ``slow`` as in the reference (outside
+tier-1; chip_smoke.py's phase 24 runs the port's processes on every
+chip run): each side's ``python -m ...main`` serving the facade and
+exiting 0 on SIGTERM, and two of its processes failing over on one
+Lease. The intermittent-fault case waits for the chaos client.
 Every manager, client and server stops in a ``finally``; the watch
 reconnect delay is 0.05 s, as the reference's outage case sets it.
 """
 
 from __future__ import annotations
 
+import os
 import shutil
+import signal
+import socket
 import subprocess
+import sys
 import time
+import urllib.request
+from pathlib import Path
 from types import SimpleNamespace
 
 import pytest
@@ -75,7 +84,8 @@ def _ref_build(client, config):
 
 
 def _port_build(client, config):
-    return port_main.build_manager(client, config, components="all")
+    mgr, _ = port_main.build_manager(client, config, components="all")
+    return mgr
 
 
 SIDES = {
@@ -332,5 +342,127 @@ def test_manager_recovers_from_apiserver_outage():
         assert after["resume"] >= 1 and after["relist"] == 0, after
         sts = store.get("StatefulSet", "default", "nb-during")
         return normalise(sts, s.side)["spec"], after["relist"]
+    got = both(case)
+    assert got["port"] == got["ref"]
+
+
+# ------------------------------------------------------------- subprocess
+# the reference marks both ``slow``: outside tier-1, as there
+REPO_ROOT = str(Path(__file__).resolve().parent.parent)
+
+
+def _free_port() -> int:
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _spawn_manager(s, *args, env_extra=None):
+    env = dict(os.environ)
+    env["PYTHONPATH"] = REPO_ROOT
+    env.update(env_extra or {})
+    module = "kubeflow_tpu.main" if s.side == "ref" \
+        else "kubeflow_tpu_torch.main"
+    return subprocess.Popen([sys.executable, "-m", module, *args],
+                            cwd=REPO_ROOT, env=env,
+                            stdout=subprocess.DEVNULL,
+                            stderr=subprocess.DEVNULL)
+
+
+def _http_ok(url):
+    try:
+        with urllib.request.urlopen(url, timeout=1) as resp:
+            return resp.status == 200
+    except OSError:
+        return False
+
+
+@pytest.mark.slow
+def test_main_subprocess_serves_and_exits_on_sigterm():
+    """Each side's ``main`` as a real process with the apiserver facade
+    and the kubelet simulator: a notebook created over HTTP from outside
+    gets its pod; SIGTERM exits 0. Equal StatefulSet specs."""
+    def case(s, mp):
+        port = _free_port()
+        proc = _spawn_manager(s, "--serve-apiserver", str(port),
+                              "--simulate-kubelet", "--health-port", "0",
+                              "--webhook-port", "0")
+        kubectl = None
+        try:
+            wait_for(lambda: _http_ok(f"http://127.0.0.1:{port}/healthz"),
+                     timeout=60, msg="the facade serving")
+            kubectl = s.HttpApiClient(f"http://127.0.0.1:{port}")
+            kubectl.create(notebook("nb-proc"))
+            wait_for(lambda: kubectl.get_or_none("Pod", "default",
+                                                 "nb-proc-0"),
+                     msg="subprocess manager reconciled the notebook")
+            sts = kubectl.get("StatefulSet", "default", "nb-proc")
+            proc.send_signal(signal.SIGTERM)
+            rc = proc.wait(timeout=30)
+        finally:
+            if kubectl is not None:
+                kubectl.close()
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        assert rc == 0
+        return normalise(sts, s.side)["spec"], rc
+    got = both(case)
+    assert got["port"] == got["ref"]
+
+
+@pytest.mark.slow
+def test_leader_election_failover_across_processes():
+    """Two of each side's manager processes contend on one Lease over
+    HTTP; killing the leader hands reconciliation to the standby within
+    the lease duration. Equal StatefulSet specs of the notebook each
+    leader reconciled."""
+    def case(s, mp):
+        config = s.Config()
+        store, sim_mgr, proxy = cluster(s, config, webhooks=False)
+        env = {"LEADER_LEASE_DURATION": "2", "LEADER_RENEW_PERIOD": "0.3"}
+        url = proxy.url
+        lease_name = "kubeflow-tpu-notebook-controller-leader"
+        proc_a = _spawn_manager(s, "--api-server", url, "--leader-elect",
+                                "--health-port", "0", "--webhook-port", "0",
+                                env_extra=env)
+        proc_b = None
+        kubectl = None
+        try:
+            lease_ns = config.controller_namespace
+            lease = wait_for(lambda: store.get_or_none(
+                "Lease", lease_ns, lease_name),
+                msg="process A acquired the lease")
+            holder_a = lease["spec"]["holderIdentity"]
+            proc_b = _spawn_manager(s, "--api-server", url,
+                                    "--leader-elect", "--health-port", "0",
+                                    "--webhook-port", "0", env_extra=env)
+            kubectl = s.HttpApiClient(url)
+            kubectl.create(notebook("nb-a"))
+            wait_for(lambda: kubectl.get_or_none("Pod", "default",
+                                                 "nb-a-0"),
+                     msg="leader reconciled nb-a")
+            proc_a.kill()  # no graceful lease release
+            proc_a.wait()
+
+            def new_holder():
+                cur = store.get_or_none("Lease", lease_ns, lease_name)
+                return cur and cur["spec"]["holderIdentity"] != holder_a
+            wait_for(new_holder, timeout=30, msg="standby took the lease")
+            kubectl.create(notebook("nb-b"))
+            wait_for(lambda: kubectl.get_or_none("Pod", "default",
+                                                 "nb-b-0"),
+                     msg="new leader reconciled nb-b")
+            return [normalise(store.get("StatefulSet", "default", n),
+                              s.side)["spec"] for n in ("nb-a", "nb-b")]
+        finally:
+            if kubectl is not None:
+                kubectl.close()
+            for proc in (proc_a, proc_b):
+                if proc is not None and proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+            proxy.stop()
+            sim_mgr.stop()
     got = both(case)
     assert got["port"] == got["ref"]

@@ -1,8 +1,9 @@
 """The PyTorch port stands alone: no module of ``kubeflow_tpu_torch``,
 not ``chip_smoke.py`` and not the rank entry points the multi-rank tests
 spawn (``tests/torch_dist_ranks.py``) imports JAX or anything of the JAX
-package, and the package imports on a machine with neither ``triton``,
-``nvcc`` nor a card.
+package, the package imports on a machine with neither ``triton``,
+``nvcc`` nor a card, and the binaries (``python -m
+kubeflow_tpu_torch.main`` and ``cli``) load neither when spawned.
 """
 
 from __future__ import annotations
@@ -114,9 +115,14 @@ def test_port_file_list_covers_the_package():
                 "kubeflow_tpu_torch/cluster/apiserver.py",
                 "kubeflow_tpu_torch/controllers/sharding.py",
                 "kubeflow_tpu_torch/cluster/http_client.py",
-                "kubeflow_tpu_torch/cluster/remote_admission.py"):
+                "kubeflow_tpu_torch/cluster/remote_admission.py",
+                "kubeflow_tpu_torch/controllers/resilience.py",
+                "kubeflow_tpu_torch/controllers/election.py",
+                "kubeflow_tpu_torch/utils/tls_profile.py",
+                "kubeflow_tpu_torch/controllers/__init__.py",
+                "kubeflow_tpu_torch/cli.py"):
         assert rel in PORT_FILES
-    assert len(PORT_FILES) >= 93
+    assert len(PORT_FILES) >= 97
 
 
 def _references(tree: ast.AST) -> set[str]:
@@ -225,6 +231,10 @@ import kubeflow_tpu_torch.cluster.apiserver
 import kubeflow_tpu_torch.controllers.sharding
 import kubeflow_tpu_torch.cluster.http_client
 import kubeflow_tpu_torch.cluster.remote_admission
+import kubeflow_tpu_torch.controllers.resilience
+import kubeflow_tpu_torch.controllers.election
+import kubeflow_tpu_torch.utils.tls_profile
+import kubeflow_tpu_torch.cli
 sys.path.insert(0, "tests")
 import torch_dist_ranks
 leaked = sorted(m for m in sys.modules
@@ -240,6 +250,35 @@ def test_package_imports_without_jax_triton_or_nvcc():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert "LEAKED []" in out.stdout
+
+
+# run as ``python -m <module> --help`` with this in front: the process
+# exits at the help, and the probe reports what it had loaded by then
+_SPAWN_PROBE = r"""
+import atexit, runpy, sys
+atexit.register(lambda: print("LEAKED", sorted(
+    m for m in sys.modules
+    if m.split(".")[0] in ("jax", "jaxlib", "kubeflow_tpu")),
+    "TORCH", "torch" in sys.modules))
+sys.argv = [sys.argv[1], "--help"]
+runpy.run_module(sys.argv[0], run_name="__main__", alter_sys=True)
+"""
+
+
+@pytest.mark.parametrize("module", ["kubeflow_tpu_torch.main",
+                                    "kubeflow_tpu_torch.cli"])
+def test_spawned_binaries_load_no_jax(module):
+    """A spawned ``python -m kubeflow_tpu_torch.main`` (or ``cli``), as
+    chip_smoke.py runs its controller processes, loads neither JAX nor
+    anything of the JAX package, nor ``torch``: the control plane starts
+    without it."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", _SPAWN_PROBE, module],
+                         cwd=REPO, env=env, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert "usage:" in out.stdout
+    assert "LEAKED [] TORCH False" in out.stdout
 
 
 def _run_chip_smoke(cwd):

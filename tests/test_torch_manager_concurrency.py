@@ -9,9 +9,11 @@ load, AddAfter coalescing under four workers, the per-controller cap,
 family, unfinished work of in-flight items and a pool of one. Each side
 makes the case's own assertions, and what the case observes that the
 threads' timing does not decide (the calls of each key, the counters,
-the series exposed) must be equal. Not here: the two lease cases, which
-need ``Manager.leader_elector`` (ROADMAP.md queue A item 9), and the
-``slow`` stress case, which is outside tier-1.
+the series exposed) must be equal. The two lease cases run the
+reference's own bodies on each side's Manager
+(``torch_wire.binaries_case``): the in-flight item finishes while the
+queue parks, and an item popped after the lease moved goes back
+untouched. Not here: the ``slow`` stress case, which is outside tier-1.
 
 Every ``start()`` stops in a ``finally``.
 """
@@ -24,10 +26,13 @@ from types import SimpleNamespace
 
 import pytest
 
+import test_manager_concurrency as ref_concurrency
 from kubeflow_tpu.controllers import manager as ref_manager
 from kubeflow_tpu.utils.metrics import MetricsRegistry as RefMetrics
 from kubeflow_tpu_torch.controllers import manager
 from kubeflow_tpu_torch.utils.metrics import MetricsRegistry
+from torch_wire import SIDES as WIRE_SIDES
+from torch_wire import binaries_case
 
 SIDES = {
     "ref": SimpleNamespace(Manager=ref_manager.Manager,
@@ -304,3 +309,26 @@ CASES = {fn.__name__: fn for fn in (
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_manager_case_on_both_sides(case):
     assert CASES[case](SIDES["port"]) == CASES[case](SIDES["ref"])
+
+
+# ------------------------------- the lease cases, the reference's bodies
+LEASE_CASES = ("test_leader_handoff_quiesces_inflight_work",
+               "test_lost_lease_after_pop_returns_item_untouched")
+
+
+@pytest.mark.parametrize("name", LEASE_CASES)
+def test_lease_case_on_both_sides(name):
+    """The reference's own body on each side's Manager and Request (its
+    FakeElector on ``Manager.leader_elector``); every manager it built
+    must end with the same queue: no key queued, timed or in flight."""
+    got = {}
+    for side, s in WIRE_SIDES.items():
+        with pytest.MonkeyPatch.context() as mp:
+            made = binaries_case(ref_concurrency, name, s, mp,
+                                 keep=("Manager",))
+        got[side] = [(sorted(m._queued), sorted(m._timed_pending),
+                      sorted(m._processing), sorted(m._dirty))
+                     for m in made["Manager"]]
+        assert got[side] and all(isinstance(m, s.manager.Manager)
+                                 for m in made["Manager"])
+    assert got["port"] == got["ref"]

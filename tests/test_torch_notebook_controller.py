@@ -541,8 +541,10 @@ def test_build_manager_matches_the_reference_quick_start():
     ref = Stack("ref")
     _ref_build_manager(ref)
     port = Stack("port")
-    port.manager = build_manager(port.store, port.config,
-                                 simulate_kubelet=True)
+    # the core binary, no webhooks
+    port.manager, _ = build_manager(port.store, port.config,
+                                    simulate_kubelet=True,
+                                    components="core")
     port.timed = True
     for s in (ref, port):
         s.store.create(s.api.new_notebook("demo", "ns", annotations={
@@ -567,8 +569,10 @@ def test_build_manager_admits_a_gang_then_rolls_it():
     ref = Stack("ref")
     _ref_build_manager(ref)
     port = Stack("port")
-    port.manager = build_manager(port.store, port.config,
-                                 simulate_kubelet=True)
+    # the core binary, no webhooks
+    port.manager, _ = build_manager(port.store, port.config,
+                                    simulate_kubelet=True,
+                                    components="core")
     port.timed = True
     states = {}
     for s in (ref, port):
@@ -633,8 +637,9 @@ def test_build_manager_selects_the_reference_components(components):
         with pytest.raises(ValueError, match="unknown components"):
             build_manager(components=components)
         return
-    port = build_manager(ClusterStore(), ControllerConfig(),
-                         components=components)
+    # the webhooks off, as the reference's side
+    port, _ = build_manager(ClusterStore(), ControllerConfig(),
+                            components=components, webhooks=False)
     ref = setup_controllers(RefStore(), RefConfig(), webhooks=False,
                             core=components == "all", extension=True)
     assert list(port._reconcilers) == list(ref._reconcilers) == want
@@ -726,9 +731,10 @@ def test_build_manager_enable_culling_gate():
     for enable in (False, True):
         ref = setup_controllers(RefStore(), RefConfig(enable_culling=enable),
                                 prober=lambda nb: RefActivity())
-        port = build_manager(ClusterStore(),
-                             ControllerConfig(enable_culling=enable),
-                             prober=lambda nb: JupyterActivity())
+        port, _ = build_manager(ClusterStore(),
+                                ControllerConfig(enable_culling=enable),
+                                prober=lambda nb: JupyterActivity(),
+                                components="core")
         assert ("culling-controller" in port._reconcilers) == \
             ("culling-controller" in ref._reconcilers) == enable
         assert port.read_cache is not None and port.client is port.read_cache
@@ -750,8 +756,9 @@ def test_build_manager_enable_slice_repair_gate():
     for enable in (False, True):
         ref = setup_controllers(RefStore(),
                                 RefConfig(enable_slice_repair=enable))
-        port = build_manager(ClusterStore(),
-                             ControllerConfig(enable_slice_repair=enable))
+        port, _ = build_manager(ClusterStore(),
+                                ControllerConfig(enable_slice_repair=enable),
+                                components="core")
         name = "slice-repair-controller"
         assert (name in port._reconcilers) == (name in ref._reconcilers) \
             == enable
@@ -778,8 +785,9 @@ def test_build_manager_enable_slice_pool_gate():
         ref_store, port_store = RefStore(), ClusterStore()
         ref = setup_controllers(ref_store,
                                 RefConfig(enable_slice_pool=enable))
-        port = build_manager(port_store,
-                             ControllerConfig(enable_slice_pool=enable))
+        port, _ = build_manager(port_store,
+                                ControllerConfig(enable_slice_pool=enable),
+                                components="core")
         name = "slice-pool-controller"
         assert (name in port._reconcilers) == (name in ref._reconcilers) \
             == enable
@@ -813,8 +821,9 @@ def test_build_manager_enable_scheduler_gate():
         ref_store, port_store = RefStore(), ClusterStore()
         ref = setup_controllers(ref_store,
                                 RefConfig(enable_scheduler=enable))
-        port = build_manager(port_store,
-                             ControllerConfig(enable_scheduler=enable))
+        port, _ = build_manager(port_store,
+                                ControllerConfig(enable_scheduler=enable),
+                                components="core")
         name = "fleet-scheduler"
         assert (name in port._reconcilers) == (name in ref._reconcilers) \
             == enable
@@ -833,8 +842,10 @@ def test_build_manager_enable_scheduler_gate():
     ref.simulator()
     port = Stack("port")
     port.config = port.Config(enable_scheduler=False)
-    port.manager = build_manager(port.store, port.config,
-                                 simulate_kubelet=True)
+    # the core binary, no webhooks
+    port.manager, _ = build_manager(port.store, port.config,
+                                    simulate_kubelet=True,
+                                    components="core")
     port.timed = True
     for s in (ref, port):
         s.store.create(s.api.new_notebook("job", "ns", annotations={
@@ -865,7 +876,8 @@ def test_build_manager_binds_a_warm_h100_1_slice_in_one_reconcile():
     from kubeflow_tpu_torch.utils import names
     from kubeflow_tpu_torch.utils.config import ControllerConfig
     store = ClusterStore()
-    mgr = build_manager(store, ControllerConfig(), simulate_kubelet=True)
+    mgr, _ = build_manager(store, ControllerConfig(), simulate_kubelet=True,
+                           components="core")
     replicas = []
     store.watch("StatefulSet", lambda ev: replicas.append(
         ev.obj["spec"]["replicas"]) if ev.type != "DELETED" else None)

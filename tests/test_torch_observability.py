@@ -26,11 +26,13 @@ watch-path case, and the server half of the two traceparent/audit
 cases, the reference's ``HttpApiClient`` driving each side's
 apiserver.
 
-Left out, each with the part of the port it waits for: the four
-leader-election cases (``controllers/election.py``), the shard-map half
-of the shard/APF family case (the sharded manager), the client halves
-of the watch-path and workqueue/client families cases (the HTTP client)
-and ``test_render_trace_timeline`` (``cli.py``).
+The binaries' cases (``torch_wire.binaries_case``, each the
+reference's own body on each side): the four leader-election cases
+(``controllers/election.py``), the whole shard/APF family case with its
+shard half, and ``test_render_trace_timeline`` (``cli.py``, with both
+renderers on seeded span trees). The client halves of the watch-path
+and workqueue/client families cases are in
+tests/test_torch_http_client.py.
 """
 
 from __future__ import annotations
@@ -41,6 +43,7 @@ import json
 import logging as pylogging
 import re
 import threading
+import time
 import urllib.error
 import urllib.request
 from pathlib import Path
@@ -48,6 +51,7 @@ from types import SimpleNamespace
 
 import pytest
 
+import test_observability as ref_observability
 from kubeflow_tpu.controllers.manager import Manager as RefManager
 from kubeflow_tpu.utils import health as ref_health
 from kubeflow_tpu.utils import logging as ref_logging
@@ -57,6 +61,8 @@ from kubeflow_tpu_torch.controllers.manager import Manager
 from kubeflow_tpu_torch.utils import health, metrics, tracing
 from kubeflow_tpu_torch.utils import logging as port_logging
 from torch_parity import IMAGE_TOKENS, Ids, Stack, normalise_spans
+from torch_wire import SIDES as WIRE_SIDES
+from torch_wire import binaries_case, normalise_object
 
 REPO = Path(__file__).resolve().parent.parent
 SIDES = {
@@ -1144,6 +1150,19 @@ def test_watch_path_metric_families_exported():
     assert got["port"] == got["ref"]
 
 
+def _wait_for_server_side(exporter, audit, timeout: float = 10.0) -> None:
+    """Until ``exporter`` holds the server's three spans and ``audit`` its
+    line, or ``timeout`` seconds have passed (the assertions then fail as
+    they would have)."""
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        if all(exporter.by_name(name) for name in (
+                "apiserver.request", "apf.wait", "apiserver.handle")) \
+                and audit.exists() and audit.read_text().strip():
+            return
+        time.sleep(0.01)
+
+
 def test_wire_spans_traceparent_and_audit(tmp_path):
     """The server half of tests/test_observability.py's case: the
     reference's client, in a span of its own recording provider, creates
@@ -1167,6 +1186,10 @@ def test_wire_spans_traceparent_and_audit(tmp_path):
             with ref_tracing.get_tracer("test").start_span("op"):
                 client.create({"kind": "ConfigMap", "apiVersion": "v1",
                                "metadata": {"name": "a", "namespace": "ns"}})
+            # the handler thread ends its spans after the body reached
+            # the client, and stopping the server does not join it: wait
+            # for the three server spans and the audit line
+            _wait_for_server_side(server_exporter, audit)
         finally:
             client.close()
             proxy.stop()
@@ -1235,3 +1258,105 @@ def test_audit_trace_id_without_server_side_recording(tmp_path):
         return line
     got = both(case)
     assert got["port"] == got["ref"]
+
+
+# ------------------------------------------- the binaries' cases (election,
+# sharding, the CLI's timeline), each the reference's own body
+# each case, and whether an elector's own thread renews in it (its
+# renewals then count as many writes as rounds ran)
+ELECTION_CASES = {"test_single_candidate_acquires_and_renews": False,
+                  "test_second_candidate_blocked_until_lease_expires": False,
+                  "test_release_hands_over_immediately": False,
+                  "test_manager_parks_until_leader": True}
+
+
+def _renew_masked(objs, threaded: bool) -> list:
+    out = []
+    for o in objs:
+        o = normalise_object(o, "port")
+        if o.get("kind") == "Lease" and o["spec"].get("renewTime"):
+            o["spec"]["renewTime"] = "<renewed>"
+        if threaded:
+            for key in ("resourceVersion", "generation"):
+                o["metadata"].pop(key, None)
+        out.append(o)
+    return sorted(out, key=json.dumps)
+
+
+@pytest.mark.parametrize("name", sorted(ELECTION_CASES))
+def test_election_case_on_both_sides(name):
+    """tests/test_observability.py's election case on each side's
+    ``LeaderElector``, ``Manager`` and store: its own assertions, then
+    equal Leases (renew times masked) and, where no elector thread
+    renews, equal writes."""
+    threaded = ELECTION_CASES[name]
+    got = {}
+    for side, s in WIRE_SIDES.items():
+        with pytest.MonkeyPatch.context() as mp:
+            made = binaries_case(ref_observability, name, s, mp)
+        got[side] = [(_renew_masked(st.all_objects(), threaded),
+                      None if threaded else st._last_rv)
+                     for st in made["ClusterStore"]]
+    assert got["port"] == got["ref"]
+
+
+def test_shard_and_apf_metric_families_exported():
+    """The whole of tests/test_observability.py's family case on each
+    side, the shard half now with it: ``shard_ownership`` by shard and
+    manager (1 while held, 0 after the graceful stop) and
+    ``shard_rebalance_total`` by manager, beside the APF trio; equal
+    expositions (timing samples dropped)."""
+    got = {}
+    for side, s in WIRE_SIDES.items():
+        with pytest.MonkeyPatch.context() as mp:
+            made = binaries_case(ref_observability,
+                                 "test_shard_and_apf_metric_families_exported",
+                                 s, mp, keep=("MetricsRegistry",),
+                                 inline=("apf", "sharding"))
+        got[side] = [normalise_exposition(r.expose())
+                     for r in made["MetricsRegistry"]]
+        assert any("shard_ownership" in ln for ln in got[side][0])
+    assert got["port"] == got["ref"]
+
+
+def test_render_trace_timeline():
+    """tests/test_observability.py's case on each side's
+    ``cli.render_trace``, then both renderers on 60 seeded span trees:
+    equal text (critical path, error and retry marks, the phase footer,
+    the lifecycle line)."""
+    import numpy as np
+
+    from kubeflow_tpu import cli as ref_cli
+    from kubeflow_tpu_torch import cli
+    for side, s in WIRE_SIDES.items():
+        with pytest.MonkeyPatch.context() as mp:
+            binaries_case(ref_observability, "test_render_trace_timeline",
+                          s, mp, inline=("cli",))
+    rng = np.random.default_rng(24)
+    names_ = ["reconcile", "workqueue.wait", "workqueue.enqueue",
+              "rest.get", "rest.patch", "apiserver.request", "apf.wait",
+              "reconcile.read", "reconcile.write"]
+    for _ in range(60):
+        traces = []
+        for t in range(int(rng.integers(0, 4))):
+            spans = []
+            for i in range(int(rng.integers(1, 9))):
+                start = 100.0 + float(rng.uniform(0, 1))
+                dur = float(rng.uniform(0, 0.5))
+                parent = f"{int(rng.integers(0, i)):016x}" if i else None
+                attrs = {"retries": int(rng.integers(0, 3))} \
+                    if rng.integers(2) else {}
+                spans.append({
+                    "name": names_[rng.integers(len(names_))],
+                    "trace_id": f"{t:032x}", "span_id": f"{i:016x}",
+                    "parent_id": parent, "start": start,
+                    "end": start + dur, "duration_s": dur,
+                    "status": ["OK", "UNSET", "ERROR"][rng.integers(3)],
+                    "attributes": attrs, "events": []})
+            traces.append({"trace_id": f"{t:032x}", "spans": spans})
+        payload = {"namespace": "ns", "name": "nb", "traces": traces}
+        assert cli.render_trace(payload) == ref_cli.render_trace(payload)
+        assert cli._critical_path(payload["traces"][0]["spans"]
+                                  if traces else []) == \
+            ref_cli._critical_path(payload["traces"][0]["spans"]
+                                   if traces else [])

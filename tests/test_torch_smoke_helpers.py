@@ -105,7 +105,8 @@ def test_phase15_cull_sequence_on_the_cpu():
                                   cull_idle_time_min=60,
                                   idleness_check_period_min=1,
                                   jupyter_probe_timeout_s=5.0)
-        mgr = build_manager(store, config, simulate_kubelet=True)
+        mgr, _ = build_manager(store, config, simulate_kubelet=True,
+                               components="core")
         offset = [0.0]
         CullingReconciler(mgr.client, config, mgr.metrics,
                           clock=lambda: time.time() + offset[0]).setup(mgr)
@@ -168,8 +169,8 @@ def test_phase16_repair_and_quarantine_on_the_cpu():
     assert not dist.is_initialized()
     store = ClusterStore()
     gate = _SliceGate("trainer", device="cpu")
-    mgr = build_manager(store, ControllerConfig(), simulate_kubelet=True,
-                        ready_hook=gate)
+    mgr, _ = build_manager(store, ControllerConfig(), simulate_kubelet=True,
+                           ready_hook=gate, components="core")
     try:
         mgr.start()
         try:
@@ -517,3 +518,44 @@ def test_phase23_http_on_the_cpu():
         echoes += sum(fleet["echoes_dropped"].values())
     # over the wire a write returns before its event: echoes to drop
     assert echoes > 0
+
+
+def test_phase24_binaries_on_the_cpu():
+    """chip_smoke's phase-24 drive (``_binary_sequence``) on the CPU at a
+    tiny size, a gloo world for the ready hook, with the processes: two
+    core managers and an extension manager spawned as ``python -m
+    kubeflow_tpu_torch.main`` against the port's apiserver in this
+    process; one ``cli apply`` registers E's webhooks and creates the
+    notebook, stored locked with the CUDA image; the leader rolls it (the
+    standby reconciles nothing), ``cli get -o json`` reads SliceReady;
+    2 steps and generate equal one device's; ``cli trace`` shows the
+    stamped trace; SIGTERM hands the Lease over well under its duration;
+    ``cli stop`` goes through the new leader; an apiserver outage opens
+    and the restart closes its breaker, with a resync; ``cli delete``
+    leaves nothing; every process exits 0 and releases its Lease."""
+    import torch
+    import torch.distributed as dist
+
+    from chip_smoke import _binary_sequence
+    from kubeflow_tpu_torch.models.train import TrainConfig
+    from kubeflow_tpu_torch.models.transformer import TransformerConfig
+
+    assert not dist.is_initialized()
+    c = TransformerConfig(vocab_size=512, d_model=64, n_layers=2, n_heads=4,
+                          n_kv_heads=2, d_ff=128, max_seq_len=256,
+                          dtype="float32")
+    stats, launched = _binary_sequence(
+        torch, c, TrainConfig(warmup_steps=2), 2, 32, 8, 4, device="cpu",
+        timeout=120.0)
+    assert not dist.is_initialized()
+    assert stats["cli_get"] == {"rc": 0, "SliceReady": "True"}
+    assert stats["reconciles"]["leader"] > 0 == \
+        stats["reconciles"]["standby"]
+    assert len(stats["losses"]) == 2 and stats["ids_equal"]
+    assert stats["cli_trace"]["stamped_shown"]
+    assert stats["handover_ms"] < 3000
+    assert stats["breaker_state_open"] == 2.0
+    assert stats["breaker"]["resync_retries"] > 0
+    assert not any(stats["after_delete"].values())
+    assert stats["exited"] == {"a": 0, "b": 0, "e": 0}
+    assert not any(launched.values())

@@ -1374,11 +1374,11 @@ def test_port_swap_is_the_reference_turned_round(image, swapped):
     NVIDIA card (JAX, libtpu, ROCm, a generic notebook) is replaced by
     ``DEFAULT_GPU_IMAGE`` with the original recorded, a CUDA one and a
     non-notebook one are kept; the same admission through
-    ``build_manager(webhooks=True)``'s store."""
+    ``build_manager(components="extension")``'s store."""
     from kubeflow_tpu_torch.main import build_manager
     from kubeflow_tpu_torch.utils.config import DEFAULT_GPU_IMAGE
     port = Stack("port")
-    build_manager(port.store, port.Config(), webhooks=True)
+    build_manager(port.store, port.Config(), components="extension")
     out = port.store.create(port.api.new_notebook(
         "nb", "ns", image=image, annotations={
             port.names.TPU_ACCELERATOR_ANNOTATION: "h100-1"}))

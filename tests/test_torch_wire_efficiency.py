@@ -103,7 +103,7 @@ def _entry_point(s, client):
         metrics = s.metrics.MetricsRegistry()
         return setup_controllers(client, metrics=metrics), metrics
     from kubeflow_tpu_torch.main import build_manager
-    mgr = build_manager(client, components="all")
+    mgr, _ = build_manager(client, components="all")
     return mgr, mgr.metrics
 
 

@@ -386,7 +386,8 @@ class Stack:
                 self._simulator(self.manager.read_cache).setup(self.manager)
         else:
             from kubeflow_tpu_torch.main import build_manager
-            self.manager = build_manager(
+            # the webhooks only when asked, as the reference's side
+            self.manager, _ = build_manager(
                 self.store, self.config, components="all",
                 webhooks=webhooks, simulate_kubelet=simulate_kubelet)
         if simulate_kubelet:

@@ -14,9 +14,13 @@ metrics registry too; wire cases keep the reference's, which the
 reference's client raises and counts into. Client cases (``client=True``)
 swap the client half as well: ``HttpApiClient`` and its module,
 ``remote_admission``, ``utils.k8s``, the manager, the notebook
-reconciler and the tracing module, with the error classes and the registry, so the case runs
-reference client against reference server, then port client against
-port server.
+reconciler and the tracing module, with the error classes and the
+registry, so the case runs reference client against reference server,
+then port client against port server. Binaries cases (``binaries=True``)
+swap the binaries' modules as well (``main``, ``cli``, the controllers
+package with ``setup_controllers``, election, the breaker, sharding, the
+TLS profile, the cache, the config); ``SeamApi`` maps a case's
+accelerator request to the H100 shape with the same workers.
 
 ``Tap`` records every response a side's handler writes: status, the
 ``Content-Type`` and ``Retry-After`` headers, the body (JSON, or decoded
@@ -51,19 +55,40 @@ from kubeflow_tpu.cluster import remote_admission as ref_remote_admission
 from kubeflow_tpu.cluster import restmapper as ref_restmapper
 from kubeflow_tpu.cluster import store as ref_store
 from kubeflow_tpu.cluster.http_client import HttpApiClient
+import kubeflow_tpu.controllers as ref_controllers
+from kubeflow_tpu import cli as ref_cli
+from kubeflow_tpu import main as ref_main
+from kubeflow_tpu.cluster import cache as ref_cache
+from kubeflow_tpu.controllers import election as ref_election
 from kubeflow_tpu.controllers import manager as ref_manager
+from kubeflow_tpu.controllers import netpol as ref_netpol
 from kubeflow_tpu.controllers import notebook as ref_notebook
+from kubeflow_tpu.controllers import oauth as ref_oauth
+from kubeflow_tpu.controllers import rbac as ref_rbac
+from kubeflow_tpu.controllers import resilience as ref_resilience
+from kubeflow_tpu.controllers import runtime_images as ref_runtime_images
+from kubeflow_tpu.controllers import sharding as ref_sharding
+from kubeflow_tpu.utils import config as ref_config
 from kubeflow_tpu.utils import k8s as ref_k8s
+from kubeflow_tpu.utils import logging as ref_logging
 from kubeflow_tpu.utils import metrics as ref_metrics
 from kubeflow_tpu.utils import names as ref_names
+from kubeflow_tpu.utils import tls_profile as ref_tls_profile
 from kubeflow_tpu.utils import tracing as ref_tracing
+import kubeflow_tpu_torch.controllers as controllers
+from kubeflow_tpu_torch import cli, main
 from kubeflow_tpu_torch.api import types as api
-from kubeflow_tpu_torch.cluster import (apf, apiserver, codec, errors,
-                                        faults, http_client,
+from kubeflow_tpu_torch.cluster import (apf, apiserver, cache, codec,
+                                        errors, faults, http_client,
                                         remote_admission, restmapper, store)
-from kubeflow_tpu_torch.controllers import manager, notebook
-from kubeflow_tpu_torch.utils import k8s, metrics, names, tracing
-from torch_parity import normalise_result
+from kubeflow_tpu_torch.controllers import (election, manager, netpol,
+                                            notebook, oauth, rbac,
+                                            resilience, runtime_images,
+                                            sharding)
+from kubeflow_tpu_torch.utils import config, k8s
+from kubeflow_tpu_torch.utils import logging as port_logging
+from kubeflow_tpu_torch.utils import metrics, names, tls_profile, tracing
+from torch_parity import SHAPES, normalise_result
 
 TIMEOUT = 10
 
@@ -77,7 +102,13 @@ SIDES = {
         k8s=ref_k8s, manager=ref_manager, notebook=ref_notebook,
         tracing=ref_tracing, ClusterStore=ref_store.ClusterStore,
         ApiServerProxy=ref_apiserver.ApiServerProxy,
-        HttpApiClient=ref_http_client.HttpApiClient),
+        HttpApiClient=ref_http_client.HttpApiClient,
+        main=ref_main, cli=ref_cli, controllers=ref_controllers,
+        resilience=ref_resilience, election=ref_election,
+        sharding=ref_sharding, tls_profile=ref_tls_profile,
+        cache=ref_cache, config=ref_config, logging=ref_logging,
+        oauth=ref_oauth, netpol=ref_netpol, rbac=ref_rbac,
+        runtime_images=ref_runtime_images),
     "port": SimpleNamespace(
         side="port", store=store, apiserver=apiserver, codec=codec,
         faults=faults, apf=apf, restmapper=restmapper, names=names,
@@ -86,7 +117,12 @@ SIDES = {
         k8s=k8s, manager=manager, notebook=notebook, tracing=tracing,
         ClusterStore=store.ClusterStore,
         ApiServerProxy=apiserver.ApiServerProxy,
-        HttpApiClient=http_client.HttpApiClient)}
+        HttpApiClient=http_client.HttpApiClient,
+        main=main, cli=cli, controllers=controllers,
+        resilience=resilience, election=election, sharding=sharding,
+        tls_profile=tls_profile, cache=cache, config=config,
+        logging=port_logging, oauth=oauth, netpol=netpol, rbac=rbac,
+        runtime_images=runtime_images)}
 
 # the modules of the server half whose names a reference test may hold:
 # (attribute of a side, swapped for every case)
@@ -95,6 +131,11 @@ _SERVER_HALF = ("store", "apiserver", "codec", "faults", "apf",
 # the client half, swapped for a client case with the errors and metrics
 _CLIENT_HALF = ("http_client", "remote_admission", "k8s", "manager",
                 "notebook", "tracing", "errors", "metrics")
+# the binaries and what their cases name, swapped with the client half
+# for a binaries case
+_BINARIES = ("main", "cli", "controllers", "resilience", "election",
+             "sharding", "tls_profile", "cache", "config", "logging",
+             "oauth", "netpol", "rbac", "runtime_images")
 
 
 def _twin(name: str, value, flags: tuple[str, ...]):
@@ -124,12 +165,17 @@ def _twin(name: str, value, flags: tuple[str, ...]):
 
 @contextlib.contextmanager
 def side_globals(mp: pytest.MonkeyPatch, module, side: str, *,
-                 errors: bool = False, client: bool = False):
+                 errors: bool = False, client: bool = False,
+                 binaries: bool = False):
     """For the port's run, swap the reference's server-half names in
     ``module``'s globals for the port's (restored on the way out); with
-    ``client`` the client half's too."""
+    ``client`` the client half's too, with ``binaries`` the client half's
+    and the binaries' (``main``, ``cli``, ``setup_controllers``, the
+    election, breaker, sharding and TLS-profile modules, the cache, the
+    config and the extension modules their cases name)."""
     if side == "port":
-        flags = _CLIENT_HALF if client else \
+        flags = _CLIENT_HALF + _BINARIES if binaries else \
+            _CLIENT_HALF if client else \
             ("errors", "metrics") if errors else ()
         for name, value in list(vars(module).items()):
             if name.startswith("__"):
@@ -138,6 +184,39 @@ def side_globals(mp: pytest.MonkeyPatch, module, side: str, *,
             if twin is not None and twin is not value:
                 mp.setattr(module, name, twin)
     yield
+
+
+class SeamApi:
+    """The port's ``api.types`` for a reference case's body: the same
+    module, except that ``new_notebook`` maps a reference accelerator
+    annotation (``v5e-4``) to the port's request with the same workers
+    (``torch_parity.SHAPES``), so a case that names the TPU shape runs
+    the H100 one."""
+
+    def __init__(self, mod) -> None:
+        self._mod = mod
+
+    def __getattr__(self, name):
+        return getattr(self._mod, name)
+
+    def new_notebook(self, *args, annotations=None, **kw):
+        if annotations:
+            annotations = {k: SHAPES.get(v, v) if isinstance(v, str) else v
+                           for k, v in annotations.items()}
+        return self._mod.new_notebook(*args, annotations=annotations, **kw)
+
+
+def seam_api(mp: pytest.MonkeyPatch, module, side: str) -> None:
+    """For the port's run, ``module.api`` (already the port's, after
+    ``side_globals``) maps the accelerator seam (``SeamApi``)."""
+    if side == "port" and hasattr(module, "api"):
+        mp.setattr(module, "api", SeamApi(SIDES["port"].api))
+
+
+def fixture_body(fixture):
+    """The function under a module's ``@pytest.fixture``, to build the
+    fixture by hand on either side."""
+    return fixture.__wrapped__
 
 
 def inline_modules(mp: pytest.MonkeyPatch, side: str,
@@ -426,3 +505,85 @@ def wire_case(module, name: str, s, mp: pytest.MonkeyPatch, *,
                           **(client_kw or {})))
         call_case(fn, values)
     return tap, st
+
+
+def _is_fixture(value) -> bool:
+    return type(value).__name__ == "FixtureFunctionDefinition"
+
+
+def binaries_case(module, name: str, s, mp: pytest.MonkeyPatch, *,
+                  fixtures: dict | None = None,
+                  inline: tuple[str, ...] = (),
+                  keep: tuple[str, ...] = ("ClusterStore",)) -> dict:
+    """Run reference test ``module.name`` on side ``s``: the binaries'
+    names swapped (``side_globals(..., binaries=True)``), the
+    accelerator seam mapped (``seam_api``), the ``inline`` modules its
+    body imports swapped. The fixtures it names are built on the side:
+    ``store``, ``config``, ``metrics``, ``monkeypatch``, ``fixtures``'
+    own, and the module's own fixtures by hand (a generator's teardown
+    runs after the case). Returns {class name: instances the case built}
+    for each ``keep`` class the module names (a ``store`` fixture counts
+    as a ClusterStore the case built)."""
+    made: dict = {cls: [] for cls in keep}
+    fn = getattr(module, name)
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(side_globals(mp, module, s.side, binaries=True))
+        seam_api(mp, module, s.side)
+        inline_modules(mp, s.side, inline)
+        for cls in keep:
+            if hasattr(module, cls):
+                recorded_instances(mp, module, cls, made[cls])
+        values = {"monkeypatch": mp, **(fixtures or {})}
+
+        def resolve(param: str):
+            if param in values:
+                return values[param]
+            if param == "store":
+                value = getattr(module, "ClusterStore", s.ClusterStore)()
+                if "ClusterStore" in made and \
+                        not hasattr(module, "ClusterStore"):
+                    made["ClusterStore"].append(value)
+            elif param == "config":
+                value = s.config.ControllerConfig()
+            elif param == "metrics":
+                value = s.metrics.MetricsRegistry()
+            elif _is_fixture(getattr(module, param, None)):
+                body = getattr(module, param).__wrapped__
+                value = body(**{p: resolve(p) for p in
+                                inspect.signature(body).parameters})
+                if inspect.isgenerator(value):
+                    gen = value
+                    value = next(gen)
+                    stack.callback(next, gen, None)
+            else:
+                raise KeyError(f"{name} needs fixture {param!r}")
+            values[param] = value
+            return value
+        fn(**{p: resolve(p) for p in inspect.signature(fn).parameters})
+    return made
+
+
+def store_views(made: dict, side: str, threaded: bool) -> list:
+    """What each store a ``binaries_case`` built holds, as compared across
+    the packages: with ``threaded`` (managers under ``start()``, whose
+    pods, Events and write order ride wall-clock timing) each object's
+    key but the pods' and Events', and the Notebooks' and StatefulSets'
+    specs; else every object after ``normalise_object`` and the last
+    resourceVersion."""
+    out = []
+    for st in made["ClusterStore"]:
+        assert isinstance(st, SIDES[side].ClusterStore)
+        objs = list(st.all_objects())
+        if threaded:
+            keys = sorted((o["kind"], o["metadata"].get("namespace", ""),
+                           o["metadata"]["name"]) for o in objs
+                          if o["kind"] not in ("Event", "Pod"))
+            specs = sorted((normalise_object(o, side)["spec"] for o in objs
+                            if o["kind"] in ("Notebook", "StatefulSet")),
+                           key=json.dumps)
+            out.append((keys, specs))
+        else:
+            out.append((sorted((normalise_object(o, side) for o in objs),
+                               key=json.dumps), st._last_rv))
+    return out
+
